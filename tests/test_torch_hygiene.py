@@ -1,0 +1,133 @@
+"""The PyTorch port stands alone: it never imports JAX or the JAX package,
+and its entry points run on CUDA or raise -- never silently on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "trinerflet_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def _map(fn, tree):
+    """fn over the leaves of a nest of dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def test_port_modules_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'trinerflet_tpu' or m.startswith('trinerflet_tpu.')]\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "trinerflet_tpu"), f"{f}: imports {n}"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from trinerflet_tpu_torch import resolve_device
+    from trinerflet_tpu_torch.models.nerf import NeRFConfig
+    from trinerflet_tpu_torch.models.triplane import TriplaneConfig
+    from trinerflet_tpu_torch.render.renderer import RenderConfig
+    from trinerflet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = NeRFConfig(triplane=TriplaneConfig(channels=4, resolution=64, wavelet_scale=4))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, RenderConfig(), TrainConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
+    assert Trainer(cfg, RenderConfig(), TrainConfig(), device="cpu").device.type == "cpu"
+
+
+def test_state_makers_default_to_cuda(monkeypatch):
+    """Every function that makes or carries in params or occupancy state
+    defaults to CUDA, so without CUDA it raises unless given device='cpu'."""
+    from trinerflet_tpu_torch.carry import occupancy_from_jax, params_from_jax
+    from trinerflet_tpu_torch.models.nerf import NeRFConfig, init_nerf_params
+    from trinerflet_tpu_torch.models.triplane import TriplaneConfig, init_triplane_params
+    from trinerflet_tpu_torch.render.renderer import RenderConfig, init_occupancy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = TriplaneConfig(channels=4, resolution=64, wavelet_scale=4)
+    ncfg = NeRFConfig(triplane=tcfg)
+    rcfg = RenderConfig(grid_size=8)
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(0), device="cpu")
+    tree = _map(lambda t: t.numpy(), params)
+    state = {k: v.numpy() for k, v in init_occupancy(rcfg, device="cpu")._asdict().items()}
+    makers = {
+        "init_nerf_params": lambda **kw: init_nerf_params(ncfg, **kw),
+        "init_triplane_params": lambda **kw: init_triplane_params(tcfg, **kw),
+        "init_occupancy": lambda **kw: init_occupancy(rcfg, **kw),
+        "params_from_jax": lambda **kw: params_from_jax(tree, **kw),
+        "occupancy_from_jax": lambda **kw: occupancy_from_jax(state, **kw),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+        leaves = []
+        _map(leaves.append, make(device="cpu"))
+        assert leaves and all(t.device.type == "cpu" for t in leaves), name
+
+
+def test_trainer_rejects_state_on_another_device():
+    """A trainer refuses params or occupancy that are not on its device
+    (here: a CPU trainer given 'meta' tensors) before it does any work."""
+    from trinerflet_tpu_torch.models.nerf import NeRFConfig, init_nerf_params
+    from trinerflet_tpu_torch.models.triplane import TriplaneConfig
+    from trinerflet_tpu_torch.render.renderer import RenderConfig, init_occupancy
+    from trinerflet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    ncfg = NeRFConfig(triplane=TriplaneConfig(channels=4, resolution=64, wavelet_scale=4))
+    rcfg = RenderConfig(grid_size=8)
+    tr = Trainer(ncfg, rcfg, TrainConfig(), device="cpu")
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(0), device="cpu")
+    occ = init_occupancy(rcfg, device="cpu")
+    moved = _map(lambda t: t.to("meta"), params)
+    pose = np.eye(4, dtype=np.float32)
+    intr = np.array([4.0, 4.0, 2.0, 2.0], dtype=np.float32)
+    with pytest.raises(ValueError, match="params are on meta"):
+        tr.render_image(moved, occ, pose, intr, 4, 4)
+    with pytest.raises(ValueError, match="occupancy are on meta"):
+        tr.update_grid(params, type(occ)(*[x.to("meta") for x in occ]))

@@ -1,0 +1,20 @@
+"""PyTorch + CUDA port of the wavelet-triplane NeRF serving path.
+
+This package runs beside the JAX package ``trinerflet_tpu`` and mirrors its
+module names, public layouts and arithmetic. It imports ``torch`` and numpy
+only; every hot-path kernel is a hand-written CUDA kernel for Hopper
+(``kernels/csrc``) with a plain PyTorch version beside it. Tensors on the CPU
+take the plain version; tensors on a CUDA device launch the kernel.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; when
+CUDA is asked for and absent they raise (see ``_device.resolve_device``).
+
+What this package covers is the serving path (novel-view rendering from a
+trained state). Training, the other encoders and renderers, and the
+super-resolution app raise ``NotImplementedError`` naming the slice that
+ports them.
+"""
+
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,30 @@
+"""Device resolution for the port's entry points: ``cuda`` unless the caller
+names another device, and never a silent fall back to the CPU."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+# Slices of the port that later work fills in; NotImplementedError messages
+# name them so a caller knows where the missing piece is queued.
+SLICE_TRAIN = "slice 2 (training step)"
+SLICE_LATER = "a later slice (other encoders/renderers)"
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means ``cuda``. Raises when CUDA is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "trinerflet_tpu_torch runs on CUDA by default and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU")
+    return dev
+
+
+def not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it comes with {where}")

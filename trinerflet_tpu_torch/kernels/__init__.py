@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels (``csrc/*.cu``, built for ``sm_90a``) and their
+launch counters.
+
+Each kernel's wrapper lives beside its plain PyTorch version in the op module
+that uses it (``ops/raymarch.py``, ``ops/grid_sample.py``, ``ops/wavelets.py``)
+and adds one to ``launches[name]`` for every CUDA kernel it launches, and
+nowhere else. ``reset_launches`` zeroes every count, so a run can show which
+kernels a path went through.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+# name -> CUDA kernel launches since the last reset_launches()
+launches: Dict[str, int] = {"march": 0, "grid_sample": 0, "composite": 0, "idwt": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0

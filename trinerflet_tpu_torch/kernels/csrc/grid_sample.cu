@@ -1,0 +1,124 @@
+// K2: fused triplane projection + bilinear sample (forward).
+//
+// Replaces trinerflet_tpu/ops/grid_sample.py:131 grid_sample_2d_quad
+// (_quad_fwd :138) as reached from models/triplane.py:289 sample_triplane
+// after project_to_planes (:272). The TPU version packs each texel's 2x2
+// neighbourhood into one (4C) row so bilinear costs one row gather per
+// (sample, plane) -- TPU gathers cost per ROW, not per byte.
+//
+// What bounds it on the H100: bytes, as scattered row reads. Each
+// (sample, plane) reads 4 corner rows of C channels (4 x 32 B for bf16 C=16)
+// from a 3 x 1024^2 x 16 bf16 table (100 MB, twice the L2) and writes C f32
+// outputs; the arithmetic (8 flops per channel) is negligible.
+//
+// Design: one thread per (sample, plane). It projects the point itself
+// (plane 0 = (x, z), 1 = (x, y), 2 = (y, z), divided by lbound), clamps,
+// takes x0 = min(floor(x), W - 2), reads the four corner rows straight from
+// the channel-last plane with 16-byte vector loads and writes its C outputs
+// with 16-byte stores. No quad table is needed on a GPU: the four rows of a
+// corner pair are adjacent, so the 2x2 neighbourhood is two 64 B segments.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+template <int C>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ r, float* v) {
+  if constexpr (C % 8 == 0) {
+#pragma unroll
+    for (int k = 0; k < C / 8; ++k) {
+      uint4 q = reinterpret_cast<const uint4*>(r)[k];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float2 f = __bfloat1622float2(h[e]);
+        v[8 * k + 2 * e] = f.x;
+        v[8 * k + 2 * e + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = __bfloat162float(r[c]);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void load_row(const float* __restrict__ r, float* v) {
+#pragma unroll
+  for (int k = 0; k < C / 4; ++k) {
+    float4 q = reinterpret_cast<const float4*>(r)[k];
+    v[4 * k] = q.x;
+    v[4 * k + 1] = q.y;
+    v[4 * k + 2] = q.z;
+    v[4 * k + 3] = q.w;
+  }
+}
+
+template <int C, typename T>
+__global__ void sample_points_kernel(const T* __restrict__ planes, const float* __restrict__ xyz,
+                                     int M, int H, int W, float lbound, float* __restrict__ out) {
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 3LL * M) return;
+  int p = (int)(idx % 3);
+  long long m = idx / 3;
+  float px = xyz[3 * m], py = xyz[3 * m + 1], pz = xyz[3 * m + 2];
+  float u = p == 2 ? py : px;
+  float v = p == 1 ? py : pz;
+  u = u / lbound;
+  v = v / lbound;
+  float x = fminf(fmaxf((u + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
+  float y = fminf(fmaxf((v + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
+  float fx0 = fminf(fmaxf(floorf(x), 0.f), (float)(W - 2));
+  float fy0 = fminf(fmaxf(floorf(y), 0.f), (float)(H - 2));
+  int x0 = (int)fx0, y0 = (int)fy0;
+  float wx = x - fx0, wy = y - fy0;
+  float w00 = (1.f - wx) * (1.f - wy);
+  float w01 = wx * (1.f - wy);
+  float w10 = (1.f - wx) * wy;
+  float w11 = wx * wy;
+  const T* r00 = planes + (((long long)p * H + y0) * W + x0) * C;
+  const T* r10 = r00 + (long long)W * C;
+  float a[C], b[C];
+  float acc[C];
+  load_row<C>(r00, a);
+  load_row<C>(r00 + C, b);
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = a[c] * w00 + b[c] * w01;
+  load_row<C>(r10, a);
+  load_row<C>(r10 + C, b);
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = acc[c] + a[c] * w10 + b[c] * w11;
+  float4* o = reinterpret_cast<float4*>(out + idx * C);
+#pragma unroll
+  for (int k = 0; k < C / 4; ++k) o[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+}
+
+template <int C>
+static void launch_c(const void* planes, const float* xyz, int M, int H, int W, int bf16,
+                     float lbound, float* out, cudaStream_t stream) {
+  const int threads = 128;
+  unsigned int blocks = (unsigned int)((3LL * M + threads - 1) / threads);
+  if (bf16)
+    sample_points_kernel<C, __nv_bfloat16><<<blocks, threads, 0, stream>>>(
+        (const __nv_bfloat16*)planes, xyz, M, H, W, lbound, out);
+  else
+    sample_points_kernel<C, float><<<blocks, threads, 0, stream>>>(
+        (const float*)planes, xyz, M, H, W, lbound, out);
+}
+
+// planes (3, H, W, C) channel-last, bf16 (bf16 != 0) or f32; xyz (M, 3) f32
+// -> out (M, 3, C) f32. C must be 4, 8, 16 or 32 and H, W >= 2.
+extern "C" int sample_points_launch(const void* planes, const float* xyz, int M, int H, int W,
+                                    int C, int bf16, float lbound, float* out,
+                                    cudaStream_t stream) {
+  if (M == 0) return 0;
+  if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 4: launch_c<4>(planes, xyz, M, H, W, bf16, lbound, out, stream); break;
+    case 8: launch_c<8>(planes, xyz, M, H, W, bf16, lbound, out, stream); break;
+    case 16: launch_c<16>(planes, xyz, M, H, W, bf16, lbound, out, stream); break;
+    case 32: launch_c<32>(planes, xyz, M, H, W, bf16, lbound, out, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

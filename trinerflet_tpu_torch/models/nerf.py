@@ -1,0 +1,150 @@
+"""NeRF field: triplane encoding + sigma / color MLPs (port of
+``trinerflet_tpu/models/nerf.py``).
+
+Parameters are the JAX package's dict: ``encoder`` (the triplane params),
+``sigma_net`` / ``color_net`` with bias-free weights ``w{i}`` of shape
+(fan_in, fan_out). The MLPs are plain matrix products outside any kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from ..ops.activation import trunc_exp
+from ..ops.encoders import sh_dim, sh_encode
+from .triplane import TriplaneConfig, build_planes, init_triplane_params, sample_triplane
+
+__all__ = ["NeRFConfig", "init_nerf_params", "NeRFField"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFConfig:
+    encoding: str = "triplane_wavelet"
+    triplane: TriplaneConfig = dataclasses.field(default_factory=TriplaneConfig)
+    grid: Optional[object] = None
+    kplanes: Optional[object] = None
+    num_layers: int = 2
+    hidden_dim: int = 64
+    geo_feat_dim: int = 15
+    num_layers_color: int = 3
+    hidden_dim_color: int = 64
+    sh_degree: int = 4
+    bound: float = 1.0
+    density_scale: float = 1.0
+    density_blob_scale: float = 0.0
+    density_blob_std: float = 0.5
+    bg_radius: float = -1.0
+    num_layers_bg: int = 2
+    hidden_dim_bg: int = 64
+    compute_dtype: str = "float32"
+    plane_dtype: str = "float32"
+
+    def check_ported(self) -> None:
+        if self.encoding != "triplane_wavelet":
+            raise not_ported(f"encoding {self.encoding!r}", SLICE_LATER)
+        if self.bg_radius > 0:
+            raise not_ported("the background network (bg_radius > 0)", SLICE_LATER)
+        self.triplane.check_ported()
+
+    @property
+    def in_dim(self) -> int:
+        self.check_ported()
+        return self.triplane.feature_dim
+
+    @property
+    def in_dim_dir(self) -> int:
+        return sh_dim(self.sh_degree)
+
+
+def _init_mlp(dims, generator) -> Dict[str, torch.Tensor]:
+    """torch nn.Linear default: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    out = {}
+    for i in range(len(dims) - 1):
+        b = 1.0 / dims[i] ** 0.5
+        u = torch.rand((dims[i], dims[i + 1]), generator=generator, dtype=torch.float32)
+        out[f"w{i}"] = (2.0 * u - 1.0) * b
+    return out
+
+
+def init_nerf_params(cfg: NeRFConfig, generator: Optional[torch.Generator] = None,
+                     device: DeviceLike = None) -> Dict:
+    """Seeded random params on ``device`` (``cuda`` by default)."""
+    cfg.check_ported()
+    device = resolve_device(device)
+    sigma_dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [1 + cfg.geo_feat_dim]
+    color_dims = ([cfg.in_dim_dir + cfg.geo_feat_dim]
+                  + [cfg.hidden_dim_color] * (cfg.num_layers_color - 1) + [3])
+    enc = init_triplane_params(cfg.triplane, generator, device)
+    nets = {"sigma_net": _init_mlp(sigma_dims, generator),
+            "color_net": _init_mlp(color_dims, generator)}
+    return {"encoder": enc,
+            **{k: {n: w.to(device) for n, w in v.items()} for k, v in nets.items()}}
+
+
+def _mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Bias-free ReLU MLP with the JAX package's precision: inputs and weights
+    rounded to ``dtype``, float32 accumulation, output of every layer rounded
+    back to ``dtype``. The product runs in float32 on the rounded values,
+    which is exactly a ``dtype`` x ``dtype`` -> f32 product."""
+    n = len(params)
+    h = x.to(dtype)
+    for i in range(n):
+        w = params[f"w{i}"].to(dtype)
+        h = torch.matmul(h.float(), w.float())
+        if i != n - 1:
+            h = torch.relu(h)
+        h = h.to(dtype)
+    return h
+
+
+class NeRFField:
+    """Stateless field; planes are built once and passed to every query."""
+
+    def __init__(self, cfg: NeRFConfig):
+        cfg.check_ported()
+        self.cfg = cfg
+        self.dtype = _DTYPES[cfg.compute_dtype]
+        self.plane_dtype = _DTYPES[cfg.plane_dtype]
+
+    def build_planes(self, params: Dict, max_resolution: int = -1) -> Dict[str, torch.Tensor]:
+        enc = params["encoder"]
+        if self.plane_dtype == torch.bfloat16:
+            # the pyramid coefficients go to bf16 BEFORE the ladder, as in
+            # the JAX package (the synthesis runs at bf16 with f32 sums)
+            enc = {"base": enc["base"].to(torch.bfloat16),
+                   "wavelets": {k: v.to(torch.bfloat16) for k, v in enc["wavelets"].items()}}
+        planes = build_planes(enc, self.cfg.triplane, max_resolution)
+        return {k: v.to(self.plane_dtype) for k, v in planes.items()}
+
+    def _density_blob(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.density_blob_scale > 1e-5:
+            h = h * (cfg.density_blob_scale
+                     * torch.exp(-0.5 * (x * x).sum(-1) / cfg.density_blob_std**2))
+        return h
+
+    def density(self, params: Dict, planes: Dict[str, torch.Tensor],
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (N, 3) in [-bound, bound] -> (sigma (N,) f32, geo_feat (N, G))."""
+        feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound)
+        h = _mlp(params["sigma_net"], feats, self.dtype)
+        sigma = trunc_exp(self._density_blob(x, h[..., 0]))
+        return sigma, h[..., 1:]
+
+    def color(self, params: Dict, d: torch.Tensor, geo_feat: torch.Tensor) -> torch.Tensor:
+        """d (N, 3) directions -> rgb (N, 3) in [0, 1], f32."""
+        sh = sh_encode(d, self.cfg.sh_degree)
+        h = torch.cat([sh.to(self.dtype), geo_feat.to(self.dtype)], dim=-1)
+        h = _mlp(params["color_net"], h, self.dtype)
+        return torch.sigmoid(h.float())
+
+    def __call__(self, params: Dict, planes: Dict[str, torch.Tensor], x: torch.Tensor,
+                 d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        sigma, geo = self.density(params, planes, x)
+        return sigma, self.color(params, d, geo)

@@ -1,0 +1,326 @@
+"""Occupancy-grid ray marching and volume compositing (port of
+``trinerflet_tpu/ops/raymarch.py``, the serving path's part).
+
+``march_hierarchical`` is the two-level occupancy march; ``composite_dense``
+the per-ray compositor. On CUDA tensors they launch kernels K1
+(``kernels/csrc/march.cu``) and K3 (``kernels/csrc/composite.cu``); on CPU
+tensors they run the plain versions below.
+
+Arithmetic the march reproduces bit for bit: the JAX package runs it inside
+``jax.jit``, where XLA contracts ``a*b + c`` into one fused multiply-add and
+turns a division by a static constant into a multiplication by its float32
+reciprocal. The plain version states those rounding points explicitly
+(``_fma``, ``_inv``) and K1 uses ``fmaf`` at the same places, so ``mask``
+agrees bit for bit across the three.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .._device import SLICE_TRAIN, not_ported
+from ..kernels import _build
+
+__all__ = [
+    "SQRT3",
+    "near_far_from_aabb",
+    "occupancy_index",
+    "occupancy_lookup",
+    "first_k_valid",
+    "march_hierarchical",
+    "march_hierarchical_plain",
+    "composite_dense",
+    "composite_dense_plain",
+]
+
+SQRT3 = 1.7320508075688772
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32 (how a constant enters f32 math)."""
+    return float(np.float32(x))
+
+
+def _inv(n: int) -> float:
+    """float32 reciprocal of a static divisor, as XLA folds ``x / n``."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """``a*b + c`` rounded once to float32 (a fused multiply-add): the f32
+    product is exact in float64, so only the final sum rounds."""
+    def d(x):
+        return x.double() if torch.is_tensor(x) else _f32(x)
+    return (d(a) * d(b) + d(c)).float()
+
+
+# ---------------------------------------------------------------------------
+# Ray <-> scene intersections
+# ---------------------------------------------------------------------------
+
+def near_far_from_aabb(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor, min_near: float = 0.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slab test against aabb (6,) = (xmin, ymin, zmin, xmax, ymax, zmax).
+    Missing rays get near == far == 3.4e38."""
+    eps = 1e-15
+    rd = rays_d + torch.where(rays_d.abs() < eps, eps, 0.0)
+    inv_d = 1.0 / rd
+    t0 = (aabb[:3] - rays_o) * inv_d
+    t1 = (aabb[3:] - rays_o) * inv_d
+    tmin = torch.minimum(t0, t1).amax(dim=-1)
+    tmax = torch.maximum(t0, t1).amin(dim=-1)
+    miss = tmin > tmax
+    near = torch.clamp_min(tmin, min_near)
+    return torch.where(miss, 3.4e38, near), torch.where(miss, 3.4e38, tmax)
+
+
+# ---------------------------------------------------------------------------
+# Occupancy addressing
+# ---------------------------------------------------------------------------
+
+def _mip_level(pts: torch.Tensor, dts: torch.Tensor, grid_size: int, cascades: int) -> torch.Tensor:
+    """max(frexp exponent of max|coord|, of dt*H/2), clamped to [0, CAS-1]."""
+    mx = pts.abs().amax(dim=-1)
+    e_pos = torch.frexp(torch.clamp_min(mx, 1e-30)).exponent
+    e_dt = torch.frexp(torch.clamp_min(dts * grid_size * 0.5, 1e-30)).exponent
+    return torch.maximum(e_pos, e_dt).clamp(0, cascades - 1).long()
+
+
+def occupancy_index(pts: torch.Tensor, dts: torch.Tensor, *, grid_size: int, cascades: int,
+                    bound: float) -> torch.Tensor:
+    """The march's cell-addressing law: the flat index into a (CAS, H, H, H)
+    grid of the cell holding each world point. int64 of pts' leading shape."""
+    lvl = _mip_level(pts, dts, grid_size, cascades)
+    mip_bound = torch.clamp_max(torch.exp2(lvl.float()), bound)
+    q = 0.5 * (pts / mip_bound[..., None] + 1.0) * grid_size
+    q = q.clamp(0.0, grid_size - 1).long()
+    return ((lvl * grid_size + q[..., 0]) * grid_size + q[..., 1]) * grid_size + q[..., 2]
+
+
+def occupancy_lookup(
+    grid_bool: torch.Tensor, pts: torch.Tensor, dts: torch.Tensor, *,
+    grid_size: int, cascades: int, bound: float,
+) -> torch.Tensor:
+    """Occupancy test of world points against a (CAS, H, H, H) bool grid.
+    Returns bool of pts' leading shape."""
+    flat = occupancy_index(pts, dts, grid_size=grid_size, cascades=cascades, bound=bound)
+    return grid_bool.reshape(-1)[flat]
+
+
+def first_k_valid(valid: torch.Tensor, budget: int, spread: bool = False,
+                  payload: Optional[torch.Tensor] = None):
+    """Per-row selection of ``budget`` True entries of ``valid`` (N, K).
+
+    ``spread=False`` keeps the first ``budget``; ``spread=True`` with more
+    than ``budget`` valid entries keeps the evenly spread ranks
+    ``ceil(b * count / budget)``, b = 1..budget (the JAX package's law, kept
+    on purpose: truncating to the first samples would confine a dense grid's
+    supervision to a shell at the ray entry). Returns ``(idx (N, budget),
+    mask (N, budget), stride (N,))`` where stride = count/budget for rays
+    over budget, else 1 [, payload taken at idx].
+    """
+    N, K = valid.shape
+    pos = torch.arange(K, device=valid.device).expand(N, K)
+    keys = torch.where(valid, pos, K)
+    sorted_pos, order = torch.sort(keys, dim=1, stable=True)
+    count = valid.sum(dim=1, keepdim=True)
+    b1 = torch.arange(1, budget + 1, device=valid.device).expand(N, budget)
+    if spread:
+        over = count > budget
+        inv = _inv(budget)
+        even = torch.ceil(b1.float() * count.float() * inv)
+        tgt = torch.where(over, even.long(), b1)
+        stride = torch.where(over[:, 0], count[:, 0].float() * inv, 1.0)
+    else:
+        tgt = b1
+        stride = torch.ones((N,), dtype=torch.float32, device=valid.device)
+    src = torch.clamp(tgt - 1, 0, K - 1)
+    mask = b1 <= count
+    idx = torch.clamp_max(sorted_pos.gather(1, src), K - 1)
+    if payload is None:
+        return idx, mask, stride
+    return idx, mask, stride, payload.gather(1, order.gather(1, src))
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical march (K1)
+# ---------------------------------------------------------------------------
+
+def march_hierarchical_plain(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, nears: torch.Tensor, fars: torch.Tensor,
+    occ: torch.Tensor, occ_coarse: torch.Tensor, noise: torch.Tensor, *,
+    num_coarse: int, fine_per_coarse: int, coarse_budget: int, budget: int,
+    max_steps: int, grid_size: int = 128, cascades: int = 1, bound: float = 1.0,
+):
+    """Plain version of K1. Level 1 tests ``num_coarse`` segment midpoints
+    (segment = F*dt) against the dilated grid and spread-keeps
+    ``coarse_budget`` occupied segments; level 2 tests their F candidates
+    each against the fine grid and spread-keeps ``budget``.
+
+    Returns (t (N, budget) f32, 0 where masked; dt () f32; mask (N, budget)
+    bool; stride (N,) f32 = seg_stride * fine_stride; seg_lastocc (N,) f32,
+    the 1-based index of the last occupied segment, 0 when none)."""
+    dt_py = 2.0 * SQRT3 / max_steps
+    seg_py = dt_py * fine_per_coarse
+    dt = _f32(dt_py)
+    half_seg = _f32(0.5 * seg_py)
+    dev = rays_o.device
+    t0 = _fma(dt, noise, nears)
+
+    def lookup(grid, t):  # t (N, ...) -> occupancy of o + d*t, clipped to the bound
+        sh = (-1,) + (1,) * (t.dim() - 1) + (3,)
+        p = _fma(rays_d.reshape(sh), t[..., None], rays_o.reshape(sh)).clamp(-bound, bound)
+        return occupancy_lookup(grid, p, torch.full_like(t, dt), grid_size=grid_size,
+                                cascades=cascades, bound=bound)
+
+    kc = torch.arange(num_coarse, dtype=torch.float32, device=dev)
+    t_mid = _fma(seg_py, kc[None, :], t0[:, None]) + half_seg
+    valid_c = lookup(occ_coarse, t_mid) & ((t_mid - half_seg) < fars[:, None])
+    seg_pos = torch.arange(1, num_coarse + 1, device=dev)
+    seg_lastocc = torch.where(valid_c, seg_pos, 0).amax(dim=1).float()
+    seg_idx, seg_mask, seg_stride = first_k_valid(valid_c, coarse_budget, spread=True)
+
+    t_seg0 = _fma(seg_py, seg_idx.float(), t0[:, None])
+    kf = torch.arange(fine_per_coarse, dtype=torch.float32, device=dev)
+    t_f = _fma(dt, kf[None, None, :], t_seg0[..., None])
+    valid_f = lookup(occ, t_f) & seg_mask[..., None] & (t_f < fars[:, None, None])
+    N = rays_o.shape[0]
+    valid_f = valid_f.reshape(N, coarse_budget * fine_per_coarse)
+    t_f = t_f.reshape(N, coarse_budget * fine_per_coarse)
+    _, mask, fine_stride, t = first_k_valid(valid_f, budget, spread=True, payload=t_f)
+    t = torch.where(mask, t, 0.0)
+    return (t, torch.full((), dt, dtype=torch.float32, device=dev), mask,
+            seg_stride * fine_stride, seg_lastocc)
+
+
+def march_hierarchical(
+    rays_o, rays_d, nears, fars, occ, occ_coarse, noise, *,
+    num_coarse: int, fine_per_coarse: int, coarse_budget: int, budget: int,
+    max_steps: int, grid_size: int = 128, cascades: int = 1, bound: float = 1.0,
+    occ_test_stride: int = 1, coarse_test_stride: int = 1,
+):
+    """Two-level occupancy march (constant dt): kernel K1 on CUDA tensors,
+    the plain version on CPU tensors. Only the exact (stride-1) tests of
+    the serving config."""
+    if occ_test_stride != 1 or coarse_test_stride != 1:
+        raise not_ported("strided occupancy tests (training's occ_test_stride)", SLICE_TRAIN)
+    kw = dict(num_coarse=num_coarse, fine_per_coarse=fine_per_coarse,
+              coarse_budget=coarse_budget, budget=budget, max_steps=max_steps,
+              grid_size=grid_size, cascades=cascades, bound=bound)
+    if rays_o.is_cuda:
+        return _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, **kw)
+    return march_hierarchical_plain(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, **kw)
+
+
+_MAX_COARSE_BUDGET = 32
+_K1_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 6
+            + [ctypes.c_void_p] * 5)
+
+
+def _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, *,
+                num_coarse, fine_per_coarse, coarse_budget, budget, max_steps,
+                grid_size, cascades, bound):
+    N = rays_o.shape[0]
+    dev = rays_o.device
+    for name, t, shape in (("rays_o", rays_o, (N, 3)), ("rays_d", rays_d, (N, 3)),
+                           ("nears", nears, (N,)), ("fars", fars, (N,)), ("noise", noise, (N,))):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"march kernel: {name} must be {shape} float32 on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    grid_shape = (cascades, grid_size, grid_size, grid_size)
+    for name, g in (("occ", occ), ("occ_coarse", occ_coarse)):
+        if g.device != dev or g.dtype != torch.bool or tuple(g.shape) != grid_shape:
+            raise ValueError(f"march kernel: {name} must be {grid_shape} bool on {dev}, "
+                             f"got {tuple(g.shape)} {g.dtype}")
+    if not 0 < coarse_budget <= _MAX_COARSE_BUDGET:
+        raise ValueError(f"march kernel: coarse_budget must be in [1, {_MAX_COARSE_BUDGET}]")
+    ins = [x.contiguous() for x in (rays_o, rays_d, nears, fars, noise, occ, occ_coarse)]
+    dt_py = 2.0 * SQRT3 / max_steps
+    seg_py = dt_py * fine_per_coarse
+    dt32 = np.float32(dt_py)
+    e_dt = int(np.frexp(max(dt32 * np.float32(grid_size) * np.float32(0.5), np.float32(1e-30)))[1])
+    t = torch.empty((N, budget), device=dev, dtype=torch.float32)
+    mask = torch.empty((N, budget), device=dev, dtype=torch.bool)
+    stride = torch.empty((N,), device=dev, dtype=torch.float32)
+    lastocc = torch.empty((N,), device=dev, dtype=torch.float32)
+    dt_out = torch.full((), float(dt32), dtype=torch.float32, device=dev)
+    if N == 0:  # nothing to launch, nothing counted
+        return t, dt_out, mask, stride, lastocc
+    fn = _build.function("march", "march_hierarchical_launch", _K1_ARGS)
+    code = fn(*[_build.ptr(x) for x in ins],
+              N, num_coarse, fine_per_coarse, coarse_budget, budget, grid_size, cascades, e_dt,
+              float(bound), float(dt32), _f32(seg_py), _f32(0.5 * seg_py),
+              _inv(coarse_budget), _inv(budget),
+              _build.ptr(t), _build.ptr(mask), _build.ptr(stride), _build.ptr(lastocc),
+              _build.stream(dev))
+    _build.check(code, "march_hierarchical")
+    kernels.launches["march"] += 1
+    return t, dt_out, mask, stride, lastocc
+
+
+# ---------------------------------------------------------------------------
+# Compositing (K3)
+# ---------------------------------------------------------------------------
+
+def composite_dense_plain(sigmas, rgbs, deltas, ts, mask=None, t_thresh: float = 0.0):
+    """Plain version of K3: dense (N, T) exclusive-cumprod compositing.
+    alpha = 1 - exp(-sigma*delta) (0 off-mask), T_i = prod_{j<i}(1 - alpha_j
+    + 1e-15), w = alpha*T, zeroed where T < t_thresh.
+    Returns (weights_sum (N,), depth (N,), image (N, 3), weights (N, T))."""
+    sd = sigmas * deltas
+    if mask is not None:
+        sd = torch.where(mask, sd, 0.0)
+    alphas = 1.0 - torch.exp(-sd)
+    trans = torch.cumprod(1.0 - alphas + 1e-15, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+    weights = alphas * trans
+    if t_thresh > 0.0:
+        weights = torch.where(trans >= t_thresh, weights, 0.0)
+    return (weights.sum(-1), (weights * ts).sum(-1),
+            (weights[..., None] * rgbs).sum(-2), weights)
+
+
+def composite_dense(sigmas, rgbs, deltas, ts, mask=None, t_thresh: float = 0.0):
+    """Per-ray compositor: kernel K3 on CUDA tensors, the plain version on CPU."""
+    if sigmas.is_cuda:
+        return _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh)
+    return composite_dense_plain(sigmas, rgbs, deltas, ts, mask, t_thresh)
+
+
+_K3_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 5)
+
+
+def _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh):
+    N, B = sigmas.shape
+    dev = sigmas.device
+    if mask is None:
+        mask = torch.ones((N, B), dtype=torch.bool, device=dev)
+    for name, x, shape, dtype in (("sigmas", sigmas, (N, B), torch.float32),
+                                  ("rgbs", rgbs, (N, B, 3), torch.float32),
+                                  ("deltas", deltas, (N, B), torch.float32),
+                                  ("ts", ts, (N, B), torch.float32),
+                                  ("mask", mask, (N, B), torch.bool)):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"composite kernel: {name} must be {shape} {dtype} on {dev}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    ins = [x.contiguous() for x in (sigmas, rgbs, deltas, ts, mask)]
+    ws = torch.empty((N,), device=dev, dtype=torch.float32)
+    depth = torch.empty((N,), device=dev, dtype=torch.float32)
+    image = torch.empty((N, 3), device=dev, dtype=torch.float32)
+    weights = torch.empty((N, B), device=dev, dtype=torch.float32)
+    if N == 0:
+        return ws, depth, image, weights
+    fn = _build.function("composite", "composite_launch", _K3_ARGS)
+    code = fn(*[_build.ptr(x) for x in ins], N, B, float(t_thresh),
+              _build.ptr(ws), _build.ptr(depth), _build.ptr(image), _build.ptr(weights),
+              _build.stream(dev))
+    _build.check(code, "composite_dense")
+    kernels.launches["composite"] += 1
+    return ws, depth, image, weights
