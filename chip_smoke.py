@@ -1,10 +1,12 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
-2. build kernels K1-K4 from ``trinerflet_tpu_torch/kernels/csrc`` with nvcc;
+2. build kernels K1-K4 and K6 from ``trinerflet_tpu_torch/kernels/csrc`` with
+   nvcc, one process per source, in parallel;
 3. serve: the full-width bench model (1024^2 x 16-channel bf16 wavelet
    triplane, bior6.8, 4 IDWT levels, bf16 MLPs, bound 1.5, 128^3 x 2-cascade
    occupancy grid, max_steps 1024, 20 samples per ray), seeded random weights
@@ -14,19 +16,36 @@ Phases (any failure exits non-zero; nothing is caught):
    after; one full eval chunk (16,384 rays) of the first view is rendered
    again through the plain versions on the CPU (a wrapper runs its plain
    version only for CPU tensors) and compared;
-4. kernels: each kernel on the serve path's own inputs against its plain
-   PyTorch version on the card, with its time, the plain version's time, the
-   least time the card could take (bound) and, where one PyTorch call
+4. serve kernels: K1-K4 forward on the serve path's own inputs against their
+   plain PyTorch versions on the card, with time, the plain version's time,
+   the least time the card could take (bound) and, where one PyTorch call
    computes the same function, that call's time;
-5. print the kernels line, then the device line last.
+5. train: ``bench.py``'s step (32,768 rays, the same model, wavelet L1 0.4,
+   Adam + EMA, refresh every 16 steps) with ``budget_autotune=False`` on the
+   synthetic scene (8 views of 256^2): counters zeroed, 320 warm-up steps on
+   the bench cadence (full refreshes while iter_density < 16, then the
+   rotating quarter; the bbox retune), then 5 timed windows of 50 steps
+   (median); counters read; the loss must fall over the warm-up; one step
+   under ``torch.profiler``;
+6. train kernels: one more step and one partial refresh record the
+   arguments the main path hands each kernel wrapper; each kernel (K1 with
+   the training stride, K2 forward and backward, K3 forward and backward,
+   the K4 adjoint, K6) is held to its plain version on those arguments and
+   timed beside its bound and library call;
+7. step check: one step's loss and per-group gradients at full width on
+   4,096 rays with an injected batch and noise, once on the card (kernels)
+   and once on the CPU (plain versions);
+8. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -34,14 +53,16 @@ import torch.nn.functional as F
 
 from trinerflet_tpu_torch import kernels
 from trinerflet_tpu_torch.data.rays import rays_full_image
-from trinerflet_tpu_torch.data.synthetic import orbit_pose, synthetic_intrinsics
+from trinerflet_tpu_torch.data.synthetic import make_synthetic_scene, orbit_pose, synthetic_intrinsics
 from trinerflet_tpu_torch.kernels import _build
 from trinerflet_tpu_torch.models.nerf import NeRFConfig
 from trinerflet_tpu_torch.models.triplane import TriplaneConfig
 from trinerflet_tpu_torch.ops import grid_sample as GS
 from trinerflet_tpu_torch.ops import raymarch as RM
 from trinerflet_tpu_torch.ops import wavelets as W
+from trinerflet_tpu_torch.render import renderer as R
 from trinerflet_tpu_torch.render.renderer import RenderConfig, mark_untrained_grid
+from trinerflet_tpu_torch.train import trainer as TR
 from trinerflet_tpu_torch.train.trainer import TrainConfig, Trainer
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -50,6 +71,20 @@ F32_FLOPS = 67e12
 
 VIEW_HW = 800
 SEED = 0
+DEVICE = "cuda"
+SERVE_KERNELS = ("march", "grid_sample", "composite", "idwt")
+TRAIN_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "composite", "composite_bwd", "idwt",
+                 "idwt_adjoint", "occupancy")
+WARM_STEPS, WINDOW_STEPS, WINDOWS = 320, 50, 5
+CHECK_RAYS = 4096
+# the 4,096-ray step check, kernels on the card vs plain versions on the CPU:
+# both round to bf16 at the same points, but f32 sums run in other orders
+# (cuBLAS vs CPU GEMMs, K2's float atomics, K4's tap order), so a bf16
+# rounding may flip one ulp; near convergence the residual is small, so a
+# flipped feature moves its coefficients' gradients by a visible fraction:
+# loss within 1e-3 relative, each parameter group's gradient within 2e-2
+# relative L2
+CHECK_LOSS_TOL, CHECK_GRAD_TOL = 1e-3, 2e-2
 
 
 def log(msg: str) -> None:
@@ -127,8 +162,8 @@ def serve_phase(trainer, params, occ, poses, intr, card):
         views.append((img, dep))
     launches = dict(kernels.launches)
     log(f"# serve launches over two views: {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in SERVE_KERNELS:
+        if launches[name] == 0:
             raise RuntimeError(f"kernel {name} was not launched on the serve path")
     for img, dep in views:
         if img.shape != (VIEW_HW, VIEW_HW, 3) or dep.shape != (VIEW_HW, VIEW_HW):
@@ -188,9 +223,9 @@ def plain_chunk_check(trainer, params, occ, poses, intr, views):
     err = (out["image"] - ref).abs()
     log(f"# plain-version chunk of {N} rays on the CPU ({secs:.1f} s): image max|diff| "
         f"{err.max().item():.3e}, mean {err.mean().item():.3e}")
-    # bf16 field: the kernel IDWT keeps f32 between its passes where the
-    # plain version rounds to bf16, so the planes differ by a few bf16 ulps
-    # and a bf16 MLP layer can round one sample differently (~2^-8 relative)
+    # bf16 field: the kernel IDWT sums its taps in another order than the
+    # plain version, so a plane value may round one bf16 ulp apart, and a
+    # bf16 MLP layer can round one sample differently (~2^-8 relative)
     if err.max().item() > 2e-2 or err.mean().item() > 1e-3:
         raise RuntimeError("kernel render disagrees with the plain versions")
     return err.max().item()
@@ -199,11 +234,14 @@ def plain_chunk_check(trainer, params, occ, poses, intr, views):
 def k1_need(ro, rd, nears, fars, noise, occ_coarse, mkw):
     """What K1's inputs need in this run: the distinct cells of each grid
     that its probes read, and the number of probes. The probes are the plain
-    version's: coarse midpoints short of far, then the kept segments' fine
-    candidates short of far."""
+    version's: coarse midpoints (with a coarse stride cs, one group centre
+    per cs segments) short of far, then the kept segments' fine candidates
+    (with a fine stride s, one probe per s) short of far."""
     addr = dict(grid_size=mkw["grid_size"], cascades=mkw["cascades"], bound=mkw["bound"])
+    fs, cs = mkw.get("occ_test_stride", 1), mkw.get("coarse_test_stride", 1)
+    NC, Fc, dev = mkw["num_coarse"], mkw["fine_per_coarse"], ro.device
     dt_py = 2.0 * RM.SQRT3 / mkw["max_steps"]
-    seg_py = dt_py * mkw["fine_per_coarse"]
+    seg_py = dt_py * Fc
     dt, half = float(np.float32(dt_py)), float(np.float32(0.5 * seg_py))
     t0 = RM._fma(dt, noise, nears)
 
@@ -211,18 +249,24 @@ def k1_need(ro, rd, nears, fars, noise, occ_coarse, mkw):
         p = RM._fma(rd[:, None, :], t[..., None], ro[:, None, :]).clamp(-addr["bound"], addr["bound"])
         return RM.occupancy_index(p, torch.full_like(t, dt), **addr)
 
-    kc = torch.arange(mkw["num_coarse"], dtype=torch.float32, device=ro.device)
+    kc = torch.arange(NC, dtype=torch.float32, device=dev)
     t_mid = RM._fma(seg_py, kc[None, :], t0[:, None]) + half
     keep_c = (t_mid - half) < fars[:, None]
-    idx_c = cells(t_mid)
-    valid_c = occ_coarse.reshape(-1)[idx_c] & keep_c
-    seg_idx, seg_mask, _ = RM.first_k_valid(valid_c, mkw["coarse_budget"], spread=True)
-    kf = torch.arange(mkw["fine_per_coarse"], dtype=torch.float32, device=ro.device)
-    t_f = RM._fma(dt, kf[None, None, :], RM._fma(seg_py, seg_idx.float(), t0[:, None])[..., None])
-    keep_f = (seg_mask[..., None] & (t_f < fars[:, None, None])).reshape(len(ro), -1)
-    idx_f = cells(t_f.reshape(len(ro), -1))
-    return (torch.unique(idx_c[keep_c]).numel(), torch.unique(idx_f[keep_f]).numel(),
-            int(keep_c.sum() + keep_f.sum()))
+    kp = torch.arange(-(-NC // cs), dtype=torch.float32, device=dev)
+    t_pc = t_mid if cs == 1 else RM._fma(seg_py, cs * kp[None, :] + 0.5 * cs, t0[:, None])
+    keep_pc = keep_c[:, ::cs]  # a group is probed when its first segment is short of far
+    idx_c = cells(t_pc)
+    occ_c = occ_coarse.reshape(-1)[idx_c].repeat_interleave(cs, dim=1)[:, :NC]
+    seg_idx, seg_mask, _ = RM.first_k_valid(occ_c & keep_c, mkw["coarse_budget"], spread=True)
+    t_seg0 = RM._fma(seg_py, seg_idx.float(), t0[:, None])[..., None]
+    kf = torch.arange(Fc, dtype=torch.float32, device=dev)
+    t_f = RM._fma(dt, kf[None, None, :], t_seg0)
+    kq = torch.arange(-(-Fc // fs), dtype=torch.float32, device=dev)
+    t_pf = t_f if fs == 1 else RM._fma(dt, fs * kq[None, None, :] + 0.5 * (fs - 1), t_seg0)
+    keep_pf = (seg_mask[..., None] & (t_f < fars[:, None, None]))[..., ::fs].reshape(len(ro), -1)
+    idx_f = cells(t_pf.reshape(len(ro), -1))
+    return (torch.unique(idx_c[keep_pc]).numel(), torch.unique(idx_f[keep_pf]).numel(),
+            int(keep_pc.sum() + keep_pf.sum()))
 
 
 def _to_cpu(tree):
@@ -288,10 +332,7 @@ def kernel_phase(trainer, params, occ, poses, intr):
     _, H, Wd, C = planes.shape
     # texels the bilinear reads touch (what this run's data needs)
     c2 = GS.project_to_planes(xyz, lb)
-    x0 = torch.clamp(torch.floor(torch.clamp((c2[..., 0] + 1) * 0.5 * (Wd - 1), 0, Wd - 1)), 0, Wd - 2).long()
-    y0 = torch.clamp(torch.floor(torch.clamp((c2[..., 1] + 1) * 0.5 * (H - 1), 0, H - 1)), 0, H - 2).long()
-    base = (torch.arange(3, device="cuda")[:, None] * H + y0) * Wd + x0
-    touched = torch.unique(torch.cat([base, base + 1, base + Wd, base + Wd + 1]).reshape(-1)).numel()
+    touched = _touched_texels(c2, H, Wd)
     k2_bytes = touched * C * planes.element_size() + nbytes(xyz, got)
     b, by = bound_ms(k2_bytes, xyz.shape[0] * 3 * C * 8)
     # F.grid_sample on the planes as K2 reads them (bf16; it takes a grid of
@@ -389,11 +430,412 @@ def kernel_phase(trainer, params, occ, poses, intr):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def bench_configs(num_rays: int = 32768):
+    """``bench.py``'s training configuration with the budget tuner off."""
+    nerf_cfg = NeRFConfig(
+        triplane=TriplaneConfig(channels=16, resolution=1024, wavelet_scale=16),
+        bound=1.5, compute_dtype="bfloat16", plane_dtype="bfloat16")
+    render_cfg = RenderConfig(bound=1.5, grid_size=128, density_thresh=10.0, max_steps=1024,
+                              samples_per_ray_budget=20, dt_gamma=0.0)
+    train_cfg = TrainConfig(lr=1e-2, iters=10000, num_rays=num_rays, wavelet_regularization=0.4,
+                            renderer="occgrid", update_extra_interval=16, budget_autotune=False)
+    return nerf_cfg, render_cfg, train_cfg
+
+
+def train_setup():
+    trainer = Trainer(*bench_configs(), device=DEVICE)
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(num_views=8, H=256, W=256, num_steps=128)
+    t1 = time.perf_counter()
+    grid = mark_untrained_grid(scene.poses, scene.intrinsics, trainer.render_cfg)
+    state = trainer.init_state(density_grid=grid)
+    data = trainer.scene_to_device(scene)
+    torch.cuda.synchronize()
+    log(f"# train set-up: synthetic scene (8 views of 256^2, numpy) {t1 - t0:.2f} s, culling + "
+        f"init_state + upload {time.perf_counter() - t1:.2f} s; occ_test_stride "
+        f"{trainer.render_cfg.resolved_occ_test_stride()}, coarse_test_stride "
+        f"{trainer.render_cfg.resolved_coarse_test_stride()}, dilation radius "
+        f"{trainer.render_cfg.coarse_dilation_radius}")
+    return trainer, state, data
+
+
+def _refresh(trainer, state, full):
+    return state._replace(occ=trainer.update_grid(state.params, state.occ, generator=state.rng,
+                                                  full=full))
+
+
+def train_phase(trainer, state, data, card):
+    """bench.py's cadence: warm-up, then timed windows (median)."""
+    interval = trainer.cfg.update_extra_interval
+    N = trainer.cfg.num_rays
+    kernels.reset_launches()
+    losses, aux = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WARM_STEPS):
+        if i % interval == 0:
+            state = _refresh(trainer, state, full=int(state.occ.iter_density) < 16)
+            trainer._maybe_retune_march(state)
+        state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
+        losses.append(aux["loss"])
+    losses = torch.stack(losses).cpu()
+    warm_s = time.perf_counter() - t0
+    windows = []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        for i in range(WINDOW_STEPS):
+            if i % interval == 0:
+                state = _refresh(trainer, state, full=False)
+            state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
+        final_loss = float(aux["loss"])  # host copy: waits for the window's last step
+        windows.append((time.perf_counter() - t0) / WINDOW_STEPS * 1e3)
+    launches = dict(kernels.launches)
+    steps = WARM_STEPS + WINDOWS * WINDOW_STEPS
+    ms = float(np.median(windows))
+    first, last = losses[:interval].mean().item(), losses[-interval:].mean().item()
+    samples = float(aux["num_samples"]) / N
+    log(f"# train ({card}): {WARM_STEPS} warm-up steps in {warm_s:.2f} s; windows of "
+        f"{WINDOW_STEPS} steps {[round(w, 3) for w in windows]} ms/step; median {ms:.3f} ms/step "
+        f"= {N / ms * 1e3:.1f} rays/s; num_coarse {trainer.render_cfg.num_coarse_override}; "
+        f"mean kept samples/ray {samples:.3f} (last step); loss first step "
+        f"{losses[0].item():.5f}, last warm-up step {losses[-1].item():.5f}, mean of the first "
+        f"{interval} {first:.5f}, of the last {interval} {last:.5f}, after the windows "
+        f"{final_loss:.5f}; occupied fraction {state.occ.occ.float().mean().item():.4f}, "
+        f"bbox {[round(x, 4) for x in state.occ.bbox.tolist()]}")
+    log(f"# train launches over {steps} steps: {launches} (per step: "
+        f"{ {k: round(v / steps, 3) for k, v in launches.items()} })")
+    for name in TRAIN_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the train path")
+    if not (np.isfinite(losses.numpy()).all() and np.isfinite(final_loss)):
+        raise RuntimeError("non-finite training loss")
+    if not last < first:
+        raise RuntimeError(f"the loss did not fall over the warm-up: {first} -> {last}")
+    stats = dict(ms_per_step=ms, windows=windows, rays_per_s=N / ms * 1e3, samples_per_ray=samples,
+                 loss_first=first, loss_last=last, steps=steps)
+    return state, launches, stats
+
+
+def profile_step(trainer, state, data):
+    """Device time by kernel over one train step, and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, data, with_stats=False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    log(f"# profile of one train step: {wall:.2f} ms wall under the profiler, device busy "
+        f"{busy:.2f} ms, idle share {1.0 - busy / wall:.3f}, {sum(e.count for e in evs)} kernels")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:16]:
+        log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:100]}")
+    return state
+
+
+class Capture:
+    """Records the arguments the main path hands each kernel wrapper (the
+    wrappers are looked up by module globals at call time)."""
+
+    TARGETS = ((RM, "_march_cuda"), (GS, "_sample_points_cuda"),
+               (GS, "_sample_points_backward_cuda"), (RM, "_composite_cuda"),
+               (RM, "_composite_backward_cuda"), (W, "_idwt2d_cuda"), (W, "_idwt2d_adjoint_cuda"),
+               (R, "_occupancy_upkeep_cuda"))
+
+    def __init__(self):
+        self.calls = defaultdict(list)
+        self._orig = {}
+
+    def __enter__(self):
+        for mod, name in self.TARGETS:
+            orig = getattr(mod, name)
+            self._orig[(mod, name)] = orig
+
+            def wrap(*a, _orig=orig, _name=name, **k):
+                self.calls[_name].append((a, k))
+                return _orig(*a, **k)
+
+            setattr(mod, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), orig in self._orig.items():
+            setattr(mod, name, orig)
+
+
+def _batch(n, V, HW, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"img_idx": torch.randint(0, V, (n,), generator=g),
+            "pix_idx": torch.randint(0, HW, (n,), generator=g), "noise": torch.rand((n,), generator=g)}
+
+
+def capture_step(trainer, state, data):
+    V, H, Wd = data["images"].shape[:3]
+    with Capture() as cap:
+        state, _ = trainer.train_step(state, data, with_stats=False,
+                                      batch=_batch(trainer.cfg.num_rays, V, H * Wd, SEED + 1))
+        state = _refresh(trainer, state, full=False)
+    torch.cuda.synchronize()
+    return state, cap.calls
+
+
+def _rel(a, b):
+    return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+
+
+def train_kernel_phase(trainer, calls):
+    """Each kernel of the train path on the arguments the step handed it."""
+    rows = []
+    # ---- K1 with the training stride
+    (args, kw), = calls["_march_cuda"][:1]
+    got, ref = RM._march_cuda(*args, **kw), RM.march_hierarchical_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b, nm in zip(got, ref, ("t", "dt", "mask", "stride", "seg_lastocc")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K1 (train) {nm} differs from the plain version "
+                               f"({int((a != b).sum())} entries)")
+    ro, rd, nears, fars, occ, occ_c, noise = args
+    cells_c, cells_f, probes = k1_need(ro, rd, nears, fars, noise, occ_c, kw)
+    b, by = bound_ms(nbytes(ro, rd, nears, fars, noise) + cells_c + cells_f + nbytes(*got),
+                     20.0 * probes)
+    rows.append(dict(name="K1 march_hierarchical (train, strided)", key="march", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/march.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:604", max_abs_err=0.0,
+                     tol="mask, t, stride, seg_lastocc equal",
+                     ms=time_ms(lambda: RM._march_cuda(*args, **kw)),
+                     plain_ms=time_ms(lambda: RM.march_hierarchical_plain(*args, **kw), iters=5),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note=f"N={ro.shape[0]} rays, occ_test_stride {kw['occ_test_stride']}, "
+                          f"num_coarse {kw['num_coarse']}, mean kept samples/ray "
+                          f"{got[2].float().sum(1).mean().item():.3f}; {probes} probes read "
+                          f"{cells_c} coarse and {cells_f} fine cells"))
+
+    # ---- K2 forward at the step's points
+    (planes, xyz, lb), _ = calls["_sample_points_cuda"][0]
+    got, ref = GS._sample_points_cuda(planes, xyz, lb), GS.sample_points_plain(planes, xyz, lb)
+    err = (got - ref).abs().max().item()
+    if err > 1e-4:
+        raise RuntimeError(f"K2 (train) max|err| {err} > 1e-4")
+    _, H, Wd, C = planes.shape
+    c2 = GS.project_to_planes(xyz, lb)
+    gs = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    planes_nchw = planes.permute(0, 3, 1, 2).contiguous()
+    grid = c2[:, :, None, :].to(planes.dtype).contiguous()
+    touched = _touched_texels(c2, H, Wd)
+    b, by = bound_ms(touched * C * planes.element_size() + nbytes(xyz, got), xyz.shape[0] * 3 * C * 8)
+    rows.append(dict(name="K2 sample_planes (train)", key="grid_sample", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
+                     replaces="trinerflet_tpu/ops/grid_sample.py:131", max_abs_err=err, tol=1e-4,
+                     ms=time_ms(lambda: GS._sample_points_cuda(planes, xyz, lb)),
+                     plain_ms=time_ms(lambda: GS.sample_points_plain(planes, xyz, lb), iters=5),
+                     bound_ms=b, bound_by=by,
+                     library_ms=time_ms(lambda: F.grid_sample(planes_nchw, grid, **gs)),
+                     note=f"M={xyz.shape[0]} points, {touched} touched texels"))
+
+    # ---- K2 backward: the plane gradient of the step's cotangent
+    (g, xyz, lb, shape, dtype), _ = calls["_sample_points_backward_cuda"][0]
+    got = GS._sample_points_backward_cuda(g, xyz, lb, shape, dtype)
+    ref = GS.sample_points_backward_plain(g, xyz, lb, shape, dtype)
+    err = _rel(got, ref)
+    if err > 2.0**-7:  # float atomics in another order; one bf16 ulp of the largest texel
+        raise RuntimeError(f"K2 backward rel err {err} > 2^-7")
+    live = int((g != 0).any(dim=-1).sum())  # (sample, plane) rows with a cotangent
+    out_bytes = int(np.prod(shape)) * torch.tensor([], dtype=dtype).element_size()
+    b, by = bound_ms(nbytes(g, xyz) + out_bytes, live * 4 * C * 2)
+    go = g.permute(1, 2, 0)[..., None].to(dtype).contiguous()  # (3, C, M, 1)
+    lib = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+        go, planes_nchw, grid, 0, 1, True, [True, False])
+    lib_err = _rel(lib()[0].permute(0, 2, 3, 1), got)
+    lib_f32 = torch.ops.aten.grid_sampler_2d_backward(  # f32 copies, unrounded coordinates
+        go.float(), planes_nchw.float(), c2[:, :, None, :].contiguous(), 0, 1, True, [True, False])[0]
+    lib_f32_err = _rel(lib_f32.permute(0, 2, 3, 1), got)
+    rows.append(dict(name="K2 sample_planes backward", key="grid_sample_bwd", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
+                     replaces="trinerflet_tpu/ops/grid_sample.py:151", max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                     tol="2^-7 x max|grad|",
+                     ms=time_ms(lambda: GS._sample_points_backward_cuda(g, xyz, lb, shape, dtype)),
+                     plain_ms=time_ms(lambda: GS.sample_points_backward_plain(g, xyz, lb, shape, dtype),
+                                      iters=5),
+                     bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                     note=f"{live} of {3 * xyz.shape[0]} (sample, plane) rows carry a cotangent; "
+                          f"float32 atomics then a bf16 cast (2 launches); library is "
+                          f"aten.grid_sampler_2d_backward on the bf16 planes and bf16-rounded "
+                          f"coordinates (rel diff {lib_err:.2e}); on f32 copies {lib_f32_err:.2e}"))
+
+    # ---- K3 forward and backward
+    (cargs, _), = calls["_composite_cuda"][:1]
+    got, ref = RM._composite_cuda(*cargs), RM.composite_dense_plain(*cargs)
+    err = max((a - b_).abs().max().item() for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K3 (train) max|err| {err} > 1e-5")
+    sig = cargs[0]
+    b, by = bound_ms(nbytes(*cargs[:5]) + nbytes(*got), sig.numel() * 12)
+    rows.append(dict(name="K3 composite_dense (train)", key="composite", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
+                     ms=time_ms(lambda: RM._composite_cuda(*cargs)),
+                     plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples"))
+    (bargs, _), = calls["_composite_backward_cuda"][:1]
+    got = RM._composite_backward_cuda(*bargs)
+    ref = RM.composite_dense_backward_plain(*bargs)
+    err = max(_rel(a, b_) for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K3 backward rel err {err} > 1e-5")
+    b, by = bound_ms(nbytes(*bargs[:5]) + nbytes(*bargs[6:]) + nbytes(*got), sig.numel() * 40)
+    rows.append(dict(name="K3 composite_dense backward", key="composite_bwd", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:805",
+                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
+                     tol="1e-5 x max|grad|",
+                     ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
+                     plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note="analytic reverse pass, one thread per ray; replaces autodiff of the cumprod"))
+
+    # ---- K4 adjoint: every level of the step's ladder
+    tcfg = trainer.nerf_cfg.triplane
+    g0, g1 = W.synthesis_taps(tcfg.wavelet_type, torch.bfloat16)
+    L = len(g0)
+    pl, pr = W.synthesis_pads(tcfg.wavelet_type)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    err4, sizes, level_by = 0.0, [], []
+    for (ga, _) in calls["_idwt2d_adjoint_cuda"]:
+        G, name = ga
+        got, ref = W._idwt2d_adjoint_cuda(G, name), W.idwt2d_adjoint_plain(G, name)
+        e = max(_rel(a, b_) for a, b_ in zip(got, ref))
+        if e > 2.0**-6:
+            raise RuntimeError(f"K4 adjoint {tuple(G.shape)}: rel err {e} > 2^-6")
+        err4 = max(err4, max((a.float() - b_.float()).abs().max().item() for a, b_ in zip(got, ref)))
+        Bp, Cc, Ho, Wo = G.shape
+        P, n = Bp * Cc, got[0].shape[-1]
+        bm, lvl_by = bound_ms(nbytes(G, *got), P * n * Ho * 4 * (L // 2) * 2 + P * Ho * Ho * 2 * (L // 2) * 2)
+        level_by.append((bm, lvl_by))
+        w2 = torch.stack([torch.outer(torch.tensor(a), torch.tensor(c)) for a, c in
+                          ((g0, g0), (g0, g1), (g1, g0), (g1, g1))])  # yl, lh, hl, hh
+        wt = w2.repeat(P, 1, 1).reshape(4 * P, 1, L, L).to(G.device, torch.bfloat16)
+        st = L - 1 - pl
+        Gp = F.pad(G.reshape(1, P, Ho, Wo), (st, 2 * n + L - 2 - st - Wo, st, 2 * n + L - 2 - st - Ho))
+        lib = lambda: F.conv2d(Gp, wt, stride=2, groups=P)  # noqa: E731
+        lo = lib().reshape(P, 4, n, n)
+        lib_err = _rel(lo[:, 0], got[0].reshape(P, n, n))
+        tot["ms"] += time_ms(lambda: W._idwt2d_adjoint_cuda(G, name))
+        tot["plain_ms"] += time_ms(lambda: W.idwt2d_adjoint_plain(G, name), iters=5)
+        tot["library_ms"] += time_ms(lib)
+        tot["bound_ms"] += bm
+        sizes.append(f"{Ho}->{n} (conv2d rel diff {lib_err:.2e})")
+    rows.append(dict(name="K4 idwt2d adjoint", key="idwt_adjoint", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/idwt.cu",
+                     replaces="trinerflet_tpu/ops/wavelets.py:510", max_abs_err=err4,
+                     tol="2^-6 x max|level grad|", ms=tot["ms"], plain_ms=tot["plain_ms"],
+                     bound_ms=tot["bound_ms"], bound_by=max(level_by)[1],
+                     library_ms=tot["library_ms"],
+                     note="sum over the 4 levels " + ", ".join(sizes)
+                          + "; library is a strided grouped F.conv2d (bf16)"))
+
+    # ---- K6: the partial refresh's upkeep
+    (oargs, _), = calls["_occupancy_upkeep_cuda"][:1]
+    grid_old, tmp, off, rcfg, decay = oargs
+    got = R._occupancy_upkeep_cuda(*oargs)
+    ref = R.occupancy_upkeep_plain(*oargs)
+    if not torch.equal(got[0], ref[0]):
+        raise RuntimeError("K6 merged density grid differs from the plain version")
+    mean_err = abs(got[3].item() - ref[3].item()) / max(ref[3].item(), 1e-30)
+    if mean_err > 1e-5:
+        raise RuntimeError(f"K6 mean density rel err {mean_err} > 1e-5")
+    thresh = torch.clamp_max(got[3], rcfg.density_thresh) * rcfg.occ_thresh_scale
+    occ = (ref[0] > thresh).reshape(got[1].shape)
+    r = rcfg.coarse_dilation_radius
+    if not (torch.equal(got[1], occ) and torch.equal(got[2], R._dilate3(occ, r))
+            and torch.equal(got[4], R._occupied_bbox(occ, rcfg))):
+        raise RuntimeError("K6 occupancy, dilation or bbox differs from the plain version")
+    occ_f = got[1].float().unsqueeze(1)
+    Cn = grid_old.numel()
+    b, by = bound_ms(nbytes(grid_old, tmp) + nbytes(got[0], got[1], got[2]),
+                     Cn * (2 + (2 * r + 1) ** 3))
+    rows.append(dict(name="K6 occupancy_upkeep", key="occupancy", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/occupancy.cu",
+                     replaces="trinerflet_tpu/render/renderer.py:332", max_abs_err=mean_err,
+                     tol="grid, occ, occ_coarse, bbox equal; mean rel 1e-5",
+                     ms=time_ms(lambda: R._occupancy_upkeep_cuda(*oargs)),
+                     plain_ms=time_ms(lambda: R.occupancy_upkeep_plain(*oargs)),
+                     bound_ms=b, bound_by=by,
+                     library_ms=time_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
+                     note=f"{tuple(grid_old.shape)} grid, refreshed block of {tmp.shape[1]} cells at "
+                          f"{off}, radius {r}; 4 launches (merge, mean, threshold + bbox, dilation); "
+                          f"library is F.max_pool3d for the dilation alone; max_abs_err is the "
+                          f"mean's relative error"))
+    return rows
+
+
+def _touched_texels(c2, H, Wd):
+    x0 = torch.clamp(torch.floor(torch.clamp((c2[..., 0] + 1) * 0.5 * (Wd - 1), 0, Wd - 1)), 0, Wd - 2).long()
+    y0 = torch.clamp(torch.floor(torch.clamp((c2[..., 1] + 1) * 0.5 * (H - 1), 0, H - 1)), 0, H - 2).long()
+    base = (torch.arange(3, device=c2.device)[:, None] * H + y0) * Wd + x0
+    return torch.unique(torch.cat([base, base + 1, base + Wd, base + Wd + 1]).reshape(-1)).numel()
+
+
+def _groups(named):
+    """Parameter groups of the step check: the base plane, each wavelet
+    level, and each MLP as one vector."""
+    out = defaultdict(list)
+    for n, t in named:
+        key = n if n.startswith("encoder.") else n.split(".")[0]
+        out[key].append(t.detach().float().cpu().reshape(-1))
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def step_check(trainer, state, data):
+    """One step's loss and gradients at full width on CHECK_RAYS rays with an
+    injected batch and noise: kernels on the card vs plain versions on the CPU."""
+    cfg = dataclasses.replace(trainer.cfg, num_rays=CHECK_RAYS)
+    V, H, Wd = data["images"].shape[:3]
+    batch = _batch(CHECK_RAYS, V, H * Wd, SEED + 2)
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        tr = Trainer(trainer.nerf_cfg, trainer.render_cfg, cfg, device=dev)
+        params = TR._map(lambda t: t.detach().to(dev).requires_grad_(True), state.params)
+        occ = type(state.occ)(*[x.to(dev) for x in state.occ])
+        d = {"images": data["images"].to(dev), "poses": data["poses"].to(dev),
+             "intrinsics": data["intrinsics"]}
+        t0 = time.perf_counter()
+        loss, aux = tr._loss_fn(params, occ, d, batch, False, torch.Generator(device=dev))
+        named = TR._leaves(params)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[dev] = (loss.item(), int(aux["num_samples"]),
+                        _groups(zip([n for n, _ in named], grads)), time.perf_counter() - t0)
+    (lg, ng, gg, tg), (lc, nc, gc, tc) = results[DEVICE], results["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    errs = {k: (torch.linalg.norm(gg[k] - gc[k]) / torch.linalg.norm(gc[k])).item() for k in gc}
+    log(f"# step check ({CHECK_RAYS} rays, full width): loss card {lg:.7f} vs CPU plain {lc:.7f} "
+        f"(rel {loss_err:.2e}, tol {CHECK_LOSS_TOL}); samples {ng} vs {nc}; gradient rel L2 "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {CHECK_GRAD_TOL}); "
+        f"{tg:.2f} s on the card, {tc:.2f} s on the CPU")
+    if ng != nc:
+        raise RuntimeError("the march kept different samples on the card and on the CPU")
+    if loss_err > CHECK_LOSS_TOL or max(errs.values()) > CHECK_GRAD_TOL:
+        raise RuntimeError("the kernel step disagrees with the plain versions")
+    if min(torch.linalg.norm(v).item() for v in gc.values()) == 0:
+        raise RuntimeError("a parameter group got no gradient")
+    return loss_err, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     log(card)
@@ -404,19 +846,40 @@ def main() -> int:
     torch.manual_seed(SEED)
     with torch.no_grad():
         trainer, params, occ, poses, intr = serve_setup()
-        launches, views, ms, steady = serve_phase(trainer, params, occ, poses, intr, card)
+        serve_launches, views, ms, steady = serve_phase(trainer, params, occ, poses, intr, card)
         profile_view(trainer, params, occ, poses, intr)
         plain_chunk_check(trainer, params, occ, poses, intr, views)
         rows = kernel_phase(trainer, params, occ, poses, intr)
+    del trainer, params, occ, views
     key = {"K1": "march", "K2": "grid_sample", "K3": "composite", "K4": "idwt"}
     for r in rows:
-        r["launches"] = launches[key[r["name"][:2]]]
-        log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+        r["launches"] = serve_launches[key[r["name"][:2]]]
+        r["path"] = "serve"
+    log(f"# serve phases done at {time.perf_counter() - t_start:.1f} s")
+
+    trainer, state, data = train_setup()
+    state, train_launches, stats = train_phase(trainer, state, data, card)
+    state = profile_step(trainer, state, data)
+    state, calls = capture_step(trainer, state, data)
+    train_rows = train_kernel_phase(trainer, calls)
+    for r in train_rows:
+        r["launches"] = train_launches[r.pop("key")]
+        r["path"] = "train"
+    del calls
+    step_check(trainer, state, data)
+    rows += train_rows
+
+    for r in rows:
+        log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "
             f"by {r['bound_by']}, library {r['library_ms']}) max|err| {r['max_abs_err']:.3e} "
-            f"(tol {r['tol']}); {r['launches']} launches on the serve path; {r['note']}")
+            f"(tol {r['tol']}); {r['launches']} launches on the {r['path']} path; {r['note']}")
     fields = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
     log(f"# serve: {VIEW_HW}x{VIEW_HW} views, ms/view {ms} then {steady} on {card}")
+    log(f"# train: {stats['ms_per_step']:.3f} ms/step (median of {WINDOWS} windows of "
+        f"{WINDOW_STEPS}), {stats['rays_per_s']:.1f} rays/s, {stats['samples_per_ray']:.3f} kept "
+        f"samples/ray, loss {stats['loss_first']:.5f} -> {stats['loss_last']:.5f} on {card}; "
+        f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -62,6 +62,13 @@ def test_port_sources_name_no_jax_import():
                 assert root not in ("jax", "jaxlib", "trinerflet_tpu"), f"{f}: imports {n}"
 
 
+def _tensors_of(ts):
+    """The tensors of a TrainState (its counters and generator aside)."""
+    assert ts.step == ts.ema_count == ts.opt_state["count"] == 3
+    return {"params": ts.params, "mu": ts.opt_state["mu"], "nu": ts.opt_state["nu"],
+            "ema": ts.ema_params, "occ": tuple(ts.occ)}
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from trinerflet_tpu_torch import resolve_device
     from trinerflet_tpu_torch.models.nerf import NeRFConfig
@@ -84,7 +91,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_state_makers_default_to_cuda(monkeypatch):
     """Every function that makes or carries in params or occupancy state
     defaults to CUDA, so without CUDA it raises unless given device='cpu'."""
-    from trinerflet_tpu_torch.carry import occupancy_from_jax, params_from_jax
+    from trinerflet_tpu_torch.carry import occupancy_from_jax, params_from_jax, train_state_from_jax
     from trinerflet_tpu_torch.models.nerf import NeRFConfig, init_nerf_params
     from trinerflet_tpu_torch.models.triplane import TriplaneConfig, init_triplane_params
     from trinerflet_tpu_torch.render.renderer import RenderConfig, init_occupancy
@@ -102,6 +109,9 @@ def test_state_makers_default_to_cuda(monkeypatch):
         "init_occupancy": lambda **kw: init_occupancy(rcfg, **kw),
         "params_from_jax": lambda **kw: params_from_jax(tree, **kw),
         "occupancy_from_jax": lambda **kw: occupancy_from_jax(state, **kw),
+        "train_state_from_jax": lambda **kw: _tensors_of(train_state_from_jax(
+            {"params": tree, "opt_state": ({"count": 3, "mu": tree, "nu": tree},),
+             "ema_params": tree, "ema_count": 3, "occ": state, "step": 3}, **kw)),
     }
     for name, make in makers.items():
         with pytest.raises(RuntimeError, match="cuda"):

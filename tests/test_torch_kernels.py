@@ -1,4 +1,5 @@
-"""Each CUDA kernel (K1-K4) against its plain PyTorch version, on the card.
+"""Each CUDA kernel (K1-K4 forward and backward, K6) against its plain PyTorch
+version, on the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
@@ -7,9 +8,15 @@ carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
 Tolerances: K1 must agree bit for bit (mask, stride, seg_lastocc, t). K3 is
 float32 with atol 1e-5 (fused multiply-adds and summation order); K2 atol
 1e-4 (see the test: a one-ulp coordinate difference times the texel slope).
-K4 keeps float32 between its two passes where the plain version rounds to
-bf16, so bf16 outputs agree within 2^-6 of the plane's max magnitude (a few
-bf16 ulps); float32 within 1e-5.
+K4 rounds where the plain version rounds (after each 1-D operator and each
+add) but sums its taps in another order, so a bf16 rounding may flip: bf16
+outputs agree within 2^-6 of the plane's max magnitude (a few bf16 ulps);
+float32 within 1e-5. Backward kernels: K2's float atomics add in an
+unspecified order (float32 atol 1e-5 relative to the largest gradient; bf16
+one ulp, 2^-7); K3's reverse pass matches its plain version's arithmetic to
+1e-5 relative; the K4 adjoint as the forward (2^-6 relative in bf16, 1e-5 in
+f32). K6: the merged grid, occupancy,
+dilation and bbox are equal; the mean (a blocked float sum) to rtol 1e-5.
 """
 
 import numpy as np
@@ -20,6 +27,7 @@ from trinerflet_tpu_torch import kernels
 from trinerflet_tpu_torch.ops import grid_sample as GS
 from trinerflet_tpu_torch.ops import raymarch as RM
 from trinerflet_tpu_torch.ops import wavelets as W
+from trinerflet_tpu_torch.render import renderer as R
 from trinerflet_tpu_torch.render.renderer import _dilate3
 
 pytestmark = pytest.mark.cuda
@@ -80,8 +88,8 @@ def test_composite_kernel_matches_plain(dev):
         assert (a - b).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("frac", [0.02, 0.3])
-def test_march_kernel_matches_plain_bit_for_bit(dev, frac):
+@pytest.mark.parametrize("frac,fs,cs", [(0.02, 1, 1), (0.3, 1, 1), (0.3, 2, 1), (0.1, 3, 2)])
+def test_march_kernel_matches_plain_bit_for_bit(dev, frac, fs, cs):
     g = torch.Generator().manual_seed(3)
     N, H, CAS, bound, steps = 4000, 64, 2, 1.5, 512
     v = torch.randn((N, 3), generator=g)
@@ -97,10 +105,95 @@ def test_march_kernel_matches_plain_bit_for_bit(dev, frac):
     n, f = torch.where(hit, n, 0.0), torch.where(hit, f, 0.0)
     noise = torch.rand((N,), generator=g).to(dev)
     kw = dict(num_coarse=int(np.ceil(bound * steps / 12)), fine_per_coarse=12, coarse_budget=8,
-              budget=20, max_steps=steps, grid_size=H, cascades=CAS, bound=bound)
+              budget=20, max_steps=steps, grid_size=H, cascades=CAS, bound=bound,
+              occ_test_stride=fs, coarse_test_stride=cs)
     got = RM.march_hierarchical(o, d, n, f, occ, occ_c, noise, **kw)
     ref = RM.march_hierarchical_plain(o, d, n, f, occ, occ_c, noise, **kw)
     torch.cuda.synchronize()
     assert ref[2].sum().item() > 0
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def _rel_close(a, b, rel):
+    a, b = a.float(), b.float()
+    return (a - b).abs().max().item() <= rel * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_backward_kernel_matches_plain(dev, dtype):
+    g = torch.Generator().manual_seed(4)
+    H, W, C, M = 64, 48, 16, 20000
+    xyz = (3.4 * torch.rand((M, 3), generator=g) - 1.7).to(dev)
+    xyz[:500] = 0.1  # contention: many samples on one texel
+    ct = torch.randn((M, 3, C), generator=g).to(dev)
+    ct[1000:3000] = 0.0  # masked samples
+    n0 = kernels.launches["grid_sample_bwd"]
+    got = GS._sample_points_backward_cuda(ct, xyz, 1.5, (3, H, W, C), dtype)
+    assert kernels.launches["grid_sample_bwd"] == n0 + (1 if dtype == torch.float32 else 2)
+    ref = GS.sample_points_backward_plain(ct, xyz, 1.5, (3, H, W, C), dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == dtype and got.shape == (3, H, W, C)
+    assert _rel_close(got, ref, 1e-5 if dtype == torch.float32 else 2.0**-7)
+
+
+@pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
+def test_composite_backward_kernel_matches_plain(dev, t_thresh):
+    g = torch.Generator().manual_seed(5)
+    N, T = 3000, 20
+    sig = (80 * torch.rand((N, T), generator=g)).to(dev)
+    rgb = torch.rand((N, T, 3), generator=g).to(dev)
+    dl = (0.05 * torch.rand((N, T), generator=g)).to(dev)
+    ts = torch.cumsum(dl, 1)
+    mask = (torch.rand((N, T), generator=g) < 0.8).to(dev)
+    cts = [torch.randn(s, generator=g).to(dev) for s in ((N,), (N,), (N, 3), (N, T))]
+    n0 = kernels.launches["composite_bwd"]
+    got = RM._composite_backward_cuda(sig, rgb, dl, ts, mask, t_thresh, *cts)
+    assert kernels.launches["composite_bwd"] == n0 + 1
+    ref = RM.composite_dense_backward_plain(sig, rgb, dl, ts, mask, t_thresh, *cts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _rel_close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_idwt_adjoint_kernel_matches_plain(dev, dtype):
+    g = torch.Generator().manual_seed(6)
+    ct = torch.randn((3, 16, 128, 128), generator=g).to(dev, dtype)
+    n0 = kernels.launches["idwt_adjoint"]
+    got = W._idwt2d_adjoint_cuda(ct, "bior6.8")
+    assert kernels.launches["idwt_adjoint"] == n0 + 2
+    ref = W.idwt2d_adjoint_plain(ct, "bior6.8")
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == dtype
+        assert _rel_close(a, b, 1e-5 if dtype == torch.float32 else 2.0**-6)
+
+
+@pytest.mark.parametrize("frac", [1.0, 0.25])
+def test_occupancy_kernel_matches_plain(dev, frac):
+    g = torch.Generator().manual_seed(7)
+    cfg = R.RenderConfig(bound=1.5, grid_size=64, max_steps=512)
+    C, n = cfg.cascades, cfg.grid_size**3
+    old = 20 * torch.rand((C, n), generator=g) ** 4
+    old[:, : n // 10] = -1.0  # cells no camera sees
+    S = int(n * frac)
+    off = n // 4 if frac < 1 else 0
+    tmp = 30 * torch.rand((C, S), generator=g) ** 6
+    old, tmp = old.to(dev), tmp.to(dev)
+    n0 = kernels.launches["occupancy"]
+    got = R._occupancy_upkeep_cuda(old, tmp, off, cfg, 0.95)
+    assert kernels.launches["occupancy"] == n0 + 4
+    ref = R.occupancy_upkeep_plain(old, tmp, off, cfg, 0.95)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    assert abs(got[3].item() - ref[3].item()) <= 1e-5 * ref[3].item()
+    # threshold at the kernel's own mean: the plain occupancy, dilation, bbox
+    thresh = torch.clamp_max(got[3], cfg.density_thresh) * cfg.occ_thresh_scale
+    occ = (ref[0] > thresh).reshape(got[1].shape)
+    assert 0.01 < occ.float().mean().item() < 0.99
+    assert torch.equal(got[1], occ)
+    assert torch.equal(got[2], _dilate3(occ, cfg.coarse_dilation_radius))
+    assert torch.equal(got[4], R._occupied_bbox(occ, cfg))
+    empty = R._occupancy_upkeep_cuda(torch.zeros_like(old), torch.zeros_like(tmp), off, cfg, 0.95)
+    assert not empty[1].any() and torch.equal(empty[4].cpu(), torch.tensor(cfg.aabb))

@@ -83,8 +83,12 @@ def test_first_k_valid_equal(budget, frac):
     np.testing.assert_array_equal(pp.numpy()[m], np.asarray(jp)[m])
 
 
-@pytest.mark.parametrize("frac,noise_on", [(0.25, True), (0.6, False), (0.03, True)])
-def test_march_hierarchical_equal(frac, noise_on):
+@pytest.mark.parametrize("frac,noise_on,fs,cs", [
+    (0.25, True, 1, 1), (0.6, False, 1, 1), (0.03, True, 1, 1),
+    (0.25, True, 2, 1), (0.6, True, 3, 1), (0.1, False, 2, 2), (0.25, True, 3, 3), (0.05, True, 5, 2)])
+def test_march_hierarchical_equal(frac, noise_on, fs, cs):
+    """Exact tests (stride 1) and training's strided probes: fine stride fs
+    (one probe per fs candidates), coarse stride cs (one per cs segments)."""
     o, d = _rays(2, 700)
     occ, occ_coarse = _grids(3, frac)
     aabb = np.array([-BOUND] * 3 + [BOUND] * 3, np.float32)
@@ -93,7 +97,8 @@ def test_march_hierarchical_equal(frac, noise_on):
     n, f = np.array(jnp.where(hit, n, 0.0)), np.array(jnp.where(hit, f, 0.0))
     noise = (np.random.default_rng(4).random(700) if noise_on else np.zeros(700)).astype(np.float32)
     kw = dict(num_coarse=int(np.ceil(BOUND * STEPS / 12)), fine_per_coarse=12, coarse_budget=8,
-              budget=20, max_steps=STEPS, grid_size=GRID, cascades=CAS, bound=BOUND)
+              budget=20, max_steps=STEPS, grid_size=GRID, cascades=CAS, bound=BOUND,
+              occ_test_stride=fs, coarse_test_stride=cs)
     jt, jdt, jm, js, jl = JRM.march_hierarchical(
         *map(jnp.asarray, (o, d, n, f, occ, occ_coarse, noise)), **kw)
     pt, pdt, pm, ps, pl = PRM.march_hierarchical(
@@ -107,11 +112,18 @@ def test_march_hierarchical_equal(frac, noise_on):
 
 
 def test_march_rejects_unported_options():
+    """The march takes every stride >= 1 now; what stays unported is the
+    global compaction layout (slice 3) and dt_gamma > 0 (a later slice)."""
     z = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="strides must be >= 1"):
         PRM.march_hierarchical(z, z, z[:, 0], z[:, 0], None, None, z[:, 0], num_coarse=4,
                                fine_per_coarse=12, coarse_budget=8, budget=20, max_steps=128,
-                               occ_test_stride=2)
+                               occ_test_stride=0)
+    cfg = PR.RenderConfig(bound=BOUND, grid_size=GRID, compaction="global", global_slots_per_ray=4)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        PR.render_occgrid(None, z, z, None, cfg, occ_coarse=z)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        PR.render_occgrid(None, z, z, None, PR.RenderConfig(dt_gamma=0.01), occ_coarse=z)
 
 
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])

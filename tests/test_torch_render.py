@@ -204,14 +204,82 @@ def test_trainer_render_image_matches_jax(dtype):
 
 
 def test_unported_render_options_raise():
+    """Still unported after the training slice: dt_gamma > 0 and the flat
+    march (a later slice), the global layout (slice 3), other renderers."""
     rp = PR.RenderConfig(**RKW)
     z = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         PR.render_occgrid(None, z, z, None, PR.RenderConfig(dt_gamma=0.01), occ_coarse=z)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="later slice"):
         PR.render_occgrid(None, z, z, None, rp)  # flat march (no occ_coarse)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        PR.render_occgrid(None, z, z, None, PR.RenderConfig(compaction="global", global_slots_per_ray=4),
+                          occ_coarse=z)
     with pytest.raises(NotImplementedError):
         PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer="dense"), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_partial_update_density_grid_matches_jax(dtype):
+    """Training's rotating quarter refresh after the first full one
+    (iter_density = 1: the block [S, 2S) of every cascade)."""
+    cj, cp, rj, rp, params, jparams, pparams, jstate, _ = _refresh_both(dtype)
+    H, C = rp.grid_size, rp.cascades
+    S = H**3 // 4
+    rng = np.random.default_rng(8)
+    jitter = np.stack([rng.uniform(-1, 1, (S, 3)).astype(np.float32) * np.float32(min(2**c, 1.5) / H)
+                       for c in range(C)])
+    jf = JN.NeRFField(cj)
+    jplanes = jf.build_planes(jparams, max_resolution=2 * H)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", _Draws(jitter))
+        j2 = JR.update_density_grid(jstate, lambda x: jf.density(jparams, jplanes, x)[0],
+                                    jax.random.PRNGKey(0), rj, fraction=0.25)
+    ptr = PTR.Trainer(cp, rp, PTR.TrainConfig(), device="cpu")
+    p2 = ptr.update_grid(pparams, occupancy_from_jax(jstate, device="cpu"),
+                         jitter=torch.from_numpy(jitter), full=False)
+    jg, pg = np.asarray(j2.density_grid), p2.density_grid.numpy()
+    old = np.asarray(jstate.density_grid)
+    outside = np.ones(H**3, bool)
+    outside[S : 2 * S] = False
+    np.testing.assert_array_equal(pg[:, outside], old[:, outside])  # only the block moved
+    assert (pg[:, S : 2 * S] != old[:, S : 2 * S]).any()
+    tol = TOL[dtype]["grid"]
+    np.testing.assert_allclose(pg, jg, rtol=tol, atol=1e-6)
+    np.testing.assert_allclose(float(p2.mean_density), float(j2.mean_density), rtol=tol)
+    thresh = float(j2.mean_density)
+    near = np.abs(jg - thresh) <= 2 * tol * max(thresh, np.abs(jg).max() * 1e-3)
+    occ_j = np.asarray(j2.occ).reshape(jg.shape)
+    np.testing.assert_array_equal(p2.occ.numpy().reshape(jg.shape)[~near], occ_j[~near])
+    assert int(p2.iter_density) == int(j2.iter_density) == 2
+
+
+def test_render_occgrid_train_config_matches_jax():
+    """The training render: a fine test stride of 2 (what the bench's auto
+    stride resolves to at 128^3 / max_steps 1024) and with_stats off."""
+    cj, cp, rj, rp, params, jparams, pparams, jstate, _ = _refresh_both("float32")
+    rj, rp = (dataclasses.replace(c, occ_test_stride=2) for c in (rj, rp))
+    pstate = occupancy_from_jax(jstate, device="cpu")
+    ro, rd = rays_full_image(_poses()[2], synthetic_intrinsics(16, 16), 16, 16)
+    noise = np.random.default_rng(12).random(ro.shape[0]).astype(np.float32)
+    jf, pf = JN.NeRFField(cj), PN.NeRFField(cp)
+    jplanes = jf.build_planes(jparams)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", _Draws([noise]))
+        jout = JR.render_occgrid(
+            lambda x, d: jf(jparams, jplanes, x, d), jnp.asarray(ro), jnp.asarray(rd), jstate.occ, rj,
+            rng=jax.random.PRNGKey(1), bg_color=0.0, perturb=True, occ_coarse=jstate.occ_coarse,
+            occ_bbox=jstate.bbox, occ_bricks=jstate.occ_bricks,
+            occ_coarse_bricks=jstate.occ_coarse_bricks, with_stats=False)
+    pplanes = pf.build_planes(pparams)
+    pout = PR.render_occgrid(
+        lambda x, d: pf(pparams, pplanes, x, d), torch.from_numpy(ro), torch.from_numpy(rd),
+        pstate.occ, rp, noise=torch.from_numpy(noise), bg_color=0.0, occ_coarse=pstate.occ_coarse,
+        occ_bbox=pstate.bbox, with_stats=False)
+    assert set(pout) == set(jout) and "samples_p99" not in pout
+    np.testing.assert_array_equal(pout["num_samples"].numpy(), np.asarray(jout["num_samples"]))
+    np.testing.assert_allclose(pout["image"].numpy(), np.asarray(jout["image"]), rtol=0,
+                               atol=TOL["float32"]["img"])
 
 
 def test_rays_and_cameras_match_jax():

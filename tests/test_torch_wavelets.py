@@ -95,3 +95,21 @@ def test_idwt2d_crops_trailing_lowpass_like_jax():
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
     with pytest.raises(ValueError):
         PW.idwt2d(torch.zeros(1, 1, 18, 18), torch.zeros(1, 1, 3, 15, 15))
+
+
+@pytest.mark.parametrize("name", ("bior6.8", "haar"))
+def test_dwt2d_matches_jax_and_reconstructs(name):
+    """The analysis level (plain; sizing and tests only): equal to the JAX
+    package's to float32 summation order (atol 1e-5), and its inverse is
+    ``idwt2d`` away from the zero-padded borders (atol 1e-4)."""
+    x = np.random.default_rng(4).standard_normal((2, 3, 40, 40)).astype(np.float32)
+    jyl, jyh = JW.dwt2d(jnp.asarray(x), name)
+    pyl, pyh = PW.dwt2d(torch.from_numpy(x), name)
+    assert pyl.shape == jyl.shape and pyh.shape == jyh.shape
+    np.testing.assert_allclose(pyl.numpy(), np.asarray(jyl), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pyh.numpy(), np.asarray(jyh), rtol=0, atol=1e-5)
+    rec = PW.idwt2d(pyl, pyh, name).numpy()
+    L = len(PW.filter_bank(name)[0])
+    c = (rec.shape[-1] - 40) // 2  # the reconstruction's border offset
+    np.testing.assert_allclose(rec[..., c + L : c + 40 - L, c + L : c + 40 - L],
+                               x[..., L : 40 - L, L : 40 - L], rtol=0, atol=1e-4)

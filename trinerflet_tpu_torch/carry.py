@@ -14,8 +14,9 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .render.renderer import OccupancyState
+from .train.trainer import TrainState, _map
 
-__all__ = ["params_from_jax", "occupancy_from_jax"]
+__all__ = ["params_from_jax", "occupancy_from_jax", "train_state_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -47,13 +48,38 @@ def params_from_jax(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict:
             "color_net": _tree(tree["color_net"], device)}
 
 
+def _get(obj, k):
+    return obj[k] if isinstance(obj, Mapping) else getattr(obj, k)
+
+
 def occupancy_from_jax(state: Any, device: DeviceLike = None) -> OccupancyState:
     """The JAX ``OccupancyState`` (or a mapping with its fields) as this
     package's, on ``device`` (``cuda`` by default): density_grid, occ,
     occ_coarse, mean_density, iter_density, bbox. The TPU-only brick tables
     are not carried."""
-    def get(k):
-        return state[k] if isinstance(state, Mapping) else getattr(state, k)
-
     device = resolve_device(device)
-    return OccupancyState(**{k: _tensor(get(k), device) for k in OccupancyState._fields})
+    return OccupancyState(**{k: _tensor(_get(state, k), device) for k in OccupancyState._fields})
+
+
+def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
+    """The JAX ``TrainState`` (or a mapping with its fields) as this
+    package's, on ``device`` (``cuda`` by default), so training continues
+    where the JAX package stopped: params, the Adam moments and count (the
+    first entry of the optax chain's state, ``ScaleByAdamState``), the EMA
+    and its count, the occupancy state and the step. A JAX PRNG key does not
+    carry over: the step generator is seeded with ``seed``."""
+    device = resolve_device(device)
+    adam = _get(state, "opt_state")[0]
+    params = _map(lambda t: t.requires_grad_(True), params_from_jax(_get(state, "params"), device))
+    return TrainState(
+        params=params,
+        opt_state={"count": int(np.asarray(_get(adam, "count"))),
+                   "mu": params_from_jax(_get(adam, "mu"), device),
+                   "nu": params_from_jax(_get(adam, "nu"), device)},
+        ema_params=params_from_jax(_get(state, "ema_params"), device),
+        ema_count=int(np.asarray(_get(state, "ema_count"))),
+        occ=occupancy_from_jax(_get(state, "occ"), device),
+        step=int(np.asarray(_get(state, "step"))),
+        rng=torch.Generator(device=device).manual_seed(seed),
+    )
+

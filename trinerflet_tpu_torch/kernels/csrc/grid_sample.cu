@@ -17,6 +17,16 @@
 // the channel-last plane with 16-byte vector loads and writes its C outputs
 // with 16-byte stores. No quad table is needed on a GPU: the four rows of a
 // corner pair are adjacent, so the 2x2 neighbourhood is two 64 B segments.
+//
+// Backward (replaces _quad_bwd :151 / _corner_bwd :210 and the sort +
+// one-hot-matmul scatter they call, ops/scatter.py:375 scatter_add_outer):
+// the plane gradient sum_corners w_corner * g. One thread per (sample,
+// plane) recomputes its corner weights, reads its C-channel cotangent row
+// and adds w * g into the four corner rows of a float32 (3, H, W, C) buffer
+// with atomicAdd; rows whose cotangent is all zero (masked samples) add
+// nothing. A second kernel casts the buffer to bf16. Bound: bytes (the
+// cotangent rows in, the touched texel rows read-modify-written, the plane
+// gradient written); the atomics' contention on shared texels is the risk.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -93,6 +103,63 @@ __global__ void sample_points_kernel(const T* __restrict__ planes, const float* 
   for (int k = 0; k < C / 4; ++k) o[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
 }
 
+// Corner weights of sample m on plane p: flat (y0, x0) texel index and the
+// weights of (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1).
+__device__ __forceinline__ long long corners(const float* __restrict__ xyz, long long m, int p,
+                                             int H, int W, float lbound, float w[4]) {
+  float px = xyz[3 * m], py = xyz[3 * m + 1], pz = xyz[3 * m + 2];
+  float u = (p == 2 ? py : px) / lbound;
+  float v = (p == 1 ? py : pz) / lbound;
+  float x = fminf(fmaxf((u + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
+  float y = fminf(fmaxf((v + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
+  float fx0 = fminf(fmaxf(floorf(x), 0.f), (float)(W - 2));
+  float fy0 = fminf(fmaxf(floorf(y), 0.f), (float)(H - 2));
+  float wx = x - fx0, wy = y - fy0;
+  w[0] = (1.f - wx) * (1.f - wy);
+  w[1] = wx * (1.f - wy);
+  w[2] = (1.f - wx) * wy;
+  w[3] = wx * wy;
+  return ((long long)p * H + (int)fy0) * W + (int)fx0;
+}
+
+template <int C>
+__global__ void sample_points_backward_kernel(const float* __restrict__ xyz,
+                                              const float* __restrict__ g, int M, int H, int W,
+                                              float lbound, float* __restrict__ grad) {
+  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 3LL * M) return;
+  int p = (int)(idx % 3);
+  long long m = idx / 3;
+  float gv[C];
+  const float4* gr = reinterpret_cast<const float4*>(g + idx * C);
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < C / 4; ++k) {
+    float4 q = gr[k];
+    gv[4 * k] = q.x;
+    gv[4 * k + 1] = q.y;
+    gv[4 * k + 2] = q.z;
+    gv[4 * k + 3] = q.w;
+    any |= (q.x != 0.f) | (q.y != 0.f) | (q.z != 0.f) | (q.w != 0.f);
+  }
+  if (!any) return;
+  float w[4];
+  long long t00 = corners(xyz, m, p, H, W, lbound, w);
+  const long long rows[4] = {t00, t00 + 1, t00 + W, t00 + W + 1};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float* dst = grad + rows[r] * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) atomicAdd(dst + c, w[r] * gv[c]);
+  }
+}
+
+__global__ void cast_bf16_kernel(const float* __restrict__ x, long long n,
+                                 __nv_bfloat16* __restrict__ out) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(x[i]);
+}
+
 template <int C>
 static void launch_c(const void* planes, const float* xyz, int M, int H, int W, int bf16,
                      float lbound, float* out, cudaStream_t stream) {
@@ -120,5 +187,33 @@ extern "C" int sample_points_launch(const void* planes, const float* xyz, int M,
     case 32: launch_c<32>(planes, xyz, M, H, W, bf16, lbound, out, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// xyz (M, 3) f32, g (M, 3, C) f32 -> grad (3, H, W, C) f32, which the caller
+// zeroes; sums w_corner * g into it (order of the float atomics unspecified).
+extern "C" int sample_points_backward_launch(const float* xyz, const float* g, int M, int H,
+                                             int W, int C, float lbound, float* grad,
+                                             cudaStream_t stream) {
+  if (M == 0) return 0;
+  if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  unsigned int blocks = (unsigned int)((3LL * M + threads - 1) / threads);
+  switch (C) {
+    case 4: sample_points_backward_kernel<4><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
+    case 8: sample_points_backward_kernel<8><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
+    case 16: sample_points_backward_kernel<16><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
+    case 32: sample_points_backward_kernel<32><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x (n,) f32 -> out (n,) bf16, round to nearest even.
+extern "C" int cast_bf16_launch(const float* x, long long n, void* out, cudaStream_t stream) {
+  if (n == 0) return 0;
+  const int threads = 256;
+  cast_bf16_kernel<<<(unsigned int)((n + threads - 1) / threads), threads, 0, stream>>>(
+      x, n, (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
 }

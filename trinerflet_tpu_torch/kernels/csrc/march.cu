@@ -19,10 +19,19 @@
 // candidates and writes t straight into the ray's output row. No sort, no
 // brick table, no scratch memory.
 //
+// Strided tests (training, march_hierarchical :659-677 and :694-716): with
+// coarse stride cs > 1 one probe at t0 + seg*(cs*p + cs/2) stands for the
+// cs segments of group p; with fine stride s > 1 one probe at
+// t_seg0 + dt*(s*p + (s-1)/2) stands for the s candidates of group p
+// (nearest probe). The walks evaluate a probe at the first member of its
+// group and reuse the result for the rest, so a stride of s cuts the grid
+// reads by s. The probe offsets s*p + (s-1)/2 are exact in f32.
+//
 // Exactness: the plain version and the JAX package (run under jit) fuse
-// a*b + c into one rounding at five places and divide by a static budget as
-// a multiply by its f32 reciprocal; this file is compiled with -fmad=false
-// and uses fmaf() at exactly those places, so mask matches bit for bit.
+// a*b + c into one rounding at five places (seven with the strided probes)
+// and divide by a static budget as a multiply by its f32 reciprocal; this
+// file is compiled with -fmad=false and uses fmaf() at exactly those
+// places, so mask matches bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,7 +39,8 @@
 #define MAX_COARSE_BUDGET 32
 
 struct MarchArgs {
-  int n_rays, num_coarse, fine, coarse_budget, budget, grid, cascades, e_dt;
+  int n_rays, num_coarse, fine, coarse_budget, budget, grid, cascades, e_dt, fine_stride,
+      coarse_stride;
   float bound, dt, seg, half_seg, inv_coarse_budget, inv_budget;
 };
 
@@ -59,6 +69,31 @@ __device__ __forceinline__ bool occupied(const uint8_t* __restrict__ grid, const
   return grid[idx] != 0;
 }
 
+// Occupancy of coarse segment k, short of far (`in`). Stride 1 tests its
+// midpoint t_mid; stride cs > 1 tests the centre of its group at the group's
+// first member and carries the result (in `probe`) over the rest of the
+// group. t rises with k, so a group whose first member is past far is past
+// far throughout and needs no read.
+__device__ __forceinline__ bool coarse_probe(const uint8_t* __restrict__ grid, const float o[3],
+                                             const float d[3], float t0, float t_mid, int k,
+                                             bool in, bool& probe, const MarchArgs& a) {
+  const int cs = a.coarse_stride;
+  if (cs == 1) return in && occupied(grid, o, d, t_mid, a);
+  if (k % cs == 0) probe = in && occupied(grid, o, d, fmaf(a.seg, (float)k + 0.5f * (float)cs, t0), a);
+  return in && probe;
+}
+
+// Occupancy of fine candidate f of a segment starting at t_seg0, with the
+// nearest-probe rule for stride s > 1 (probe at offset s*p + (s-1)/2).
+__device__ __forceinline__ bool fine_probe(const uint8_t* __restrict__ grid, const float o[3],
+                                           const float d[3], float t_seg0, float t_f, int f,
+                                           bool in, bool& probe, const MarchArgs& a) {
+  const int s = a.fine_stride;
+  if (s == 1) return in && occupied(grid, o, d, t_f, a);
+  if (f % s == 0) probe = in && occupied(grid, o, d, fmaf(a.dt, (float)f + 0.5f * (float)(s - 1), t_seg0), a);
+  return in && probe;
+}
+
 // rank (1-based) of the b-th kept entry (b 1-based) under the spread law
 __device__ __forceinline__ int spread_target(int b, int count, int budget, float inv_budget) {
   if (count <= budget) return b;
@@ -78,11 +113,13 @@ __global__ void march_kernel(const float* __restrict__ rays_o, const float* __re
   const float far = fars[n];
   const float t0 = fmaf(a.dt, noise[n], nears[n]);
 
-  // ---- level 1: coarse segment midpoints against the dilated grid
+  // ---- level 1: coarse segment midpoints (or group-centre probes) against
+  // the dilated grid
   int count_c = 0, last = 0;
+  bool probe_c = false;
   for (int k = 0; k < a.num_coarse; ++k) {
     float t_mid = fmaf(a.seg, (float)k, t0) + a.half_seg;
-    if (t_mid - a.half_seg < far && occupied(occ_coarse, o, d, t_mid, a)) {
+    if (coarse_probe(occ_coarse, o, d, t0, t_mid, k, t_mid - a.half_seg < far, probe_c, a)) {
       ++count_c;
       last = k + 1;
     }
@@ -94,7 +131,7 @@ __global__ void march_kernel(const float* __restrict__ rays_o, const float* __re
     int tgt = kept_c > 0 ? spread_target(1, count_c, a.coarse_budget, a.inv_coarse_budget) : 0;
     for (int k = 0; k < a.num_coarse && next < kept_c; ++k) {
       float t_mid = fmaf(a.seg, (float)k, t0) + a.half_seg;
-      if (t_mid - a.half_seg < far && occupied(occ_coarse, o, d, t_mid, a)) {
+      if (coarse_probe(occ_coarse, o, d, t0, t_mid, k, t_mid - a.half_seg < far, probe_c, a)) {
         if (++rank == tgt) {
           seg_idx[next++] = k;
           if (next < kept_c) tgt = spread_target(next + 1, count_c, a.coarse_budget, a.inv_coarse_budget);
@@ -106,11 +143,12 @@ __global__ void march_kernel(const float* __restrict__ rays_o, const float* __re
 
   // ---- level 2: the kept segments' fine candidates against the exact grid
   int count_f = 0;
+  bool probe_f = false;
   for (int b = 0; b < kept_c; ++b) {
     float t_seg0 = fmaf(a.seg, (float)seg_idx[b], t0);
     for (int f = 0; f < a.fine; ++f) {
       float t_f = fmaf(a.dt, (float)f, t_seg0);
-      if (t_f < far && occupied(occ, o, d, t_f, a)) ++count_f;
+      if (fine_probe(occ, o, d, t_seg0, t_f, f, t_f < far, probe_f, a)) ++count_f;
     }
   }
   int kept_f = min(count_f, a.budget);
@@ -123,7 +161,7 @@ __global__ void march_kernel(const float* __restrict__ rays_o, const float* __re
       float t_seg0 = fmaf(a.seg, (float)seg_idx[b], t0);
       for (int f = 0; f < a.fine && next < kept_f; ++f) {
         float t_f = fmaf(a.dt, (float)f, t_seg0);
-        if (t_f < far && occupied(occ, o, d, t_f, a)) {
+        if (fine_probe(occ, o, d, t_seg0, t_f, f, t_f < far, probe_f, a)) {
           if (++rank == tgt) {
             t_row[next] = t_f;
             m_row[next] = 1;
@@ -145,20 +183,22 @@ __global__ void march_kernel(const float* __restrict__ rays_o, const float* __re
 
 // rays_o/rays_d (N, 3), nears/fars/noise (N,) f32; occ/occ_coarse (CAS, H^3)
 // bool bytes -> t (N, budget) f32, mask (N, budget) bool, stride (N,),
-// seg_lastocc (N,). e_dt is the frexp exponent of dt*H/2, computed on the host.
+// seg_lastocc (N,). e_dt is the frexp exponent of dt*H/2, computed on the host;
+// fine_stride / coarse_stride are the occupancy test strides (1 = exact).
 extern "C" int march_hierarchical_launch(
     const float* rays_o, const float* rays_d, const float* nears, const float* fars,
     const float* noise, const uint8_t* occ, const uint8_t* occ_coarse,
     int n_rays, int num_coarse, int fine, int coarse_budget, int budget, int grid,
-    int cascades, int e_dt, float bound, float dt, float seg, float half_seg,
+    int cascades, int e_dt, int fine_stride, int coarse_stride, float bound, float dt, float seg, float half_seg,
     float inv_coarse_budget, float inv_budget,
     float* t_out, uint8_t* mask_out, float* stride_out, float* lastocc_out,
     cudaStream_t stream) {
-  if (coarse_budget < 1 || coarse_budget > MAX_COARSE_BUDGET || budget < 1)
+  if (coarse_budget < 1 || coarse_budget > MAX_COARSE_BUDGET || budget < 1 ||
+      fine_stride < 1 || coarse_stride < 1)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   MarchArgs a = {n_rays, num_coarse, fine, coarse_budget, budget, grid, cascades, e_dt,
-                 bound, dt, seg, half_seg, inv_coarse_budget, inv_budget};
+                 fine_stride, coarse_stride, bound, dt, seg, half_seg, inv_coarse_budget, inv_budget};
   const int threads = 128;
   march_kernel<<<(n_rays + threads - 1) / threads, threads, 0, stream>>>(
       rays_o, rays_d, nears, fars, noise, occ, occ_coarse, a, t_out, mask_out, stride_out,

@@ -20,7 +20,7 @@ from ..ops import wavelets as W
 from ..ops.grid_sample import project_to_planes, sample_points
 
 __all__ = ["TriplaneConfig", "get_levels", "init_triplane_params", "build_planes",
-           "project_to_planes", "sample_triplane"]
+           "project_to_planes", "sample_triplane", "wavelet_l1", "grow_params"]
 
 
 def get_levels(scale: int) -> int:
@@ -149,3 +149,39 @@ def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: 
     cfg.check_ported()
     lb = cfg.lbound if lbound is None else lbound
     return sample_points(planes["full"], coords, lb).reshape(coords.shape[0], -1)
+
+
+def _abs_mean(v: torch.Tensor) -> torch.Tensor:
+    """mean |v| with the JAX package's gradient of |x| at 0, which is +1
+    (``jnp.abs``), where torch's ``abs`` gives 0: zero-initialised levels
+    must move at the first step as they do in JAX."""
+    return torch.where(v >= 0, v, -v).mean()
+
+
+def wavelet_l1(params: Dict, cfg: TriplaneConfig, weighted: bool = False) -> torch.Tensor:
+    """Wavelet sparsity regularizer with element-count weighting: sum over
+    the learnable levels of mean|coefs| * (numel / total), divided by the
+    number of levels; in weighted mode finest-first 1/4^i weights instead."""
+    cfg.check_ported()
+    levels = [params["wavelets"][f"level_{i}"] for i in range(cfg.num_learnable_levels)]
+    if not levels:
+        return torch.zeros((), dtype=torch.float32, device=params["base"].device)
+    total = sum(v.numel() for v in levels)
+    if weighted:
+        return sum((1.0 / 4**i) * _abs_mean(v) * (v.numel() / total)
+                   for i, v in enumerate(reversed(levels)))
+    return sum(_abs_mean(v) * (v.numel() / total) for v in levels) / len(levels)
+
+
+def grow_params(old_params: Dict, old_cfg: TriplaneConfig, new_cfg: TriplaneConfig,
+                generator: Optional[torch.Generator] = None, device: DeviceLike = None) -> Dict:
+    """Cross-stage parameter surgery: a freshly initialised pyramid for
+    ``new_cfg`` that takes over the base plane and every wavelet level whose
+    shape matches from ``old_params``."""
+    new_params = init_triplane_params(new_cfg, generator, device)
+    if old_params["base"].shape == new_params["base"].shape:
+        new_params["base"] = old_params["base"].to(new_params["base"].device)
+    for k, v in old_params["wavelets"].items():
+        if k in new_params["wavelets"] and new_params["wavelets"][k].shape == v.shape:
+            new_params["wavelets"][k] = v.to(new_params["base"].device)
+    return new_params

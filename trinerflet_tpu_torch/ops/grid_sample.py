@@ -8,10 +8,16 @@ then ``x0 = min(floor(x), W - 2)`` and the four corners are ``x0, x0 + 1``
 by ``y0, y0 + 1``. The sum is the JAX quad sampler's: four corner rows times
 the weights ``[(1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx wy]``, in float32.
 
-``sample_points`` is the serving path's entry: project world points onto the
-three planes and sample each. On a CUDA tensor it launches kernel K2
-(``kernels/csrc/grid_sample.cu``), which fuses the projection; on a CPU
-tensor it runs the plain version.
+``sample_points`` is the field's entry: project world points onto the three
+planes and sample each. It is an autograd function: the backward is the
+plane gradient ``sum_corners w_corner * g`` (float32 sums, cast to the
+plane dtype) and no coordinate gradient, as the JAX package's quad and
+corner samplers (``_quad_bwd`` / ``_corner_bwd``, whose blocked one-hot
+scatter, ``ops/scatter.py:scatter_add_outer``, it replaces). On CUDA tensors
+it launches kernel K2 forward and backward (``kernels/csrc/grid_sample.cu``;
+the forward fuses the projection, the backward accumulates with float32
+atomics); on CPU tensors it runs the plain versions (the backward an
+``index_add_`` in float32).
 """
 
 from __future__ import annotations
@@ -24,14 +30,12 @@ from .. import kernels
 from ..kernels import _build
 
 __all__ = ["grid_sample_2d", "sample_planes", "project_to_planes",
-           "sample_points", "sample_points_plain"]
+           "sample_points", "sample_points_plain", "sample_points_backward_plain"]
 
 
-def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """plane (H, W, C) with H, W >= 2, coords (N, 2) in [-1, 1]
-    (``coords[:, 0]`` indexes W) -> (N, C) float32 (bf16 planes promote like
-    the JAX package)."""
-    H, W, C = plane.shape
+def _corners(H: int, W: int, coords: torch.Tensor):
+    """Flat index of the (x0, y0) corner (N,) and the four corner weights
+    (N, 4, 1) in the order (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1)."""
     x = torch.clamp((coords[:, 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
     y = torch.clamp((coords[:, 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
     x0 = torch.clamp(torch.floor(x), 0, W - 2).to(torch.int64)
@@ -39,7 +43,15 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     wx = (x - x0)[:, None]
     wy = (y - y0)[:, None]
     w = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy], dim=1)
-    idx = y0 * W + x0
+    return y0 * W + x0, w
+
+
+def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """plane (H, W, C) with H, W >= 2, coords (N, 2) in [-1, 1]
+    (``coords[:, 0]`` indexes W) -> (N, C) float32 (bf16 planes promote like
+    the JAX package)."""
+    H, W, C = plane.shape
+    idx, w = _corners(H, W, coords)
     flat = plane.reshape(H * W, C)
     rows = torch.stack([flat[idx], flat[idx + 1], flat[idx + W], flat[idx + W + 1]], dim=1)
     return (rows * w).sum(dim=1)
@@ -63,11 +75,46 @@ def sample_points_plain(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) 
     return sample_planes(planes, project_to_planes(xyz, lbound))
 
 
+def sample_points_backward_plain(g: torch.Tensor, xyz: torch.Tensor, lbound: float,
+                                 plane_shape, plane_dtype) -> torch.Tensor:
+    """Plain version of the K2 backward: g (M, 3, C) -> the (3, H, W, C)
+    plane gradient, each corner row accumulating w_corner * g in float32
+    (``index_add_``), then cast to the plane dtype."""
+    P, H, W, C = plane_shape
+    coords = project_to_planes(xyz, lbound)
+    acc = torch.zeros((P * H * W, C), dtype=torch.float32, device=g.device)
+    g = g.float()
+    for p in range(P):
+        idx, w = _corners(H, W, coords[p])
+        idx = idx + p * H * W
+        for k, off in enumerate((0, 1, W, W + 1)):
+            acc.index_add_(0, idx + off, w[:, k] * g[:, p])
+    return acc.reshape(P, H, W, C).to(plane_dtype)
+
+
+class _SamplePoints(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, planes, xyz, lbound):
+        ctx.save_for_backward(xyz)
+        ctx.lbound = lbound
+        ctx.plane_shape, ctx.plane_dtype = tuple(planes.shape), planes.dtype
+        if xyz.is_cuda:
+            return _sample_points_cuda(planes, xyz, lbound)
+        return sample_points_plain(planes, xyz, lbound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (xyz,) = ctx.saved_tensors
+        args = (g, xyz, ctx.lbound, ctx.plane_shape, ctx.plane_dtype)
+        if xyz.is_cuda:
+            return _sample_points_backward_cuda(*args), None, None
+        return sample_points_backward_plain(*args), None, None
+
+
 def sample_points(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> torch.Tensor:
-    """Triplane features at world points: (M, 3, C) float32."""
-    if xyz.is_cuda:
-        return _sample_points_cuda(planes, xyz, lbound)
-    return sample_points_plain(planes, xyz, lbound)
+    """Triplane features at world points: (M, 3, C) float32; differentiable
+    in the planes only."""
+    return _SamplePoints.apply(planes, xyz, float(lbound))
 
 
 # ---------------------------------------------------------------------------
@@ -106,4 +153,38 @@ def _sample_points_cuda(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) 
               _build.ptr(out), _build.stream(xyz.device))
     _build.check(code, "sample_points")
     kernels.launches["grid_sample"] += 1
+    return out
+
+
+_K2_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+_CAST_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _sample_points_backward_cuda(g: torch.Tensor, xyz: torch.Tensor, lbound: float,
+                                 plane_shape, plane_dtype) -> torch.Tensor:
+    P, H, W, C = plane_shape
+    M = xyz.shape[0]
+    if P != 3 or C not in _K2_CHANNELS or H < 2 or W < 2:
+        raise ValueError(f"sample_points backward kernel: bad plane shape {plane_shape}")
+    if g.device != xyz.device or tuple(g.shape) != (M, 3, C):
+        raise ValueError(f"sample_points backward kernel: g must be ({M}, 3, {C}) on "
+                         f"{xyz.device}, got {tuple(g.shape)} on {g.device}")
+    g = g.float().contiguous()
+    xyz = xyz.contiguous()
+    acc = torch.zeros(plane_shape, device=xyz.device, dtype=torch.float32)
+    s = _build.stream(xyz.device)
+    if M > 0:
+        fn = _build.function("grid_sample", "sample_points_backward_launch", _K2_BWD_ARGS)
+        _build.check(fn(_build.ptr(xyz), _build.ptr(g), M, H, W, C, float(lbound),
+                        _build.ptr(acc), s), "sample_points backward")
+        kernels.launches["grid_sample_bwd"] += 1
+    if plane_dtype == torch.float32:
+        return acc
+    if plane_dtype != torch.bfloat16:
+        raise TypeError(f"sample_points backward kernel: planes must be bf16 or f32, got {plane_dtype}")
+    out = torch.empty(plane_shape, device=xyz.device, dtype=torch.bfloat16)
+    fn = _build.function("grid_sample", "cast_bf16_launch", _CAST_ARGS)
+    _build.check(fn(_build.ptr(acc), acc.numel(), _build.ptr(out), s), "cast to bf16")
+    kernels.launches["grid_sample_bwd"] += 1
     return out

@@ -1,10 +1,12 @@
 """Occupancy-grid ray marching and volume compositing (port of
 ``trinerflet_tpu/ops/raymarch.py``, the serving path's part).
 
-``march_hierarchical`` is the two-level occupancy march; ``composite_dense``
-the per-ray compositor. On CUDA tensors they launch kernels K1
-(``kernels/csrc/march.cu``) and K3 (``kernels/csrc/composite.cu``); on CPU
-tensors they run the plain versions below.
+``march_hierarchical`` is the two-level occupancy march (with the training
+path's strided probes); ``composite_dense`` the per-ray compositor, an
+autograd function whose backward is the analytic reverse pass. On CUDA
+tensors they launch kernels K1 (``kernels/csrc/march.cu``) and K3 forward
+and backward (``kernels/csrc/composite.cu``); on CPU tensors they run the
+plain versions below.
 
 Arithmetic the march reproduces bit for bit: the JAX package runs it inside
 ``jax.jit``, where XLA contracts ``a*b + c`` into one fused multiply-add and
@@ -23,7 +25,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .._device import SLICE_TRAIN, not_ported
 from ..kernels import _build
 
 __all__ = [
@@ -36,6 +37,7 @@ __all__ = [
     "march_hierarchical_plain",
     "composite_dense",
     "composite_dense_plain",
+    "composite_dense_backward_plain",
 ]
 
 SQRT3 = 1.7320508075688772
@@ -157,11 +159,18 @@ def march_hierarchical_plain(
     occ: torch.Tensor, occ_coarse: torch.Tensor, noise: torch.Tensor, *,
     num_coarse: int, fine_per_coarse: int, coarse_budget: int, budget: int,
     max_steps: int, grid_size: int = 128, cascades: int = 1, bound: float = 1.0,
+    occ_test_stride: int = 1, coarse_test_stride: int = 1,
 ):
     """Plain version of K1. Level 1 tests ``num_coarse`` segment midpoints
     (segment = F*dt) against the dilated grid and spread-keeps
     ``coarse_budget`` occupied segments; level 2 tests their F candidates
     each against the fine grid and spread-keeps ``budget``.
+
+    Strided tests (training): with ``coarse_test_stride`` cs > 1 one probe
+    at the centre of each group of cs segments, ``t0 + seg*(cs*k + cs/2)``,
+    stands for the group; with ``occ_test_stride`` s > 1 one probe per s
+    fine candidates, ``t_seg0 + dt*(s*k + (s-1)/2)``. Each probe's result is
+    repeated over its group (``repeat(occ_p, s)[:F]``, nearest probe).
 
     Returns (t (N, budget) f32, 0 where masked; dt () f32; mask (N, budget)
     bool; stride (N,) f32 = seg_stride * fine_stride; seg_lastocc (N,) f32,
@@ -181,7 +190,14 @@ def march_hierarchical_plain(
 
     kc = torch.arange(num_coarse, dtype=torch.float32, device=dev)
     t_mid = _fma(seg_py, kc[None, :], t0[:, None]) + half_seg
-    valid_c = lookup(occ_coarse, t_mid) & ((t_mid - half_seg) < fars[:, None])
+    if coarse_test_stride > 1:
+        cs = coarse_test_stride
+        kp = torch.arange(-(-num_coarse // cs), dtype=torch.float32, device=dev)
+        t_pm = _fma(seg_py, cs * kp[None, :] + 0.5 * cs, t0[:, None])  # exact group centres
+        occ_c = lookup(occ_coarse, t_pm).repeat_interleave(cs, dim=-1)[:, :num_coarse]
+    else:
+        occ_c = lookup(occ_coarse, t_mid)
+    valid_c = occ_c & ((t_mid - half_seg) < fars[:, None])
     seg_pos = torch.arange(1, num_coarse + 1, device=dev)
     seg_lastocc = torch.where(valid_c, seg_pos, 0).amax(dim=1).float()
     seg_idx, seg_mask, seg_stride = first_k_valid(valid_c, coarse_budget, spread=True)
@@ -189,7 +205,14 @@ def march_hierarchical_plain(
     t_seg0 = _fma(seg_py, seg_idx.float(), t0[:, None])
     kf = torch.arange(fine_per_coarse, dtype=torch.float32, device=dev)
     t_f = _fma(dt, kf[None, None, :], t_seg0[..., None])
-    valid_f = lookup(occ, t_f) & seg_mask[..., None] & (t_f < fars[:, None, None])
+    if occ_test_stride > 1:
+        s = occ_test_stride
+        kp = torch.arange(-(-fine_per_coarse // s), dtype=torch.float32, device=dev)
+        t_p = _fma(dt, s * kp[None, None, :] + 0.5 * (s - 1), t_seg0[..., None])
+        occ_f = lookup(occ, t_p).repeat_interleave(s, dim=-1)[..., :fine_per_coarse]
+    else:
+        occ_f = lookup(occ, t_f)
+    valid_f = occ_f & seg_mask[..., None] & (t_f < fars[:, None, None])
     N = rays_o.shape[0]
     valid_f = valid_f.reshape(N, coarse_budget * fine_per_coarse)
     t_f = t_f.reshape(N, coarse_budget * fine_per_coarse)
@@ -206,26 +229,28 @@ def march_hierarchical(
     occ_test_stride: int = 1, coarse_test_stride: int = 1,
 ):
     """Two-level occupancy march (constant dt): kernel K1 on CUDA tensors,
-    the plain version on CPU tensors. Only the exact (stride-1) tests of
-    the serving config."""
-    if occ_test_stride != 1 or coarse_test_stride != 1:
-        raise not_ported("strided occupancy tests (training's occ_test_stride)", SLICE_TRAIN)
+    the plain version on CPU tensors. Strides of 1 test every candidate
+    (serving); training's strided probes are described in the plain
+    version."""
+    if occ_test_stride < 1 or coarse_test_stride < 1:
+        raise ValueError("occupancy test strides must be >= 1 (resolve 0 = auto first)")
     kw = dict(num_coarse=num_coarse, fine_per_coarse=fine_per_coarse,
               coarse_budget=coarse_budget, budget=budget, max_steps=max_steps,
-              grid_size=grid_size, cascades=cascades, bound=bound)
+              grid_size=grid_size, cascades=cascades, bound=bound,
+              occ_test_stride=occ_test_stride, coarse_test_stride=coarse_test_stride)
     if rays_o.is_cuda:
         return _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, **kw)
     return march_hierarchical_plain(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, **kw)
 
 
 _MAX_COARSE_BUDGET = 32
-_K1_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 6
+_K1_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
             + [ctypes.c_void_p] * 5)
 
 
 def _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, *,
                 num_coarse, fine_per_coarse, coarse_budget, budget, max_steps,
-                grid_size, cascades, bound):
+                grid_size, cascades, bound, occ_test_stride, coarse_test_stride):
     N = rays_o.shape[0]
     dev = rays_o.device
     for name, t, shape in (("rays_o", rays_o, (N, 3)), ("rays_d", rays_d, (N, 3)),
@@ -255,8 +280,8 @@ def _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, *,
     fn = _build.function("march", "march_hierarchical_launch", _K1_ARGS)
     code = fn(*[_build.ptr(x) for x in ins],
               N, num_coarse, fine_per_coarse, coarse_budget, budget, grid_size, cascades, e_dt,
-              float(bound), float(dt32), _f32(seg_py), _f32(0.5 * seg_py),
-              _inv(coarse_budget), _inv(budget),
+              occ_test_stride, coarse_test_stride, float(bound), float(dt32), _f32(seg_py),
+              _f32(0.5 * seg_py), _inv(coarse_budget), _inv(budget),
               _build.ptr(t), _build.ptr(mask), _build.ptr(stride), _build.ptr(lastocc),
               _build.stream(dev))
     _build.check(code, "march_hierarchical")
@@ -286,22 +311,78 @@ def composite_dense_plain(sigmas, rgbs, deltas, ts, mask=None, t_thresh: float =
             (weights[..., None] * rgbs).sum(-2), weights)
 
 
+def composite_dense_backward_plain(sigmas, rgbs, deltas, ts, mask, t_thresh,
+                                   g_ws, g_depth, g_image, g_weights):
+    """Plain version of the K3 backward: the analytic reverse pass for
+    cotangents at all four outputs. With x_i = 1 - alpha_i + 1e-15,
+    c_i = [T_i >= t_thresh] and a_i = g_ws + g_depth t_i + g_image . rgb_i +
+    g_weights_i (the cotangent of w_i), the suffix sum
+    R_{i-1} = a_i alpha_i c_i + x_i R_i (R_{T-1} = 0) gives
+    dL/dalpha_i = T_i (a_i c_i - R_i) without dividing by x_i, and
+    dsigma_i = delta_i exp(-sigma_i delta_i) dL/dalpha_i on the mask.
+    Returns (dsigma (N, T), drgb (N, T, 3))."""
+    sd = torch.where(mask, sigmas * deltas, 0.0)
+    e = torch.exp(-sd)
+    alphas = 1.0 - e
+    x = 1.0 - alphas + 1e-15
+    trans = torch.cumprod(x, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+    keep = trans >= t_thresh
+    a = (g_ws[:, None] + g_depth[:, None] * ts + (g_image[:, None, :] * rgbs).sum(-1)
+         + g_weights)
+    a = torch.where(keep, a, 0.0)
+    b = a * alphas
+    R = torch.zeros_like(g_ws)
+    suffix = []
+    for i in range(sigmas.shape[1] - 1, -1, -1):
+        suffix.append(R)
+        R = b[:, i] + x[:, i] * R
+    suffix = torch.stack(suffix[::-1], dim=1)
+    dsigma = torch.where(mask, deltas * e * (trans * (a - suffix)), 0.0)
+    weights = torch.where(keep, alphas * trans, 0.0)
+    return dsigma, weights[..., None] * g_image[:, None, :]
+
+
+class _CompositeDense(torch.autograd.Function):
+    """Gradients flow to sigmas and rgbs; deltas, ts and the mask are ray
+    geometry (no parameter reaches them)."""
+
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, deltas, ts, mask, t_thresh):
+        if sigmas.is_cuda:
+            out = _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh)
+        else:
+            out = composite_dense_plain(sigmas, rgbs, deltas, ts, mask, t_thresh)
+        ctx.save_for_backward(sigmas, rgbs, deltas, ts, mask)
+        ctx.t_thresh = t_thresh
+        return out
+
+    @staticmethod
+    def backward(ctx, g_ws, g_depth, g_image, g_weights):
+        sigmas, rgbs, deltas, ts, mask = ctx.saved_tensors
+        args = (sigmas, rgbs, deltas, ts, mask, ctx.t_thresh, g_ws, g_depth, g_image, g_weights)
+        if sigmas.is_cuda:
+            dsig, drgb = _composite_backward_cuda(*args)
+        else:
+            dsig, drgb = composite_dense_backward_plain(*args)
+        return dsig, drgb, None, None, None, None
+
+
 def composite_dense(sigmas, rgbs, deltas, ts, mask=None, t_thresh: float = 0.0):
-    """Per-ray compositor: kernel K3 on CUDA tensors, the plain version on CPU."""
-    if sigmas.is_cuda:
-        return _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh)
-    return composite_dense_plain(sigmas, rgbs, deltas, ts, mask, t_thresh)
+    """Per-ray compositor: kernel K3 on CUDA tensors, the plain version on
+    CPU; differentiable in sigmas and rgbs (K3 backward / its plain version)."""
+    if mask is None:
+        mask = torch.ones(sigmas.shape, dtype=torch.bool, device=sigmas.device)
+    return _CompositeDense.apply(sigmas, rgbs, deltas, ts, mask, float(t_thresh))
 
 
 _K3_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float]
             + [ctypes.c_void_p] * 5)
 
 
-def _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh):
+def _check_composite(sigmas, rgbs, deltas, ts, mask):
     N, B = sigmas.shape
     dev = sigmas.device
-    if mask is None:
-        mask = torch.ones((N, B), dtype=torch.bool, device=dev)
     for name, x, shape, dtype in (("sigmas", sigmas, (N, B), torch.float32),
                                   ("rgbs", rgbs, (N, B, 3), torch.float32),
                                   ("deltas", deltas, (N, B), torch.float32),
@@ -310,7 +391,13 @@ def _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh):
         if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(f"composite kernel: {name} must be {shape} {dtype} on {dev}, "
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
-    ins = [x.contiguous() for x in (sigmas, rgbs, deltas, ts, mask)]
+    return [x.contiguous() for x in (sigmas, rgbs, deltas, ts, mask)]
+
+
+def _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh):
+    N, B = sigmas.shape
+    dev = sigmas.device
+    ins = _check_composite(sigmas, rgbs, deltas, ts, mask)
     ws = torch.empty((N,), device=dev, dtype=torch.float32)
     depth = torch.empty((N,), device=dev, dtype=torch.float32)
     image = torch.empty((N, 3), device=dev, dtype=torch.float32)
@@ -324,3 +411,31 @@ def _composite_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh):
     _build.check(code, "composite_dense")
     kernels.launches["composite"] += 1
     return ws, depth, image, weights
+
+
+_K3_BWD_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                + [ctypes.c_void_p] * 3)
+
+
+def _composite_backward_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh,
+                             g_ws, g_depth, g_image, g_weights):
+    N, B = sigmas.shape
+    dev = sigmas.device
+    ins = _check_composite(sigmas, rgbs, deltas, ts, mask)
+    grads = []
+    for name, g, shape in (("g_ws", g_ws, (N,)), ("g_depth", g_depth, (N,)),
+                           ("g_image", g_image, (N, 3)), ("g_weights", g_weights, (N, B))):
+        if g.device != dev or tuple(g.shape) != shape:
+            raise ValueError(f"composite backward kernel: {name} must be {shape} on {dev}, "
+                             f"got {tuple(g.shape)} on {g.device}")
+        grads.append(g.float().contiguous())
+    dsigma = torch.empty((N, B), device=dev, dtype=torch.float32)
+    drgb = torch.empty((N, B, 3), device=dev, dtype=torch.float32)
+    if N == 0:
+        return dsigma, drgb
+    fn = _build.function("composite", "composite_backward_launch", _K3_BWD_ARGS)
+    code = fn(*[_build.ptr(x) for x in ins + grads], N, B, float(t_thresh),
+              _build.ptr(dsigma), _build.ptr(drgb), _build.stream(dev))
+    _build.check(code, "composite_dense backward")
+    kernels.launches["composite_bwd"] += 1
+    return dsigma, drgb

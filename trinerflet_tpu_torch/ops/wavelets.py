@@ -1,14 +1,17 @@
-"""2D inverse DWT of the wavelet triplane (port of ``trinerflet_tpu/ops/wavelets.py``).
+"""2D DWT of the wavelet triplane (port of ``trinerflet_tpu/ops/wavelets.py``).
 
 The filter banks are DERIVED here in numpy float64 (the same construction as
 the JAX package, copied so this package never imports it) and perfect
 reconstruction is asserted when a bank is first built.
 
-``idwt2d`` is one synthesis level. On a CUDA tensor it launches kernel K4
-(``kernels/csrc/idwt.cu``); on a CPU tensor it runs ``idwt2d_plain``, which
-reproduces the JAX package's rounding points: each 1-D operator and each
-``lo + hi`` add rounds to the plane dtype, with the filter taps pre-rounded
-to that dtype.
+``idwt2d`` is one synthesis level, differentiable in ``yl`` and ``yh``: its
+backward is the adjoint (a stride-2 analysis-shaped correlation with the
+same taps). On CUDA tensors it launches kernel K4 forward and adjoint
+(``kernels/csrc/idwt.cu``); on CPU tensors it runs ``idwt2d_plain`` /
+``idwt2d_adjoint_plain``, which reproduce the JAX package's rounding points:
+each 1-D operator (and its adjoint) and each ``lo + hi`` add rounds to the
+plane dtype, with the filter taps pre-rounded to that dtype. ``dwt2d``
+(analysis) serves sizing and tests only.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ __all__ = [
     "idwt_output_size",
     "wavelet_pyramid_shapes",
     "synthesis_taps",
+    "dwt2d",
     "idwt2d",
     "idwt2d_plain",
+    "idwt2d_adjoint_plain",
     "SUPPORTED_WAVELETS",
 ]
 
@@ -306,6 +311,79 @@ def _synthesis_1d(lo, hi, g0, g1, axis: int, pads) -> torch.Tensor:
     return out.transpose(-1, -2) if axis == -2 else out
 
 
+def _adjoint_axis(y: torch.Tensor, g: np.ndarray, pads: Tuple[int, int], n: int) -> torch.Tensor:
+    """Adjoint of ``_synthesis_axis`` along the LAST axis, in float32:
+    ``x[i] = sum_t y[2i + t - (L - 1 - pl)] * g[t]`` for i in [0, n)."""
+    L = len(g)
+    start = L - 1 - pads[0]
+    full = y.new_zeros(y.shape[:-1] + (2 * n + L - 2,), dtype=torch.float32)
+    full[..., start : start + y.shape[-1]] = y.float()
+    x = y.new_zeros(y.shape[:-1] + (n,), dtype=torch.float32)
+    for t in range(L):
+        if g[t] != 0.0:
+            x += full[..., t : t + 2 * n - 1 : 2] * float(g[t])
+    return x
+
+
+def _adjoint_1d(ct, g0, g1, axis: int, n: int, pads):
+    """Adjoint of ``_synthesis_1d``: the cotangent of the output -> those of
+    lo and hi, each rounded to the cotangent's dtype (the JAX package rounds
+    where its forward cast the operator's f32 result)."""
+    dtype = ct.dtype
+    if axis == -2:
+        ct = ct.transpose(-1, -2)
+    a = _adjoint_axis(ct, g0, pads, n).to(dtype)
+    b = _adjoint_axis(ct, g1, pads, n).to(dtype)
+    if axis == -2:
+        a, b = a.transpose(-1, -2), b.transpose(-1, -2)
+    return a, b
+
+
+def idwt2d_adjoint_plain(g: torch.Tensor, name: str = "bior6.8") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the K4 adjoint: the cotangent (B, C, Ho, Wo) of
+    ``idwt2d_plain`` -> those of yl (B, C, H, W) and yh (B, C, 3, H, W)."""
+    g0, g1 = synthesis_taps(name, g.dtype)
+    pads = synthesis_pads(name)
+    L = len(g0)
+    H, W = (g.shape[-2] + L - sum(pads)) // 2, (g.shape[-1] + L - sum(pads)) // 2
+    d_lo, d_hi = _adjoint_1d(g, g0, g1, -2, H, pads)
+    d_yl, d_lh = _adjoint_1d(d_lo, g0, g1, -1, W, pads)
+    d_hl, d_hh = _adjoint_1d(d_hi, g0, g1, -1, W, pads)
+    return d_yl, torch.stack([d_hl, d_lh, d_hh], dim=2)
+
+
+def _analysis_1d(x: torch.Tensor, f: np.ndarray, axis: int) -> torch.Tensor:
+    """Zero-padded stride-2 analysis along ``axis`` (-1 = W, -2 = H) with the
+    JAX package's operator: ``out[j] = sum_t x[2j + t - front] * f[L-1-t]``,
+    f32 sums, rounded to x's dtype."""
+    dtype = x.dtype
+    if axis == -2:
+        x = x.transpose(-1, -2)
+    n = x.shape[-1]
+    L = len(f)
+    n_out = floor((n + L - 1) / 2)
+    front = (2 * n_out - n + L - 2) // 2
+    fq = torch.from_numpy(np.asarray(f)).to(dtype).float().numpy()
+    xp = x.new_zeros(x.shape[:-1] + (2 * n_out + L,), dtype=torch.float32)
+    xp[..., front : front + n] = x.float()
+    out = x.new_zeros(x.shape[:-1] + (n_out,), dtype=torch.float32)
+    for t in range(L):
+        out += xp[..., t : t + 2 * n_out - 1 : 2] * float(fq[L - 1 - t])
+    out = out.to(dtype)
+    return out.transpose(-1, -2) if axis == -2 else out
+
+
+def dwt2d(x: torch.Tensor, name: str = "bior6.8") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-level 2D analysis (plain PyTorch; sizing and tests only).
+    x (B, C, H, W) -> yl (B, C, H', W'), yh (B, C, 3, H', W') with bands
+    (hl, lh, hh) as ``idwt2d`` reads them."""
+    dec_lo, dec_hi, _, _ = filter_bank(name)
+    lo_h, hi_h = _analysis_1d(x, dec_lo, -2), _analysis_1d(x, dec_hi, -2)
+    ll, lh = _analysis_1d(lo_h, dec_lo, -1), _analysis_1d(lo_h, dec_hi, -1)
+    hl, hh = _analysis_1d(hi_h, dec_lo, -1), _analysis_1d(hi_h, dec_hi, -1)
+    return ll, torch.stack([hl, lh, hh], dim=2)
+
+
 def _crop_lowpass(yl: torch.Tensor, yh: torch.Tensor) -> torch.Tensor:
     # A forward DWT of an odd-sized input reconstructs one row/col too many,
     # so the next level's lowpass can exceed its detail bands by one;
@@ -334,12 +412,29 @@ def idwt2d_plain(yl: torch.Tensor, yh: torch.Tensor, name: str = "bior6.8") -> t
     return _synthesis_1d(lo, hi, g0, g1, -2, pads)
 
 
+class _Idwt2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, yl, yh, name):
+        ctx.name = name
+        if yl.is_cuda:
+            return _idwt2d_cuda(yl, yh, name)
+        return idwt2d_plain(yl, yh, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.is_cuda:
+            d_yl, d_yh = _idwt2d_adjoint_cuda(g, ctx.name)
+        else:
+            d_yl, d_yh = idwt2d_adjoint_plain(g, ctx.name)
+        return d_yl, d_yh, None
+
+
 def idwt2d(yl: torch.Tensor, yh: torch.Tensor, name: str = "bior6.8") -> torch.Tensor:
     """Single-level 2D synthesis: kernel K4 on CUDA tensors, the plain version
-    on CPU tensors."""
-    if yl.is_cuda:
-        return _idwt2d_cuda(_crop_lowpass(yl, yh), yh, name)
-    return idwt2d_plain(yl, yh, name)
+    on CPU tensors; differentiable (K4 adjoint / its plain version). The
+    trailing-lowpass crop is a slice outside the autograd function, so its
+    adjoint (zero padding) is autograd's."""
+    return _Idwt2d.apply(_crop_lowpass(yl, yh), yh, name)
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +447,10 @@ _IDWT_ARGS = {
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
     "idwt_h_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
+    "idwt_adj_h_launch": [ctypes.c_void_p] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
+    "idwt_adj_w_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
 }
 
 
@@ -390,3 +489,37 @@ def _idwt2d_cuda(yl: torch.Tensor, yh: torch.Tensor, name: str) -> torch.Tensor:
                     c_g0, c_g1, L, pl, _build.ptr(out), s), "idwt_h")
     kernels.launches["idwt"] += 1
     return out
+
+
+def _idwt2d_adjoint_cuda(g: torch.Tensor, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    if g.dtype not in (torch.bfloat16, torch.float32) or g.dim() != 4:
+        raise TypeError(f"idwt2d adjoint kernel takes a bf16 or f32 (B, C, Ho, Wo) cotangent, "
+                        f"got {g.dtype} {tuple(g.shape)}")
+    g = g.contiguous()
+    g0, g1 = synthesis_taps(name, g.dtype)
+    L = len(g0)
+    pl, pr = synthesis_pads(name)
+    if L > _MAX_TAPS:
+        raise ValueError(f"idwt2d adjoint kernel supports up to {_MAX_TAPS} taps, got {L}")
+    B, C, Ho, Wo = g.shape
+    P = B * C
+    H, W = (Ho + L - pl - pr) // 2, (Wo + L - pl - pr) // 2
+    d_lo = torch.empty((P, H, Wo), device=g.device, dtype=torch.float32)
+    d_hi = torch.empty((P, H, Wo), device=g.device, dtype=torch.float32)
+    d_yl = torch.empty((B, C, H, W), device=g.device, dtype=g.dtype)
+    d_yh = torch.empty((B, C, 3, H, W), device=g.device, dtype=g.dtype)
+    if d_yl.numel() == 0:
+        return d_yl, d_yh
+    c_g0 = (ctypes.c_float * L)(*g0.tolist())
+    c_g1 = (ctypes.c_float * L)(*g1.tolist())
+    bf16 = int(g.dtype == torch.bfloat16)
+    s = _build.stream(g.device)
+    fh = _build.function("idwt", "idwt_adj_h_launch", _IDWT_ARGS["idwt_adj_h_launch"])
+    _build.check(fh(_build.ptr(g), P, H, Ho, Wo, bf16, c_g0, c_g1, L, pl,
+                    _build.ptr(d_lo), _build.ptr(d_hi), s), "idwt_adj_h")
+    kernels.launches["idwt_adjoint"] += 1
+    fw = _build.function("idwt", "idwt_adj_w_launch", _IDWT_ARGS["idwt_adj_w_launch"])
+    _build.check(fw(_build.ptr(d_lo), _build.ptr(d_hi), P, H, W, Wo, bf16, c_g0, c_g1, L, pl,
+                    _build.ptr(d_yl), _build.ptr(d_yh), s), "idwt_adj_w")
+    kernels.launches["idwt_adjoint"] += 1
+    return d_yl, d_yh

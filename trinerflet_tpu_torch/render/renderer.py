@@ -1,14 +1,18 @@
-"""Occupancy-grid renderer, serving path (port of ``trinerflet_tpu/render/renderer.py``).
+"""Occupancy-grid renderer (port of ``trinerflet_tpu/render/renderer.py``).
 
 ``render_occgrid`` runs the hierarchical march (K1), the field on the
-per-ray (N, B) layout (K2 inside the field) and the dense compositor (K3).
-``OccupancyState`` / ``update_density_grid`` build the state a served model
-reads; the refresh is plain PyTorch here (its fused kernel, K6, is queued
-for the training slice).
+per-ray (N, B) layout (K2 inside the field) and the dense compositor (K3);
+it is differentiable in the field's parameters (K2 and K3 backward).
+``OccupancyState`` / ``update_density_grid`` keep the occupancy state: the
+field is queried at jittered cell centres (all cells, or a rotating block
+for training's partial refresh), then ``occupancy_upkeep`` merges, thresholds,
+dilates and bounds the grid -- kernel K6 (``kernels/csrc/occupancy.cu``) on
+CUDA tensors, its plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -17,10 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import SLICE_LATER, SLICE_TRAIN, DeviceLike, not_ported, resolve_device
+from .. import kernels
+from .._device import SLICE_3, SLICE_LATER, DeviceLike, not_ported, resolve_device
+from ..kernels import _build
 from ..ops import raymarch as RM
 
 __all__ = ["RenderConfig", "OccupancyState", "init_occupancy", "update_density_grid",
+           "occupancy_upkeep", "occupancy_upkeep_plain", "tuned_num_coarse",
            "mark_untrained_grid", "render_occgrid"]
 
 
@@ -209,50 +216,162 @@ def mark_untrained_grid(poses: np.ndarray, intrinsics, cfg: RenderConfig) -> np.
     return grid
 
 
+def _uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """U[0, 1) float32 on ``device``, drawn on the generator's own device."""
+    if generator is None:
+        return torch.rand(shape, dtype=torch.float32, device=device)
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device).to(device)
+
+
 def update_density_grid(
     state: OccupancyState,
     density_fn: Callable[[torch.Tensor], torch.Tensor],
     cfg: RenderConfig,
     decay: float = 0.95,
+    fraction: float = 1.0,
     jitter: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> OccupancyState:
-    """Full refresh of the density grid: query the field at jittered cell
-    centers, EMA-max merge (cells at -1 stay), threshold at
-    min(mean_density, density_thresh) * occ_thresh_scale, dilate. (The
-    rotating partial refresh of training comes with slice 2.)
+    """Refresh the density grid: query the field at jittered cell centers,
+    then ``occupancy_upkeep`` (EMA-max merge, cells at -1 stay; threshold at
+    min(mean_density, density_thresh) * occ_thresh_scale; dilation; bbox).
 
-    ``jitter`` (CAS, H^3, 3) gives the per-cell offsets in [-half, half)
+    ``fraction < 1`` refreshes only a rotating contiguous block of
+    ``S = int(H^3 * fraction)`` cells per cascade, starting at
+    ``(iter_density * S) mod H^3`` (clamped to fit, as the JAX package's
+    dynamic slice is): training's partial refresh.
+
+    ``jitter`` (CAS, S, 3) gives the per-cell offsets in [-half, half)
     (tests inject them); otherwise they are drawn with ``generator``."""
     H, C = cfg.grid_size, cfg.cascades
+    n = H**3
     dev = state.density_grid.device
     world = 2 * torch.as_tensor(_grid_coords(H), dtype=torch.float32, device=dev) / (H - 1) - 1
+    S, off = n, 0
+    if fraction < 1.0:
+        S = max(1, int(n * fraction))
+        off = min((int(state.iter_density) * S) % n, n - S)
+        world = world[off : off + S]
     tmp = []
     for cas in range(C):
         bound = min(2**cas, cfg.bound)
         half = bound / H
         pts = world * (bound - half)
         if jitter is not None:
-            off = jitter[cas].to(dev)
+            pts = pts + jitter[cas].to(dev)
         else:
-            u = torch.rand(pts.shape, generator=generator, dtype=torch.float32)
-            off = (u * (2 * half) - half).to(dev)
-        tmp.append(density_fn(pts + off) * cfg.density_scale)
-    tmp_grid = torch.stack(tmp)
-    valid = state.density_grid >= 0
-    new_grid = torch.where(valid, torch.maximum(state.density_grid * decay, tmp_grid),
-                           state.density_grid)
-    mean_density = torch.clamp_min(new_grid, 0).mean()
-    thresh = torch.clamp_max(mean_density, cfg.density_thresh) * cfg.occ_thresh_scale
-    occ = (new_grid > thresh).reshape(C, H, H, H)
+            pts = pts + (_uniform(pts.shape, generator, dev) * (2 * half) - half)
+        tmp.append(density_fn(pts) * cfg.density_scale)
+    new_grid, occ, occ_coarse, mean_density, bbox = occupancy_upkeep(
+        state.density_grid, torch.stack(tmp), off, cfg, decay)
     return OccupancyState(
         density_grid=new_grid,
         occ=occ,
-        occ_coarse=_dilate3(occ, cfg.coarse_dilation_radius),
+        occ_coarse=occ_coarse,
         mean_density=mean_density,
         iter_density=state.iter_density + 1,
-        bbox=_occupied_bbox(occ, cfg),
+        bbox=bbox,
     )
+
+
+def occupancy_upkeep_plain(density_grid: torch.Tensor, tmp: torch.Tensor, offset: int,
+                           cfg: RenderConfig, decay: float = 0.95):
+    """Plain version of K6. density_grid (CAS, H^3) f32, tmp (CAS, S) f32
+    queried densities of the cells [offset, offset + S) -> (new density_grid,
+    occ (CAS, H, H, H) bool, occ_coarse (dilated occ), mean_density () f32,
+    bbox (6,) f32)."""
+    H, C = cfg.grid_size, cfg.cascades
+    S = tmp.shape[1]
+    old = density_grid[:, offset : offset + S]
+    new_grid = density_grid.clone()
+    new_grid[:, offset : offset + S] = torch.where(old >= 0, torch.maximum(old * decay, tmp), old)
+    mean_density = torch.clamp_min(new_grid, 0).mean()
+    thresh = torch.clamp_max(mean_density, cfg.density_thresh) * cfg.occ_thresh_scale
+    occ = (new_grid > thresh).reshape(C, H, H, H)
+    return (new_grid, occ, _dilate3(occ, cfg.coarse_dilation_radius), mean_density,
+            _occupied_bbox(occ, cfg))
+
+
+def occupancy_upkeep(density_grid: torch.Tensor, tmp: torch.Tensor, offset: int,
+                     cfg: RenderConfig, decay: float = 0.95):
+    """Kernel K6 on CUDA tensors, the plain version on CPU tensors."""
+    if density_grid.is_cuda:
+        return _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay)
+    return occupancy_upkeep_plain(density_grid, tmp, offset, cfg, decay)
+
+
+_K6_ARGS = {
+    "occ_merge_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_longlong] * 3
+    + [ctypes.c_float] + [ctypes.c_void_p] * 3,
+    "occ_finalize_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                            ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
+    "occ_threshold_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
+    "occ_dilate_launch": [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    + [ctypes.c_float] + [ctypes.c_void_p] * 3,
+}
+_K6_THREADS = 256
+_K6_MAX_CAS = 8
+
+
+def _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay):
+    H, C = cfg.grid_size, cfg.cascades
+    n = H**3
+    dev = density_grid.device
+    if C > _K6_MAX_CAS or tuple(density_grid.shape) != (C, n) or density_grid.dtype != torch.float32:
+        raise ValueError(f"occupancy kernel: density_grid must be ({C}, {n}) f32 with at most "
+                         f"{_K6_MAX_CAS} cascades, got {tuple(density_grid.shape)} {density_grid.dtype}")
+    S = tmp.shape[1]
+    if (tmp.device != dev or tmp.dim() != 2 or tmp.shape[0] != C or not 0 <= offset <= n - S):
+        raise ValueError(f"occupancy kernel: tmp must be ({C}, S) on {dev} with 0 <= offset <= "
+                         f"{n} - S, got {tuple(tmp.shape)} on {tmp.device}, offset {offset}")
+    old = density_grid.contiguous()
+    tmp = tmp.float().contiguous()
+    new_grid = torch.empty_like(old)
+    n_blocks = -(-C * n // _K6_THREADS)
+    partial = torch.empty((n_blocks,), device=dev, dtype=torch.float32)
+    stats = torch.empty((2,), device=dev, dtype=torch.float32)
+    minmax = torch.empty((C, 3, 2), device=dev, dtype=torch.int32)
+    occ = torch.empty((C, H, H, H), device=dev, dtype=torch.bool)
+    occ_coarse = torch.empty_like(occ)
+    bbox = torch.empty((6,), device=dev, dtype=torch.float32)
+    bounds = [min(2**c, cfg.bound) for c in range(C)]
+    c_bounds = (ctypes.c_float * C)(*bounds)
+    c_cells = (ctypes.c_float * C)(*[2.0 * b / H for b in bounds])
+    s = _build.stream(dev)
+    fn = lambda sym: _build.function("occupancy", sym, _K6_ARGS[sym])  # noqa: E731
+    P = _build.ptr
+    _build.check(fn("occ_merge_launch")(P(old), P(tmp), C, n, S, offset, float(decay),
+                                        P(new_grid), P(partial), s), "occupancy merge")
+    kernels.launches["occupancy"] += 1
+    _build.check(fn("occ_finalize_launch")(P(partial), n_blocks, C * n, float(cfg.density_thresh),
+                                           float(cfg.occ_thresh_scale), C, H, P(stats),
+                                           P(minmax), s), "occupancy finalize")
+    kernels.launches["occupancy"] += 1
+    _build.check(fn("occ_threshold_launch")(P(new_grid), P(stats), C, H, P(occ), P(minmax), s),
+                 "occupancy threshold")
+    kernels.launches["occupancy"] += 1
+    _build.check(fn("occ_dilate_launch")(P(occ), C, H, cfg.coarse_dilation_radius, P(minmax),
+                                         c_bounds, c_cells, float(cfg.bound), P(occ_coarse),
+                                         P(bbox), s), "occupancy dilate")
+    kernels.launches["occupancy"] += 1
+    return new_grid, occ, occ_coarse, stats[0], bbox
+
+
+def tuned_num_coarse(cfg: RenderConfig, bbox: np.ndarray) -> Optional[int]:
+    """The march-span retune policy: ``num_coarse_override`` sized to the
+    occupied-bbox diagonal (x1.1 margin, +2 segments, rounded up to 8, floor
+    8, capped at the worst case). None when the current span is already
+    within [0.75 * target, target]."""
+    diag = float(np.linalg.norm(bbox[3:] - bbox[:3]))
+    seg = 2.0 * math.sqrt(3.0) / cfg.max_steps * cfg.fine_per_coarse
+    worst = int(math.ceil(cfg.bound * cfg.max_steps / cfg.fine_per_coarse))
+    target = int(math.ceil(diag * 1.1 / seg)) + 2
+    target = min(worst, max(8, (target + 7) // 8 * 8))
+    cur = cfg.num_coarse_override or worst
+    if target < int(cur * 0.75) or target > cur:
+        return target
+    return None
 
 
 def _background(n: int, bg_color, device) -> torch.Tensor:
@@ -275,21 +394,23 @@ def render_occgrid(
     bg_color=None,
     occ_coarse: Optional[torch.Tensor] = None,
     occ_bbox: Optional[torch.Tensor] = None,
+    with_stats: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """March + field + composite on the hierarchical, per-ray layout.
 
     ``field_fn(xyzs (M, 3), dirs (M, 3)) -> (sigma (M,), rgb (M, 3))``.
     ``noise`` (N,) in [0, 1) perturbs the ray starts (the JAX package's
     ``perturb``; tests inject it); None renders unperturbed, as serving does.
-    Returns the JAX package's keys with its stats on: image, depth,
-    weights_sum, z_variance, num_samples, samples_p99, overflow_frac,
-    samples_mean, trunc_T, span_p99, needed_seg_p99, span_trunc_T."""
+    Returns the JAX package's keys: image, depth, weights_sum, z_variance,
+    num_samples, overflow_frac, samples_mean, trunc_T, span_trunc_T, and
+    with ``with_stats`` the sorted p99s samples_p99, span_p99,
+    needed_seg_p99 (the trainer reads them only on retune steps)."""
     if cfg.dt_gamma != 0.0:
-        raise not_ported("rendering with dt_gamma > 0", SLICE_TRAIN)
+        raise not_ported("rendering with dt_gamma > 0", SLICE_LATER)
     if cfg.march != "hierarchical" or occ_coarse is None:
         raise not_ported("the flat candidate march", SLICE_LATER)
     if cfg.compaction != "per_ray":
-        raise not_ported("the global compaction layout (K5)", SLICE_TRAIN)
+        raise not_ported("the global compaction layout (K5)", SLICE_3)
     N = rays_o.shape[0]
     dev = rays_o.device
     aabb = occ_bbox if occ_bbox is not None else torch.tensor(cfg.aabb, dtype=torch.float32, device=dev)
@@ -329,12 +450,6 @@ def render_occgrid(
         cfg.density_scale * sigmas, rgbs, dt, ts_rel, mask=mask, t_thresh=cfg.t_thresh)
     mean_z = depth_raw / torch.clamp_min(ws, 1e-8)
     z_var = (weights * (ts_rel - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
-    # saturation-aware demand span: a saturated ray needs only the span up to
-    # its last contributing sample
-    t_sat = torch.where(weights > 0, ts_rel, 0.0).amax(dim=1)
-    saturated = ws > 1.0 - 10.0 * cfg.t_thresh
-    needed_seg = torch.where(saturated, torch.minimum(t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc),
-                             seg_lastocc)
 
     bg = _background(N, bg_color, dev)
     image = image + (1.0 - ws)[:, None] * bg
@@ -342,10 +457,21 @@ def render_occgrid(
     # ts are relative to the (perturbed) ray start, so depth_raw already is
     # "depth - near"
     depth = torch.clamp_min(depth_raw, 0.0) / span
-    stats3 = torch.sort(torch.stack([demand, span_ray, needed_seg]), dim=1).values
-    qi = int(round(0.99 * (N - 1)))
     out = {"image": image, "depth": depth, "weights_sum": ws, "z_variance": z_var,
-           "num_samples": num_samples, "samples_p99": stats3[0, qi]}
+           "num_samples": num_samples}
+    if with_stats:
+        # saturation-aware demand span: a saturated ray needs only the span
+        # up to its last contributing sample; all three p99s from one sort
+        with torch.no_grad():
+            t_sat = torch.where(weights > 0, ts_rel, 0.0).amax(dim=1)
+            saturated = ws > 1.0 - 10.0 * cfg.t_thresh
+            needed_seg = torch.where(
+                saturated, torch.minimum(t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc), seg_lastocc)
+            stats3 = torch.sort(torch.stack([demand, span_ray, needed_seg]), dim=1).values
+        qi = int(round(0.99 * (N - 1)))
+        out["samples_p99"] = stats3[0, qi]
+        out["span_p99"] = stats3[1, qi]
+        out["needed_seg_p99"] = stats3[2, qi]
     out["overflow_frac"] = overflow_frac
     out["samples_mean"] = demand.mean()
     n_capped = capped.sum()
@@ -353,8 +479,6 @@ def render_occgrid(
         n_capped > 0,
         torch.where(capped, 1.0 - ws, 0.0).sum() / torch.clamp_min(n_capped, 1).float(),
         0.0)
-    out["span_p99"] = stats3[1, qi]
-    out["needed_seg_p99"] = stats3[2, qi]
     n_sc = span_capped.sum()
     out["span_trunc_T"] = torch.where(
         n_sc > 0,
