@@ -5,8 +5,8 @@ check them.
 
 Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
-2. build kernels K1-K4 and K6 from ``trinerflet_tpu_torch/kernels/csrc`` with
-   nvcc, one process per source, in parallel;
+2. build kernels K1-K6 (with K3c) from ``trinerflet_tpu_torch/kernels/csrc``
+   with nvcc, one process per source, in parallel;
 3. serve: the full-width bench model (1024^2 x 16-channel bf16 wavelet
    triplane, bior6.8, 4 IDWT levels, bf16 MLPs, bound 1.5, 128^3 x 2-cascade
    occupancy grid, max_steps 1024, 20 samples per ray), seeded random weights
@@ -20,22 +20,36 @@ Phases (any failure exits non-zero; nothing is caught):
    plain PyTorch versions on the card, with time, the plain version's time,
    the least time the card could take (bound) and, where one PyTorch call
    computes the same function, that call's time;
-5. train: ``bench.py``'s step (32,768 rays, the same model, wavelet L1 0.4,
-   Adam + EMA, refresh every 16 steps) with ``budget_autotune=False`` on the
-   synthetic scene (8 views of 256^2): counters zeroed, 320 warm-up steps on
-   the bench cadence (full refreshes while iter_density < 16, then the
-   rotating quarter; the bbox retune), then 5 timed windows of 50 steps
-   (median); counters read; the loss must fall over the warm-up; one step
-   under ``torch.profiler``;
-6. train kernels: one more step and one partial refresh record the
-   arguments the main path hands each kernel wrapper; each kernel (K1 with
-   the training stride, K2 forward and backward, K3 forward and backward,
-   the K4 adjoint, K6) is held to its plain version on those arguments and
-   timed beside its bound and library call;
-7. step check: one step's loss and per-group gradients at full width on
-   4,096 rays with an injected batch and noise, once on the card (kernels)
-   and once on the CPU (plain versions);
-8. print the kernels line, then the device line last.
+5. per-ray train: ``bench.py``'s step (32,768 rays, the same model, wavelet
+   L1 0.4, Adam + EMA, refresh every 16 steps) with ``budget_autotune=False``
+   on the synthetic scene (8 views of 256^2), cut to 64 warm-up steps and
+   one timed window of 50: counters zeroed just before, read just after; the
+   loss must fall;
+6. per-ray train kernels: one more step and one partial refresh record the
+   arguments the path hands each kernel wrapper; each kernel (K1 with the
+   training stride, K2 forward and backward, K3 forward and backward, the K4
+   adjoint, K6) is held to its plain version on those arguments and timed
+   beside its bound and library call; then the 4,096-ray step check: one
+   step's loss and per-group gradients at full width with an injected batch
+   and noise, on the card (kernels) and on the CPU (plain versions);
+7. autotune train: ``bench.py``'s configuration as bench.py runs it, with
+   ``budget_autotune=True``: 320 warm-up steps on the bench cadence (full
+   refreshes while iter_density < 16, then the rotating quarter; the retune
+   on the last step's aux at every refresh), then 5 timed windows of 50
+   steps (median); bench.py's summary (budget, layout, num_coarse, stride,
+   kept samples per ray, loss); counters zeroed and read around the whole
+   phase; one step under ``torch.profiler``;
+8. evaluate: ``Trainer.evaluate`` of the trained state on the 8 views
+   (PSNR and SSIM must be finite);
+9. global layout: the trained state continues on ``compaction="global"``
+   with S slots per ray from the tuner's rule on the live mean, at full
+   width: counters zeroed, 2 windows of 50 steps with refreshes, counters
+   read (K5 and K3c forward and backward must have launched), ms/step,
+   buffer use; one step under the profiler; then one more step and a
+   refresh record the kernels' arguments: K5 is held to its plain version
+   bit for bit, K3c forward and backward at a stated tolerance, each timed;
+   then the 4,096-ray step check on the global layout;
+10. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -75,7 +89,11 @@ DEVICE = "cuda"
 SERVE_KERNELS = ("march", "grid_sample", "composite", "idwt")
 TRAIN_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "composite", "composite_bwd", "idwt",
                  "idwt_adjoint", "occupancy")
-WARM_STEPS, WINDOW_STEPS, WINDOWS = 320, 50, 5
+GLOBAL_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "compact", "composite_compact",
+                  "composite_compact_bwd", "idwt", "idwt_adjoint", "occupancy")
+WARM_STEPS, WINDOW_STEPS, WINDOWS = 320, 50, 5  # bench.py's
+PERRAY_WARM, PERRAY_WINDOWS = 64, 1            # the per-ray phase, cut
+GLOBAL_WINDOWS = 2
 CHECK_RAYS = 4096
 # the 4,096-ray step check, kernels on the card vs plain versions on the CPU:
 # both round to bf16 at the same points, but f32 sums run in other orders
@@ -434,22 +452,24 @@ def kernel_phase(trainer, params, occ, poses, intr):
 # Training
 # ---------------------------------------------------------------------------
 
-def bench_configs(num_rays: int = 32768):
-    """``bench.py``'s training configuration with the budget tuner off."""
+def bench_configs(num_rays: int = 32768, budget_autotune: bool = True):
+    """``bench.py``'s training configuration (its tuner on by default)."""
     nerf_cfg = NeRFConfig(
         triplane=TriplaneConfig(channels=16, resolution=1024, wavelet_scale=16),
         bound=1.5, compute_dtype="bfloat16", plane_dtype="bfloat16")
     render_cfg = RenderConfig(bound=1.5, grid_size=128, density_thresh=10.0, max_steps=1024,
                               samples_per_ray_budget=20, dt_gamma=0.0)
     train_cfg = TrainConfig(lr=1e-2, iters=10000, num_rays=num_rays, wavelet_regularization=0.4,
-                            renderer="occgrid", update_extra_interval=16, budget_autotune=False)
+                            renderer="occgrid", update_extra_interval=16,
+                            budget_autotune=budget_autotune)
     return nerf_cfg, render_cfg, train_cfg
 
 
-def train_setup():
-    trainer = Trainer(*bench_configs(), device=DEVICE)
+def train_setup(budget_autotune: bool, scene=None):
+    trainer = Trainer(*bench_configs(budget_autotune=budget_autotune), device=DEVICE)
     t0 = time.perf_counter()
-    scene = make_synthetic_scene(num_views=8, H=256, W=256, num_steps=128)
+    if scene is None:
+        scene = make_synthetic_scene(num_views=8, H=256, W=256, num_steps=128)
     t1 = time.perf_counter()
     grid = mark_untrained_grid(scene.poses, scene.intrinsics, trainer.render_cfg)
     state = trainer.init_state(density_grid=grid)
@@ -460,7 +480,7 @@ def train_setup():
         f"{trainer.render_cfg.resolved_occ_test_stride()}, coarse_test_stride "
         f"{trainer.render_cfg.resolved_coarse_test_stride()}, dilation radius "
         f"{trainer.render_cfg.coarse_dilation_radius}")
-    return trainer, state, data
+    return trainer, state, data, scene
 
 
 def _refresh(trainer, state, full):
@@ -468,24 +488,34 @@ def _refresh(trainer, state, full):
                                                   full=full))
 
 
-def train_phase(trainer, state, data, card):
-    """bench.py's cadence: warm-up, then timed windows (median)."""
+def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
+                required=TRAIN_KERNELS, what="train"):
+    """bench.py's cadence: warm-up (refreshes and the retune on the last
+    step's aux), then timed windows (median); counters zeroed just before
+    and read just after."""
     interval = trainer.cfg.update_extra_interval
     N = trainer.cfg.num_rays
     kernels.reset_launches()
-    losses, aux = [], None
+    losses, aux, trail = [], None, []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(WARM_STEPS):
+    for i in range(warm):
         if i % interval == 0:
             state = _refresh(trainer, state, full=int(state.occ.iter_density) < 16)
-            trainer._maybe_retune_march(state)
+            trainer._maybe_retune_march(state, aux)
+            if aux is not None and trainer.cfg.budget_autotune:  # what the retune read (it synced)
+                rc = trainer.render_cfg
+                trail.append((i, round(float(aux["num_samples"]) / N, 2), rc.samples_per_ray_budget,
+                              rc.num_coarse_override, rc.compaction, rc.global_slots_per_ray))
         state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
         losses.append(aux["loss"])
     losses = torch.stack(losses).cpu()
     warm_s = time.perf_counter() - t0
+    if trail:
+        log(f"# {what} retunes (step, kept samples/ray read, then B, num_coarse, layout, slots): "
+            f"{trail}")
     windows = []
-    for _ in range(WINDOWS):
+    for _ in range(n_windows):
         t0 = time.perf_counter()
         for i in range(WINDOW_STEPS):
             if i % interval == 0:
@@ -494,11 +524,12 @@ def train_phase(trainer, state, data, card):
         final_loss = float(aux["loss"])  # host copy: waits for the window's last step
         windows.append((time.perf_counter() - t0) / WINDOW_STEPS * 1e3)
     launches = dict(kernels.launches)
-    steps = WARM_STEPS + WINDOWS * WINDOW_STEPS
+    steps = warm + n_windows * WINDOW_STEPS
     ms = float(np.median(windows))
     first, last = losses[:interval].mean().item(), losses[-interval:].mean().item()
     samples = float(aux["num_samples"]) / N
-    log(f"# train ({card}): {WARM_STEPS} warm-up steps in {warm_s:.2f} s; windows of "
+    rc = trainer.render_cfg
+    log(f"# {what} ({card}): {warm} warm-up steps in {warm_s:.2f} s; windows of "
         f"{WINDOW_STEPS} steps {[round(w, 3) for w in windows]} ms/step; median {ms:.3f} ms/step "
         f"= {N / ms * 1e3:.1f} rays/s; num_coarse {trainer.render_cfg.num_coarse_override}; "
         f"mean kept samples/ray {samples:.3f} (last step); loss first step "
@@ -506,21 +537,28 @@ def train_phase(trainer, state, data, card):
         f"{interval} {first:.5f}, of the last {interval} {last:.5f}, after the windows "
         f"{final_loss:.5f}; occupied fraction {state.occ.occ.float().mean().item():.4f}, "
         f"bbox {[round(x, 4) for x in state.occ.bbox.tolist()]}")
-    log(f"# train launches over {steps} steps: {launches} (per step: "
+    # bench.py's summary fields
+    log(f"# {what} summary: budget {rc.samples_per_ray_budget}/{trainer._budget_max}; layout "
+        f"{rc.compaction}(x{rc.global_slots_per_ray}); num_coarse {rc.num_coarse_override}; "
+        f"occ_stride {rc.resolved_occ_test_stride()}; samples/step {float(aux['num_samples']):,.0f} "
+        f"({samples:.1f}/ray); loss {losses[-1].item():.5f}->{final_loss:.5f}; "
+        f"retunes march {trainer._march_retunes}, budget {trainer._budget_retunes}, "
+        f"global {trainer._global_retunes}")
+    log(f"# {what} launches over {steps} steps: {launches} (per step: "
         f"{ {k: round(v / steps, 3) for k, v in launches.items()} })")
-    for name in TRAIN_KERNELS:
+    for name in required:
         if launches[name] == 0:
-            raise RuntimeError(f"kernel {name} was not launched on the train path")
+            raise RuntimeError(f"kernel {name} was not launched on the {what} path")
     if not (np.isfinite(losses.numpy()).all() and np.isfinite(final_loss)):
         raise RuntimeError("non-finite training loss")
     if not last < first:
         raise RuntimeError(f"the loss did not fall over the warm-up: {first} -> {last}")
     stats = dict(ms_per_step=ms, windows=windows, rays_per_s=N / ms * 1e3, samples_per_ray=samples,
-                 loss_first=first, loss_last=last, steps=steps)
+                 loss_first=first, loss_last=last, steps=steps, aux=aux)
     return state, launches, stats
 
 
-def profile_step(trainer, state, data):
+def profile_step(trainer, state, data, what="train"):
     """Device time by kernel over one train step, and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -533,7 +571,7 @@ def profile_step(trainer, state, data):
         wall = (time.perf_counter() - t0) * 1e3
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
-    log(f"# profile of one train step: {wall:.2f} ms wall under the profiler, device busy "
+    log(f"# profile of one {what} step: {wall:.2f} ms wall under the profiler, device busy "
         f"{busy:.2f} ms, idle share {1.0 - busy / wall:.3f}, {sum(e.count for e in evs)} kernels")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:16]:
         log(f"#   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:100]}")
@@ -547,7 +585,8 @@ class Capture:
     TARGETS = ((RM, "_march_cuda"), (GS, "_sample_points_cuda"),
                (GS, "_sample_points_backward_cuda"), (RM, "_composite_cuda"),
                (RM, "_composite_backward_cuda"), (W, "_idwt2d_cuda"), (W, "_idwt2d_adjoint_cuda"),
-               (R, "_occupancy_upkeep_cuda"))
+               (R, "_occupancy_upkeep_cuda"), (RM, "_compact_cuda"),
+               (RM, "_composite_compact_cuda"), (RM, "_composite_compact_backward_cuda"))
 
     def __init__(self):
         self.calls = defaultdict(list)
@@ -776,6 +815,141 @@ def train_kernel_phase(trainer, calls):
     return rows
 
 
+def evaluate_phase(trainer, state, scene, card):
+    """Trainer.evaluate on the training scene's views (EMA params)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.evaluate(state, scene)
+    secs = time.perf_counter() - t0
+    log(f"# evaluate ({card}): {scene.num_views} views of {scene.H}x{scene.W} in {secs:.2f} s; "
+        f"PSNR {res['PSNR']:.4f} dB, SSIM {res['SSIM']:.5f}; per view "
+        f"{[(r['view'], round(r['PSNR'], 3), round(r['SSIM'], 4)) for r in res['per_image']]}")
+    if not (np.isfinite(res["PSNR"]) and np.isfinite(res["SSIM"])):
+        raise RuntimeError("evaluate gave a non-finite PSNR or SSIM")
+    return res
+
+
+def global_phase(trainer, state, data, card, mean_samples):
+    """The trained state continues on the global layout at full width: S from
+    the tuner's rule on the live mean, 2 windows of 50 steps with refreshes."""
+    slots = TR.global_slots_for(mean_samples)
+    trainer.render_cfg = dataclasses.replace(trainer.render_cfg, compaction="global",
+                                             global_slots_per_ray=slots)
+    B = trainer.render_cfg.samples_per_ray_budget
+    log(f"# global layout: live mean {mean_samples:.3f} kept samples/ray -> S = max(4, "
+        f"ceil(1.5 mean / 2) 2) = {slots} slots per ray (the tuner engages at S <= 0.8 B = "
+        f"{int(0.8 * B)}, B = {B}); buffer {trainer.cfg.num_rays * slots:,} slots")
+    interval = trainer.cfg.update_extra_interval
+    N = trainer.cfg.num_rays
+    kernels.reset_launches()
+    windows, losses, fills, valid = [], [], [], []
+    for _ in range(GLOBAL_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(WINDOW_STEPS):
+            if i % interval == 0:
+                state = _refresh(trainer, state, full=False)
+            state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
+            losses.append(aux["loss"])
+            fills.append(aux["global_fill"])
+            valid.append(aux["num_samples"])
+        losses[-1].item()  # host copy: waits for the window's last step
+        windows.append((time.perf_counter() - t0) / WINDOW_STEPS * 1e3)
+    launches = dict(kernels.launches)
+    losses, fills = torch.stack(losses).cpu(), torch.stack(fills).cpu()
+    valid = torch.stack(valid).cpu().float()
+    ms = float(np.median(windows))
+    steps = GLOBAL_WINDOWS * WINDOW_STEPS
+    log(f"# global layout train ({card}): windows {[round(w, 3) for w in windows]} ms/step; median "
+        f"{ms:.3f} ms/step = {N / ms * 1e3:.1f} rays/s; global_fill mean {fills.mean().item():.4f} "
+        f"(min {fills.min().item():.4f}, max {fills.max().item():.4f}); num_valid mean "
+        f"{valid.mean().item():,.1f} ({valid.mean().item() / N:.3f}/ray); loss "
+        f"{losses[0].item():.5f} -> {losses[-1].item():.5f}")
+    log(f"# global layout launches over {steps} steps: {launches}")
+    for name in GLOBAL_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the global-layout path")
+    if not np.isfinite(losses.numpy()).all():
+        raise RuntimeError("non-finite loss on the global layout")
+    stats = dict(ms_per_step=ms, windows=windows, rays_per_s=N / ms * 1e3, slots=slots,
+                 fill=fills.mean().item(), num_valid=valid.mean().item(),
+                 loss_first=losses[0].item(), loss_last=losses[-1].item())
+    return state, launches, stats
+
+
+def global_kernel_phase(calls):
+    """K5 and K3c forward and backward on the arguments a global-layout step
+    handed them."""
+    rows = []
+    # ---- K5: the compaction, bit for bit
+    (kargs, _), = calls["_compact_cuda"][:1]
+    ro, rd, t, dt, mask, t0, M, bound = kargs
+    got = RM._compact_cuda(*kargs)
+    ref = RM.compact_global_dense_plain(ro, rd, t, dt, mask, t0, m_budget=M, bound=bound)
+    torch.cuda.synchronize()
+    for f, a, b in zip(ref._fields, got, ref):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"K5 {f} differs from the plain version ({int((a != b).sum())} entries)")
+    N, B = t.shape
+    # inputs read once, the buffer and per-ray fields written once; integer
+    # work only (a rank and a copy per kept sample)
+    b5, by5 = bound_ms(nbytes(ro, rd, t, dt, mask, t0) + nbytes(*got), 0.0)
+    odt0 = torch.cat([ro, rd, t0[:, None]], -1)
+    table = torch.cat([odt0[:, None, :].expand(N, B, 7).reshape(N * B, 7), t.reshape(-1, 1),
+                       dt.reshape(-1, 1)], -1).contiguous()
+    lib = lambda: table.index_select(0, mask.reshape(-1).nonzero().squeeze(1)[:M])  # noqa: E731
+    kept = int(mask.sum())
+    rows.append(dict(name="K5 compact_global_dense", key="compact", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:422", max_abs_err=0.0,
+                     tol="every field equal", ms=time_ms(lambda: RM._compact_cuda(*kargs)),
+                     plain_ms=time_ms(lambda: RM.compact_global_dense_plain(
+                         ro, rd, t, dt, mask, t0, m_budget=M, bound=bound), iters=5),
+                     bound_ms=b5, bound_by=by5, library_ms=time_ms(lib),
+                     note=f"N={N} rays x B={B} slots -> M={M} buffer slots, {kept} kept samples "
+                          f"({int(got.num_valid)} in the buffer); 3 launches (count, one-block "
+                          f"scan, copy); library_ms is a two-call yardstick: mask.nonzero() "
+                          f"(with its host sync) + index_select of the 9-wide table"))
+
+    # ---- K3c forward
+    (cargs, _), = calls["_composite_compact_cuda"][:1]
+    sig, rgb, dts, ts, rid, offs, cnts, n_rays, thr = cargs
+    got = RM._composite_compact_cuda(*cargs)
+    ref = RM.composite_compact_plain(*cargs)
+    err = max(_rel(a, b_) for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K3c forward rel err {err} > 1e-5")
+    Mc = sig.shape[0]
+    b, by = bound_ms(nbytes(sig, rgb, dts, ts, offs, cnts) + nbytes(*got), Mc * 16)
+    rows.append(dict(name="K3c composite_compact", key="composite_compact", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:754",
+                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
+                     tol="1e-5 x max|output|", ms=time_ms(lambda: RM._composite_compact_cuda(*cargs)),
+                     plain_ms=time_ms(lambda: RM.composite_compact_plain(*cargs)),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note=f"M={Mc} slots, N={n_rays} rays; one thread per ray, float64 exponent"))
+    # ---- K3c backward
+    (bargs, _), = calls["_composite_compact_backward_cuda"][:1]
+    got = RM._composite_compact_backward_cuda(*bargs)
+    ref = RM.composite_compact_backward_plain(*bargs)
+    err = max(_rel(a, b_) for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K3c backward rel err {err} > 1e-5")
+    b, by = bound_ms(nbytes(*bargs[:7]) + nbytes(*bargs[9:]) + nbytes(*got), Mc * 30)
+    rows.append(dict(name="K3c composite_compact backward", key="composite_compact_bwd",
+                     route="cuda", source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:754",
+                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
+                     tol="1e-5 x max|grad|",
+                     ms=time_ms(lambda: RM._composite_compact_backward_cuda(*bargs)),
+                     plain_ms=time_ms(lambda: RM.composite_compact_backward_plain(*bargs)),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note="analytic reverse pass, one thread per ray; replaces autodiff of the "
+                          "global cumsums"))
+    return rows
+
+
 def _touched_texels(c2, H, Wd):
     x0 = torch.clamp(torch.floor(torch.clamp((c2[..., 0] + 1) * 0.5 * (Wd - 1), 0, Wd - 1)), 0, Wd - 2).long()
     y0 = torch.clamp(torch.floor(torch.clamp((c2[..., 1] + 1) * 0.5 * (H - 1), 0, H - 1)), 0, H - 2).long()
@@ -793,9 +967,10 @@ def _groups(named):
     return {k: torch.cat(v) for k, v in out.items()}
 
 
-def step_check(trainer, state, data):
+def step_check(trainer, state, data, what):
     """One step's loss and gradients at full width on CHECK_RAYS rays with an
-    injected batch and noise: kernels on the card vs plain versions on the CPU."""
+    injected batch and noise: kernels on the card vs plain versions on the CPU,
+    on the trainer's current layout."""
     cfg = dataclasses.replace(trainer.cfg, num_rays=CHECK_RAYS)
     V, H, Wd = data["images"].shape[:3]
     batch = _batch(CHECK_RAYS, V, H * Wd, SEED + 2)
@@ -817,7 +992,7 @@ def step_check(trainer, state, data):
     (lg, ng, gg, tg), (lc, nc, gc, tc) = results[DEVICE], results["cpu"]
     loss_err = abs(lg - lc) / abs(lc)
     errs = {k: (torch.linalg.norm(gg[k] - gc[k]) / torch.linalg.norm(gc[k])).item() for k in gc}
-    log(f"# step check ({CHECK_RAYS} rays, full width): loss card {lg:.7f} vs CPU plain {lc:.7f} "
+    log(f"# {what} step check ({CHECK_RAYS} rays, full width): loss card {lg:.7f} vs CPU plain {lc:.7f} "
         f"(rel {loss_err:.2e}, tol {CHECK_LOSS_TOL}); samples {ng} vs {nc}; gradient rel L2 "
         f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {CHECK_GRAD_TOL}); "
         f"{tg:.2f} s on the card, {tc:.2f} s on the CPU")
@@ -857,17 +1032,36 @@ def main() -> int:
         r["path"] = "serve"
     log(f"# serve phases done at {time.perf_counter() - t_start:.1f} s")
 
-    trainer, state, data = train_setup()
-    state, train_launches, stats = train_phase(trainer, state, data, card)
-    state = profile_step(trainer, state, data)
+    # per-ray layout, the tuner off (cut to 64 + 50 steps)
+    trainer, state, data, scene = train_setup(budget_autotune=False)
+    state, perray_launches, perray_stats = train_phase(
+        trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS, what="per-ray train")
     state, calls = capture_step(trainer, state, data)
     train_rows = train_kernel_phase(trainer, calls)
-    for r in train_rows:
-        r["launches"] = train_launches[r.pop("key")]
-        r["path"] = "train"
     del calls
-    step_check(trainer, state, data)
-    rows += train_rows
+    step_check(trainer, state, data, "per-ray")
+    del trainer, state
+    log(f"# per-ray train phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # bench.py's step as bench.py runs it: the tuner on
+    trainer, state, data, scene = train_setup(budget_autotune=True, scene=scene)
+    state, auto_launches, stats = train_phase(trainer, state, data, card, what="autotune train")
+    state = profile_step(trainer, state, data, "autotune train")
+    eval_res = evaluate_phase(trainer, state, scene, card)
+    mean = float(stats["aux"]["num_samples"]) / trainer.cfg.num_rays
+    state, global_launches, gstats = global_phase(trainer, state, data, card, mean)
+    state = profile_step(trainer, state, data, "global-layout train")
+    state, calls = capture_step(trainer, state, data)
+    global_rows = global_kernel_phase(calls)
+    del calls
+    step_check(trainer, state, data, "global-layout")
+    for r in train_rows:
+        r["launches"] = auto_launches[r.pop("key")]
+        r["path"] = "autotune train"
+    for r in global_rows:
+        r["launches"] = global_launches[r.pop("key")]
+        r["path"] = "global-layout train"
+    rows += train_rows + global_rows
 
     for r in rows:
         log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "
@@ -875,10 +1069,19 @@ def main() -> int:
             f"(tol {r['tol']}); {r['launches']} launches on the {r['path']} path; {r['note']}")
     fields = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
+    rc = trainer.render_cfg
     log(f"# serve: {VIEW_HW}x{VIEW_HW} views, ms/view {ms} then {steady} on {card}")
-    log(f"# train: {stats['ms_per_step']:.3f} ms/step (median of {WINDOWS} windows of "
+    log(f"# per-ray train (budget_autotune=False): {perray_stats['ms_per_step']:.3f} ms/step, "
+        f"{perray_stats['rays_per_s']:.1f} rays/s, {perray_stats['samples_per_ray']:.3f} kept "
+        f"samples/ray on {card}; launches {perray_launches}")
+    log(f"# autotune train: {stats['ms_per_step']:.3f} ms/step (median of {WINDOWS} windows of "
         f"{WINDOW_STEPS}), {stats['rays_per_s']:.1f} rays/s, {stats['samples_per_ray']:.3f} kept "
-        f"samples/ray, loss {stats['loss_first']:.5f} -> {stats['loss_last']:.5f} on {card}; "
+        f"samples/ray, loss {stats['loss_first']:.5f} -> {stats['loss_last']:.5f} on {card}")
+    log(f"# global layout (x{gstats['slots']}): {gstats['ms_per_step']:.3f} ms/step, "
+        f"{gstats['rays_per_s']:.1f} rays/s, global_fill {gstats['fill']:.4f}, num_valid "
+        f"{gstats['num_valid']:,.1f} on {card}; final config budget {rc.samples_per_ray_budget}, "
+        f"num_coarse {rc.num_coarse_override}")
+    log(f"# evaluate: PSNR {eval_res['PSNR']:.4f} dB, SSIM {eval_res['SSIM']:.5f} on {card}; "
         f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

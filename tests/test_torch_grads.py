@@ -121,9 +121,15 @@ def test_sample_points_grad_matches_jax(dtype):
     _close(g_p.float(), g_j.astype(jnp.float32), REL[dtype])
 
 
+@pytest.mark.parametrize("order", ["port_first", "jax_first"])
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
-def test_composite_dense_grad_matches_jax(t_thresh):
-    """Cotangents at all four outputs (weights_sum, depth, image, weights)."""
+def test_composite_dense_grad_matches_jax(t_thresh, order):
+    """Cotangents at all four outputs (weights_sum, depth, image, weights),
+    in both call orders. With JAX's computations first, the port's first
+    plain composite in a process used to come out up to 1e-4 off: torch's
+    CPU exp (MKL's vector library) erred on its first call in a process
+    running JAX's CPU runtime; the plain versions now take exp as exp2
+    (``ops/activation.plain_exp``), ROADMAP Queue 3."""
     rng = np.random.default_rng(3)
     N, T = 300, 20
     sig = (rng.random((N, T)) * 80).astype(np.float32)
@@ -132,19 +138,26 @@ def test_composite_dense_grad_matches_jax(t_thresh):
     ts = np.cumsum(dl, 1).astype(np.float32)
     mask = rng.random((N, T)) < 0.8
     cts = [rng.standard_normal(s).astype(np.float32) for s in ((N,), (N,), (N, 3), (N, T))]
-    # the port first: its first CPU composite in a process that had already
-    # run JAX computations came out up to 1e-4 off in about one run in four
-    # (reproduced only in that order; the same call repeated was exact)
-    tsig, trgb = _t(sig, torch.float32), _t(rgb, torch.float32)
-    outs_p = PRM.composite_dense(tsig, trgb, torch.from_numpy(dl), torch.from_numpy(ts),
-                                 torch.from_numpy(mask), t_thresh=t_thresh)
-    p_sig, p_rgb = torch.autograd.grad(outs_p, [tsig, trgb], [torch.from_numpy(c) for c in cts])
-    outs_j, vjp = jax.vjp(lambda s, c: JRM.composite_dense(s, c, jnp.asarray(dl), jnp.asarray(ts),
-                                                           jnp.asarray(mask), t_thresh=t_thresh),
-                          jnp.asarray(sig), jnp.asarray(rgb))
-    g_sig, g_rgb = vjp(tuple(jnp.asarray(c) for c in cts))
+
+    def run_port():
+        tsig, trgb = _t(sig, torch.float32), _t(rgb, torch.float32)
+        outs = PRM.composite_dense(tsig, trgb, torch.from_numpy(dl), torch.from_numpy(ts),
+                                   torch.from_numpy(mask), t_thresh=t_thresh)
+        grads = torch.autograd.grad(outs, [tsig, trgb], [torch.from_numpy(c) for c in cts])
+        return [o.detach().numpy() for o in outs], grads
+
+    def run_jax():
+        outs, vjp = jax.vjp(lambda s, c: JRM.composite_dense(s, c, jnp.asarray(dl), jnp.asarray(ts),
+                                                             jnp.asarray(mask), t_thresh=t_thresh),
+                            jnp.asarray(sig), jnp.asarray(rgb))
+        return outs, vjp(tuple(jnp.asarray(c) for c in cts))
+
+    if order == "port_first":
+        (outs_p, (p_sig, p_rgb)), (outs_j, (g_sig, g_rgb)) = run_port(), run_jax()
+    else:
+        (outs_j, (g_sig, g_rgb)), (outs_p, (p_sig, p_rgb)) = run_jax(), run_port()
     for a, b in zip(outs_p, outs_j):
-        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-6)
     _close(p_sig, g_sig, 1e-4)
     _close(p_rgb, g_rgb, 1e-5)
 

@@ -1,5 +1,5 @@
-"""Each CUDA kernel (K1-K4 forward and backward, K6) against its plain PyTorch
-version, on the card.
+"""Each CUDA kernel (K1-K4 forward and backward, K5, K3c forward and backward,
+K6) against its plain PyTorch version, on the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
@@ -17,6 +17,10 @@ one ulp, 2^-7); K3's reverse pass matches its plain version's arithmetic to
 1e-5 relative; the K4 adjoint as the forward (2^-6 relative in bf16, 1e-5 in
 f32). K6: the merged grid, occupancy,
 dilation and bbox are equal; the mean (a blocked float sum) to rtol 1e-5.
+K5 is equal bit for bit on every field. K3c keeps each ray's exponent in
+float64 and rounds it as the plain version does, so both take the same
+t_thresh cut; the sums run in f32 (forward atol 1e-5, backward 1e-5
+relative to the largest gradient).
 """
 
 import numpy as np
@@ -197,3 +201,70 @@ def test_occupancy_kernel_matches_plain(dev, frac):
     assert torch.equal(got[4], R._occupied_bbox(occ, cfg))
     empty = R._occupancy_upkeep_cuda(torch.zeros_like(old), torch.zeros_like(tmp), off, cfg, 0.95)
     assert not empty[1].any() and torch.equal(empty[4].cpu(), torch.tensor(cfg.aabb))
+
+
+def _dense_layout(dev, N, B, prefix, seed):
+    g = torch.Generator().manual_seed(seed)
+    o, d = torch.randn((N, 3), generator=g), torch.randn((N, 3), generator=g)
+    if prefix:
+        cnt = torch.randint(0, B + 1, (N,), generator=g)
+        mask = torch.arange(B)[None] < cnt[:, None]
+    else:
+        mask = torch.rand((N, B), generator=g) < 0.4
+    t = torch.where(mask, 0.5 + 2.5 * torch.rand((N, B), generator=g), 0.0)
+    dt = torch.where(mask, 0.003 + 0.003 * torch.rand((N, B), generator=g), 0.0)
+    t0 = 0.2 + 0.3 * torch.rand((N,), generator=g)
+    return [x.to(dev) for x in (o, d, t, dt, mask, t0)]
+
+
+@pytest.mark.parametrize("prefix", [True, False])
+@pytest.mark.parametrize("case", ["ample", "overflow", "empty"])
+def test_compact_kernel_matches_plain_bit_for_bit(dev, case, prefix):
+    N, B = 5000, 20
+    o, d, t, dt, mask, t0 = _dense_layout(dev, N, B, prefix, 8)
+    if case == "empty":
+        mask[:] = False
+    total = int(mask.sum())
+    M = {"ample": N * B, "overflow": total - 1001, "empty": 6 * N}[case]
+    n0 = kernels.launches["compact"]
+    got = RM.compact_global_dense(o, d, t, dt, mask, t0, m_budget=M, bound=1.5, prefix_mask=prefix)
+    assert kernels.launches["compact"] == n0 + 3
+    ref = RM.compact_global_dense_plain(o, d, t, dt, mask, t0, m_budget=M, bound=1.5)
+    torch.cuda.synchronize()
+    for f, a, b in zip(ref._fields, got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f
+    assert int(got.num_valid) == min(total, M)
+
+
+def _compact_inputs(dev, N, S, seed):
+    o, d, t, dt, mask, t0 = _dense_layout(dev, N, S, True, seed)
+    comp = RM.compact_global_dense_plain(o, d, t, dt, mask, t0, m_budget=N * S, bound=1.5)
+    g = torch.Generator().manual_seed(seed + 1)
+    M = comp.ts.shape[0]
+    sig = (400 * torch.rand((M,), generator=g)).to(dev)
+    rgb = torch.rand((M, 3), generator=g).to(dev)
+    cts = [torch.randn(s, generator=g).to(dev) for s in ((N,), (N,), (N, 3), (N,))]
+    return comp, sig, rgb, cts
+
+
+@pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
+def test_composite_compact_kernels_match_plain(dev, t_thresh):
+    N, S = 5000, 16
+    comp, sig, rgb, cts = _compact_inputs(dev, N, S, 9)
+    args = (sig, rgb, comp.dts, comp.ts, comp.ray_id, comp.offsets, comp.counts, N, t_thresh)
+    n0 = kernels.launches["composite_compact"]
+    got = RM._composite_compact_cuda(*args)
+    assert kernels.launches["composite_compact"] == n0 + 1
+    ref = RM.composite_compact_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5
+    n0 = kernels.launches["composite_compact_bwd"]
+    got = RM._composite_compact_backward_cuda(*args, *cts)
+    assert kernels.launches["composite_compact_bwd"] == n0 + 1
+    ref = RM.composite_compact_backward_plain(*args, *cts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert _rel_close(a, b, 1e-5)
+    pad = comp.ray_id >= N
+    assert pad.any() and (got[0][pad] == 0).all() and (got[1][pad] == 0).all()

@@ -203,17 +203,65 @@ def test_trainer_render_image_matches_jax(dtype):
     np.testing.assert_allclose(pdep.numpy(), np.asarray(jdep), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("slots", [4, 20], ids=["overflow", "ample"])
+def test_render_occgrid_global_layout_matches_jax(slots, monkeypatch):
+    """The global layout (K5 + the compact compositor) with injected noise:
+    a buffer of 4 slots per ray (it overflows: the tail is dropped) and of
+    20 (every kept sample fits). Counts and buffer use are EQUAL; image,
+    depth and weights_sum within the JAX compositor's own error (its global
+    f32 cumsum, see tests/test_torch_compact.py): eps = 4 ulp of the
+    buffer's cumsum of sigma*dt, plus 8 ulp of each output's sum over the
+    rays, plus the per-ray layout's 5e-5 for the field."""
+    cj, cp, rj, rp, params, jparams, pparams, jstate, _ = _refresh_both("float32")
+    rj, rp = (dataclasses.replace(c, compaction="global", global_slots_per_ray=slots) for c in (rj, rp))
+    pstate = occupancy_from_jax(jstate, device="cpu")
+    ro, rd = rays_full_image(_poses()[3], synthetic_intrinsics(20, 20), 20, 20)
+    noise = np.random.default_rng(9).random(ro.shape[0]).astype(np.float32)
+    jf, pf = JN.NeRFField(cj), PN.NeRFField(cp)
+    jplanes, pplanes = jf.build_planes(jparams), pf.build_planes(pparams)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", _Draws([noise]))
+        jout = JR.render_occgrid(
+            lambda x, d: jf(jparams, jplanes, x, d), jnp.asarray(ro), jnp.asarray(rd), jstate.occ, rj,
+            rng=jax.random.PRNGKey(1), bg_color=0.0, perturb=True, occ_coarse=jstate.occ_coarse,
+            occ_bbox=jstate.bbox, occ_bricks=jstate.occ_bricks,
+            occ_coarse_bricks=jstate.occ_coarse_bricks)
+    seen = {}
+    composite = PR.RM.composite_compact
+
+    def spy(sigmas, rgbs, comp, n, thresh):
+        seen["sd"], seen["ts"] = (sigmas * comp.dts).detach().numpy(), comp.ts.numpy()
+        return composite(sigmas, rgbs, comp, n, thresh)
+
+    monkeypatch.setattr(PR.RM, "composite_compact", spy)
+    pout = PR.render_occgrid(
+        lambda x, d: pf(pparams, pplanes, x, d), torch.from_numpy(ro), torch.from_numpy(rd),
+        pstate.occ, rp, noise=torch.from_numpy(noise), bg_color=0.0, occ_coarse=pstate.occ_coarse,
+        occ_bbox=pstate.bbox)
+    assert set(pout) == set(jout) and "global_fill" in pout
+    for k in ("num_samples", "global_fill", "samples_p99", "overflow_frac", "span_p99", "needed_seg_p99"):
+        assert float(pout[k]) == float(jout[k]), k
+    fill = float(pout["global_fill"])
+    assert fill == 1.0 if slots == 4 else 0.5 < fill < 1.0
+    eps = 4 * float(np.spacing(np.cumsum(seen["sd"], dtype=np.float32)[-1]))
+    for k, scale in (("image", 1.0), ("depth", float(seen["ts"].max())), ("weights_sum", 1.0)):
+        got, ref = pout[k].numpy(), np.asarray(jout[k])
+        tol = eps * scale + 8 * float(np.spacing(np.float32(np.abs(ref).sum()))) + TOL["float32"]["img"]
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol, err_msg=k)
+
+
 def test_unported_render_options_raise():
-    """Still unported after the training slice: dt_gamma > 0 and the flat
-    march (a later slice), the global layout (slice 3), other renderers."""
+    """Still unported after the autotune slice: dt_gamma > 0, the flat
+    march and its exact global compaction (slots 0) (a later slice), other
+    renderers."""
     rp = PR.RenderConfig(**RKW)
     z = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="later slice"):
         PR.render_occgrid(None, z, z, None, PR.RenderConfig(dt_gamma=0.01), occ_coarse=z)
     with pytest.raises(NotImplementedError, match="later slice"):
         PR.render_occgrid(None, z, z, None, rp)  # flat march (no occ_coarse)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        PR.render_occgrid(None, z, z, None, PR.RenderConfig(compaction="global", global_slots_per_ray=4),
+    with pytest.raises(NotImplementedError, match="later slice"):
+        PR.render_occgrid(None, z, z, None, PR.RenderConfig(compaction="global", global_slots_per_ray=0),
                           occ_coarse=z)
     with pytest.raises(NotImplementedError):
         PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer="dense"), device="cpu")

@@ -22,6 +22,7 @@ Tolerances, stated per comparison:
   2 lr per step (measured: 1 of 147,456 coefficients, by 0.0046).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -224,6 +225,9 @@ def test_five_step_trajectory_matches_jax():
 
 
 def test_fit_runs_the_cadence_and_rejects_slice3_options():
+    """fit on the cadence; the slice-3 options train now (they have their
+    own tests below), so what is rejected is what a later slice ports: other
+    renderers and the flat march's exact global compaction (slots 0)."""
     jtr, ptr, jstate, _ = _setup("float32")
     scene = PS.make_synthetic_scene(num_views=2, H=32, W=32, num_steps=16)
     tr = PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(TKW, iters=3)), device="cpu")
@@ -231,12 +235,13 @@ def test_fit_runs_the_cadence_and_rejects_slice3_options():
     state = tr.fit(state, scene, log_every=0)
     assert state.step == 3 and int(state.occ.iter_density) == 1 and state.ema_count == 3
     assert all(np.isfinite(v).all() for v in _leaves(state.params).values())
-    for kw in (dict(budget_autotune=True), dict(error_map=True), dict(train_rand_bg=True)):
-        bad = PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(TKW, **kw)), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            bad.train_step(state, tr.scene_to_device(scene))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tr.set_clip_guidance(None, 1)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(TKW, renderer="dense")),
+                    device="cpu")
+    flat = PTR.Trainer(ptr.nerf_cfg, dataclasses.replace(ptr.render_cfg, compaction="global"),
+                       PTR.TrainConfig(**TKW), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        flat.train_step(state, tr.scene_to_device(scene))
 
 
 def test_march_retune_and_grow_params_match_jax():
@@ -266,3 +271,4 @@ def test_march_retune_and_grow_params_match_jax():
     for k, v in grown["wavelets"].items():  # levels that kept their shape carried over
         if k in old["wavelets"] and old["wavelets"][k].shape == v.shape:
             assert torch.equal(v, old["wavelets"][k])
+

@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the wavelet-triplane NeRF serving path.
+"""PyTorch + CUDA port of the wavelet-triplane NeRF (occupancy-grid renderer).
 
 This package runs beside the JAX package ``trinerflet_tpu`` and mirrors its
 module names, public layouts and arithmetic. It imports ``torch`` and numpy
@@ -9,8 +9,9 @@ take the plain version; tensors on a CUDA device launch the kernel.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; when
 CUDA is asked for and absent they raise (see ``_device.resolve_device``).
 
-What this package covers is the serving path (novel-view rendering from a
-trained state). Training, the other encoders and renderers, and the
+What this package covers: serving (novel-view rendering from a trained
+state), training with the budget autotuner and its global sample layout,
+and evaluation. The CLI, the other encoders and renderers, and the
 super-resolution app raise ``NotImplementedError`` naming the slice that
 ports them.
 """

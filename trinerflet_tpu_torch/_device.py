@@ -11,9 +11,8 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 # Slices of the port that later work fills in; NotImplementedError messages
 # name them so a caller knows where the missing piece is queued.
-SLICE_3 = ("slice 3 (budget autotune and the global compaction layout K5, evaluation, "
-           "the other training options)")
-SLICE_LATER = "a later slice (other encoders/renderers, the dt_gamma > 0 ladder)"
+SLICE_LATER = ("a later slice (the CLI and checkpoints, other encoders/renderers, the flat "
+               "march, the dt_gamma > 0 ladder)")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

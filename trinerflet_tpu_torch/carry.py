@@ -48,8 +48,10 @@ def params_from_jax(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict:
             "color_net": _tree(tree["color_net"], device)}
 
 
-def _get(obj, k):
-    return obj[k] if isinstance(obj, Mapping) else getattr(obj, k)
+def _get(obj, k, *default):
+    if isinstance(obj, Mapping):
+        return obj[k] if not default else obj.get(k, default[0])
+    return getattr(obj, k, *default)
 
 
 def occupancy_from_jax(state: Any, device: DeviceLike = None) -> OccupancyState:
@@ -66,10 +68,13 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
     package's, on ``device`` (``cuda`` by default), so training continues
     where the JAX package stopped: params, the Adam moments and count (the
     first entry of the optax chain's state, ``ScaleByAdamState``), the EMA
-    and its count, the occupancy state and the step. A JAX PRNG key does not
-    carry over: the step generator is seeded with ``seed``."""
+    and its count, the occupancy state, the step and the error map (when
+    set). A JAX PRNG key does not carry over: the step generator is seeded
+    with ``seed``. The retune's EMAs and counters belong to the trainer, not
+    to the state, and are not carried: a continued run re-learns them."""
     device = resolve_device(device)
     adam = _get(state, "opt_state")[0]
+    error_map = _get(state, "error_map", None)
     params = _map(lambda t: t.requires_grad_(True), params_from_jax(_get(state, "params"), device))
     return TrainState(
         params=params,
@@ -81,5 +86,6 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
         occ=occupancy_from_jax(_get(state, "occ"), device),
         step=int(np.asarray(_get(state, "step"))),
         rng=torch.Generator(device=device).manual_seed(seed),
+        error_map=None if error_map is None else _tensor(error_map, device),
     )
 

@@ -33,13 +33,16 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # name -> extra nvcc flags. march.cu needs the plain version's exact
 # arithmetic (its mask must agree bit for bit), so it turns off nvcc's
 # contraction of a*b+c and uses fmaf() exactly where the reference fuses;
-# occupancy.cu does the same for the bbox's float32 arithmetic.
+# occupancy.cu does the same for the bbox's float32 arithmetic, and
+# compact.cu for the sample positions and distances K5 copies (o + d*t and
+# t + dt - t0 round as two operations, as in the plain version).
 SOURCES: Dict[str, List[str]] = {
     "march": ["-fmad=false"],
     "grid_sample": [],
     "composite": [],
     "idwt": [],
     "occupancy": ["-fmad=false"],
+    "compact": ["-fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

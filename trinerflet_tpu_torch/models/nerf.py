@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
-from ..ops.activation import trunc_exp
+from ..ops.activation import plain_exp, trunc_exp
 from ..ops.encoders import sh_dim, sh_encode
 from .triplane import TriplaneConfig, build_planes, init_triplane_params, sample_triplane
 
@@ -126,7 +126,7 @@ class NeRFField:
         cfg = self.cfg
         if cfg.density_blob_scale > 1e-5:
             h = h * (cfg.density_blob_scale
-                     * torch.exp(-0.5 * (x * x).sum(-1) / cfg.density_blob_std**2))
+                     * plain_exp(-0.5 * (x * x).sum(-1) / cfg.density_blob_std**2))
         return h
 
     def density(self, params: Dict, planes: Dict[str, torch.Tensor],

@@ -3,10 +3,14 @@
 
 ``march_hierarchical`` is the two-level occupancy march (with the training
 path's strided probes); ``composite_dense`` the per-ray compositor, an
-autograd function whose backward is the analytic reverse pass. On CUDA
-tensors they launch kernels K1 (``kernels/csrc/march.cu``) and K3 forward
-and backward (``kernels/csrc/composite.cu``); on CPU tensors they run the
-plain versions below.
+autograd function whose backward is the analytic reverse pass.
+``compact_global_dense`` / ``compact_samples`` pack the kept samples into a
+shared ray-major buffer (the global layout) and ``composite_compact``
+composites that buffer, again with an analytic backward. On CUDA tensors
+they launch kernels K1 (``kernels/csrc/march.cu``), K3 forward and backward
+(``kernels/csrc/composite.cu``), K5 and the compact compositor's forward and
+backward (``kernels/csrc/compact.cu``); on CPU tensors they run the plain
+versions below.
 
 Arithmetic the march reproduces bit for bit: the JAX package runs it inside
 ``jax.jit``, where XLA contracts ``a*b + c`` into one fused multiply-add and
@@ -19,13 +23,14 @@ agrees bit for bit across the three.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..kernels import _build
+from .activation import plain_exp
 
 __all__ = [
     "SQRT3",
@@ -38,6 +43,15 @@ __all__ = [
     "composite_dense",
     "composite_dense_plain",
     "composite_dense_backward_plain",
+    "MarchResults",
+    "CompactSamples",
+    "PAD_RAY_ID",
+    "compact_global_dense",
+    "compact_global_dense_plain",
+    "compact_samples",
+    "composite_compact",
+    "composite_compact_plain",
+    "composite_compact_backward_plain",
 ]
 
 SQRT3 = 1.7320508075688772
@@ -301,7 +315,7 @@ def composite_dense_plain(sigmas, rgbs, deltas, ts, mask=None, t_thresh: float =
     sd = sigmas * deltas
     if mask is not None:
         sd = torch.where(mask, sd, 0.0)
-    alphas = 1.0 - torch.exp(-sd)
+    alphas = 1.0 - plain_exp(-sd)
     trans = torch.cumprod(1.0 - alphas + 1e-15, dim=-1)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     weights = alphas * trans
@@ -322,7 +336,7 @@ def composite_dense_backward_plain(sigmas, rgbs, deltas, ts, mask, t_thresh,
     dsigma_i = delta_i exp(-sigma_i delta_i) dL/dalpha_i on the mask.
     Returns (dsigma (N, T), drgb (N, T, 3))."""
     sd = torch.where(mask, sigmas * deltas, 0.0)
-    e = torch.exp(-sd)
+    e = plain_exp(-sd)
     alphas = 1.0 - e
     x = 1.0 - alphas + 1e-15
     trans = torch.cumprod(x, dim=-1)
@@ -438,4 +452,292 @@ def _composite_backward_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh,
               _build.ptr(dsigma), _build.ptr(drgb), _build.stream(dev))
     _build.check(code, "composite_dense backward")
     kernels.launches["composite_bwd"] += 1
+    return dsigma, drgb
+
+
+# ---------------------------------------------------------------------------
+# Global compaction (K5) and the compact compositor (K3c)
+# ---------------------------------------------------------------------------
+
+PAD_RAY_ID = 2**30  # ray_id of a padding slot
+
+
+class MarchResults(NamedTuple):
+    """The flat candidate march's output (JAX ``MarchResults``)."""
+    ts: torch.Tensor     # (N, K) f32 candidate distances
+    dts: torch.Tensor    # (N, K) f32 step sizes
+    valid: torch.Tensor  # (N, K) bool
+
+
+class CompactSamples(NamedTuple):
+    xyzs: torch.Tensor       # (M, 3) f32 sample positions, clipped to the bound
+    dirs: torch.Tensor       # (M, 3) f32
+    ts: torch.Tensor         # (M,) f32 distance from the perturbed ray start, t + dt - t0
+    dts: torch.Tensor        # (M,) f32 step (0 on padding)
+    ray_id: torch.Tensor     # (M,) int32, PAD_RAY_ID on padding
+    offsets: torch.Tensor    # (N,) int32 start of each ray's segment, clipped to M
+    counts: torch.Tensor     # (N,) int32 kept samples per ray, clipped to the room left
+    num_valid: torch.Tensor  # () int32 kept samples in the buffer, min(total, M)
+
+
+def compact_global_dense_plain(rays_o, rays_d, t, dt, mask, t0, *, m_budget: int,
+                               bound: float) -> CompactSamples:
+    """Plain version of K5: the valid slots of the (N, B) layout, in row
+    order, packed into an ``m_budget`` buffer; the tail past the buffer is
+    dropped."""
+    N, B = t.shape
+    dev = t.device
+    M = m_budget
+    counts_full = mask.sum(dim=1, dtype=torch.int32)
+    cum = torch.cumsum(counts_full, 0, dtype=torch.int64)
+    total = cum[-1] if N else torch.zeros((), dtype=torch.int64, device=dev)
+    offs = torch.clamp_max(cum - counts_full, M)
+    src = mask.reshape(-1).nonzero().squeeze(1)[:M]
+    n = torch.div(src, B, rounding_mode="floor")
+    k = src.shape[0]
+    o, d = rays_o[n], rays_d[n]
+    tg, dtg = t.reshape(-1)[src], dt.reshape(-1)[src]
+
+    def buf(x, shape, fill=0):
+        out = torch.full((M,) + shape, fill, dtype=x.dtype, device=dev)
+        out[:k] = x
+        return out
+
+    return CompactSamples(
+        xyzs=buf((o + d * tg[:, None]).clamp(-bound, bound), (3,)),
+        dirs=buf(d, (3,)),
+        ts=buf(tg + dtg - t0[n], ()),
+        dts=buf(dtg, ()),
+        ray_id=buf(n.int(), (), PAD_RAY_ID),
+        offsets=offs.int(),
+        counts=torch.minimum(counts_full, torch.clamp_min(M - offs, 0)).int(),
+        num_valid=torch.clamp_max(total, M).int(),
+    )
+
+
+def compact_global_dense(rays_o, rays_d, t, dt, mask, t0, *, m_budget: int, bound: float,
+                         prefix_mask: bool = False) -> CompactSamples:
+    """Global compaction of the per-ray (N, B) budget layout into a shared
+    ``m_budget`` buffer (ray-major; overflow drops the tail): kernel K5 on
+    CUDA tensors, the plain version on CPU tensors. ``t`` (N, B) absolute
+    sample distances, ``dt`` (N, B) steps, ``mask`` (N, B) bool, ``t0`` (N,)
+    the perturbed ray starts. ``num_valid`` stays on the device.
+    ``prefix_mask`` (each row's valid slots are a prefix, as the hierarchical
+    march guarantees) selects the JAX package's sort-free path there; both of
+    its paths give the same buffer, which is what this one computes for any
+    mask, so it changes nothing here."""
+    if rays_o.is_cuda:
+        return _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound)
+    return compact_global_dense_plain(rays_o, rays_d, t, dt, mask, t0, m_budget=m_budget,
+                                      bound=bound)
+
+
+def compact_samples(rays_o, rays_d, march: MarchResults, *, m_budget: int,
+                    bound: float) -> CompactSamples:
+    """The flat march's compaction: the same buffer over its candidates
+    (ray start ``march.ts[:, 0]``), through the same kernel."""
+    return compact_global_dense(rays_o, rays_d, march.ts, march.dts, march.valid,
+                                march.ts[:, 0], m_budget=m_budget, bound=bound)
+
+
+_K5_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 10)
+
+
+def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
+    N, B = t.shape
+    dev = t.device
+    M = int(m_budget)
+    for name, x, shape, dtype in (("rays_o", rays_o, (N, 3), torch.float32),
+                                  ("rays_d", rays_d, (N, 3), torch.float32),
+                                  ("t", t, (N, B), torch.float32), ("dt", dt, (N, B), torch.float32),
+                                  ("mask", mask, (N, B), torch.bool), ("t0", t0, (N,), torch.float32)):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"compact kernel: {name} must be {shape} {dtype} on {dev}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if N * B >= 2**31 or M >= 2**31 or M < 1:
+        raise ValueError(f"compact kernel: N*B ({N * B}) and m_budget ({M}) must be in [1, 2^31)")
+    ins = [x.contiguous() for x in (rays_o, rays_d, t, dt, mask, t0)]
+    i32 = dict(device=dev, dtype=torch.int32)
+    out = CompactSamples(
+        xyzs=torch.empty((M, 3), device=dev, dtype=torch.float32),
+        dirs=torch.empty((M, 3), device=dev, dtype=torch.float32),
+        ts=torch.empty((M,), device=dev, dtype=torch.float32),
+        dts=torch.empty((M,), device=dev, dtype=torch.float32),
+        ray_id=torch.empty((M,), **i32), offsets=torch.empty((N,), **i32),
+        counts=torch.empty((N,), **i32), num_valid=torch.empty((), **i32))
+    counts_full = torch.empty((N,), **i32)  # scratch: unclipped counts
+    fn = _build.function("compact", "compact_launch", _K5_ARGS)
+    code = fn(*[_build.ptr(x) for x in ins], N, B, M, float(bound),
+              *[_build.ptr(x) for x in out], _build.ptr(counts_full), _build.stream(dev))
+    _build.check(code, "compact_global_dense")
+    kernels.launches["compact"] += 3 if N else 2  # count, scan, copy
+    return out
+
+
+def _segment_base(x64: torch.Tensor, offsets, counts, rid, N: int) -> torch.Tensor:
+    """Per slot, the float64 exclusive prefix of x64 at its ray's first slot
+    (0 for padding): the base of a per-ray exclusive sum."""
+    M = x64.shape[0]
+    excl = torch.cumsum(x64, 0) - x64
+    base = torch.where(counts > 0, excl[offsets.long().clamp(0, M - 1)], 0.0)
+    return torch.cat([base, base.new_zeros(1)])[rid]
+
+
+def _compact_weights(sigmas, dts, ray_id, offsets, counts, N: int, t_thresh: float):
+    """(w, T, e = exp(-sd), valid) of the compact layout; T from the per-ray
+    exclusive sum of sd = sigma*dt taken in float64 and rounded to f32."""
+    rid = torch.clamp_max(ray_id.long(), N)
+    sd = sigmas * dts
+    sd64 = sd.double()
+    excl = torch.cumsum(sd64, 0) - sd64 - _segment_base(sd64, offsets, counts, rid, N)
+    trans = plain_exp(-excl.float())
+    e = plain_exp(-sd)
+    valid = rid < N
+    w = torch.where((trans >= t_thresh) & valid, (1.0 - e) * trans, 0.0)
+    return w, trans, e, valid, rid
+
+
+def composite_compact_plain(sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_rays: int,
+                            t_thresh: float = 1e-4):
+    """Plain version of the K3c forward. Per ray, T_i = exp(-sum_{j<i} sd_j)
+    over its own segment (sd = sigma*dt), alpha = 1 - exp(-sd) (no +1e-15),
+    w = alpha*T where T >= t_thresh, 0 on padding. Returns the per-ray sums
+    (weights_sum, depth = sum w ts, image = sum w rgb, z2 = sum w ts^2),
+    taken in float64 and rounded to f32.
+
+    The JAX package takes the exclusive sum as ONE global f32 cumsum minus
+    each ray's base, which cancels badly once the buffer's running sum is
+    large (0.025 in weights_sum at the bench's 32,768 rays); this is the
+    per-ray sum that formula stands for."""
+    N = num_rays
+    w, _, _, _, rid = _compact_weights(sigmas, dts, ray_id, offsets, counts, N, t_thresh)
+
+    def seg(x):
+        x = x.double()
+        out = x.new_zeros((N + 1,) + x.shape[1:]).index_add_(0, rid, x)
+        return out[:N].float()
+
+    return seg(w), seg(w * ts), seg(w[:, None] * rgbs), seg(w * ts * ts)
+
+
+def composite_compact_backward_plain(sigmas, rgbs, dts, ts, ray_id, offsets, counts,
+                                     num_rays: int, t_thresh: float, g_ws, g_depth, g_image, g_z2):
+    """Plain version of the K3c backward, for cotangents at (weights_sum,
+    depth, image, z2). With a_k = g_ws + g_depth ts_k + g_image . rgb_k +
+    g_z2 ts_k^2 (the slot's ray's cotangents):
+    d sd_i = alive_i a_i exp(-sd_i) T_i - sum_{k>i, same ray} a_k w_k,
+    dsigma_i = dt_i d sd_i, drgb_i = w_i g_image; zero on padding.
+    Returns (dsigma (M,), drgb (M, 3))."""
+    N = num_rays
+    w, trans, e, valid, rid = _compact_weights(sigmas, dts, ray_id, offsets, counts, N, t_thresh)
+    alive = (trans >= t_thresh) & valid
+    ri = rid.clamp_max(N - 1) if N else rid
+    a = (g_ws[ri] + g_depth[ri] * ts + (g_image[ri] * rgbs).sum(-1) + g_z2[ri] * ts * ts)
+    a = torch.where(valid, a, 0.0)
+    b = (a * w).double()
+    incl = torch.cumsum(b, 0)
+    M = b.shape[0]
+    end = (offsets.long() + counts.long()).clamp(0, M)
+    seg_end = torch.cat([b.new_zeros(1), incl])[torch.cat([end, end.new_zeros(1)])[rid]]
+    suffix = (seg_end - incl).float()
+    dsd = torch.where(alive, a * e * trans, 0.0) - suffix
+    dsigma = torch.where(valid, dts * dsd, 0.0)
+    drgb = torch.where(valid[:, None], w[:, None] * g_image[ri], 0.0)
+    return dsigma, drgb
+
+
+class _CompositeCompact(torch.autograd.Function):
+    """Gradients flow to sigmas and rgbs; the buffer's geometry (dts, ts) and
+    layout (ray_id, offsets, counts) get none."""
+
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_rays, t_thresh):
+        args = (sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_rays, t_thresh)
+        out = _composite_compact_cuda(*args) if sigmas.is_cuda else composite_compact_plain(*args)
+        ctx.save_for_backward(sigmas, rgbs, dts, ts, ray_id, offsets, counts)
+        ctx.num_rays, ctx.t_thresh = num_rays, t_thresh
+        return out
+
+    @staticmethod
+    def backward(ctx, g_ws, g_depth, g_image, g_z2):
+        args = (*ctx.saved_tensors, ctx.num_rays, ctx.t_thresh, g_ws, g_depth, g_image, g_z2)
+        if ctx.saved_tensors[0].is_cuda:
+            dsig, drgb = _composite_compact_backward_cuda(*args)
+        else:
+            dsig, drgb = composite_compact_backward_plain(*args)
+        return dsig, drgb, None, None, None, None, None, None, None
+
+
+def composite_compact(sigmas, rgbs, samples: CompactSamples, num_rays: int,
+                      T_thresh: float = 1e-4):
+    """Alpha-composite a compacted buffer back into per-ray outputs: the K3c
+    kernels on CUDA tensors, the plain versions on CPU; differentiable in
+    sigmas (M,) and rgbs (M, 3). Returns (weights_sum, depth, image,
+    z_variance) per ray, z_variance = max(E[t^2] - E[t]^2, 0) under the
+    per-ray weights, formed here as the JAX package forms it."""
+    ws, depth, image, z2 = _CompositeCompact.apply(
+        sigmas, rgbs, samples.dts, samples.ts, samples.ray_id, samples.offsets,
+        samples.counts, int(num_rays), float(T_thresh))
+    mean_z = depth / torch.clamp_min(ws, 1e-8)
+    z_var = torch.clamp_min(z2 / torch.clamp_min(ws, 1e-8) - mean_z**2, 0.0)
+    return ws, depth, image, z_var
+
+
+_K3C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+_K3C_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                 + [ctypes.c_void_p] * 3)
+
+
+def _check_compact(sigmas, rgbs, dts, ts, ray_id, offsets, counts, N):
+    M = sigmas.shape[0]
+    dev = sigmas.device
+    for name, x, shape, dtype in (("sigmas", sigmas, (M,), torch.float32),
+                                  ("rgbs", rgbs, (M, 3), torch.float32),
+                                  ("dts", dts, (M,), torch.float32), ("ts", ts, (M,), torch.float32),
+                                  ("ray_id", ray_id, (M,), torch.int32),
+                                  ("offsets", offsets, (N,), torch.int32),
+                                  ("counts", counts, (N,), torch.int32)):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"composite_compact kernel: {name} must be {shape} {dtype} on {dev}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    return [x.contiguous() for x in (sigmas, rgbs, dts, ts, ray_id, offsets, counts)]
+
+
+def _composite_compact_cuda(sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_rays, t_thresh):
+    N, M = num_rays, sigmas.shape[0]
+    dev = sigmas.device
+    ins = _check_compact(sigmas, rgbs, dts, ts, ray_id, offsets, counts, N)
+    outs = [torch.empty(s, device=dev, dtype=torch.float32) for s in ((N,), (N,), (N, 3), (N,))]
+    if N == 0:
+        return tuple(outs)
+    fn = _build.function("compact", "composite_compact_launch", _K3C_ARGS)
+    code = fn(*[_build.ptr(x) for x in ins], N, M, float(t_thresh),
+              *[_build.ptr(x) for x in outs], _build.stream(dev))
+    _build.check(code, "composite_compact")
+    kernels.launches["composite_compact"] += 1
+    return tuple(outs)
+
+
+def _composite_compact_backward_cuda(sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_rays,
+                                     t_thresh, g_ws, g_depth, g_image, g_z2):
+    N, M = num_rays, sigmas.shape[0]
+    dev = sigmas.device
+    ins = _check_compact(sigmas, rgbs, dts, ts, ray_id, offsets, counts, N)
+    grads = []
+    for name, g, shape in (("g_ws", g_ws, (N,)), ("g_depth", g_depth, (N,)),
+                           ("g_image", g_image, (N, 3)), ("g_z2", g_z2, (N,))):
+        if g.device != dev or tuple(g.shape) != shape:
+            raise ValueError(f"composite_compact backward kernel: {name} must be {shape} on "
+                             f"{dev}, got {tuple(g.shape)} on {g.device}")
+        grads.append(g.float().contiguous())
+    dsigma = torch.empty((M,), device=dev, dtype=torch.float32)
+    drgb = torch.empty((M, 3), device=dev, dtype=torch.float32)
+    if max(N, M) == 0:
+        return dsigma, drgb
+    fn = _build.function("compact", "composite_compact_backward_launch", _K3C_BWD_ARGS)
+    code = fn(*[_build.ptr(x) for x in ins + grads], N, M, float(t_thresh),
+              _build.ptr(dsigma), _build.ptr(drgb), _build.stream(dev))
+    _build.check(code, "composite_compact backward")
+    kernels.launches["composite_compact_bwd"] += 1
     return dsigma, drgb

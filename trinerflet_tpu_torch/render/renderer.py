@@ -1,8 +1,12 @@
 """Occupancy-grid renderer (port of ``trinerflet_tpu/render/renderer.py``).
 
-``render_occgrid`` runs the hierarchical march (K1), the field on the
-per-ray (N, B) layout (K2 inside the field) and the dense compositor (K3);
-it is differentiable in the field's parameters (K2 and K3 backward).
+``render_occgrid`` runs the hierarchical march (K1), then the field (K2
+inside it) and a compositor on one of two layouts: the per-ray (N, B) layout
+with the dense compositor (K3), or -- ``compaction="global"`` with
+``global_slots_per_ray`` S > 0, which the budget tuner engages -- the
+shared buffer of N*S slots that K5 packs, with the compact compositor
+(K3c). It is differentiable in the field's parameters (K2, K3 and K3c
+backward).
 ``OccupancyState`` / ``update_density_grid`` keep the occupancy state: the
 field is queried at jittered cell centres (all cells, or a rotating block
 for training's partial refresh), then ``occupancy_upkeep`` merges, thresholds,
@@ -22,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .._device import SLICE_3, SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
 from ..kernels import _build
 from ..ops import raymarch as RM
 
@@ -396,7 +400,12 @@ def render_occgrid(
     occ_bbox: Optional[torch.Tensor] = None,
     with_stats: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """March + field + composite on the hierarchical, per-ray layout.
+    """March + field + composite on the hierarchical march: the per-ray
+    layout, or the global one (``compaction="global"``, S =
+    ``global_slots_per_ray`` > 0: the kept samples packed into N*S shared
+    slots by K5, the field on that buffer -- padding slots included, at
+    xyz = dir = 0 -- and the compact compositor; ``global_fill`` reports
+    the buffer's use, ``num_samples`` the slots kept).
 
     ``field_fn(xyzs (M, 3), dirs (M, 3)) -> (sigma (M,), rgb (M, 3))``.
     ``noise`` (N,) in [0, 1) perturbs the ray starts (the JAX package's
@@ -409,8 +418,11 @@ def render_occgrid(
         raise not_ported("rendering with dt_gamma > 0", SLICE_LATER)
     if cfg.march != "hierarchical" or occ_coarse is None:
         raise not_ported("the flat candidate march", SLICE_LATER)
-    if cfg.compaction != "per_ray":
-        raise not_ported("the global compaction layout (K5)", SLICE_3)
+    if cfg.compaction == "global" and cfg.global_slots_per_ray <= 0:
+        raise not_ported("compaction='global' with global_slots_per_ray=0 (the flat march's "
+                         "exact global compaction)", SLICE_LATER)
+    if cfg.compaction not in ("per_ray", "global"):
+        raise ValueError(f"unknown compaction {cfg.compaction!r}")
     N = rays_o.shape[0]
     dev = rays_o.device
     aabb = occ_bbox if occ_bbox is not None else torch.tensor(cfg.aabb, dtype=torch.float32, device=dev)
@@ -440,16 +452,37 @@ def render_occgrid(
     span_ray = torch.where(hit, fars_c - nears_c, 0.0)
     span_capped = span_ray > (num_coarse * Fc) * (2.0 * RM.SQRT3 / steps) * 0.995
 
-    pts = (rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]).clamp(-cfg.bound, cfg.bound)
-    dirs = rays_d[:, None, :].expand(pts.shape)
-    sigmas, rgbs = field_fn(pts.reshape(-1, 3), dirs.reshape(-1, 3))
-    sigmas = sigmas.reshape(N, B)
-    rgbs = rgbs.reshape(N, B, 3)
-    ts_rel = torch.where(mask, t + dt - t0[:, None], 0.0)
-    ws, depth_raw, image, weights = RM.composite_dense(
-        cfg.density_scale * sigmas, rgbs, dt, ts_rel, mask=mask, t_thresh=cfg.t_thresh)
-    mean_z = depth_raw / torch.clamp_min(ws, 1e-8)
-    z_var = (weights * (ts_rel - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
+    needed_seg = seg_lastocc
+    global_fill = None
+    if cfg.compaction == "global":
+        slots = N * cfg.global_slots_per_ray
+        # K1 keeps each ray's samples in its row prefix (prefix_mask)
+        comp = RM.compact_global_dense(rays_o, rays_d, t, dt, mask, t0, m_budget=slots,
+                                       bound=cfg.bound, prefix_mask=True)
+        sigmas, rgbs = field_fn(comp.xyzs, comp.dirs)
+        ws, depth_raw, image, z_var = RM.composite_compact(
+            cfg.density_scale * sigmas, rgbs, comp, N, cfg.t_thresh)
+        num_samples = comp.num_valid
+        global_fill = comp.num_valid.float() / slots
+    else:
+        pts = (rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]).clamp(-cfg.bound, cfg.bound)
+        dirs = rays_d[:, None, :].expand(pts.shape)
+        sigmas, rgbs = field_fn(pts.reshape(-1, 3), dirs.reshape(-1, 3))
+        sigmas = sigmas.reshape(N, B)
+        rgbs = rgbs.reshape(N, B, 3)
+        ts_rel = torch.where(mask, t + dt - t0[:, None], 0.0)
+        ws, depth_raw, image, weights = RM.composite_dense(
+            cfg.density_scale * sigmas, rgbs, dt, ts_rel, mask=mask, t_thresh=cfg.t_thresh)
+        mean_z = depth_raw / torch.clamp_min(ws, 1e-8)
+        z_var = (weights * (ts_rel - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
+        if with_stats:
+            # saturation-aware demand span: a saturated ray needs only the
+            # span up to its last contributing sample
+            with torch.no_grad():
+                t_sat = torch.where(weights > 0, ts_rel, 0.0).amax(dim=1)
+                saturated = ws > 1.0 - 10.0 * cfg.t_thresh
+                needed_seg = torch.where(saturated, torch.minimum(
+                    t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc), seg_lastocc)
 
     bg = _background(N, bg_color, dev)
     image = image + (1.0 - ws)[:, None] * bg
@@ -460,13 +493,8 @@ def render_occgrid(
     out = {"image": image, "depth": depth, "weights_sum": ws, "z_variance": z_var,
            "num_samples": num_samples}
     if with_stats:
-        # saturation-aware demand span: a saturated ray needs only the span
-        # up to its last contributing sample; all three p99s from one sort
+        # all three p99s from one sort
         with torch.no_grad():
-            t_sat = torch.where(weights > 0, ts_rel, 0.0).amax(dim=1)
-            saturated = ws > 1.0 - 10.0 * cfg.t_thresh
-            needed_seg = torch.where(
-                saturated, torch.minimum(t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc), seg_lastocc)
             stats3 = torch.sort(torch.stack([demand, span_ray, needed_seg]), dim=1).values
         qi = int(round(0.99 * (N - 1)))
         out["samples_p99"] = stats3[0, qi]
@@ -484,4 +512,6 @@ def render_occgrid(
         n_sc > 0,
         torch.where(span_capped, 1.0 - ws, 0.0).sum() / torch.clamp_min(n_sc, 1).float(),
         0.0)
+    if global_fill is not None:
+        out["global_fill"] = global_fill
     return out

@@ -1,7 +1,8 @@
 """Training loop (port of ``trinerflet_tpu/train/trainer.py``): Adam with the
 exponential-decay schedule, the parameter EMA, the loss, the occupancy
-refresh cadence, the march-span retune, and full-frame rendering from a
-trained state.
+refresh cadence, the retune of the march's shapes (span, per-ray budget,
+global layout), error-map and pregenerated-ray batches, random backgrounds,
+CLIP guidance steps, full-frame rendering and evaluation (PSNR / SSIM).
 
 Differences from the JAX package, none of which changes a result:
 
@@ -14,29 +15,35 @@ Differences from the JAX package, none of which changes a result:
 * ``render_rays`` / ``render_image`` build the planes once per call (the
   values are identical) and do not pad the last chunk (rays are
   independent).
-
-This slice trains the per-ray (N, B) layout with ``budget_autotune=False``:
-the budget tuner and the global layout it engages (K5), error-map sampling,
-pregenerated rays, random backgrounds and CLIP guidance come with slice 3.
+* A retune re-plans the shapes of the next call (budget B, ``num_coarse``,
+  the layout and its slots); there is nothing to recompile.
+* ``evaluate`` runs in one process (the multi-host view split is not
+  ported) and writes its PNGs with a small zlib PNG writer (no OpenCV).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
+import struct
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import zlib
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .._device import SLICE_3, SLICE_LATER, DeviceLike, not_ported, resolve_device
-from ..data.rays import rays_full_image, sample_ray_batch
+from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from ..data.rays import (rand_poses, rays_full_image, sample_ray_batch,
+                         sample_ray_batch_error_map, sample_ray_batch_pregen)
 from ..models.nerf import NeRFConfig, NeRFField, init_nerf_params
 from ..models.triplane import wavelet_l1
 from ..render import renderer as R
+from . import metrics
 
-__all__ = ["TrainConfig", "TrainState", "Trainer", "lr_schedule"]
+__all__ = ["TrainConfig", "TrainState", "Trainer", "lr_schedule", "global_slots_for", "write_png"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
 
@@ -80,6 +87,7 @@ class TrainState(NamedTuple):
     occ: R.OccupancyState
     step: int
     rng: torch.Generator       # on the trainer's device
+    error_map: Optional[torch.Tensor] = None  # (V, G*G) sampling weights when enabled
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -126,9 +134,21 @@ def _map(fn, tree: Dict) -> Dict:
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _ema_of(prev: Optional[float], x: float) -> float:
+    """The retune statistics' EMA: 0.5 prev + 0.5 x (x on the first read)."""
+    return x if prev is None else 0.5 * prev + 0.5 * x
+
+
+def global_slots_for(mean_samples: float) -> int:
+    """Slots per ray of the global layout for a live mean of kept samples per
+    ray: a buffer 1.5 x the mean, rounded up to an even count, at least 4."""
+    return max(4, int(math.ceil(mean_samples * 1.5 / 2) * 2))
+
+
 class Trainer:
     def __init__(self, nerf_cfg: NeRFConfig, render_cfg: R.RenderConfig,
-                 train_cfg: TrainConfig, device: DeviceLike = None):
+                 train_cfg: TrainConfig, device: DeviceLike = None,
+                 workspace: Optional[str] = None):
         if train_cfg.renderer != "occgrid":
             raise not_ported(f"the {train_cfg.renderer!r} renderer", SLICE_LATER)
         self.device = resolve_device(device)
@@ -137,13 +157,23 @@ class Trainer:
         self.cfg = train_cfg
         self.field = NeRFField(nerf_cfg)
         self.lr_fn = lr_schedule(train_cfg)
+        self.workspace = workspace
+        if workspace:
+            os.makedirs(workspace, exist_ok=True)
         # deep test-time rendering: wider per-ray budget, smaller ray chunks
         self.eval_render_cfg = render_cfg.for_eval()
         ratio = max(1, self.eval_render_cfg.samples_per_ray_budget
                     // max(render_cfg.samples_per_ray_budget, 1))
         self.eval_chunk = max(1024, train_cfg.eval_chunk // ratio)
         self._base_render_cfg = render_cfg   # configured (pre-retune) shapes
-        self._march_retunes = 0
+        self._budget_max = render_cfg.samples_per_ray_budget
+        # retune state (trainer state, not TrainState): per-lever counts and
+        # the EMAs of the statistics each lever reads
+        self._march_retunes = self._budget_retunes = self._global_retunes = 0
+        self._span_trunc_ema = self._span_p99_ema = self._needed_seg_ema = None
+        self._budget_p99_ema = self._trunc_T_ema = None
+        self.clip_loss: Optional[Callable] = None  # set_clip_guidance
+        self.rand_pose_interval = -1
 
     # ------------------------------------------------------------------ state
 
@@ -201,9 +231,13 @@ class Trainer:
                                  f"move them or build the trainer with device={t.device.type!r}")
 
     def scene_to_device(self, scene) -> Dict:
-        """A pinhole scene (``SceneData``) as the train step reads it."""
+        """A scene as the train step reads it: a pinhole ``SceneData``, or
+        any scene with pregenerated per-view ray grids (``rays_o`` /
+        ``rays_d`` (V, H, W, 3), e.g. NDC rays)."""
         if getattr(scene, "rays_o", None) is not None:
-            raise not_ported("training on pregenerated rays", SLICE_3)
+            return {k: torch.as_tensor(np.asarray(getattr(scene, k)), dtype=torch.float32,
+                                       device=self.device)
+                    for k in ("images", "rays_o", "rays_d")}
         return {
             "images": torch.as_tensor(np.asarray(scene.images), dtype=torch.float32,
                                       device=self.device),
@@ -214,31 +248,43 @@ class Trainer:
 
     # ------------------------------------------------------------ train step
 
-    def _check_train_ported(self) -> None:
-        cfg = self.cfg
-        for on, what in ((cfg.budget_autotune, "budget_autotune=True (the budget tuner and the "
-                                               "global layout it engages)"),
-                         (cfg.error_map, "error-map ray sampling"),
-                         (cfg.train_rand_bg, "random training backgrounds")):
-            if on:
-                raise not_ported(what, SLICE_3)
-
-    def set_clip_guidance(self, *args, **kwargs):
-        raise not_ported("CLIP guidance steps", SLICE_3)
-
     def _loss_fn(self, params: Dict, occ: R.OccupancyState, data: Dict,
-                 batch: Optional[Dict], with_stats: bool, generator: torch.Generator):
+                 batch: Optional[Dict], with_stats: bool, generator: torch.Generator,
+                 error_map: Optional[torch.Tensor] = None):
+        """Loss and aux of one batch. The draws come from ``generator`` in
+        the order batch, background, noise, unless ``batch`` holds them:
+        ``img_idx`` / ``pix_idx`` (uniform and pregenerated batches),
+        ``img_idx`` / ``u`` / ``jx`` / ``jy`` (error-map batches), ``bg``
+        (N, 3) (``train_rand_bg``) and ``noise`` (N,). With error-map
+        sampling aux carries ``_new_error_map``, the map after its EMA
+        update."""
         cfg = self.cfg
         N = cfg.num_rays
         batch = batch or {}
-        rays_o, rays_d, pixels = sample_ray_batch(
-            data["images"], data["poses"], data["intrinsics"], N, generator,
-            batch.get("img_idx"), batch.get("pix_idx"))
+        err_info = None
+        if "rays_o" in data:
+            rays_o, rays_d, pixels = sample_ray_batch_pregen(
+                data["images"], data["rays_o"], data["rays_d"], N, generator,
+                batch.get("img_idx"), batch.get("pix_idx"))
+        elif cfg.error_map and error_map is not None:
+            rays_o, rays_d, pixels, err_info = sample_ray_batch_error_map(
+                data["images"], data["poses"], data["intrinsics"], N, error_map, generator,
+                batch.get("img_idx"), batch.get("u"), batch.get("jx"), batch.get("jy"))
+        else:
+            rays_o, rays_d, pixels = sample_ray_batch(
+                data["images"], data["poses"], data["intrinsics"], N, generator,
+                batch.get("img_idx"), batch.get("pix_idx"))
+        if cfg.train_rand_bg:
+            bg = batch.get("bg")
+            if bg is None:
+                bg = torch.rand((N, 3), generator=generator, device=generator.device)
+            bg = bg.to(self.device, torch.float32)
+        else:
+            bg = torch.full((N, 3), cfg.background_color, dtype=torch.float32, device=self.device)
         noise = batch.get("noise")
         if noise is None:
             noise = torch.rand((N,), generator=generator, device=generator.device)
         noise = noise.to(self.device, torch.float32)
-        bg = torch.full((N, 3), cfg.background_color, dtype=torch.float32, device=self.device)
         if pixels.shape[-1] == 4:
             gt = pixels[..., :3] * pixels[..., 3:] + bg * (1 - pixels[..., 3:])
         else:
@@ -253,7 +299,8 @@ class Trainer:
                                bg_color=bg, occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox,
                                with_stats=with_stats)
         pred = out["image"]
-        loss = _criterion(cfg, pred, gt).mean()
+        loss_pix = _criterion(cfg, pred, gt)
+        loss = loss_pix.mean()
         aux = {"mse": ((pred - gt) ** 2).mean()}
         if cfg.wavelet_regularization > 0:
             reg = wavelet_l1(params["encoder"], self.nerf_cfg.triplane, cfg.weighted_regularization)
@@ -264,33 +311,47 @@ class Trainer:
             loss = loss + (-cfg.alpha_bce * torch.log(alpha).mean())
         if cfg.z_variance_reg > 0:
             loss = loss + cfg.z_variance_reg * out["z_variance"].mean()
-        for k in ("num_samples", "samples_p99", "overflow_frac", "trunc_T", "samples_mean",
-                  "span_p99", "span_trunc_T", "needed_seg_p99"):
+        for k in ("num_samples", "samples_p99", "overflow_frac", "global_fill", "trunc_T",
+                  "samples_mean", "span_p99", "span_trunc_T", "needed_seg_p99"):
             if k in out:
                 aux[k] = out[k]
+        if err_info is not None:
+            # EMA of the per-cell training error: 0.1 old + 0.9 new
+            img_idx, cell = err_info
+            flat = img_idx * error_map.shape[1] + cell
+            new_map = error_map.reshape(-1).clone()
+            new_map[flat] = 0.1 * error_map.reshape(-1)[flat] + 0.9 * loss_pix.detach()
+            aux["_new_error_map"] = new_map.reshape(error_map.shape)
         return loss, aux
 
     def train_step(self, state: TrainState, data: Dict, with_stats: bool = True,
                    batch: Optional[Dict] = None) -> Tuple[TrainState, Dict]:
         """One optimisation step on ``num_rays`` rays: loss, gradients (the
         K4 adjoint, K2 and K3 backward kernels on CUDA), Adam and the EMA.
-        ``batch`` may hold ``img_idx``, ``pix_idx`` and ``noise`` (N,) to
-        inject the step's draws. Returns (new state, aux with ``loss``)."""
-        self._check_train_ported()
+        ``batch`` may hold the step's draws (see ``_loss_fn``). Returns (new
+        state, aux with ``loss``)."""
         self._check_device(state.params, state.occ)
         named = _leaves(state.params)
         leaves = [p.requires_grad_(True) for _, p in named]
-        loss, aux = self._loss_fn(state.params, state.occ, data, batch, with_stats, state.rng)
+        loss, aux = self._loss_fn(state.params, state.occ, data, batch, with_stats, state.rng,
+                                  state.error_map)
+        error_map = aux.pop("_new_error_map", state.error_map)
+        state = self._apply_grads(state, named, leaves, loss)
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["loss"] = loss.detach()
+        return state._replace(error_map=error_map), aux
+
+    def _apply_grads(self, state: TrainState, named, leaves: List[torch.Tensor],
+                     loss: torch.Tensor) -> TrainState:
+        """Gradients of ``loss``, then Adam and the EMA in place; the step
+        advances."""
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         with torch.no_grad():
             count = self._adam([n for n, _ in named], leaves, grads, state.opt_state)
             ema_count = self._ema(state, leaves)
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["loss"] = loss.detach()
-        opt_state = dict(state.opt_state, count=count)
-        return state._replace(opt_state=opt_state, ema_count=ema_count,
-                              step=state.step + 1), aux
+        return state._replace(opt_state=dict(state.opt_state, count=count), ema_count=ema_count,
+                              step=state.step + 1)
 
     def _adam(self, names: List[str], params: List[torch.Tensor], grads: List[torch.Tensor],
               opt: Dict) -> int:
@@ -331,42 +392,127 @@ class Trainer:
         torch._foreach_add_(ema, torch._foreach_mul(params, float(f32(1) - d)))
         return n
 
-    def _maybe_retune_march(self, state: TrainState) -> None:
-        """The march-span lever of the JAX package's retune: once the
-        occupancy has settled (iter_density >= 6), size ``num_coarse`` to the
-        occupied bbox's diagonal (at most 4 retunes). The sample-budget and
-        global-layout levers belong to ``budget_autotune`` (slice 3)."""
+    def _maybe_retune_march(self, state: TrainState, aux: Optional[Dict] = None) -> None:
+        """Adapt the march's shapes to the live statistics (the JAX package's
+        retune, lever for lever). All levers wait for the occupancy to
+        settle (iter_density >= 6); each retunes at most 4 times. ``aux`` is
+        the last train step's (its floats are read here, once per refresh).
+
+        (a) Span: ``num_coarse`` to the occupied bbox's diagonal and, with
+            ``budget_autotune``, to min(the span-p99 rule, the needed-segment
+            rule) while spatially truncated rays end opaque (EMA of
+            span_trunc_T <= budget_trunc_tol), else grow back to the worst
+            case; a multiple of 8 in [8, worst]. Eval keeps the configured
+            config with the bbox span.
+        (b) Budget B (``budget_autotune``): x2 (up to the configured B)
+            while > 2% of rays overflow and the EMA of capped rays' residual
+            transmittance exceeds the tolerance, else min(1.3 x p99 EMA,
+            1.4 x live mean) rounded up to 4, floor 8.
+        (c) Layout (``budget_autotune``): switch to the global buffer at
+            S = max(4, ceil(1.5 mean / 2) 2) slots per ray when S <= 0.8 B;
+            double S when the buffer is over 85% full, back to per-ray once
+            S >= B."""
         cfg = self.render_cfg
-        if self._march_retunes >= 4 or int(state.occ.iter_density) < 6:
+        if cfg.march != "hierarchical" or int(state.occ.iter_density) < 6:
             return
-        bbox_t = R.tuned_num_coarse(cfg, state.occ.bbox.detach().cpu().numpy())
-        worst = int(math.ceil(cfg.bound * cfg.max_steps / cfg.fine_per_coarse))
-        cur = cfg.num_coarse_override or worst
-        if bbox_t is not None and (bbox_t < int(cur * 0.9) or bbox_t > cur):
-            self.render_cfg = dataclasses.replace(cfg, num_coarse_override=bbox_t)
-            # eval derives from the configured cfg: the exact-safe bbox span
-            self.eval_render_cfg = dataclasses.replace(
-                self._base_render_cfg, num_coarse_override=bbox_t).for_eval()
-            self._march_retunes += 1
+        tune = self.cfg.budget_autotune and aux is not None
+        if self._march_retunes < 4:
+            bbox_t = R.tuned_num_coarse(cfg, state.occ.bbox.detach().cpu().numpy())
+            span_t = None
+            seg = 2.0 * math.sqrt(3.0) / cfg.max_steps * cfg.fine_per_coarse
+            worst = int(math.ceil(cfg.bound * cfg.max_steps / cfg.fine_per_coarse))
+            if tune and "span_p99" in aux:
+                self._span_trunc_ema = _ema_of(self._span_trunc_ema, float(aux["span_trunc_T"]))
+                self._span_p99_ema = _ema_of(self._span_p99_ema, float(aux["span_p99"]))
+                if aux.get("needed_seg_p99") is not None:
+                    self._needed_seg_ema = _ema_of(self._needed_seg_ema,
+                                                   float(aux["needed_seg_p99"]))
+                if self._span_trunc_ema <= self.cfg.budget_trunc_tol:
+                    span_t = int(math.ceil(self._span_p99_ema * 1.1 / seg)) + 2
+                    if self._needed_seg_ema is not None:
+                        span_t = min(span_t, int(math.ceil(self._needed_seg_ema * 1.1)) + 2)
+                    span_t = min(worst, max(8, (span_t + 7) // 8 * 8))
+                elif cfg.num_coarse_override:
+                    span_t = worst  # truncated rays are losing visible mass
+            cands = [t for t in (bbox_t, span_t) if t is not None]
+            target = min(cands) if cands else None
+            cur = cfg.num_coarse_override or worst
+            if target is not None and (target < int(cur * 0.9) or target > cur):
+                self.render_cfg = dataclasses.replace(cfg, num_coarse_override=target)
+                # eval derives from the configured cfg: the exact-safe bbox span
+                self.eval_render_cfg = dataclasses.replace(
+                    self._base_render_cfg,
+                    num_coarse_override=bbox_t or self._base_render_cfg.num_coarse_override,
+                ).for_eval()
+                self._march_retunes += 1
+
+        if tune and self._budget_retunes < 4 and "samples_p99" in aux:
+            self._budget_p99_ema = _ema_of(self._budget_p99_ema, float(aux["samples_p99"]))
+            self._trunc_T_ema = _ema_of(self._trunc_T_ema, float(aux.get("trunc_T", 1.0)))
+            cfg = self.render_cfg
+            cur = cfg.samples_per_ray_budget
+            if float(aux["overflow_frac"]) > 0.02 and self._trunc_T_ema > self.cfg.budget_trunc_tol:
+                target = min(self._budget_max, cur * 2)
+            else:
+                t_p99 = int(math.ceil(self._budget_p99_ema * 1.3 / 4) * 4)
+                t_mean = int(math.ceil(float(aux.get("samples_mean", cur)) * 1.4 / 4) * 4)
+                target = min(self._budget_max, max(8, min(t_p99, t_mean)))
+            if target > cur or target < int(cur * 0.75):
+                self.render_cfg = dataclasses.replace(cfg, samples_per_ray_budget=target)
+                self._budget_retunes += 1
+
+        if tune and self._global_retunes < 4 and "num_samples" in aux:
+            cfg = self.render_cfg
+            B = cfg.samples_per_ray_budget
+            if cfg.compaction == "global" and float(aux.get("global_fill", 0.0)) > 0.85:
+                slots = cfg.global_slots_per_ray * 2
+                if slots >= B:  # the buffer would be as large as the per-ray layout
+                    self.render_cfg = dataclasses.replace(cfg, compaction="per_ray",
+                                                          global_slots_per_ray=0)
+                else:
+                    self.render_cfg = dataclasses.replace(cfg, global_slots_per_ray=slots)
+                self._global_retunes += 1
+            elif cfg.compaction == "per_ray" and self._global_retunes == 0:
+                slots = global_slots_for(float(aux["num_samples"]) / self.cfg.num_rays)
+                if slots <= int(B * 0.8):
+                    self.render_cfg = dataclasses.replace(cfg, compaction="global",
+                                                          global_slots_per_ray=slots)
+                    self._global_retunes += 1
 
     def fit(self, state: TrainState, scene, log_every: int = 100, callback=None) -> TrainState:
         """Run ``iters`` (+ warmup) steps on the JAX package's cadence: every
         ``update_extra_interval`` steps a density refresh (full while
-        iter_density < 16, then the rotating quarter) and the march retune;
-        the p99 statistics only on the step before each refresh."""
-        self._check_train_ported()
+        iter_density < 16, then the rotating quarter) and the retune on the
+        last step's aux; the p99 statistics only on the step before each
+        refresh. With error-map sampling the map starts at ones over
+        min(128, H, W)^2 cells per view. With CLIP guidance
+        (``set_clip_guidance``) one CLIP step follows every k supervised
+        steps (k = ``rand_pose_interval`` > 0), or every step is one (k = 0)."""
         data = self.scene_to_device(scene)
+        if self.cfg.error_map and state.error_map is None and "poses" in data:
+            V, H, W = data["images"].shape[:3]
+            state = state._replace(error_map=torch.ones((V, min(128, H, W) ** 2),
+                                                        dtype=torch.float32, device=self.device))
         total = self.cfg.iters + max(self.cfg.warmup_steps, 0)
         interval = self.cfg.update_extra_interval
+        k = self.rand_pose_interval
         t0 = time.time()
+        last_aux = None
         for it in range(total):
             st = state.step
             if st % interval == 0:
                 occ = self.update_grid(state.params, state.occ, generator=state.rng,
                                        full=int(state.occ.iter_density) < 16)
                 state = state._replace(occ=occ)
-                self._maybe_retune_march(state)
+                self._maybe_retune_march(state, last_aux)
+            if self.clip_loss is not None and (k == 0 or (k > 0 and it % (k + 1) == k)):
+                state, clip_l = self.clip_guidance_step(state)
+                if k == 0:
+                    if callback is not None:
+                        callback(state, {"loss": clip_l, "clip_loss": clip_l})
+                    continue
             state, aux = self.train_step(state, data, with_stats=(st + 1) % interval == 0)
+            last_aux = aux
             if log_every and (it % log_every == 0 or it == total - 1):
                 dt = time.time() - t0
                 print(f"step {state.step:6d} loss {float(aux['loss']):.5f} "
@@ -374,6 +520,61 @@ class Trainer:
             if callback is not None:
                 callback(state, aux)
         return state
+
+    # ---------------------------------------------------------- CLIP guidance
+
+    def set_clip_guidance(self, clip_loss: Callable, rand_pose_interval: int,
+                          radius: Optional[float] = None) -> None:
+        """Enable random-pose CLIP steps: ``clip_loss(image (1, H, W, 3)) ->
+        scalar`` is any differentiable callable (the CLIP network itself is
+        not ported). ``rand_pose_interval`` k: one CLIP step after every k
+        supervised steps; k = 0: CLIP steps only. The render is a full frame
+        of side max(16, sqrt(num_rays)) from an orbit pose at ``radius``
+        (the scene bound by default)."""
+        self.clip_loss = clip_loss
+        self.rand_pose_interval = int(rand_pose_interval)
+        self.clip_radius = radius if radius is not None else self.render_cfg.bound
+        side = max(16, int(math.sqrt(self.cfg.num_rays)))
+        self.clip_hw = (side, side)
+        self._clip_rng = np.random.default_rng(self.cfg.seed + 7)
+
+    def _clip_loss_fn(self, params: Dict, occ: R.OccupancyState, rays_o, rays_d,
+                      noise: torch.Tensor):
+        """CLIP loss of a perturbed render on a white background."""
+        H, W = self.clip_hw
+        planes = self.field.build_planes(params)
+        bg = torch.ones((rays_o.shape[0], 3), dtype=torch.float32, device=self.device)
+
+        def field_fn(xyzs, dirs):
+            return self.field(params, planes, xyzs, dirs)
+
+        out = R.render_occgrid(field_fn, rays_o, rays_d, occ.occ, self.render_cfg, noise=noise,
+                               bg_color=bg, occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox,
+                               with_stats=False)
+        return self.clip_loss(out["image"].reshape(1, H, W, 3))
+
+    def _clip_step(self, state: TrainState, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, torch.Tensor]:
+        """One optimisation step on the CLIP loss of the given rays (Adam and
+        the EMA as a supervised step). ``noise`` (N,) may be injected."""
+        self._check_device(state.params, state.occ)
+        if noise is None:
+            noise = torch.rand((rays_o.shape[0],), generator=state.rng, device=state.rng.device)
+        named = _leaves(state.params)
+        leaves = [p.requires_grad_(True) for _, p in named]
+        loss = self._clip_loss_fn(state.params, state.occ, rays_o, rays_d,
+                                  noise.to(self.device, torch.float32))
+        return self._apply_grads(state, named, leaves, loss), loss.detach()
+
+    def clip_guidance_step(self, state: TrainState) -> Tuple[TrainState, torch.Tensor]:
+        """Draw one random orbit pose on the host and take a CLIP step
+        (focal for a ~53 degree field of view at the render size)."""
+        H, W = self.clip_hw
+        pose = rand_poses(self._clip_rng, 1, radius=self.clip_radius)[0]
+        f = 0.5 * W / math.tan(0.5 * math.radians(53.0))
+        ro, rd = rays_full_image(pose, (f, f, W / 2, H / 2), H, W)
+        return self._clip_step(state, torch.as_tensor(ro, device=self.device),
+                               torch.as_tensor(rd, device=self.device))
 
     # -------------------------------------------------------------- rendering
 
@@ -413,3 +614,59 @@ class Trainer:
             imgs.append(out["image"])
             deps.append(out["depth"])
         return torch.cat(imgs).reshape(H, W, 3), torch.cat(deps).reshape(H, W)
+
+    # ------------------------------------------------------------- evaluation
+
+    def evaluate(self, state: TrainState, scene, use_ema: bool = True,
+                 save_dir: Optional[str] = None, tag: str = "results") -> Dict:
+        """Render every view of ``scene`` with the eval config (EMA params by
+        default) and score it against the ground truth, alpha composited over
+        the background: returns {"PSNR", "SSIM" (means), "per_image"}. Writes
+        ``<workspace>/<tag>.json`` when a workspace is set, and with
+        ``save_dir`` each view's RGB and span-normalised depth as PNGs."""
+        params = state.ema_params if (use_ema and self.cfg.ema_decay > 0) else state.params
+        rows = []
+        for v in range(scene.num_views):
+            if getattr(scene, "rays_o", None) is not None:
+                img, dep = self.render_rays(params, state.occ, scene.rays_o[v], scene.rays_d[v],
+                                            scene.H, scene.W)
+            else:
+                img, dep = self.render_image(params, state.occ, scene.poses[v], scene.intrinsics,
+                                             scene.H, scene.W)
+            gt = torch.as_tensor(np.asarray(scene.images[v]), dtype=torch.float32,
+                                 device=self.device)
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + self.cfg.background_color * (1 - gt[..., 3:])
+            rows.append({"view": v, "PSNR": metrics.psnr(img, gt), "SSIM": metrics.ssim(img, gt)})
+            if save_dir:
+                os.makedirs(save_dir, exist_ok=True)
+                rgb8 = (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+                write_png(os.path.join(save_dir, f"{tag}_{v:03d}.png"), rgb8)
+                d8 = (dep.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+                write_png(os.path.join(save_dir, f"{tag}_{v:03d}_depth.png"), d8)
+        results = {
+            "PSNR": float(np.mean([r["PSNR"] for r in rows])) if rows else float("nan"),
+            "SSIM": float(np.mean([r["SSIM"] for r in rows])) if rows else float("nan"),
+            "per_image": rows,
+        }
+        if self.workspace:
+            with open(os.path.join(self.workspace, f"{tag}.json"), "w") as f:
+                json.dump(results, f, indent=2)
+        return results
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An 8-bit PNG of a (H, W) grey or (H, W, 3) RGB uint8 array, written
+    with zlib alone (no image library)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    H, W = img.shape[:2]
+    color = 2 if img.ndim == 3 else 0
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(H))  # filter 0 per row
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
