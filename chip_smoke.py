@@ -29,26 +29,30 @@ Phases (any failure exits non-zero; nothing is caught):
    arguments the path hands each kernel wrapper; each kernel (K1 with the
    training stride, K2 forward and backward, K3 forward and backward, the K4
    adjoint, K6) is held to its plain version on those arguments and timed
-   beside its bound and library call; then the 4,096-ray step check: one
-   step's loss and per-group gradients at full width with an injected batch
-   and noise, on the card (kernels) and on the CPU (plain versions);
+   beside its bound and library call, in rows that carry this path's
+   launches; then the 4,096-ray step check: one step's loss and per-group
+   gradients at full width with an injected batch and noise, on the card
+   (kernels) and on the CPU (plain versions);
 7. autotune train: ``bench.py``'s configuration as bench.py runs it, with
    ``budget_autotune=True``: 320 warm-up steps on the bench cadence (full
    refreshes while iter_density < 16, then the rotating quarter; the retune
    on the last step's aux at every refresh), then 5 timed windows of 50
    steps (median); bench.py's summary (budget, layout, num_coarse, stride,
    kept samples per ray, loss); counters zeroed and read around the whole
-   phase; one step under ``torch.profiler``;
+   phase; one step under ``torch.profiler``; then, as in 6, one step's
+   arguments at the shapes the tuner chose hold each kernel it launched to
+   its plain version, in rows that carry this path's launches;
 8. evaluate: ``Trainer.evaluate`` of the trained state on the 8 views
    (PSNR and SSIM must be finite);
 9. global layout: the trained state continues on ``compaction="global"``
    with S slots per ray from the tuner's rule on the live mean, at full
    width: counters zeroed, 2 windows of 50 steps with refreshes, counters
    read (K5 and K3c forward and backward must have launched), ms/step,
-   buffer use; one step under the profiler; then one more step and a
-   refresh record the kernels' arguments: K5 is held to its plain version
-   bit for bit, K3c forward and backward at a stated tolerance, each timed;
-   then the 4,096-ray step check on the global layout;
+   buffer use; one step under the profiler; then, as in 6, one step's
+   arguments hold every kernel of the layout to its plain version (K1, K2
+   forward and backward on the M = N*S buffer's points, the K4 adjoint, K6,
+   K5 bit for bit, K3c forward and backward at a stated tolerance), each
+   timed; then the 4,096-ray step check on the global layout;
 10. print the kernels line, then the device line last.
 """
 
@@ -629,8 +633,27 @@ def _rel(a, b):
     return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
 
 
-def train_kernel_phase(trainer, calls):
-    """Each kernel of the train path on the arguments the step handed it."""
+def path_kernel_rows(trainer, calls, launches, what):
+    """Each kernel that one step of a train path launched (``calls``, from
+    ``capture_step`` right after the path ran), held to its plain version on
+    the arguments the step handed it and timed; each row takes its launches
+    from that path's run and is named for it."""
+    rows = _common_train_rows(trainer, calls)
+    if calls["_composite_cuda"]:
+        rows += _dense_composite_rows(calls)
+    if calls["_compact_cuda"]:
+        rows += _compact_rows(calls)
+    for r in rows:
+        r["launches"] = launches[r.pop("key")]
+        if r["launches"] == 0:
+            raise RuntimeError(f"{r['name']} ran in the capture step but not on the {what} path")
+        r["name"] += f" ({what})"
+        r["path"] = what
+    return rows
+
+
+def _common_train_rows(trainer, calls):
+    """K1, K2 forward and backward, the K4 adjoint and K6: every layout runs them."""
     rows = []
     # ---- K1 with the training stride
     (args, kw), = calls["_march_cuda"][:1]
@@ -644,7 +667,7 @@ def train_kernel_phase(trainer, calls):
     cells_c, cells_f, probes = k1_need(ro, rd, nears, fars, noise, occ_c, kw)
     b, by = bound_ms(nbytes(ro, rd, nears, fars, noise) + cells_c + cells_f + nbytes(*got),
                      20.0 * probes)
-    rows.append(dict(name="K1 march_hierarchical (train, strided)", key="march", route="cuda",
+    rows.append(dict(name="K1 march_hierarchical, strided", key="march", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/march.cu",
                      replaces="trinerflet_tpu/ops/raymarch.py:604", max_abs_err=0.0,
                      tol="mask, t, stride, seg_lastocc equal",
@@ -669,7 +692,7 @@ def train_kernel_phase(trainer, calls):
     grid = c2[:, :, None, :].to(planes.dtype).contiguous()
     touched = _touched_texels(c2, H, Wd)
     b, by = bound_ms(touched * C * planes.element_size() + nbytes(xyz, got), xyz.shape[0] * 3 * C * 8)
-    rows.append(dict(name="K2 sample_planes (train)", key="grid_sample", route="cuda",
+    rows.append(dict(name="K2 sample_planes", key="grid_sample", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
                      replaces="trinerflet_tpu/ops/grid_sample.py:131", max_abs_err=err, tol=1e-4,
                      ms=time_ms(lambda: GS._sample_points_cuda(planes, xyz, lb)),
@@ -707,38 +730,6 @@ def train_kernel_phase(trainer, calls):
                           f"float32 atomics then a bf16 cast (2 launches); library is "
                           f"aten.grid_sampler_2d_backward on the bf16 planes and bf16-rounded "
                           f"coordinates (rel diff {lib_err:.2e}); on f32 copies {lib_f32_err:.2e}"))
-
-    # ---- K3 forward and backward
-    (cargs, _), = calls["_composite_cuda"][:1]
-    got, ref = RM._composite_cuda(*cargs), RM.composite_dense_plain(*cargs)
-    err = max((a - b_).abs().max().item() for a, b_ in zip(got, ref))
-    if err > 1e-5:
-        raise RuntimeError(f"K3 (train) max|err| {err} > 1e-5")
-    sig = cargs[0]
-    b, by = bound_ms(nbytes(*cargs[:5]) + nbytes(*got), sig.numel() * 12)
-    rows.append(dict(name="K3 composite_dense (train)", key="composite", route="cuda",
-                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
-                     replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
-                     ms=time_ms(lambda: RM._composite_cuda(*cargs)),
-                     plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
-                     bound_ms=b, bound_by=by, library_ms=None,
-                     note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples"))
-    (bargs, _), = calls["_composite_backward_cuda"][:1]
-    got = RM._composite_backward_cuda(*bargs)
-    ref = RM.composite_dense_backward_plain(*bargs)
-    err = max(_rel(a, b_) for a, b_ in zip(got, ref))
-    if err > 1e-5:
-        raise RuntimeError(f"K3 backward rel err {err} > 1e-5")
-    b, by = bound_ms(nbytes(*bargs[:5]) + nbytes(*bargs[6:]) + nbytes(*got), sig.numel() * 40)
-    rows.append(dict(name="K3 composite_dense backward", key="composite_bwd", route="cuda",
-                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
-                     replaces="trinerflet_tpu/ops/raymarch.py:805",
-                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
-                     tol="1e-5 x max|grad|",
-                     ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
-                     plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
-                     bound_ms=b, bound_by=by, library_ms=None,
-                     note="analytic reverse pass, one thread per ray; replaces autodiff of the cumprod"))
 
     # ---- K4 adjoint: every level of the step's ladder
     tcfg = trainer.nerf_cfg.triplane
@@ -815,6 +806,42 @@ def train_kernel_phase(trainer, calls):
     return rows
 
 
+def _dense_composite_rows(calls):
+    """K3 forward and backward: the per-ray (N, B) layout's compositor."""
+    rows = []
+    (cargs, _), = calls["_composite_cuda"][:1]
+    got, ref = RM._composite_cuda(*cargs), RM.composite_dense_plain(*cargs)
+    err = max((a - b_).abs().max().item() for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K3 (train) max|err| {err} > 1e-5")
+    sig = cargs[0]
+    b, by = bound_ms(nbytes(*cargs[:5]) + nbytes(*got), sig.numel() * 12)
+    rows.append(dict(name="K3 composite_dense", key="composite", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
+                     ms=time_ms(lambda: RM._composite_cuda(*cargs)),
+                     plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples"))
+    (bargs, _), = calls["_composite_backward_cuda"][:1]
+    got = RM._composite_backward_cuda(*bargs)
+    ref = RM.composite_dense_backward_plain(*bargs)
+    err = max(_rel(a, b_) for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K3 backward rel err {err} > 1e-5")
+    b, by = bound_ms(nbytes(*bargs[:5]) + nbytes(*bargs[6:]) + nbytes(*got), sig.numel() * 40)
+    rows.append(dict(name="K3 composite_dense backward", key="composite_bwd", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                     replaces="trinerflet_tpu/ops/raymarch.py:805",
+                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
+                     tol="1e-5 x max|grad|",
+                     ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
+                     plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note="analytic reverse pass, one thread per ray; replaces autodiff of the cumprod"))
+    return rows
+
+
 def evaluate_phase(trainer, state, scene, card):
     """Trainer.evaluate on the training scene's views (EMA params)."""
     torch.cuda.synchronize()
@@ -877,9 +904,9 @@ def global_phase(trainer, state, data, card, mean_samples):
     return state, launches, stats
 
 
-def global_kernel_phase(calls):
-    """K5 and K3c forward and backward on the arguments a global-layout step
-    handed them."""
+def _compact_rows(calls):
+    """K5 and K3c forward and backward: the global layout's compaction and
+    compositor."""
     rows = []
     # ---- K5: the compaction, bit for bit
     (kargs, _), = calls["_compact_cuda"][:1]
@@ -891,9 +918,13 @@ def global_kernel_phase(calls):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise RuntimeError(f"K5 {f} differs from the plain version ({int((a != b).sum())} entries)")
     N, B = t.shape
-    # inputs read once, the buffer and per-ray fields written once; integer
-    # work only (a rank and a copy per kept sample)
-    b5, by5 = bound_ms(nbytes(ro, rd, t, dt, mask, t0) + nbytes(*got), 0.0)
+    nv = int(got.num_valid)
+    rays_in = int((got.counts > 0).sum())
+    # what this run's data needs: the whole mask; t and dt of the candidates
+    # that land in the buffer; o, d and t0 of the rays that own them; the
+    # whole buffer (padding included) and the per-ray fields written once;
+    # integer work only (a rank and a copy per kept sample)
+    b5, by5 = bound_ms(nbytes(mask) + 8 * nv + 28 * rays_in + nbytes(*got), 0.0)
     odt0 = torch.cat([ro, rd, t0[:, None]], -1)
     table = torch.cat([odt0[:, None, :].expand(N, B, 7).reshape(N * B, 7), t.reshape(-1, 1),
                        dt.reshape(-1, 1)], -1).contiguous()
@@ -907,9 +938,9 @@ def global_kernel_phase(calls):
                          ro, rd, t, dt, mask, t0, m_budget=M, bound=bound), iters=5),
                      bound_ms=b5, bound_by=by5, library_ms=time_ms(lib),
                      note=f"N={N} rays x B={B} slots -> M={M} buffer slots, {kept} kept samples "
-                          f"({int(got.num_valid)} in the buffer); 3 launches (count, one-block "
-                          f"scan, copy); library_ms is a two-call yardstick: mask.nonzero() "
-                          f"(with its host sync) + index_select of the 9-wide table"))
+                          f"({nv} in the buffer, from {rays_in} rays); 3 launches (count, "
+                          f"one-block scan, copy); library_ms is a two-call yardstick: "
+                          f"mask.nonzero() (with its host sync) + index_select of the 9-wide table"))
 
     # ---- K3c forward
     (cargs, _), = calls["_composite_compact_cuda"][:1]
@@ -920,7 +951,10 @@ def global_kernel_phase(calls):
     if err > 1e-5:
         raise RuntimeError(f"K3c forward rel err {err} > 1e-5")
     Mc = sig.shape[0]
-    b, by = bound_ms(nbytes(sig, rgb, dts, ts, offs, cnts) + nbytes(*got), Mc * 16)
+    seg = int(cnts.sum())  # slots inside the rays' segments, the only ones read
+    # per slot in a segment sigma, dt, t (4 B each) and rgb (12 B), about 16
+    # flops; per ray its offset and count, and its four sums written once
+    b, by = bound_ms(24 * seg + nbytes(offs, cnts) + nbytes(*got), seg * 16)
     rows.append(dict(name="K3c composite_compact", key="composite_compact", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
                      replaces="trinerflet_tpu/ops/raymarch.py:754",
@@ -928,7 +962,8 @@ def global_kernel_phase(calls):
                      tol="1e-5 x max|output|", ms=time_ms(lambda: RM._composite_compact_cuda(*cargs)),
                      plain_ms=time_ms(lambda: RM.composite_compact_plain(*cargs)),
                      bound_ms=b, bound_by=by, library_ms=None,
-                     note=f"M={Mc} slots, N={n_rays} rays; one thread per ray, float64 exponent"))
+                     note=f"M={Mc} slots ({seg} in segments), N={n_rays} rays; one thread per "
+                          f"ray, float64 exponent"))
     # ---- K3c backward
     (bargs, _), = calls["_composite_compact_backward_cuda"][:1]
     got = RM._composite_compact_backward_cuda(*bargs)
@@ -936,7 +971,11 @@ def global_kernel_phase(calls):
     err = max(_rel(a, b_) for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3c backward rel err {err} > 1e-5")
-    b, by = bound_ms(nbytes(*bargs[:7]) + nbytes(*bargs[9:]) + nbytes(*got), Mc * 30)
+    seg = int(bargs[6].sum())
+    # per slot in a segment sigma, dt, t, ray_id (4 B each) and rgb (12 B),
+    # about 30 flops; per ray offset, count and the 6 cotangent words; dsigma
+    # and drgb written over all M slots (zeros on padding)
+    b, by = bound_ms(28 * seg + nbytes(bargs[5], bargs[6], *bargs[9:]) + nbytes(*got), seg * 30)
     rows.append(dict(name="K3c composite_compact backward", key="composite_compact_bwd",
                      route="cuda", source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
                      replaces="trinerflet_tpu/ops/raymarch.py:754",
@@ -1037,7 +1076,7 @@ def main() -> int:
     state, perray_launches, perray_stats = train_phase(
         trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS, what="per-ray train")
     state, calls = capture_step(trainer, state, data)
-    train_rows = train_kernel_phase(trainer, calls)
+    rows += path_kernel_rows(trainer, calls, perray_launches, "per-ray train")
     del calls
     step_check(trainer, state, data, "per-ray")
     del trainer, state
@@ -1046,22 +1085,18 @@ def main() -> int:
     # bench.py's step as bench.py runs it: the tuner on
     trainer, state, data, scene = train_setup(budget_autotune=True, scene=scene)
     state, auto_launches, stats = train_phase(trainer, state, data, card, what="autotune train")
-    state = profile_step(trainer, state, data, "autotune train")
-    eval_res = evaluate_phase(trainer, state, scene, card)
     mean = float(stats["aux"]["num_samples"]) / trainer.cfg.num_rays
+    state = profile_step(trainer, state, data, "autotune train")
+    state, calls = capture_step(trainer, state, data)  # at the shapes the tuner chose
+    rows += path_kernel_rows(trainer, calls, auto_launches, "autotune train")
+    del calls
+    eval_res = evaluate_phase(trainer, state, scene, card)
     state, global_launches, gstats = global_phase(trainer, state, data, card, mean)
     state = profile_step(trainer, state, data, "global-layout train")
     state, calls = capture_step(trainer, state, data)
-    global_rows = global_kernel_phase(calls)
+    rows += path_kernel_rows(trainer, calls, global_launches, "global-layout train")
     del calls
     step_check(trainer, state, data, "global-layout")
-    for r in train_rows:
-        r["launches"] = auto_launches[r.pop("key")]
-        r["path"] = "autotune train"
-    for r in global_rows:
-        r["launches"] = global_launches[r.pop("key")]
-        r["path"] = "global-layout train"
-    rows += train_rows + global_rows
 
     for r in rows:
         log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "

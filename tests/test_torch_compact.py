@@ -72,8 +72,9 @@ def test_compact_global_dense_matches_jax(case, prefix):
         mask[:] = False
     total = int(mask.sum())
     M = {"exact": total, "ample": N * B, "overflow": total - 37, "empty": 5 * N}[case]
-    kw = dict(m_budget=M, bound=1.5, prefix_mask=prefix)
-    j = JRM.compact_global_dense(*map(jnp.asarray, (o, d, t, dt, mask, t0)), **kw)
+    kw = dict(m_budget=M, bound=1.5)
+    j = JRM.compact_global_dense(*map(jnp.asarray, (o, d, t, dt, mask, t0)), **kw,
+                                 prefix_mask=prefix)
     p = PRM.compact_global_dense(*map(torch.from_numpy, (o, d, t, dt, mask, t0)), **kw)
     _assert_equal_samples(p, j)
     assert int(p.num_valid) == min(total, M)

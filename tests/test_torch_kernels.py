@@ -227,7 +227,7 @@ def test_compact_kernel_matches_plain_bit_for_bit(dev, case, prefix):
     total = int(mask.sum())
     M = {"ample": N * B, "overflow": total - 1001, "empty": 6 * N}[case]
     n0 = kernels.launches["compact"]
-    got = RM.compact_global_dense(o, d, t, dt, mask, t0, m_budget=M, bound=1.5, prefix_mask=prefix)
+    got = RM.compact_global_dense(o, d, t, dt, mask, t0, m_budget=M, bound=1.5)
     assert kernels.launches["compact"] == n0 + 3
     ref = RM.compact_global_dense_plain(o, d, t, dt, mask, t0, m_budget=M, bound=1.5)
     torch.cuda.synchronize()

@@ -195,17 +195,13 @@ __global__ void composite_compact_kernel(const float* __restrict__ sigma,
   z2[n] = s_z;
 }
 
-// sigma, dts, ts (M,) f32, rgb (M, 3) f32, ray_id (M,), offsets, counts (N,)
-// int32 -> ws, depth, z2 (N,), image (N, 3) f32. (ray_id and M are taken for
-// a signature shared with the backward; the segments come from offsets and
-// counts.)
+// sigma, dts, ts (M,) f32, rgb (M, 3) f32, offsets, counts (N,) int32 -> ws,
+// depth, z2 (N,), image (N, 3) f32. Only the slots of the segments
+// [offset, offset + count) are read.
 extern "C" int composite_compact_launch(const float* sigma, const float* rgb, const float* dts,
-                                        const float* ts, const int* ray_id, const int* offsets,
-                                        const int* counts, int N, int M, float t_thresh,
-                                        float* ws, float* depth, float* image, float* z2,
-                                        cudaStream_t stream) {
-  (void)ray_id;
-  (void)M;
+                                        const float* ts, const int* offsets, const int* counts,
+                                        int N, float t_thresh, float* ws, float* depth,
+                                        float* image, float* z2, cudaStream_t stream) {
   if (N == 0) return 0;
   const int threads = 128;
   composite_compact_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
@@ -256,8 +252,9 @@ __global__ void composite_compact_backward_kernel(
   }
 }
 
-// Inputs as composite_compact_launch plus the cotangents g_ws, g_depth, g_z2
-// (N,), g_image (N, 3) f32 -> dsigma (M,), drgb (M, 3) f32.
+// Inputs as composite_compact_launch plus ray_id (M,) int32 (to zero the
+// padding slots) and the cotangents g_ws, g_depth, g_z2 (N,), g_image (N, 3)
+// f32 -> dsigma (M,), drgb (M, 3) f32.
 extern "C" int composite_compact_backward_launch(
     const float* sigma, const float* rgb, const float* dts, const float* ts, const int* ray_id,
     const int* offsets, const int* counts, const float* g_ws, const float* g_depth,

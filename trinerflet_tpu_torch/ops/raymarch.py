@@ -515,17 +515,15 @@ def compact_global_dense_plain(rays_o, rays_d, t, dt, mask, t0, *, m_budget: int
     )
 
 
-def compact_global_dense(rays_o, rays_d, t, dt, mask, t0, *, m_budget: int, bound: float,
-                         prefix_mask: bool = False) -> CompactSamples:
+def compact_global_dense(rays_o, rays_d, t, dt, mask, t0, *, m_budget: int,
+                         bound: float) -> CompactSamples:
     """Global compaction of the per-ray (N, B) budget layout into a shared
     ``m_budget`` buffer (ray-major; overflow drops the tail): kernel K5 on
     CUDA tensors, the plain version on CPU tensors. ``t`` (N, B) absolute
     sample distances, ``dt`` (N, B) steps, ``mask`` (N, B) bool, ``t0`` (N,)
-    the perturbed ray starts. ``num_valid`` stays on the device.
-    ``prefix_mask`` (each row's valid slots are a prefix, as the hierarchical
-    march guarantees) selects the JAX package's sort-free path there; both of
-    its paths give the same buffer, which is what this one computes for any
-    mask, so it changes nothing here."""
+    the perturbed ray starts. ``num_valid`` stays on the device. Any mask is
+    compacted in row order, which is the buffer both of the JAX package's
+    paths (prefix masks and sorted keys) give."""
     if rays_o.is_cuda:
         return _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound)
     return compact_global_dense_plain(rays_o, rays_d, t, dt, mask, t0, m_budget=m_budget,
@@ -684,7 +682,7 @@ def composite_compact(sigmas, rgbs, samples: CompactSamples, num_rays: int,
     return ws, depth, image, z_var
 
 
-_K3C_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 5
+_K3C_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_void_p] * 5
 _K3C_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_float]
                  + [ctypes.c_void_p] * 3)
 
@@ -705,14 +703,15 @@ def _check_compact(sigmas, rgbs, dts, ts, ray_id, offsets, counts, N):
 
 
 def _composite_compact_cuda(sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_rays, t_thresh):
-    N, M = num_rays, sigmas.shape[0]
+    N = num_rays
     dev = sigmas.device
-    ins = _check_compact(sigmas, rgbs, dts, ts, ray_id, offsets, counts, N)
+    sig, rgb, dts, ts, _, offs, cnts = _check_compact(sigmas, rgbs, dts, ts, ray_id, offsets,
+                                                      counts, N)
     outs = [torch.empty(s, device=dev, dtype=torch.float32) for s in ((N,), (N,), (N, 3), (N,))]
     if N == 0:
         return tuple(outs)
     fn = _build.function("compact", "composite_compact_launch", _K3C_ARGS)
-    code = fn(*[_build.ptr(x) for x in ins], N, M, float(t_thresh),
+    code = fn(*[_build.ptr(x) for x in (sig, rgb, dts, ts, offs, cnts)], N, float(t_thresh),
               *[_build.ptr(x) for x in outs], _build.stream(dev))
     _build.check(code, "composite_compact")
     kernels.launches["composite_compact"] += 1

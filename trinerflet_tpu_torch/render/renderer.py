@@ -456,9 +456,8 @@ def render_occgrid(
     global_fill = None
     if cfg.compaction == "global":
         slots = N * cfg.global_slots_per_ray
-        # K1 keeps each ray's samples in its row prefix (prefix_mask)
         comp = RM.compact_global_dense(rays_o, rays_d, t, dt, mask, t0, m_budget=slots,
-                                       bound=cfg.bound, prefix_mask=True)
+                                       bound=cfg.bound)
         sigmas, rgbs = field_fn(comp.xyzs, comp.dirs)
         ws, depth_raw, image, z_var = RM.composite_compact(
             cfg.density_scale * sigmas, rgbs, comp, N, cfg.t_thresh)
