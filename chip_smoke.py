@@ -1,11 +1,12 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+check them: the wavelet-triplane field on the occupancy-grid renderer, the
+proposal renderer, and the hash-grid field.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
-2. build kernels K1-K6 (with K3c) from ``trinerflet_tpu_torch/kernels/csrc``
+2. build kernels K1-K7 (with K3c) from ``trinerflet_tpu_torch/kernels/csrc``
    with nvcc, one process per source, in parallel;
 3. serve: the full-width bench model (1024^2 x 16-channel bf16 wavelet
    triplane, bior6.8, 4 IDWT levels, bf16 MLPs, bound 1.5, 128^3 x 2-cascade
@@ -53,7 +54,23 @@ Phases (any failure exits non-zero; nothing is caught):
    forward and backward on the M = N*S buffer's points, the K4 adjoint, K6,
    K5 bit for bit, K3c forward and backward at a stated tolerance), each
    timed; then the 4,096-ray step check on the global layout;
-10. print the kernels line, then the device line last.
+10. proposal renderer: bench.py's model with ``renderer="proposal"`` (64 +
+    32 samples, the 5-level proposal grid), 64 warm-up steps and one timed
+    window of 50 (no refresh, no retune); counters zeroed and read around
+    it: K7 forward and backward, K2, K3 and K4 must have launched and K1,
+    K5 and K6 not; the loss and the interlevel loss must fall; one step
+    under the profiler; evaluate on the 8 views and one 800^2 view; one
+    captured step holds K7 forward (N x 64 points, 5 levels) and backward,
+    K2, K3 (both calls) and the K4 adjoint to their plain versions; the
+    4,096-ray step check;
+11. hash-grid field: ``NeRFConfig(encoding="hashgrid")`` at the JAX
+    package's default grid (16 levels, 2^19 rows) on bench.py's
+    occupancy-grid configuration with the tuner on, 64 + 50 steps on the
+    refresh cadence (K7, K1, K3 and K6 must launch, K2 and K4 not); the
+    loss must fall; one step under the profiler; one 800^2 view; one
+    captured step and refresh hold K7 forward (every call) and backward,
+    K1, K3 and K6 to their plain versions; the 4,096-ray step check;
+12. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -73,6 +90,7 @@ from trinerflet_tpu_torch import kernels
 from trinerflet_tpu_torch.data.rays import rays_full_image
 from trinerflet_tpu_torch.data.synthetic import make_synthetic_scene, orbit_pose, synthetic_intrinsics
 from trinerflet_tpu_torch.kernels import _build
+from trinerflet_tpu_torch.models import gridencoder as GE
 from trinerflet_tpu_torch.models.nerf import NeRFConfig
 from trinerflet_tpu_torch.models.triplane import TriplaneConfig
 from trinerflet_tpu_torch.ops import grid_sample as GS
@@ -95,6 +113,12 @@ TRAIN_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "composite", "compos
                  "idwt_adjoint", "occupancy")
 GLOBAL_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "compact", "composite_compact",
                   "composite_compact_bwd", "idwt", "idwt_adjoint", "occupancy")
+PROPOSAL_KERNELS = ("grid_encode", "grid_encode_bwd", "grid_sample", "grid_sample_bwd", "composite",
+                    "composite_bwd", "idwt", "idwt_adjoint")
+PROPOSAL_ABSENT = ("march", "compact", "occupancy")  # no occupancy grid on the proposal path
+HASHGRID_KERNELS = ("grid_encode", "grid_encode_bwd", "march", "composite", "composite_bwd",
+                    "occupancy")
+HASHGRID_ABSENT = ("grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint")  # no triplane
 WARM_STEPS, WINDOW_STEPS, WINDOWS = 320, 50, 5  # bench.py's
 PERRAY_WARM, PERRAY_WINDOWS = 64, 1            # the per-ray phase, cut
 GLOBAL_WINDOWS = 2
@@ -493,18 +517,21 @@ def _refresh(trainer, state, full):
 
 
 def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
-                required=TRAIN_KERNELS, what="train"):
+                required=TRAIN_KERNELS, what="train", absent=()):
     """bench.py's cadence: warm-up (refreshes and the retune on the last
-    step's aux), then timed windows (median); counters zeroed just before
-    and read just after."""
+    step's aux, on the occgrid renderer), then timed windows (median);
+    counters zeroed just before and read just after. Every ``required``
+    kernel must have launched and no ``absent`` one; the loss (and on the
+    proposal renderer the interlevel loss) must fall over the warm-up."""
     interval = trainer.cfg.update_extra_interval
     N = trainer.cfg.num_rays
+    occgrid = trainer.cfg.renderer == "occgrid"
     kernels.reset_launches()
-    losses, aux, trail = [], None, []
+    losses, inter, aux, trail = [], [], None, []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(warm):
-        if i % interval == 0:
+        if occgrid and i % interval == 0:
             state = _refresh(trainer, state, full=int(state.occ.iter_density) < 16)
             trainer._maybe_retune_march(state, aux)
             if aux is not None and trainer.cfg.budget_autotune:  # what the retune read (it synced)
@@ -513,6 +540,8 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
                               rc.num_coarse_override, rc.compaction, rc.global_slots_per_ray))
         state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
         losses.append(aux["loss"])
+        if "interlevel" in aux:
+            inter.append(aux["interlevel"])
     losses = torch.stack(losses).cpu()
     warm_s = time.perf_counter() - t0
     if trail:
@@ -522,7 +551,7 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
     for _ in range(n_windows):
         t0 = time.perf_counter()
         for i in range(WINDOW_STEPS):
-            if i % interval == 0:
+            if occgrid and i % interval == 0:
                 state = _refresh(trainer, state, full=False)
             state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
         final_loss = float(aux["loss"])  # host copy: waits for the window's last step
@@ -531,7 +560,8 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
     steps = warm + n_windows * WINDOW_STEPS
     ms = float(np.median(windows))
     first, last = losses[:interval].mean().item(), losses[-interval:].mean().item()
-    samples = float(aux["num_samples"]) / N
+    samples = (float(aux["num_samples"]) / N if occgrid
+               else float(trainer.prop_cfg.num_final_samples))
     rc = trainer.render_cfg
     log(f"# {what} ({card}): {warm} warm-up steps in {warm_s:.2f} s; windows of "
         f"{WINDOW_STEPS} steps {[round(w, 3) for w in windows]} ms/step; median {ms:.3f} ms/step "
@@ -541,18 +571,28 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
         f"{interval} {first:.5f}, of the last {interval} {last:.5f}, after the windows "
         f"{final_loss:.5f}; occupied fraction {state.occ.occ.float().mean().item():.4f}, "
         f"bbox {[round(x, 4) for x in state.occ.bbox.tolist()]}")
-    # bench.py's summary fields
-    log(f"# {what} summary: budget {rc.samples_per_ray_budget}/{trainer._budget_max}; layout "
-        f"{rc.compaction}(x{rc.global_slots_per_ray}); num_coarse {rc.num_coarse_override}; "
-        f"occ_stride {rc.resolved_occ_test_stride()}; samples/step {float(aux['num_samples']):,.0f} "
-        f"({samples:.1f}/ray); loss {losses[-1].item():.5f}->{final_loss:.5f}; "
-        f"retunes march {trainer._march_retunes}, budget {trainer._budget_retunes}, "
-        f"global {trainer._global_retunes}")
+    if inter:
+        inter = torch.stack(inter).cpu()
+        i_first, i_last = inter[:interval].mean().item(), inter[-interval:].mean().item()
+        log(f"# {what} interlevel loss: mean of the first {interval} steps {i_first:.6f}, of the "
+            f"last {interval} {i_last:.6f}; after the windows {float(aux['interlevel']):.6f}")
+        if not (np.isfinite(inter.numpy()).all() and i_last < i_first):
+            raise RuntimeError(f"the interlevel loss did not fall: {i_first} -> {i_last}")
+    if occgrid:  # bench.py's summary fields
+        log(f"# {what} summary: budget {rc.samples_per_ray_budget}/{trainer._budget_max}; layout "
+            f"{rc.compaction}(x{rc.global_slots_per_ray}); num_coarse {rc.num_coarse_override}; "
+            f"occ_stride {rc.resolved_occ_test_stride()}; samples/step {float(aux['num_samples']):,.0f} "
+            f"({samples:.1f}/ray); loss {losses[-1].item():.5f}->{final_loss:.5f}; "
+            f"retunes march {trainer._march_retunes}, budget {trainer._budget_retunes}, "
+            f"global {trainer._global_retunes}")
     log(f"# {what} launches over {steps} steps: {launches} (per step: "
         f"{ {k: round(v / steps, 3) for k, v in launches.items()} })")
     for name in required:
         if launches[name] == 0:
             raise RuntimeError(f"kernel {name} was not launched on the {what} path")
+    for name in absent:
+        if launches[name] != 0:
+            raise RuntimeError(f"kernel {name} launched on the {what} path, which has none")
     if not (np.isfinite(losses.numpy()).all() and np.isfinite(final_loss)):
         raise RuntimeError("non-finite training loss")
     if not last < first:
@@ -590,7 +630,8 @@ class Capture:
                (GS, "_sample_points_backward_cuda"), (RM, "_composite_cuda"),
                (RM, "_composite_backward_cuda"), (W, "_idwt2d_cuda"), (W, "_idwt2d_adjoint_cuda"),
                (R, "_occupancy_upkeep_cuda"), (RM, "_compact_cuda"),
-               (RM, "_composite_compact_cuda"), (RM, "_composite_compact_backward_cuda"))
+               (RM, "_composite_compact_cuda"), (RM, "_composite_compact_backward_cuda"),
+               (GE, "_grid_encode_cuda"), (GE, "_grid_encode_backward_cuda"))
 
     def __init__(self):
         self.calls = defaultdict(list)
@@ -613,18 +654,28 @@ class Capture:
             setattr(mod, name, orig)
 
 
-def _batch(n, V, HW, seed):
+def _batch(trainer, n, V, HW, seed):
+    """A step's draws: (view, pixel) indices and the ray noise, and on the
+    proposal renderer the ladder jitter and the final-level uniforms."""
     g = torch.Generator().manual_seed(seed)
-    return {"img_idx": torch.randint(0, V, (n,), generator=g),
-            "pix_idx": torch.randint(0, HW, (n,), generator=g), "noise": torch.rand((n,), generator=g)}
+    batch = {"img_idx": torch.randint(0, V, (n,), generator=g),
+             "pix_idx": torch.randint(0, HW, (n,), generator=g), "noise": torch.rand((n,), generator=g)}
+    if trainer.prop_cfg is not None:
+        P, F = trainer.prop_cfg.num_proposal_samples, trainer.prop_cfg.num_final_samples
+        batch["prop_jitter"] = torch.rand((n, P + 1), generator=g)
+        batch["prop_u"] = torch.rand((n, F), generator=g)
+    return batch
 
 
 def capture_step(trainer, state, data):
+    """One step (and on the occgrid renderer one partial refresh) with every
+    kernel wrapper's arguments recorded."""
     V, H, Wd = data["images"].shape[:3]
     with Capture() as cap:
         state, _ = trainer.train_step(state, data, with_stats=False,
-                                      batch=_batch(trainer.cfg.num_rays, V, H * Wd, SEED + 1))
-        state = _refresh(trainer, state, full=False)
+                                      batch=_batch(trainer, trainer.cfg.num_rays, V, H * Wd, SEED + 1))
+        if trainer.cfg.renderer == "occgrid":
+            state = _refresh(trainer, state, full=False)
     torch.cuda.synchronize()
     return state, cap.calls
 
@@ -638,11 +689,14 @@ def path_kernel_rows(trainer, calls, launches, what):
     ``capture_step`` right after the path ran), held to its plain version on
     the arguments the step handed it and timed; each row takes its launches
     from that path's run and is named for it."""
-    rows = _common_train_rows(trainer, calls)
-    if calls["_composite_cuda"]:
-        rows += _dense_composite_rows(calls)
-    if calls["_compact_cuda"]:
-        rows += _compact_rows(calls)
+    makers = (("_march_cuda", _march_rows), ("_sample_points_cuda", _sample_rows),
+              ("_idwt2d_adjoint_cuda", _adjoint_rows), ("_occupancy_upkeep_cuda", _upkeep_rows),
+              ("_composite_cuda", _dense_composite_rows), ("_compact_cuda", _compact_rows),
+              ("_grid_encode_cuda", _grid_encode_rows))
+    rows = []
+    for target, make in makers:
+        if calls[target]:
+            rows += make(trainer, calls)
     for r in rows:
         r["launches"] = launches[r.pop("key")]
         if r["launches"] == 0:
@@ -652,10 +706,9 @@ def path_kernel_rows(trainer, calls, launches, what):
     return rows
 
 
-def _common_train_rows(trainer, calls):
-    """K1, K2 forward and backward, the K4 adjoint and K6: every layout runs them."""
+def _march_rows(trainer, calls):
+    """K1 with the training stride."""
     rows = []
-    # ---- K1 with the training stride
     (args, kw), = calls["_march_cuda"][:1]
     got, ref = RM._march_cuda(*args, **kw), RM.march_hierarchical_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -678,8 +731,12 @@ def _common_train_rows(trainer, calls):
                           f"num_coarse {kw['num_coarse']}, mean kept samples/ray "
                           f"{got[2].float().sum(1).mean().item():.3f}; {probes} probes read "
                           f"{cells_c} coarse and {cells_f} fine cells"))
+    return rows
 
-    # ---- K2 forward at the step's points
+
+def _sample_rows(trainer, calls):
+    """K2 forward at the step's points and its backward on the step's cotangent."""
+    rows = []
     (planes, xyz, lb), _ = calls["_sample_points_cuda"][0]
     got, ref = GS._sample_points_cuda(planes, xyz, lb), GS.sample_points_plain(planes, xyz, lb)
     err = (got - ref).abs().max().item()
@@ -730,12 +787,16 @@ def _common_train_rows(trainer, calls):
                           f"float32 atomics then a bf16 cast (2 launches); library is "
                           f"aten.grid_sampler_2d_backward on the bf16 planes and bf16-rounded "
                           f"coordinates (rel diff {lib_err:.2e}); on f32 copies {lib_f32_err:.2e}"))
+    return rows
 
-    # ---- K4 adjoint: every level of the step's ladder
+
+def _adjoint_rows(trainer, calls):
+    """The K4 adjoint: every level of the step's ladder."""
     tcfg = trainer.nerf_cfg.triplane
     g0, g1 = W.synthesis_taps(tcfg.wavelet_type, torch.bfloat16)
     L = len(g0)
     pl, pr = W.synthesis_pads(tcfg.wavelet_type)
+    rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     err4, sizes, level_by = 0.0, [], []
     for (ga, _) in calls["_idwt2d_adjoint_cuda"]:
@@ -770,8 +831,12 @@ def _common_train_rows(trainer, calls):
                      library_ms=tot["library_ms"],
                      note="sum over the 4 levels " + ", ".join(sizes)
                           + "; library is a strided grouped F.conv2d (bf16)"))
+    return rows
 
-    # ---- K6: the partial refresh's upkeep
+
+def _upkeep_rows(trainer, calls):
+    """K6: the partial refresh's upkeep."""
+    rows = []
     (oargs, _), = calls["_occupancy_upkeep_cuda"][:1]
     grid_old, tmp, off, rcfg, decay = oargs
     got = R._occupancy_upkeep_cuda(*oargs)
@@ -806,40 +871,53 @@ def _common_train_rows(trainer, calls):
     return rows
 
 
-def _dense_composite_rows(calls):
-    """K3 forward and backward: the per-ray (N, B) layout's compositor."""
+def _dense_composite_rows(trainer, calls):
+    """K3 forward and backward: the per-ray (N, B) layout's compositor; on
+    the proposal path one row per call (the proposal weights, T = P, and
+    the final samples, T = F)."""
     rows = []
-    (cargs, _), = calls["_composite_cuda"][:1]
+    for (cargs, _) in calls["_composite_cuda"]:
+        rows += _composite_row(cargs, len(calls["_composite_cuda"]) > 1)
+    for (bargs, _) in calls["_composite_backward_cuda"]:
+        rows += _composite_backward_row(bargs, len(calls["_composite_backward_cuda"]) > 1)
+    return rows
+
+
+def _composite_row(cargs, name_t):
     got, ref = RM._composite_cuda(*cargs), RM.composite_dense_plain(*cargs)
     err = max((a - b_).abs().max().item() for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3 (train) max|err| {err} > 1e-5")
     sig = cargs[0]
     b, by = bound_ms(nbytes(*cargs[:5]) + nbytes(*got), sig.numel() * 12)
-    rows.append(dict(name="K3 composite_dense", key="composite", route="cuda",
-                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
-                     replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
-                     ms=time_ms(lambda: RM._composite_cuda(*cargs)),
-                     plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
-                     bound_ms=b, bound_by=by, library_ms=None,
-                     note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples"))
-    (bargs, _), = calls["_composite_backward_cuda"][:1]
+    return [dict(name="K3 composite_dense" + (f" T={sig.shape[1]}" if name_t else ""),
+                 key="composite", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                 replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
+                 ms=time_ms(lambda: RM._composite_cuda(*cargs)),
+                 plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples")]
+
+
+def _composite_backward_row(bargs, name_t):
+    sig = bargs[0]
     got = RM._composite_backward_cuda(*bargs)
     ref = RM.composite_dense_backward_plain(*bargs)
     err = max(_rel(a, b_) for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3 backward rel err {err} > 1e-5")
     b, by = bound_ms(nbytes(*bargs[:5]) + nbytes(*bargs[6:]) + nbytes(*got), sig.numel() * 40)
-    rows.append(dict(name="K3 composite_dense backward", key="composite_bwd", route="cuda",
-                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
-                     replaces="trinerflet_tpu/ops/raymarch.py:805",
-                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
-                     tol="1e-5 x max|grad|",
-                     ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
-                     plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
-                     bound_ms=b, bound_by=by, library_ms=None,
-                     note="analytic reverse pass, one thread per ray; replaces autodiff of the cumprod"))
-    return rows
+    return [dict(name="K3 composite_dense backward" + (f" T={sig.shape[1]}" if name_t else ""),
+                 key="composite_bwd",
+                 route="cuda", source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                 replaces="trinerflet_tpu/ops/raymarch.py:805",
+                 max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
+                 tol="1e-5 x max|grad|",
+                 ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
+                 plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 note="analytic reverse pass, one thread per ray; replaces autodiff of the cumprod")]
 
 
 def evaluate_phase(trainer, state, scene, card):
@@ -904,7 +982,7 @@ def global_phase(trainer, state, data, card, mean_samples):
     return state, launches, stats
 
 
-def _compact_rows(calls):
+def _compact_rows(trainer, calls):
     """K5 and K3c forward and backward: the global layout's compaction and
     compositor."""
     rows = []
@@ -989,11 +1067,170 @@ def _compact_rows(calls):
     return rows
 
 
+def _touched_rows(x, cfg, bound) -> int:
+    """Distinct table rows K7's corners read at these points, over all
+    levels (what this run's data needs)."""
+    return sum(torch.unique(GE._corners_plain(x, cfg, bound, l)[1]).numel()
+               for l in range(cfg.num_levels))
+
+
+def _k7_flops(n_points, cfg) -> float:
+    """f32 operations of K7 per call: per (point, level) about 18 for the
+    coordinates, 16 for the 8 corner weights and 2 C per corner for the sum."""
+    return n_points * cfg.num_levels * (18 + 16 + 16 * cfg.level_dim)
+
+
+def _grid_encode_rows(trainer, calls):
+    """K7 forward and backward: every forward call of the captured step (the
+    field's or the proposal density's, and a refresh's sweep) held to the
+    plain version; the step's first forward and its backward timed."""
+    rows = []
+    err = 0.0
+    for (fargs, _) in calls["_grid_encode_cuda"]:
+        got, ref = GE._grid_encode_cuda(*fargs), GE.grid_encode_plain(*fargs)
+        err = max(err, (got - ref).abs().max().item())
+    if err > 1e-6:
+        raise RuntimeError(f"K7 max|err| {err} > 1e-6")
+    (fargs, _) = calls["_grid_encode_cuda"][0]
+    tables, x, cfg, bound = fargs
+    N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
+    total = sum(cfg.level_size(l) for l in range(L))
+    touched = _touched_rows(x, cfg, bound)
+    b, by = bound_ms(nbytes(x) + 4 * N * L * C + 4 * C * touched, _k7_flops(N, cfg))
+    rows.append(dict(name="K7 grid_encode", key="grid_encode", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
+                     replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err, tol=1e-6,
+                     ms=time_ms(lambda: GE._grid_encode_cuda(*fargs)),
+                     plain_ms=time_ms(lambda: GE.grid_encode_plain(*fargs), iters=5),
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     note=f"N={N} points x {L} levels of C={C}; {touched} of {total} table rows "
+                          f"touched; {len(calls['_grid_encode_cuda'])} forward call(s) of the step "
+                          f"held to the plain version; no single library call computes it"))
+
+    (bargs, _) = calls["_grid_encode_backward_cuda"][0]
+    g, xb, cfg, bound = bargs
+    got = GE._grid_encode_backward_cuda(*bargs)
+    ref = GE.grid_encode_backward_plain(*bargs)
+    err = max(_rel(a, b_) for a, b_ in zip(got, ref))
+    if err > 1e-5:
+        raise RuntimeError(f"K7 backward rel err {err} > 1e-5")
+    N = xb.shape[0]
+    live = int((g.reshape(N, L, C) != 0).any(-1).sum())  # (point, level) rows with a cotangent
+    b, by = bound_ms(nbytes(g, xb) + 4 * C * total, _k7_flops(N, cfg) * live / max(N * L, 1))
+    # the library yardstick computes less: the corner rows and w * g are
+    # precomputed, only the scatter-add into one buffer of all tables is timed
+    offs = np.cumsum([0] + [cfg.level_size(l) for l in range(L)])
+    idx, vals = [], []
+    for l in range(L):
+        w, rws = GE._corners_plain(xb, cfg, bound, l)
+        idx.append((rws + int(offs[l])).reshape(-1))
+        vals.append((w[..., None] * g[:, l * C:(l + 1) * C].float()[None]).reshape(-1, C))
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    buf = torch.zeros((total, C), device=xb.device)
+    lib_err = _rel(buf.index_add_(0, idx, vals), torch.cat(got))
+    rows.append(dict(name="K7 grid_encode backward", key="grid_encode_bwd", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
+                     replaces="trinerflet_tpu/ops/scatter.py:326",
+                     max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
+                     tol="1e-5 x max|grad|",
+                     ms=time_ms(lambda: GE._grid_encode_backward_cuda(*bargs)),
+                     plain_ms=time_ms(lambda: GE.grid_encode_backward_plain(*bargs), iters=5),
+                     bound_ms=b, bound_by=by,
+                     library_ms=time_ms(lambda: buf.index_add_(0, idx, vals)),
+                     note=f"{live} of {N * L} (point, level) rows carry a cotangent; float32 atomics "
+                          f"into {total} zeroed rows; library is Tensor.index_add_ of the "
+                          f"precomputed (row, w g) pairs, which computes less (rel diff "
+                          f"{lib_err:.2e}); replaces the sort + one-hot scatter"))
+    del idx, vals, buf
+    return rows
+
+
 def _touched_texels(c2, H, Wd):
     x0 = torch.clamp(torch.floor(torch.clamp((c2[..., 0] + 1) * 0.5 * (Wd - 1), 0, Wd - 1)), 0, Wd - 2).long()
     y0 = torch.clamp(torch.floor(torch.clamp((c2[..., 1] + 1) * 0.5 * (H - 1), 0, H - 1)), 0, H - 2).long()
     base = (torch.arange(3, device=c2.device)[:, None] * H + y0) * Wd + x0
     return torch.unique(torch.cat([base, base + 1, base + Wd, base + Wd + 1]).reshape(-1)).numel()
+
+
+def proposal_configs(num_rays: int = 32768):
+    """bench.py's model on the proposal renderer (ProposalConfig defaults:
+    64 + 32 samples, a 5-level grid 16 -> 128 of 2^17 rows)."""
+    nerf_cfg, render_cfg, train_cfg = bench_configs(num_rays)
+    return nerf_cfg, render_cfg, dataclasses.replace(train_cfg, renderer="proposal")
+
+
+def hashgrid_configs(num_rays: int = 32768):
+    """The hash-grid field at the JAX package's default grid (16 levels of
+    2 features, 16 -> 2048, 2^19 rows; 49 MB of tables), bound 1.5, bf16
+    MLPs, on bench.py's occupancy-grid RenderConfig with the tuner on; no
+    wavelet regularisation (the field has no wavelets)."""
+    _, render_cfg, train_cfg = bench_configs(num_rays)
+    nerf_cfg = NeRFConfig(encoding="hashgrid", bound=1.5, compute_dtype="bfloat16",
+                          plane_dtype="bfloat16")
+    return nerf_cfg, render_cfg, dataclasses.replace(train_cfg, wavelet_regularization=0.0)
+
+
+def view_phase(trainer, state, card, what):
+    """One 800x800 view of the trained state (EMA params), twice (the second
+    is the steady ms/view), from the serve phase's first camera."""
+    intr = synthetic_intrinsics(VIEW_HW, VIEW_HW)
+    pose = orbit_pose(np.arccos(1 - 1.6 * 0.5 / 8), 0.0, 2.0)
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, dep = trainer.render_image(state.ema_params, state.occ, pose, intr, VIEW_HW, VIEW_HW)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if img.shape != (VIEW_HW, VIEW_HW, 3) or not (torch.isfinite(img).all() and torch.isfinite(dep).all()):
+        raise RuntimeError(f"{what} view: bad or non-finite render {tuple(img.shape)}")
+    if img.min() < 0 or img.max() > 1.0 + 1e-5:
+        raise RuntimeError(f"{what} view out of range: [{img.min()}, {img.max()}]")
+    log(f"# {what} view ({card}): {VIEW_HW}x{VIEW_HW} ms/view first {ms[0]:.2f}, repeat {ms[1]:.2f}; "
+        f"image mean {img.mean().item():.4f} std {img.std().item():.4f}")
+    return ms
+
+
+def proposal_phases(scene, card):
+    """The proposal renderer: bench.py's model trained 64 + 50 steps (no
+    refresh, no retune), one step under the profiler, evaluate, one 800^2
+    view, one captured step's kernels held to their plain versions, the
+    4,096-ray step check."""
+    trainer = Trainer(*proposal_configs(), device=DEVICE)
+    state = trainer.init_state()
+    data = trainer.scene_to_device(scene)
+    state, launches, stats = train_phase(
+        trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS,
+        required=PROPOSAL_KERNELS, absent=PROPOSAL_ABSENT, what="proposal train")
+    state = profile_step(trainer, state, data, "proposal train")
+    res = evaluate_phase(trainer, state, scene, card)
+    view_ms = view_phase(trainer, state, card, "proposal")
+    state, calls = capture_step(trainer, state, data)
+    rows = path_kernel_rows(trainer, calls, launches, "proposal train")
+    del calls
+    step_check(trainer, state, data, "proposal")
+    return rows, dict(stats, launches=launches, view_ms=view_ms, psnr=res["PSNR"], ssim=res["SSIM"])
+
+
+def hashgrid_phases(scene, card):
+    """The hash-grid field on the occgrid renderer: 64 + 50 steps on the
+    refresh cadence, one step under the profiler, one 800^2 view, one
+    captured step's kernels held to their plain versions, the 4,096-ray
+    step check."""
+    trainer = Trainer(*hashgrid_configs(), device=DEVICE)
+    state = trainer.init_state(density_grid=mark_untrained_grid(scene.poses, scene.intrinsics,
+                                                                trainer.render_cfg))
+    data = trainer.scene_to_device(scene)
+    state, launches, stats = train_phase(
+        trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS,
+        required=HASHGRID_KERNELS, absent=HASHGRID_ABSENT, what="hashgrid train")
+    state = profile_step(trainer, state, data, "hashgrid train")
+    view_ms = view_phase(trainer, state, card, "hashgrid")
+    state, calls = capture_step(trainer, state, data)
+    rows = path_kernel_rows(trainer, calls, launches, "hashgrid train")
+    del calls
+    step_check(trainer, state, data, "hashgrid")
+    return rows, dict(stats, launches=launches, view_ms=view_ms)
 
 
 def _groups(named):
@@ -1012,7 +1249,7 @@ def step_check(trainer, state, data, what):
     on the trainer's current layout."""
     cfg = dataclasses.replace(trainer.cfg, num_rays=CHECK_RAYS)
     V, H, Wd = data["images"].shape[:3]
-    batch = _batch(CHECK_RAYS, V, H * Wd, SEED + 2)
+    batch = _batch(trainer, CHECK_RAYS, V, H * Wd, SEED + 2)
     results = {}
     for dev in (DEVICE, "cpu"):
         tr = Trainer(trainer.nerf_cfg, trainer.render_cfg, cfg, device=dev)
@@ -1026,7 +1263,7 @@ def step_check(trainer, state, data, what):
         grads = torch.autograd.grad(loss, [p for _, p in named])
         if dev == DEVICE:
             torch.cuda.synchronize()
-        results[dev] = (loss.item(), int(aux["num_samples"]),
+        results[dev] = (loss.item(), int(aux.get("num_samples", -1)),
                         _groups(zip([n for n, _ in named], grads)), time.perf_counter() - t0)
     (lg, ng, gg, tg), (lc, nc, gc, tc) = results[DEVICE], results["cpu"]
     loss_err = abs(lg - lc) / abs(lc)
@@ -1097,6 +1334,16 @@ def main() -> int:
     rows += path_kernel_rows(trainer, calls, global_launches, "global-layout train")
     del calls
     step_check(trainer, state, data, "global-layout")
+    rc = trainer.render_cfg
+    del trainer, state
+    log(f"# occgrid triplane phases done at {time.perf_counter() - t_start:.1f} s")
+
+    prop_rows, pstats = proposal_phases(scene, card)
+    rows += prop_rows
+    log(f"# proposal phases done at {time.perf_counter() - t_start:.1f} s")
+    hash_rows, hstats = hashgrid_phases(scene, card)
+    rows += hash_rows
+    log(f"# hashgrid phases done at {time.perf_counter() - t_start:.1f} s")
 
     for r in rows:
         log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "
@@ -1104,7 +1351,6 @@ def main() -> int:
             f"(tol {r['tol']}); {r['launches']} launches on the {r['path']} path; {r['note']}")
     fields = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
               "bound_ms", "bound_by", "library_ms")
-    rc = trainer.render_cfg
     log(f"# serve: {VIEW_HW}x{VIEW_HW} views, ms/view {ms} then {steady} on {card}")
     log(f"# per-ray train (budget_autotune=False): {perray_stats['ms_per_step']:.3f} ms/step, "
         f"{perray_stats['rays_per_s']:.1f} rays/s, {perray_stats['samples_per_ray']:.3f} kept "
@@ -1116,8 +1362,16 @@ def main() -> int:
         f"{gstats['rays_per_s']:.1f} rays/s, global_fill {gstats['fill']:.4f}, num_valid "
         f"{gstats['num_valid']:,.1f} on {card}; final config budget {rc.samples_per_ray_budget}, "
         f"num_coarse {rc.num_coarse_override}")
-    log(f"# evaluate: PSNR {eval_res['PSNR']:.4f} dB, SSIM {eval_res['SSIM']:.5f} on {card}; "
-        f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    log(f"# evaluate: PSNR {eval_res['PSNR']:.4f} dB, SSIM {eval_res['SSIM']:.5f} on {card}")
+    log(f"# proposal train: {pstats['ms_per_step']:.3f} ms/step, {pstats['rays_per_s']:.1f} rays/s, "
+        f"loss {pstats['loss_first']:.5f} -> {pstats['loss_last']:.5f}; evaluate PSNR "
+        f"{pstats['psnr']:.4f} dB, SSIM {pstats['ssim']:.5f}; ms/view {pstats['view_ms']} on {card}; "
+        f"launches {pstats['launches']}")
+    log(f"# hashgrid train: {hstats['ms_per_step']:.3f} ms/step, {hstats['rays_per_s']:.1f} rays/s, "
+        f"{hstats['samples_per_ray']:.3f} kept samples/ray, loss {hstats['loss_first']:.5f} -> "
+        f"{hstats['loss_last']:.5f}; ms/view {hstats['view_ms']} on {card}; launches "
+        f"{hstats['launches']}")
+    log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

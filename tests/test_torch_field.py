@@ -95,9 +95,11 @@ def test_trunc_exp_forward_and_clamped_grad():
 
 def test_unported_field_options_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
-        PN.NeRFField(PN.NeRFConfig(encoding="hashgrid"))
+        PN.NeRFField(PN.NeRFConfig(encoding="k_planes"))
     with pytest.raises(NotImplementedError):
         PN.NeRFField(PN.NeRFConfig(bg_radius=2.0))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        PN.NeRFField(PN.NeRFConfig(encoding="hashgrid", bg_radius=2.0))
 
 
 def test_params_from_jax_keeps_layout_and_rejects_unported():

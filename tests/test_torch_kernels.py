@@ -1,5 +1,5 @@
 """Each CUDA kernel (K1-K4 forward and backward, K5, K3c forward and backward,
-K6) against its plain PyTorch version, on the card.
+K6, K7 forward and backward) against its plain PyTorch version, on the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
@@ -20,6 +20,10 @@ dilation and bbox are equal; the mean (a blocked float sum) to rtol 1e-5.
 K5 is equal bit for bit on every field. K3c keeps each ray's exponent in
 float64 and rounds it as the plain version does, so both take the same
 t_thresh cut; the sums run in f32 (forward atol 1e-5, backward 1e-5
+relative to the largest gradient). K7 rounds where its plain version rounds
+(the cell coordinate's fused multiply-add, then each operation alone, the
+corners summed in order): features within 1e-6 (expected equal), corner
+rows equal; its backward's float atomics add in an unspecified order (1e-5
 relative to the largest gradient).
 """
 
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 from trinerflet_tpu_torch import kernels
+from trinerflet_tpu_torch.models import gridencoder as GE
 from trinerflet_tpu_torch.ops import grid_sample as GS
 from trinerflet_tpu_torch.ops import raymarch as RM
 from trinerflet_tpu_torch.ops import wavelets as W
@@ -268,3 +273,72 @@ def test_composite_compact_kernels_match_plain(dev, t_thresh):
         assert _rel_close(a, b, 1e-5)
     pad = comp.ray_id >= N
     assert pad.any() and (got[0][pad] == 0).all() and (got[1][pad] == 0).all()
+
+
+K7_CASES = {  # the proposal grid, the hash-grid field's default, and the other variants
+    "proposal": dict(num_levels=5, level_dim=2, base_resolution=16, desired_resolution=128,
+                     log2_hashmap_size=17),
+    "hashgrid": dict(),
+    "tiled_smoothstep": dict(num_levels=6, level_dim=4, base_resolution=8, desired_resolution=200,
+                             log2_hashmap_size=16, gridtype="tiled", interpolation="smoothstep"),
+    "c1": dict(num_levels=4, level_dim=1, base_resolution=16, desired_resolution=512,
+               log2_hashmap_size=14),
+    "c8": dict(num_levels=3, level_dim=8, base_resolution=4, desired_resolution=64,
+               log2_hashmap_size=12),
+}
+
+
+def _k7_inputs(dev, cfg, bound, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (2 * torch.rand((n, 3), generator=g) - 1) * bound
+    res = cfg.level_resolution(cfg.num_levels - 1)
+    k = torch.randint(0, res + 1, (n // 4, 3), generator=g)
+    x[: n // 4] = (2.0 * k / res - 1.0) * bound  # on the top level's cell edges
+    x[:2] = torch.tensor([[-bound] * 3, [bound] * 3])
+    tables = [torch.rand((cfg.level_size(l), cfg.level_dim), generator=g) * 2 - 1
+              for l in range(cfg.num_levels)]
+    return x.to(dev), [t.to(dev) for t in tables]
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_grid_encode_kernel_matches_plain(dev, case):
+    cfg = GE.GridEncoderConfig(**K7_CASES[case])
+    x, tables = _k7_inputs(dev, cfg, 1.5, 50000, 10)
+    n0 = kernels.launches["grid_encode"]
+    got = GE._grid_encode_cuda(tables, x, cfg, 1.5)
+    assert kernels.launches["grid_encode"] == n0 + 1
+    ref = GE.grid_encode_plain(tables, x, cfg, 1.5)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (50000, cfg.output_dim)
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_grid_encode_backward_kernel_matches_plain(dev, case):
+    cfg = GE.GridEncoderConfig(**K7_CASES[case])
+    x, _ = _k7_inputs(dev, cfg, 1.5, 50000, 11)
+    x[:3000] = 0.01  # contention: many points on one cell
+    ct = torch.randn((50000, cfg.output_dim), generator=torch.Generator().manual_seed(12)).to(dev)
+    ct[5000:9000] = 0.0  # rows with no cotangent add nothing
+    n0 = kernels.launches["grid_encode_bwd"]
+    got = GE._grid_encode_backward_cuda(ct, x, cfg, 1.5)
+    assert kernels.launches["grid_encode_bwd"] == n0 + 1
+    ref = GE.grid_encode_backward_plain(ct, x, cfg, 1.5)
+    torch.cuda.synchronize()
+    for l, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape == (cfg.level_size(l), cfg.level_dim)
+        assert _rel_close(a, b, 1e-5), l
+
+
+def test_grid_encode_autograd_launches_and_refuses(dev):
+    cfg = GE.GridEncoderConfig(**K7_CASES["proposal"])
+    x, tables = _k7_inputs(dev, cfg, 1.5, 4000, 13)
+    params = {f"level_{l}": t.requires_grad_(True) for l, t in enumerate(tables)}
+    n0, n1 = kernels.launches["grid_encode"], kernels.launches["grid_encode_bwd"]
+    GE.grid_encode(params, x, cfg, 1.5).square().sum().backward()
+    assert kernels.launches["grid_encode"] == n0 + 1 and kernels.launches["grid_encode_bwd"] == n1 + 1
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in params.values())
+    with pytest.raises(ValueError, match="level_dim"):
+        GE._grid_encode_cuda(tables, x, GE.GridEncoderConfig(num_levels=5, level_dim=3), 1.5)
+    with pytest.raises(ValueError, match="level_0"):
+        GE._grid_encode_cuda([t.double() for t in tables], x, cfg, 1.5)

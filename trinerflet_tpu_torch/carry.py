@@ -29,23 +29,45 @@ def _tree(t, device):
     return _tensor(t, device)
 
 
+def _check_grid_tables(tree: Mapping[str, Any], where: str) -> None:
+    """A grid encoder's tables: ``level_0`` ... ``level_{L-1}`` and nothing else."""
+    levels = {f"level_{l}" for l in range(len(tree))}
+    if not tree or set(tree) != levels:
+        raise KeyError(f"params_from_jax: {where} must hold grid tables level_0..level_L-1, "
+                       f"got {sorted(tree)}")
+
+
 def params_from_jax(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict:
-    """The JAX param dict (``encoder.base``, ``encoder.wavelets.level_i``,
-    ``sigma_net.w*``, ``color_net.w*``) as this package's params: the same
-    keys and layouts, as tensors on ``device`` (``cuda`` by default)."""
+    """The JAX param dict as this package's params: the same keys and
+    layouts, as tensors on ``device`` (``cuda`` by default). ``encoder``
+    holds the wavelet triplane (``base``, ``wavelets.level_i``), a grid
+    encoder's tables (``level_{l}``) or nothing; ``sigma_net.w*`` and
+    ``color_net.w*``; on the proposal renderer ``proposal`` holds
+    ``grid.level_{l}`` and ``w``."""
     for key in ("encoder", "sigma_net", "color_net"):
         if key not in tree:
             raise KeyError(f"params_from_jax: missing {key!r}")
-    enc = tree["encoder"]
-    if "base" not in enc or "wavelets" not in enc:
-        raise KeyError("params_from_jax: encoder must hold 'base' and 'wavelets' "
-                       "(only the wavelet triplane is ported)")
-    extra = set(enc) - {"base", "wavelets"}
+    extra = set(tree) - {"encoder", "sigma_net", "color_net", "proposal"}
     if extra:
-        raise KeyError(f"params_from_jax: encoder variants not ported: {sorted(extra)}")
+        raise KeyError(f"params_from_jax: params not ported: {sorted(extra)}")
+    enc = tree["encoder"]
+    if "base" in enc or "wavelets" in enc:
+        if "base" not in enc or "wavelets" not in enc:
+            raise KeyError("params_from_jax: a triplane encoder must hold 'base' and 'wavelets'")
+        extra = set(enc) - {"base", "wavelets"}
+        if extra:
+            raise KeyError(f"params_from_jax: encoder variants not ported: {sorted(extra)}")
+    elif enc:
+        _check_grid_tables(enc, "a non-triplane encoder")
     device = resolve_device(device)
-    return {"encoder": _tree(enc, device), "sigma_net": _tree(tree["sigma_net"], device),
-            "color_net": _tree(tree["color_net"], device)}
+    out = {k: _tree(tree[k], device) for k in ("encoder", "sigma_net", "color_net")}
+    if "proposal" in tree:
+        prop = tree["proposal"]
+        if set(prop) != {"grid", "w"}:
+            raise KeyError(f"params_from_jax: proposal must hold 'grid' and 'w', got {sorted(prop)}")
+        _check_grid_tables(prop["grid"], "proposal.grid")
+        out["proposal"] = _tree(prop, device)
+    return out
 
 
 def _get(obj, k, *default):
@@ -69,7 +91,8 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
     where the JAX package stopped: params, the Adam moments and count (the
     first entry of the optax chain's state, ``ScaleByAdamState``), the EMA
     and its count, the occupancy state, the step and the error map (when
-    set). A JAX PRNG key does not carry over: the step generator is seeded
+    set), on either renderer and for every ported encoder. A JAX PRNG key
+    does not carry over: the step generator is seeded
     with ``seed``. The retune's EMAs and counters belong to the trainer, not
     to the state, and are not carried: a continued run re-learns them."""
     device = resolve_device(device)

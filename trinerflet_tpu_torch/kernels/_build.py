@@ -35,7 +35,9 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # contraction of a*b+c and uses fmaf() exactly where the reference fuses;
 # occupancy.cu does the same for the bbox's float32 arithmetic, and
 # compact.cu for the sample positions and distances K5 copies (o + d*t and
-# t + dt - t0 round as two operations, as in the plain version).
+# t + dt - t0 round as two operations, as in the plain version), and
+# gridencoder.cu for the cell coordinate that decides K7's corners (one fused
+# multiply-add where XLA fuses, every other operation rounded alone).
 SOURCES: Dict[str, List[str]] = {
     "march": ["-fmad=false"],
     "grid_sample": [],
@@ -43,6 +45,7 @@ SOURCES: Dict[str, List[str]] = {
     "idwt": [],
     "occupancy": ["-fmad=false"],
     "compact": ["-fmad=false"],
+    "gridencoder": ["-fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,283 @@
+"""Multiresolution hash / tiled grid encoder (port of
+``trinerflet_tpu/models/gridencoder.py``).
+
+L levels with geometric resolution growth, dense ("tiled") storage while a
+level fits its table, spatial hashing beyond ``2^log2_hashmap_size``,
+trilinear interpolation, optional smoothstep. Parameters are the JAX
+package's dict of per-level f32 tables ``level_{l}`` of shape
+(``level_size(l)``, ``level_dim``).
+
+``grid_encode`` is an autograd function differentiable in the tables: on
+CUDA tensors it launches kernel K7 forward and backward
+(``kernels/csrc/gridencoder.cu``; the backward accumulates with float32
+atomics and replaces the JAX package's sort + one-hot scatter); on CPU
+tensors it runs the plain versions below (the backward an ``index_add_``).
+The coordinate gradient is not ported: no caller of this slice feeds points
+that require one (analytic normals, ``models/registry.py``, come later).
+
+Rounding: the JAX package runs under jit, where XLA turns ``x / bound`` into
+``x * f32(1 / bound)`` and fuses the ``+ 1`` into one fused multiply-add.
+One ulp there moves ``floor(pos)`` at a cell edge and with it all eight
+corners, so the plain version and K7 round exactly there as jit does
+(``_fma`` with the float32 reciprocal) and every other operation alone.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import itertools
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from ..kernels import _build
+from ..ops.raymarch import _fma
+
+__all__ = ["GridEncoderConfig", "init_grid_params", "grid_encode", "grid_encode_plain",
+           "grid_encode_backward_plain"]
+
+_PRIMES = (1, 2654435761, 805459861)  # instant-ngp spatial hash primes
+_U32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class GridEncoderConfig:
+    input_dim: int = 3
+    num_levels: int = 16
+    level_dim: int = 2
+    base_resolution: int = 16
+    log2_hashmap_size: int = 19
+    desired_resolution: int = 2048
+    gridtype: str = "hash"         # "hash" | "tiled" (tiled never hashes -> dense modulo)
+    interpolation: str = "linear"  # "linear" | "smoothstep"
+
+    @property
+    def per_level_scale(self) -> float:
+        if self.num_levels == 1:
+            return 1.0
+        return math.exp(math.log(self.desired_resolution / self.base_resolution)
+                        / (self.num_levels - 1))
+
+    def level_resolution(self, level: int) -> int:
+        """ceil of a float power, as the JAX package (the top level of
+        16 -> 2048 over 16 levels may come out 2048 or 2049)."""
+        return int(math.ceil(self.base_resolution * self.per_level_scale**level))
+
+    def level_size(self, level: int) -> int:
+        res = self.level_resolution(level) + 1
+        return min(res**self.input_dim, 2**self.log2_hashmap_size)
+
+    @property
+    def output_dim(self) -> int:
+        return self.num_levels * self.level_dim
+
+
+def init_grid_params(cfg: GridEncoderConfig, generator: Optional[torch.Generator] = None,
+                     device: DeviceLike = None, std: float = 1e-4) -> Dict[str, torch.Tensor]:
+    """Per-level f32 tables drawn from std * U(-1, 1), on ``device`` (``cuda``
+    by default)."""
+    device = resolve_device(device)
+    out = {}
+    for l in range(cfg.num_levels):
+        u = torch.rand((cfg.level_size(l), cfg.level_dim), generator=generator, dtype=torch.float32)
+        out[f"level_{l}"] = (std * (2.0 * u - 1.0)).to(device)
+    return out
+
+
+def _hashed(cfg: GridEncoderConfig, res: int, size: int) -> bool:
+    return (res + 1) ** cfg.input_dim > size and cfg.gridtype != "tiled"
+
+
+def _index_plain(coords: torch.Tensor, res: int, size: int, cfg: GridEncoderConfig) -> torch.Tensor:
+    """Integer grid coords (..., D) int64 -> table row (int64): dense
+    ``sum_d c_d (res+1)^d`` while the dense level fits its table or the grid
+    is tiled, else the XOR of ``c_d * prime_d``; uint32 wrap-around (the
+    products stay below 2^43 in int64 and are masked), then mod size."""
+    D = cfg.input_dim
+    if not _hashed(cfg, res, size):
+        idx = sum(coords[..., d] * (res + 1) ** d for d in range(D)) & _U32
+        return idx % size
+    h = torch.zeros(coords.shape[:-1], dtype=torch.int64, device=coords.device)
+    for d in range(D):
+        h = h ^ ((coords[..., d] * _PRIMES[d % 3]) & _U32)
+    return h % size
+
+
+def _inv_bound(bound: float) -> float:
+    """float32 reciprocal of the bound, as XLA folds ``x / bound``."""
+    return float(np.float32(1.0) / np.float32(bound))
+
+
+def _corners_plain(x: torch.Tensor, cfg: GridEncoderConfig, bound: float, level: int):
+    """The 2^D corner weights (K, N) and table rows (K, N) of every point at
+    one level, corners in meshgrid(..., indexing="ij") order."""
+    res, size = cfg.level_resolution(level), cfg.level_size(level)
+    u = (_fma(x, _inv_bound(bound), 1.0) * 0.5).clamp(0.0, 1.0)
+    pos = u * res
+    p0 = torch.floor(pos)
+    frac = pos - p0
+    if cfg.interpolation == "smoothstep":
+        frac = frac * frac * (3.0 - 2.0 * frac)
+    p0 = p0.long()
+    ws, rows = [], []
+    for corner in itertools.product((0, 1), repeat=cfg.input_dim):
+        w = None
+        for d, b in enumerate(corner):
+            f = frac[:, d] if b else 1.0 - frac[:, d]
+            w = f if w is None else w * f
+        c = (p0 + torch.tensor(corner, device=x.device)).clamp(0, res)
+        ws.append(w)
+        rows.append(_index_plain(c, res, size, cfg))
+    return torch.stack(ws), torch.stack(rows)
+
+
+def grid_encode_plain(tables: List[torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
+                      bound: float = 1.0) -> torch.Tensor:
+    """Plain version of K7: x (N, D) in [-bound, bound] -> (N, L*C) f32,
+    level-major, each level the corner rows summed in corner order."""
+    outs = []
+    for l, table in enumerate(tables):
+        w, rows = _corners_plain(x, cfg, bound, l)
+        acc = torch.zeros((x.shape[0], cfg.level_dim), dtype=torch.float32, device=x.device)
+        for k in range(w.shape[0]):
+            acc = acc + w[k][:, None] * table[rows[k]]
+        outs.append(acc)
+    return torch.cat(outs, dim=-1)
+
+
+def grid_encode_backward_plain(g: torch.Tensor, x: torch.Tensor, cfg: GridEncoderConfig,
+                               bound: float = 1.0) -> List[torch.Tensor]:
+    """Plain version of the K7 backward: g (N, L*C) -> the L table
+    gradients (size_l, C) f32, each corner row accumulating w * g
+    (``index_add_``)."""
+    C = cfg.level_dim
+    g = g.float()
+    grads = []
+    for l in range(cfg.num_levels):
+        acc = torch.zeros((cfg.level_size(l), C), dtype=torch.float32, device=g.device)
+        w, rows = _corners_plain(x, cfg, bound, l)
+        gl = g[:, l * C : (l + 1) * C]
+        for k in range(w.shape[0]):
+            acc.index_add_(0, rows[k], w[k][:, None] * gl)
+        grads.append(acc)
+    return grads
+
+
+class _GridEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cfg, bound, *tables):
+        ctx.save_for_backward(x)
+        ctx.cfg, ctx.bound = cfg, bound
+        if x.is_cuda:
+            return _grid_encode_cuda(list(tables), x, cfg, bound)
+        return grid_encode_plain(list(tables), x, cfg, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        if x.is_cuda:
+            grads = _grid_encode_backward_cuda(g, x, ctx.cfg, ctx.bound)
+        else:
+            grads = grid_encode_backward_plain(g, x, ctx.cfg, ctx.bound)
+        return (None, None, None, *grads)
+
+
+def grid_encode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
+                bound: float = 1.0) -> torch.Tensor:
+    """x (N, D) in [-bound, bound] -> (N, L * C) multi-level interpolated
+    features (f32); differentiable in the tables only."""
+    if x.requires_grad:
+        raise not_ported("the coordinate gradient of grid_encode (analytic normals)", SLICE_LATER)
+    tables = [params[f"level_{l}"] for l in range(cfg.num_levels)]
+    return _GridEncode.apply(x, cfg, float(bound), *tables)
+
+
+# ---------------------------------------------------------------------------
+# K7 wrapper
+# ---------------------------------------------------------------------------
+
+_K7_LEVEL_DIMS = (1, 2, 4, 8)
+_K7_MAX_LEVELS = 32
+_K7_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_K7_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _k7_levels(cfg: GridEncoderConfig, x: torch.Tensor, what: str):
+    """Check what K7 takes and return its per-level host arrays
+    (resolutions, wraps, hash flags)."""
+    L, C = cfg.num_levels, cfg.level_dim
+    if cfg.input_dim != 3 or C not in _K7_LEVEL_DIMS or not 1 <= L <= _K7_MAX_LEVELS:
+        raise ValueError(f"{what}: input_dim 3, level_dim in {_K7_LEVEL_DIMS} and 1..{_K7_MAX_LEVELS} "
+                         f"levels, got {cfg.input_dim}, {C}, {L}")
+    if cfg.interpolation not in ("linear", "smoothstep"):
+        raise ValueError(f"{what}: unknown interpolation {cfg.interpolation!r}")
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError(f"{what}: x must be (N, 3) f32, got {tuple(x.shape)} {x.dtype}")
+    res, wrap, hashed = [], [], []
+    for l in range(L):
+        r, size = cfg.level_resolution(l), cfg.level_size(l)
+        h = _hashed(cfg, r, size)
+        pow2 = size & (size - 1) == 0
+        if not pow2 and (h or (r + 1) ** 3 > size):
+            raise ValueError(f"{what}: level {l} wraps a table of {size} rows, not a power of two")
+        res.append(r)
+        wrap.append(size - 1 if pow2 else _U32)
+        hashed.append(int(h))
+    return ((ctypes.c_uint32 * L)(*res), (ctypes.c_uint32 * L)(*wrap), (ctypes.c_int * L)(*hashed))
+
+
+def _grid_encode_cuda(tables: List[torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
+                      bound: float) -> torch.Tensor:
+    c_res, c_wrap, c_hashed = _k7_levels(cfg, x, "grid_encode kernel")
+    L, C = cfg.num_levels, cfg.level_dim
+    if len(tables) != L:
+        raise ValueError(f"grid_encode kernel: {L} tables expected, got {len(tables)}")
+    for l, t in enumerate(tables):
+        shape = (cfg.level_size(l), C)
+        if (t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % (4 * min(C, 4))):
+            raise ValueError(f"grid_encode kernel: level_{l} must be a contiguous {shape} f32 table on "
+                             f"{x.device}, aligned to its row loads; got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    x = x.contiguous()
+    N = x.shape[0]
+    out = torch.empty((N, L * C), device=x.device, dtype=torch.float32)
+    if N == 0:
+        return out
+    ptrs = (ctypes.c_void_p * L)(*[t.data_ptr() for t in tables])
+    fn = _build.function("gridencoder", "grid_encode_launch", _K7_ARGS)
+    code = fn(_build.ptr(x), N, L, C, ptrs, c_res, c_wrap, c_hashed, _inv_bound(bound),
+              int(cfg.interpolation == "smoothstep"), _build.ptr(out), _build.stream(x.device))
+    _build.check(code, "grid_encode")
+    kernels.launches["grid_encode"] += 1
+    return out
+
+
+def _grid_encode_backward_cuda(g: torch.Tensor, x: torch.Tensor, cfg: GridEncoderConfig,
+                               bound: float) -> List[torch.Tensor]:
+    c_res, c_wrap, c_hashed = _k7_levels(cfg, x, "grid_encode backward kernel")
+    L, C = cfg.num_levels, cfg.level_dim
+    N = x.shape[0]
+    if g.device != x.device or tuple(g.shape) != (N, L * C):
+        raise ValueError(f"grid_encode backward kernel: g must be ({N}, {L * C}) on {x.device}, "
+                         f"got {tuple(g.shape)} on {g.device}")
+    g = g.float().contiguous()
+    x = x.contiguous()
+    sizes = [cfg.level_size(l) * C for l in range(L)]
+    flat = torch.zeros((sum(sizes),), device=x.device, dtype=torch.float32)  # one memset
+    grads = [v.view(-1, C) for v in torch.split(flat, sizes)]
+    if N > 0:
+        ptrs = (ctypes.c_void_p * L)(*[t.data_ptr() for t in grads])
+        fn = _build.function("gridencoder", "grid_encode_backward_launch", _K7_BWD_ARGS)
+        _build.check(fn(_build.ptr(x), _build.ptr(g), N, L, C, ptrs, c_res, c_wrap, c_hashed,
+                        _inv_bound(bound), int(cfg.interpolation == "smoothstep"),
+                        _build.stream(x.device)), "grid_encode backward")
+        kernels.launches["grid_encode_bwd"] += 1
+    return grads

@@ -1,9 +1,11 @@
-"""NeRF field: triplane encoding + sigma / color MLPs (port of
+"""NeRF field: position encoding + sigma / color MLPs (port of
 ``trinerflet_tpu/models/nerf.py``).
 
-Parameters are the JAX package's dict: ``encoder`` (the triplane params),
-``sigma_net`` / ``color_net`` with bias-free weights ``w{i}`` of shape
-(fan_in, fan_out). The MLPs are plain matrix products outside any kernel.
+Parameters are the JAX package's dict: ``encoder`` (the triplane params, or
+the grid tables ``level_{l}`` of a "hashgrid" / "tiledgrid" field, or
+nothing for the table-free encodings), ``sigma_net`` / ``color_net`` with
+bias-free weights ``w{i}`` of shape (fan_in, fan_out). The MLPs are plain
+matrix products outside any kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
 from ..ops.activation import plain_exp, trunc_exp
 from ..ops.encoders import sh_dim, sh_encode
+from .encodings import encoder_apply, encoder_dim, get_encoder
 from .triplane import TriplaneConfig, build_planes, init_triplane_params, sample_triplane
 
 __all__ = ["NeRFConfig", "init_nerf_params", "NeRFField"]
@@ -46,16 +49,20 @@ class NeRFConfig:
     plane_dtype: str = "float32"
 
     def check_ported(self) -> None:
-        if self.encoding != "triplane_wavelet":
-            raise not_ported(f"encoding {self.encoding!r}", SLICE_LATER)
         if self.bg_radius > 0:
             raise not_ported("the background network (bg_radius > 0)", SLICE_LATER)
-        self.triplane.check_ported()
+        if self.encoding == "triplane_wavelet":
+            self.triplane.check_ported()
+        else:
+            encoder_dim(self.encoding, grid_cfg=self.grid)  # raises for k-planes / unknown names
 
     @property
     def in_dim(self) -> int:
+        """The encoding's width, from the configuration (no table is made)."""
         self.check_ported()
-        return self.triplane.feature_dim
+        if self.encoding == "triplane_wavelet":
+            return self.triplane.feature_dim
+        return encoder_dim(self.encoding, grid_cfg=self.grid)
 
     @property
     def in_dim_dir(self) -> int:
@@ -80,7 +87,10 @@ def init_nerf_params(cfg: NeRFConfig, generator: Optional[torch.Generator] = Non
     sigma_dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [1 + cfg.geo_feat_dim]
     color_dims = ([cfg.in_dim_dir + cfg.geo_feat_dim]
                   + [cfg.hidden_dim_color] * (cfg.num_layers_color - 1) + [3])
-    enc = init_triplane_params(cfg.triplane, generator, device)
+    if cfg.encoding == "triplane_wavelet":
+        enc = init_triplane_params(cfg.triplane, generator, device)
+    else:
+        enc = get_encoder(cfg.encoding, generator, device, grid_cfg=cfg.grid, bound=cfg.bound)[0]
     nets = {"sigma_net": _init_mlp(sigma_dims, generator),
             "color_net": _init_mlp(color_dims, generator)}
     return {"encoder": enc,
@@ -111,8 +121,14 @@ class NeRFField:
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.plane_dtype = _DTYPES[cfg.plane_dtype]
+        self._enc_apply = None  # the triplane samples built planes instead
+        if cfg.encoding != "triplane_wavelet":
+            self._enc_apply = encoder_apply(cfg.encoding, grid_cfg=cfg.grid, bound=cfg.bound)
 
     def build_planes(self, params: Dict, max_resolution: int = -1) -> Dict[str, torch.Tensor]:
+        """The triplane's full-resolution planes; {} for the other encodings."""
+        if self._enc_apply is not None:
+            return {}
         enc = params["encoder"]
         if self.plane_dtype == torch.bfloat16:
             # the pyramid coefficients go to bf16 BEFORE the ladder, as in
@@ -132,7 +148,10 @@ class NeRFField:
     def density(self, params: Dict, planes: Dict[str, torch.Tensor],
                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (N, 3) in [-bound, bound] -> (sigma (N,) f32, geo_feat (N, G))."""
-        feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound)
+        if self._enc_apply is not None:
+            feats = self._enc_apply(params["encoder"], x)
+        else:
+            feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound)
         h = _mlp(params["sigma_net"], feats, self.dtype)
         sigma = trunc_exp(self._density_blob(x, h[..., 0]))
         return sigma, h[..., 1:]

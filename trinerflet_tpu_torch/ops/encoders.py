@@ -1,6 +1,6 @@
-"""View-direction encoder (port of ``trinerflet_tpu/ops/encoders.py``):
+"""Direction and position encoders (port of ``trinerflet_tpu/ops/encoders.py``):
 real spherical harmonics in the instant-ngp / shencoder closed form, up to
-degree 4 (the serving recipes' ``sh_degree``)."""
+degree 4 (the serving recipes' ``sh_degree``), and the frequency encoding."""
 
 from __future__ import annotations
 
@@ -8,11 +8,25 @@ import torch
 
 from .._device import SLICE_LATER, not_ported
 
-__all__ = ["sh_dim", "sh_encode"]
+__all__ = ["sh_dim", "sh_encode", "freq_dim", "freq_encode"]
 
 
 def sh_dim(degree: int) -> int:
     return degree**2
+
+
+def freq_dim(input_dim: int, degree: int) -> int:
+    return input_dim + 2 * input_dim * degree
+
+
+def freq_encode(x: torch.Tensor, degree: int = 4) -> torch.Tensor:
+    """[x, sin(2^0 x), cos(2^0 x), ..., sin(2^{d-1} x), cos(2^{d-1} x)]:
+    x (..., D) -> (..., D + 2*D*degree)."""
+    outs = [x]
+    for k in range(degree):
+        s = x * (2.0**k)
+        outs += [torch.sin(s), torch.cos(s)]
+    return torch.cat(outs, dim=-1)
 
 
 def sh_encode(d: torch.Tensor, degree: int = 4) -> torch.Tensor:

@@ -52,6 +52,7 @@ __all__ = [
     "composite_compact",
     "composite_compact_plain",
     "composite_compact_backward_plain",
+    "sample_pdf",
 ]
 
 SQRT3 = 1.7320508075688772
@@ -453,6 +454,30 @@ def _composite_backward_cuda(sigmas, rgbs, deltas, ts, mask, t_thresh,
     _build.check(code, "composite_dense backward")
     kernels.launches["composite_bwd"] += 1
     return dsigma, drgb
+
+
+# ---------------------------------------------------------------------------
+# Importance sampling (glue: the JAX package computes it outside any kernel)
+# ---------------------------------------------------------------------------
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF sampling of new depths from bin weights: bins (B, T),
+    weights (B, T-1), u (B, n_samples) uniforms in [0, 1) (a linspace for
+    the deterministic mode) -> (B, n_samples)."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1).contiguous()  # (B, T)
+    inds = torch.searchsorted(cdf, u.contiguous(), right=True)
+    below = torch.clamp_min(inds - 1, 0)
+    above = torch.clamp_max(inds, cdf.shape[-1] - 1)
+    cdf_g0, cdf_g1 = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bins_g0, bins_g1 = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, 1.0, denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,10 @@
 exponential-decay schedule, the parameter EMA, the loss, the occupancy
 refresh cadence, the retune of the march's shapes (span, per-ray budget,
 global layout), error-map and pregenerated-ray batches, random backgrounds,
-CLIP guidance steps, full-frame rendering and evaluation (PSNR / SSIM).
+CLIP guidance steps, full-frame rendering and evaluation (PSNR / SSIM), on
+the occupancy-grid renderer or the proposal renderer
+(``renderer="proposal"``: a grid-backed density proxy places the samples and
+trains on the interlevel loss; no occupancy refresh, no retune).
 
 Differences from the JAX package, none of which changes a result:
 
@@ -12,6 +15,8 @@ Differences from the JAX package, none of which changes a result:
   ``TrainState`` passed in is consumed.
 * Random draws come from the state's ``torch.Generator`` (on the trainer's
   device); tests pass the draws in instead (``batch``, ``jitter``).
+* A non-triplane field with ``wavelet_regularization > 0`` raises at
+  construction (the JAX package fails when it traces the step).
 * ``render_rays`` / ``render_image`` build the planes once per call (the
   values are identical) and do not pad the last chunk (rays are
   independent).
@@ -41,6 +46,7 @@ from ..data.rays import (rand_poses, rays_full_image, sample_ray_batch,
 from ..models.nerf import NeRFConfig, NeRFField, init_nerf_params
 from ..models.triplane import wavelet_l1
 from ..render import renderer as R
+from ..render.proposal import ProposalConfig, init_proposal_params, interlevel_loss, render_proposal
 from . import metrics
 
 __all__ = ["TrainConfig", "TrainState", "Trainer", "lr_schedule", "global_slots_for", "write_png"]
@@ -149,8 +155,11 @@ class Trainer:
     def __init__(self, nerf_cfg: NeRFConfig, render_cfg: R.RenderConfig,
                  train_cfg: TrainConfig, device: DeviceLike = None,
                  workspace: Optional[str] = None):
-        if train_cfg.renderer != "occgrid":
+        if train_cfg.renderer not in ("occgrid", "proposal"):
             raise not_ported(f"the {train_cfg.renderer!r} renderer", SLICE_LATER)
+        if train_cfg.wavelet_regularization > 0 and nerf_cfg.encoding != "triplane_wavelet":
+            raise ValueError(f"wavelet_regularization > 0 regularises the wavelet triplane; the "
+                             f"{nerf_cfg.encoding!r} field has none (set it to 0)")
         self.device = resolve_device(device)
         self.nerf_cfg = nerf_cfg
         self.render_cfg = render_cfg
@@ -174,14 +183,22 @@ class Trainer:
         self._budget_p99_ema = self._trunc_T_ema = None
         self.clip_loss: Optional[Callable] = None  # set_clip_guidance
         self.rand_pose_interval = -1
+        self.prop_cfg = None
+        if train_cfg.renderer == "proposal":
+            self.prop_cfg = ProposalConfig(num_proposal_samples=train_cfg.proposal_samples,
+                                           num_final_samples=train_cfg.proposal_final)
 
     # ------------------------------------------------------------------ state
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> Dict:
-        """Seeded random parameters (``TrainConfig.seed`` by default)."""
+        """Seeded random parameters (``TrainConfig.seed`` by default), with
+        the ``proposal`` subtree on the proposal renderer."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.cfg.seed)
-        return init_nerf_params(self.nerf_cfg, generator, self.device)
+        params = init_nerf_params(self.nerf_cfg, generator, self.device)
+        if self.prop_cfg is not None:
+            params["proposal"] = init_proposal_params(self.prop_cfg, generator, self.device)
+        return params
 
     def init_occupancy(self, density_grid=None) -> R.OccupancyState:
         return R.init_occupancy(self.render_cfg, self.device, density_grid)
@@ -225,7 +242,7 @@ class Trainer:
     def _check_device(self, params: Dict, occ: R.OccupancyState) -> None:
         """Params and state must live on the trainer's device: a state carried
         onto another device would otherwise run there until the first mixed op."""
-        for name, t in (("params", params["encoder"]["base"]), ("occupancy", occ.occ)):
+        for name, t in (("params", _leaves(params)[0][1]), ("occupancy", occ.occ)):
             if t.device.type != self.device.type:
                 raise ValueError(f"{name} are on {t.device}, the trainer on {self.device}; "
                                  f"move them or build the trainer with device={t.device.type!r}")
@@ -252,12 +269,13 @@ class Trainer:
                  batch: Optional[Dict], with_stats: bool, generator: torch.Generator,
                  error_map: Optional[torch.Tensor] = None):
         """Loss and aux of one batch. The draws come from ``generator`` in
-        the order batch, background, noise, unless ``batch`` holds them:
-        ``img_idx`` / ``pix_idx`` (uniform and pregenerated batches),
-        ``img_idx`` / ``u`` / ``jx`` / ``jy`` (error-map batches), ``bg``
-        (N, 3) (``train_rand_bg``) and ``noise`` (N,). With error-map
-        sampling aux carries ``_new_error_map``, the map after its EMA
-        update."""
+        the order batch, background, then noise (occgrid) or jitter and u
+        (proposal), unless ``batch`` holds them: ``img_idx`` / ``pix_idx``
+        (uniform and pregenerated batches), ``img_idx`` / ``u`` / ``jx`` /
+        ``jy`` (error-map batches), ``bg`` (N, 3) (``train_rand_bg``),
+        ``noise`` (N,), ``prop_jitter`` (N, P+1) and ``prop_u`` (N, F).
+        With error-map sampling aux carries ``_new_error_map``, the map after
+        its EMA update."""
         cfg = self.cfg
         N = cfg.num_rays
         batch = batch or {}
@@ -281,27 +299,39 @@ class Trainer:
             bg = bg.to(self.device, torch.float32)
         else:
             bg = torch.full((N, 3), cfg.background_color, dtype=torch.float32, device=self.device)
-        noise = batch.get("noise")
-        if noise is None:
-            noise = torch.rand((N,), generator=generator, device=generator.device)
-        noise = noise.to(self.device, torch.float32)
         if pixels.shape[-1] == 4:
             gt = pixels[..., :3] * pixels[..., 3:] + bg * (1 - pixels[..., 3:])
         else:
             gt = pixels
 
         planes = self.field.build_planes(params)
+        if cfg.renderer == "proposal":
+            out = render_proposal(
+                lambda x: self.field.density(params, planes, x),
+                lambda d, g: self.field.color(params, d, g),
+                params["proposal"], rays_o, rays_d, self.render_cfg, self.prop_cfg, bg_color=bg,
+                perturb=True, jitter=batch.get("prop_jitter"), u=batch.get("prop_u"),
+                generator=generator)
+        else:
+            noise = batch.get("noise")
+            if noise is None:
+                noise = torch.rand((N,), generator=generator, device=generator.device)
 
-        def field_fn(xyzs, dirs):
-            return self.field(params, planes, xyzs, dirs)
+            def field_fn(xyzs, dirs):
+                return self.field(params, planes, xyzs, dirs)
 
-        out = R.render_occgrid(field_fn, rays_o, rays_d, occ.occ, self.render_cfg, noise=noise,
-                               bg_color=bg, occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox,
-                               with_stats=with_stats)
+            out = R.render_occgrid(field_fn, rays_o, rays_d, occ.occ, self.render_cfg,
+                                   noise=noise.to(self.device, torch.float32), bg_color=bg,
+                                   occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox,
+                                   with_stats=with_stats)
         pred = out["image"]
         loss_pix = _criterion(cfg, pred, gt)
         loss = loss_pix.mean()
         aux = {"mse": ((pred - gt) ** 2).mean()}
+        if cfg.renderer == "proposal" and cfg.lambda_interlevel > 0:
+            il = interlevel_loss(out)
+            loss = loss + cfg.lambda_interlevel * il
+            aux["interlevel"] = il
         if cfg.wavelet_regularization > 0:
             reg = wavelet_l1(params["encoder"], self.nerf_cfg.triplane, cfg.weighted_regularization)
             loss = loss + cfg.wavelet_regularization * reg
@@ -309,7 +339,7 @@ class Trainer:
         if cfg.alpha_bce > 0:
             alpha = torch.clamp(out["weights_sum"], 0.01, 0.99)
             loss = loss + (-cfg.alpha_bce * torch.log(alpha).mean())
-        if cfg.z_variance_reg > 0:
+        if cfg.z_variance_reg > 0 and "z_variance" in out:
             loss = loss + cfg.z_variance_reg * out["z_variance"].mean()
         for k in ("num_samples", "samples_p99", "overflow_frac", "global_fill", "trunc_T",
                   "samples_mean", "span_p99", "span_trunc_T", "needed_seg_p99"):
@@ -413,7 +443,8 @@ class Trainer:
             double S when the buffer is over 85% full, back to per-ray once
             S >= B."""
         cfg = self.render_cfg
-        if cfg.march != "hierarchical" or int(state.occ.iter_density) < 6:
+        if (cfg.march != "hierarchical" or self.cfg.renderer != "occgrid"
+                or int(state.occ.iter_density) < 6):
             return
         tune = self.cfg.budget_autotune and aux is not None
         if self._march_retunes < 4:
@@ -480,12 +511,13 @@ class Trainer:
                     self._global_retunes += 1
 
     def fit(self, state: TrainState, scene, log_every: int = 100, callback=None) -> TrainState:
-        """Run ``iters`` (+ warmup) steps on the JAX package's cadence: every
-        ``update_extra_interval`` steps a density refresh (full while
-        iter_density < 16, then the rotating quarter) and the retune on the
-        last step's aux; the p99 statistics only on the step before each
-        refresh. With error-map sampling the map starts at ones over
-        min(128, H, W)^2 cells per view. With CLIP guidance
+        """Run ``iters`` (+ warmup) steps on the JAX package's cadence: on
+        the occgrid renderer every ``update_extra_interval`` steps a density
+        refresh (full while iter_density < 16, then the rotating quarter)
+        and the retune on the last step's aux; the p99 statistics only on
+        the step before each refresh. The proposal renderer has neither.
+        With error-map sampling the map starts at ones over min(128, H,
+        W)^2 cells per view. With CLIP guidance
         (``set_clip_guidance``) one CLIP step follows every k supervised
         steps (k = ``rand_pose_interval`` > 0), or every step is one (k = 0)."""
         data = self.scene_to_device(scene)
@@ -500,7 +532,7 @@ class Trainer:
         last_aux = None
         for it in range(total):
             st = state.step
-            if st % interval == 0:
+            if self.cfg.renderer == "occgrid" and st % interval == 0:
                 occ = self.update_grid(state.params, state.occ, generator=state.rng,
                                        full=int(state.occ.iter_density) < 16)
                 state = state._replace(occ=occ)
@@ -531,6 +563,8 @@ class Trainer:
         supervised steps; k = 0: CLIP steps only. The render is a full frame
         of side max(16, sqrt(num_rays)) from an orbit pose at ``radius``
         (the scene bound by default)."""
+        if self.cfg.renderer != "occgrid":
+            raise not_ported("CLIP guidance off the occgrid renderer (render_dense)", SLICE_LATER)
         self.clip_loss = clip_loss
         self.rand_pose_interval = int(rand_pose_interval)
         self.clip_radius = radius if radius is not None else self.render_cfg.bound
@@ -579,6 +613,13 @@ class Trainer:
     # -------------------------------------------------------------- rendering
 
     def _render_chunk_impl(self, params, planes, occ: R.OccupancyState, rays_o, rays_d, bg_color):
+        if self.cfg.renderer == "proposal":
+            return render_proposal(
+                lambda x: self.field.density(params, planes, x),
+                lambda d, g: self.field.color(params, d, g),
+                params["proposal"], rays_o, rays_d, self.eval_render_cfg, self.prop_cfg,
+                bg_color=bg_color, perturb=False)
+
         def field_fn(xyzs, dirs):
             return self.field(params, planes, xyzs, dirs)
 
