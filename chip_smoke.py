@@ -1,13 +1,15 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them: the wavelet-triplane field on the occupancy-grid renderer, the
-proposal renderer, and the hash-grid field.
+check them: the wavelet-triplane field on the occupancy-grid renderer (the
+hierarchical march, and the flat march on the dt_gamma ladder), the
+proposal renderer, the hash-grid field and the dense renderer.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
-2. build kernels K1-K7 (with K3c) from ``trinerflet_tpu_torch/kernels/csrc``
-   with nvcc, one process per source, in parallel;
+2. build kernels K1-K7 (with K1f and K3c) from
+   ``trinerflet_tpu_torch/kernels/csrc`` with nvcc, one process per source,
+   in parallel;
 3. serve: the full-width bench model (1024^2 x 16-channel bf16 wavelet
    triplane, bior6.8, 4 IDWT levels, bf16 MLPs, bound 1.5, 128^3 x 2-cascade
    occupancy grid, max_steps 1024, 20 samples per ray), seeded random weights
@@ -20,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught):
 4. serve kernels: K1-K4 forward on the serve path's own inputs against their
    plain PyTorch versions on the card, with time, the plain version's time,
    the least time the card could take (bound) and, where one PyTorch call
-   computes the same function, that call's time;
+   computes the same function, that call's time; and K1f on the serve
+   state's grid at dt_gamma 0 (bound 1.5: 1,536 candidates per ray), both
+   modes, held to its plain version bit for bit;
 5. per-ray train: ``bench.py``'s step (32,768 rays, the same model, wavelet
    L1 0.4, Adam + EMA, refresh every 16 steps) with ``budget_autotune=False``
    on the synthetic scene (8 views of 256^2), cut to 64 warm-up steps and
@@ -70,7 +74,26 @@ Phases (any failure exits non-zero; nothing is caught):
     loss must fall; one step under the profiler; one 800^2 view; one
     captured step and refresh hold K7 forward (every call) and backward,
     K1, K3 and K6 to their plain versions; the 4,096-ray step check;
-12. print the kernels line, then the device line last.
+12. flat march: ``scripts/bench_dtgamma_march.py``'s LLFF-like
+    configuration as the CLI runs it (bench's triplane and MLPs at bound 4,
+    3 cascades, max_steps 1024, B 20, dt_gamma 1/128 with the march left at
+    its default, so render_occgrid takes the flat branch and the retune
+    runs; 32,768 rays, the tuner on) on bench's synthetic scene, whose
+    cameras (radius 2) sit inside the bound-4 box as a forward-facing
+    capture's do; 64 + 50 steps on the refresh cadence (K1f, K2, K4 and K6
+    must launch, with K3 or K5 + K3c, and K1 not); the loss must fall; one
+    step under the profiler; evaluate; one 800^2 view; a captured step holds
+    every kernel of the path to its plain version (K1f bit for bit); the
+    4,096-ray step check; then the layout the tuner did not end on, forced
+    for a few steps (the per-ray selection or the exact global compaction:
+    K1f's other mode and K5 bit for bit), its own captured step's rows;
+13. dense renderer: bench's model with ``renderer="dense"``, 512 uniform +
+    64 importance samples per ray, 4,096 rays; 16 + 16 steps (K2, K3 and K4
+    forward and backward must launch; K1, K1f, K5 and K6 not); the loss
+    must fall; one step under the profiler; one 800^2 view; a captured
+    step holds K2, K3 at T = 512 (the upsampling weights) and 576 and the
+    K4 adjoint to their plain versions; the step check;
+14. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -115,13 +138,19 @@ GLOBAL_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "compact", "composi
                   "composite_compact_bwd", "idwt", "idwt_adjoint", "occupancy")
 PROPOSAL_KERNELS = ("grid_encode", "grid_encode_bwd", "grid_sample", "grid_sample_bwd", "composite",
                     "composite_bwd", "idwt", "idwt_adjoint")
-PROPOSAL_ABSENT = ("march", "compact", "occupancy")  # no occupancy grid on the proposal path
+PROPOSAL_ABSENT = ("march", "march_flat", "compact", "occupancy")  # no occupancy grid on the path
 HASHGRID_KERNELS = ("grid_encode", "grid_encode_bwd", "march", "composite", "composite_bwd",
                     "occupancy")
 HASHGRID_ABSENT = ("grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint")  # no triplane
+FLAT_KERNELS = ("march_flat", "grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint", "occupancy")
+DENSE_KERNELS = ("grid_sample", "grid_sample_bwd", "composite", "composite_bwd", "idwt",
+                 "idwt_adjoint")
+DENSE_ABSENT = ("march", "march_flat", "compact", "occupancy")  # no occupancy grid on the path
 WARM_STEPS, WINDOW_STEPS, WINDOWS = 320, 50, 5  # bench.py's
 PERRAY_WARM, PERRAY_WINDOWS = 64, 1            # the per-ray phase, cut
 GLOBAL_WINDOWS = 2
+FORCED_STEPS = 4                                # the flat phase's other layout
+DENSE_WARM, DENSE_WINDOW = 16, 16              # the dense phase, cut
 CHECK_RAYS = 4096
 # the 4,096-ray step check, kernels on the card vs plain versions on the CPU:
 # both round to bf16 at the same points, but f32 sums run in other orders
@@ -315,6 +344,47 @@ def k1_need(ro, rd, nears, fars, noise, occ_coarse, mkw):
             int(keep_pc.sum() + keep_pf.sum()))
 
 
+def k1f_need(args, kw):
+    """What K1f's inputs need in this run: the distinct grid cells its
+    probes read (the candidates short of far, up to each ray's max_steps-th
+    valid one: the plain version's candidates) and the number of probes."""
+    ro, rd, nears, fars, occ, noise = args
+    cand = RM.march_candidates_plain(ro, rd, nears, fars, occ, noise, **kw)
+    v = cand.valid.int()
+    probed = (cand.ts < fars[:, None]) & (torch.cumsum(v, 1) - v < kw["max_steps"])
+    p = RM._fma(rd[:, None, :], cand.ts[..., None], ro[:, None, :]).clamp(-kw["bound"], kw["bound"])
+    idx = RM.occupancy_index(p, cand.dts, grid_size=kw["grid_size"], cascades=kw["cascades"],
+                             bound=kw["bound"])
+    return torch.unique(idx[probed]).numel(), int(probed.sum())
+
+
+def k1f_uniform_check(ro, rd, nears, fars, occ, rcfg):
+    """K1f at dt_gamma 0 on the serve state (bound 1.5, 1,536 candidates per
+    ray) in both modes, held to the plain version bit for bit (a check, not
+    a path: its launches are not counted in any row)."""
+    kw = dict(num_steps=dataclasses.replace(rcfg, dt_gamma=0.0).num_candidates,
+              max_steps=rcfg.max_steps, grid_size=rcfg.grid_size, cascades=rcfg.cascades,
+              bound=rcfg.bound, dt_gamma=0.0)
+    noise = torch.rand(nears.shape, generator=torch.Generator(device=nears.device).manual_seed(SEED),
+                       device=nears.device)
+    args = (ro, rd, nears, fars, occ, noise)
+    B = rcfg.samples_per_ray_budget
+    got, got_c = RM.march_flat(*args, budget=B, **kw), RM.march_flat_candidates(*args, **kw)
+    ref, ref_c = RM.march_flat_plain(*args, budget=B, **kw), RM.march_candidates_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for nm, a, b in zip(("t", "dt", "mask", "stride", "t0", "ts", "dts", "valid"),
+                        list(got) + list(got_c), list(ref) + list(ref_c)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"K1f (dt_gamma 0) {nm} differs from the plain version "
+                               f"({int((a != b).sum())} entries)")
+    ms = time_ms(lambda: RM.march_flat(*args, budget=B, **kw))
+    ms_c = time_ms(lambda: RM.march_flat_candidates(*args, **kw))
+    log(f"# K1f at dt_gamma 0 (serve state, N={ro.shape[0]} rays x Kc={kw['num_steps']}): per-ray "
+        f"and candidate modes equal to the plain version bit for bit; {ms:.4f} ms per-ray, "
+        f"{ms_c:.4f} ms candidates; {int(ref_c.valid.sum())} valid candidates, mean kept "
+        f"samples/ray {ref[2].float().sum(1).mean().item():.3f}")
+
+
 def _to_cpu(tree):
     return {k: _to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
 
@@ -364,6 +434,8 @@ def kernel_phase(trainer, params, occ, poses, intr):
                      note=f"N={N} rays, mean kept samples/ray {mask.float().sum(1).mean().item():.2f}; "
                           f"{probes} probes read {cells_c} coarse and {cells_f} fine grid cells "
                           f"of {occ.occ.numel()} each"))
+
+    k1f_uniform_check(ro, rd, nears_c, fars_c, occ.occ, rcfg)
 
     # ---- K2: sampler, on the march's sample points
     planes = trainer.field.build_planes(params)["full"]
@@ -517,13 +589,16 @@ def _refresh(trainer, state, full):
 
 
 def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
-                required=TRAIN_KERNELS, what="train", absent=()):
+                required=TRAIN_KERNELS, what="train", absent=(), window_steps=WINDOW_STEPS):
     """bench.py's cadence: warm-up (refreshes and the retune on the last
     step's aux, on the occgrid renderer), then timed windows (median);
     counters zeroed just before and read just after. Every ``required``
     kernel must have launched and no ``absent`` one; the loss (and on the
-    proposal renderer the interlevel loss) must fall over the warm-up."""
+    proposal renderer the interlevel loss) must fall over the warm-up: the
+    mean of its last refresh interval (or half, when shorter) below that of
+    its first."""
     interval = trainer.cfg.update_extra_interval
+    span = min(interval, warm // 2)
     N = trainer.cfg.num_rays
     occgrid = trainer.cfg.renderer == "occgrid"
     kernels.reset_launches()
@@ -550,32 +625,36 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
     windows = []
     for _ in range(n_windows):
         t0 = time.perf_counter()
-        for i in range(WINDOW_STEPS):
+        for i in range(window_steps):
             if occgrid and i % interval == 0:
                 state = _refresh(trainer, state, full=False)
             state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
         final_loss = float(aux["loss"])  # host copy: waits for the window's last step
-        windows.append((time.perf_counter() - t0) / WINDOW_STEPS * 1e3)
+        windows.append((time.perf_counter() - t0) / window_steps * 1e3)
     launches = dict(kernels.launches)
-    steps = warm + n_windows * WINDOW_STEPS
+    steps = warm + n_windows * window_steps
     ms = float(np.median(windows))
-    first, last = losses[:interval].mean().item(), losses[-interval:].mean().item()
-    samples = (float(aux["num_samples"]) / N if occgrid
-               else float(trainer.prop_cfg.num_final_samples))
+    first, last = losses[:span].mean().item(), losses[-span:].mean().item()
+    if occgrid:
+        samples = float(aux["num_samples"]) / N
+    elif trainer.prop_cfg is not None:
+        samples = float(trainer.prop_cfg.num_final_samples)
+    else:
+        samples = float(trainer.render_cfg.num_steps + trainer.render_cfg.upsample_steps)
     rc = trainer.render_cfg
     log(f"# {what} ({card}): {warm} warm-up steps in {warm_s:.2f} s; windows of "
-        f"{WINDOW_STEPS} steps {[round(w, 3) for w in windows]} ms/step; median {ms:.3f} ms/step "
+        f"{window_steps} steps {[round(w, 3) for w in windows]} ms/step; median {ms:.3f} ms/step "
         f"= {N / ms * 1e3:.1f} rays/s; num_coarse {trainer.render_cfg.num_coarse_override}; "
         f"mean kept samples/ray {samples:.3f} (last step); loss first step "
         f"{losses[0].item():.5f}, last warm-up step {losses[-1].item():.5f}, mean of the first "
-        f"{interval} {first:.5f}, of the last {interval} {last:.5f}, after the windows "
+        f"{span} {first:.5f}, of the last {span} {last:.5f}, after the windows "
         f"{final_loss:.5f}; occupied fraction {state.occ.occ.float().mean().item():.4f}, "
         f"bbox {[round(x, 4) for x in state.occ.bbox.tolist()]}")
     if inter:
         inter = torch.stack(inter).cpu()
-        i_first, i_last = inter[:interval].mean().item(), inter[-interval:].mean().item()
-        log(f"# {what} interlevel loss: mean of the first {interval} steps {i_first:.6f}, of the "
-            f"last {interval} {i_last:.6f}; after the windows {float(aux['interlevel']):.6f}")
+        i_first, i_last = inter[:span].mean().item(), inter[-span:].mean().item()
+        log(f"# {what} interlevel loss: mean of the first {span} steps {i_first:.6f}, of the "
+            f"last {span} {i_last:.6f}; after the windows {float(aux['interlevel']):.6f}")
         if not (np.isfinite(inter.numpy()).all() and i_last < i_first):
             raise RuntimeError(f"the interlevel loss did not fall: {i_first} -> {i_last}")
     if occgrid:  # bench.py's summary fields
@@ -626,7 +705,7 @@ class Capture:
     """Records the arguments the main path hands each kernel wrapper (the
     wrappers are looked up by module globals at call time)."""
 
-    TARGETS = ((RM, "_march_cuda"), (GS, "_sample_points_cuda"),
+    TARGETS = ((RM, "_march_cuda"), (RM, "_march_flat_cuda"), (GS, "_sample_points_cuda"),
                (GS, "_sample_points_backward_cuda"), (RM, "_composite_cuda"),
                (RM, "_composite_backward_cuda"), (W, "_idwt2d_cuda"), (W, "_idwt2d_adjoint_cuda"),
                (R, "_occupancy_upkeep_cuda"), (RM, "_compact_cuda"),
@@ -656,7 +735,8 @@ class Capture:
 
 def _batch(trainer, n, V, HW, seed):
     """A step's draws: (view, pixel) indices and the ray noise, and on the
-    proposal renderer the ladder jitter and the final-level uniforms."""
+    proposal renderer the ladder jitter and the final-level uniforms, on the
+    dense one the depth jitter and the upsampling uniforms."""
     g = torch.Generator().manual_seed(seed)
     batch = {"img_idx": torch.randint(0, V, (n,), generator=g),
              "pix_idx": torch.randint(0, HW, (n,), generator=g), "noise": torch.rand((n,), generator=g)}
@@ -664,6 +744,10 @@ def _batch(trainer, n, V, HW, seed):
         P, F = trainer.prop_cfg.num_proposal_samples, trainer.prop_cfg.num_final_samples
         batch["prop_jitter"] = torch.rand((n, P + 1), generator=g)
         batch["prop_u"] = torch.rand((n, F), generator=g)
+    if trainer.cfg.renderer == "dense":
+        rc = trainer.render_cfg
+        batch["dense_jitter"] = torch.rand((n, rc.num_steps), generator=g)
+        batch["dense_u"] = torch.rand((n, rc.upsample_steps), generator=g)
     return batch
 
 
@@ -684,18 +768,20 @@ def _rel(a, b):
     return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
 
 
-def path_kernel_rows(trainer, calls, launches, what):
+def path_kernel_rows(trainer, calls, launches, what, only=None):
     """Each kernel that one step of a train path launched (``calls``, from
     ``capture_step`` right after the path ran), held to its plain version on
-    the arguments the step handed it and timed; each row takes its launches
-    from that path's run and is named for it."""
-    makers = (("_march_cuda", _march_rows), ("_sample_points_cuda", _sample_rows),
+    the arguments the step handed it and timed (``only``: these wrappers'
+    kernels alone); each row takes its launches from that path's run and is
+    named for it."""
+    makers = (("_march_cuda", _march_rows), ("_march_flat_cuda", _march_flat_rows),
+              ("_sample_points_cuda", _sample_rows),
               ("_idwt2d_adjoint_cuda", _adjoint_rows), ("_occupancy_upkeep_cuda", _upkeep_rows),
               ("_composite_cuda", _dense_composite_rows), ("_compact_cuda", _compact_rows),
               ("_grid_encode_cuda", _grid_encode_rows))
     rows = []
     for target, make in makers:
-        if calls[target]:
+        if calls[target] and (only is None or target in only):
             rows += make(trainer, calls)
     for r in rows:
         r["launches"] = launches[r.pop("key")]
@@ -732,6 +818,42 @@ def _march_rows(trainer, calls):
                           f"{got[2].float().sum(1).mean().item():.3f}; {probes} probes read "
                           f"{cells_c} coarse and {cells_f} fine cells"))
     return rows
+
+
+def _march_flat_rows(trainer, calls):
+    """K1f in the mode the step ran (per-ray selection, or every candidate
+    for the exact global compaction), bit for bit."""
+    (args, kw), = calls["_march_flat_cuda"][:1]
+    B = kw["budget"]
+    mkw = {k: v for k, v in kw.items() if k != "budget"}
+    got = RM._march_flat_cuda(*args, **kw)
+    ref = (RM.march_flat_plain(*args, budget=B, **mkw) if B > 0
+           else RM.march_candidates_plain(*args, **mkw))
+    torch.cuda.synchronize()
+    names = ("t", "dt", "mask", "stride", "t0") if B > 0 else ("ts", "dts", "valid")
+    for a, b, nm in zip(got, ref, names):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"K1f {nm} differs from the plain version ({int((a != b).sum())} "
+                               f"entries)")
+    ro, rd, nears, fars, occ, noise = args
+    cells, probes = k1f_need(args, mkw)
+    # the rays in, one byte per distinct grid cell its probes read, the
+    # outputs written once; per probe K1's 20 f32 operations plus ~10 for the
+    # ladder (its exp, the step's clamp and frexp)
+    b, by = bound_ms(nbytes(ro, rd, nears, fars, noise) + cells + nbytes(*got), 30.0 * probes)
+    mode = f"per-ray, B={B}" if B > 0 else "candidates"
+    plain = ((lambda: RM.march_flat_plain(*args, budget=B, **mkw)) if B > 0
+             else (lambda: RM.march_candidates_plain(*args, **mkw)))
+    kept = (f"mean kept samples/ray {got[2].float().sum(1).mean().item():.3f}" if B > 0
+            else f"{int(got.valid.sum())} valid candidates")
+    return [dict(name=f"K1f march_flat ({mode})", key="march_flat", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/march_flat.cu",
+                 replaces="trinerflet_tpu/ops/raymarch.py:290", max_abs_err=0.0,
+                 tol="every output equal", ms=time_ms(lambda: RM._march_flat_cuda(*args, **kw)),
+                 plain_ms=time_ms(plain, iters=5), bound_ms=b, bound_by=by, library_ms=None,
+                 note=f"N={ro.shape[0]} rays x Kc={kw['num_steps']} candidates, dt_gamma "
+                      f"{kw['dt_gamma']}, {kw['cascades']} cascades; {kept}; {probes} probes read "
+                      f"{cells} grid cells of {occ.numel()}; no library call computes it")]
 
 
 def _sample_rows(trainer, calls):
@@ -1233,6 +1355,105 @@ def hashgrid_phases(scene, card):
     return rows, dict(stats, launches=launches, view_ms=view_ms)
 
 
+FLAT_BOUND = 4.0
+
+
+def flat_configs(num_rays: int = 32768):
+    """``scripts/bench_dtgamma_march.py``'s LLFF-like configuration as the
+    CLI runs it: bench's triplane and bf16 MLPs at bound 4 (3 cascades), a
+    128^3 grid, max_steps 1024, B 20, dt_gamma 1/128 with ``march`` left at
+    its default (so render_occgrid takes the flat branch and the retune
+    runs), 32,768 rays, wavelet L1 0.4, refresh every 16 steps, the tuner
+    on, 2,000 iterations of schedule."""
+    nerf_cfg = NeRFConfig(
+        triplane=TriplaneConfig(channels=16, resolution=1024, wavelet_scale=16),
+        bound=FLAT_BOUND, compute_dtype="bfloat16", plane_dtype="bfloat16")
+    render_cfg = RenderConfig(bound=FLAT_BOUND, grid_size=128, density_thresh=10.0, max_steps=1024,
+                              samples_per_ray_budget=20, dt_gamma=1.0 / 128)
+    train_cfg = TrainConfig(lr=1e-2, iters=2000, num_rays=num_rays, wavelet_regularization=0.4,
+                            renderer="occgrid", update_extra_interval=16, budget_autotune=True)
+    return nerf_cfg, render_cfg, train_cfg
+
+
+def flat_phases(scene, card):
+    """The flat march at full width: 64 + 50 steps on the refresh cadence
+    with the retune, one profiled step, evaluate, one 800^2 view, a captured
+    step's rows and the step check on the layout the tuner left; then the
+    other layout forced for FORCED_STEPS steps (one refresh) and its own
+    captured step's layout kernels (K1f's other mode; K5 and K3c, or K3).
+    ``scene`` is bench's (cameras at radius 2): seen from radius 2 bound =
+    8, the synthetic spheres cover 0.6% of the pixels (the ground truth
+    marches [0.8, 3.2] from the camera) and the field collapses to zero
+    density within 64 steps, leaving the step check no gradient to hold."""
+    trainer = Trainer(*flat_configs(), device=DEVICE)
+    rc = trainer.render_cfg
+    log(f"# flat set-up: {rc.cascades} cascades, {rc.num_candidates} candidates per ray, dt_gamma "
+        f"{rc.dt_gamma}, cameras at radius 2 inside the bound-{rc.bound} box")
+    state = trainer.init_state(density_grid=mark_untrained_grid(scene.poses, scene.intrinsics, rc))
+    data = trainer.scene_to_device(scene)
+    state, launches, stats = train_phase(
+        trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS,
+        required=FLAT_KERNELS, absent=("march",), what="flat train")
+    per_ray = launches["composite"] > 0 and launches["composite_bwd"] > 0
+    global_ = all(launches[k] > 0 for k in ("compact", "composite_compact", "composite_compact_bwd"))
+    if not (per_ray or global_):
+        raise RuntimeError("the flat path composited on neither layout")
+    state = profile_step(trainer, state, data, "flat train")
+    res = evaluate_phase(trainer, state, scene, card)
+    view_ms = view_phase(trainer, state, card, "flat")
+    state, calls = capture_step(trainer, state, data)
+    rows = path_kernel_rows(trainer, calls, launches, "flat train")
+    del calls
+    step_check(trainer, state, data, "flat")
+    tuned = trainer.render_cfg
+    other = "per_ray" if tuned.compaction == "global" else "global"
+    trainer.render_cfg = dataclasses.replace(tuned, compaction=other, global_slots_per_ray=0)
+    kernels.reset_launches()
+    state = _refresh(trainer, state, full=False)
+    for _ in range(FORCED_STEPS):
+        state, aux = trainer.train_step(state, data, with_stats=False)
+    forced = dict(kernels.launches)
+    log(f"# flat {other} layout forced for {FORCED_STEPS} steps and one refresh: loss "
+        f"{float(aux['loss']):.5f}, num_samples {int(aux['num_samples'])}; launches {forced}")
+    state, calls = capture_step(trainer, state, data)
+    rows += path_kernel_rows(trainer, calls, forced, f"flat {other} check",
+                             only=("_march_flat_cuda", "_compact_cuda", "_composite_cuda"))
+    del calls
+    trainer.render_cfg = tuned
+    return rows, dict(stats, launches=launches, forced=forced, layout=tuned.compaction,
+                      budget=tuned.samples_per_ray_budget, view_ms=view_ms, psnr=res["PSNR"],
+                      ssim=res["SSIM"])
+
+
+def dense_configs(num_rays: int = 4096):
+    """bench.py's model on the dense renderer at the CLI's defaults: 512
+    uniform samples per ray and 64 importance samples (the importance
+    estimator's floor), 4,096 rays."""
+    nerf_cfg, render_cfg, train_cfg = bench_configs(num_rays)
+    return (nerf_cfg, dataclasses.replace(render_cfg, num_steps=512, upsample_steps=64),
+            dataclasses.replace(train_cfg, renderer="dense"))
+
+
+def dense_phases(scene, card):
+    """The dense renderer: 16 + 16 steps (no refresh, no retune), one
+    profiled step, one 800^2 view, a captured step's rows, the step check
+    (on 1,024 rays: the CPU side evaluates the full-width field at 576
+    samples per ray)."""
+    trainer = Trainer(*dense_configs(), device=DEVICE)
+    state = trainer.init_state()
+    data = trainer.scene_to_device(scene)
+    state, launches, stats = train_phase(
+        trainer, state, data, card, warm=DENSE_WARM, n_windows=1, window_steps=DENSE_WINDOW,
+        required=DENSE_KERNELS, absent=DENSE_ABSENT, what="dense train")
+    state = profile_step(trainer, state, data, "dense train")
+    view_ms = view_phase(trainer, state, card, "dense")
+    state, calls = capture_step(trainer, state, data)
+    rows = path_kernel_rows(trainer, calls, launches, "dense train")
+    del calls
+    step_check(trainer, state, data, "dense", n_rays=1024)
+    return rows, dict(stats, launches=launches, view_ms=view_ms)
+
+
 def _groups(named):
     """Parameter groups of the step check: the base plane, each wavelet
     level, and each MLP as one vector."""
@@ -1243,13 +1464,13 @@ def _groups(named):
     return {k: torch.cat(v) for k, v in out.items()}
 
 
-def step_check(trainer, state, data, what):
-    """One step's loss and gradients at full width on CHECK_RAYS rays with an
+def step_check(trainer, state, data, what, n_rays=CHECK_RAYS):
+    """One step's loss and gradients at full width on ``n_rays`` rays with an
     injected batch and noise: kernels on the card vs plain versions on the CPU,
     on the trainer's current layout."""
-    cfg = dataclasses.replace(trainer.cfg, num_rays=CHECK_RAYS)
+    cfg = dataclasses.replace(trainer.cfg, num_rays=n_rays)
     V, H, Wd = data["images"].shape[:3]
-    batch = _batch(trainer, CHECK_RAYS, V, H * Wd, SEED + 2)
+    batch = _batch(trainer, n_rays, V, H * Wd, SEED + 2)
     results = {}
     for dev in (DEVICE, "cpu"):
         tr = Trainer(trainer.nerf_cfg, trainer.render_cfg, cfg, device=dev)
@@ -1268,7 +1489,7 @@ def step_check(trainer, state, data, what):
     (lg, ng, gg, tg), (lc, nc, gc, tc) = results[DEVICE], results["cpu"]
     loss_err = abs(lg - lc) / abs(lc)
     errs = {k: (torch.linalg.norm(gg[k] - gc[k]) / torch.linalg.norm(gc[k])).item() for k in gc}
-    log(f"# {what} step check ({CHECK_RAYS} rays, full width): loss card {lg:.7f} vs CPU plain {lc:.7f} "
+    log(f"# {what} step check ({n_rays} rays, full width): loss card {lg:.7f} vs CPU plain {lc:.7f} "
         f"(rel {loss_err:.2e}, tol {CHECK_LOSS_TOL}); samples {ng} vs {nc}; gradient rel L2 "
         f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {CHECK_GRAD_TOL}); "
         f"{tg:.2f} s on the card, {tc:.2f} s on the CPU")
@@ -1311,7 +1532,8 @@ def main() -> int:
     # per-ray layout, the tuner off (cut to 64 + 50 steps)
     trainer, state, data, scene = train_setup(budget_autotune=False)
     state, perray_launches, perray_stats = train_phase(
-        trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS, what="per-ray train")
+        trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS, what="per-ray train",
+        absent=("march_flat",))
     state, calls = capture_step(trainer, state, data)
     rows += path_kernel_rows(trainer, calls, perray_launches, "per-ray train")
     del calls
@@ -1321,7 +1543,8 @@ def main() -> int:
 
     # bench.py's step as bench.py runs it: the tuner on
     trainer, state, data, scene = train_setup(budget_autotune=True, scene=scene)
-    state, auto_launches, stats = train_phase(trainer, state, data, card, what="autotune train")
+    state, auto_launches, stats = train_phase(trainer, state, data, card, what="autotune train",
+                                              absent=("march_flat",))
     mean = float(stats["aux"]["num_samples"]) / trainer.cfg.num_rays
     state = profile_step(trainer, state, data, "autotune train")
     state, calls = capture_step(trainer, state, data)  # at the shapes the tuner chose
@@ -1344,6 +1567,12 @@ def main() -> int:
     hash_rows, hstats = hashgrid_phases(scene, card)
     rows += hash_rows
     log(f"# hashgrid phases done at {time.perf_counter() - t_start:.1f} s")
+    flat_rows, fstats = flat_phases(scene, card)
+    rows += flat_rows
+    log(f"# flat march phases done at {time.perf_counter() - t_start:.1f} s")
+    dense_rows, dstats = dense_phases(scene, card)
+    rows += dense_rows
+    log(f"# dense phases done at {time.perf_counter() - t_start:.1f} s")
 
     for r in rows:
         log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "
@@ -1371,6 +1600,15 @@ def main() -> int:
         f"{hstats['samples_per_ray']:.3f} kept samples/ray, loss {hstats['loss_first']:.5f} -> "
         f"{hstats['loss_last']:.5f}; ms/view {hstats['view_ms']} on {card}; launches "
         f"{hstats['launches']}")
+    log(f"# flat train (bound 4, dt_gamma 1/128): {fstats['ms_per_step']:.3f} ms/step, "
+        f"{fstats['rays_per_s']:.1f} rays/s, {fstats['samples_per_ray']:.3f} kept samples/ray, loss "
+        f"{fstats['loss_first']:.5f} -> {fstats['loss_last']:.5f}; tuner's layout {fstats['layout']}, "
+        f"B {fstats['budget']}; evaluate PSNR {fstats['psnr']:.4f} dB, SSIM {fstats['ssim']:.5f}; "
+        f"ms/view {fstats['view_ms']} on {card}; launches {fstats['launches']}")
+    log(f"# dense train (512 + 64 samples, 4096 rays): {dstats['ms_per_step']:.3f} ms/step, "
+        f"{dstats['rays_per_s']:.1f} rays/s, loss {dstats['loss_first']:.5f} -> "
+        f"{dstats['loss_last']:.5f}; ms/view {dstats['view_ms']} on {card}; launches "
+        f"{dstats['launches']}")
     log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
-"""Each CUDA kernel (K1-K4 forward and backward, K5, K3c forward and backward,
-K6, K7 forward and backward) against its plain PyTorch version, on the card.
+"""Each CUDA kernel (K1-K4 forward and backward, K1f, K5, K3c forward and
+backward, K6, K7 forward and backward) against its plain PyTorch version, on
+the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
 ``python -m pytest tests/test_torch_kernels.py -q``.
 
-Tolerances: K1 must agree bit for bit (mask, stride, seg_lastocc, t). K3 is
+Tolerances: K1 must agree bit for bit (mask, stride, seg_lastocc, t), and
+so must K1f in both modes (t, dt, mask, stride, t0; ts, dts, valid): it
+rounds where its plain version rounds and calls the same expf / logf. K3 is
 float32 with atol 1e-5 (fused multiply-adds and summation order); K2 atol
 1e-4 (see the test: a one-ulp coordinate difference times the texel slope).
 K4 rounds where the plain version rounds (after each 1-D operator and each
@@ -122,6 +125,54 @@ def test_march_kernel_matches_plain_bit_for_bit(dev, frac, fs, cs):
     assert ref[2].sum().item() > 0
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("gamma,bound,steps,frac", [
+    (0.0, 1.5, 512, 0.3),          # constant dt_min, the uniform march
+    (1.0 / 128, 4.0, 1024, 0.2),   # the CLI's ladder: phases 1 and 2 within far
+    (1.0 / 64, 2.0, 64, 0.8),      # all three phases within far; the max_steps cap binds
+])
+def test_march_flat_kernel_matches_plain_bit_for_bit(dev, gamma, bound, steps, frac):
+    """K1f's per-ray and candidate modes; a quarter of the rays start inside
+    the box (at min_near, in the ladder's first phase)."""
+    g = torch.Generator().manual_seed(14)
+    N, H = 4000, 64
+    cfg = R.RenderConfig(bound=bound, grid_size=H, max_steps=steps, dt_gamma=gamma)
+    C, q = cfg.cascades, N // 4
+    v = torch.randn((N, 3), generator=g)
+    r = (1.5 + 1.5 * torch.rand((N, 1), generator=g)) * bound
+    r[:q] = 0.5 * bound * torch.rand((q, 1), generator=g)
+    o = r * v / v.norm(dim=1, keepdim=True)
+    d = 0.5 * bound * (2 * torch.rand((N, 3), generator=g) - 1) - o
+    d[:q] = torch.randn((q, 3), generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    occ = torch.rand((C, H, H, H), generator=g) < frac
+    noise = torch.rand((N,), generator=g)
+    o, d, occ, noise = o.to(dev), d.to(dev), occ.to(dev), noise.to(dev)
+    aabb = torch.tensor(cfg.aabb, device=dev)
+    n, f = RM.near_far_from_aabb(o, d, aabb, cfg.min_near)
+    hit = n < 1e30
+    n, f = torch.where(hit, n, 0.0), torch.where(hit, f, 0.0)
+    kw = dict(num_steps=cfg.num_candidates, max_steps=steps, grid_size=H, cascades=C, bound=bound,
+              dt_gamma=gamma)
+    n0 = kernels.launches["march_flat"]
+    got = RM.march_flat(o, d, n, f, occ, noise, budget=20, **kw)
+    cand = RM.march_flat_candidates(o, d, n, f, occ, noise, **kw)
+    assert kernels.launches["march_flat"] == n0 + 2
+    ref = RM.march_flat_plain(o, d, n, f, occ, noise, budget=20, **kw)
+    ref_c = RM.march_candidates_plain(o, d, n, f, occ, noise, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(list(got) + list(cand), list(ref) + list(ref_c)):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    valid = ref_c.valid
+    assert ref[2].sum().item() > 0 and (ref[3] > 1).any()  # kept samples, spread rays
+    if steps < kw["num_steps"] and frac > 0.5:
+        assert valid.sum(1).max().item() == steps
+    if gamma > 0:  # valid candidates in every phase the case names
+        dt_min, dt_max = 2 * RM.SQRT3 / steps, 2 * RM.SQRT3 * 2 ** (C - 1) / H
+        ts = ref_c.ts[valid]
+        assert (ts < dt_min / gamma).any() and (ts > dt_min / gamma).any()
+        assert (ts > dt_max / gamma).any() == (bound == 2.0)
 
 
 def _rel_close(a, b, rel):

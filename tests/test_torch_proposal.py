@@ -331,7 +331,9 @@ def test_proposal_five_step_trajectory_matches_jax():
 
 def test_proposal_fit_render_and_evaluate_run():
     """fit (no refresh, no retune), render_image and evaluate on the CPU;
-    the draws come from the state's generator."""
+    the draws come from the state's generator. CLIP guidance renders through
+    the dense renderer, as the JAX package's does off the occgrid
+    renderer."""
     _, ptr, _, _ = _setup()
     scene = PS.make_synthetic_scene(num_views=2, H=24, W=24, num_steps=16)
     tr = PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(PTKW, iters=3, eval_chunk=1024)),
@@ -342,5 +344,6 @@ def test_proposal_fit_render_and_evaluate_run():
     assert all(np.isfinite(v).all() for v in _leaves(state.params).values())
     res = tr.evaluate(state, scene)
     assert np.isfinite(res["PSNR"]) and np.isfinite(res["SSIM"]) and len(res["per_image"]) == 2
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tr.set_clip_guidance(lambda img: img.mean(), 1)
+    tr.set_clip_guidance(lambda img: (img - 0.5).square().mean(), 1)
+    state, clip_l = tr.clip_guidance_step(state)
+    assert state.step == 4 and np.isfinite(float(clip_l)) and tr.clip_hw == (16, 16)

@@ -112,20 +112,18 @@ def test_march_hierarchical_equal(frac, noise_on, fs, cs):
 
 
 def test_march_rejects_unported_options():
-    """The march takes every stride >= 1 and the renderer both layouts of
-    the hierarchical march; what stays unported is the flat march's exact
-    global compaction (``global_slots_per_ray=0``) and dt_gamma > 0 (a
-    later slice)."""
+    """The march takes every stride >= 1, and the renderer every march and
+    layout of the JAX package (the flat march, its exact global compaction
+    and dt_gamma > 0 are held in tests/test_torch_flat_march.py); what is
+    rejected is a stride below 1 and an unknown layout."""
     z = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="strides must be >= 1"):
         PRM.march_hierarchical(z, z, z[:, 0], z[:, 0], None, None, z[:, 0], num_coarse=4,
                                fine_per_coarse=12, coarse_budget=8, budget=20, max_steps=128,
                                occ_test_stride=0)
-    cfg = PR.RenderConfig(bound=BOUND, grid_size=GRID, compaction="global", global_slots_per_ray=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    cfg = PR.RenderConfig(bound=BOUND, grid_size=GRID, compaction="shared")
+    with pytest.raises(ValueError, match="unknown compaction"):
         PR.render_occgrid(None, z, z, None, cfg, occ_coarse=z)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PR.render_occgrid(None, z, z, None, PR.RenderConfig(dt_gamma=0.01), occ_coarse=z)
 
 
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])

@@ -251,20 +251,19 @@ def test_render_occgrid_global_layout_matches_jax(slots, monkeypatch):
 
 
 def test_unported_render_options_raise():
-    """Still unported after the autotune slice: dt_gamma > 0, the flat
-    march and its exact global compaction (slots 0) (a later slice), other
-    renderers."""
+    """Every march, layout and renderer of the JAX package is ported (the
+    flat march and dt_gamma > 0 in tests/test_torch_flat_march.py, the dense
+    renderer in tests/test_torch_dense.py); what still raises is the
+    background network (bg_radius > 0, a later slice), and a renderer name
+    the JAX package does not define."""
     rp = PR.RenderConfig(**RKW)
-    z = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="later slice"):
-        PR.render_occgrid(None, z, z, None, PR.RenderConfig(dt_gamma=0.01), occ_coarse=z)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PR.render_occgrid(None, z, z, None, rp)  # flat march (no occ_coarse)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PR.render_occgrid(None, z, z, None, PR.RenderConfig(compaction="global", global_slots_per_ray=0),
-                          occ_coarse=z)
-    with pytest.raises(NotImplementedError):
-        PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer="dense"), device="cpu")
+        PTR.Trainer(PN.NeRFConfig(bg_radius=2.0), rp, PTR.TrainConfig(), device="cpu")
+    with pytest.raises(ValueError, match="unknown renderer"):
+        PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer="nerfacc"), device="cpu")
+    for renderer in ("occgrid", "proposal", "dense"):
+        assert PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer=renderer),
+                           device="cpu").cfg.renderer == renderer
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

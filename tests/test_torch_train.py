@@ -225,9 +225,12 @@ def test_five_step_trajectory_matches_jax():
 
 
 def test_fit_runs_the_cadence_and_rejects_slice3_options():
-    """fit on the cadence; the slice-3 options train now (they have their
-    own tests below), so what is rejected is what a later slice ports: other
-    renderers and the flat march's exact global compaction (slots 0)."""
+    """fit on the cadence. What earlier slices rejected trains now (each has
+    its own tests: the slice-3 options below and in
+    tests/test_torch_train_options.py, the dense renderer and the flat
+    march in tests/test_torch_dense*.py and tests/test_torch_flat*.py): the
+    dense renderer builds, and the flat march's exact global compaction
+    (slots 0) takes a step with the JAX package's aux (no statistics)."""
     jtr, ptr, jstate, _ = _setup("float32")
     scene = PS.make_synthetic_scene(num_views=2, H=32, W=32, num_steps=16)
     tr = PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(TKW, iters=3)), device="cpu")
@@ -235,13 +238,14 @@ def test_fit_runs_the_cadence_and_rejects_slice3_options():
     state = tr.fit(state, scene, log_every=0)
     assert state.step == 3 and int(state.occ.iter_density) == 1 and state.ema_count == 3
     assert all(np.isfinite(v).all() for v in _leaves(state.params).values())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(TKW, renderer="dense")),
-                    device="cpu")
+    dense = PTR.Trainer(ptr.nerf_cfg, ptr.render_cfg, PTR.TrainConfig(**dict(TKW, renderer="dense")),
+                        device="cpu")
+    assert dense.cfg.renderer == "dense"
     flat = PTR.Trainer(ptr.nerf_cfg, dataclasses.replace(ptr.render_cfg, compaction="global"),
                        PTR.TrainConfig(**TKW), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        flat.train_step(state, tr.scene_to_device(scene))
+    state, aux = flat.train_step(state, tr.scene_to_device(scene))
+    assert state.step == 4 and np.isfinite(float(aux["loss"])) and int(aux["num_samples"]) > 0
+    assert not {"samples_p99", "overflow_frac", "global_fill", "span_p99"} & set(aux)
 
 
 def test_march_retune_and_grow_params_match_jax():

@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of the wavelet-triplane NeRF (occupancy-grid and
-proposal renderers; triplane, hash-grid and table-free encodings).
+"""PyTorch + CUDA port of the wavelet-triplane NeRF (occupancy-grid,
+proposal and dense renderers; triplane, hash-grid and table-free encodings).
 
 This package runs beside the JAX package ``trinerflet_tpu`` and mirrors its
 module names, public layouts and arithmetic. It imports ``torch`` and numpy
@@ -11,10 +11,12 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; when
 CUDA is asked for and absent they raise (see ``_device.resolve_device``).
 
 What this package covers: serving (novel-view rendering from a trained
-state), training with the budget autotuner and its global sample layout or
-with the proposal estimator, the hash / tiled grid field, and evaluation.
-The CLI, k-planes, the dense renderer and the super-resolution app raise
-``NotImplementedError`` naming the slice that ports them.
+state), training with the budget autotuner and its global sample layout on
+the hierarchical march or on the flat march (which also walks the
+``dt_gamma`` ladder), with the proposal estimator or with the dense
+renderer, the hash / tiled grid field, and evaluation. The CLI, k-planes
+and the super-resolution app raise ``NotImplementedError`` naming the slice
+that ports them.
 """
 
 from ._device import resolve_device

@@ -12,7 +12,7 @@ DeviceLike = Optional[Union[str, torch.device]]
 # Slices of the port that later work fills in; NotImplementedError messages
 # name them so a caller knows where the missing piece is queued.
 SLICE_LATER = ("a later slice (the CLI and checkpoints, k-planes and the model registry, "
-               "render_dense, the flat march, the dt_gamma > 0 ladder, the background network)")
+               "the background network)")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

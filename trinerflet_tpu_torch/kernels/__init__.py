@@ -15,7 +15,7 @@ from typing import Dict
 
 # name -> CUDA kernel launches since the last reset_launches()
 launches: Dict[str, int] = {
-    "march": 0, "grid_sample": 0, "grid_sample_bwd": 0, "composite": 0, "composite_bwd": 0,
+    "march": 0, "march_flat": 0, "grid_sample": 0, "grid_sample_bwd": 0, "composite": 0, "composite_bwd": 0,
     "idwt": 0, "idwt_adjoint": 0, "occupancy": 0, "compact": 0, "composite_compact": 0,
     "composite_compact_bwd": 0, "grid_encode": 0, "grid_encode_bwd": 0,
 }

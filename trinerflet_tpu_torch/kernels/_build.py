@@ -30,9 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# name -> extra nvcc flags. march.cu needs the plain version's exact
-# arithmetic (its mask must agree bit for bit), so it turns off nvcc's
-# contraction of a*b+c and uses fmaf() exactly where the reference fuses;
+# name -> extra nvcc flags. march.cu and march_flat.cu need the plain
+# versions' exact arithmetic (their masks must agree bit for bit), so they
+# turn off nvcc's contraction of a*b+c and use fmaf() exactly where the
+# reference fuses;
 # occupancy.cu does the same for the bbox's float32 arithmetic, and
 # compact.cu for the sample positions and distances K5 copies (o + d*t and
 # t + dt - t0 round as two operations, as in the plain version), and
@@ -40,6 +41,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # multiply-add where XLA fuses, every other operation rounded alone).
 SOURCES: Dict[str, List[str]] = {
     "march": ["-fmad=false"],
+    "march_flat": ["-fmad=false"],
     "grid_sample": [],
     "composite": [],
     "idwt": [],

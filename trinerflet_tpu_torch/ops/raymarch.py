@@ -2,27 +2,33 @@
 ``trinerflet_tpu/ops/raymarch.py``, the serving path's part).
 
 ``march_hierarchical`` is the two-level occupancy march (with the training
-path's strided probes); ``composite_dense`` the per-ray compositor, an
-autograd function whose backward is the analytic reverse pass.
-``compact_global_dense`` / ``compact_samples`` pack the kept samples into a
-shared ray-major buffer (the global layout) and ``composite_compact``
-composites that buffer, again with an analytic backward. On CUDA tensors
-they launch kernels K1 (``kernels/csrc/march.cu``), K3 forward and backward
+path's strided probes); ``march_flat`` the flat candidate march on the
+``dt_gamma`` ladder (``dt_ladder``), which either selects each ray's
+samples itself (the per-ray layout) or returns every candidate
+(``MarchResults``, for the exact global compaction); ``composite_dense``
+the per-ray compositor, an autograd function whose backward is the analytic
+reverse pass. ``compact_global_dense`` / ``compact_samples`` pack the kept
+samples into a shared ray-major buffer (the global layout) and
+``composite_compact`` composites that buffer, again with an analytic
+backward. On CUDA tensors they launch kernels K1 (``kernels/csrc/march.cu``),
+K1f (``kernels/csrc/march_flat.cu``), K3 forward and backward
 (``kernels/csrc/composite.cu``), K5 and the compact compositor's forward and
 backward (``kernels/csrc/compact.cu``); on CPU tensors they run the plain
 versions below.
 
-Arithmetic the march reproduces bit for bit: the JAX package runs it inside
-``jax.jit``, where XLA contracts ``a*b + c`` into one fused multiply-add and
-turns a division by a static constant into a multiplication by its float32
-reciprocal. The plain version states those rounding points explicitly
-(``_fma``, ``_inv``) and K1 uses ``fmaf`` at the same places, so ``mask``
-agrees bit for bit across the three.
+Arithmetic the marches reproduce bit for bit: the JAX package runs them
+inside ``jax.jit``, where XLA contracts ``a*b + c`` into one fused
+multiply-add and turns a division by a static constant into a
+multiplication by its float32 reciprocal. The plain versions state those
+rounding points explicitly (``_fma``, ``_inv``) and K1 and K1f use ``fmaf``
+at the same places, so ``mask`` agrees bit for bit across the three (on the
+ladder up to the last ulp of ``exp`` and ``log``, see ``dt_ladder``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,6 +46,13 @@ __all__ = [
     "first_k_valid",
     "march_hierarchical",
     "march_hierarchical_plain",
+    "dt_ladder",
+    "worst_case_ladder_steps",
+    "march_candidates_plain",
+    "compact_per_ray",
+    "march_flat",
+    "march_flat_plain",
+    "march_flat_candidates",
     "composite_dense",
     "composite_dense_plain",
     "composite_dense_backward_plain",
@@ -63,7 +76,7 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _inv(n: int) -> float:
+def _inv(n: float) -> float:
     """float32 reciprocal of a static divisor, as XLA folds ``x / n``."""
     return float(np.float32(1.0) / np.float32(n))
 
@@ -305,6 +318,207 @@ def _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, *,
 
 
 # ---------------------------------------------------------------------------
+# Flat candidate march on the dt_gamma ladder (K1f)
+# ---------------------------------------------------------------------------
+
+class MarchResults(NamedTuple):
+    """The flat march's candidates (JAX ``MarchResults``)."""
+    ts: torch.Tensor     # (N, Kc) f32 candidate distances; ts[:, 0] is the perturbed start
+    dts: torch.Tensor    # (N, Kc) f32 step at each candidate
+    valid: torch.Tensor  # (N, Kc) bool: occupied, short of far, among the first max_steps
+
+
+def _plain_log(x: torch.Tensor) -> torch.Tensor:
+    """log(x); on the CPU in float64 rounded back (``plain_exp``'s reason:
+    torch's CPU float32 transcendentals call MKL's vector library)."""
+    if x.is_cuda:
+        return torch.log(x)
+    return torch.log(x.double()).to(x.dtype)
+
+
+def _step_bounds(max_steps: int, grid_size: int, cascades: int) -> Tuple[float, float]:
+    """(dt_min, dt_max) = (2 sqrt3 / max_steps, 2 sqrt3 2^(C-1) / H)."""
+    return 2.0 * SQRT3 / max_steps, 2.0 * SQRT3 * (2 ** (cascades - 1)) / grid_size
+
+
+def dt_ladder(t0: torch.Tensor, num_steps: int, dt_min: float, dt_max: float,
+              dt_gamma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed form of the growing-step ladder ``t_{k+1} = t_k + clamp(
+    dt_gamma t_k, dt_min, dt_max)`` from t0 (N,): constant dt_min while
+    t < A = dt_min/gamma, geometric t (1+gamma)^j while t < B = dt_max/gamma,
+    constant dt_max after; k1 and j2 are each ray's phase boundaries.
+    Returns (ts, dts), each (N, num_steps).
+
+    Rounding points are jitted XLA's: s0 = t0 + k1 dt_min, t0 + k dt_min
+    and t2 + (k - k1 - j2) dt_max are one fused multiply-add each; the
+    divisions by dt_min and log1p(gamma) multiply by float32 reciprocals.
+    exp and log are float32 library functions (``plain_exp``,
+    ``_plain_log``; K1f calls expf/logf, torch's on the card), which XLA's
+    CPU versions may round one ulp apart."""
+    g = dt_gamma
+    lg = math.log1p(g)
+    k = torch.arange(num_steps, dtype=torch.float32, device=t0.device)[None, :]
+    t0 = t0[:, None]
+    k1 = torch.ceil(torch.clamp_min(_f32(dt_min / g) - t0, 0.0) * _inv(dt_min))
+    s0 = _fma(k1, dt_min, t0)
+    j2 = torch.ceil(torch.clamp_min(
+        _plain_log(torch.clamp_min(s0, _f32(dt_max / g)) / s0), 0.0) * _inv(lg))
+    t2 = s0 * plain_exp(j2 * _f32(lg))
+    t_p1 = _fma(k, dt_min, t0)
+    t_p2 = s0 * plain_exp(torch.clamp_min(k - k1, 0.0) * _f32(lg))
+    t_p3 = _fma(k - k1 - j2, dt_max, t2)
+    ts = torch.where(k < k1, t_p1, torch.where(k < k1 + j2, t_p2, t_p3))
+    return ts, torch.clamp(ts * _f32(g), _f32(dt_min), _f32(dt_max))
+
+
+def worst_case_ladder_steps(span: float, t0: float, dt_min: float, dt_max: float,
+                            dt_gamma: float) -> int:
+    """Host-side bound on the ladder steps that cross ``span`` from ``t0``
+    (sizes the candidate enumeration): ``ceil(span / dt_min)`` at
+    dt_gamma = 0, else each phase's count in closed form, plus 2."""
+    if dt_gamma <= 0.0:
+        return int(math.ceil(span / dt_min))
+    far = t0 + span
+    A = dt_min / dt_gamma
+    B = dt_max / dt_gamma
+    k1 = max(0, int(math.ceil((min(A, far) - t0) / dt_min)))
+    s0 = t0 + k1 * dt_min
+    j2 = 0
+    if far > s0 and B > s0:
+        j2 = int(math.ceil(math.log(min(B, far) / s0) / math.log1p(dt_gamma)))
+    t2 = s0 * (1.0 + dt_gamma) ** j2
+    k3 = max(0, int(math.ceil((far - t2) / dt_max)))
+    return k1 + j2 + k3 + 2
+
+
+def march_candidates_plain(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, nears: torch.Tensor, fars: torch.Tensor,
+    occ: torch.Tensor, noise: torch.Tensor, *, num_steps: int, max_steps: int,
+    grid_size: int = 128, cascades: int = 1, bound: float = 1.0, dt_gamma: float = 0.0,
+) -> MarchResults:
+    """Plain version of K1f's candidate mode (JAX ``march_candidates``): Kc
+    = ``num_steps`` candidates from t0 = near + clamp(gamma near, dt_min,
+    dt_max) noise, at constant dt_min (gamma 0) or on ``dt_ladder``; each
+    point o + d t (clipped to the bound) tested in the cell of its own mip
+    level (the step enters it); valid = occupied and t < far, among each
+    ray's first ``max_steps`` such candidates."""
+    dt_min, dt_max = _step_bounds(max_steps, grid_size, cascades)
+    step = torch.clamp(nears * _f32(dt_gamma), _f32(dt_min), _f32(dt_max))
+    t0 = _fma(step, noise, nears)
+    if dt_gamma == 0.0:
+        # jitted XLA tests the points and far at t0 + dt_min k fused (the
+        # ts it returns are added unfused, up to one ulp apart)
+        k = torch.arange(num_steps, dtype=torch.float32, device=rays_o.device)
+        ts = _fma(dt_min, k[None, :], t0[:, None])
+        dts = torch.full_like(ts, _f32(dt_min))
+    else:
+        ts, dts = dt_ladder(t0, num_steps, dt_min, dt_max, dt_gamma)
+    p = _fma(rays_d[:, None, :], ts[..., None], rays_o[:, None, :]).clamp(-bound, bound)
+    occupied = occupancy_lookup(occ, p, dts, grid_size=grid_size, cascades=cascades, bound=bound)
+    valid = occupied & (ts < fars[:, None])
+    if num_steps > max_steps:
+        v = valid.int()
+        valid = valid & (torch.cumsum(v, dim=1) - v < max_steps)
+    return MarchResults(ts=ts, dts=dts, valid=valid)
+
+
+def compact_per_ray(march: MarchResults, budget: int):
+    """The per-ray layout's selection: (k_idx (N, B), mask (N, B), stride
+    (N,)) of each ray's spread-kept valid candidates (``first_k_valid``)."""
+    return first_k_valid(march.valid, budget, spread=True)
+
+
+def march_flat_plain(rays_o, rays_d, nears, fars, occ, noise, *, num_steps: int,
+                     max_steps: int, budget: int, grid_size: int = 128, cascades: int = 1,
+                     bound: float = 1.0, dt_gamma: float = 0.0):
+    """Plain version of K1f's per-ray mode: the candidates, then each ray's
+    ``budget`` spread-kept samples. Returns (t (N, B) f32, dt (N, B) f32,
+    both 0 where masked; mask (N, B) bool; stride (N,) f32; t0 (N,) f32 the
+    perturbed start). (The JAX package takes the last candidate's t at a
+    masked slot; the compositor zeroes masked slots either way.)"""
+    march = march_candidates_plain(rays_o, rays_d, nears, fars, occ, noise, num_steps=num_steps,
+                                   max_steps=max_steps, grid_size=grid_size, cascades=cascades,
+                                   bound=bound, dt_gamma=dt_gamma)
+    idx, mask, stride = compact_per_ray(march, budget)
+    t = torch.where(mask, march.ts.gather(1, idx), 0.0)
+    dt = torch.where(mask, march.dts.gather(1, idx), 0.0)
+    return t, dt, mask, stride, march.ts[:, 0].contiguous()
+
+
+def march_flat(rays_o, rays_d, nears, fars, occ, noise, *, num_steps: int, max_steps: int,
+               budget: int, grid_size: int = 128, cascades: int = 1, bound: float = 1.0,
+               dt_gamma: float = 0.0):
+    """Flat march, per-ray layout: kernel K1f on CUDA tensors, the plain
+    version on CPU tensors."""
+    kw = dict(num_steps=num_steps, max_steps=max_steps, grid_size=grid_size,
+              cascades=cascades, bound=bound, dt_gamma=dt_gamma)
+    if rays_o.is_cuda:
+        return _march_flat_cuda(rays_o, rays_d, nears, fars, occ, noise, budget=budget, **kw)
+    return march_flat_plain(rays_o, rays_d, nears, fars, occ, noise, budget=budget, **kw)
+
+
+def march_flat_candidates(rays_o, rays_d, nears, fars, occ, noise, *, num_steps: int,
+                          max_steps: int, grid_size: int = 128, cascades: int = 1,
+                          bound: float = 1.0, dt_gamma: float = 0.0) -> MarchResults:
+    """Flat march, every candidate (for the exact global compaction): kernel
+    K1f's candidate mode on CUDA tensors, the plain version on CPU tensors."""
+    kw = dict(num_steps=num_steps, max_steps=max_steps, grid_size=grid_size,
+              cascades=cascades, bound=bound, dt_gamma=dt_gamma)
+    if rays_o.is_cuda:
+        return _march_flat_cuda(rays_o, rays_d, nears, fars, occ, noise, budget=0, **kw)
+    return march_candidates_plain(rays_o, rays_d, nears, fars, occ, noise, **kw)
+
+
+_K1F_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 10 + [ctypes.c_void_p] * 6
+
+
+def _march_flat_cuda(rays_o, rays_d, nears, fars, occ, noise, *, num_steps, max_steps, budget,
+                     grid_size, cascades, bound, dt_gamma):
+    """K1f: ``budget`` > 0 launches the per-ray mode, 0 the candidate mode."""
+    N = rays_o.shape[0]
+    dev = rays_o.device
+    for name, t, shape in (("rays_o", rays_o, (N, 3)), ("rays_d", rays_d, (N, 3)),
+                           ("nears", nears, (N,)), ("fars", fars, (N,)), ("noise", noise, (N,))):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"march_flat kernel: {name} must be {shape} float32 on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    grid_shape = (cascades, grid_size, grid_size, grid_size)
+    if occ.device != dev or occ.dtype != torch.bool or tuple(occ.shape) != grid_shape:
+        raise ValueError(f"march_flat kernel: occ must be {grid_shape} bool on {dev}, "
+                         f"got {tuple(occ.shape)} {occ.dtype}")
+    if num_steps < 1 or budget < 0 or dt_gamma < 0.0 or N * max(num_steps, budget) >= 2**31:
+        raise ValueError(f"march_flat kernel: needs num_steps >= 1, budget >= 0, dt_gamma >= 0 "
+                         f"and N * max(num_steps, budget) < 2^31, got {num_steps}, {budget}, "
+                         f"{dt_gamma}, N = {N}")
+    ins = [x.contiguous() for x in (rays_o, rays_d, nears, fars, noise, occ)]
+    dt_min, dt_max = _step_bounds(max_steps, grid_size, cascades)
+    g = dt_gamma if dt_gamma > 0.0 else 1.0  # the ladder's constants are unused at gamma 0
+    lg = math.log1p(g)
+    consts = (float(bound), _f32(dt_gamma), _f32(dt_min), _f32(dt_max), _f32(dt_min / g),
+              _f32(dt_max / g), _inv(dt_min), _f32(lg), _inv(lg), _inv(max(budget, 1)))
+    f32 = dict(device=dev, dtype=torch.float32)
+    if budget > 0:
+        outs = (torch.empty((N, budget), **f32), torch.empty((N, budget), **f32),
+                torch.empty((N, budget), device=dev, dtype=torch.bool),
+                torch.empty((N,), **f32), torch.empty((N,), **f32))
+        symbol = "march_flat_launch"
+    else:
+        outs = MarchResults(ts=torch.empty((N, num_steps), **f32),
+                            dts=torch.empty((N, num_steps), **f32),
+                            valid=torch.empty((N, num_steps), device=dev, dtype=torch.bool))
+        symbol = "march_candidates_launch"
+    if N == 0:  # nothing to launch, nothing counted
+        return outs
+    fn = _build.function("march_flat", symbol, _K1F_ARGS)
+    ptrs = [_build.ptr(x) for x in outs] + [ctypes.c_void_p(0)] * (5 - len(outs))
+    code = fn(*[_build.ptr(x) for x in ins], N, num_steps, max_steps, budget, grid_size, cascades,
+              *consts, *ptrs, _build.stream(dev))
+    _build.check(code, "march_flat")
+    kernels.launches["march_flat"] += 1
+    return outs
+
+
+# ---------------------------------------------------------------------------
 # Compositing (K3)
 # ---------------------------------------------------------------------------
 
@@ -485,13 +699,6 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
 # ---------------------------------------------------------------------------
 
 PAD_RAY_ID = 2**30  # ray_id of a padding slot
-
-
-class MarchResults(NamedTuple):
-    """The flat candidate march's output (JAX ``MarchResults``)."""
-    ts: torch.Tensor     # (N, K) f32 candidate distances
-    dts: torch.Tensor    # (N, K) f32 step sizes
-    valid: torch.Tensor  # (N, K) bool
 
 
 class CompactSamples(NamedTuple):

@@ -8,10 +8,10 @@ transmittance weights place the main field's samples by inverse CDF
 and the proxy is trained with the interlevel (histogram-bound) loss against
 the main field's weights.
 
-``_ray_weights`` is ``composite_dense``'s ``weights`` (the same factors in
-the same order), so it runs through K3 with zero colours and depths: K3's
-backward already takes the weights' cotangent, which is all the interlevel
-loss sends back.
+``_ray_weights`` (shared with ``render_dense``) is ``composite_dense``'s
+``weights`` (the same factors in the same order), so it runs through K3
+with zero colours and depths: K3's backward already takes the weights'
+cotangent, which is all the interlevel loss sends back.
 
 Random draws: the jitter (N, P+1) and the final-level uniforms (N, F), in
 that order (the JAX package's key splits inside ``render_proposal``), are
@@ -23,14 +23,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
 from ..models.gridencoder import GridEncoderConfig, grid_encode, init_grid_params
 from ..ops import raymarch as RM
 from ..ops.activation import trunc_exp
-from .renderer import RenderConfig, _background, _uniform
+from .renderer import RenderConfig, _background, _linspace, _ray_weights, _uniform
 
 __all__ = ["ProposalConfig", "init_proposal_params", "proposal_density", "render_proposal",
            "interlevel_loss"]
@@ -65,23 +64,6 @@ def proposal_density(params: Dict, pts: torch.Tensor, cfg: ProposalConfig,
                      bound: float) -> torch.Tensor:
     feats = grid_encode(params["grid"], pts, cfg.grid, bound)
     return trunc_exp(feats @ params["w"])[..., 0]
-
-
-def _ray_weights(sigmas: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
-    """alpha_i prod_{j<i} (1 - alpha_j + 1e-15), alpha = 1 - exp(-sigma
-    delta): composite_dense's weights (K3 on CUDA)."""
-    zeros = torch.zeros_like(sigmas)
-    rgbs = torch.zeros(sigmas.shape + (3,), dtype=sigmas.dtype, device=sigmas.device)
-    return RM.composite_dense(sigmas, rgbs, deltas, zeros)[3]
-
-
-def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
-    """jnp.linspace in float32: start (1 - i/(num-1)) + stop i/(num-1), the
-    last entry exactly stop."""
-    s = np.arange(num, dtype=np.float32) / np.float32(num - 1)
-    out = np.float32(start) * (np.float32(1.0) - s) + np.float32(stop) * s
-    out[-1] = np.float32(stop)
-    return torch.from_numpy(out).to(device)
 
 
 def render_proposal(

@@ -1,12 +1,17 @@
-"""Occupancy-grid renderer (port of ``trinerflet_tpu/render/renderer.py``).
+"""Volume renderers (port of ``trinerflet_tpu/render/renderer.py``).
 
-``render_occgrid`` runs the hierarchical march (K1), then the field (K2
-inside it) and a compositor on one of two layouts: the per-ray (N, B) layout
-with the dense compositor (K3), or -- ``compaction="global"`` with
-``global_slots_per_ray`` S > 0, which the budget tuner engages -- the
-shared buffer of N*S slots that K5 packs, with the compact compositor
-(K3c). It is differentiable in the field's parameters (K2, K3 and K3c
-backward).
+``render_occgrid`` marches the occupancy grid, then runs the field (K2
+inside it) and a compositor. The march is the hierarchical one (K1) at
+constant dt with a dilated grid, or else the flat candidate march (K1f),
+which also walks the ``dt_gamma`` ladder. Layouts: the per-ray (N, B)
+layout with the dense compositor (K3), or the global one with the compact
+compositor (K3c) -- on the hierarchical march the shared buffer of N*S
+slots (``global_slots_per_ray`` S > 0, which the budget tuner engages)
+that K5 packs from the (N, B) selection, on the flat march K5's exact
+packing of every valid candidate into N*B slots. ``render_dense`` is the
+pure-tensor renderer: uniform depths, optional importance upsampling, K3
+with no mask. Both are differentiable in the field's parameters (K2, K3 and
+K3c backward).
 ``OccupancyState`` / ``update_density_grid`` keep the occupancy state: the
 field is queried at jittered cell centres (all cells, or a rotating block
 for training's partial refresh), then ``occupancy_upkeep`` merges, thresholds,
@@ -26,13 +31,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 from ..kernels import _build
 from ..ops import raymarch as RM
 
 __all__ = ["RenderConfig", "OccupancyState", "init_occupancy", "update_density_grid",
            "occupancy_upkeep", "occupancy_upkeep_plain", "tuned_num_coarse",
-           "mark_untrained_grid", "render_occgrid"]
+           "mark_untrained_grid", "render_dense", "render_occgrid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +102,14 @@ class RenderConfig:
 
     def candidates_for(self, steps: int) -> int:
         """Candidate-enumeration length of the flat march for an occupied-
-        sample cap: ``bound * steps`` at constant dt."""
-        if self.dt_gamma > 0.0:
-            raise not_ported("the dt_gamma > 0 candidate ladder", SLICE_LATER)
-        return int(math.ceil(self.bound * steps))
+        sample cap: ``bound * steps`` at constant dt; on the dt_gamma ladder
+        its closed-form worst case (a ray entering at min_near and crossing
+        the full diagonal)."""
+        if self.dt_gamma <= 0.0:
+            return int(math.ceil(self.bound * steps))
+        dt_min, dt_max = RM._step_bounds(steps, self.grid_size, self.cascades)
+        return RM.worst_case_ladder_steps(2.0 * self.bound * RM.SQRT3, self.min_near, dt_min,
+                                          dt_max, self.dt_gamma)
 
     def for_eval(self) -> "RenderConfig":
         """Deep test-time variant: the exact dense layout and exact (stride-1)
@@ -388,6 +397,221 @@ def _background(n: int, bg_color, device) -> torch.Tensor:
     return bg_color
 
 
+def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
+    """jnp.linspace in float32: start (1 - s) + stop s with s = i * f32(1 /
+    (num - 1)) (jit's reciprocal), the last entry exactly stop."""
+    s = np.arange(num, dtype=np.float32) * (np.float32(1.0) / np.float32(num - 1))
+    out = np.float32(start) * (np.float32(1.0) - s) + np.float32(stop) * s
+    out[-1] = np.float32(stop)
+    return torch.from_numpy(out).to(device)
+
+
+def _ray_weights(sigmas: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
+    """alpha_i prod_{j<i} (1 - alpha_j + 1e-15), alpha = 1 - exp(-sigma
+    delta): composite_dense's weights (K3 on CUDA)."""
+    zeros = torch.zeros_like(sigmas)
+    rgbs = torch.zeros(sigmas.shape + (3,), dtype=sigmas.dtype, device=sigmas.device)
+    return RM.composite_dense(sigmas, rgbs, deltas, zeros)[3]
+
+
+def render_dense(
+    density_fn: Callable,     # pts (M, 3) -> (sigma (M,), geo (M, G))
+    color_fn: Callable,       # (dirs (M, 3), geo) -> rgb (M, 3)
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    cfg: RenderConfig,
+    bg_color=None,
+    perturb: bool = False,
+    jitter: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    occ: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Pure-tensor volume rendering: T = ``num_steps`` uniform depths over
+    each ray's [near, far] in the scene box and, with ``upsample_steps`` t >
+    0, t more placed by inverse CDF (``sample_pdf``) from the weights of the
+    uniform pass (its sigmas detached, K3 forward) and merged in depth order
+    (a stable sort: a new depth equal to an old one lands after it). K3
+    composites all T + t samples with no mask.
+
+    With ``perturb`` the uniform depths move by (jitter - 0.5) (far - near)
+    / T and the new ones are drawn at ``u``: ``jitter`` (N, T) and ``u``
+    (N, t), U[0, 1), are drawn from ``generator`` in that order when absent;
+    without it u is the midpoint linspace. ``occ`` with
+    ``cfg.occ_mask_dense`` zeroes sigma where the occupancy cell is off (a
+    diagnostic). Returns image, depth (the weighted mean of the normalised
+    depth), weights_sum and z_variance."""
+    N = rays_o.shape[0]
+    T = cfg.num_steps
+    dev = rays_o.device
+    aabb = torch.tensor(cfg.aabb, dtype=torch.float32, device=dev)
+    nears, fars = RM.near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    hit = nears < 1e30
+    nears = torch.where(hit, nears, 0.0)[:, None]
+    fars = torch.where(hit, fars, 1e-3)[:, None]
+    z_vals = nears + (fars - nears) * _linspace(0.0, 1.0, T, dev)[None, :]
+    sample_dist = (fars - nears) / T
+    if perturb:
+        if jitter is None:
+            jitter = _uniform((N, T), generator, dev)
+        z_vals = z_vals + (jitter.to(dev, torch.float32) - 0.5) * sample_dist
+
+    def pts_of(z):
+        return (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).clamp(-cfg.bound, cfg.bound)
+
+    sigmas, geos = density_fn(pts_of(z_vals).reshape(-1, 3))
+    sigmas = sigmas.reshape(N, T)
+    if cfg.upsample_steps > 0:
+        t = cfg.upsample_steps
+        with torch.no_grad():
+            deltas = torch.cat([torch.diff(z_vals, dim=-1), sample_dist], -1)
+            weights = _ray_weights(cfg.density_scale * sigmas.detach(), deltas)
+            z_mid = z_vals[:, :-1] + 0.5 * deltas[:, :-1]
+            if perturb:
+                u = (_uniform((N, t), generator, dev) if u is None else u).to(dev, torch.float32)
+            else:
+                u = _linspace(0.5 / t, 1 - 0.5 / t, t, dev).expand(N, t)
+            new_z = RM.sample_pdf(z_mid, weights[:, 1:-1], t, u)
+        new_sig, new_geo = density_fn(pts_of(new_z).reshape(-1, 3))
+        z_vals, order = torch.sort(torch.cat([z_vals, new_z], -1), dim=-1, stable=True)
+        sigmas = torch.cat([sigmas, new_sig.reshape(N, t)], -1).gather(1, order)
+        G = geos.shape[-1]
+        geos = torch.cat([geos.reshape(N, T, G), new_geo.reshape(N, t, G)], 1)
+        geos = geos.gather(1, order[..., None].expand(N, T + t, G)).reshape(N * (T + t), G)
+        T = T + t
+
+    deltas = torch.cat([torch.diff(z_vals, dim=-1), sample_dist], -1)
+    if cfg.occ_mask_dense and occ is not None:
+        occ_ok = RM.occupancy_lookup(occ, pts_of(z_vals), sample_dist.expand(N, T),
+                                     grid_size=cfg.grid_size, cascades=cfg.cascades, bound=cfg.bound)
+        sigmas = torch.where(occ_ok, sigmas, 0.0)
+    dirs = rays_d[:, None, :].expand(N, T, 3)
+    rgbs = color_fn(dirs.reshape(-1, 3), geos).reshape(N, T, 3)
+    ori_z = torch.clamp((z_vals - nears) / (fars - nears), 0, 1)
+    ws, depth, image, weights = RM.composite_dense(cfg.density_scale * sigmas, rgbs, deltas, ori_z)
+    image = image + (1.0 - ws)[:, None] * _background(N, bg_color, dev)
+    mean_z = depth / torch.clamp_min(ws, 1e-8)
+    z_var = (weights * (ori_z - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
+    return {"image": image, "depth": depth, "weights_sum": ws, "z_variance": z_var}
+
+
+def _residual_T(flagged: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """Mean residual transmittance 1 - ws over the flagged rays (0 when none)."""
+    n = flagged.sum()
+    return torch.where(n > 0, torch.where(flagged, 1.0 - ws, 0.0).sum()
+                       / torch.clamp_min(n, 1).float(), 0.0)
+
+
+def _composite_per_ray(field_fn, rays_o, rays_d, t, dt, mask, t0, cfg: RenderConfig):
+    """The field on the (N, B) layout's points and the dense compositor at
+    the early-exit threshold; ts accumulate relative to the ray start t0.
+    Returns (ws, depth_raw, image, z_var, weights, ts_rel)."""
+    N, B = t.shape
+    pts = (rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]).clamp(-cfg.bound, cfg.bound)
+    dirs = rays_d[:, None, :].expand(pts.shape)
+    sigmas, rgbs = field_fn(pts.reshape(-1, 3), dirs.reshape(-1, 3))
+    ts_rel = torch.where(mask, t + dt - t0[:, None], 0.0)
+    ws, depth_raw, image, weights = RM.composite_dense(
+        cfg.density_scale * sigmas.reshape(N, B), rgbs.reshape(N, B, 3), dt, ts_rel, mask=mask,
+        t_thresh=cfg.t_thresh)
+    mean_z = depth_raw / torch.clamp_min(ws, 1e-8)
+    z_var = (weights * (ts_rel - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
+    return ws, depth_raw, image, z_var, weights, ts_rel
+
+
+def _composite_global(field_fn, comp: RM.CompactSamples, N: int, cfg: RenderConfig):
+    """The field on a packed buffer (padding slots included, at xyz = dir =
+    0) and the compact compositor. Returns (ws, depth_raw, image, z_var)."""
+    sigmas, rgbs = field_fn(comp.xyzs, comp.dirs)
+    return RM.composite_compact(cfg.density_scale * sigmas, rgbs, comp, N, cfg.t_thresh)
+
+
+def _render_hierarchical(field_fn, rays_o, rays_d, nears, fars, hit, occ, occ_coarse, noise,
+                         cfg: RenderConfig, with_stats: bool):
+    """K1, then the per-ray layout or the S-slot global buffer (K5 + K3c)."""
+    N = rays_o.shape[0]
+    steps = cfg.max_steps
+    B = cfg.samples_per_ray_budget
+    Fc = cfg.fine_per_coarse
+    num_coarse = cfg.num_coarse_override or int(math.ceil(cfg.bound * steps / Fc))
+    t, dt_scalar, mask, stride, seg_lastocc = RM.march_hierarchical(
+        rays_o, rays_d, nears, fars, occ, occ_coarse, noise,
+        num_coarse=num_coarse, fine_per_coarse=Fc, coarse_budget=cfg.coarse_budget,
+        budget=B, max_steps=steps, grid_size=cfg.grid_size, cascades=cfg.cascades,
+        bound=cfg.bound, occ_test_stride=cfg.resolved_occ_test_stride(),
+        coarse_test_stride=cfg.resolved_coarse_test_stride())
+    dt = torch.where(mask, dt_scalar * stride[:, None], 0.0)
+    t0 = nears + dt_scalar * noise
+    demand = mask.sum(-1).float() * stride
+    capped = demand > B
+    span_ray = torch.where(hit, fars - nears, 0.0)
+    span_capped = span_ray > (num_coarse * Fc) * (2.0 * RM.SQRT3 / steps) * 0.995
+    stats = {"num_samples": mask.sum()}
+    needed_seg = seg_lastocc
+    if cfg.compaction == "global":
+        slots = N * cfg.global_slots_per_ray
+        comp = RM.compact_global_dense(rays_o, rays_d, t, dt, mask, t0, m_budget=slots,
+                                       bound=cfg.bound)
+        ws, depth_raw, image, z_var = _composite_global(field_fn, comp, N, cfg)
+        stats["num_samples"] = comp.num_valid
+        stats["global_fill"] = comp.num_valid.float() / slots
+    else:
+        ws, depth_raw, image, z_var, weights, ts_rel = _composite_per_ray(
+            field_fn, rays_o, rays_d, t, dt, mask, t0, cfg)
+        if with_stats:
+            # saturation-aware demand span: a saturated ray needs only the
+            # span up to its last contributing sample
+            with torch.no_grad():
+                t_sat = torch.where(weights > 0, ts_rel, 0.0).amax(dim=1)
+                saturated = ws > 1.0 - 10.0 * cfg.t_thresh
+                needed_seg = torch.where(saturated, torch.minimum(
+                    t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc), seg_lastocc)
+    if with_stats:
+        # all three p99s from one sort
+        with torch.no_grad():
+            stats3 = torch.sort(torch.stack([demand, span_ray, needed_seg]), dim=1).values
+        qi = int(round(0.99 * (N - 1)))
+        stats["samples_p99"] = stats3[0, qi]
+        stats["span_p99"] = stats3[1, qi]
+        stats["needed_seg_p99"] = stats3[2, qi]
+    stats["overflow_frac"] = capped.float().mean()
+    stats["samples_mean"] = demand.mean()
+    stats["trunc_T"] = _residual_T(capped, ws)
+    stats["span_trunc_T"] = _residual_T(span_capped, ws)
+    return ws, depth_raw, image, z_var, stats
+
+
+def _render_flat(field_fn, rays_o, rays_d, nears, fars, occ, noise, cfg: RenderConfig,
+                 with_stats: bool):
+    """K1f on ``num_candidates`` candidates, then the per-ray layout, or the
+    exact global compaction of every valid candidate into N*B slots (K5 +
+    K3c; no statistics, as in the JAX package)."""
+    N = rays_o.shape[0]
+    B = cfg.samples_per_ray_budget
+    kw = dict(num_steps=cfg.num_candidates, max_steps=cfg.max_steps, grid_size=cfg.grid_size,
+              cascades=cfg.cascades, bound=cfg.bound, dt_gamma=cfg.dt_gamma)
+    if cfg.compaction == "global":
+        march = RM.march_flat_candidates(rays_o, rays_d, nears, fars, occ, noise, **kw)
+        comp = RM.compact_samples(rays_o, rays_d, march, m_budget=N * B, bound=cfg.bound)
+        ws, depth_raw, image, z_var = _composite_global(field_fn, comp, N, cfg)
+        return ws, depth_raw, image, z_var, {"num_samples": comp.num_valid}
+    t, dt, mask, stride, t0 = RM.march_flat(rays_o, rays_d, nears, fars, occ, noise, budget=B,
+                                            **kw)
+    dt = torch.where(mask, dt * stride[:, None], 0.0)
+    ws, depth_raw, image, z_var, _, _ = _composite_per_ray(field_fn, rays_o, rays_d, t, dt, mask,
+                                                           t0, cfg)
+    demand = mask.sum(-1).float() * stride
+    capped = demand > B
+    stats = {"num_samples": mask.sum()}
+    if with_stats:
+        with torch.no_grad():
+            stats["samples_p99"] = torch.quantile(demand, 0.99)
+    stats["overflow_frac"] = capped.float().mean()
+    stats["samples_mean"] = demand.mean()
+    stats["trunc_T"] = _residual_T(capped, ws)
+    return ws, depth_raw, image, z_var, stats
+
+
 def render_occgrid(
     field_fn: Callable,
     rays_o: torch.Tensor,
@@ -400,27 +624,23 @@ def render_occgrid(
     occ_bbox: Optional[torch.Tensor] = None,
     with_stats: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """March + field + composite on the hierarchical march: the per-ray
-    layout, or the global one (``compaction="global"``, S =
-    ``global_slots_per_ray`` > 0: the kept samples packed into N*S shared
-    slots by K5, the field on that buffer -- padding slots included, at
-    xyz = dir = 0 -- and the compact compositor; ``global_fill`` reports
-    the buffer's use, ``num_samples`` the slots kept).
+    """March + field + composite. The hierarchical march runs when
+    ``march="hierarchical"``, ``dt_gamma == 0``, ``occ_coarse`` is given and
+    the layout is not the slot-less global one (the JAX package's
+    predicate); else the flat march.
 
     ``field_fn(xyzs (M, 3), dirs (M, 3)) -> (sigma (M,), rgb (M, 3))``.
     ``noise`` (N,) in [0, 1) perturbs the ray starts (the JAX package's
     ``perturb``; tests inject it); None renders unperturbed, as serving does.
-    Returns the JAX package's keys: image, depth, weights_sum, z_variance,
-    num_samples, overflow_frac, samples_mean, trunc_T, span_trunc_T, and
-    with ``with_stats`` the sorted p99s samples_p99, span_p99,
-    needed_seg_p99 (the trainer reads them only on retune steps)."""
-    if cfg.dt_gamma != 0.0:
-        raise not_ported("rendering with dt_gamma > 0", SLICE_LATER)
-    if cfg.march != "hierarchical" or occ_coarse is None:
-        raise not_ported("the flat candidate march", SLICE_LATER)
-    if cfg.compaction == "global" and cfg.global_slots_per_ray <= 0:
-        raise not_ported("compaction='global' with global_slots_per_ray=0 (the flat march's "
-                         "exact global compaction)", SLICE_LATER)
+    Returns image, depth, weights_sum, z_variance and num_samples, then the
+    JAX package's statistics for the branch taken:
+    * hierarchical: overflow_frac, samples_mean, trunc_T, span_trunc_T;
+      with ``with_stats`` the sorted p99s samples_p99, span_p99,
+      needed_seg_p99; on the S-slot global buffer global_fill (the buffer's
+      use; num_samples is then the slots kept);
+    * flat, per-ray: overflow_frac, samples_mean, trunc_T; with
+      ``with_stats`` samples_p99 (linearly interpolated);
+    * flat, exact global: none."""
     if cfg.compaction not in ("per_ray", "global"):
         raise ValueError(f"unknown compaction {cfg.compaction!r}")
     N = rays_o.shape[0]
@@ -432,85 +652,16 @@ def render_occgrid(
     fars_c = torch.where(hit, fars, 0.0)  # near >= far -> no candidates
     if noise is None:
         noise = torch.zeros((N,), dtype=torch.float32, device=dev)
-
-    steps = cfg.max_steps
-    B = cfg.samples_per_ray_budget
-    Fc = cfg.fine_per_coarse
-    num_coarse = cfg.num_coarse_override or int(math.ceil(cfg.bound * steps / Fc))
-    t, dt_scalar, mask, stride, seg_lastocc = RM.march_hierarchical(
-        rays_o, rays_d, nears_c, fars_c, occ, occ_coarse, noise,
-        num_coarse=num_coarse, fine_per_coarse=Fc, coarse_budget=cfg.coarse_budget,
-        budget=B, max_steps=steps, grid_size=cfg.grid_size, cascades=cfg.cascades,
-        bound=cfg.bound, occ_test_stride=cfg.resolved_occ_test_stride(),
-        coarse_test_stride=cfg.resolved_coarse_test_stride())
-    dt = torch.where(mask, dt_scalar * stride[:, None], 0.0)
-    t0 = nears_c + dt_scalar * noise
-    num_samples = mask.sum()
-    demand = mask.sum(-1).float() * stride
-    overflow_frac = (demand > B).float().mean()
-    capped = demand > B
-    span_ray = torch.where(hit, fars_c - nears_c, 0.0)
-    span_capped = span_ray > (num_coarse * Fc) * (2.0 * RM.SQRT3 / steps) * 0.995
-
-    needed_seg = seg_lastocc
-    global_fill = None
-    if cfg.compaction == "global":
-        slots = N * cfg.global_slots_per_ray
-        comp = RM.compact_global_dense(rays_o, rays_d, t, dt, mask, t0, m_budget=slots,
-                                       bound=cfg.bound)
-        sigmas, rgbs = field_fn(comp.xyzs, comp.dirs)
-        ws, depth_raw, image, z_var = RM.composite_compact(
-            cfg.density_scale * sigmas, rgbs, comp, N, cfg.t_thresh)
-        num_samples = comp.num_valid
-        global_fill = comp.num_valid.float() / slots
+    hierarchical = (cfg.march == "hierarchical" and cfg.dt_gamma == 0.0 and occ_coarse is not None
+                    and (cfg.compaction != "global" or cfg.global_slots_per_ray > 0))
+    if hierarchical:
+        ws, depth_raw, image, z_var, stats = _render_hierarchical(
+            field_fn, rays_o, rays_d, nears_c, fars_c, hit, occ, occ_coarse, noise, cfg, with_stats)
     else:
-        pts = (rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]).clamp(-cfg.bound, cfg.bound)
-        dirs = rays_d[:, None, :].expand(pts.shape)
-        sigmas, rgbs = field_fn(pts.reshape(-1, 3), dirs.reshape(-1, 3))
-        sigmas = sigmas.reshape(N, B)
-        rgbs = rgbs.reshape(N, B, 3)
-        ts_rel = torch.where(mask, t + dt - t0[:, None], 0.0)
-        ws, depth_raw, image, weights = RM.composite_dense(
-            cfg.density_scale * sigmas, rgbs, dt, ts_rel, mask=mask, t_thresh=cfg.t_thresh)
-        mean_z = depth_raw / torch.clamp_min(ws, 1e-8)
-        z_var = (weights * (ts_rel - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
-        if with_stats:
-            # saturation-aware demand span: a saturated ray needs only the
-            # span up to its last contributing sample
-            with torch.no_grad():
-                t_sat = torch.where(weights > 0, ts_rel, 0.0).amax(dim=1)
-                saturated = ws > 1.0 - 10.0 * cfg.t_thresh
-                needed_seg = torch.where(saturated, torch.minimum(
-                    t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc), seg_lastocc)
-
-    bg = _background(N, bg_color, dev)
-    image = image + (1.0 - ws)[:, None] * bg
-    span = torch.clamp_min(fars - nears, 1e-6)
+        ws, depth_raw, image, z_var, stats = _render_flat(
+            field_fn, rays_o, rays_d, nears_c, fars_c, occ, noise, cfg, with_stats)
+    image = image + (1.0 - ws)[:, None] * _background(N, bg_color, dev)
     # ts are relative to the (perturbed) ray start, so depth_raw already is
     # "depth - near"
-    depth = torch.clamp_min(depth_raw, 0.0) / span
-    out = {"image": image, "depth": depth, "weights_sum": ws, "z_variance": z_var,
-           "num_samples": num_samples}
-    if with_stats:
-        # all three p99s from one sort
-        with torch.no_grad():
-            stats3 = torch.sort(torch.stack([demand, span_ray, needed_seg]), dim=1).values
-        qi = int(round(0.99 * (N - 1)))
-        out["samples_p99"] = stats3[0, qi]
-        out["span_p99"] = stats3[1, qi]
-        out["needed_seg_p99"] = stats3[2, qi]
-    out["overflow_frac"] = overflow_frac
-    out["samples_mean"] = demand.mean()
-    n_capped = capped.sum()
-    out["trunc_T"] = torch.where(
-        n_capped > 0,
-        torch.where(capped, 1.0 - ws, 0.0).sum() / torch.clamp_min(n_capped, 1).float(),
-        0.0)
-    n_sc = span_capped.sum()
-    out["span_trunc_T"] = torch.where(
-        n_sc > 0,
-        torch.where(span_capped, 1.0 - ws, 0.0).sum() / torch.clamp_min(n_sc, 1).float(),
-        0.0)
-    if global_fill is not None:
-        out["global_fill"] = global_fill
-    return out
+    depth = torch.clamp_min(depth_raw, 0.0) / torch.clamp_min(fars - nears, 1e-6)
+    return {"image": image, "depth": depth, "weights_sum": ws, "z_variance": z_var, **stats}

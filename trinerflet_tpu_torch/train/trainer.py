@@ -3,9 +3,12 @@ exponential-decay schedule, the parameter EMA, the loss, the occupancy
 refresh cadence, the retune of the march's shapes (span, per-ray budget,
 global layout), error-map and pregenerated-ray batches, random backgrounds,
 CLIP guidance steps, full-frame rendering and evaluation (PSNR / SSIM), on
-the occupancy-grid renderer or the proposal renderer
-(``renderer="proposal"``: a grid-backed density proxy places the samples and
-trains on the interlevel loss; no occupancy refresh, no retune).
+the occupancy-grid renderer, the proposal renderer (``renderer="proposal"``:
+a grid-backed density proxy places the samples and trains on the interlevel
+loss) or the dense renderer (``renderer="dense"``: uniform depths with
+optional importance upsampling). The last two have no occupancy refresh and
+no retune; their CLIP steps render through the dense renderer, as the JAX
+package's do.
 
 Differences from the JAX package, none of which changes a result:
 
@@ -16,7 +19,9 @@ Differences from the JAX package, none of which changes a result:
 * Random draws come from the state's ``torch.Generator`` (on the trainer's
   device); tests pass the draws in instead (``batch``, ``jitter``).
 * A non-triplane field with ``wavelet_regularization > 0`` raises at
-  construction (the JAX package fails when it traces the step).
+  construction (the JAX package fails when it traces the step), and so does
+  a renderer other than occgrid, proposal and dense (the JAX package renders
+  any other name densely).
 * ``render_rays`` / ``render_image`` build the planes once per call (the
   values are identical) and do not pad the last chunk (rays are
   independent).
@@ -40,7 +45,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 from ..data.rays import (rand_poses, rays_full_image, sample_ray_batch,
                          sample_ray_batch_error_map, sample_ray_batch_pregen)
 from ..models.nerf import NeRFConfig, NeRFField, init_nerf_params
@@ -155,8 +160,8 @@ class Trainer:
     def __init__(self, nerf_cfg: NeRFConfig, render_cfg: R.RenderConfig,
                  train_cfg: TrainConfig, device: DeviceLike = None,
                  workspace: Optional[str] = None):
-        if train_cfg.renderer not in ("occgrid", "proposal"):
-            raise not_ported(f"the {train_cfg.renderer!r} renderer", SLICE_LATER)
+        if train_cfg.renderer not in ("occgrid", "proposal", "dense"):
+            raise ValueError(f"unknown renderer {train_cfg.renderer!r} (occgrid, proposal, dense)")
         if train_cfg.wavelet_regularization > 0 and nerf_cfg.encoding != "triplane_wavelet":
             raise ValueError(f"wavelet_regularization > 0 regularises the wavelet triplane; the "
                              f"{nerf_cfg.encoding!r} field has none (set it to 0)")
@@ -270,10 +275,12 @@ class Trainer:
                  error_map: Optional[torch.Tensor] = None):
         """Loss and aux of one batch. The draws come from ``generator`` in
         the order batch, background, then noise (occgrid) or jitter and u
-        (proposal), unless ``batch`` holds them: ``img_idx`` / ``pix_idx``
-        (uniform and pregenerated batches), ``img_idx`` / ``u`` / ``jx`` /
-        ``jy`` (error-map batches), ``bg`` (N, 3) (``train_rand_bg``),
-        ``noise`` (N,), ``prop_jitter`` (N, P+1) and ``prop_u`` (N, F).
+        (proposal, dense), unless ``batch`` holds them: ``img_idx`` /
+        ``pix_idx`` (uniform and pregenerated batches), ``img_idx`` / ``u`` /
+        ``jx`` / ``jy`` (error-map batches), ``bg`` (N, 3)
+        (``train_rand_bg``), ``noise`` (N,), ``prop_jitter`` (N, P+1) and
+        ``prop_u`` (N, F), ``dense_jitter`` (N, num_steps) and ``dense_u``
+        (N, upsample_steps).
         With error-map sampling aux carries ``_new_error_map``, the map after
         its EMA update."""
         cfg = self.cfg
@@ -312,6 +319,12 @@ class Trainer:
                 params["proposal"], rays_o, rays_d, self.render_cfg, self.prop_cfg, bg_color=bg,
                 perturb=True, jitter=batch.get("prop_jitter"), u=batch.get("prop_u"),
                 generator=generator)
+        elif cfg.renderer == "dense":
+            out = R.render_dense(
+                lambda x: self.field.density(params, planes, x),
+                lambda d, g: self.field.color(params, d, g),
+                rays_o, rays_d, self.render_cfg, bg_color=bg, perturb=True,
+                jitter=batch.get("dense_jitter"), u=batch.get("dense_u"), generator=generator)
         else:
             noise = batch.get("noise")
             if noise is None:
@@ -515,7 +528,8 @@ class Trainer:
         the occgrid renderer every ``update_extra_interval`` steps a density
         refresh (full while iter_density < 16, then the rotating quarter)
         and the retune on the last step's aux; the p99 statistics only on
-        the step before each refresh. The proposal renderer has neither.
+        the step before each refresh. The proposal and dense renderers have
+        neither.
         With error-map sampling the map starts at ones over min(128, H,
         W)^2 cells per view. With CLIP guidance
         (``set_clip_guidance``) one CLIP step follows every k supervised
@@ -562,9 +576,8 @@ class Trainer:
         not ported). ``rand_pose_interval`` k: one CLIP step after every k
         supervised steps; k = 0: CLIP steps only. The render is a full frame
         of side max(16, sqrt(num_rays)) from an orbit pose at ``radius``
-        (the scene bound by default)."""
-        if self.cfg.renderer != "occgrid":
-            raise not_ported("CLIP guidance off the occgrid renderer (render_dense)", SLICE_LATER)
+        (the scene bound by default), perturbed, on the occgrid renderer or
+        else the dense one."""
         self.clip_loss = clip_loss
         self.rand_pose_interval = int(rand_pose_interval)
         self.clip_radius = radius if radius is not None else self.render_cfg.bound
@@ -573,31 +586,42 @@ class Trainer:
         self._clip_rng = np.random.default_rng(self.cfg.seed + 7)
 
     def _clip_loss_fn(self, params: Dict, occ: R.OccupancyState, rays_o, rays_d,
-                      noise: torch.Tensor):
-        """CLIP loss of a perturbed render on a white background."""
+                      generator: torch.Generator, noise=None, jitter=None, u=None):
+        """CLIP loss of a perturbed render on a white background: the
+        occgrid renderer (ray ``noise``) or else the dense one (``jitter``
+        and ``u``); absent draws come from ``generator``."""
         H, W = self.clip_hw
         planes = self.field.build_planes(params)
         bg = torch.ones((rays_o.shape[0], 3), dtype=torch.float32, device=self.device)
+        if self.cfg.renderer == "occgrid":
+            if noise is None:
+                noise = torch.rand((rays_o.shape[0],), generator=generator, device=generator.device)
 
-        def field_fn(xyzs, dirs):
-            return self.field(params, planes, xyzs, dirs)
+            def field_fn(xyzs, dirs):
+                return self.field(params, planes, xyzs, dirs)
 
-        out = R.render_occgrid(field_fn, rays_o, rays_d, occ.occ, self.render_cfg, noise=noise,
-                               bg_color=bg, occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox,
-                               with_stats=False)
+            out = R.render_occgrid(field_fn, rays_o, rays_d, occ.occ, self.render_cfg,
+                                   noise=noise.to(self.device, torch.float32), bg_color=bg,
+                                   occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox, with_stats=False)
+        else:
+            out = R.render_dense(lambda x: self.field.density(params, planes, x),
+                                 lambda d, g: self.field.color(params, d, g),
+                                 rays_o, rays_d, self.render_cfg, bg_color=bg, perturb=True,
+                                 jitter=jitter, u=u, generator=generator)
         return self.clip_loss(out["image"].reshape(1, H, W, 3))
 
     def _clip_step(self, state: TrainState, rays_o: torch.Tensor, rays_d: torch.Tensor,
-                   noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, torch.Tensor]:
+                   noise: Optional[torch.Tensor] = None, jitter: Optional[torch.Tensor] = None,
+                   u: Optional[torch.Tensor] = None) -> Tuple[TrainState, torch.Tensor]:
         """One optimisation step on the CLIP loss of the given rays (Adam and
-        the EMA as a supervised step). ``noise`` (N,) may be injected."""
+        the EMA as a supervised step). The render's draws may be injected:
+        ``noise`` (N,) on the occgrid renderer, ``jitter`` (N, num_steps)
+        and ``u`` (N, upsample_steps) on the dense one."""
         self._check_device(state.params, state.occ)
-        if noise is None:
-            noise = torch.rand((rays_o.shape[0],), generator=state.rng, device=state.rng.device)
         named = _leaves(state.params)
         leaves = [p.requires_grad_(True) for _, p in named]
-        loss = self._clip_loss_fn(state.params, state.occ, rays_o, rays_d,
-                                  noise.to(self.device, torch.float32))
+        loss = self._clip_loss_fn(state.params, state.occ, rays_o, rays_d, state.rng, noise,
+                                  jitter, u)
         return self._apply_grads(state, named, leaves, loss), loss.detach()
 
     def clip_guidance_step(self, state: TrainState) -> Tuple[TrainState, torch.Tensor]:
@@ -619,6 +643,11 @@ class Trainer:
                 lambda d, g: self.field.color(params, d, g),
                 params["proposal"], rays_o, rays_d, self.eval_render_cfg, self.prop_cfg,
                 bg_color=bg_color, perturb=False)
+        if self.cfg.renderer == "dense":
+            return R.render_dense(
+                lambda x: self.field.density(params, planes, x),
+                lambda d, g: self.field.color(params, d, g),
+                rays_o, rays_d, self.eval_render_cfg, bg_color=bg_color, occ=occ.occ)
 
         def field_fn(xyzs, dirs):
             return self.field(params, planes, xyzs, dirs)
