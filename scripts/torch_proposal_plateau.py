@@ -1,6 +1,6 @@
 """The early black plateau of the proposal renderer (and of the flat march
-at bound 4 and the dense renderer), in the JAX package and in the PyTorch
-port (CPU).
+at bound 4, the dense renderer and the multiscale k-planes field), in the
+JAX package and in the PyTorch port (CPU).
 
 Both trainers start from the same JAX state (the port's carried over with
 ``carry.train_state_from_jax``) on a 4-view 64^2 synthetic scene at 1,024
@@ -11,7 +11,7 @@ steps with its own jitter. The script prints the mean loss of every 25 steps
 for both, then the mean of one rendered training view (EMA params) against
 the ground truth's.
 
-    JAX_PLATFORMS=cpu python scripts/torch_proposal_plateau.py [--config proposal|flat|dense] [--steps 150]
+    JAX_PLATFORMS=cpu python scripts/torch_proposal_plateau.py [--config proposal|flat|dense|kplanes] [--steps 150]
 """
 
 import argparse
@@ -35,10 +35,12 @@ from trinerflet_tpu_torch.models import triplane as PT  # noqa: E402
 from trinerflet_tpu_torch.render import renderer as PR  # noqa: E402
 from trinerflet_tpu_torch.train import trainer as PTR  # noqa: E402
 
-CONFIGS = {  # name -> (TrainConfig, RenderConfig) fields
-    "proposal": (dict(renderer="proposal"), dict(bound=1.5)),
-    "flat": (dict(renderer="occgrid"), dict(bound=4.0, dt_gamma=1.0 / 128)),
-    "dense": (dict(renderer="dense"), dict(bound=1.5, num_steps=64, upsample_steps=32)),
+CONFIGS = {  # name -> (TrainConfig, RenderConfig, NeRFConfig) fields
+    "proposal": (dict(renderer="proposal"), dict(bound=1.5), {}),
+    "flat": (dict(renderer="occgrid"), dict(bound=4.0, dt_gamma=1.0 / 128), {}),
+    "dense": (dict(renderer="dense"), dict(bound=1.5, num_steps=64, upsample_steps=32), {}),
+    "kplanes": (dict(renderer="occgrid", wavelet_regularization=0.0), dict(bound=1.5),
+                dict(encoding="multiscale_k_planes_mul")),
 }
 
 
@@ -47,14 +49,14 @@ def main() -> None:
     ap.add_argument("--config", choices=sorted(CONFIGS), default="proposal")
     ap.add_argument("--steps", type=int, default=150)
     args = ap.parse_args()
-    t_extra, r_extra = CONFIGS[args.config]
-    tkw = dict(lr=1e-2, iters=10000, num_rays=1024, wavelet_regularization=0.4, **t_extra)
+    t_extra, r_extra, n_extra = CONFIGS[args.config]
+    tkw = {**dict(lr=1e-2, iters=10000, num_rays=1024, wavelet_regularization=0.4), **t_extra}
     rkw = dict(grid_size=32, max_steps=128, samples_per_ray_budget=20, **r_extra)
     bound = rkw["bound"]
     tri = dict(channels=16, resolution=64, wavelet_scale=4)
-    jtr = JTR.Trainer(JN.NeRFConfig(triplane=JT.TriplaneConfig(**tri), bound=bound),
+    jtr = JTR.Trainer(JN.NeRFConfig(triplane=JT.TriplaneConfig(**tri), bound=bound, **n_extra),
                       JR.RenderConfig(**rkw), JTR.TrainConfig(**tkw))
-    ptr = PTR.Trainer(PN.NeRFConfig(triplane=PT.TriplaneConfig(**tri), bound=bound),
+    ptr = PTR.Trainer(PN.NeRFConfig(triplane=PT.TriplaneConfig(**tri), bound=bound, **n_extra),
                       PR.RenderConfig(**rkw), PTR.TrainConfig(**tkw), device="cpu")
     js = JS.make_synthetic_scene(num_views=4, H=64, W=64, num_steps=32)
     ps = PS.make_synthetic_scene(num_views=4, H=64, W=64, num_steps=32)

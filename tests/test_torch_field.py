@@ -94,12 +94,17 @@ def test_trunc_exp_forward_and_clamped_grad():
 
 
 def test_unported_field_options_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PN.NeRFField(PN.NeRFConfig(encoding="k_planes"))
-    with pytest.raises(NotImplementedError):
-        PN.NeRFField(PN.NeRFConfig(bg_radius=2.0))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PN.NeRFField(PN.NeRFConfig(encoding="hashgrid", bg_radius=2.0))
+    """k-planes and the background network are ported (their parity tests
+    are in tests/test_torch_variants.py); what still raises is the SR
+    snapshot planes, and an encoding the JAX package does not define."""
+    assert PN.NeRFField(PN.NeRFConfig(encoding="k_planes")).cfg.in_dim == 48
+    cfg = PN.NeRFConfig(encoding="k_planes", bg_radius=2.0)
+    params = PN.init_nerf_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert params["bg_net"]["w0"].shape == (cfg.in_dim_dir + 2, cfg.hidden_dim_bg)
+    with pytest.raises(NotImplementedError, match="SR slice"):
+        PN.NeRFField(PN.NeRFConfig(triplane=PT.TriplaneConfig(low_res_scale=2)))
+    with pytest.raises(ValueError, match="unknown encoding"):
+        PN.NeRFField(PN.NeRFConfig(encoding="bogus"))
 
 
 def test_params_from_jax_keeps_layout_and_rejects_unported():
@@ -113,5 +118,7 @@ def test_params_from_jax_keeps_layout_and_rejects_unported():
     assert got["encoder"]["wavelets"].keys() == p["encoder"]["wavelets"].keys()
     with pytest.raises(KeyError):
         params_from_jax({"encoder": p["encoder"], "sigma_net": {}}, device="cpu")
-    with pytest.raises(KeyError, match="rotation"):
-        params_from_jax(dict(p, encoder=dict(p["encoder"], rotation=np.ones(4))), device="cpu")
+    got = params_from_jax(dict(p, encoder=dict(p["encoder"], rotation=np.ones(4, np.float32))), device="cpu")
+    np.testing.assert_array_equal(got["encoder"]["rotation"].numpy(), np.ones(4))  # the learned rotation carries
+    with pytest.raises(KeyError, match="skew"):
+        params_from_jax(dict(p, encoder=dict(p["encoder"], skew=np.ones(4))), device="cpu")

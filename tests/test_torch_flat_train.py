@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import DIMS, TKW, _Draws, _IntDraws, _leaves, _rel_l2
+from tests.test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 from trinerflet_tpu.data import synthetic as JS
 from trinerflet_tpu.models import nerf as JN
 from trinerflet_tpu.models import triplane as JT

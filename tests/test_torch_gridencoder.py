@@ -188,10 +188,10 @@ def test_get_encoder_widths_and_outputs_match_jax(name, dim):
 
 
 def test_kplanes_and_unknown_encodings_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PE.get_encoder("k_planes", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PN.NeRFField(PN.NeRFConfig(encoding="multiscale_k_planes_mul"))
+    """The k-planes encodings are ported (parity in
+    tests/test_torch_variants.py); an unknown name still raises."""
+    assert PE.get_encoder("k_planes", device="cpu")[2] == 48
+    assert PN.NeRFField(PN.NeRFConfig(encoding="multiscale_k_planes_mul")).cfg.in_dim == 48
     with pytest.raises(ValueError, match="unknown encoding"):
         PE.get_encoder("bogus", device="cpu")
 
@@ -261,5 +261,7 @@ def test_params_from_jax_carries_grid_tables_and_rejects_others():
         params_from_jax(dict(p, encoder=dict(p["encoder"], scale_0=np.ones(3))), device="cpu")
     with pytest.raises(KeyError, match="grid tables"):
         params_from_jax(dict(p, encoder={"level_1": np.ones((4, 2))}), device="cpu")
+    got = params_from_jax(dict(p, bg_net={"w0": np.ones((2, 2))}), device="cpu")  # carried now
+    assert got["bg_net"]["w0"].shape == (2, 2)
     with pytest.raises(KeyError, match="not ported"):
-        params_from_jax(dict(p, bg_net={"w0": np.ones((2, 2))}), device="cpu")
+        params_from_jax(dict(p, env_map={"w0": np.ones((2, 2))}), device="cpu")

@@ -27,6 +27,7 @@ import torch
 
 from tests.test_torch_train import (N_RAYS, RKW, TKW, _batch, _Draws, _IntDraws, _leaves,
                                     _port_batch, _rel_l2, _scene)
+from tests.test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 from trinerflet_tpu.models import gridencoder as JG
 from trinerflet_tpu.models import nerf as JN
 from trinerflet_tpu.render import renderer as JR

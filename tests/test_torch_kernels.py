@@ -1,6 +1,6 @@
-"""Each CUDA kernel (K1-K4 forward and backward, K1f, K5, K3c forward and
-backward, K6, K7 forward and backward) against its plain PyTorch version, on
-the card.
+"""Each CUDA kernel (K1-K4 forward and backward, K2x, K1f, K5, K3c forward
+and backward, K6, K7 forward and backward) against its plain PyTorch
+version, on the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
@@ -26,8 +26,15 @@ t_thresh cut; the sums run in f32 (forward atol 1e-5, backward 1e-5
 relative to the largest gradient). K7 rounds where its plain version rounds
 (the cell coordinate's fused multiply-add, then each operation alone, the
 corners summed in order): features within 1e-6 (expected equal), corner
-rows equal; its backward's float atomics add in an unspecified order (1e-5
-relative to the largest gradient).
+rows equal. Its backward's float atomics add in an unspecified order, and
+so does the plain version's ``index_add_`` on the card, with up to 3,000
+points on one cell: each is held to a float64 sum of the same float32 terms
+within the float-summation bound n (eps sum|term| + tiny) of every entry
+(``grid_encode_backward_error``; float atomics flush subnormals), not to
+the other. K2x: the plane gradient
+as K2's backward; the coordinate gradient within 1e-5 of its largest entry
+(the kernel fuses the channel sums' multiply-adds), rows with no cotangent
+exactly 0.
 """
 
 import numpy as np
@@ -195,6 +202,58 @@ def test_sample_backward_kernel_matches_plain(dev, dtype):
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype == dtype and got.shape == (3, H, W, C)
     assert _rel_close(got, ref, 1e-5 if dtype == torch.float32 else 2.0**-7)
+
+
+def _k2x_inputs(dev, dtype, H, W, C, M, seed):
+    g = torch.Generator().manual_seed(seed)
+    planes = torch.randn((3, H, W, C), generator=g).to(dev, dtype)
+    xyz = 2.6 * torch.rand((M, 3), generator=g) - 1.3             # inside and clamped outside
+    xyz[:300, 0], xyz[300:600, 1], xyz[600:900, 2] = 1.0, -1.0, 1.0  # on the border: the 0.5 tie
+    k = torch.randint(1, W - 1, (1000, 3), generator=g)
+    xyz[900:1900] = 2.0 * k / (W - 1) - 1.0                         # interior cell edges
+    xyz[2000:2500] = 0.1                                            # contention on one texel
+    ct = torch.randn((M, 3, C), generator=g)
+    ct[3000:5000] = 0.0                                             # unrouted or masked rows
+    return planes, xyz.to(dev), ct.to(dev)
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 16), (torch.bfloat16, 16), (torch.bfloat16, 8)])
+def test_sample_backward_xyz_kernel_matches_plain(dev, dtype, C):
+    """K2x at lbound 1.0, as the learned zoom calls it (the point arrives
+    divided by the learned bound)."""
+    planes, xyz, ct = _k2x_inputs(dev, dtype, 64, 48, C, 20000, 6)
+    n0 = kernels.launches["grid_sample_bwd_xyz"]
+    pg, xg = GS._sample_points_backward_xyz_cuda(ct, planes, xyz, 1.0)
+    assert kernels.launches["grid_sample_bwd_xyz"] == n0 + (1 if dtype == torch.float32 else 2)
+    rpg, rxg = GS.sample_points_backward_xyz_plain(ct, planes, xyz, 1.0)
+    torch.cuda.synchronize()
+    assert pg.dtype == rpg.dtype == dtype and xg.shape == (20000, 3) and xg.dtype == torch.float32
+    assert _rel_close(pg, rpg, 1e-5 if dtype == torch.float32 else 2.0**-7)
+    assert _rel_close(xg, rxg, 1e-5)
+    assert (xg[3000:5000] == 0).all() and (xg[:900] != 0).any()
+
+
+def test_sample_points_autograd_launches_k2x_only_for_points(dev):
+    planes, xyz, ct = _k2x_inputs(dev, torch.bfloat16, 64, 48, 16, 6000, 7)
+    planes.requires_grad_(True)
+    names = ("grid_sample_bwd", "grid_sample_bwd_xyz")
+    n0 = [kernels.launches[k] for k in names]
+    (GS.sample_points(planes, xyz, 1.5) * ct).sum().backward()
+    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [2, 0]
+    grad_planes = planes.grad
+    planes.grad = None
+    xyz = xyz.clone().requires_grad_(True)
+    (GS.sample_points(planes, xyz, 1.5) * ct).sum().backward()
+    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [2, 2]
+    ref_pg, ref_xg = GS.sample_points_backward_xyz_plain(ct, planes.detach(), xyz.detach(), 1.5)
+    assert _rel_close(planes.grad, grad_planes, 2.0**-7) and _rel_close(planes.grad, ref_pg, 2.0**-7)
+    # the plain version divides by 1.5 as a reciprocal multiply on the card
+    # (a CPU scalar), the kernel truly: a point on a cell edge may take the
+    # neighbour cell's slope, so the coordinate gradient is held in L2
+    d = (xyz.grad - ref_xg).norm() / ref_xg.norm()
+    assert d.item() <= 1e-3, d.item()
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        GS._sample_points_backward_xyz_cuda(ct, planes.detach().double(), xyz.detach(), 1.0)
 
 
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
@@ -378,7 +437,9 @@ def test_grid_encode_backward_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     for l, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape == (cfg.level_size(l), cfg.level_dim)
-        assert _rel_close(a, b, 1e-5), l
+    err_k = GE.grid_encode_backward_error(got, ct, x, cfg, 1.5)
+    err_p = GE.grid_encode_backward_error(ref, ct, x, cfg, 1.5)
+    assert max(err_k) <= 1.0 and max(err_p) <= 1.0, (err_k, err_p)
 
 
 def test_grid_encode_autograd_launches_and_refuses(dev):

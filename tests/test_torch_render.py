@@ -253,12 +253,17 @@ def test_render_occgrid_global_layout_matches_jax(slots, monkeypatch):
 def test_unported_render_options_raise():
     """Every march, layout and renderer of the JAX package is ported (the
     flat march and dt_gamma > 0 in tests/test_torch_flat_march.py, the dense
-    renderer in tests/test_torch_dense.py); what still raises is the
-    background network (bg_radius > 0, a later slice), and a renderer name
-    the JAX package does not define."""
+    renderer in tests/test_torch_dense.py), and so is the background network
+    (bg_radius > 0, tests/test_torch_variants.py); what still raises is a
+    field with the SR snapshot planes, and a renderer name the JAX package
+    does not define."""
     rp = PR.RenderConfig(**RKW)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PTR.Trainer(PN.NeRFConfig(bg_radius=2.0), rp, PTR.TrainConfig(), device="cpu")
+    bg = PTR.Trainer(PN.NeRFConfig(triplane=PT.TriplaneConfig(**DIMS), bg_radius=2.0), rp,
+                     PTR.TrainConfig(), device="cpu")
+    assert "bg_net" in bg.init_params()
+    with pytest.raises(NotImplementedError, match="SR slice"):
+        PTR.Trainer(PN.NeRFConfig(triplane=PT.TriplaneConfig(low_res_scale=2)), rp, PTR.TrainConfig(),
+                    device="cpu")
     with pytest.raises(ValueError, match="unknown renderer"):
         PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer="nerfacc"), device="cpu")
     for renderer in ("occgrid", "proposal", "dense"):

@@ -46,6 +46,22 @@ from trinerflet_tpu_torch.render import renderer as PR
 from trinerflet_tpu_torch.train import trainer as PTR
 
 N_RAYS = 512
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread for the module (the files that import this
+    fixture share it). The suite runs several workers at once, and torch's
+    default of a thread per core oversubscribes the machine: a port-only
+    ``fit`` that takes 20 s alone took 524 s among six workers; on one
+    thread it takes 30 s alone. The arithmetic is elementwise or summed
+    with the same tolerance either way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DIMS = dict(channels=16, resolution=64, wavelet_scale=4)
 RKW = dict(bound=1.5, grid_size=32, density_thresh=10.0, max_steps=128,
            samples_per_ray_budget=20, dt_gamma=0.0)

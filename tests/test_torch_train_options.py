@@ -20,6 +20,7 @@ import torch
 
 from tests.test_torch_train import (DIMS, N_RAYS, RKW, TKW, _batch, _Draws, _IntDraws,
                                     _leaves, _port_batch, _scene, _setup)
+from tests.test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 from trinerflet_tpu.data import rays as JRY
 from trinerflet_tpu.models import nerf as JN
 from trinerflet_tpu.models import triplane as JT

@@ -100,7 +100,15 @@ def test_sample_triplane_matches_jax(plane_dtype):
 
 
 def test_unported_variants_raise():
+    """The zoom-in planes and the learned transform are ported (parity in
+    tests/test_torch_variants.py); the SR snapshot planes still raise."""
+    cfg = PT.TriplaneConfig(channels=4, resolution=64, wavelet_scale=4, upscale_ratio_bound=0.5,
+                            learned_rotation=True, lbound_auto_scale=True)
+    params = PT.init_triplane_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert {k: tuple(v.shape) for k, v in params["upscale"].items()} == {
+        "level_0": (3, 4, 3, 32, 32), "level_1": (3, 4, 3, 32, 32)}
+    assert params["rotation"].tolist() == [1.0, 0.0, 0.0, 0.0] and params["lbound_scale"].item() == 1.0
     with pytest.raises(NotImplementedError):
-        PT.init_triplane_params(PT.TriplaneConfig(upscale_ratio_bound=0.5))
+        PT.init_triplane_params(PT.TriplaneConfig(high_res_scale=2), device="cpu")
     with pytest.raises(NotImplementedError):
         PT.build_planes({}, PT.TriplaneConfig(low_res_scale=2))

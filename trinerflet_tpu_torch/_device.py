@@ -11,8 +11,7 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 # Slices of the port that later work fills in; NotImplementedError messages
 # name them so a caller knows where the missing piece is queued.
-SLICE_LATER = ("a later slice (the CLI and checkpoints, k-planes and the model registry, "
-               "the background network)")
+SLICE_LATER = "a later slice (the model registry and its analytic normals; the CLI and checkpoints)"
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -29,43 +29,52 @@ def _tree(t, device):
     return _tensor(t, device)
 
 
-def _check_grid_tables(tree: Mapping[str, Any], where: str) -> None:
-    """A grid encoder's tables: ``level_0`` ... ``level_{L-1}`` and nothing else."""
-    levels = {f"level_{l}" for l in range(len(tree))}
-    if not tree or set(tree) != levels:
-        raise KeyError(f"params_from_jax: {where} must hold grid tables level_0..level_L-1, "
+def _check_tables(tree: Mapping[str, Any], where: str, kplanes: bool = False) -> None:
+    """A grid encoder's tables ``level_0`` ... ``level_{L-1}`` (or, with
+    ``kplanes``, k-planes' ``scale_0`` ... ``scale_{S-1}``) and nothing else."""
+    n = len(tree)
+    kinds = [{f"level_{l}" for l in range(n)}] + ([{f"scale_{i}" for i in range(n)}] if kplanes else [])
+    if not tree or set(tree) not in kinds:
+        raise KeyError(f"params_from_jax: {where} must hold grid tables level_0..level_L-1"
+                       f"{' or k-planes tables scale_0..scale_S-1' if kplanes else ''}, "
                        f"got {sorted(tree)}")
+
+
+_TRIPLANE_KEYS = {"base", "wavelets", "upscale", "rotation", "lbound_scale"}
 
 
 def params_from_jax(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict:
     """The JAX param dict as this package's params: the same keys and
     layouts, as tensors on ``device`` (``cuda`` by default). ``encoder``
-    holds the wavelet triplane (``base``, ``wavelets.level_i``), a grid
-    encoder's tables (``level_{l}``) or nothing; ``sigma_net.w*`` and
-    ``color_net.w*``; on the proposal renderer ``proposal`` holds
+    holds the wavelet triplane (``base``, ``wavelets.level_i`` and, when
+    configured, ``upscale.level_i``, ``rotation`` and ``lbound_scale``), a
+    grid encoder's tables (``level_{l}``), k-planes' tables (``scale_{i}``)
+    or nothing; ``sigma_net.w*``, ``color_net.w*`` and, with a background
+    network, ``bg_net.w*``; on the proposal renderer ``proposal`` holds
     ``grid.level_{l}`` and ``w``."""
     for key in ("encoder", "sigma_net", "color_net"):
         if key not in tree:
             raise KeyError(f"params_from_jax: missing {key!r}")
-    extra = set(tree) - {"encoder", "sigma_net", "color_net", "proposal"}
+    extra = set(tree) - {"encoder", "sigma_net", "color_net", "bg_net", "proposal"}
     if extra:
         raise KeyError(f"params_from_jax: params not ported: {sorted(extra)}")
     enc = tree["encoder"]
     if "base" in enc or "wavelets" in enc:
         if "base" not in enc or "wavelets" not in enc:
             raise KeyError("params_from_jax: a triplane encoder must hold 'base' and 'wavelets'")
-        extra = set(enc) - {"base", "wavelets"}
+        extra = set(enc) - _TRIPLANE_KEYS
         if extra:
             raise KeyError(f"params_from_jax: encoder variants not ported: {sorted(extra)}")
     elif enc:
-        _check_grid_tables(enc, "a non-triplane encoder")
+        _check_tables(enc, "a non-triplane encoder", kplanes=True)
     device = resolve_device(device)
-    out = {k: _tree(tree[k], device) for k in ("encoder", "sigma_net", "color_net")}
+    out = {k: _tree(tree[k], device) for k in ("encoder", "sigma_net", "color_net", "bg_net")
+           if k in tree}
     if "proposal" in tree:
         prop = tree["proposal"]
         if set(prop) != {"grid", "w"}:
             raise KeyError(f"params_from_jax: proposal must hold 'grid' and 'w', got {sorted(prop)}")
-        _check_grid_tables(prop["grid"], "proposal.grid")
+        _check_tables(prop["grid"], "proposal.grid")
         out["proposal"] = _tree(prop, device)
     return out
 

@@ -27,6 +27,20 @@
 // nothing. A second kernel casts the buffer to bf16. Bound: bytes (the
 // cotangent rows in, the touched texel rows read-modify-written, the plane
 // gradient written); the atomics' contention on shared texels is the risk.
+//
+// K2x, the coordinate gradient (replaces JAX's autodiff of grid_sample_2d
+// :23 / sample_planes :61 in the coordinates, which models/triplane.py:310-321
+// switches to when the rotation or the lbound zoom is learned): per point
+// and plane dL/du = (sum_c g_c [(f01 - f00)(1 - wy) + (f11 - f10) wy])
+// clip'(x) (W - 1) / 2, dL/dv alike, clip' being JAX's (1 inside, 0.5 at
+// either bound, 0 outside); the three planes' (u, v) sum into dL/dxyz
+// (plane 0 is (x, z), 1 (x, y), 2 (y, z)), divided by lbound. One thread
+// per point loops over the three planes: it reads the cotangent row and
+// the four corner rows, adds w * g into the float32 plane gradient with
+// atomics as K2's backward does, and keeps dL/dxyz in registers, written
+// once (no atomics). Bound: bytes (the cotangent, the corner rows of the
+// points that carry one, the touched texels read-modify-written, the
+// gradients written).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -154,6 +168,77 @@ __global__ void sample_points_backward_kernel(const float* __restrict__ xyz,
   }
 }
 
+// The JAX package's gradient of clip(v, 0, hi): a tie at either bound
+// splits it, 0.5.
+__device__ __forceinline__ float clip_grad(float v, float hi) {
+  if (v > 0.f && v < hi) return 1.f;
+  return (v == 0.f || v == hi) ? 0.5f : 0.f;
+}
+
+template <int C, typename T>
+__global__ void sample_points_backward_xyz_kernel(const T* __restrict__ planes,
+                                                  const float* __restrict__ xyz,
+                                                  const float* __restrict__ g, int M, int H, int W,
+                                                  float lbound, float* __restrict__ grad,
+                                                  float* __restrict__ dxyz) {
+  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float px = xyz[3 * m], py = xyz[3 * m + 1], pz = xyz[3 * m + 2];
+  float du[3], dv[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    du[p] = 0.f;
+    dv[p] = 0.f;
+    float gv[C];
+    const float4* gr = reinterpret_cast<const float4*>(g + (3 * m + p) * C);
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < C / 4; ++k) {
+      float4 q = gr[k];
+      gv[4 * k] = q.x;
+      gv[4 * k + 1] = q.y;
+      gv[4 * k + 2] = q.z;
+      gv[4 * k + 3] = q.w;
+      any |= (q.x != 0.f) | (q.y != 0.f) | (q.z != 0.f) | (q.w != 0.f);
+    }
+    if (!any) continue;  // unrouted or masked samples: both gradients are 0
+    float u = (p == 2 ? py : px) / lbound;
+    float v = (p == 1 ? py : pz) / lbound;
+    float xr = (u + 1.f) * 0.5f * (float)(W - 1);
+    float yr = (v + 1.f) * 0.5f * (float)(H - 1);
+    float x = fminf(fmaxf(xr, 0.f), (float)(W - 1));
+    float y = fminf(fmaxf(yr, 0.f), (float)(H - 1));
+    float fx0 = fminf(fmaxf(floorf(x), 0.f), (float)(W - 2));
+    float fy0 = fminf(fmaxf(floorf(y), 0.f), (float)(H - 2));
+    float wx = x - fx0, wy = y - fy0;
+    const float w[4] = {(1.f - wx) * (1.f - wy), wx * (1.f - wy), (1.f - wx) * wy, wx * wy};
+    long long t00 = ((long long)p * H + (int)fy0) * W + (int)fx0;
+    const long long rows[4] = {t00, t00 + 1, t00 + W, t00 + W + 1};
+    float f00[C], f01[C], f10[C], f11[C];
+    load_row<C>(planes + rows[0] * C, f00);
+    load_row<C>(planes + rows[1] * C, f01);
+    load_row<C>(planes + rows[2] * C, f10);
+    load_row<C>(planes + rows[3] * C, f11);
+    float dwx = 0.f, dwy = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      dwx += gv[c] * ((f01[c] - f00[c]) * (1.f - wy) + (f11[c] - f10[c]) * wy);
+      dwy += gv[c] * ((f10[c] - f00[c]) * (1.f - wx) + (f11[c] - f01[c]) * wx);
+    }
+    du[p] = dwx * clip_grad(xr, (float)(W - 1)) * (float)(W - 1) * 0.5f;
+    dv[p] = dwy * clip_grad(yr, (float)(H - 1)) * (float)(H - 1) * 0.5f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float* dst = grad + rows[r] * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) atomicAdd(dst + c, w[r] * gv[c]);
+    }
+  }
+  dxyz[3 * m] = (du[0] + du[1]) / lbound;
+  dxyz[3 * m + 1] = (dv[1] + du[2]) / lbound;
+  dxyz[3 * m + 2] = (dv[0] + dv[2]) / lbound;
+}
+
 __global__ void cast_bf16_kernel(const float* __restrict__ x, long long n,
                                  __nv_bfloat16* __restrict__ out) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -204,6 +289,39 @@ extern "C" int sample_points_backward_launch(const float* xyz, const float* g, i
     case 8: sample_points_backward_kernel<8><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
     case 16: sample_points_backward_kernel<16><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
     case 32: sample_points_backward_kernel<32><<<blocks, threads, 0, stream>>>(xyz, g, M, H, W, lbound, grad); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+static void launch_xyz_c(const void* planes, const float* xyz, const float* g, int M, int H, int W,
+                         int bf16, float lbound, float* grad, float* dxyz, cudaStream_t stream) {
+  const int threads = 128;
+  unsigned int blocks = (unsigned int)(((long long)M + threads - 1) / threads);
+  if (bf16)
+    sample_points_backward_xyz_kernel<C, __nv_bfloat16><<<blocks, threads, 0, stream>>>(
+        (const __nv_bfloat16*)planes, xyz, g, M, H, W, lbound, grad, dxyz);
+  else
+    sample_points_backward_xyz_kernel<C, float><<<blocks, threads, 0, stream>>>(
+        (const float*)planes, xyz, g, M, H, W, lbound, grad, dxyz);
+}
+
+// K2x. planes (3, H, W, C) channel-last, bf16 (bf16 != 0) or f32; xyz (M, 3)
+// f32; g (M, 3, C) f32 -> grad (3, H, W, C) f32, which the caller zeroes (the
+// plane gradient, float atomics in an unspecified order), and dxyz (M, 3)
+// f32, every row written.
+extern "C" int sample_points_backward_xyz_launch(const void* planes, const float* xyz,
+                                                 const float* g, int M, int H, int W, int C,
+                                                 int bf16, float lbound, float* grad, float* dxyz,
+                                                 cudaStream_t stream) {
+  if (M == 0) return 0;
+  if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 4: launch_xyz_c<4>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
+    case 8: launch_xyz_c<8>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
+    case 16: launch_xyz_c<16>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
+    case 32: launch_xyz_c<32>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -39,7 +39,7 @@ from ..kernels import _build
 from ..ops.raymarch import _fma
 
 __all__ = ["GridEncoderConfig", "init_grid_params", "grid_encode", "grid_encode_plain",
-           "grid_encode_backward_plain"]
+           "grid_encode_backward_plain", "grid_encode_backward_error"]
 
 _PRIMES = (1, 2654435761, 805459861)  # instant-ngp spatial hash primes
 _U32 = 0xFFFFFFFF
@@ -166,6 +166,40 @@ def grid_encode_backward_plain(g: torch.Tensor, x: torch.Tensor, cfg: GridEncode
             acc.index_add_(0, rows[k], w[k][:, None] * gl)
         grads.append(acc)
     return grads
+
+
+def grid_encode_backward_error(grads: List[torch.Tensor], g: torch.Tensor, x: torch.Tensor,
+                               cfg: GridEncoderConfig, bound: float = 1.0) -> List[float]:
+    """How far each level's table gradient in ``grads`` (the kernel's or the
+    plain version's) lies from a float64 accumulation of the same float32
+    terms w * g, as a fraction of the float-summation bound n (eps sum|term|
+    + tiny) (n the terms added into an entry, eps the float32 machine
+    epsilon, tiny its smallest normal number: a float atomic add flushes
+    subnormal inputs and results to zero, PTX ``atom.add.f32``); a float32
+    sum in any order stays within 1. The float atomics add in an
+    unspecified order, so this, not a comparison of two float32 sums, is
+    what a backward is held to."""
+    C, eps, tiny = cfg.level_dim, torch.finfo(torch.float32).eps, torch.finfo(torch.float32).tiny
+    g = g.float()
+    out = []
+    for l in range(cfg.num_levels):
+        exact = torch.zeros((cfg.level_size(l), C), dtype=torch.float64, device=g.device)
+        mag, count = torch.zeros_like(exact), torch.zeros_like(exact[:, :1])
+        w, rows = _corners_plain(x, cfg, bound, l)
+        gl = g[:, l * C : (l + 1) * C]
+        ones = torch.ones((x.shape[0], 1), dtype=torch.float64, device=g.device)
+        for k in range(w.shape[0]):
+            term = w[k][:, None] * gl  # the float32 product each backward adds
+            exact.index_add_(0, rows[k], term.double())
+            mag.index_add_(0, rows[k], term.abs().double())
+            count.index_add_(0, rows[k], ones)
+        err = (grads[l].double() - exact).abs()
+        bnd = count * (eps * mag + tiny)
+        if bool((err[bnd == 0] != 0).any()):
+            out.append(math.inf)  # an entry no term reaches must be exactly 0
+            continue
+        out.append(float((err / torch.where(bnd > 0, bnd, 1.0)).max()))
+    return out
 
 
 class _GridEncode(torch.autograd.Function):

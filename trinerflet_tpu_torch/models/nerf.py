@@ -1,9 +1,10 @@
 """NeRF field: position encoding + sigma / color MLPs (port of
 ``trinerflet_tpu/models/nerf.py``).
 
-Parameters are the JAX package's dict: ``encoder`` (the triplane params, or
-the grid tables ``level_{l}`` of a "hashgrid" / "tiledgrid" field, or
-nothing for the table-free encodings), ``sigma_net`` / ``color_net`` with
+Parameters are the JAX package's dict: ``encoder`` (the triplane params, the
+grid tables ``level_{l}`` of a "hashgrid" / "tiledgrid" field, the k-planes
+tables ``scale_{i}``, or nothing for the table-free encodings),
+``sigma_net`` / ``color_net`` and, with ``bg_radius > 0``, ``bg_net``, with
 bias-free weights ``w{i}`` of shape (fan_in, fan_out). The MLPs are plain
 matrix products outside any kernel.
 """
@@ -15,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 from ..ops.activation import plain_exp, trunc_exp
 from ..ops.encoders import sh_dim, sh_encode
 from .encodings import encoder_apply, encoder_dim, get_encoder
@@ -49,12 +50,10 @@ class NeRFConfig:
     plane_dtype: str = "float32"
 
     def check_ported(self) -> None:
-        if self.bg_radius > 0:
-            raise not_ported("the background network (bg_radius > 0)", SLICE_LATER)
         if self.encoding == "triplane_wavelet":
             self.triplane.check_ported()
         else:
-            encoder_dim(self.encoding, grid_cfg=self.grid)  # raises for k-planes / unknown names
+            encoder_dim(self.encoding, grid_cfg=self.grid, kplanes_cfg=self.kplanes)  # unknown names
 
     @property
     def in_dim(self) -> int:
@@ -62,7 +61,7 @@ class NeRFConfig:
         self.check_ported()
         if self.encoding == "triplane_wavelet":
             return self.triplane.feature_dim
-        return encoder_dim(self.encoding, grid_cfg=self.grid)
+        return encoder_dim(self.encoding, grid_cfg=self.grid, kplanes_cfg=self.kplanes)
 
     @property
     def in_dim_dir(self) -> int:
@@ -90,9 +89,13 @@ def init_nerf_params(cfg: NeRFConfig, generator: Optional[torch.Generator] = Non
     if cfg.encoding == "triplane_wavelet":
         enc = init_triplane_params(cfg.triplane, generator, device)
     else:
-        enc = get_encoder(cfg.encoding, generator, device, grid_cfg=cfg.grid, bound=cfg.bound)[0]
+        enc = get_encoder(cfg.encoding, generator, device, grid_cfg=cfg.grid,
+                          kplanes_cfg=cfg.kplanes, bound=cfg.bound)[0]
     nets = {"sigma_net": _init_mlp(sigma_dims, generator),
             "color_net": _init_mlp(color_dims, generator)}
+    if cfg.bg_radius > 0:
+        bg_dims = [cfg.in_dim_dir + 2] + [cfg.hidden_dim_bg] * (cfg.num_layers_bg - 1) + [3]
+        nets["bg_net"] = _init_mlp(bg_dims, generator)
     return {"encoder": enc,
             **{k: {n: w.to(device) for n, w in v.items()} for k, v in nets.items()}}
 
@@ -123,18 +126,21 @@ class NeRFField:
         self.plane_dtype = _DTYPES[cfg.plane_dtype]
         self._enc_apply = None  # the triplane samples built planes instead
         if cfg.encoding != "triplane_wavelet":
-            self._enc_apply = encoder_apply(cfg.encoding, grid_cfg=cfg.grid, bound=cfg.bound)
+            self._enc_apply = encoder_apply(cfg.encoding, grid_cfg=cfg.grid, kplanes_cfg=cfg.kplanes,
+                                            bound=cfg.bound)
 
     def build_planes(self, params: Dict, max_resolution: int = -1) -> Dict[str, torch.Tensor]:
-        """The triplane's full-resolution planes; {} for the other encodings."""
+        """The triplane's planes (``full``, and the zoom-in planes when
+        configured); {} for the other encodings."""
         if self._enc_apply is not None:
             return {}
         enc = params["encoder"]
         if self.plane_dtype == torch.bfloat16:
             # the pyramid coefficients go to bf16 BEFORE the ladder, as in
-            # the JAX package (the synthesis runs at bf16 with f32 sums)
-            enc = {"base": enc["base"].to(torch.bfloat16),
-                   "wavelets": {k: v.to(torch.bfloat16) for k, v in enc["wavelets"].items()}}
+            # the JAX package (the synthesis runs at bf16 with f32 sums); the
+            # rotation and the lbound zoom stay f32
+            enc = {k: (_cast(v, torch.bfloat16) if k in ("base", "wavelets", "upscale") else v)
+                   for k, v in enc.items()}
         planes = build_planes(enc, self.cfg.triplane, max_resolution)
         return {k: v.to(self.plane_dtype) for k, v in planes.items()}
 
@@ -151,7 +157,8 @@ class NeRFField:
         if self._enc_apply is not None:
             feats = self._enc_apply(params["encoder"], x)
         else:
-            feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound)
+            feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound,
+                                    enc_params=params["encoder"])
         h = _mlp(params["sigma_net"], feats, self.dtype)
         sigma = trunc_exp(self._density_blob(x, h[..., 0]))
         return sigma, h[..., 1:]
@@ -167,3 +174,16 @@ class NeRFField:
                  d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         sigma, geo = self.density(params, planes, x)
         return sigma, self.color(params, d, geo)
+
+    def background(self, params: Dict, sph: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """The background network (``bg_radius > 0``): sph (N, 2) sphere
+        coordinates in [-1, 1] (``ops.raymarch.sph_from_ray``) and d (N, 3)
+        directions -> rgb (N, 3) in [0, 1], f32."""
+        h = torch.cat([sh_encode(d, self.cfg.sh_degree), sph], dim=-1)
+        return torch.sigmoid(_mlp(params["bg_net"], h, self.dtype).float())
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)

@@ -1,10 +1,14 @@
 """Multiscale wavelet triplane encoder (port of ``trinerflet_tpu/models/triplane.py``).
 
-Parameters are a plain dict of tensors: ``base`` (3, C, b, b) plus
-``wavelets.level_i`` (3, C, 3, s_i, s_i), as in the JAX package. The
-full-resolution planes are rebuilt by the inverse pyramid (``_idwt_ladder``,
-one IDWT level per step: kernel K4 on CUDA) and returned channel-last
-(3, H, W, C) for sampling (kernel K2 on CUDA).
+Parameters are a plain dict of tensors, as in the JAX package: ``base``
+(3, C, b, b) plus ``wavelets.level_i`` (3, C, 3, s_i, s_i); with the
+zoom-in planes (``upscale_ratio_bound`` in (0, 1)) ``upscale.level_i``; with
+the learned variants the quaternion ``rotation`` (4,) and the scalar
+``lbound_scale``. The full-resolution planes are rebuilt by the inverse
+pyramid (``_idwt_ladder``, one IDWT level per step: kernel K4 on CUDA), the
+zoom-in planes by one more level on a centre crop each, and returned
+channel-last (3, H, W, C) for sampling (kernel K2 on CUDA; K2x for the
+coordinate gradient of the learned rotation and zoom).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, not_ported, resolve_device
 from ..ops import wavelets as W
 from ..ops.grid_sample import project_to_planes, sample_points
 
@@ -77,13 +81,27 @@ class TriplaneConfig:
         return 0.0 < self.upscale_ratio_bound < 1.0
 
     def check_ported(self) -> None:
-        """Raise for the variants this slice does not port."""
-        if self.upscale_enabled:
-            raise not_ported("upscale (zoom-in) planes", SLICE_LATER)
+        """Raise for the variants the port does not have yet."""
         if self.low_res_scale > 1 or self.high_res_scale > 1:
             raise not_ported("SR snapshot planes (low_res/high_res)", "the SR slice")
-        if self.learned_rotation or self.lbound_auto_scale:
-            raise not_ported("learned rotation / lbound zoom", SLICE_LATER)
+
+
+def _upscale_geometry(cfg: TriplaneConfig) -> Tuple[List[int], List[int], List[float]]:
+    """Nested crop geometry: per zoom level, the centre crop of side
+    round(res * ratio_bound) (its corner, its size) refined by one more IDWT
+    level, and the level's bound ratio_bound^(level+1)."""
+    res = cfg.resolution
+    sizes, corners, bounds = [], [], []
+    for level in range(cfg.upscale_levels):
+        base = round(res * cfg.upscale_ratio_bound)
+        if res % base:
+            raise ValueError(f"upscale_ratio_bound {cfg.upscale_ratio_bound} must evenly divide "
+                             f"the plane ({res} by {base})")
+        corners.append(round(res / 2 - base / 2))
+        sizes.append(base)
+        bounds.append(cfg.upscale_ratio_bound ** (level + 1))
+        res = 2 * base
+    return sizes, corners, bounds
 
 
 def init_triplane_params(cfg: TriplaneConfig, generator: Optional[torch.Generator] = None,
@@ -97,7 +115,25 @@ def init_triplane_params(cfg: TriplaneConfig, generator: Optional[torch.Generato
     wl = {f"level_{i}": torch.zeros((3, cfg.channels, 3, s, s), dtype=torch.float32)
           for i, s in enumerate(cfg.yh_sizes[: cfg.num_learnable_levels])}
     params = {"base": cfg.init_sigma * base, "wavelets": wl}
+    if cfg.upscale_enabled:
+        params["upscale"] = {f"level_{i}": torch.zeros((3, cfg.channels, 3, s, s), dtype=torch.float32)
+                             for i, s in enumerate(_upscale_geometry(cfg)[0])}
+    if cfg.learned_rotation:
+        params["rotation"] = torch.tensor([1.0, 0.0, 0.0, 0.0])  # the identity quaternion
+    if cfg.lbound_auto_scale:
+        params["lbound_scale"] = torch.ones(())
     return _to(params, device)
+
+
+def _quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """The rotation of the quaternion (w, x, y, z), normalised first."""
+    q = q / torch.sqrt((q * q).sum())
+    w, x, y, z = q.unbind()
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)]),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)]),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]),
+    ])
 
 
 def _to(tree, device):
@@ -125,9 +161,12 @@ def _idwt_ladder(x: torch.Tensor, yh_list: List[Optional[torch.Tensor]],
 
 
 def build_planes(params: Dict, cfg: TriplaneConfig, max_resolution: int = -1) -> Dict[str, torch.Tensor]:
-    """{"full": (3, H, W, C)} channel-last planes from the wavelet parameters.
-    ``max_resolution`` stops the ladder at the first level reaching it (the
-    density-grid refresh needs only 2x the grid resolution)."""
+    """{"full": (3, H, W, C)} channel-last planes from the wavelet parameters,
+    and with the zoom-in planes ``upscale_{level}``: each one IDWT level on
+    the centre crop of the plane before it, with that level's learned
+    coefficients. ``max_resolution`` stops the ladder at the first level
+    reaching it and builds no zoom-in plane (the density-grid refresh needs
+    only 2x the grid resolution)."""
     cfg.check_ported()
     yh_sizes = cfg.yh_sizes
     n_learn = cfg.num_learnable_levels
@@ -139,16 +178,57 @@ def build_planes(params: Dict, cfg: TriplaneConfig, max_resolution: int = -1) ->
         n_levels = next((i + 1 for i, s in enumerate(sizes_after) if s >= max_resolution),
                         cfg.levels)
     x = _idwt_ladder(params["base"], yh_list[:n_levels], yh_sizes[:n_levels], cfg)
-    return {"full": x.permute(0, 2, 3, 1).contiguous()}
+    out = {"full": x.permute(0, 2, 3, 1).contiguous()}
+    if cfg.upscale_enabled and max_resolution <= 0:
+        sizes, corners, _ = _upscale_geometry(cfg)
+        for level, (c, s) in enumerate(zip(corners, sizes)):
+            x = _idwt_ladder(x[:, :, c : c + s, c : c + s], [params["upscale"][f"level_{level}"]],
+                             (s,), cfg)
+            out[f"upscale_{level}"] = x.permute(0, 2, 3, 1).contiguous()
+    return out
 
 
 def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: TriplaneConfig,
-                    lbound: Optional[float] = None) -> torch.Tensor:
-    """Features of (N, 3) points in [-lbound, lbound]^3 -> (N, 3C) float32,
-    from the full-resolution planes."""
-    cfg.check_ported()
+                    lbound: Optional[float] = None, enc_params: Optional[Dict] = None) -> torch.Tensor:
+    """Features of (N, 3) points in [-lbound, lbound]^3 -> (N, 3C) float32.
+
+    ``enc_params`` supplies the learned rotation (the points become ``coords
+    @ R(q)^T``) and the lbound zoom (``lb = lbound * lbound_scale``) when the
+    configuration learns them; both are differentiated through the points
+    (K2x). With the zoom-in planes, every point is sampled on ``full`` and on
+    every zoom level, and its inf-norm picks one (``torch.where``): level l
+    takes the points with ratio_bound^(l+2) lb < |p|_inf <= ratio_bound^(l+1)
+    lb (the last level everything inside its bound), sampled at that bound.
+    Without zoom-in planes in ``planes`` (the density refresh's) every point
+    reads ``full``."""
     lb = cfg.lbound if lbound is None else lbound
-    return sample_points(planes["full"], coords, lb).reshape(coords.shape[0], -1)
+    N = coords.shape[0]
+    if enc_params is not None:
+        if cfg.learned_rotation and "rotation" in enc_params:
+            coords = coords @ _quat_to_matrix(enc_params["rotation"]).T
+        if cfg.lbound_auto_scale and "lbound_scale" in enc_params:
+            lb = lb * enc_params["lbound_scale"]
+
+    def flat_sample(plane_stack, bound):
+        if torch.is_tensor(bound):  # a learned zoom: divide here, autograd carries dL/dlb
+            return sample_points(plane_stack, coords / bound, 1.0).reshape(N, -1)
+        return sample_points(plane_stack, coords, bound).reshape(N, -1)
+
+    if not cfg.upscale_enabled or "upscale_0" not in planes:
+        return flat_sample(planes["full"], lb)
+    _, _, ratio_bounds = _upscale_geometry(cfg)
+    coords_max = coords.detach().abs().amax(dim=-1)
+    out = flat_sample(planes["full"], lb)
+    taken = torch.zeros((N,), dtype=torch.bool, device=coords.device)
+    for level in range(cfg.upscale_levels):
+        lb_up = ratio_bounds[level] * lb
+        in_level = coords_max <= lb_up
+        if level < cfg.upscale_levels - 1:
+            in_level = in_level & (coords_max > ratio_bounds[level + 1] * lb)
+        vals = flat_sample(planes[f"upscale_{level}"], lb_up)
+        out = torch.where((in_level & ~taken)[:, None], vals, out)
+        taken = taken | in_level
+    return out
 
 
 def _abs_mean(v: torch.Tensor) -> torch.Tensor:
@@ -161,27 +241,43 @@ def _abs_mean(v: torch.Tensor) -> torch.Tensor:
 def wavelet_l1(params: Dict, cfg: TriplaneConfig, weighted: bool = False) -> torch.Tensor:
     """Wavelet sparsity regularizer with element-count weighting: sum over
     the learnable levels of mean|coefs| * (numel / total), divided by the
-    number of levels; in weighted mode finest-first 1/4^i weights instead."""
+    number of levels; in weighted mode finest-first 1/4^i weights instead;
+    plus, with the zoom-in planes, mean|coefs| * 1/4^(l+1) * (numel /
+    total) for each zoom level l."""
     cfg.check_ported()
     levels = [params["wavelets"][f"level_{i}"] for i in range(cfg.num_learnable_levels)]
     if not levels:
         return torch.zeros((), dtype=torch.float32, device=params["base"].device)
     total = sum(v.numel() for v in levels)
     if weighted:
-        return sum((1.0 / 4**i) * _abs_mean(v) * (v.numel() / total)
-                   for i, v in enumerate(reversed(levels)))
-    return sum(_abs_mean(v) * (v.numel() / total) for v in levels) / len(levels)
+        reg = sum((1.0 / 4**i) * _abs_mean(v) * (v.numel() / total)
+                  for i, v in enumerate(reversed(levels)))
+    else:
+        reg = sum(_abs_mean(v) * (v.numel() / total) for v in levels) / len(levels)
+    if cfg.upscale_enabled and "upscale" in params:
+        ups = [params["upscale"][f"level_{i}"] for i in range(cfg.upscale_levels)]
+        reg = reg + sum(_abs_mean(v) * (1.0 / 4 ** (i + 1)) * (v.numel() / total)
+                        for i, v in enumerate(ups))
+    return reg
 
 
 def grow_params(old_params: Dict, old_cfg: TriplaneConfig, new_cfg: TriplaneConfig,
                 generator: Optional[torch.Generator] = None, device: DeviceLike = None) -> Dict:
     """Cross-stage parameter surgery: a freshly initialised pyramid for
-    ``new_cfg`` that takes over the base plane and every wavelet level whose
-    shape matches from ``old_params``."""
+    ``new_cfg`` that takes over from ``old_params`` the base plane, every
+    wavelet and zoom-in level whose shape matches, and the learned rotation
+    and lbound zoom where both stages have them."""
     new_params = init_triplane_params(new_cfg, generator, device)
+    dev = new_params["base"].device
     if old_params["base"].shape == new_params["base"].shape:
-        new_params["base"] = old_params["base"].to(new_params["base"].device)
-    for k, v in old_params["wavelets"].items():
-        if k in new_params["wavelets"] and new_params["wavelets"][k].shape == v.shape:
-            new_params["wavelets"][k] = v.to(new_params["base"].device)
+        new_params["base"] = old_params["base"].to(dev)
+    for group in ("wavelets", "upscale"):
+        if group not in old_params or group not in new_params:
+            continue
+        for k, v in old_params[group].items():
+            if k in new_params[group] and new_params[group][k].shape == v.shape:
+                new_params[group][k] = v.to(dev)
+    for k in ("rotation", "lbound_scale"):
+        if k in old_params and k in new_params:
+            new_params[k] = old_params[k].to(dev)
     return new_params

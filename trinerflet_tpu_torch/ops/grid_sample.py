@@ -9,15 +9,19 @@ by ``y0, y0 + 1``. The sum is the JAX quad sampler's: four corner rows times
 the weights ``[(1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx wy]``, in float32.
 
 ``sample_points`` is the field's entry: project world points onto the three
-planes and sample each. It is an autograd function: the backward is the
+planes and sample each. It is an autograd function. Its backward is the
 plane gradient ``sum_corners w_corner * g`` (float32 sums, cast to the
-plane dtype) and no coordinate gradient, as the JAX package's quad and
-corner samplers (``_quad_bwd`` / ``_corner_bwd``, whose blocked one-hot
-scatter, ``ops/scatter.py:scatter_add_outer``, it replaces). On CUDA tensors
-it launches kernel K2 forward and backward (``kernels/csrc/grid_sample.cu``;
-the forward fuses the projection, the backward accumulates with float32
-atomics); on CPU tensors it runs the plain versions (the backward an
-``index_add_`` in float32).
+plane dtype), as the JAX package's quad and corner samplers
+(``_quad_bwd`` / ``_corner_bwd``, whose blocked one-hot scatter,
+``ops/scatter.py:scatter_add_outer``, it replaces); and, when the points
+require a gradient (the learned rotation and lbound zoom), also the
+coordinate gradient that JAX's autodiff of ``grid_sample_2d`` /
+``sample_planes`` gives (see ``sample_points_backward_xyz_plain``). On CUDA
+tensors it launches kernel K2 forward and backward, or K2x when the
+coordinate gradient is asked for (``kernels/csrc/grid_sample.cu``: the
+forward fuses the projection, the backwards accumulate the plane gradient
+with float32 atomics); on CPU tensors it runs the plain versions (the plane
+gradient an ``index_add_`` in float32).
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import torch
 from .. import kernels
 from ..kernels import _build
 
-__all__ = ["grid_sample_2d", "sample_planes", "project_to_planes",
-           "sample_points", "sample_points_plain", "sample_points_backward_plain"]
+__all__ = ["grid_sample_2d", "sample_planes", "project_to_planes", "sample_points",
+           "sample_points_plain", "sample_points_backward_plain",
+           "sample_points_backward_xyz_plain"]
 
 
 def _corners(H: int, W: int, coords: torch.Tensor):
@@ -92,10 +97,57 @@ def sample_points_backward_plain(g: torch.Tensor, xyz: torch.Tensor, lbound: flo
     return acc.reshape(P, H, W, C).to(plane_dtype)
 
 
+def _clip_grad(v: torch.Tensor, hi: int) -> torch.Tensor:
+    """The JAX package's gradient of ``clip(v, 0, hi)``: 1 inside, 0 outside
+    and 0.5 at either bound (``jnp.clip`` is a max then a min, and JAX splits
+    the gradient of a tie between its arguments), where torch's ``clamp``
+    gives 1."""
+    inside = torch.where((v > 0) & (v < hi), 1.0, 0.0)
+    return torch.where((v == 0) | (v == hi), 0.5, inside)
+
+
+def sample_points_backward_xyz_plain(g: torch.Tensor, planes: torch.Tensor, xyz: torch.Tensor,
+                                     lbound: float):
+    """Plain version of K2x: g (M, 3, C), planes (3, H, W, C), xyz (M, 3) ->
+    (the plane gradient as ``sample_points_backward_plain``, the coordinate
+    gradient (M, 3) f32). Per plane, with x = (u + 1) (W - 1) / 2 before
+    the clamp and the corner rows f00, f01 (x + 1), f10 (y + 1), f11:
+
+        dL/du = (sum_c g_c [(f01 - f00)(1 - wy) + (f11 - f10) wy]) clip'(x) (W - 1) / 2
+
+    and dL/dv alike with x and y swapped, clip' as JAX's (``_clip_grad``),
+    in JAX's order of the factors (each one after it exact). The planes'
+    (u, v) sum into the point, plane 0 being (x, z), 1 (x, y) and 2 (y, z),
+    and the point's gradient is that over ``lbound`` (``u = x / lbound``)."""
+    P, H, W, C = planes.shape
+    g = g.float()
+    coords = project_to_planes(xyz, lbound)
+    duv = []
+    for p in range(P):
+        c = coords[p]
+        xr = (c[:, 0] + 1.0) * 0.5 * (W - 1)
+        yr = (c[:, 1] + 1.0) * 0.5 * (H - 1)
+        x, y = torch.clamp(xr, 0.0, W - 1), torch.clamp(yr, 0.0, H - 1)
+        x0, y0 = torch.clamp(torch.floor(x), 0, W - 2), torch.clamp(torch.floor(y), 0, H - 2)
+        idx = (y0 * W + x0).long()
+        wx, wy = (x - x0)[:, None], (y - y0)[:, None]
+        flat = planes[p].reshape(H * W, C).float()
+        f00, f01, f10, f11 = flat[idx], flat[idx + 1], flat[idx + W], flat[idx + W + 1]
+        gp = g[:, p]
+        dwx = (gp * ((f01 - f00) * (1 - wy) + (f11 - f10) * wy)).sum(-1)
+        dwy = (gp * ((f10 - f00) * (1 - wx) + (f11 - f01) * wx)).sum(-1)
+        duv.append((dwx * _clip_grad(xr, W - 1) * (W - 1) * 0.5,
+                    dwy * _clip_grad(yr, H - 1) * (H - 1) * 0.5))
+    (du0, dv0), (du1, dv1), (du2, dv2) = duv
+    dxyz = torch.stack([du0 + du1, dv1 + du2, dv0 + dv2], dim=-1) / lbound
+    return sample_points_backward_plain(g, xyz, lbound, tuple(planes.shape), planes.dtype), dxyz
+
+
 class _SamplePoints(torch.autograd.Function):
     @staticmethod
     def forward(ctx, planes, xyz, lbound):
-        ctx.save_for_backward(xyz)
+        # the planes are kept only for K2x (the corner rows of dL/dxyz)
+        ctx.save_for_backward(xyz, planes if ctx.needs_input_grad[1] else None)
         ctx.lbound = lbound
         ctx.plane_shape, ctx.plane_dtype = tuple(planes.shape), planes.dtype
         if xyz.is_cuda:
@@ -104,7 +156,11 @@ class _SamplePoints(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (xyz,) = ctx.saved_tensors
+        xyz, planes = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            fn = _sample_points_backward_xyz_cuda if xyz.is_cuda else sample_points_backward_xyz_plain
+            plane_grad, xyz_grad = fn(g, planes, xyz, ctx.lbound)
+            return (plane_grad if ctx.needs_input_grad[0] else None), xyz_grad, None
         args = (g, xyz, ctx.lbound, ctx.plane_shape, ctx.plane_dtype)
         if xyz.is_cuda:
             return _sample_points_backward_cuda(*args), None, None
@@ -113,7 +169,7 @@ class _SamplePoints(torch.autograd.Function):
 
 def sample_points(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> torch.Tensor:
     """Triplane features at world points: (M, 3, C) float32; differentiable
-    in the planes only."""
+    in the planes and, when ``xyz`` requires it, in the points (K2x)."""
     return _SamplePoints.apply(planes, xyz, float(lbound))
 
 
@@ -127,21 +183,29 @@ _K2_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _sample_points_cuda(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> torch.Tensor:
+def _check_planes_points(planes: torch.Tensor, xyz: torch.Tensor, what: str) -> None:
+    """What K2 and K2x take: (3, H, W, C) bf16 or f32 planes, contiguous and
+    16-byte aligned, C in _K2_CHANNELS, H, W >= 2; (M, 3) f32 points on the
+    planes' device."""
     if planes.device != xyz.device:
-        raise ValueError("sample_points kernel: planes and points on different devices")
+        raise ValueError(f"{what}: planes and points on different devices")
     if planes.dim() != 4 or planes.shape[0] != 3:
-        raise ValueError(f"sample_points kernel: planes must be (3, H, W, C), got {tuple(planes.shape)}")
+        raise ValueError(f"{what}: planes must be (3, H, W, C), got {tuple(planes.shape)}")
     if planes.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"sample_points kernel: planes must be bf16 or f32, got {planes.dtype}")
+        raise TypeError(f"{what}: planes must be bf16 or f32, got {planes.dtype}")
     if xyz.dim() != 2 or xyz.shape[1] != 3 or xyz.dtype != torch.float32:
-        raise ValueError(f"sample_points kernel: xyz must be (M, 3) f32, got {tuple(xyz.shape)} {xyz.dtype}")
+        raise ValueError(f"{what}: xyz must be (M, 3) f32, got {tuple(xyz.shape)} {xyz.dtype}")
     _, H, W, C = planes.shape
     if C not in _K2_CHANNELS or H < 2 or W < 2:
-        raise ValueError(f"sample_points kernel: C in {_K2_CHANNELS} and H, W >= 2, got {tuple(planes.shape)}")
+        raise ValueError(f"{what}: C in {_K2_CHANNELS} and H, W >= 2, got {tuple(planes.shape)}")
     if not planes.is_contiguous() or planes.data_ptr() % 16:
-        raise ValueError("sample_points kernel: planes must be contiguous channel-last "
+        raise ValueError(f"{what}: planes must be contiguous channel-last "
                          "and 16-byte aligned (it reads rows with 16-byte loads)")
+
+
+def _sample_points_cuda(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> torch.Tensor:
+    _check_planes_points(planes, xyz, "sample_points kernel")
+    _, H, W, C = planes.shape
     xyz = xyz.contiguous()
     M = xyz.shape[0]
     out = torch.empty((M, 3, C), device=xyz.device, dtype=torch.float32)
@@ -184,7 +248,46 @@ def _sample_points_backward_cuda(g: torch.Tensor, xyz: torch.Tensor, lbound: flo
     if plane_dtype != torch.bfloat16:
         raise TypeError(f"sample_points backward kernel: planes must be bf16 or f32, got {plane_dtype}")
     out = torch.empty(plane_shape, device=xyz.device, dtype=torch.bfloat16)
-    fn = _build.function("grid_sample", "cast_bf16_launch", _CAST_ARGS)
-    _build.check(fn(_build.ptr(acc), acc.numel(), _build.ptr(out), s), "cast to bf16")
+    _cast_bf16(acc, out, s)
     kernels.launches["grid_sample_bwd"] += 1
     return out
+
+
+def _cast_bf16(acc: torch.Tensor, out: torch.Tensor, s) -> None:
+    fn = _build.function("grid_sample", "cast_bf16_launch", _CAST_ARGS)
+    _build.check(fn(_build.ptr(acc), acc.numel(), _build.ptr(out), s), "cast to bf16")
+
+
+_K2X_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _sample_points_backward_xyz_cuda(g: torch.Tensor, planes: torch.Tensor, xyz: torch.Tensor,
+                                     lbound: float):
+    """K2x: the plane gradient (float32 atomics, then the plane dtype) and
+    dL/dxyz (M, 3) f32, one thread per point over the three planes."""
+    what = "sample_points backward (xyz) kernel"
+    _check_planes_points(planes, xyz, what)
+    _, H, W, C = planes.shape
+    M = xyz.shape[0]
+    if g.device != xyz.device or tuple(g.shape) != (M, 3, C):
+        raise ValueError(f"{what}: g must be ({M}, 3, {C}) on {xyz.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    g = g.float().contiguous()
+    xyz = xyz.contiguous()
+    acc = torch.zeros(planes.shape, device=xyz.device, dtype=torch.float32)
+    dxyz = torch.zeros((M, 3), device=xyz.device, dtype=torch.float32)
+    s = _build.stream(xyz.device)
+    if M > 0:
+        fn = _build.function("grid_sample", "sample_points_backward_xyz_launch", _K2X_ARGS)
+        _build.check(fn(_build.ptr(planes), _build.ptr(xyz), _build.ptr(g), M, H, W, C,
+                        int(planes.dtype == torch.bfloat16), float(lbound), _build.ptr(acc),
+                        _build.ptr(dxyz), s), "sample_points backward (xyz)")
+        kernels.launches["grid_sample_bwd_xyz"] += 1
+    if planes.dtype == torch.float32:
+        return acc, dxyz
+    out = torch.empty(planes.shape, device=xyz.device, dtype=torch.bfloat16)
+    _cast_bf16(acc, out, s)
+    kernels.launches["grid_sample_bwd_xyz"] += 1
+    return out, dxyz

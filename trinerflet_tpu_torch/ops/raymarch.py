@@ -41,6 +41,7 @@ from .activation import plain_exp
 __all__ = [
     "SQRT3",
     "near_far_from_aabb",
+    "sph_from_ray",
     "occupancy_index",
     "occupancy_lookup",
     "first_k_valid",
@@ -108,6 +109,20 @@ def near_far_from_aabb(
     miss = tmin > tmax
     near = torch.clamp_min(tmin, min_near)
     return torch.where(miss, 3.4e38, near), torch.where(miss, 3.4e38, tmax)
+
+
+def sph_from_ray(rays_o: torch.Tensor, rays_d: torch.Tensor, radius: float) -> torch.Tensor:
+    """Where each ray leaves the background sphere of ``radius``, as
+    (theta, phi) normalised to [-1, 1] (y up): (N, 2)."""
+    a = (rays_d * rays_d).sum(-1)
+    b = (rays_o * rays_d).sum(-1)
+    c = (rays_o * rays_o).sum(-1) - radius * radius
+    t = (-b + torch.sqrt(torch.clamp_min(b * b - a * c, 0.0))) / a
+    p = rays_o + t[:, None] * rays_d
+    x, y, z = p.unbind(-1)
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)  # [0, pi)
+    phi = torch.atan2(z, x)  # [-pi, pi)
+    return torch.stack([2 * theta / math.pi - 1, phi / math.pi], dim=-1)
 
 
 # ---------------------------------------------------------------------------

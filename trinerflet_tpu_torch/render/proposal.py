@@ -127,7 +127,7 @@ def render_proposal(
 
     ori_z = torch.clamp((t_f - nears) / (fars - nears), 0, 1)
     ws, depth, image, weights = RM.composite_dense(cfg.density_scale * sigmas, rgbs, dt_f, ori_z)
-    image = image + (1.0 - ws)[:, None] * _background(N, bg_color, dev)
+    image = image + (1.0 - ws)[:, None] * _background(rays_o, rays_d, bg_color, None, cfg)
     return {
         "image": image, "depth": depth, "weights_sum": ws,
         "prop_weights": w_p, "prop_bins": bins_p,

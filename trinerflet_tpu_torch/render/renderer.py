@@ -387,13 +387,19 @@ def tuned_num_coarse(cfg: RenderConfig, bbox: np.ndarray) -> Optional[int]:
     return None
 
 
-def _background(n: int, bg_color, device) -> torch.Tensor:
-    """(n, 3) background: white by default, a scalar grey, or given colors.
-    (The background sphere network is not ported; NeRFField rejects it.)"""
+def _background(rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color, bg_fn,
+                cfg: RenderConfig) -> torch.Tensor:
+    """(N, 3) background: with ``cfg.bg_radius > 0`` and a ``bg_fn(sph,
+    dirs)`` (the field's background network) its colour where each ray
+    leaves the sphere; else white by default, a scalar grey, or given
+    colours."""
+    if cfg.bg_radius > 0 and bg_fn is not None:
+        return bg_fn(RM.sph_from_ray(rays_o, rays_d, cfg.bg_radius), rays_d)
     if bg_color is None:
         bg_color = 1.0
     if isinstance(bg_color, (int, float)):
-        return torch.full((n, 3), float(bg_color), dtype=torch.float32, device=device)
+        return torch.full((rays_o.shape[0], 3), float(bg_color), dtype=torch.float32,
+                          device=rays_o.device)
     return bg_color
 
 
@@ -421,6 +427,7 @@ def render_dense(
     rays_d: torch.Tensor,
     cfg: RenderConfig,
     bg_color=None,
+    bg_fn: Optional[Callable] = None,
     perturb: bool = False,
     jitter: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
@@ -439,8 +446,9 @@ def render_dense(
     (N, t), U[0, 1), are drawn from ``generator`` in that order when absent;
     without it u is the midpoint linspace. ``occ`` with
     ``cfg.occ_mask_dense`` zeroes sigma where the occupancy cell is off (a
-    diagnostic). Returns image, depth (the weighted mean of the normalised
-    depth), weights_sum and z_variance."""
+    diagnostic). ``bg_fn`` as in ``render_occgrid``. Returns image, depth
+    (the weighted mean of the normalised depth), weights_sum and
+    z_variance."""
     N = rays_o.shape[0]
     T = cfg.num_steps
     dev = rays_o.device
@@ -489,7 +497,7 @@ def render_dense(
     rgbs = color_fn(dirs.reshape(-1, 3), geos).reshape(N, T, 3)
     ori_z = torch.clamp((z_vals - nears) / (fars - nears), 0, 1)
     ws, depth, image, weights = RM.composite_dense(cfg.density_scale * sigmas, rgbs, deltas, ori_z)
-    image = image + (1.0 - ws)[:, None] * _background(N, bg_color, dev)
+    image = image + (1.0 - ws)[:, None] * _background(rays_o, rays_d, bg_color, bg_fn, cfg)
     mean_z = depth / torch.clamp_min(ws, 1e-8)
     z_var = (weights * (ori_z - mean_z[:, None]) ** 2).sum(-1) / torch.clamp_min(ws, 1e-8)
     return {"image": image, "depth": depth, "weights_sum": ws, "z_variance": z_var}
@@ -620,6 +628,7 @@ def render_occgrid(
     cfg: RenderConfig,
     noise: Optional[torch.Tensor] = None,
     bg_color=None,
+    bg_fn: Optional[Callable] = None,
     occ_coarse: Optional[torch.Tensor] = None,
     occ_bbox: Optional[torch.Tensor] = None,
     with_stats: bool = True,
@@ -632,6 +641,9 @@ def render_occgrid(
     ``field_fn(xyzs (M, 3), dirs (M, 3)) -> (sigma (M,), rgb (M, 3))``.
     ``noise`` (N,) in [0, 1) perturbs the ray starts (the JAX package's
     ``perturb``; tests inject it); None renders unperturbed, as serving does.
+    ``bg_fn(sph (N, 2), dirs (N, 3)) -> rgb (N, 3)`` (e.g.
+    ``NeRFField.background``) colours the background where the rays leave
+    the sphere of ``cfg.bg_radius`` when that is > 0; else ``bg_color``.
     Returns image, depth, weights_sum, z_variance and num_samples, then the
     JAX package's statistics for the branch taken:
     * hierarchical: overflow_frac, samples_mean, trunc_T, span_trunc_T;
@@ -660,7 +672,7 @@ def render_occgrid(
     else:
         ws, depth_raw, image, z_var, stats = _render_flat(
             field_fn, rays_o, rays_d, nears_c, fars_c, occ, noise, cfg, with_stats)
-    image = image + (1.0 - ws)[:, None] * _background(N, bg_color, dev)
+    image = image + (1.0 - ws)[:, None] * _background(rays_o, rays_d, bg_color, bg_fn, cfg)
     # ts are relative to the (perturbed) ray start, so depth_raw already is
     # "depth - near"
     depth = torch.clamp_min(depth_raw, 0.0) / torch.clamp_min(fars - nears, 1e-6)

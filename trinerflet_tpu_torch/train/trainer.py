@@ -245,9 +245,10 @@ class Trainer:
                                      generator=generator)
 
     def _check_device(self, params: Dict, occ: R.OccupancyState) -> None:
-        """Params and state must live on the trainer's device: a state carried
-        onto another device would otherwise run there until the first mixed op."""
-        for name, t in (("params", _leaves(params)[0][1]), ("occupancy", occ.occ)):
+        """Params (every leaf) and state must live on the trainer's device: a
+        state carried onto another device would otherwise run there until the
+        first mixed op."""
+        for name, t in [("params", t) for _, t in _leaves(params)] + [("occupancy", occ.occ)]:
             if t.device.type != self.device.type:
                 raise ValueError(f"{name} are on {t.device}, the trainer on {self.device}; "
                                  f"move them or build the trainer with device={t.device.type!r}")
