@@ -2,14 +2,15 @@
 check them: the wavelet-triplane field on the occupancy-grid renderer (the
 hierarchical march, and the flat march on the dt_gamma ladder), the
 proposal renderer, the hash-grid field, the dense renderer, the triplane's
-variants (learned rotation and lbound zoom, zoom-in planes, background net)
-and k-planes.
+variants (learned rotation and lbound zoom, zoom-in planes, background net),
+k-planes, and the model registry (the voxel grid, the textured and
+env-map backgrounds, the SDF, the diffuse material, analytic normals).
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
-2. build kernels K1-K7 (with K1f, K2x and K3c) from
+2. build kernels K1-K11 (with K1f, K2x, K3c and K7x) from
    ``trinerflet_tpu_torch/kernels/csrc`` with nvcc, one process per source,
    in parallel;
 3. serve: the full-width bench model (1024^2 x 16-channel bf16 wavelet
@@ -116,7 +117,32 @@ Phases (any failure exits non-zero; nothing is caught):
     64 + 50 steps (K2 forward and backward must launch; K4 and K2x not);
     one 800^2 view, a captured step's rows, the step check on the initial
     parameters after one full refresh (as the proposal phase's);
-16. print the kernels line, then the device line last.
+16. registry-grid: ``make_field(..., "volume-grid",
+    "neural-radiance-material", "textured-background")`` at the JAX
+    package's defaults (a 64^3 x 16 f32 voxel grid, a 64 x 128 texture)
+    behind ``bg_fn`` (bg_radius 4), on bench's rays, scene and render
+    configuration with every cell occupied (as the JAX registry tests
+    render), MSE and the trainer's Adam: 64 + 50 steps (K10 and K11 forward
+    and backward, K1 and K3 must launch; K2, K4, K6 not), one 800^2 view in
+    chunks of 16,384 rays; a captured step holds K10 and K11 forward and
+    backward to their plain versions on the CPU; the step check;
+17. registry-sdf: ``implicit-sdf`` on bench's triplane with
+    ``diffuse-with-point-light-material`` (finite-difference normals) and
+    the env-map background: 64 + 50 steps; the step check on the initial
+    parameters with float32 MLPs (a finite difference divides the bf16
+    MLPs' rounding by eps); one 800^2 view with analytic normals under
+    ``torch.no_grad()`` (K2x launches, no parameter gradient does); the
+    analytic normals at its samples against the CPU plain versions and
+    against finite differences (float32 copies, eps 0.05 of a cell);
+18. registry-hash-normals: the hash-grid phase's trained field under the
+    diffuse material with analytic normals: one 800^2 view (K7 and K7x),
+    K7x held to its plain version on a captured chunk, the same normal
+    checks;
+19. second-order: a create_graph=True first derivative through each kernel
+    function (K2, K7, K10, K11, K4, K3, K3c) on the card, then a backward
+    through it, which must raise torch's once_differentiable error as the
+    CPU tests' plain versions do;
+20. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -133,10 +159,12 @@ import torch
 import torch.nn.functional as F
 
 from trinerflet_tpu_torch import kernels
-from trinerflet_tpu_torch.data.rays import rays_full_image
+from trinerflet_tpu_torch.data.rays import rays_full_image, sample_ray_batch
 from trinerflet_tpu_torch.data.synthetic import make_synthetic_scene, orbit_pose, synthetic_intrinsics
 from trinerflet_tpu_torch.kernels import _build
 from trinerflet_tpu_torch.models import gridencoder as GE
+from trinerflet_tpu_torch.models import registry as REG
+from trinerflet_tpu_torch.models.encodings import grid_config
 from trinerflet_tpu_torch.models.nerf import NeRFConfig
 from trinerflet_tpu_torch.models.triplane import TriplaneConfig
 from trinerflet_tpu_torch.ops import grid_sample as GS
@@ -623,31 +651,38 @@ def _refresh(trainer, state, full):
 
 
 def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
-                required=TRAIN_KERNELS, what="train", absent=(), window_steps=WINDOW_STEPS):
+                required=TRAIN_KERNELS, what="train", absent=(), window_steps=WINDOW_STEPS,
+                step=None, refresh=True):
     """bench.py's cadence: warm-up (refreshes and the retune on the last
-    step's aux, on the occgrid renderer), then timed windows (median);
-    counters zeroed just before and read just after. Every ``required``
-    kernel must have launched and no ``absent`` one; the loss (and on the
-    proposal renderer the interlevel loss) must fall over the warm-up: the
-    mean of its last refresh interval (or half, when shorter) below that of
-    its first."""
+    step's aux, on the occgrid renderer with ``refresh``), then timed windows
+    (median); counters zeroed just before and read just after. Every
+    ``required`` kernel must have launched and no ``absent`` one; the loss
+    (and on the proposal renderer the interlevel loss) must fall over the
+    warm-up: the mean of its last refresh interval (or half, when shorter)
+    below that of its first. ``step(state, with_stats) -> (state, aux)``
+    (default the trainer's step on ``data``) is one step; its aux holds the
+    loss and, on the occgrid renderer, the kept samples."""
     interval = trainer.cfg.update_extra_interval
     span = min(interval, warm // 2)
     N = trainer.cfg.num_rays
     occgrid = trainer.cfg.renderer == "occgrid"
+    refresh = refresh and occgrid
+    if step is None:
+        def step(state, with_stats):
+            return trainer.train_step(state, data, with_stats=with_stats)
     kernels.reset_launches()
     losses, inter, aux, trail = [], [], None, []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(warm):
-        if occgrid and i % interval == 0:
+        if refresh and i % interval == 0:
             state = _refresh(trainer, state, full=int(state.occ.iter_density) < 16)
             trainer._maybe_retune_march(state, aux)
             if aux is not None and trainer.cfg.budget_autotune:  # what the retune read (it synced)
                 rc = trainer.render_cfg
                 trail.append((i, round(float(aux["num_samples"]) / N, 2), rc.samples_per_ray_budget,
                               rc.num_coarse_override, rc.compaction, rc.global_slots_per_ray))
-        state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
+        state, aux = step(state, (i + 1) % interval == 0)
         losses.append(aux["loss"])
         if "interlevel" in aux:
             inter.append(aux["interlevel"])
@@ -660,9 +695,9 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
     for _ in range(n_windows):
         t0 = time.perf_counter()
         for i in range(window_steps):
-            if occgrid and i % interval == 0:
+            if refresh and i % interval == 0:
                 state = _refresh(trainer, state, full=False)
-            state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
+            state, aux = step(state, (i + 1) % interval == 0)
         final_loss = float(aux["loss"])  # host copy: waits for the window's last step
         windows.append((time.perf_counter() - t0) / window_steps * 1e3)
     launches = dict(kernels.launches)
@@ -745,7 +780,10 @@ class Capture:
                (RM, "_composite_backward_cuda"), (W, "_idwt2d_cuda"), (W, "_idwt2d_adjoint_cuda"),
                (R, "_occupancy_upkeep_cuda"), (RM, "_compact_cuda"),
                (RM, "_composite_compact_cuda"), (RM, "_composite_compact_backward_cuda"),
-               (GE, "_grid_encode_cuda"), (GE, "_grid_encode_backward_cuda"))
+               (GE, "_grid_encode_cuda"), (GE, "_grid_encode_backward_cuda"),
+               (GE, "_grid_encode_backward_x_cuda"), (REG, "_sample_volume_grid_cuda"),
+               (REG, "_sample_volume_grid_backward_cuda"), (REG, "_background_textured_cuda"),
+               (REG, "_background_textured_backward_cuda"))
 
     def __init__(self):
         self.calls = defaultdict(list)
@@ -927,11 +965,11 @@ def _sample_fwd_rows(planes, xyz, lb, label=""):
                       f"{touched} touched texels")]
 
 
-def _sample_bwd_rows(calls):
-    """K2 backward: the plane gradient of the step's first backward call (its
-    planes, for the library call, from the forward call of that shape)."""
+def _sample_bwd_rows(calls, i=0, label=""):
+    """K2 backward: the plane gradient of the step's ``i``-th backward call
+    (its planes, for the library call, from the forward call of that shape)."""
     rows = []
-    (g, xyz, lb, shape, dtype), _ = calls["_sample_points_backward_cuda"][0]
+    (g, xyz, lb, shape, dtype), _ = calls["_sample_points_backward_cuda"][i]
     planes = next(a[0] for a, _ in calls["_sample_points_cuda"] if tuple(a[0].shape) == tuple(shape))
     C = planes.shape[-1]
     c2 = GS.project_to_planes(xyz, lb)
@@ -952,7 +990,7 @@ def _sample_bwd_rows(calls):
     lib_f32 = torch.ops.aten.grid_sampler_2d_backward(  # f32 copies, unrounded coordinates
         go.float(), planes_nchw.float(), c2[:, :, None, :].contiguous(), 0, 1, True, [True, False])[0]
     lib_f32_err = _rel(lib_f32.permute(0, 2, 3, 1), got)
-    rows.append(dict(name="K2 sample_planes backward", key="grid_sample_bwd", route="cuda",
+    rows.append(dict(name="K2 sample_planes backward" + label, key="grid_sample_bwd", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
                      replaces="trinerflet_tpu/ops/grid_sample.py:151", max_abs_err=(got.float() - ref.float()).abs().max().item(),
                      tol="2^-7 x max|grad|",
@@ -969,15 +1007,22 @@ def _sample_bwd_rows(calls):
 
 def _sample_xyz_rows(calls, label_of):
     """K2x on each of the step's calls (``label_of(planes)`` names the plane
-    stack): the plane gradient and dL/dxyz against the plain version, timed
-    beside the bound and one aten.grid_sampler_2d_backward with both
-    gradients over the three planes (channel-first)."""
+    stack), as the call asked (with or without the plane gradient): dL/dxyz
+    against the plain version on the CPU, where xyz / lbound is a true
+    division as in the kernel (torch on the card multiplies by the
+    reciprocal, and a point on a cell edge may take the neighbour cell's
+    slope), the plane gradient, continuous there, against the plain version
+    on the card; timed beside the bound and one aten.grid_sampler_2d_backward
+    with the same gradients over the three planes (channel-first)."""
     rows = []
-    for (g, planes, xyz, lb), _ in calls["_sample_points_backward_xyz_cuda"]:
-        pg, xg = GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb)
-        rpg, rxg = GS.sample_points_backward_xyz_plain(g, planes, xyz, lb)
-        ep, ex = _rel(pg, rpg), _rel(xg, rxg)
-        if ep > 2.0**-7 or ex > 1e-5:
+    for (g, planes, xyz, lb), kw in calls["_sample_points_backward_xyz_cuda"]:
+        pg, xg = GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb, **kw)
+        with_planes = pg is not None
+        rxg = GS.sample_points_backward_xyz_plain(g.cpu(), planes.cpu(), xyz.cpu(), lb, planes_grad=False)[1]
+        ep = _rel(pg, GS.sample_points_backward_plain(g, xyz, lb, tuple(planes.shape), planes.dtype)
+                  ) if with_planes else 0.0
+        ex = _rel(xg.cpu(), rxg)
+        if ep > 2.0**-7 or ex > 1e-5 or with_planes != kw.get("planes_grad", True):
             raise RuntimeError(f"K2x rel err: planes {ep} > 2^-7 or points {ex} > 1e-5")
         _, H, Wd, C = planes.shape
         live = (g != 0).any(dim=-1).T  # (3, M): (plane, point) rows with a cotangent
@@ -985,38 +1030,43 @@ def _sample_xyz_rows(calls, label_of):
         touched = _touched_texels(c2, H, Wd, live)
         n_live = int(live.sum())
         # the cotangent and the points in, the live rows' corner texels read,
-        # the plane gradient and dL/dxyz written once; per live row ~18 C + 20
-        # f32 operations (weights, the two channel sums, the atomics' products)
-        b, by = bound_ms(nbytes(g, xyz) + touched * C * planes.element_size() + nbytes(pg, xg),
-                         n_live * (18 * C + 20))
+        # the plane gradient (when asked) and dL/dxyz written once; per live
+        # row ~18 C + 20 f32 operations (weights, the two channel sums, the
+        # atomics' products)
+        b, by = bound_ms(nbytes(g, xyz, xg) + touched * C * planes.element_size()
+                         + (nbytes(pg) if with_planes else 0), n_live * (18 * C + 20))
         planes_nchw = planes.permute(0, 3, 1, 2).contiguous()
         grid = c2[:, :, None, :].to(planes.dtype).contiguous()
         go = g.permute(1, 2, 0)[..., None].to(planes.dtype).contiguous()  # (3, C, M, 1)
+        mask = [with_planes, True]
         lib = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
-            go, planes_nchw, grid, 0, 1, True, [True, True])
+            go, planes_nchw, grid, 0, 1, True, mask)
         # the same call on f32 copies and unrounded coordinates, for its
         # agreement (bf16 coordinates move a point by up to 2 texels at 1024^2)
         d_planes, d_grid = torch.ops.aten.grid_sampler_2d_backward(
-            go.float(), planes_nchw.float(), c2[:, :, None, :].contiguous(), 0, 1, True, [True, True])
+            go.float(), planes_nchw.float(), c2[:, :, None, :].contiguous(), 0, 1, True, mask)
         dg = d_grid[:, :, 0, :]  # (3, M, 2) in the planes' (u, v)
         lib_xyz = torch.stack([dg[0, :, 0] + dg[1, :, 0], dg[1, :, 1] + dg[2, :, 0],
                                dg[0, :, 1] + dg[2, :, 1]], -1) / lb
+        lib_planes = f"{_rel(d_planes.permute(0, 2, 3, 1), pg):.2e} (planes), " if with_planes else ""
         rows.append(dict(
             name=f"K2x sample_planes coordinate gradient{label_of(planes)}", key="grid_sample_bwd_xyz",
             route="cuda", source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
             replaces="trinerflet_tpu/ops/grid_sample.py:23 (autodiff of grid_sample_2d in the "
                      "coordinates, via models/triplane.py:310-321)",
-            max_abs_err=(xg - rxg).abs().max().item(), tol="points 1e-5, planes 2^-7 x max|grad|",
-            ms=time_ms(lambda: GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb)),
-            plain_ms=time_ms(lambda: GS.sample_points_backward_xyz_plain(g, planes, xyz, lb), iters=5),
+            max_abs_err=(xg.cpu() - rxg).abs().max().item(),
+            tol="points 1e-5 x max|dL/dxyz|" + (", planes 2^-7 x max|grad|" if with_planes else ""),
+            ms=time_ms(lambda: GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb, **kw)),
+            plain_ms=time_ms(lambda: GS.sample_points_backward_xyz_plain(g, planes, xyz, lb, **kw), iters=5),
             bound_ms=b, bound_by=by, library_ms=time_ms(lib),
-            note=f"M={xyz.shape[0]} points on {tuple(planes.shape)} {planes.dtype} planes, {n_live} of "
+            note=f"M={xyz.shape[0]} points on {tuple(planes.shape)} {planes.dtype} planes, "
+                 f"{'with' if with_planes else 'without'} the plane gradient, {n_live} of "
                  f"{3 * xyz.shape[0]} (plane, point) rows carry a cotangent, {touched} touched "
                  f"texels; rel err planes {ep:.2e}, points {ex:.2e}; library is "
-                 f"aten.grid_sampler_2d_backward(output_mask=[True, True]) on the {planes.dtype} "
+                 f"aten.grid_sampler_2d_backward(output_mask={mask}) on the {planes.dtype} "
                  f"planes and coordinates; on f32 copies it differs from the kernel by "
-                 f"{_rel(d_planes.permute(0, 2, 3, 1), pg):.2e} (planes), {_rel(lib_xyz, xg):.2e} "
-                 f"(points; torch's clamp gives the border 1, not JAX's 0.5)"))
+                 f"{lib_planes}{_rel(lib_xyz, xg):.2e} (points; torch's clamp gives the border 1, "
+                 f"not JAX's 0.5)"))
     return rows
 
 
@@ -1312,9 +1362,14 @@ def _k7_flops(n_points, cfg) -> float:
 
 
 def _grid_encode_rows(trainer, calls):
-    """K7 forward and backward: every forward call of the captured step (the
-    field's or the proposal density's, and a refresh's sweep) held to the
-    plain version; the step's first forward and its backward timed."""
+    """K7 forward and backward on the captured step."""
+    return _grid_encode_fwd_rows(calls) + _grid_encode_bwd_rows(calls)
+
+
+def _grid_encode_fwd_rows(calls):
+    """K7 forward: every captured forward call (the field's or the proposal
+    density's, a refresh's sweep, an analytic normal's) held to the plain
+    version; the first timed."""
     rows = []
     err = 0.0
     for (fargs, _) in calls["_grid_encode_cuda"]:
@@ -1335,11 +1390,18 @@ def _grid_encode_rows(trainer, calls):
                      plain_ms=time_ms(lambda: GE.grid_encode_plain(*fargs), iters=5),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"N={N} points x {L} levels of C={C}; {touched} of {total} table rows "
-                          f"touched; {len(calls['_grid_encode_cuda'])} forward call(s) of the step "
+                          f"touched; {len(calls['_grid_encode_cuda'])} captured forward call(s) "
                           f"held to the plain version; no single library call computes it"))
+    return rows
 
+
+def _grid_encode_bwd_rows(calls):
+    """K7 backward on the step's first backward call, held to a float64 sum."""
+    rows = []
     (bargs, _) = calls["_grid_encode_backward_cuda"][0]
     g, xb, cfg, bound = bargs
+    L, C = cfg.num_levels, cfg.level_dim
+    total = sum(cfg.level_size(l) for l in range(L))
     got = GE._grid_encode_backward_cuda(*bargs)
     ref = GE.grid_encode_backward_plain(*bargs)
     # both sum with float atomics in an unspecified order: each is held to a
@@ -1409,24 +1471,40 @@ def hashgrid_configs(num_rays: int = 32768):
     return nerf_cfg, render_cfg, dataclasses.replace(train_cfg, wavelet_regularization=0.0)
 
 
-def view_phase(trainer, state, card, what):
+def view_phase(trainer, state, card, what, render=None, required=(), absent=()):
     """One 800x800 view of the trained state (EMA params), twice (the second
-    is the steady ms/view), from the serve phase's first camera."""
+    is the steady ms/view; the counters are zeroed before it and read after
+    it: every ``required`` kernel must have launched and no ``absent`` one),
+    from the serve phase's first camera. ``render(pose, intr) -> (image,
+    depth)`` renders the view (default the trainer's ``render_image``)."""
     intr = synthetic_intrinsics(VIEW_HW, VIEW_HW)
     pose = orbit_pose(np.arccos(1 - 1.6 * 0.5 / 8), 0.0, 2.0)
+    if render is None:
+        def render(pose, intr):
+            return trainer.render_image(state.ema_params, state.occ, pose, intr, VIEW_HW, VIEW_HW)
     ms = []
-    for _ in range(2):
+    for rep in range(2):
+        if rep == 1:
+            kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img, dep = trainer.render_image(state.ema_params, state.occ, pose, intr, VIEW_HW, VIEW_HW)
+        img, dep = render(pose, intr)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.launches)
     if img.shape != (VIEW_HW, VIEW_HW, 3) or not (torch.isfinite(img).all() and torch.isfinite(dep).all()):
         raise RuntimeError(f"{what} view: bad or non-finite render {tuple(img.shape)}")
     if img.min() < 0 or img.max() > 1.0 + 1e-5:
         raise RuntimeError(f"{what} view out of range: [{img.min()}, {img.max()}]")
     log(f"# {what} view ({card}): {VIEW_HW}x{VIEW_HW} ms/view first {ms[0]:.2f}, repeat {ms[1]:.2f}; "
-        f"image mean {img.mean().item():.4f} std {img.std().item():.4f}")
+        f"image mean {img.mean().item():.4f} std {img.std().item():.4f}"
+        + (f"; launches {launches}" if required or absent else ""))
+    for name in required:
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the {what} view")
+    for name in absent:
+        if launches[name] != 0:
+            raise RuntimeError(f"kernel {name} launched on the {what} view, which has none")
     return ms
 
 
@@ -1476,7 +1554,7 @@ def hashgrid_phases(scene, card):
     rows = path_kernel_rows(trainer, calls, launches, "hashgrid train")
     del calls
     step_check(trainer, state, data, "hashgrid")
-    return rows, dict(stats, launches=launches, view_ms=view_ms)
+    return rows, dict(stats, launches=launches, view_ms=view_ms, params=state.ema_params, occ=state.occ)
 
 
 FLAT_BOUND = 4.0
@@ -1730,6 +1808,557 @@ def kplanes_phases(scene, card):
     return rows, dict(stats, launches=launches, view_ms=view_ms)
 
 
+# ---------------------------------------------------------------------------
+# The model registry: the voxel grid (K10), the textured background (K11),
+# the SDF, the diffuse material and analytic normals (K2x, K7x)
+# ---------------------------------------------------------------------------
+
+REG_GRID_KERNELS = ("volume_grid", "volume_grid_bwd", "textured_bg", "textured_bg_bwd", "march",
+                    "composite", "composite_bwd")
+REG_GRID_ABSENT = ("grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint", "occupancy",
+                   "grid_encode")  # no triplane, and the full grid needs no refresh
+REG_SDF_KERNELS = ("grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint", "march", "composite",
+                   "composite_bwd")
+REG_SDF_ABSENT = ("grid_sample_bwd_xyz", "volume_grid", "textured_bg", "occupancy")  # FD normals
+REG_SDF_VIEW_KERNELS = ("grid_sample", "grid_sample_bwd_xyz", "idwt", "march", "composite")
+REG_HASH_VIEW_KERNELS = ("grid_encode", "grid_encode_bwd_x", "march", "composite")
+REG_GRID_VIEW_KERNELS = ("volume_grid", "textured_bg", "march", "composite")
+REG_VIEW_ABSENT = ("grid_sample_bwd", "grid_encode_bwd", "idwt_adjoint", "composite_bwd",
+                   "volume_grid_bwd", "textured_bg_bwd")  # serving: no parameter gradient
+REG_CHUNK = 16384
+REG_COS_POINTS = 65536
+
+
+def registry_configs(num_rays: int = 32768):
+    """bench.py's model, rays and render configuration (bf16 MLPs, bound 1.5,
+    128^3 grid, budget 20) for a registry field, with the background sphere
+    of radius 4 behind ``bg_fn`` and no wavelet regularisation (the
+    registry tests' loss is the image MSE alone)."""
+    nerf_cfg, render_cfg, train_cfg = bench_configs(num_rays, budget_autotune=False)
+    return (nerf_cfg, dataclasses.replace(render_cfg, bg_radius=BG_RADIUS),
+            dataclasses.replace(train_cfg, wavelet_regularization=0.0))
+
+
+def full_occupancy(render_cfg):
+    """Every cell occupied, as the JAX package's registry tests render."""
+    H, C = render_cfg.grid_size, render_cfg.cascades
+    ones = torch.ones((C, H, H, H), dtype=torch.bool, device=DEVICE)
+    return R.OccupancyState(density_grid=torch.ones((C, H**3), device=DEVICE), occ=ones,
+                            occ_coarse=ones.clone(), mean_density=torch.ones((), device=DEVICE),
+                            iter_density=torch.zeros((), dtype=torch.int32, device=DEVICE),
+                            bbox=torch.tensor(render_cfg.aabb, dtype=torch.float32, device=DEVICE))
+
+
+def registry_state(init_fn, occ):
+    """A fresh training state for a registry field's parameters: zero Adam
+    moments, the EMA equal to the parameters."""
+    params = TR._map(lambda t: t.requires_grad_(True), init_fn(torch.Generator().manual_seed(SEED), DEVICE))
+    return TR.TrainState(params=params, opt_state={"count": 0, "mu": TR._map(torch.zeros_like, params),
+                                                   "nu": TR._map(torch.zeros_like, params)},
+                         ema_params=TR._map(lambda t: t.detach().clone(), params), ema_count=0, occ=occ,
+                         step=0, rng=torch.Generator(device=DEVICE).manual_seed(SEED))
+
+
+def registry_loss(trainer, field, params, occ, data, batch, generator):
+    """The registry tests' loss on bench's rays: ``render_occgrid`` over the
+    occupancy state, the field's background behind ``bg_fn``, the MSE
+    against the pixels composited over black."""
+    N = batch["img_idx"].shape[0] if "img_idx" in batch else trainer.cfg.num_rays
+    rays_o, rays_d, pixels = sample_ray_batch(data["images"], data["poses"], data["intrinsics"], N,
+                                              generator, batch.get("img_idx"), batch.get("pix_idx"))
+    gt = pixels[..., :3] * pixels[..., 3:] if pixels.shape[-1] == 4 else pixels
+    noise = batch.get("noise")
+    if noise is None:
+        noise = torch.rand((N,), generator=generator, device=generator.device)
+    planes = field.build_planes(params)
+    out = R.render_occgrid(lambda x, d: field(params, planes, x, d), rays_o, rays_d, occ.occ,
+                           trainer.render_cfg, noise=noise.to(rays_o.device, torch.float32),
+                           bg_fn=lambda sph, d: field.background(params, d), occ_coarse=occ.occ_coarse,
+                           occ_bbox=occ.bbox, with_stats=False)
+    return ((out["image"] - gt) ** 2).mean(), out
+
+
+def registry_step(trainer, field, data):
+    """The registry path's step, as ``train_phase`` takes one: the loss, its
+    gradients, the trainer's Adam and EMA (``batch`` injects the draws)."""
+    def step(state, with_stats=False, batch=None):
+        named = TR._leaves(state.params)
+        leaves = [p.requires_grad_(True) for _, p in named]
+        loss, out = registry_loss(trainer, field, state.params, state.occ, data, batch or {}, state.rng)
+        state = trainer._apply_grads(state, named, leaves, loss)
+        return state, {"loss": loss.detach(), "num_samples": out["num_samples"]}
+
+    return step
+
+
+def registry_loss_fn(field):
+    """``registry_loss`` as ``step_check`` takes a loss."""
+    def loss_fn(tr, params, occ, data, batch, generator):
+        return registry_loss(tr, field, params, occ, data, batch, generator)
+
+    return loss_fn
+
+
+def registry_train(trainer, field, state, data, card, what, required, absent):
+    """``train_phase`` on the registry path: 64 warm-up steps and one timed
+    window of 50 on the full grid, which needs no refresh."""
+    return train_phase(trainer, state, data, card, warm=PERRAY_WARM, n_windows=PERRAY_WINDOWS,
+                       required=required, what=what, absent=absent,
+                       step=registry_step(trainer, field, data), refresh=False)
+
+
+def registry_view(trainer, field, params, occ, card, what, required, absent=REG_VIEW_ABSENT):
+    """``view_phase``'s view of a registry field under ``torch.no_grad()``,
+    in chunks of 16,384 rays with the field's background. Returns (ms,
+    launches, the counted render's sample positions strictly inside the box,
+    at most REG_COS_POINTS of them, spread over the view)."""
+    rc, b = trainer.eval_render_cfg, trainer.render_cfg.bound
+    n_chunks = -(-VIEW_HW * VIEW_HW // REG_CHUNK)
+    seen = []
+
+    def render(pose, intr):
+        ro, rd = (torch.from_numpy(t).to(DEVICE) for t in rays_full_image(pose, intr, VIEW_HW, VIEW_HW))
+        seen.clear()
+
+        def field_fn(x, d):
+            inside = x[(x.abs().amax(-1) < b - 1e-3)]
+            seen.append(inside[:: max(1, inside.shape[0] * n_chunks // REG_COS_POINTS)])
+            return field(params, planes, x, d)
+
+        with torch.no_grad():
+            planes = field.build_planes(params)
+            outs = [R.render_occgrid(field_fn, ro[s : s + REG_CHUNK], rd[s : s + REG_CHUNK], occ.occ, rc,
+                                     bg_fn=lambda sph, d: field.background(params, d),
+                                     occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox)
+                    for s in range(0, ro.shape[0], REG_CHUNK)]
+        return (torch.cat([o["image"] for o in outs]).reshape(VIEW_HW, VIEW_HW, 3),
+                torch.cat([o["depth"] for o in outs]).reshape(VIEW_HW, VIEW_HW))
+
+    ms = view_phase(trainer, None, card, what, render, required, absent)
+    return ms, dict(kernels.launches), torch.cat(seen)[:REG_COS_POINTS]
+
+
+def normal_checks(field, params, planes, x, cell, what):
+    """The analytic normals at the view's samples: on the card against the
+    plain versions on the CPU (4,096 samples; every cosine must exceed
+    0.999: a flipped bf16 rounding in the MLPs tilts a normal by far less);
+    and cos(analytic, finite-difference normal), as
+    tests/test_registry.py:132-157 measures it: on float32-MLP copies of the
+    field (a bf16 MLP's rounding over eps swamps a finite difference), with
+    eps = 0.05 of the finest cell, median and 10th percentile (the median
+    must exceed 0.9)."""
+    xs = x[:CHECK_RAYS]
+    with torch.no_grad():
+        n_card = field.normal(params, planes, xs).cpu()
+        n_cpu = field.normal(_to_cpu(params), _to_cpu(planes), xs.cpu())
+    cos_dev = (n_card * n_cpu).sum(-1)
+    f32 = dataclasses.replace(field.cfg, compute_dtype="float32")
+    names = (field.geometry, field.material, field.bg_kind)
+    an = REG.RegistryField(f32, *names, normal_type="analytic")
+    fd = REG.RegistryField(f32, *names, normal_type="finite_difference", fd_normal_eps=0.05 * cell)
+    with torch.no_grad():
+        cos = torch.cat([(fd.normal(params, planes, x[s : s + REG_CHUNK])
+                          * an.normal(params, planes, x[s : s + REG_CHUNK])).sum(-1)
+                         for s in range(0, x.shape[0], REG_CHUNK)]).cpu()
+    med, p10 = cos.median().item(), cos.quantile(0.1).item()
+    log(f"# {what}: analytic normals card vs CPU plain over {xs.shape[0]} view samples: cos median "
+        f"{cos_dev.median().item():.6f}, min {cos_dev.min().item():.6f}; cos(analytic, FD eps "
+        f"{fd.fd_normal_eps:.3g}) with float32 MLPs over {x.shape[0]} view samples: median {med:.4f}, "
+        f"10th percentile {p10:.4f}, min {cos.min().item():.4f}")
+    if not (torch.isfinite(cos).all() and torch.isfinite(cos_dev).all()):
+        raise RuntimeError(f"{what}: non-finite normals")
+    if not cos_dev.min().item() > 0.999:
+        raise RuntimeError(f"{what}: the card's analytic normals disagree with the plain versions "
+                           f"(min cos {cos_dev.min().item()})")
+    if not med > 0.9:
+        raise RuntimeError(f"{what}: analytic normals disagree with finite differences (median cos {med})")
+    return med, p10
+
+
+def _capture_registry_step(trainer, field, state, data):
+    """One registry step with every kernel wrapper's arguments recorded."""
+    V, H, Wd = data["images"].shape[:3]
+    with Capture() as cap:
+        state, _ = registry_step(trainer, field, data)(
+            state, batch=_batch(trainer, trainer.cfg.num_rays, V, H * Wd, SEED + 1))
+    torch.cuda.synchronize()
+    return state, cap.calls
+
+
+def _voxel_rows_touched(x, R_, bound):
+    _, q0, f = REG._voxel_cell(x, R_, bound)
+    return torch.unique(torch.cat([REG._voxel_corner(q0, f, R_, c)[0] for c in REG._CORNERS_3D])).numel()
+
+
+def _volume_grid_rows(calls):
+    """K10 forward and backward on the captured step's arguments, held to
+    the plain versions on the CPU (where x / bound is a true division, as in
+    the kernel; torch on the card divides by a CPU scalar as a multiply by
+    its reciprocal) and timed beside the plain versions on the card and
+    F.grid_sample (5-D, border, align_corners) and its backward."""
+    (grid, x, R_, bound), _ = calls["_sample_volume_grid_cuda"][0]
+    N, CH = x.shape[0], grid.shape[1]
+    got = REG._sample_volume_grid_cuda(grid, x, R_, bound)
+    err = (got.cpu() - REG.sample_volume_grid_plain(grid.cpu(), x.cpu(), R_, bound)).abs().max().item()
+    tol = 1e-6 * grid.abs().max().item()
+    if err > tol:
+        raise RuntimeError(f"K10 max|err| {err} > {tol}")
+    touched = _voxel_rows_touched(x, R_, bound)
+    vol = grid.view(R_, R_, R_, CH).permute(3, 0, 1, 2).contiguous()[None]
+    coords = (x[:, [2, 1, 0]] / bound).reshape(1, N, 1, 1, 3).contiguous()
+
+    def lib():
+        return F.grid_sample(vol, coords, mode="bilinear", padding_mode="border", align_corners=True)
+
+    lib_err = _rel(lib()[0, :, :, 0, 0].T, got)
+    b, by = bound_ms(nbytes(x, got) + 4 * CH * touched, N * (40 + 16 * CH))
+    rows = [dict(name="K10 sample_volume_grid", key="volume_grid", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/volume_grid.cu",
+                 replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=err, tol=tol,
+                 ms=time_ms(lambda: REG._sample_volume_grid_cuda(grid, x, R_, bound)),
+                 plain_ms=time_ms(lambda: REG.sample_volume_grid_plain(grid, x, R_, bound), iters=5),
+                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                 note=f"N={N} points, R={R_}, 1+F={CH} f32; {touched} of {R_ ** 3} rows touched; held "
+                      f"to the plain version on the CPU; library F.grid_sample 5-D border "
+                      f"align_corners (rel diff {lib_err:.2e})")]
+    (g, grid, x, R_, bound, need_grid, need_x), _ = calls["_sample_volume_grid_backward_cuda"][0]
+    gg, gx = REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, True, True)
+    rg, rx = REG.sample_volume_grid_backward_plain(g.cpu(), grid.cpu(), x.cpu(), R_, bound)
+    err_g, err_x = _rel(gg.cpu(), rg), _rel(gx.cpu(), rx)
+    if err_g > 1e-5 or err_x > 1e-5:
+        raise RuntimeError(f"K10 backward off its plain version: grid {err_g}, x {err_x} (rel, tol 1e-5)")
+    live = int((g != 0).any(-1).sum())
+    b, by = bound_ms(nbytes(g, x) + 4 * R_ ** 3 * CH + (4 * CH * touched + 12 * N if need_x else 0),
+                     live * 16 * CH * (2 if need_x else 1))
+    g5 = g.float().T.reshape(1, CH, N, 1, 1).contiguous()
+
+    def lib_bwd():
+        return torch.ops.aten.grid_sampler_3d_backward(g5, vol, coords, 0, 1, True, [True, need_x])
+
+    rows.append(dict(name="K10 sample_volume_grid backward", key="volume_grid_bwd", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/volume_grid.cu",
+                     replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=max(err_g, err_x),
+                     tol="1e-5 of the largest gradient, against the plain version on the CPU",
+                     ms=time_ms(lambda: REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, need_grid,
+                                                                              need_x)),
+                     plain_ms=time_ms(lambda: REG.sample_volume_grid_backward_plain(g, grid, x, R_, bound,
+                                                                                    need_grid, need_x), iters=5),
+                     bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
+                     note=f"the path's call (grid gradient {need_grid}, point gradient {need_x}); both "
+                          f"outputs held (rel {err_g:.2e}, {err_x:.2e}); {live} of {N} points carry a "
+                          f"cotangent; float32 atomics into {R_ ** 3} zeroed rows; library "
+                          f"aten.grid_sampler_3d_backward"))
+    return rows
+
+
+def _k11_errors(got, tex, d):
+    """K11 against its plain version on the CPU: the largest error off the
+    seam and the poles, at the poles (|d_y| / |d| > 0.999: acos's slope
+    magnifies an ulp), and on the seam (phi within 1e-5 of 0 = 2 pi, either
+    side's value); and the seam and pole masks (on the CPU)."""
+    dc = d.cpu()
+    ref = REG.background_textured_plain(tex.cpu(), dc)
+    other = REG.background_textured_plain(tex.cpu(), dc * torch.tensor([-1.0, 1.0, 1.0]))
+    phi = torch.atan2(dc[:, 0].double(), dc[:, 2].double()) + np.pi
+    seam = (torch.minimum(phi, 2 * np.pi - phi) < 1e-5) & (dc[:, 2] < 0)
+    pole = (dc[:, 1] / dc.norm(dim=-1)).abs() > 0.999
+    err = (got.cpu() - ref).abs().amax(-1)
+    err_seam = torch.minimum(err, (got.cpu() - other).abs().amax(-1))
+
+    def mx(t, m):
+        return t[m].max().item() if m.any() else 0.0
+
+    return mx(err, ~seam & ~pole), mx(err, pole & ~seam), mx(err_seam, seam), seam, pole
+
+
+def _textured_bg_rows(calls):
+    """K11 forward and backward on the captured step's arguments, held to the
+    plain versions on the CPU and timed beside the plain versions on the
+    card and a 2-D F.grid_sample of the texture (and its backward) at the
+    same texel coordinates, which computes less (no direction arithmetic,
+    no sigmoid)."""
+    (tex, d), _ = calls["_background_textured_cuda"][0]
+    H, W = tex.shape[:2]
+    N = d.shape[0]
+    got = REG._background_textured_cuda(tex, d)
+    e_main, e_pole, e_seam, seam, pole = _k11_errors(got, tex, d)
+    if e_main > 1e-4 or e_pole > 1e-3 or e_seam > 1e-4:
+        raise RuntimeError(f"K11 off its plain version: {e_main} (tol 1e-4), poles {e_pole} (1e-3), "
+                           f"seam {e_seam} (1e-4)")
+    taps = REG._texel_taps(d, H, W)
+    touched = torch.unique(torch.cat([r for r, _ in taps])).numel()
+    dn = d / d.norm(dim=-1, keepdim=True)
+    v = torch.clamp(torch.acos(torch.clamp(dn[:, 1], -1, 1)) / np.pi * (H - 1), 0, H - 1)
+    u = torch.clamp((torch.atan2(dn[:, 0], dn[:, 2]) + np.pi) / (2 * np.pi) * (W - 1), 0, W - 1)
+    coords = torch.stack([u / (W - 1) * 2 - 1, v / (H - 1) * 2 - 1], -1).reshape(1, N, 1, 2).contiguous()
+    img = tex.permute(2, 0, 1).contiguous()[None]
+
+    def lib():
+        return F.grid_sample(img, coords, mode="bilinear", padding_mode="border", align_corners=True)
+
+    b, by = bound_ms(nbytes(d, got) + 12 * touched, N * 80)
+    rows = [dict(name="K11 background_textured", key="textured_bg", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/textured_bg.cu",
+                 replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=max(e_main, e_seam),
+                 tol="1e-4 (acosf/atan2f ulps times the texel slope; 1e-3 within 2.6 degrees of a "
+                     "pole; either side of the seam)",
+                 ms=time_ms(lambda: REG._background_textured_cuda(tex, d)),
+                 plain_ms=time_ms(lambda: REG.background_textured_plain(tex, d), iters=5),
+                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                 note=f"N={N} rays, {H}x{W} texture ({touched} texels touched); {int(seam.sum())} rays on "
+                      f"the seam, {int(pole.sum())} near a pole (max|err| {e_pole:.2e}); library "
+                      f"F.grid_sample 2-D at precomputed texel coordinates, no sigmoid")]
+    (g, s, d, H, W), _ = calls["_background_textured_backward_cuda"][0]
+    gz = torch.where((seam | pole).to(g.device)[:, None], 0.0, g)  # rays whose taps may differ
+    gt = REG._background_textured_backward_cuda(gz, s, d, H, W)
+    err = _rel(gt.cpu(), REG.background_textured_backward_plain(gz.cpu(), s.cpu(), d.cpu(), H, W))
+    if err > 1e-5:
+        raise RuntimeError(f"K11 backward off its plain version: {err} (rel, tol 1e-5)")
+    gpre = (g * (s * (1 - s))).T.reshape(1, 3, N, 1).contiguous()
+
+    def lib_bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(gpre, img, coords, 0, 1, True, [True, False])
+
+    b, by = bound_ms(nbytes(g, s, d) + 12 * H * W, N * 90)
+    rows.append(dict(name="K11 background_textured backward", key="textured_bg_bwd", route="cuda",
+                     source="trinerflet_tpu_torch/kernels/csrc/textured_bg.cu",
+                     replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=err,
+                     tol="1e-5 of the largest gradient (seam and pole rays without cotangent)",
+                     ms=time_ms(lambda: REG._background_textured_backward_cuda(g, s, d, H, W)),
+                     plain_ms=time_ms(lambda: REG.background_textured_backward_plain(g, s, d, H, W), iters=5),
+                     bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
+                     note=f"float32 atomics into the {H}x{W}x3 texture gradient; library "
+                          f"aten.grid_sampler_2d_backward of the precomputed sigmoid cotangent"))
+    return rows
+
+
+def _k7x_rows(calls):
+    """K7x on the first captured chunk's arguments: every captured call held
+    to its plain version on the card, the first timed."""
+    err = 0.0
+    for (args, _) in calls["_grid_encode_backward_x_cuda"]:
+        err = max(err, _rel(GE._grid_encode_backward_x_cuda(*args), GE.grid_encode_backward_x_plain(*args)))
+    if err > 1e-5:
+        raise RuntimeError(f"K7x off its plain version: {err} (rel, tol 1e-5)")
+    (g, tables, x, cfg, bound), _ = calls["_grid_encode_backward_x_cuda"][0]
+    N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
+    touched = _touched_rows(x, cfg, bound)
+    b, by = bound_ms(nbytes(g, x) + 12 * N + 4 * C * touched, N * L * (30 + 8 * (2 * C + 8)))
+    return [dict(name="K7x grid_encode coordinate gradient", key="grid_encode_bwd_x", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
+                 replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err,
+                 tol="1e-5 of the largest entry",
+                 ms=time_ms(lambda: GE._grid_encode_backward_x_cuda(g, tables, x, cfg, bound)),
+                 plain_ms=time_ms(lambda: GE.grid_encode_backward_x_plain(g, tables, x, cfg, bound), iters=5),
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 note=f"N={N} points x {L} levels of C={C}; {touched} table rows touched; "
+                      f"{len(calls['_grid_encode_backward_x_cuda'])} call(s) of one view chunk held; "
+                      f"library: none (no single call)")]
+
+
+def _capture_view_chunk(trainer, field, params, occ):
+    """The first chunk of the view with every kernel wrapper's arguments
+    recorded."""
+    intr = synthetic_intrinsics(VIEW_HW, VIEW_HW)
+    ro, rd = rays_full_image(orbit_pose(np.arccos(1 - 1.6 * 0.5 / 8), 0.0, 2.0), intr, VIEW_HW, VIEW_HW)
+    s = VIEW_HW * VIEW_HW // 2 - REG_CHUNK // 2
+    ro, rd = torch.from_numpy(ro[s : s + REG_CHUNK]).to(DEVICE), torch.from_numpy(rd[s : s + REG_CHUNK]).to(DEVICE)
+    with Capture() as cap, torch.no_grad():
+        planes = field.build_planes(params)
+        R.render_occgrid(lambda x, d: field(params, planes, x, d), ro, rd, occ.occ, trainer.eval_render_cfg,
+                         bg_fn=lambda sph, d: field.background(params, d), occ_coarse=occ.occ_coarse,
+                         occ_bbox=occ.bbox)
+    torch.cuda.synchronize()
+    return cap.calls
+
+
+def registry_grid_phase(scene, card):
+    """volume-grid (JAX's default VolumeGridConfig: R = 64, F = 15),
+    neural-radiance-material and textured-background (64 x 128) behind
+    bg_fn: 64 + 50 steps on a full grid, one 800^2 view, a captured step's
+    rows (K10, K11, and the path's march and compositor), the step check."""
+    nerf_cfg, render_cfg, train_cfg = registry_configs()
+    trainer = Trainer(nerf_cfg, render_cfg, train_cfg, device=DEVICE)
+    init_fn, field = REG.make_field(nerf_cfg, "volume-grid", "neural-radiance-material", "textured-background")
+    state = registry_state(init_fn, full_occupancy(render_cfg))
+    log(f"# registry-grid: voxel grid {tuple(state.params['encoder']['grid'].shape)} f32 "
+        f"({nbytes(state.params['encoder']['grid']) / 1e6:.1f} MB), texture "
+        f"{tuple(state.params['bg_texture'].shape)}; params {sorted(state.params)}")
+    data = trainer.scene_to_device(scene)
+    what = "registry-grid train"
+    state, launches, stats = registry_train(trainer, field, state, data, card, what, REG_GRID_KERNELS,
+                                            REG_GRID_ABSENT)
+    ms, _, _ = registry_view(trainer, field, state.ema_params, state.occ, card, "registry-grid",
+                             REG_GRID_VIEW_KERNELS)
+    state, calls = _capture_registry_step(trainer, field, state, data)
+    rows = (label_rows(_volume_grid_rows(calls) + _textured_bg_rows(calls), launches, what)
+            + path_kernel_rows(trainer, calls, launches, what))
+    del calls
+    step_check(trainer, state, data, "registry-grid", loss_fn=registry_loss_fn(field))
+    return rows, dict(stats, launches=launches, view_ms=ms)
+
+
+def _sdf_rows(trainer, calls, launches, what):
+    """The registry-sdf step's rows: K2 forward and backward at the field's
+    points and at the finite-difference stencil's (three points per sample),
+    K4 forward over the step's ladder, and the path's march, adjoint and
+    compositor (``path_kernel_rows``)."""
+    first = {}  # one K2 call of each size: the field's points, the stencil
+    for i, ((planes, xyz, lb), _) in enumerate(calls["_sample_points_cuda"]):
+        first.setdefault(xyz.shape[0], i)
+    M = min(first)
+    rows = []
+    for m, i in sorted(first.items()):
+        planes, xyz, lb = calls["_sample_points_cuda"][i][0]
+        rows += _sample_fwd_rows(planes, xyz, lb, " (FD stencil)" if m > M else " (field points)")
+    bwd = {}
+    for i, ((g, xyz, *_), _) in enumerate(calls["_sample_points_backward_cuda"]):
+        bwd.setdefault(xyz.shape[0], i)
+    for m, i in sorted(bwd.items()):
+        rows += _sample_bwd_rows(calls, i, " (FD stencil)" if m > M else " (field points)")
+    tcfg = trainer.nerf_cfg.triplane
+    levels = [_k4_level(yl, yh, name)[1] for (yl, yh, name), _ in calls["_idwt2d_cuda"][: tcfg.levels]]
+    rows.append(_k4_row(levels, "K4 idwt2d", f"the step's ladder, sum over the {len(levels)} levels "))
+    return label_rows(rows, launches, what) + path_kernel_rows(
+        trainer, calls, launches, what, only=("_march_cuda", "_idwt2d_adjoint_cuda", "_composite_cuda"))
+
+
+def registry_sdf_phase(scene, card):
+    """implicit-sdf on bench's triplane, diffuse-with-point-light-material
+    with finite-difference normals, the env-map background: 64 + 50 steps
+    on a full grid, a captured step's rows, the step check on the initial
+    parameters (held with float32 MLPs, read with bf16 ones); then one 800^2
+    view with analytic normals under no_grad (K2x without a plane
+    gradient), the K2x row of a captured chunk, and the normals' checks."""
+    nerf_cfg, render_cfg, train_cfg = registry_configs()
+    trainer = Trainer(nerf_cfg, render_cfg, train_cfg, device=DEVICE)
+    names = ("implicit-sdf", "diffuse-with-point-light-material", "neural-environment-map-background")
+    init_fn, field = REG.make_field(nerf_cfg, *names, normal_type="finite_difference")
+    state = registry_state(init_fn, full_occupancy(render_cfg))
+    initial = _snapshot(state)
+    data = trainer.scene_to_device(scene)
+    what = "registry-sdf train"
+    state, launches, stats = registry_train(trainer, field, state, data, card, what, REG_SDF_KERNELS,
+                                            REG_SDF_ABSENT)
+    state, calls = _capture_registry_step(trainer, field, state, data)
+    rows = _sdf_rows(trainer, calls, launches, what)
+    del calls
+    # the check is held with the MLPs in float32: the finite-difference
+    # normal divides the bf16 MLPs' rounding, which the card and the CPU may
+    # flip, by eps; the bf16 field's readings on three batches are logged
+    # beside it; diffuse shading reads no colour net (its gradient is 0)
+    f32 = dataclasses.replace(nerf_cfg, compute_dtype="float32")
+    step_check(Trainer(f32, render_cfg, train_cfg, device=DEVICE), initial, data,
+               "registry-sdf (initial field, float32 MLPs)", unused=("color_net",),
+               loss_fn=registry_loss_fn(REG.RegistryField(f32, *names, normal_type="finite_difference")))
+    bf16 = [step_check(trainer, initial, data, f"registry-sdf (initial field, bf16 MLPs, batch {k})",
+                       unused=("color_net",), loss_fn=registry_loss_fn(field), seed=SEED + 2 + k, hold=False)
+            for k in range(3)]
+    log(f"# registry-sdf bf16 step check readings (not held): largest gradient rel L2 per batch "
+        f"{[float(f'{max(e.values()):.3e}') for _, e in bf16]}, loss rel {[float(f'{l:.2e}') for l, _ in bf16]}")
+    an = REG.RegistryField(nerf_cfg, *names, normal_type="analytic")
+    vwhat = "registry-sdf analytic view"
+    ms, vlaunches, x = registry_view(trainer, an, state.params, state.occ, card, "registry-sdf analytic",
+                                     REG_SDF_VIEW_KERNELS)
+    calls = _capture_view_chunk(trainer, an, state.params, state.occ)
+    rows += label_rows(_sample_xyz_rows(calls, lambda planes: " (analytic normals)"), vlaunches, vwhat)
+    del calls
+    with torch.no_grad():
+        planes = an.build_planes(state.params)
+    cell = 2 * nerf_cfg.bound / (nerf_cfg.triplane.resolution - 1)
+    med, p10 = normal_checks(an, state.params, planes, x, cell, "registry-sdf normals")
+    return rows, dict(stats, launches=launches, view_ms=ms, view_launches=vlaunches, cos_median=med,
+                      cos_p10=p10)
+
+
+def registry_hash_phase(card, hash_stats):
+    """The hash-grid phase's trained field (its EMA parameters and
+    occupancy) under diffuse-with-point-light-material with analytic
+    normals: one 800^2 view under no_grad (K7 and K7x), the K7 and K7x rows
+    of a captured chunk, the cosine of analytic and FD normals."""
+    nerf_cfg, render_cfg, train_cfg = hashgrid_configs()
+    trainer = Trainer(nerf_cfg, render_cfg, train_cfg, device=DEVICE)
+    names = ("implicit-volume", "diffuse-with-point-light-material", "solid-color-background")
+    an = REG.RegistryField(nerf_cfg, *names, normal_type="analytic")
+    params, occ = hash_stats["params"], hash_stats["occ"]
+    params = TR._map(lambda t: t.requires_grad_(True), params)  # as a training state holds them
+    ms, launches, x = registry_view(trainer, an, params, occ, card, "registry-hash-normals",
+                                    REG_HASH_VIEW_KERNELS)
+    calls = _capture_view_chunk(trainer, an, params, occ)
+    rows = label_rows(_grid_encode_fwd_rows(calls) + _k7x_rows(calls), launches, "registry-hash-normals view")
+    del calls
+    grid = grid_config(nerf_cfg.encoding, grid_cfg=nerf_cfg.grid)
+    cell = 2 * nerf_cfg.bound / grid.level_resolution(grid.num_levels - 1)
+    med, p10 = normal_checks(an, params, {}, x, cell, "registry-hash-normals")
+    return rows, dict(view_ms=ms, launches=launches, cos_median=med, cos_p10=p10)
+
+
+def second_order_phase():
+    """A create_graph=True first derivative through each kernel function on
+    the card, then a backward through it: each must raise torch's
+    once_differentiable error, as the CPU tests' plain versions do
+    (``tests/test_torch_second_order.py``)."""
+    g = torch.Generator().manual_seed(SEED)
+
+    def rnd(*shape, lo=0.0, hi=1.0, grad=False):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(DEVICE).requires_grad_(grad)
+
+    def pts():
+        return rnd(256, 3, lo=-0.9, hi=0.9, grad=True)
+
+    cfg7 = GE.GridEncoderConfig(num_levels=4, level_dim=2, base_resolution=8, desired_resolution=64,
+                                log2_hashmap_size=12)
+    N, S = 8, 4
+    comp = RM.CompactSamples(torch.zeros((N * S, 3), device=DEVICE), torch.zeros((N * S, 3), device=DEVICE),
+                             torch.cumsum(rnd(N * S, lo=0.01, hi=0.1), 0), rnd(N * S, lo=0.01, hi=0.1),
+                             torch.arange(N, dtype=torch.int32, device=DEVICE).repeat_interleave(S),
+                             torch.arange(N, dtype=torch.int32, device=DEVICE) * S,
+                             torch.full((N,), S, dtype=torch.int32, device=DEVICE),
+                             torch.tensor(N * S, dtype=torch.int32, device=DEVICE))
+    deltas = rnd(16, 8, lo=0.01, hi=0.1)
+    cases = {
+        "K2 sample_points": lambda x: GS.sample_points(rnd(3, 16, 16, 16, grad=True), x, 1.0),
+        "K7 grid_encode": lambda x: GE.grid_encode(
+            {k: v.requires_grad_(True) for k, v in GE.init_grid_params(cfg7, g, DEVICE, std=0.5).items()},
+            x, cfg7, 1.0),
+        "K10 sample_volume_grid": lambda x: REG.sample_volume_grid(
+            {"grid": rnd(16, 16, 16, 4, lo=-1.0, grad=True)}, x, REG.VolumeGridConfig(16, 3), 1.0),
+        "K11 background_textured": None,
+        "K4 idwt2d": None,
+        "K3 composite_dense": None,
+        "K3c composite_compact": None,
+    }
+    inputs = {"K11 background_textured": rnd(64, 128, 3, lo=-1.0, grad=True),
+              "K4 idwt2d": rnd(3, 4, 12, 12, grad=True), "K3 composite_dense": rnd(16, 8, hi=5.0, grad=True),
+              "K3c composite_compact": rnd(N * S, hi=5.0, grad=True)}
+    cases["K11 background_textured"] = lambda t: REG.background_textured({"bg_texture": t}, rnd(256, 3, lo=-1.0))
+    cases["K4 idwt2d"] = lambda yl: W.idwt2d(yl, rnd(3, 4, 3, 12, 12, grad=True), "bior2.2")
+    cases["K3 composite_dense"] = lambda s: RM.composite_dense(s, rnd(16, 8, 3, grad=True), deltas,
+                                                               torch.cumsum(deltas, 1))[2]
+    cases["K3c composite_compact"] = lambda s: RM.composite_compact(s, rnd(N * S, 3, grad=True), comp, N)[2]
+    kernels.reset_launches()
+    for name, fn in cases.items():
+        x = inputs.get(name)
+        x = pts() if x is None else x
+        (gx,) = torch.autograd.grad(fn(x).sum(), [x], create_graph=True)
+        try:
+            gx.square().sum().backward()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        if "differentiate twice" not in raised:
+            raise RuntimeError(f"a second derivative through {name} on the card did not raise torch's "
+                               f"once_differentiable error: {raised!r}")
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels.launches.items() if v}
+    log(f"# second-order: a backward through each create_graph=True first derivative raised on the card "
+        f"({', '.join(cases)}); first-order launches {launched}")
+    for name in ("grid_sample_bwd_xyz", "grid_encode_bwd_x", "volume_grid_bwd", "textured_bg_bwd",
+                 "idwt_adjoint", "composite_bwd", "composite_compact_bwd"):
+        if launched.get(name, 0) == 0:
+            raise RuntimeError(f"the second-order phase did not launch {name}")
+
+
 def _check_layout(launches, what):
     """The occgrid path composited on the per-ray layout (K3) or the global
     one (K5 + K3c), whichever the tuner chose."""
@@ -1761,8 +2390,8 @@ class _ZoomTerms:
         self._orig = {n: getattr(GS, n) for n in ("_sample_points_backward_xyz_cuda",
                                                   "sample_points_backward_xyz_plain")}
         for n, fn in self._orig.items():
-            def wrap(g, planes, xyz, lb, _fn=fn):
-                out = _fn(g, planes, xyz, lb)
+            def wrap(g, planes, xyz, lb, _fn=fn, **kw):
+                out = _fn(g, planes, xyz, lb, **kw)
                 t = (xyz.detach().double() * out[1].double())
                 self.signed += t.sum().item()
                 self.absolute += t.abs().sum().item()
@@ -1775,12 +2404,16 @@ class _ZoomTerms:
             setattr(GS, n, fn)
 
 
-def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=()):
+def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=(), loss_fn=None, seed=SEED + 2,
+               hold=True):
     """One step's loss and gradients at full width on ``n_rays`` rays with an
     injected batch and noise: kernels on the card vs plain versions on the CPU,
     on the trainer's current layout. The groups in ``unused`` (the background
     net, which the trainer, as the JAX trainer, never renders) must get an
     exactly zero gradient on both; every other group a non-zero one.
+    ``loss_fn(trainer, params, occ, data, batch, generator) -> (loss, aux)``
+    is the step's loss (default the trainer's); ``seed`` draws the batch;
+    without ``hold`` the check is read and logged, and nothing is held.
 
     A learned zoom's gradient is one scalar: the sum of every sample's
     -c dL/dc / lbound_scale (``_ZoomTerms``), whose signed terms cancel, so
@@ -1789,7 +2422,10 @@ def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=()):
     their magnitudes: the K2x output is what reaches it)."""
     cfg = dataclasses.replace(trainer.cfg, num_rays=n_rays)
     V, H, Wd = data["images"].shape[:3]
-    batch = _batch(trainer, n_rays, V, H * Wd, SEED + 2)
+    batch = _batch(trainer, n_rays, V, H * Wd, seed)
+    if loss_fn is None:
+        def loss_fn(tr, params, occ, d, batch, generator):
+            return tr._loss_fn(params, occ, d, batch, False, generator)
     results = {}
     for dev in (DEVICE, "cpu"):
         tr = Trainer(trainer.nerf_cfg, trainer.render_cfg, cfg, device=dev)
@@ -1799,7 +2435,7 @@ def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=()):
              "intrinsics": data["intrinsics"]}
         t0 = time.perf_counter()
         with _ZoomTerms() as zoom:
-            loss, aux = tr._loss_fn(params, occ, d, batch, False, torch.Generator(device=dev))
+            loss, aux = loss_fn(tr, params, occ, d, batch, torch.Generator(device=dev))
             named = TR._leaves(params)
             grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
@@ -1825,13 +2461,15 @@ def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=()):
     log(f"# {what} step check ({n_rays} rays, full width): loss card {lg:.7f} vs CPU plain {lc:.7f} "
         f"(rel {loss_err:.2e}, tol {CHECK_LOSS_TOL}); samples {ng} vs {nc}; gradient rel L2 "
         f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {CHECK_GRAD_TOL}); "
-        f"{tg:.2f} s on the card, {tc:.2f} s on the CPU")
+        f"{tg:.2f} s on the card, {tc:.2f} s on the CPU{'' if hold else '; read, not held'}")
+    if not hold:
+        return loss_err, errs
     if ng != nc:
         raise RuntimeError("the march kept different samples on the card and on the CPU")
     if loss_err > CHECK_LOSS_TOL or max(errs.values()) > CHECK_GRAD_TOL:
-        raise RuntimeError("the kernel step disagrees with the plain versions")
+        raise RuntimeError(f"the {what} kernel step disagrees with the plain versions")
     if min(torch.linalg.norm(gc[k]).item() for k in errs) == 0:
-        raise RuntimeError("a parameter group got no gradient")
+        raise RuntimeError(f"a {what} parameter group got no gradient")
     if any(gg[k].abs().max() != 0 or gc[k].abs().max() != 0 for k in unused):
         raise RuntimeError(f"an unused group ({unused}) got a gradient")
     return loss_err, errs
@@ -1914,6 +2552,17 @@ def main() -> int:
     kp_rows, kstats = kplanes_phases(scene, card)
     rows += kp_rows
     log(f"# k-planes phases done at {time.perf_counter() - t_start:.1f} s")
+    rg_rows, rgstats = registry_grid_phase(scene, card)
+    rows += rg_rows
+    log(f"# registry-grid phases done at {time.perf_counter() - t_start:.1f} s")
+    rs_rows, rsstats = registry_sdf_phase(scene, card)
+    rows += rs_rows
+    log(f"# registry-sdf phases done at {time.perf_counter() - t_start:.1f} s")
+    rh_rows, rhstats = registry_hash_phase(card, hstats)
+    rows += rh_rows
+    del hstats["params"], hstats["occ"]
+    log(f"# registry-hash-normals phase done at {time.perf_counter() - t_start:.1f} s")
+    second_order_phase()
 
     for r in rows:
         log(f"# {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.6f} "
@@ -1960,6 +2609,18 @@ def main() -> int:
         f"{kstats['rays_per_s']:.1f} rays/s, {kstats['samples_per_ray']:.3f} kept samples/ray, loss "
         f"{kstats['loss_first']:.5f} -> {kstats['loss_last']:.5f}; ms/view {kstats['view_ms']} on "
         f"{card}; launches {kstats['launches']}")
+    log(f"# registry-grid train (volume grid R 64 x 16, radiance material, textured background): "
+        f"{rgstats['ms_per_step']:.3f} ms/step, {rgstats['rays_per_s']:.1f} rays/s, "
+        f"{rgstats['samples_per_ray']:.3f} kept samples/ray, loss {rgstats['loss_first']:.5f} -> "
+        f"{rgstats['loss_last']:.5f}; ms/view {rgstats['view_ms']} on {card}; launches {rgstats['launches']}")
+    log(f"# registry-sdf train (SDF on bench's triplane, diffuse material, FD normals, env map): "
+        f"{rsstats['ms_per_step']:.3f} ms/step, {rsstats['rays_per_s']:.1f} rays/s, loss "
+        f"{rsstats['loss_first']:.5f} -> {rsstats['loss_last']:.5f}; analytic view ms/view "
+        f"{rsstats['view_ms']}; cos(analytic, FD) median {rsstats['cos_median']:.4f}, 10th percentile "
+        f"{rsstats['cos_p10']:.4f} on {card}; launches {rsstats['launches']}, view {rsstats['view_launches']}")
+    log(f"# registry-hash-normals view (hash grid, diffuse material, analytic normals): ms/view "
+        f"{rhstats['view_ms']}; cos(analytic, FD) median {rhstats['cos_median']:.4f}, 10th percentile "
+        f"{rhstats['cos_p10']:.4f} on {card}; launches {rhstats['launches']}")
     log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Each CUDA kernel (K1-K4 forward and backward, K2x, K1f, K5, K3c forward
-and backward, K6, K7 forward and backward) against its plain PyTorch
-version, on the card.
+and backward, K6, K7 forward and backward, K7x, K10 and K11 forward and
+backward) against its plain PyTorch version, on the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
@@ -35,6 +35,28 @@ the other. K2x: the plane gradient
 as K2's backward; the coordinate gradient within 1e-5 of its largest entry
 (the kernel fuses the channel sums' multiply-adds), rows with no cotangent
 exactly 0.
+K10 (the voxel grid) and K11 (the textured background) round each
+operation alone, as their plain versions do; they are held to the plain
+versions run on the CPU, where x / bound and theta / pi are true divisions
+as in the kernels (on the card torch divides by a CPU scalar as a multiply
+by its reciprocal, so a point on a node could take the neighbour cell).
+K10's features within 1e-6 of the grid's magnitude (expected equal); K11's
+colours within 1e-4: CUDA's acosf and atan2f differ from the CPU's by an
+ulp or two (~5e-7 rad), which moves u or v by up to ~5e-5 texels, times
+this N(0, 1) texture's steepest neighbour difference (~6) and the
+sigmoid's slope 1/4 (measured 1.4e-5); a direction within 1e-5 of the
+texture's seam may take either side's value, as in the CPU tests; within
+2.6 degrees of a pole (|d_y| / |d| > 0.999), where acos's slope
+1 / sqrt(1 - y^2) magnifies those ulps, 1e-3. Their
+backwards' float atomics add in an unspecified
+order: gradients within 1e-5 of the largest entry; K11's within 1e-4, from
+the same sigmoid output and with no cotangent on the seam's and the poles'
+rays, since its tap weights inherit the direction arithmetic's ulps as its
+colours do. K7x fuses no
+multiply-add where its plain version does not, but sums the corners and
+channels in another order: within 1e-5 of its largest entry. A second
+derivative through each kernel function raises as on the CPU
+(``tests/test_torch_second_order.py``'s cases).
 """
 
 import numpy as np
@@ -42,7 +64,9 @@ import pytest
 import torch
 
 from trinerflet_tpu_torch import kernels
+from tests.test_torch_second_order import check_second_order_raises, second_order_cases
 from trinerflet_tpu_torch.models import gridencoder as GE
+from trinerflet_tpu_torch.models import registry as REG
 from trinerflet_tpu_torch.ops import grid_sample as GS
 from trinerflet_tpu_torch.ops import raymarch as RM
 from trinerflet_tpu_torch.ops import wavelets as W
@@ -231,6 +255,30 @@ def test_sample_backward_xyz_kernel_matches_plain(dev, dtype, C):
     assert _rel_close(pg, rpg, 1e-5 if dtype == torch.float32 else 2.0**-7)
     assert _rel_close(xg, rxg, 1e-5)
     assert (xg[3000:5000] == 0).all() and (xg[:900] != 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_backward_xyz_kernel_without_plane_gradient(dev, dtype):
+    """K2x as an analytic normal calls it (planes_grad=False): one launch, no
+    plane gradient, dL/dxyz as with it and as the plain version on the CPU
+    (where xyz / 1.5 is a true division, as in the kernel: on the card torch
+    multiplies by the reciprocal, and a point on a cell edge may take the
+    neighbour cell's slope)."""
+    planes, xyz, ct = _k2x_inputs(dev, dtype, 64, 48, 16, 20000, 8)
+    n0 = kernels.launches["grid_sample_bwd_xyz"]
+    pg, xg = GS._sample_points_backward_xyz_cuda(ct, planes, xyz, 1.5, planes_grad=False)
+    assert kernels.launches["grid_sample_bwd_xyz"] == n0 + 1
+    _, xg_full = GS._sample_points_backward_xyz_cuda(ct, planes, xyz, 1.5)
+    rpg, rxg = GS.sample_points_backward_xyz_plain(ct.cpu(), planes.cpu(), xyz.cpu(), 1.5, planes_grad=False)
+    torch.cuda.synchronize()
+    assert pg is None and rpg is None and xg.shape == (20000, 3) and xg.dtype == torch.float32
+    assert torch.equal(xg, xg_full)
+    assert _rel_close(xg.cpu(), rxg, 1e-5)
+    x = xyz.clone().requires_grad_(True)  # autograd asks for it when the planes need no gradient
+    n0 = kernels.launches["grid_sample_bwd_xyz"]
+    (gx,) = torch.autograd.grad((GS.sample_points(planes, x, 1.5) * ct).sum(), x)
+    assert kernels.launches["grid_sample_bwd_xyz"] == n0 + 1
+    assert torch.equal(gx, xg)
 
 
 def test_sample_points_autograd_launches_k2x_only_for_points(dev):
@@ -454,3 +502,123 @@ def test_grid_encode_autograd_launches_and_refuses(dev):
         GE._grid_encode_cuda(tables, x, GE.GridEncoderConfig(num_levels=5, level_dim=3), 1.5)
     with pytest.raises(ValueError, match="level_0"):
         GE._grid_encode_cuda([t.double() for t in tables], x, cfg, 1.5)
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_grid_encode_backward_x_kernel_matches_plain(dev, case):
+    cfg = GE.GridEncoderConfig(**K7_CASES[case])
+    x, tables = _k7_inputs(dev, cfg, 1.5, 50000, 14)
+    x[2:100] = torch.tensor([1.0, -1.0, 0.5], device=dev)  # u = 0 or 1 exactly at bound 1: the ties
+    ct = torch.randn((50000, cfg.output_dim), generator=torch.Generator().manual_seed(15)).to(dev)
+    ct[5000:9000] = 0.0
+    for bound in (1.0, 1.5):
+        n0 = kernels.launches["grid_encode_bwd_x"]
+        got = GE._grid_encode_backward_x_cuda(ct, tables, x, cfg, bound)
+        assert kernels.launches["grid_encode_bwd_x"] == n0 + 1
+        ref = GE.grid_encode_backward_x_plain(ct, tables, x, cfg, bound)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (50000, 3)
+        assert _rel_close(got, ref, 1e-5)
+        assert (got[5000:9000] == 0).all()
+
+
+def test_grid_encode_autograd_launches_k7x_for_points(dev):
+    cfg = GE.GridEncoderConfig(**K7_CASES["hashgrid"])
+    x, tables = _k7_inputs(dev, cfg, 1.5, 4000, 16)
+    params = {f"level_{l}": t for l, t in enumerate(tables)}
+    names = ("grid_encode_bwd", "grid_encode_bwd_x")
+    n0 = [kernels.launches[k] for k in names]
+    x.requires_grad_(True)
+    (gx,) = torch.autograd.grad(GE.grid_encode(params, x, cfg, 1.5).square().sum(), [x])
+    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [0, 1]  # no table gradient asked for
+    assert torch.isfinite(gx).all() and gx.abs().sum() > 0
+
+
+def _volume_inputs(dev, R, CH, N, bound, seed):
+    g = torch.Generator().manual_seed(seed)
+    grid = torch.randn((R**3, CH), generator=g)
+    x = (2 * torch.rand((N, 3), generator=g) - 1) * 1.1 * bound     # inside and outside
+    k = torch.randint(0, R, (N // 4, 3), generator=g)
+    x[: N // 4] = (2.0 * k / (R - 1) - 1.0) * bound                 # on the nodes
+    x[N // 4 : N // 4 + 6] = torch.tensor([[bound, 0.1, 0.2], [-bound, 0.1, 0.2], [0.1, bound, 0.2],
+                                           [0.1, -bound, 0.2], [0.1, 0.2, bound], [0.1, 0.2, -bound]])
+    x[N // 2 : N // 2 + 3000] = 0.3                                   # contention on one cell
+    ct = torch.randn((N, CH), generator=g)
+    ct[N - 4000 :] = 0.0                                              # masked samples
+    return grid.to(dev), x.to(dev), ct.to(dev)
+
+
+@pytest.mark.parametrize("R,CH", [(64, 16), (16, 5), (128, 8)])
+def test_volume_grid_kernels_match_plain(dev, R, CH):
+    bound = 1.5
+    grid, x, ct = _volume_inputs(dev, R, CH, 60000, bound, 17)
+    n0 = kernels.launches["volume_grid"]
+    got = REG._sample_volume_grid_cuda(grid, x, R, bound)
+    assert kernels.launches["volume_grid"] == n0 + 1
+    ref = REG.sample_volume_grid_plain(grid.cpu(), x.cpu(), R, bound)
+    assert got.shape == ref.shape == (60000, CH)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-6 * grid.abs().max().item()
+    n0 = kernels.launches["volume_grid_bwd"]
+    gg, gx = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound)
+    assert kernels.launches["volume_grid_bwd"] == n0 + 1
+    rgg, rgx = REG.sample_volume_grid_backward_plain(ct.cpu(), grid.cpu(), x.cpu(), R, bound)
+    assert _rel_close(gg.cpu(), rgg, 1e-5) and _rel_close(gx.cpu(), rgx, 1e-5)
+    assert (gx[-4000:] == 0).all() and (gg.abs().sum(-1) > 0).any()
+    only_grid = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound, x_grad=False)
+    only_x = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound, grid_grad=False)
+    assert only_grid[1] is None and only_x[0] is None
+    assert _rel_close(only_grid[0].cpu(), rgg, 1e-5) and torch.equal(only_x[1], gx)
+
+
+def test_volume_grid_autograd_and_refusals(dev):
+    cfg = REG.VolumeGridConfig(resolution=32, feature_dim=7)
+    grid, x, ct = _volume_inputs(dev, 32, 8, 5000, 1.0, 18)
+    params = {"grid": grid.reshape(32, 32, 32, 8).requires_grad_(True)}
+    n0, n1 = kernels.launches["volume_grid"], kernels.launches["volume_grid_bwd"]
+    (REG.sample_volume_grid(params, x, cfg, 1.0) * ct).sum().backward()
+    assert kernels.launches["volume_grid"] == n0 + 1 and kernels.launches["volume_grid_bwd"] == n1 + 1
+    assert params["grid"].grad.shape == (32, 32, 32, 8)
+    with pytest.raises(ValueError, match="f32"):
+        REG._sample_volume_grid_cuda(grid.double(), x, 32, 1.0)
+    with pytest.raises(ValueError, match="rows"):
+        REG._sample_volume_grid_cuda(grid[:100], x, 32, 1.0)
+
+
+def test_textured_background_kernels_match_plain(dev):
+    g = torch.Generator().manual_seed(19)
+    H, W = 64, 128
+    tex = torch.randn((H, W, 3), generator=g).to(dev)
+    d = torch.randn((50000, 3), generator=g)
+    d[:200, 0] = 0.0                                   # on the seam (d_z < 0 for about half)
+    d[200:400] = d[200:400] * torch.tensor([0.0, 1.0, 1.0]) + torch.tensor([1e-7, 0.0, -0.0])
+    d[400:402] = torch.tensor([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0]])  # the poles
+    d[402:450, 1] = 300.0 * torch.sign(d[402:450, 1])                  # near them
+    d = d.to(dev)
+    n0 = kernels.launches["textured_bg"]
+    got = REG._background_textured_cuda(tex, d)
+    assert kernels.launches["textured_bg"] == n0 + 1
+    tc, dc = tex.cpu(), d.cpu()
+    ref = REG.background_textured_plain(tc, dc)
+    other = REG.background_textured_plain(tc, dc * torch.tensor([-1.0, 1.0, 1.0]))
+    phi = torch.atan2(dc[:, 0].double(), dc[:, 2].double()) + np.pi
+    seam = (torch.minimum(phi, 2 * np.pi - phi) < 1e-5) & (dc[:, 2] < 0)
+    pole = (dc[:, 1] / dc.norm(dim=-1)).abs() > 0.999
+    err = (got.cpu() - ref).abs().amax(-1)
+    err_other = (got.cpu() - other).abs().amax(-1)
+    assert seam.sum() > 100 and pole.sum() > 10
+    assert err[~seam & ~pole].max().item() <= 1e-4
+    assert torch.minimum(err, err_other)[seam].max().item() <= 1e-4
+    assert err[pole & ~seam].max().item() <= 1e-3
+    ct = torch.randn((50000, 3), generator=g)
+    ct[seam | pole] = 0.0  # rays whose taps may differ
+    n0 = kernels.launches["textured_bg_bwd"]
+    gt = REG._background_textured_backward_cuda(ct.to(dev), got, d, H, W)
+    assert kernels.launches["textured_bg_bwd"] == n0 + 1
+    rgt = REG.background_textured_backward_plain(ct, got.cpu(), dc, H, W)  # the same sigmoid output
+    rel = (gt.cpu() - rgt).abs().max().item() / rgt.abs().max().item()
+    assert gt.shape == (H, W, 3) and rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("name", sorted(second_order_cases("cpu")))
+def test_second_derivative_raises_on_the_card(dev, name):
+    check_second_order_raises(second_order_cases(dev)[name])

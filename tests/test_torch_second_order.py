@@ -1,0 +1,138 @@
+"""Second derivatives through the port's kernel functions raise, on the CPU
+as on the card.
+
+Each kernel's ``torch.autograd.Function`` (K2 / K2x ``_SamplePoints``, K7 /
+K7x ``_GridEncode``, K4 ``_Idwt2d``, K3 ``_CompositeDense``, K3c
+``_CompositeCompact``, K10 ``_SampleVolumeGrid``, K11
+``_TexturedBackground``) marks its backward ``kernels.first_order``. On the
+card the backward is a kernel launch into a fresh tensor with no graph, so
+a second derivative would come out as a silent zero; on the CPU the plain
+backward is torch ops that autograd would record. Both now raise torch's
+``once_differentiable`` error when a ``create_graph=True`` gradient is
+differentiated again, even when the first cotangent is a constant (the
+``y.sum()`` of an analytic normal). A first-order ``create_graph=True``
+call still works. ``trunc_exp``'s backward is plain torch on both devices
+and stays twice differentiable.
+
+The cases take a device: ``tests/test_torch_kernels.py`` runs the same
+cases on the card. No JAX here (the card's machine has none).
+"""
+
+import pytest
+import torch
+
+from trinerflet_tpu_torch.models import gridencoder as GE
+from trinerflet_tpu_torch.models import registry as REG
+from trinerflet_tpu_torch.ops import grid_sample as GS
+from trinerflet_tpu_torch.ops import raymarch as RM
+from trinerflet_tpu_torch.ops import wavelets as W
+from trinerflet_tpu_torch.ops.activation import trunc_exp
+
+SECOND_ORDER_ERROR = "differentiate twice"
+
+
+def _rand(g, dev, *shape, lo=0.0, hi=1.0):
+    return (lo + (hi - lo) * torch.rand(shape, generator=g)).to(dev)
+
+
+def second_order_cases(dev):
+    """name -> () -> (an output that depends on ``x``, ``x``, the other
+    inputs that require a gradient); ``x`` is what the first gradient is
+    taken in."""
+    g = torch.Generator().manual_seed(0)
+
+    def points(n=64, b=0.9):
+        return _rand(g, dev, n, 3, lo=-b, hi=b).requires_grad_(True)
+
+    def sample_points():
+        planes = _rand(g, dev, 3, 8, 8, 4).requires_grad_(True)
+        x = points()
+        return GS.sample_points(planes, x, 1.0), x, [planes]
+
+    def grid_encode():
+        cfg = GE.GridEncoderConfig(num_levels=3, level_dim=2, base_resolution=4,
+                                   desired_resolution=16, log2_hashmap_size=8)
+        params = {k: v.requires_grad_(True) for k, v in GE.init_grid_params(cfg, g, dev, std=0.5).items()}
+        x = points()
+        return GE.grid_encode(params, x, cfg, 1.0), x, list(params.values())
+
+    def idwt2d():
+        yl = _rand(g, dev, 3, 4, 12, 12).requires_grad_(True)
+        yh = _rand(g, dev, 3, 4, 3, 12, 12).requires_grad_(True)
+        return W.idwt2d(yl, yh, "bior2.2"), yl, [yh]
+
+    def composite_dense():
+        sig = _rand(g, dev, 16, 8, hi=5.0).requires_grad_(True)
+        rgb = _rand(g, dev, 16, 8, 3).requires_grad_(True)
+        deltas = _rand(g, dev, 16, 8, lo=0.01, hi=0.1)
+        ts = torch.cumsum(deltas, dim=1)
+        return RM.composite_dense(sig, rgb, deltas, ts)[2], sig, [rgb]
+
+    def composite_compact():
+        N, S = 8, 4
+        counts = torch.full((N,), S, dtype=torch.int32, device=dev)
+        offsets = torch.arange(N, dtype=torch.int32, device=dev) * S
+        ray_id = torch.arange(N, dtype=torch.int32, device=dev).repeat_interleave(S)
+        dts = _rand(g, dev, N * S, lo=0.01, hi=0.1)
+        ts = torch.cumsum(dts, dim=0)
+        comp = RM.CompactSamples(torch.zeros((N * S, 3), device=dev), torch.zeros((N * S, 3), device=dev),
+                                 ts, dts, ray_id, offsets, counts,
+                                 torch.tensor(N * S, dtype=torch.int32, device=dev))
+        sig = _rand(g, dev, N * S, hi=5.0).requires_grad_(True)
+        rgb = _rand(g, dev, N * S, 3).requires_grad_(True)
+        return RM.composite_compact(sig, rgb, comp, N)[2], sig, [rgb]
+
+    def volume_grid():
+        cfg = REG.VolumeGridConfig(resolution=8, feature_dim=3)
+        params = {"grid": _rand(g, dev, 8, 8, 8, 4, lo=-1.0).requires_grad_(True)}
+        x = points()
+        return REG.sample_volume_grid(params, x, cfg, 1.0), x, [params["grid"]]
+
+    def textured_background():
+        tex = _rand(g, dev, 8, 16, 3, lo=-1.0).requires_grad_(True)
+        return REG.background_textured({"bg_texture": tex}, points(b=1.0)), tex, []
+
+    return {"sample_points": sample_points, "grid_encode": grid_encode, "idwt2d": idwt2d,
+            "composite_dense": composite_dense, "composite_compact": composite_compact,
+            "volume_grid": volume_grid, "textured_background": textured_background}
+
+
+CASES = sorted(second_order_cases("cpu"))
+
+
+def check_second_order_raises(make):
+    """A create_graph=True gradient in x works (it is first order); a
+    backward through it raises, whether its cotangent is a constant or
+    depends on the output."""
+    for cot in ("constant", "dependent"):
+        out, x, _ = make()
+        y = out.sum() if cot == "constant" else out.square().sum()
+        (gx,) = torch.autograd.grad(y, [x], create_graph=True)
+        assert gx.shape == x.shape and torch.isfinite(gx).all()
+        with pytest.raises(RuntimeError, match=SECOND_ORDER_ERROR):
+            gx.square().sum().backward()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_second_derivative_raises(name):
+    check_second_order_raises(second_order_cases("cpu")[name])
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_first_derivative_unchanged_under_create_graph(name):
+    """create_graph=True changes no first-order value."""
+    make = second_order_cases("cpu")[name]
+    torch.manual_seed(0)
+    out, x, others = make()
+    ct = torch.rand(out.shape, generator=torch.Generator().manual_seed(1))
+    a = torch.autograd.grad((out * ct).sum(), [x] + others, create_graph=True)
+    b = torch.autograd.grad((out * ct).sum(), [x] + others)
+    assert all(torch.equal(u.detach(), v) for u, v in zip(a, b))
+
+
+def test_trunc_exp_stays_twice_differentiable():
+    x = torch.tensor([-20.0, -1.0, 0.5, 20.0], requires_grad=True)
+    (gx,) = torch.autograd.grad(trunc_exp(x).sum(), [x], create_graph=True)
+    (ggx,) = torch.autograd.grad(gx.sum(), [x])
+    want = torch.where(x.abs() < 15, torch.exp(x.detach()), torch.zeros(()))  # clamp's gradient
+    torch.testing.assert_close(ggx, want, rtol=1e-6, atol=0)

@@ -14,9 +14,11 @@ What this package covers: serving (novel-view rendering from a trained
 state), training with the budget autotuner and its global sample layout on
 the hierarchical march or on the flat march (which also walks the
 ``dt_gamma`` ladder), with the proposal estimator or with the dense
-renderer, the hash / tiled grid field, and evaluation. The CLI, k-planes
-and the super-resolution app raise ``NotImplementedError`` naming the slice
-that ports them.
+renderer, the hash / tiled grid field, k-planes, the triplane's variants,
+the model registry (``models/registry.py``: voxel-grid and SDF geometry,
+materials, backgrounds, every normal type), and evaluation. The CLI,
+training through analytic normals and the super-resolution app raise
+``NotImplementedError`` naming the slice that ports them.
 """
 
 from ._device import resolve_device

@@ -43,33 +43,42 @@ def _check_tables(tree: Mapping[str, Any], where: str, kplanes: bool = False) ->
 _TRIPLANE_KEYS = {"base", "wavelets", "upscale", "rotation", "lbound_scale"}
 
 
+_REGISTRY_KEYS = {"sdf_net", "feature_net", "log_beta", "env_net", "bg_texture", "normal_net"}
+
+
 def params_from_jax(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict:
     """The JAX param dict as this package's params: the same keys and
     layouts, as tensors on ``device`` (``cuda`` by default). ``encoder``
     holds the wavelet triplane (``base``, ``wavelets.level_i`` and, when
     configured, ``upscale.level_i``, ``rotation`` and ``lbound_scale``), a
-    grid encoder's tables (``level_{l}``), k-planes' tables (``scale_{i}``)
-    or nothing; ``sigma_net.w*``, ``color_net.w*`` and, with a background
-    network, ``bg_net.w*``; on the proposal renderer ``proposal`` holds
-    ``grid.level_{l}`` and ``w``."""
-    for key in ("encoder", "sigma_net", "color_net"):
+    grid encoder's tables (``level_{l}``), k-planes' tables (``scale_{i}``),
+    a registry voxel grid (``grid``) or nothing; ``sigma_net.w*``,
+    ``color_net.w*`` and, with a background network, ``bg_net.w*``; on the
+    proposal renderer ``proposal`` holds ``grid.level_{l}`` and ``w``. A
+    registry field's tree (``models/registry.py``) has no ``sigma_net`` on
+    the volume-grid and SDF geometries, and may hold ``sdf_net``,
+    ``feature_net``, the 0-dim ``log_beta``, ``env_net``, ``bg_texture``
+    and ``normal_net``."""
+    for key in ("encoder", "color_net"):
         if key not in tree:
             raise KeyError(f"params_from_jax: missing {key!r}")
-    extra = set(tree) - {"encoder", "sigma_net", "color_net", "bg_net", "proposal"}
+    enc = tree["encoder"]
+    if "sigma_net" not in tree and set(enc) != {"grid"} and "sdf_net" not in tree:
+        raise KeyError("params_from_jax: missing 'sigma_net' (only a registry volume-grid or SDF "
+                       "field has none)")
+    extra = set(tree) - {"encoder", "sigma_net", "color_net", "bg_net", "proposal"} - _REGISTRY_KEYS
     if extra:
         raise KeyError(f"params_from_jax: params not ported: {sorted(extra)}")
-    enc = tree["encoder"]
     if "base" in enc or "wavelets" in enc:
         if "base" not in enc or "wavelets" not in enc:
             raise KeyError("params_from_jax: a triplane encoder must hold 'base' and 'wavelets'")
         extra = set(enc) - _TRIPLANE_KEYS
         if extra:
             raise KeyError(f"params_from_jax: encoder variants not ported: {sorted(extra)}")
-    elif enc:
+    elif enc and set(enc) != {"grid"}:
         _check_tables(enc, "a non-triplane encoder", kplanes=True)
     device = resolve_device(device)
-    out = {k: _tree(tree[k], device) for k in ("encoder", "sigma_net", "color_net", "bg_net")
-           if k in tree}
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "proposal"}
     if "proposal" in tree:
         prop = tree["proposal"]
         if set(prop) != {"grid", "w"}:

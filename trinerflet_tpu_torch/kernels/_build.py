@@ -38,7 +38,9 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # compact.cu for the sample positions and distances K5 copies (o + d*t and
 # t + dt - t0 round as two operations, as in the plain version), and
 # gridencoder.cu for the cell coordinate that decides K7's corners (one fused
-# multiply-add where XLA fuses, every other operation rounded alone).
+# multiply-add where XLA fuses, every other operation rounded alone), and
+# volume_grid.cu and textured_bg.cu for the voxel and texel coordinates
+# (every operation rounded alone, as op-by-op JAX computes them).
 SOURCES: Dict[str, List[str]] = {
     "march": ["-fmad=false"],
     "march_flat": ["-fmad=false"],
@@ -48,6 +50,8 @@ SOURCES: Dict[str, List[str]] = {
     "occupancy": ["-fmad=false"],
     "compact": ["-fmad=false"],
     "gridencoder": ["-fmad=false"],
+    "volume_grid": ["-fmad=false"],
+    "textured_bg": ["-fmad=false"],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -227,6 +227,7 @@ __global__ void sample_points_backward_xyz_kernel(const T* __restrict__ planes,
     }
     du[p] = dwx * clip_grad(xr, (float)(W - 1)) * (float)(W - 1) * 0.5f;
     dv[p] = dwy * clip_grad(yr, (float)(H - 1)) * (float)(H - 1) * 0.5f;
+    if (grad == nullptr) continue;  // the planes need no gradient (an analytic normal)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float* dst = grad + rows[r] * C;
@@ -309,8 +310,8 @@ static void launch_xyz_c(const void* planes, const float* xyz, const float* g, i
 
 // K2x. planes (3, H, W, C) channel-last, bf16 (bf16 != 0) or f32; xyz (M, 3)
 // f32; g (M, 3, C) f32 -> grad (3, H, W, C) f32, which the caller zeroes (the
-// plane gradient, float atomics in an unspecified order), and dxyz (M, 3)
-// f32, every row written.
+// plane gradient, float atomics in an unspecified order; null: not computed),
+// and dxyz (M, 3) f32, every row written.
 extern "C" int sample_points_backward_xyz_launch(const void* planes, const float* xyz,
                                                  const float* g, int M, int H, int W, int C,
                                                  int bf16, float lbound, float* grad, float* dxyz,

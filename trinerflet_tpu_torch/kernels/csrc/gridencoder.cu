@@ -42,8 +42,19 @@
 // gradient tables with atomicAdd (one launch for all levels); rows whose
 // cotangent is all zero add nothing. Bound: bytes (cotangents and points in,
 // the touched rows read-modify-written, the gradient tables written); the
-// atomics' contention on the coarse levels' shared rows is the risk. The
-// coordinate gradient is not computed (no caller of this slice needs it).
+// atomics' contention on the coarse levels' shared rows is the risk.
+//
+// K7x, the coordinate gradient (replaces JAX's autodiff of grid_encode in x,
+// trinerflet_tpu/models/gridencoder.py:115-147, which analytic normals on a
+// hash-grid field take): one thread per point loops over the levels, so the
+// (N, 3) result is written once, without atomics. Per level it recomputes
+// the corner rows as the forward does, reads its C-wide cotangent and the 8
+// rows, and adds sum_k (g . row_k) dw_k/dfrac_d, times the smoothstep's
+// derivative 6 f (1 - f) and the level's resolution; the sum over levels is
+// then multiplied by the clip's gradient (JAX's: 1 inside, 0.5 where the
+// coordinate sits exactly on 0 or 1, 0 outside), 0.5 and 1 / bound. Bound:
+// bytes (the same row reads as the forward, the cotangents, the points in
+// and (N, 3) out); about 30 flops per corner and channel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,38 +68,58 @@ struct GridLevels {
   int hashed[K7_MAX_LEVELS];       // 1: spatial hash, 0: dense index
 };
 
+// The cell coordinate in [0, 1] before the clip, as jit rounds it.
+__device__ __forceinline__ float unit_coord(float x, float inv_bound) {
+  return fmaf(x, inv_bound, 1.0f) * 0.5f;
+}
+
+// The cell corner p0 and the linear fraction of a clipped coordinate u at
+// resolution res.
+__device__ __forceinline__ float cell(float u, float fres, uint32_t* p0) {
+  float pos = u * fres;
+  float f0 = floorf(pos);
+  *p0 = (uint32_t)f0;
+  return pos - f0;
+}
+
+// The table rows of the 8 corners of cell p0 at level l.
+__device__ __forceinline__ void corner_rows(const uint32_t p0[3], int l, const GridLevels& lv,
+                                            uint32_t idx[8]) {
+  const uint32_t res = lv.res[l];
+  const bool hashed = lv.hashed[l] != 0;
+  const uint32_t s1 = res + 1u, s2 = s1 * s1, wrap = lv.wrap[l];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+    const uint32_t c0 = min(p0[0] + b0, res), c1 = min(p0[1] + b1, res), c2 = min(p0[2] + b2, res);
+    const uint32_t h = hashed ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u)) : (c0 + c1 * s1 + c2 * s2);
+    idx[k] = h & wrap;
+  }
+}
+
 // Corner weights and table rows of point n at level l.
 __device__ __forceinline__ void corners(const float* __restrict__ x, long long n, int l,
                                         const GridLevels& lv, float inv_bound, int smooth,
                                         float w[8], uint32_t idx[8]) {
-  const uint32_t res = lv.res[l];
-  const float fres = (float)res;
+  const float fres = (float)lv.res[l];
   float frac[3];
   uint32_t p0[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    float u = fmaf(x[3 * n + d], inv_bound, 1.0f) * 0.5f;
-    u = fminf(fmaxf(u, 0.0f), 1.0f);
-    float pos = u * fres;
-    float f0 = floorf(pos);
-    p0[d] = (uint32_t)f0;
-    float fr = pos - f0;
+    float u = fminf(fmaxf(unit_coord(x[3 * n + d], inv_bound), 0.0f), 1.0f);
+    float fr = cell(u, fres, &p0[d]);
     if (smooth) fr = fr * fr * (3.0f - 2.0f * fr);
     frac[d] = fr;
   }
-  const bool hashed = lv.hashed[l] != 0;
-  const uint32_t s1 = res + 1u, s2 = s1 * s1, wrap = lv.wrap[l];
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
     float wk = b0 ? frac[0] : 1.0f - frac[0];
     wk = wk * (b1 ? frac[1] : 1.0f - frac[1]);
     wk = wk * (b2 ? frac[2] : 1.0f - frac[2]);
-    const uint32_t c0 = min(p0[0] + b0, res), c1 = min(p0[1] + b1, res), c2 = min(p0[2] + b2, res);
-    const uint32_t h = hashed ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u)) : (c0 + c1 * s1 + c2 * s2);
     w[k] = wk;
-    idx[k] = h & wrap;
   }
+  corner_rows(p0, l, lv, idx);
 }
 
 template <int C>
@@ -164,6 +195,67 @@ __global__ void grid_encode_backward_kernel(const float* __restrict__ x, const f
   }
 }
 
+// K7x: one thread per point, the levels in a loop.
+template <int C>
+__global__ void grid_encode_backward_x_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                                              long long N, int L, GridLevels lv, float inv_bound,
+                                              int smooth, float* __restrict__ dx) {
+  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float u[3], clip_g[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float v = unit_coord(x[3 * n + d], inv_bound);
+    u[d] = fminf(fmaxf(v, 0.0f), 1.0f);
+    // JAX's gradient of clip(v, 0, 1): a max then a min, a tie split in half
+    clip_g[d] = (v > 0.0f && v < 1.0f) ? 1.0f : ((v == 0.0f || v == 1.0f) ? 0.5f : 0.0f);
+  }
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < L; ++l) {
+    const float* __restrict__ gl = g + (n * L + l) * C;
+    float gv[C];
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      gv[c] = gl[c];
+      any |= gv[c] != 0.0f;
+    }
+    if (!any) continue;
+    const float fres = (float)lv.res[l];
+    float frac[3], dfrac[3];
+    uint32_t p0[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float lin = cell(u[d], fres, &p0[d]);
+      frac[d] = smooth ? lin * lin * (3.0f - 2.0f * lin) : lin;
+      dfrac[d] = smooth ? 6.0f * lin * (1.0f - lin) : 1.0f;
+    }
+    uint32_t idx[8];
+    corner_rows(p0, l, lv, idx);
+    const float* __restrict__ table = lv.table[l];
+    float dw[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+      float v[C];
+      load_row<C>(table + (size_t)idx[k] * C, v);
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) s = s + gv[c] * v[c];
+      const float w0 = b0 ? frac[0] : 1.0f - frac[0];
+      const float w1 = b1 ? frac[1] : 1.0f - frac[1];
+      const float w2 = b2 ? frac[2] : 1.0f - frac[2];
+      dw[0] = dw[0] + (b0 ? s : -s) * (w1 * w2);
+      dw[1] = dw[1] + (b1 ? s : -s) * (w0 * w2);
+      dw[2] = dw[2] + (b2 ? s : -s) * (w0 * w1);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) acc[d] = acc[d] + dw[d] * dfrac[d] * fres;
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) dx[3 * n + d] = acc[d] * clip_g[d] * 0.5f * inv_bound;
+}
+
 static int fill_levels(GridLevels* lv, int L, void* const* tables, const uint32_t* res,
                        const uint32_t* wrap, const int* hashed) {
   if (L < 1 || L > K7_MAX_LEVELS) return (int)cudaErrorInvalidValue;
@@ -216,6 +308,29 @@ extern "C" int grid_encode_backward_launch(const float* x, const float* g, long 
     case 2: grid_encode_backward_kernel<2><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth); break;
     case 4: grid_encode_backward_kernel<4><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth); break;
     case 8: grid_encode_backward_kernel<8><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7x. x (N, 3) f32, g (N, L*C) f32, the L tables (size_l, C) f32 -> dx
+// (N, 3) f32, every row written.
+extern "C" int grid_encode_backward_x_launch(const float* x, const float* g, long long N, int L,
+                                             int C, void* const* tables, const uint32_t* res,
+                                             const uint32_t* wrap, const int* hashed,
+                                             float inv_bound, int smooth, float* dx,
+                                             cudaStream_t stream) {
+  GridLevels lv;
+  int err = fill_levels(&lv, L, tables, res, wrap, hashed);
+  if (err) return err;
+  if (N == 0) return 0;
+  const int threads = 128;
+  unsigned int blocks = (unsigned int)((N + threads - 1) / threads);
+  switch (C) {
+    case 1: grid_encode_backward_x_kernel<1><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth, dx); break;
+    case 2: grid_encode_backward_x_kernel<2><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth, dx); break;
+    case 4: grid_encode_backward_x_kernel<4><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth, dx); break;
+    case 8: grid_encode_backward_x_kernel<8><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth, dx); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

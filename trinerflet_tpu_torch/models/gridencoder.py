@@ -7,13 +7,15 @@ trilinear interpolation, optional smoothstep. Parameters are the JAX
 package's dict of per-level f32 tables ``level_{l}`` of shape
 (``level_size(l)``, ``level_dim``).
 
-``grid_encode`` is an autograd function differentiable in the tables: on
-CUDA tensors it launches kernel K7 forward and backward
-(``kernels/csrc/gridencoder.cu``; the backward accumulates with float32
-atomics and replaces the JAX package's sort + one-hot scatter); on CPU
-tensors it runs the plain versions below (the backward an ``index_add_``).
-The coordinate gradient is not ported: no caller of this slice feeds points
-that require one (analytic normals, ``models/registry.py``, come later).
+``grid_encode`` is an autograd function differentiable in the tables and,
+when the points require it, in the points: on CUDA tensors it launches
+kernel K7 forward and backward (``kernels/csrc/gridencoder.cu``; the
+backward accumulates with float32 atomics and replaces the JAX package's
+sort + one-hot scatter) and K7x for the coordinate gradient (JAX's autodiff
+through the corner weights, which analytic normals on a hash-grid field
+take); on CPU tensors it runs the plain versions below (the backward an
+``index_add_``). It is differentiable once: a second derivative raises on
+both devices (``kernels.first_order``).
 
 Rounding: the JAX package runs under jit, where XLA turns ``x / bound`` into
 ``x * f32(1 / bound)`` and fuses the ``+ 1`` into one fused multiply-add.
@@ -33,13 +35,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+
 from .. import kernels
-from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 from ..kernels import _build
+from ..ops.grid_sample import _clip_grad
 from ..ops.raymarch import _fma
 
 __all__ = ["GridEncoderConfig", "init_grid_params", "grid_encode", "grid_encode_plain",
-           "grid_encode_backward_plain", "grid_encode_backward_error"]
+           "grid_encode_backward_plain", "grid_encode_backward_x_plain",
+           "grid_encode_backward_error"]
 
 _PRIMES = (1, 2654435761, 805459861)  # instant-ngp spatial hash primes
 _U32 = 0xFFFFFFFF
@@ -113,26 +118,38 @@ def _inv_bound(bound: float) -> float:
     return float(np.float32(1.0) / np.float32(bound))
 
 
+def _unit_coord(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """(x / bound + 1) * 0.5 before the clip, rounded as jit rounds it."""
+    return _fma(x, _inv_bound(bound), 1.0) * 0.5
+
+
+def _cell_plain(x: torch.Tensor, cfg: GridEncoderConfig, bound: float, level: int):
+    """The cell corner p0 (N, D) int64 and the linear fraction (N, D) of
+    every point at one level."""
+    pos = _unit_coord(x, bound).clamp(0.0, 1.0) * cfg.level_resolution(level)
+    p0 = torch.floor(pos)
+    return p0.long(), pos - p0
+
+
+def _corner_rows_plain(p0: torch.Tensor, cfg: GridEncoderConfig, level: int, corner) -> torch.Tensor:
+    res, size = cfg.level_resolution(level), cfg.level_size(level)
+    return _index_plain((p0 + torch.tensor(corner, device=p0.device)).clamp(0, res), res, size, cfg)
+
+
 def _corners_plain(x: torch.Tensor, cfg: GridEncoderConfig, bound: float, level: int):
     """The 2^D corner weights (K, N) and table rows (K, N) of every point at
     one level, corners in meshgrid(..., indexing="ij") order."""
-    res, size = cfg.level_resolution(level), cfg.level_size(level)
-    u = (_fma(x, _inv_bound(bound), 1.0) * 0.5).clamp(0.0, 1.0)
-    pos = u * res
-    p0 = torch.floor(pos)
-    frac = pos - p0
+    p0, frac = _cell_plain(x, cfg, bound, level)
     if cfg.interpolation == "smoothstep":
         frac = frac * frac * (3.0 - 2.0 * frac)
-    p0 = p0.long()
     ws, rows = [], []
     for corner in itertools.product((0, 1), repeat=cfg.input_dim):
         w = None
         for d, b in enumerate(corner):
             f = frac[:, d] if b else 1.0 - frac[:, d]
             w = f if w is None else w * f
-        c = (p0 + torch.tensor(corner, device=x.device)).clamp(0, res)
         ws.append(w)
-        rows.append(_index_plain(c, res, size, cfg))
+        rows.append(_corner_rows_plain(p0, cfg, level, corner))
     return torch.stack(ws), torch.stack(rows)
 
 
@@ -166,6 +183,41 @@ def grid_encode_backward_plain(g: torch.Tensor, x: torch.Tensor, cfg: GridEncode
             acc.index_add_(0, rows[k], w[k][:, None] * gl)
         grads.append(acc)
     return grads
+
+
+def grid_encode_backward_x_plain(g: torch.Tensor, tables: List[torch.Tensor], x: torch.Tensor,
+                                 cfg: GridEncoderConfig, bound: float = 1.0) -> torch.Tensor:
+    """Plain version of K7x: g (N, L*C) -> dL/dx (N, D) f32, JAX's autodiff
+    of ``grid_encode`` in the points. Per level, with f the linear fraction
+    and w_k the product over d of f_d or 1 - f_d (smoothstep applied):
+
+        dL/dpos_d = sum_k (g_l . row_k) dw_k/df_d  (x 6 f_d (1 - f_d) with smoothstep)
+
+    summed over the levels times each level's resolution, then times the
+    clip's gradient (``_clip_grad``: 0.5 where the coordinate is exactly 0
+    or 1, 0 beyond), 0.5 and 1 / bound."""
+    C, D = cfg.level_dim, cfg.input_dim
+    g = g.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for l, table in enumerate(tables):
+        p0, lin = _cell_plain(x, cfg, bound, l)
+        if cfg.interpolation == "smoothstep":
+            frac, dfrac = lin * lin * (3.0 - 2.0 * lin), 6.0 * lin * (1.0 - lin)
+        else:
+            frac, dfrac = lin, torch.ones_like(lin)
+        gl = g[:, l * C : (l + 1) * C]
+        dw = torch.zeros_like(acc)
+        for corner in itertools.product((0, 1), repeat=D):
+            s = (gl * table[_corner_rows_plain(p0, cfg, l, corner)].float()).sum(-1)
+            fac = [frac[:, d] if b else 1.0 - frac[:, d] for d, b in enumerate(corner)]
+            for d, b in enumerate(corner):
+                prod = None
+                for e in range(D):
+                    if e != d:
+                        prod = fac[e] if prod is None else prod * fac[e]
+                dw[:, d] += (s if b else -s) * prod
+        acc = acc + dw * dfrac * cfg.level_resolution(l)
+    return acc * _clip_grad(_unit_coord(x, bound), 1.0) * 0.5 * _inv_bound(bound)
 
 
 def grid_encode_backward_error(grads: List[torch.Tensor], g: torch.Tensor, x: torch.Tensor,
@@ -205,28 +257,32 @@ def grid_encode_backward_error(grads: List[torch.Tensor], g: torch.Tensor, x: to
 class _GridEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cfg, bound, *tables):
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, *tables)
         ctx.cfg, ctx.bound = cfg, bound
         if x.is_cuda:
             return _grid_encode_cuda(list(tables), x, cfg, bound)
         return grid_encode_plain(list(tables), x, cfg, bound)
 
     @staticmethod
+    @kernels.first_order
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        if x.is_cuda:
-            grads = _grid_encode_backward_cuda(g, x, ctx.cfg, ctx.bound)
-        else:
-            grads = grid_encode_backward_plain(g, x, ctx.cfg, ctx.bound)
-        return (None, None, None, *grads)
+        x, *tables = ctx.saved_tensors
+        cfg, bound = ctx.cfg, ctx.bound
+        dx, grads = None, [None] * len(tables)
+        if ctx.needs_input_grad[0]:
+            fn = _grid_encode_backward_x_cuda if x.is_cuda else grid_encode_backward_x_plain
+            dx = fn(g, tables, x, cfg, bound)
+        if any(ctx.needs_input_grad[3:]):
+            fn = _grid_encode_backward_cuda if x.is_cuda else grid_encode_backward_plain
+            grads = fn(g, x, cfg, bound)
+        return (dx, None, None, *grads)
 
 
 def grid_encode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
                 bound: float = 1.0) -> torch.Tensor:
     """x (N, D) in [-bound, bound] -> (N, L * C) multi-level interpolated
-    features (f32); differentiable in the tables only."""
-    if x.requires_grad:
-        raise not_ported("the coordinate gradient of grid_encode (analytic normals)", SLICE_LATER)
+    features (f32); differentiable in the tables and, when ``x`` requires
+    it, in the points (K7x)."""
     tables = [params[f"level_{l}"] for l in range(cfg.num_levels)]
     return _GridEncode.apply(x, cfg, float(bound), *tables)
 
@@ -267,19 +323,25 @@ def _k7_levels(cfg: GridEncoderConfig, x: torch.Tensor, what: str):
     return ((ctypes.c_uint32 * L)(*res), (ctypes.c_uint32 * L)(*wrap), (ctypes.c_int * L)(*hashed))
 
 
-def _grid_encode_cuda(tables: List[torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
-                      bound: float) -> torch.Tensor:
-    c_res, c_wrap, c_hashed = _k7_levels(cfg, x, "grid_encode kernel")
-    L, C = cfg.num_levels, cfg.level_dim
-    if len(tables) != L:
-        raise ValueError(f"grid_encode kernel: {L} tables expected, got {len(tables)}")
+def _check_tables(tables: List[torch.Tensor], cfg: GridEncoderConfig, x: torch.Tensor,
+                  what: str) -> None:
+    C = cfg.level_dim
+    if len(tables) != cfg.num_levels:
+        raise ValueError(f"{what}: {cfg.num_levels} tables expected, got {len(tables)}")
     for l, t in enumerate(tables):
         shape = (cfg.level_size(l), C)
         if (t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.data_ptr() % (4 * min(C, 4))):
-            raise ValueError(f"grid_encode kernel: level_{l} must be a contiguous {shape} f32 table on "
+            raise ValueError(f"{what}: level_{l} must be a contiguous {shape} f32 table on "
                              f"{x.device}, aligned to its row loads; got {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
+
+
+def _grid_encode_cuda(tables: List[torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
+                      bound: float) -> torch.Tensor:
+    c_res, c_wrap, c_hashed = _k7_levels(cfg, x, "grid_encode kernel")
+    L, C = cfg.num_levels, cfg.level_dim
+    _check_tables(tables, cfg, x, "grid_encode kernel")
     x = x.contiguous()
     N = x.shape[0]
     out = torch.empty((N, L * C), device=x.device, dtype=torch.float32)
@@ -315,3 +377,31 @@ def _grid_encode_backward_cuda(g: torch.Tensor, x: torch.Tensor, cfg: GridEncode
                         _build.stream(x.device)), "grid_encode backward")
         kernels.launches["grid_encode_bwd"] += 1
     return grads
+
+
+_K7X_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+    + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _grid_encode_backward_x_cuda(g: torch.Tensor, tables: List[torch.Tensor], x: torch.Tensor,
+                                 cfg: GridEncoderConfig, bound: float) -> torch.Tensor:
+    """K7x: dL/dx (N, 3) f32, one thread per point over the levels."""
+    what = "grid_encode backward (x) kernel"
+    c_res, c_wrap, c_hashed = _k7_levels(cfg, x, what)
+    L, C = cfg.num_levels, cfg.level_dim
+    N = x.shape[0]
+    _check_tables(tables, cfg, x, what)
+    if g.device != x.device or tuple(g.shape) != (N, L * C):
+        raise ValueError(f"{what}: g must be ({N}, {L * C}) on {x.device}, got {tuple(g.shape)} "
+                         f"on {g.device}")
+    g = g.float().contiguous()
+    x = x.contiguous()
+    dx = torch.empty((N, 3), device=x.device, dtype=torch.float32)
+    if N > 0:
+        ptrs = (ctypes.c_void_p * L)(*[t.data_ptr() for t in tables])
+        fn = _build.function("gridencoder", "grid_encode_backward_x_launch", _K7X_ARGS)
+        _build.check(fn(_build.ptr(x), _build.ptr(g), N, L, C, ptrs, c_res, c_wrap, c_hashed,
+                        _inv_bound(bound), int(cfg.interpolation == "smoothstep"), _build.ptr(dx),
+                        _build.stream(x.device)), what)
+        kernels.launches["grid_encode_bwd_x"] += 1
+    return dx

@@ -3,7 +3,10 @@
 the input dtype; the backward uses exp(clamp(x, -15, 15)) so low-precision
 training cannot blow up through the density head.
 
-``plain_exp`` is the exponential of the port's plain versions."""
+``plain_exp`` is the exponential of the port's plain versions. ``trunc_exp``'s
+backward is plain torch on both devices, so it stays differentiable (a
+second derivative through it is autograd's); the kernel functions' backwards
+are not (``kernels.first_order``)."""
 
 from __future__ import annotations
 

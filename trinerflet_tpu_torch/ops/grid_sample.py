@@ -20,8 +20,10 @@ coordinate gradient that JAX's autodiff of ``grid_sample_2d`` /
 tensors it launches kernel K2 forward and backward, or K2x when the
 coordinate gradient is asked for (``kernels/csrc/grid_sample.cu``: the
 forward fuses the projection, the backwards accumulate the plane gradient
-with float32 atomics); on CPU tensors it runs the plain versions (the plane
-gradient an ``index_add_`` in float32).
+with float32 atomics; K2x skips it when the planes need none, as for an
+analytic normal); on CPU tensors it runs the plain versions (the plane
+gradient an ``index_add_`` in float32). It is differentiable once: a second
+derivative raises on both devices (``kernels.first_order``).
 """
 
 from __future__ import annotations
@@ -107,11 +109,12 @@ def _clip_grad(v: torch.Tensor, hi: int) -> torch.Tensor:
 
 
 def sample_points_backward_xyz_plain(g: torch.Tensor, planes: torch.Tensor, xyz: torch.Tensor,
-                                     lbound: float):
+                                     lbound: float, planes_grad: bool = True):
     """Plain version of K2x: g (M, 3, C), planes (3, H, W, C), xyz (M, 3) ->
-    (the plane gradient as ``sample_points_backward_plain``, the coordinate
-    gradient (M, 3) f32). Per plane, with x = (u + 1) (W - 1) / 2 before
-    the clamp and the corner rows f00, f01 (x + 1), f10 (y + 1), f11:
+    (the plane gradient as ``sample_points_backward_plain``, or None without
+    ``planes_grad``; the coordinate gradient (M, 3) f32). Per plane, with
+    x = (u + 1) (W - 1) / 2 before the clamp and the corner rows f00, f01
+    (x + 1), f10 (y + 1), f11:
 
         dL/du = (sum_c g_c [(f01 - f00)(1 - wy) + (f11 - f10) wy]) clip'(x) (W - 1) / 2
 
@@ -140,6 +143,8 @@ def sample_points_backward_xyz_plain(g: torch.Tensor, planes: torch.Tensor, xyz:
                     dwy * _clip_grad(yr, H - 1) * (H - 1) * 0.5))
     (du0, dv0), (du1, dv1), (du2, dv2) = duv
     dxyz = torch.stack([du0 + du1, dv1 + du2, dv0 + dv2], dim=-1) / lbound
+    if not planes_grad:
+        return None, dxyz
     return sample_points_backward_plain(g, xyz, lbound, tuple(planes.shape), planes.dtype), dxyz
 
 
@@ -155,12 +160,13 @@ class _SamplePoints(torch.autograd.Function):
         return sample_points_plain(planes, xyz, lbound)
 
     @staticmethod
+    @kernels.first_order
     def backward(ctx, g):
         xyz, planes = ctx.saved_tensors
         if ctx.needs_input_grad[1]:
             fn = _sample_points_backward_xyz_cuda if xyz.is_cuda else sample_points_backward_xyz_plain
-            plane_grad, xyz_grad = fn(g, planes, xyz, ctx.lbound)
-            return (plane_grad if ctx.needs_input_grad[0] else None), xyz_grad, None
+            plane_grad, xyz_grad = fn(g, planes, xyz, ctx.lbound, planes_grad=ctx.needs_input_grad[0])
+            return plane_grad, xyz_grad, None
         args = (g, xyz, ctx.lbound, ctx.plane_shape, ctx.plane_dtype)
         if xyz.is_cuda:
             return _sample_points_backward_cuda(*args), None, None
@@ -264,9 +270,10 @@ _K2X_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ct
 
 
 def _sample_points_backward_xyz_cuda(g: torch.Tensor, planes: torch.Tensor, xyz: torch.Tensor,
-                                     lbound: float):
-    """K2x: the plane gradient (float32 atomics, then the plane dtype) and
-    dL/dxyz (M, 3) f32, one thread per point over the three planes."""
+                                     lbound: float, planes_grad: bool = True):
+    """K2x: the plane gradient (float32 atomics, then the plane dtype; None
+    without ``planes_grad``) and dL/dxyz (M, 3) f32, one thread per point
+    over the three planes."""
     what = "sample_points backward (xyz) kernel"
     _check_planes_points(planes, xyz, what)
     _, H, W, C = planes.shape
@@ -276,15 +283,18 @@ def _sample_points_backward_xyz_cuda(g: torch.Tensor, planes: torch.Tensor, xyz:
                          f"{tuple(g.shape)} on {g.device}")
     g = g.float().contiguous()
     xyz = xyz.contiguous()
-    acc = torch.zeros(planes.shape, device=xyz.device, dtype=torch.float32)
+    acc = torch.zeros(planes.shape, device=xyz.device, dtype=torch.float32) if planes_grad else None
     dxyz = torch.zeros((M, 3), device=xyz.device, dtype=torch.float32)
     s = _build.stream(xyz.device)
     if M > 0:
         fn = _build.function("grid_sample", "sample_points_backward_xyz_launch", _K2X_ARGS)
         _build.check(fn(_build.ptr(planes), _build.ptr(xyz), _build.ptr(g), M, H, W, C,
-                        int(planes.dtype == torch.bfloat16), float(lbound), _build.ptr(acc),
-                        _build.ptr(dxyz), s), "sample_points backward (xyz)")
+                        int(planes.dtype == torch.bfloat16), float(lbound),
+                        _build.ptr(acc) if planes_grad else None, _build.ptr(dxyz), s),
+                     "sample_points backward (xyz)")
         kernels.launches["grid_sample_bwd_xyz"] += 1
+    if not planes_grad:
+        return None, dxyz
     if planes.dtype == torch.float32:
         return acc, dxyz
     out = torch.empty(planes.shape, device=xyz.device, dtype=torch.bfloat16)

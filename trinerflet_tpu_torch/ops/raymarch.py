@@ -602,6 +602,7 @@ class _CompositeDense(torch.autograd.Function):
         return out
 
     @staticmethod
+    @kernels.first_order
     def backward(ctx, g_ws, g_depth, g_image, g_weights):
         sigmas, rgbs, deltas, ts, mask = ctx.saved_tensors
         args = (sigmas, rgbs, deltas, ts, mask, ctx.t_thresh, g_ws, g_depth, g_image, g_weights)
@@ -905,6 +906,7 @@ class _CompositeCompact(torch.autograd.Function):
         return out
 
     @staticmethod
+    @kernels.first_order
     def backward(ctx, g_ws, g_depth, g_image, g_z2):
         args = (*ctx.saved_tensors, ctx.num_rays, ctx.t_thresh, g_ws, g_depth, g_image, g_z2)
         if ctx.saved_tensors[0].is_cuda:

@@ -421,6 +421,7 @@ class _Idwt2d(torch.autograd.Function):
         return idwt2d_plain(yl, yh, name)
 
     @staticmethod
+    @kernels.first_order
     def backward(ctx, g):
         if g.is_cuda:
             d_yl, d_yh = _idwt2d_adjoint_cuda(g, ctx.name)
