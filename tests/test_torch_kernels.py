@@ -83,17 +83,47 @@ def dev():
     return torch.device("cuda")
 
 
+# K4 cases: bench.py's four ladder levels (P = 3 x 16 planes), the variants'
+# zoom-in crop (a strided 520^2 window of a larger plane), a shape that is no
+# multiple of the tiles, and one whose lowpass is a row and a column longer
+# than its bands (the trailing-lowpass crop); (yl shape, yh spatial shape, offset
+# of the yl window in its parent or None)
+IDWT_CASES = {
+    "level_72": ((3, 16, 72, 72), (72, 72), None),
+    "level_136": ((3, 16, 136, 136), (136, 136), None),
+    "level_264": ((3, 16, 264, 264), (264, 264), None),
+    "level_520": ((3, 16, 520, 520), (520, 520), None),
+    "zoom_crop_520": ((3, 16, 520, 520), (520, 520), 252),
+    "ragged": ((2, 3, 37, 53), (37, 53), None),
+    "lowpass_crop": ((2, 3, 38, 54), (37, 53), None),
+}
+
+
+def _idwt_inputs(dev, dtype, case, seed):
+    (B, C, H, W), hw, off = IDWT_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    if off is None:
+        yl = torch.randn((B, C, H, W), generator=g).to(dev, dtype)
+    else:
+        yl = torch.randn((B, C, H + 2 * off, W + 2 * off), generator=g).to(dev, dtype)
+        yl = yl[:, :, off : off + H, off : off + W]
+    yh = (0.3 * torch.randn((B, C, 3) + hw, generator=g)).to(dev, dtype)
+    return yl, yh
+
+
+@pytest.mark.parametrize("name", sorted(W._IDWT_PAD))
+@pytest.mark.parametrize("case", list(IDWT_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_idwt_kernel_matches_plain(dev, dtype):
-    g = torch.Generator().manual_seed(0)
-    yl = torch.randn((3, 16, 72, 72), generator=g).to(dev, dtype)
-    yh = (0.3 * torch.randn((3, 16, 3, 72, 72), generator=g)).to(dev, dtype)
+def test_idwt_kernel_matches_plain(dev, dtype, case, name):
+    yl, yh = _idwt_inputs(dev, dtype, case, 0)
     n0 = kernels.launches["idwt"]
-    got = W.idwt2d(yl, yh, "bior6.8")
-    assert kernels.launches["idwt"] == n0 + 2
-    ref = W.idwt2d_plain(yl, yh, "bior6.8")
+    got = W.idwt2d(yl, yh, name)
+    assert kernels.launches["idwt"] == n0 + 1
+    ref = W.idwt2d_plain(yl, yh, name)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (3, 16, 128, 128) and got.dtype == dtype
+    L = len(W.synthesis_taps(name, dtype)[0])
+    assert got.shape == ref.shape == yh.shape[:2] + tuple(2 * n - L + 2 for n in yh.shape[-2:])
+    assert got.dtype == dtype
     err = (got.float() - ref.float()).abs().max().item()
     tol = 1e-5 if dtype == torch.float32 else 2.0**-6 * ref.float().abs().max().item()
     assert err <= tol, (err, tol)
@@ -323,18 +353,39 @@ def test_composite_backward_kernel_matches_plain(dev, t_thresh):
         assert _rel_close(a, b, 1e-5)
 
 
+@pytest.mark.parametrize("name", sorted(W._IDWT_PAD))
+@pytest.mark.parametrize("case", list(IDWT_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_idwt_adjoint_kernel_matches_plain(dev, dtype):
+def test_idwt_adjoint_kernel_matches_plain(dev, dtype, case, name):
+    (B, C, _, _), (H, W_), _ = IDWT_CASES[case]
+    L = len(W.synthesis_taps(name, dtype)[0])
     g = torch.Generator().manual_seed(6)
-    ct = torch.randn((3, 16, 128, 128), generator=g).to(dev, dtype)
+    ct = torch.randn((B, C, 2 * H - L + 2, 2 * W_ - L + 2), generator=g).to(dev, dtype)
     n0 = kernels.launches["idwt_adjoint"]
-    got = W._idwt2d_adjoint_cuda(ct, "bior6.8")
-    assert kernels.launches["idwt_adjoint"] == n0 + 2
-    ref = W.idwt2d_adjoint_plain(ct, "bior6.8")
+    got = W._idwt2d_adjoint_cuda(ct, name)
+    assert kernels.launches["idwt_adjoint"] == n0 + 1
+    ref = W.idwt2d_adjoint_plain(ct, name)
     torch.cuda.synchronize()
+    assert got[0].shape == (B, C, H, W_) and got[1].shape == (B, C, 3, H, W_)
     for a, b in zip(got, ref):
         assert a.shape == b.shape and a.dtype == dtype
         assert _rel_close(a, b, 1e-5 if dtype == torch.float32 else 2.0**-6)
+
+
+@pytest.mark.parametrize("name", sorted(W._IDWT_PAD))
+@pytest.mark.parametrize("case", ["level_72", "ragged"])
+def test_idwt_adjoint_identity(dev, case, name):
+    """<idwt2d(yl, yh), G> = <yl, d_yl> + <yh, d_yh> in float32, the inner
+    products taken in float64, within 1e-5 of the sum of |products|."""
+    yl, yh = _idwt_inputs(dev, torch.float32, case, 7)
+    out = W.idwt2d(yl, yh, name)
+    G = torch.randn(out.shape, generator=torch.Generator().manual_seed(8)).to(dev)
+    d_yl, d_yh = W._idwt2d_adjoint_cuda(G, name)
+    terms = [(out, G), (yl, d_yl), (yh, d_yh)]
+    lhs = (out.double() * G.double()).sum().item()
+    rhs = sum((a.double() * b.double()).sum().item() for a, b in terms[1:])
+    scale = sum((a.double() * b.double()).abs().sum().item() for a, b in terms)
+    assert abs(lhs - rhs) <= 1e-5 * scale, (lhs, rhs, scale)
 
 
 @pytest.mark.parametrize("frac", [1.0, 0.25])

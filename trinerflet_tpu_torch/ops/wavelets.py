@@ -442,17 +442,29 @@ def idwt2d(yl: torch.Tensor, yh: torch.Tensor, name: str = "bior6.8") -> torch.T
 # K4 wrapper
 # ---------------------------------------------------------------------------
 
-_MAX_TAPS = 32
 _IDWT_ARGS = {
-    "idwt_w_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
-    "idwt_h_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    "idwt_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
-    "idwt_adj_h_launch": [ctypes.c_void_p] + [ctypes.c_int] * 5
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
-    "idwt_adj_w_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    "idwt_adjoint_launch": [ctypes.c_void_p] + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
 }
+
+
+def _kernel_taps(name: str, dtype: torch.dtype):
+    """The bank's taps as ctypes float arrays, its length and left pad; the
+    kernel is instantiated for the banks of ``SUPPORTED_WAVELETS`` only."""
+    g0, g1 = synthesis_taps(name, dtype)
+    L = len(g0)
+    c_g0 = (ctypes.c_float * L)(*g0.tolist())
+    c_g1 = (ctypes.c_float * L)(*g1.tolist())
+    return c_g0, c_g1, L, synthesis_pads(name)[0]
+
+
+def _check_plane_size(*shapes) -> None:
+    for s in shapes:
+        if s[-1] * s[-2] >= 2**31:
+            raise ValueError(f"idwt2d kernel: a plane of {tuple(s[-2:])} is too large "
+                             f"for its 32-bit offsets")
 
 
 def _idwt2d_cuda(yl: torch.Tensor, yh: torch.Tensor, name: str) -> torch.Tensor:
@@ -464,30 +476,16 @@ def _idwt2d_cuda(yl: torch.Tensor, yh: torch.Tensor, name: str) -> torch.Tensor:
     if yh.device != yl.device:
         raise ValueError("idwt2d kernel: yl and yh on different devices")
     yl, yh = yl.contiguous(), yh.contiguous()
-    g0, g1 = synthesis_taps(name, yl.dtype)
-    L = len(g0)
-    pl, pr = synthesis_pads(name)
-    if L > _MAX_TAPS:
-        raise ValueError(f"idwt2d kernel supports up to {_MAX_TAPS} taps, got {L}")
+    c_g0, c_g1, L, pl = _kernel_taps(name, yl.dtype)
     B, C, H, W = yl.shape
-    P = B * C
-    Wo, Ho = 2 * W - L + pl + pr, 2 * H - L + pl + pr
-    lo = torch.empty((P, H, Wo), device=yl.device, dtype=torch.float32)
-    hi = torch.empty((P, H, Wo), device=yl.device, dtype=torch.float32)
+    Wo, Ho = 2 * W - L + 2, 2 * H - L + 2
     out = torch.empty((B, C, Ho, Wo), device=yl.device, dtype=yl.dtype)
     if out.numel() == 0:
         return out
-    c_g0 = (ctypes.c_float * L)(*g0.tolist())
-    c_g1 = (ctypes.c_float * L)(*g1.tolist())
-    bf16 = int(yl.dtype == torch.bfloat16)
-    s = _build.stream(yl.device)
-    fw = _build.function("idwt", "idwt_w_launch", _IDWT_ARGS["idwt_w_launch"])
-    _build.check(fw(_build.ptr(yl), _build.ptr(yh), P, H, W, Wo, bf16,
-                    c_g0, c_g1, L, pl, _build.ptr(lo), _build.ptr(hi), s), "idwt_w")
-    kernels.launches["idwt"] += 1
-    fh = _build.function("idwt", "idwt_h_launch", _IDWT_ARGS["idwt_h_launch"])
-    _build.check(fh(_build.ptr(lo), _build.ptr(hi), P, H, Wo, Ho, bf16,
-                    c_g0, c_g1, L, pl, _build.ptr(out), s), "idwt_h")
+    _check_plane_size(yl.shape, out.shape)
+    fn = _build.function("idwt", "idwt_launch", _IDWT_ARGS["idwt_launch"])
+    _build.check(fn(_build.ptr(yl), _build.ptr(yh), B * C, H, W, int(yl.dtype == torch.bfloat16),
+                    c_g0, c_g1, L, pl, _build.ptr(out), _build.stream(yl.device)), "idwt")
     kernels.launches["idwt"] += 1
     return out
 
@@ -497,30 +495,16 @@ def _idwt2d_adjoint_cuda(g: torch.Tensor, name: str) -> Tuple[torch.Tensor, torc
         raise TypeError(f"idwt2d adjoint kernel takes a bf16 or f32 (B, C, Ho, Wo) cotangent, "
                         f"got {g.dtype} {tuple(g.shape)}")
     g = g.contiguous()
-    g0, g1 = synthesis_taps(name, g.dtype)
-    L = len(g0)
-    pl, pr = synthesis_pads(name)
-    if L > _MAX_TAPS:
-        raise ValueError(f"idwt2d adjoint kernel supports up to {_MAX_TAPS} taps, got {L}")
+    c_g0, c_g1, L, pl = _kernel_taps(name, g.dtype)
     B, C, Ho, Wo = g.shape
-    P = B * C
-    H, W = (Ho + L - pl - pr) // 2, (Wo + L - pl - pr) // 2
-    d_lo = torch.empty((P, H, Wo), device=g.device, dtype=torch.float32)
-    d_hi = torch.empty((P, H, Wo), device=g.device, dtype=torch.float32)
+    H, W = (Ho + L - 2) // 2, (Wo + L - 2) // 2
     d_yl = torch.empty((B, C, H, W), device=g.device, dtype=g.dtype)
     d_yh = torch.empty((B, C, 3, H, W), device=g.device, dtype=g.dtype)
     if d_yl.numel() == 0:
         return d_yl, d_yh
-    c_g0 = (ctypes.c_float * L)(*g0.tolist())
-    c_g1 = (ctypes.c_float * L)(*g1.tolist())
-    bf16 = int(g.dtype == torch.bfloat16)
-    s = _build.stream(g.device)
-    fh = _build.function("idwt", "idwt_adj_h_launch", _IDWT_ARGS["idwt_adj_h_launch"])
-    _build.check(fh(_build.ptr(g), P, H, Ho, Wo, bf16, c_g0, c_g1, L, pl,
-                    _build.ptr(d_lo), _build.ptr(d_hi), s), "idwt_adj_h")
-    kernels.launches["idwt_adjoint"] += 1
-    fw = _build.function("idwt", "idwt_adj_w_launch", _IDWT_ARGS["idwt_adj_w_launch"])
-    _build.check(fw(_build.ptr(d_lo), _build.ptr(d_hi), P, H, W, Wo, bf16, c_g0, c_g1, L, pl,
-                    _build.ptr(d_yl), _build.ptr(d_yh), s), "idwt_adj_w")
+    _check_plane_size(g.shape, d_yl.shape)
+    fn = _build.function("idwt", "idwt_adjoint_launch", _IDWT_ARGS["idwt_adjoint_launch"])
+    _build.check(fn(_build.ptr(g), B * C, Ho, Wo, int(g.dtype == torch.bfloat16), c_g0, c_g1, L, pl,
+                    _build.ptr(d_yl), _build.ptr(d_yh), _build.stream(g.device)), "idwt_adjoint")
     kernels.launches["idwt_adjoint"] += 1
     return d_yl, d_yh
