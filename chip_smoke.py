@@ -159,7 +159,8 @@ import torch
 import torch.nn.functional as F
 
 from trinerflet_tpu_torch import kernels
-from trinerflet_tpu_torch.data.rays import rays_full_image, sample_ray_batch
+from trinerflet_tpu_torch.data.rays import (rays_for_pixels, rays_full_image, sample_ray_batch,
+                                             sample_ray_batch_pregen)
 from trinerflet_tpu_torch.data.synthetic import make_synthetic_scene, orbit_pose, synthetic_intrinsics
 from trinerflet_tpu_torch.kernels import _build
 from trinerflet_tpu_torch.models import gridencoder as GE
@@ -999,7 +1000,7 @@ def _sample_bwd_rows(calls, i=0, label=""):
                                       iters=5),
                      bound_ms=b, bound_by=by, library_ms=time_ms(lib),
                      note=f"{live} of {3 * xyz.shape[0]} (sample, plane) rows carry a cotangent; "
-                          f"float32 atomics{' then a bf16 cast (2 launches)' if dtype == torch.bfloat16 else ''}; "
+                          f"binned by tile, summed per tile in shared memory ({GS.K2_BWD_LAUNCHES} launches); "
                           f"library is aten.grid_sampler_2d_backward on the {dtype} planes and "
                           f"coordinates (rel diff {lib_err:.2e}); on f32 copies {lib_f32_err:.2e}"))
     return rows
@@ -1008,11 +1009,10 @@ def _sample_bwd_rows(calls, i=0, label=""):
 def _sample_xyz_rows(calls, label_of):
     """K2x on each of the step's calls (``label_of(planes)`` names the plane
     stack), as the call asked (with or without the plane gradient): dL/dxyz
-    against the plain version on the CPU, where xyz / lbound is a true
-    division as in the kernel (torch on the card multiplies by the
-    reciprocal, and a point on a cell edge may take the neighbour cell's
-    slope), the plane gradient, continuous there, against the plain version
-    on the card; timed beside the bound and one aten.grid_sampler_2d_backward
+    against the plain version on the CPU (which divides xyz / lbound truly,
+    as the kernel and, since the division is by a tensor, the plain version
+    on the card do), the plane gradient against the plain version on the
+    card; timed beside the bound and one aten.grid_sampler_2d_backward
     with the same gradients over the three planes (channel-first)."""
     rows = []
     for (g, planes, xyz, lb), kw in calls["_sample_points_backward_xyz_cuda"]:
@@ -1864,8 +1864,12 @@ def registry_loss(trainer, field, params, occ, data, batch, generator):
     occupancy state, the field's background behind ``bg_fn``, the MSE
     against the pixels composited over black."""
     N = batch["img_idx"].shape[0] if "img_idx" in batch else trainer.cfg.num_rays
-    rays_o, rays_d, pixels = sample_ray_batch(data["images"], data["poses"], data["intrinsics"], N,
-                                              generator, batch.get("img_idx"), batch.get("pix_idx"))
+    if "rays_o" in data:  # a step check's rays, the same on both devices
+        rays_o, rays_d, pixels = sample_ray_batch_pregen(data["images"], data["rays_o"], data["rays_d"], N,
+                                                         generator, batch.get("img_idx"), batch.get("pix_idx"))
+    else:
+        rays_o, rays_d, pixels = sample_ray_batch(data["images"], data["poses"], data["intrinsics"], N,
+                                                  generator, batch.get("img_idx"), batch.get("pix_idx"))
     gt = pixels[..., :3] * pixels[..., 3:] if pixels.shape[-1] == 4 else pixels
     noise = batch.get("noise")
     if noise is None:
@@ -2404,11 +2408,35 @@ class _ZoomTerms:
             setattr(GS, n, fn)
 
 
+def check_rays(data, what):
+    """Ray generation, card vs CPU: the ray of every pixel of every view, by
+    ``rays_for_pixels`` on each device. Logs how many rays differ and the
+    first that does; returns the card's rays as (V, H, W, 3) origins and
+    directions, which both sides of a step check then read, so that a
+    difference in the march there is one on identical inputs."""
+    V, H, Wd = data["images"].shape[:3]
+    flat = torch.arange(V * H * Wd)
+    img, pix = flat // (H * Wd), flat % (H * Wd)
+    go, gd = rays_for_pixels(data["poses"], data["intrinsics"], Wd, img.to(DEVICE), pix.to(DEVICE))
+    co, cd = rays_for_pixels(data["poses"].cpu(), torch.as_tensor(data["intrinsics"]).cpu(), Wd, img, pix)
+    go, gd = go.cpu(), gd.cpu()
+    differ = (go != co).any(-1) | (gd != cd).any(-1)
+    first = ""
+    if differ.any():
+        i = int(differ.nonzero()[0])
+        first = (f"; the first, ray {i} (view {int(img[i])}, pixel {int(pix[i])}): direction card "
+                 f"{gd[i].tolist()} vs CPU {cd[i].tolist()}")
+    log(f"# {what} ray generation card vs CPU: {int(differ.sum())} of {len(flat)} rays differ, max|diff| "
+        f"{(gd - cd).abs().max().item():.3e} (direction), {(go - co).abs().max().item():.3e} (origin){first}; "
+        f"the step check reads the card's rays on both devices")
+    return go.reshape(V, H, Wd, 3), gd.reshape(V, H, Wd, 3)
+
+
 def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=(), loss_fn=None, seed=SEED + 2,
                hold=True):
     """One step's loss and gradients at full width on ``n_rays`` rays with an
     injected batch and noise: kernels on the card vs plain versions on the CPU,
-    on the trainer's current layout. The groups in ``unused`` (the background
+    on the trainer's current layout, both on the card's rays (``check_rays``). The groups in ``unused`` (the background
     net, which the trainer, as the JAX trainer, never renders) must get an
     exactly zero gradient on both; every other group a non-zero one.
     ``loss_fn(trainer, params, occ, data, batch, generator) -> (loss, aux)``
@@ -2427,12 +2455,12 @@ def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=(), loss_fn
         def loss_fn(tr, params, occ, d, batch, generator):
             return tr._loss_fn(params, occ, d, batch, False, generator)
     results = {}
+    rays_o, rays_d = check_rays(data, what)
     for dev in (DEVICE, "cpu"):
         tr = Trainer(trainer.nerf_cfg, trainer.render_cfg, cfg, device=dev)
         params = TR._map(lambda t: t.detach().to(dev).requires_grad_(True), state.params)
         occ = type(state.occ)(*[x.to(dev) for x in state.occ])
-        d = {"images": data["images"].to(dev), "poses": data["poses"].to(dev),
-             "intrinsics": data["intrinsics"]}
+        d = {"images": data["images"].to(dev), "rays_o": rays_o.to(dev), "rays_d": rays_d.to(dev)}
         t0 = time.perf_counter()
         with _ZoomTerms() as zoom:
             loss, aux = loss_fn(tr, params, occ, d, batch, torch.Generator(device=dev))

@@ -129,7 +129,8 @@ def test_idwt_kernel_matches_plain(dev, dtype, case, name):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 16), (torch.float32, 16), (torch.bfloat16, 4)])
+@pytest.mark.parametrize("C", [4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sample_kernel_matches_plain(dev, dtype, C):
     g = torch.Generator().manual_seed(1)
     planes = torch.randn((3, 64, 48, C), generator=g).to(dev, dtype)
@@ -140,10 +141,89 @@ def test_sample_kernel_matches_plain(dev, dtype, C):
     ref = GS.sample_points_plain(planes, xyz, 1.5)
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (5000, 3, C)
-    # torch's CUDA division by a Python scalar multiplies by the reciprocal,
-    # the kernel divides: the projected coordinate may differ by one f32 ulp,
-    # i.e. ~W * 2^-24 texels, times texel steps of up to ~8 here
+    # both divide by 1.5 truly and round each product; the plain version's
+    # sum over the four corners may run in another order on the card
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+def _k2_points(kind, H, W, M, lbound, gen):
+    """Points for the K2 cases: ``random`` over the box and past it (the
+    clamp); ``edges`` on the texel edges of the backward's tiles (32 texels
+    wide, 16 or 32 high) and of the plane's border (x0 = W - 2, and x = W - 1
+    exactly), on every axis; ``one_texel`` all in one texel (one tile, split
+    across many blocks)."""
+    if kind == "random":
+        return 2.2 * lbound * torch.rand((M, 3), generator=gen) - 1.1 * lbound
+    if kind == "one_texel":
+        return 0.1 + 1e-4 * torch.rand((M, 3), generator=gen)
+    us = []
+    for n in (H, W):  # an axis is the planes' H on some and W on others
+        t = torch.tensor([15.0, 16.0, 31.0, 31.5, 32.0, 47.0, 63.0, 64.0], dtype=torch.float64)
+        t = torch.cat([t[t < n - 2], torch.tensor([n - 2.0, n - 1.5, n - 1.0, 0.0, 0.5])])
+        us.append((t / (n - 1) * 2.0 - 1.0) * lbound)
+    u = torch.cat(us)
+    pick = torch.randint(0, len(u), (M, 3), generator=gen)
+    return u[pick].float()
+
+
+# (H, W, C, dtype, points): H != W, sides no multiple of the tiles, every
+# channel count, tile and border edges, one texel (the split tiles), bench's
+# 1024^2 x 16 bf16 planes, and planes of more than 16,384 tiles
+K2_CASES = {
+    "c4_f32_ragged": (37, 70, 4, torch.float32, "edges"),
+    "c8_bf16_ragged": (70, 37, 8, torch.bfloat16, "edges"),
+    "c16_bf16_ragged": (100, 67, 16, torch.bfloat16, "edges"),
+    "c32_f32_ragged": (45, 66, 32, torch.float32, "edges"),
+    "c32_bf16_random": (64, 96, 32, torch.bfloat16, "random"),
+    "c16_f32_kplanes": (64, 64, 16, torch.float32, "random"),
+    "c16_bf16_one_texel": (64, 48, 16, torch.bfloat16, "one_texel"),
+    "c4_f32_one_texel": (40, 40, 4, torch.float32, "one_texel"),
+    "c16_bf16_bench": (1024, 1024, 16, torch.bfloat16, "random"),
+    # more tiles than a block-local histogram holds: the count pass adds to
+    # the global counts directly
+    "c4_bf16_wide": (1024, 5632, 4, torch.bfloat16, "random"),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_sample_kernels_match_plain_on_edges(dev, case):
+    """K2 forward and backward against their plain versions (forward atol
+    1e-4, backward 1e-5 f32 / 2^-7 bf16 of the largest gradient), a fifth of
+    the cotangent rows zero."""
+    H, W, C, dtype, kind = K2_CASES[case]
+    gen = torch.Generator().manual_seed(11)
+    M = {"random": 200_000, "edges": 30_000, "one_texel": 20_000}[kind]
+    planes = torch.randn((3, H, W, C), generator=gen).to(dev, dtype)
+    xyz = _k2_points(kind, H, W, M, 1.5, gen).to(dev)
+    ct = torch.randn((M, 3, C), generator=gen)
+    ct[torch.rand((M,), generator=gen) < 0.2] = 0.0
+    ct = ct.to(dev)
+    got = GS._sample_points_cuda(planes, xyz, 1.5)
+    ref = GS.sample_points_plain(planes, xyz, 1.5)
+    assert (got - ref).abs().max().item() <= 1e-4
+    n0 = kernels.launches["grid_sample_bwd"]
+    gg = GS._sample_points_backward_cuda(ct, xyz, 1.5, (3, H, W, C), dtype)
+    assert kernels.launches["grid_sample_bwd"] == n0 + GS.K2_BWD_LAUNCHES
+    rg = GS.sample_points_backward_plain(ct, xyz, 1.5, (3, H, W, C), dtype)
+    torch.cuda.synchronize()
+    assert gg.dtype == rg.dtype == dtype and gg.shape == (3, H, W, C)
+    assert _rel_close(gg, rg, 1e-5 if dtype == torch.float32 else 2.0**-7)
+    assert ((gg != 0) == (rg != 0)).float().mean().item() > 0.999  # the texels reached
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_backward_kernel_zero_cotangent_and_no_points(dev, dtype):
+    """An all-zero cotangent gives a zero gradient (every texel written);
+    no points give zeros without a launch."""
+    gen = torch.Generator().manual_seed(12)
+    planes_shape = (3, 50, 70, 8)
+    xyz = (3.0 * torch.rand((4000, 3), generator=gen) - 1.5).to(dev)
+    out = GS._sample_points_backward_cuda(torch.zeros((4000, 3, 8), device=dev), xyz, 1.5, planes_shape, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == planes_shape and (out == 0).all()
+    n0 = kernels.launches["grid_sample_bwd"]
+    out = GS._sample_points_backward_cuda(torch.zeros((0, 3, 8), device=dev), xyz[:0], 1.5, planes_shape, dtype)
+    assert kernels.launches["grid_sample_bwd"] == n0 and (out == 0).all() and out.dtype == dtype
 
 
 def test_composite_kernel_matches_plain(dev):
@@ -251,7 +331,7 @@ def test_sample_backward_kernel_matches_plain(dev, dtype):
     ct[1000:3000] = 0.0  # masked samples
     n0 = kernels.launches["grid_sample_bwd"]
     got = GS._sample_points_backward_cuda(ct, xyz, 1.5, (3, H, W, C), dtype)
-    assert kernels.launches["grid_sample_bwd"] == n0 + (1 if dtype == torch.float32 else 2)
+    assert kernels.launches["grid_sample_bwd"] == n0 + GS.K2_BWD_LAUNCHES
     ref = GS.sample_points_backward_plain(ct, xyz, 1.5, (3, H, W, C), dtype)
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype == dtype and got.shape == (3, H, W, C)
@@ -317,17 +397,16 @@ def test_sample_points_autograd_launches_k2x_only_for_points(dev):
     names = ("grid_sample_bwd", "grid_sample_bwd_xyz")
     n0 = [kernels.launches[k] for k in names]
     (GS.sample_points(planes, xyz, 1.5) * ct).sum().backward()
-    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [2, 0]
+    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [GS.K2_BWD_LAUNCHES, 0]
     grad_planes = planes.grad
     planes.grad = None
     xyz = xyz.clone().requires_grad_(True)
     (GS.sample_points(planes, xyz, 1.5) * ct).sum().backward()
-    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [2, 2]
+    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [GS.K2_BWD_LAUNCHES, 2]
     ref_pg, ref_xg = GS.sample_points_backward_xyz_plain(ct, planes.detach(), xyz.detach(), 1.5)
     assert _rel_close(planes.grad, grad_planes, 2.0**-7) and _rel_close(planes.grad, ref_pg, 2.0**-7)
-    # the plain version divides by 1.5 as a reciprocal multiply on the card
-    # (a CPU scalar), the kernel truly: a point on a cell edge may take the
-    # neighbour cell's slope, so the coordinate gradient is held in L2
+    # the coordinate gradient is held in L2 (the kernel fuses the channel
+    # sums' multiply-adds no more, but sums them in another order)
     d = (xyz.grad - ref_xg).norm() / ref_xg.norm()
     assert d.item() <= 1e-3, d.item()
     with pytest.raises(TypeError, match="bf16 or f32"):

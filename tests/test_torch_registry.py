@@ -8,17 +8,20 @@ trip), and K7x's plain version against
 Every input is made with numpy from a seed and handed to both packages; the
 port's parameters come from the JAX package's ``init_params`` through
 ``carry.params_from_jax``. The JAX functions run op by op (the JAX
-package's own tests call them so), except ``grid_encode``, which the port
-rounds as jit does (``x * f32(1/bound) + 1`` fused; see
-``tests/test_torch_gridencoder.py``), so K7x is held to the jitted gradient.
+package's own tests call them so), except ``grid_encode`` and
+``sample_volume_grid``, which the port rounds as jit does (``x * f32(1 /
+bound) + 1`` fused, resp. ``x * f32(1 / bound) * 0.5 + 0.5``; see
+``tests/test_torch_gridencoder.py`` and ``tests/test_torch_rounding.py``),
+so K7x and K10 are held to jitted JAX, the points an argument.
 
 Tolerances, stated per comparison:
 * K10 (``sample_volume_grid``): features and the grid gradient within 1e-6
-  absolute (each operation rounds alone in both, as op-by-op JAX; the grid
-  gradient's float32 sums run in another order); the point gradient within
-  1e-5 of its largest entry (JAX sums the corners' terms in another order),
-  and exactly JAX's clip factor at the border: 0.5 on x = -bound and, at
-  R = 64 where float32(R - 1 - 1e-6) is 63.0, on x = +bound; 0 beyond.
+  absolute (the grid gradient's float32 sums run in another order); the
+  point gradient within 1e-5 of its largest entry (JAX sums the corners'
+  terms in another order), and exactly JAX's clip factor at the border:
+  0.5 where q sits exactly on 0 or on the float32 bound (at bound 1,
+  x = -1 and, at R = 64 where float32(R - 1 - 1e-6) is 63.0, x = +1); 0
+  beyond.
 * K7x: within 2e-6 of the largest entry of the jitted ``jax.grad`` (the
   corners' and channels' sums in another order), border ties included.
 * K11 (``background_textured``): colours within 1e-6 (acos, atan2 and the
@@ -145,9 +148,10 @@ def test_sample_volume_grid_and_gradients_match_jax(R):
     X, grid, G = _volume_inputs(R, bound, R)
     jc = JR.VolumeGridConfig(resolution=R, feature_dim=4)
     pc = PR.VolumeGridConfig(resolution=R, feature_dim=4)
-    jout = JR.sample_volume_grid({"grid": jnp.asarray(grid)}, jnp.asarray(X), jc, bound)
-    jg, jx = jax.grad(lambda p, x: (JR.sample_volume_grid(p, x, jc, bound) * G).sum(), argnums=(0, 1))(
-        {"grid": jnp.asarray(grid)}, jnp.asarray(X))
+    jout = jax.jit(lambda p, x: JR.sample_volume_grid(p, x, jc, bound))({"grid": jnp.asarray(grid)},
+                                                                        jnp.asarray(X))
+    jg, jx = jax.jit(jax.grad(lambda p, x: (JR.sample_volume_grid(p, x, jc, bound) * G).sum(),
+                              argnums=(0, 1)))({"grid": jnp.asarray(grid)}, jnp.asarray(X))
     gt, xt = torch.from_numpy(grid).requires_grad_(True), torch.from_numpy(X).requires_grad_(True)
     out = PR.sample_volume_grid({"grid": gt}, xt, pc, bound)
     gg, gx = torch.autograd.grad((out * torch.from_numpy(G)).sum(), [gt, xt])
@@ -162,27 +166,34 @@ def test_sample_volume_grid_and_gradients_match_jax(R):
 
 
 def test_volume_grid_clip_ties_follow_jax():
-    """JAX's clip gives a tie half the gradient. q sits exactly on 0 at
-    x = -bound, and at R = 64 exactly on the float32 bound 63.0 at +bound
-    (at R = 16 the bound rounds to 14.999999 and +bound lies outside)."""
-    bound = 1.5
+    """JAX's clip gives a tie half the gradient. At bound 1, q sits exactly on
+    0 at x = -1, and at R = 64 exactly on the float32 bound 63.0 at x = +1
+    (at R = 16 the bound rounds to 14.999999 and +1 lies outside). At bound
+    1.5 jit's q at x = -1.5 lies 1e-8 below 0 (``x * f32(1/1.5) * 0.5 +
+    0.5`` fused), so no tie there and no gradient, as in jitted JAX."""
     for R in (16, 64):
-        xs = torch.tensor([-bound, bound, 1.1 * bound, 0.3])
-        qpre = (xs / bound * 0.5 + 0.5) * (R - 1)
+        xs = torch.tensor([-1.0, 1.0, 1.1, 0.3])
+        qpre = (xs * 0.5 + 0.5) * (R - 1)
         cg = _clip_grad(qpre, PR._clip_hi(R)).tolist()
         assert cg == [0.5, 0.5 if R == 64 else 0.0, 0.0, 1.0], (R, cg)
+        assert torch.equal(PR._voxel_cell(xs[:, None].expand(4, 3), R, 1.0)[0][:, 0], qpre)
     assert PR._clip_hi(64) == 63.0 and PR._clip_hi(32) == np.float32(30.999998)
-    # x = -bound: half the one-sided slope of the first cell in that axis
     R = 16
     rng = np.random.default_rng(3)
     grid = rng.standard_normal((R, R, R, 2)).astype(np.float32)
-    x = torch.tensor([[-bound, 0.2, -0.3], [-bound + 1e-3, 0.2, -0.3]], requires_grad=True)
-    out = PR.sample_volume_grid({"grid": torch.from_numpy(grid)}, x, PR.VolumeGridConfig(R, 1), bound)
-    (gx,) = torch.autograd.grad(out[:, 0].sum(), [x])
-    np.testing.assert_allclose(gx[0, 0].item(), 0.5 * gx[1, 0].item(), rtol=1e-4)
-    jx = jax.grad(lambda x: JR.sample_volume_grid({"grid": jnp.asarray(grid)}, x, JR.VolumeGridConfig(R, 1),
-                                                  bound)[:, 0].sum())(jnp.asarray(x.detach().numpy()))
-    np.testing.assert_allclose(gx.numpy(), np.asarray(jx), rtol=1e-5, atol=1e-6)
+    cfg_j, cfg_p = JR.VolumeGridConfig(R, 1), PR.VolumeGridConfig(R, 1)
+    jgrad = jax.jit(jax.grad(lambda x, b: JR.sample_volume_grid({"grid": jnp.asarray(grid)}, x, cfg_j,
+                                                                 b)[:, 0].sum()), static_argnums=1)
+    for bound in (1.0, 1.5):
+        # x = -bound: half the one-sided slope of the first cell in that axis
+        # at bound 1, none at 1.5
+        x = torch.tensor([[-bound, 0.2, -0.3], [-bound + 1e-3, 0.2, -0.3]], requires_grad=True)
+        out = PR.sample_volume_grid({"grid": torch.from_numpy(grid)}, x, cfg_p, bound)
+        (gx,) = torch.autograd.grad(out[:, 0].sum(), [x])
+        half = 0.5 if bound == 1.0 else 0.0
+        np.testing.assert_allclose(gx[0, 0].item(), half * gx[1, 0].item(), rtol=1e-4)
+        jx = jgrad(jnp.asarray(x.detach().numpy()), bound)
+        np.testing.assert_allclose(gx.numpy(), np.asarray(jx), rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

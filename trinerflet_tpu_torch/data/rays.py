@@ -33,8 +33,13 @@ def rays_full_image(pose: np.ndarray, intrinsics, H: int, W: int) -> Tuple[np.nd
 
 def rays_for_pixels(poses: torch.Tensor, intrinsics, W: int, img_idx: torch.Tensor,
                     pix_idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rays for selected (view, flat pixel j*W + i) pairs: (B, 3) x2."""
-    fx, fy, cx, cy = intrinsics
+    """Rays for selected (view, flat pixel j*W + i) pairs: (B, 3) x2.
+
+    The JAX train step traces the intrinsics, so ``(i - cx) / fx`` is a
+    true division there; here it divides by float32 tensors on the pixels'
+    device, since torch on the card would multiply by the reciprocal of a
+    Python float."""
+    fx, fy, cx, cy = torch.as_tensor(intrinsics, dtype=torch.float32, device=pix_idx.device).unbind()
     i = (pix_idx % W).float() + 0.5
     j = torch.div(pix_idx, W, rounding_mode="floor").float() + 0.5
     dirs = torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)], dim=-1)

@@ -39,12 +39,14 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # t + dt - t0 round as two operations, as in the plain version), and
 # gridencoder.cu for the cell coordinate that decides K7's corners (one fused
 # multiply-add where XLA fuses, every other operation rounded alone), and
-# volume_grid.cu and textured_bg.cu for the voxel and texel coordinates
-# (every operation rounded alone, as op-by-op JAX computes them).
+# volume_grid.cu for the voxel coordinate (the same), and textured_bg.cu and
+# grid_sample.cu for the texel coordinates (every operation rounded alone,
+# as op-by-op JAX computes them; grid_sample.cu's sums too, as its plain
+# versions sum).
 SOURCES: Dict[str, List[str]] = {
     "march": ["-fmad=false"],
     "march_flat": ["-fmad=false"],
-    "grid_sample": [],
+    "grid_sample": ["-fmad=false"],
     "composite": [],
     "idwt": [],
     "occupancy": ["-fmad=false"],

@@ -12,9 +12,11 @@
 // arithmetic and 2 per corner and channel. The floor is the points in, the
 // samples out and each distinct grid row touched once.
 //
-// Coordinates, as JAX computes them (this file is compiled with -fmad=false,
-// so every operation rounds alone, as op-by-op JAX does):
-//   q = clip((x / bound * 0.5 + 0.5) * (R - 1), 0, hi), hi = float32(R - 1 - 1e-6)
+// Coordinates, as jitted JAX computes them (this file is compiled with
+// -fmad=false, so every operation rounds alone but the one fused
+// multiply-add XLA forms; rinv is float32(1 / bound), as XLA folds the
+// division by the static bound, and rinv * 0.5 is exact):
+//   q = clip(fmaf(x, rinv * 0.5, 0.5) * (R - 1), 0, hi), hi = float32(R - 1 - 1e-6)
 // (63.0 exactly at R = 64, 30.999998 at R = 32), q0 = floor(q), f = q - q0;
 // corner (dx, dy, dz), dx the most significant, has the row
 //   (min(q0x + dx, R-1) * R + min(q0y + dy, R-1)) * R + min(q0z + dz, R-1)
@@ -31,7 +33,7 @@
 // point's gradient stays in registers: s_k = g . row_k, then
 //   dL/df_d = sum_k s_k (+-1) prod_{e != d} w_e,
 // times the clip's gradient (JAX's: 1 inside, 0.5 where q sits exactly on 0
-// or hi, 0 outside), (R - 1), 0.5 and / bound, in JAX's order. Bound: bytes
+// or hi, 0 outside), (R - 1), 0.5 and rinv, in JAX's order. Bound: bytes
 // (the cotangents, the points and the touched rows read, the touched rows
 // read-modify-written, the points' gradient written).
 
@@ -45,12 +47,12 @@ struct VoxelCell {
   float qpre[3];  // before the clip, for its gradient
 };
 
-__device__ __forceinline__ void voxel_cell(const float* __restrict__ x, long long n, int R, float bound,
+__device__ __forceinline__ void voxel_cell(const float* __restrict__ x, long long n, int R, float rinv,
                                            float hi, VoxelCell& c) {
   int q0[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const float qpre = (x[3 * n + d] / bound * 0.5f + 0.5f) * (float)(R - 1);
+    const float qpre = fmaf(x[3 * n + d], rinv * 0.5f, 0.5f) * (float)(R - 1);
     const float q = fminf(fmaxf(qpre, 0.0f), hi);
     const float fq = floorf(q);
     q0[d] = (int)fq;
@@ -70,14 +72,14 @@ __device__ __forceinline__ void voxel_cell(const float* __restrict__ x, long lon
 }
 
 __global__ void volume_grid_kernel(const float* __restrict__ x, const float* __restrict__ grid, long long N,
-                                   int R, int CH, int G, float bound, float hi, float* __restrict__ out) {
+                                   int R, int CH, int G, float rinv, float hi, float* __restrict__ out) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N * G) return;
   const long long n = i / G;
   const int c0 = (int)(i - n * G) * 4;
   const int nc = min(4, CH - c0);
   VoxelCell c;
-  voxel_cell(x, n, R, bound, hi, c);
+  voxel_cell(x, n, R, rinv, hi, c);
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -94,12 +96,12 @@ __global__ void volume_grid_kernel(const float* __restrict__ x, const float* __r
 
 __global__ void volume_grid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
                                             const float* __restrict__ grid, long long N, int R, int CH,
-                                            float bound, float hi, float* __restrict__ ggrid,
+                                            float rinv, float hi, float* __restrict__ ggrid,
                                             float* __restrict__ gx) {
   long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   VoxelCell c;
-  voxel_cell(x, n, R, bound, hi, c);
+  voxel_cell(x, n, R, rinv, hi, c);
   const float* __restrict__ gn = g + n * CH;
   float s[8];
 #pragma unroll
@@ -129,19 +131,20 @@ __global__ void volume_grid_backward_kernel(const float* __restrict__ x, const f
   for (int d = 0; d < 3; ++d) {
     const float v = c.qpre[d];
     const float cg = (v > 0.0f && v < hi) ? 1.0f : ((v == 0.0f || v == hi) ? 0.5f : 0.0f);
-    gx[3 * n + d] = df[d] * cg * (float)(R - 1) * 0.5f / bound;
+    gx[3 * n + d] = df[d] * cg * (float)(R - 1) * 0.5f * rinv;
   }
 }
 
-// x (N, 3) f32 in world units, grid (R^3, CH) f32 rows -> out (N, CH) f32.
+// x (N, 3) f32 in world units, grid (R^3, CH) f32 rows -> out (N, CH) f32;
+// rinv = float32(1 / bound).
 extern "C" int volume_grid_launch(const float* x, const float* grid, long long N, int R, int CH,
-                                  float bound, float hi, float* out, cudaStream_t stream) {
+                                  float rinv, float hi, float* out, cudaStream_t stream) {
   if (N == 0) return 0;
   if (R < 2 || CH < 1) return (int)cudaErrorInvalidValue;
   const int G = (CH + 3) / 4;
   const int threads = 256;
   unsigned int blocks = (unsigned int)((N * G + threads - 1) / threads);
-  volume_grid_kernel<<<blocks, threads, 0, stream>>>(x, grid, N, R, CH, G, bound, hi, out);
+  volume_grid_kernel<<<blocks, threads, 0, stream>>>(x, grid, N, R, CH, G, rinv, hi, out);
   return (int)cudaGetLastError();
 }
 
@@ -150,12 +153,12 @@ extern "C" int volume_grid_launch(const float* x, const float* grid, long long N
 // order; null: not computed), and writes dL/dx into gx (N, 3) f32 (null: not
 // computed).
 extern "C" int volume_grid_backward_launch(const float* x, const float* g, const float* grid, long long N,
-                                           int R, int CH, float bound, float hi, float* ggrid, float* gx,
+                                           int R, int CH, float rinv, float hi, float* ggrid, float* gx,
                                            cudaStream_t stream) {
   if (N == 0 || (!ggrid && !gx)) return 0;
   if (R < 2 || CH < 1) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   unsigned int blocks = (unsigned int)((N + threads - 1) / threads);
-  volume_grid_backward_kernel<<<blocks, threads, 0, stream>>>(x, g, grid, N, R, CH, bound, hi, ggrid, gx);
+  volume_grid_backward_kernel<<<blocks, threads, 0, stream>>>(x, g, grid, N, R, CH, rinv, hi, ggrid, gx);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.activation import plain_exp, trunc_exp
 from ..ops.encoders import sh_dim, sh_encode
+from ..ops.raymarch import _inv
 from .encodings import encoder_apply, encoder_dim, get_encoder
 from .triplane import TriplaneConfig, build_planes, init_triplane_params, sample_triplane
 
@@ -148,7 +149,7 @@ class NeRFField:
         cfg = self.cfg
         if cfg.density_blob_scale > 1e-5:
             h = h * (cfg.density_blob_scale
-                     * plain_exp(-0.5 * (x * x).sum(-1) / cfg.density_blob_std**2))
+                     * plain_exp(-0.5 * (x * x).sum(-1) * _inv(cfg.density_blob_std**2)))
         return h
 
     def density(self, params: Dict, planes: Dict[str, torch.Tensor],

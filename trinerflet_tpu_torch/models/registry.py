@@ -55,6 +55,7 @@ from ..kernels import _build
 from ..ops.activation import plain_exp, trunc_exp
 from ..ops.encoders import sh_dim, sh_encode
 from ..ops.grid_sample import _clip_grad
+from ..ops.raymarch import _fma, _inv
 from .nerf import NeRFConfig, NeRFField, _init_mlp, _mlp, init_nerf_params
 from .triplane import sample_triplane
 
@@ -113,8 +114,11 @@ _CORNERS_3D = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
 
 def _voxel_cell(x: torch.Tensor, R: int, bound: float):
     """q before the clip (N, 3), the cell corner q0 (N, 3) int64 and the
-    fraction f (N, 3), each operation rounded alone as op-by-op JAX."""
-    qpre = (x / bound * 0.5 + 0.5) * (R - 1)
+    fraction f (N, 3), rounded as jit rounds ``(x / bound * 0.5 + 0.5) *
+    (R - 1)``: XLA multiplies by the float32 reciprocal of the static bound,
+    folds the 0.5 into it (exactly) and fuses the + 0.5 into one fused
+    multiply-add; every other operation rounds alone."""
+    qpre = _fma(x, _inv(bound) * 0.5, 0.5) * (R - 1)
     q = _clip(qpre, 0.0, _clip_hi(R))
     q0 = torch.floor(q)
     return qpre, q0.long(), q - q0
@@ -148,7 +152,7 @@ def sample_volume_grid_backward_plain(g: torch.Tensor, grid: torch.Tensor, x: to
 
     then JAX's chain: times the clip's gradient (``_clip_grad``: 0.5 where
     q sits exactly on 0 or on the float32 bound, 0 outside), (R - 1), 0.5
-    and / bound."""
+    and the float32 reciprocal of the bound (jit's ``/ bound``)."""
     qpre, q0, f = _voxel_cell(x, R, bound)
     g = g.float()
     ggrid = torch.zeros_like(grid, dtype=torch.float32) if grid_grad else None
@@ -163,7 +167,7 @@ def sample_volume_grid_backward_plain(g: torch.Tensor, grid: torch.Tensor, x: to
                 df[:, d] += (s if corner[d] else -s) * w_other
     gx = None
     if x_grad:
-        gx = df * _clip_grad(qpre, _clip_hi(R)) * (R - 1) * 0.5 / bound
+        gx = df * _clip_grad(qpre, _clip_hi(R)) * (R - 1) * 0.5 * _inv(bound)
     return ggrid, gx
 
 
@@ -559,13 +563,13 @@ class RegistryField:
                                     dtype=torch.float32, device=x.device)
                 pts = torch.clamp(x[:, None, :] + offs[None], -b, b)
                 dd = scalar(pts.reshape(-1, 3)).reshape(-1, 6)
-                g = sign * 0.5 * (dd[:, 0::2] - dd[:, 1::2]) / eps
+                g = sign * 0.5 * (dd[:, 0::2] - dd[:, 1::2]) * _inv(eps)  # jit's / eps
             else:
                 offs = eps * torch.eye(3, dtype=torch.float32, device=x.device)
                 pts = torch.clamp(x[:, None, :] + offs[None], -b, b)
                 dd = scalar(pts.reshape(-1, 3))
                 d0 = scalar(x)
-                g = sign * (dd.reshape(-1, 3) - d0[:, None]) / eps
+                g = sign * (dd.reshape(-1, 3) - d0[:, None]) * _inv(eps)
         elif self.normal_type == "analytic":
             if torch.is_grad_enabled() and any(t.requires_grad for tree in (params, planes)
                                                for t in _leaves(tree)):
@@ -658,7 +662,7 @@ def _sample_volume_grid_cuda(grid: torch.Tensor, x: torch.Tensor, R: int, bound:
     if N == 0:
         return out
     fn = _build.function("volume_grid", "volume_grid_launch", _K10_ARGS)
-    _build.check(fn(_build.ptr(x), _build.ptr(grid), N, R, CH, float(bound), _clip_hi(R),
+    _build.check(fn(_build.ptr(x), _build.ptr(grid), N, R, CH, _inv(bound), _clip_hi(R),
                     _build.ptr(out), _build.stream(x.device)), "sample_volume_grid")
     kernels.launches["volume_grid"] += 1
     return out
@@ -680,7 +684,7 @@ def _sample_volume_grid_backward_cuda(g: torch.Tensor, grid: torch.Tensor, x: to
     gx = torch.empty((N, 3), device=x.device, dtype=torch.float32) if x_grad else None
     if N > 0 and (grid_grad or x_grad):
         fn = _build.function("volume_grid", "volume_grid_backward_launch", _K10_BWD_ARGS)
-        _build.check(fn(_build.ptr(x), _build.ptr(g), _build.ptr(grid), N, R, CH, float(bound),
+        _build.check(fn(_build.ptr(x), _build.ptr(g), _build.ptr(grid), N, R, CH, _inv(bound),
                         _clip_hi(R), _build.ptr(ggrid) if grid_grad else None,
                         _build.ptr(gx) if x_grad else None, _build.stream(x.device)), what)
         kernels.launches["volume_grid_bwd"] += 1

@@ -22,6 +22,7 @@ import torch
 from .._device import DeviceLike, not_ported, resolve_device
 from ..ops import wavelets as W
 from ..ops.grid_sample import project_to_planes, sample_points
+from ..ops.raymarch import _inv
 
 __all__ = ["TriplaneConfig", "get_levels", "init_triplane_params", "build_planes",
            "project_to_planes", "sample_triplane", "wavelet_l1", "grow_params"]
@@ -253,7 +254,7 @@ def wavelet_l1(params: Dict, cfg: TriplaneConfig, weighted: bool = False) -> tor
         reg = sum((1.0 / 4**i) * _abs_mean(v) * (v.numel() / total)
                   for i, v in enumerate(reversed(levels)))
     else:
-        reg = sum(_abs_mean(v) * (v.numel() / total) for v in levels) / len(levels)
+        reg = sum(_abs_mean(v) * (v.numel() / total) for v in levels) * _inv(len(levels))
     if cfg.upscale_enabled and "upscale" in params:
         ups = [params["upscale"][f"level_{i}"] for i in range(cfg.upscale_levels)]
         reg = reg + sum(_abs_mean(v) * (1.0 / 4 ** (i + 1)) * (v.numel() / total)

@@ -19,11 +19,18 @@ coordinate gradient that JAX's autodiff of ``grid_sample_2d`` /
 ``sample_planes`` gives (see ``sample_points_backward_xyz_plain``). On CUDA
 tensors it launches kernel K2 forward and backward, or K2x when the
 coordinate gradient is asked for (``kernels/csrc/grid_sample.cu``: the
-forward fuses the projection, the backwards accumulate the plane gradient
-with float32 atomics; K2x skips it when the planes need none, as for an
-analytic normal); on CPU tensors it runs the plain versions (the plane
-gradient an ``index_add_`` in float32). It is differentiable once: a second
-derivative raises on both devices (``kernels.first_order``).
+forward fuses the projection; the backward sums each tile of the plane in
+shared memory after binning the rows by tile, five launches from one call;
+K2x accumulates with float32 atomics and skips the plane gradient when the
+planes need none, as for an analytic normal); on CPU tensors it runs the
+plain versions (the plane gradient an ``index_add_`` in float32). It is
+differentiable once: a second derivative raises on both devices
+(``kernels.first_order``).
+
+Rounding: ``x / lbound`` is a true division on every device, as the JAX
+package computes it op by op and as the kernels divide (``_divide``: torch
+on the card would multiply by the reciprocal of a Python float, and a point
+on a texel edge would take the neighbouring cell there).
 """
 
 from __future__ import annotations
@@ -40,11 +47,12 @@ __all__ = ["grid_sample_2d", "sample_planes", "project_to_planes", "sample_point
            "sample_points_backward_xyz_plain"]
 
 
-def _corners(H: int, W: int, coords: torch.Tensor):
+def _cell(H: int, W: int, xr: torch.Tensor, yr: torch.Tensor):
     """Flat index of the (x0, y0) corner (N,) and the four corner weights
-    (N, 4, 1) in the order (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1)."""
-    x = torch.clamp((coords[:, 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
-    y = torch.clamp((coords[:, 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
+    (N, 4, 1) in the order (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1),
+    from the texel coordinates before the clamp."""
+    x = torch.clamp(xr, 0.0, W - 1)
+    y = torch.clamp(yr, 0.0, H - 1)
     x0 = torch.clamp(torch.floor(x), 0, W - 2).to(torch.int64)
     y0 = torch.clamp(torch.floor(y), 0, H - 2).to(torch.int64)
     wx = (x - x0)[:, None]
@@ -53,15 +61,24 @@ def _corners(H: int, W: int, coords: torch.Tensor):
     return y0 * W + x0, w
 
 
+def _corners(H: int, W: int, coords: torch.Tensor):
+    """``_cell`` at coords (N, 2) in [-1, 1] (``coords[:, 0]`` indexes W)."""
+    return _cell(H, W, (coords[:, 0] + 1.0) * 0.5 * (W - 1), (coords[:, 1] + 1.0) * 0.5 * (H - 1))
+
+
+def _gather_sum(plane: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    H, W, C = plane.shape
+    flat = plane.reshape(H * W, C)
+    rows = torch.stack([flat[idx], flat[idx + 1], flat[idx + W], flat[idx + W + 1]], dim=1)
+    return (rows * w).sum(dim=1)
+
+
 def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """plane (H, W, C) with H, W >= 2, coords (N, 2) in [-1, 1]
     (``coords[:, 0]`` indexes W) -> (N, C) float32 (bf16 planes promote like
     the JAX package)."""
     H, W, C = plane.shape
-    idx, w = _corners(H, W, coords)
-    flat = plane.reshape(H * W, C)
-    rows = torch.stack([flat[idx], flat[idx + 1], flat[idx + W], flat[idx + W + 1]], dim=1)
-    return (rows * w).sum(dim=1)
+    return _gather_sum(plane, *_corners(H, W, coords))
 
 
 def sample_planes(planes: torch.Tensor, coords2d: torch.Tensor) -> torch.Tensor:
@@ -70,16 +87,40 @@ def sample_planes(planes: torch.Tensor, coords2d: torch.Tensor) -> torch.Tensor:
     return out.transpose(0, 1)
 
 
+# (u, v) axes of the three planes: plane 0 spans (x, z), 1 (x, y), 2 (y, z)
+_PLANE_AXES = ((0, 2), (0, 1), (1, 2))
+
+
+def _divide(x: torch.Tensor, lbound: float) -> torch.Tensor:
+    """x / lbound, a true division on every device: the bound goes in as a
+    float32 tensor on x's device (torch on the card multiplies by the
+    reciprocal of a Python scalar, and on the CPU divides)."""
+    return x / x.new_full((), lbound)
+
+
 def project_to_planes(coords: torch.Tensor, lbound: float) -> torch.Tensor:
     """(N, 3) world coords -> (3, N, 2) per-plane coords: plane 0 spans
     (x, z), plane 1 (x, y), plane 2 (y, z), each divided by ``lbound``."""
-    c = coords / lbound
-    return torch.stack([c[:, [0, 2]], c[:, [0, 1]], c[:, [1, 2]]], dim=0)
+    c = _divide(coords, lbound)
+    return torch.stack([c[:, list(ax)] for ax in _PLANE_AXES], dim=0)
+
+
+def _point_cells(planes_shape, xyz: torch.Tensor, lbound: float):
+    """Per plane, the texel coordinates before the clamp (xr, yr) of every
+    point: (xyz / lbound + 1) * 0.5 * (n - 1), each operation rounded alone
+    and the division a true one, as the JAX package computes it op by op
+    (its parity tests run the train step so)."""
+    _, H, W, _ = planes_shape
+    unit = (_divide(xyz, lbound) + 1.0) * 0.5
+    return [(unit[:, a] * (W - 1), unit[:, b] * (H - 1)) for a, b in _PLANE_AXES]
 
 
 def sample_points_plain(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> torch.Tensor:
     """Plain version of K2: planes (3, H, W, C), xyz (M, 3) -> (M, 3, C) f32."""
-    return sample_planes(planes, project_to_planes(xyz, lbound))
+    _, H, W, _ = planes.shape
+    out = [_gather_sum(planes[p], *_cell(H, W, xr, yr))
+           for p, (xr, yr) in enumerate(_point_cells(planes.shape, xyz, lbound))]
+    return torch.stack(out, dim=1)
 
 
 def sample_points_backward_plain(g: torch.Tensor, xyz: torch.Tensor, lbound: float,
@@ -88,11 +129,10 @@ def sample_points_backward_plain(g: torch.Tensor, xyz: torch.Tensor, lbound: flo
     plane gradient, each corner row accumulating w_corner * g in float32
     (``index_add_``), then cast to the plane dtype."""
     P, H, W, C = plane_shape
-    coords = project_to_planes(xyz, lbound)
     acc = torch.zeros((P * H * W, C), dtype=torch.float32, device=g.device)
     g = g.float()
-    for p in range(P):
-        idx, w = _corners(H, W, coords[p])
+    for p, (xr, yr) in enumerate(_point_cells(plane_shape, xyz, lbound)):
+        idx, w = _cell(H, W, xr, yr)
         idx = idx + p * H * W
         for k, off in enumerate((0, 1, W, W + 1)):
             acc.index_add_(0, idx + off, w[:, k] * g[:, p])
@@ -124,12 +164,8 @@ def sample_points_backward_xyz_plain(g: torch.Tensor, planes: torch.Tensor, xyz:
     and the point's gradient is that over ``lbound`` (``u = x / lbound``)."""
     P, H, W, C = planes.shape
     g = g.float()
-    coords = project_to_planes(xyz, lbound)
     duv = []
-    for p in range(P):
-        c = coords[p]
-        xr = (c[:, 0] + 1.0) * 0.5 * (W - 1)
-        yr = (c[:, 1] + 1.0) * 0.5 * (H - 1)
+    for p, (xr, yr) in enumerate(_point_cells(planes.shape, xyz, lbound)):
         x, y = torch.clamp(xr, 0.0, W - 1), torch.clamp(yr, 0.0, H - 1)
         x0, y0 = torch.clamp(torch.floor(x), 0, W - 2), torch.clamp(torch.floor(y), 0, H - 2)
         idx = (y0 * W + x0).long()
@@ -142,7 +178,7 @@ def sample_points_backward_xyz_plain(g: torch.Tensor, planes: torch.Tensor, xyz:
         duv.append((dwx * _clip_grad(xr, W - 1) * (W - 1) * 0.5,
                     dwy * _clip_grad(yr, H - 1) * (H - 1) * 0.5))
     (du0, dv0), (du1, dv1), (du2, dv2) = duv
-    dxyz = torch.stack([du0 + du1, dv1 + du2, dv0 + dv2], dim=-1) / lbound
+    dxyz = _divide(torch.stack([du0 + du1, dv1 + du2, dv0 + dv2], dim=-1), lbound)
     if not planes_grad:
         return None, dxyz
     return sample_points_backward_plain(g, xyz, lbound, tuple(planes.shape), planes.dtype), dxyz
@@ -201,12 +237,22 @@ def _check_planes_points(planes: torch.Tensor, xyz: torch.Tensor, what: str) -> 
         raise TypeError(f"{what}: planes must be bf16 or f32, got {planes.dtype}")
     if xyz.dim() != 2 or xyz.shape[1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"{what}: xyz must be (M, 3) f32, got {tuple(xyz.shape)} {xyz.dtype}")
-    _, H, W, C = planes.shape
-    if C not in _K2_CHANNELS or H < 2 or W < 2:
-        raise ValueError(f"{what}: C in {_K2_CHANNELS} and H, W >= 2, got {tuple(planes.shape)}")
+    _check_sizes(tuple(planes.shape), xyz.shape[0], what)
     if not planes.is_contiguous() or planes.data_ptr() % 16:
         raise ValueError(f"{what}: planes must be contiguous channel-last "
                          "and 16-byte aligned (it reads rows with 16-byte loads)")
+
+
+def _check_sizes(plane_shape, M: int, what: str) -> None:
+    """C in _K2_CHANNELS, H, W >= 2, and every index K2 forms fits 32 bits:
+    the plane elements 3 H W C, the output and cotangent elements 3 M C, and
+    the backward's tile lists (up to 4 entries per (sample, plane) row)."""
+    _, H, W, C = plane_shape
+    if C not in _K2_CHANNELS or H < 2 or W < 2:
+        raise ValueError(f"{what}: C in {_K2_CHANNELS} and H, W >= 2, got {tuple(plane_shape)}")
+    if 3 * H * W * C >= 2**31 or 3 * M * max(C, 4) >= 2**31:
+        raise ValueError(f"{what}: {tuple(plane_shape)} planes and {M} points exceed the kernels' "
+                         "32-bit indices")
 
 
 def _sample_points_cuda(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> torch.Tensor:
@@ -227,35 +273,48 @@ def _sample_points_cuda(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) 
 
 
 _K2_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
+_K2_WORKSPACE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong)]
+# kernels one K2 backward call launches: count, scan, scatter, accumulate, reduce
+K2_BWD_LAUNCHES = 5
 _CAST_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _sample_points_backward_cuda(g: torch.Tensor, xyz: torch.Tensor, lbound: float,
                                  plane_shape, plane_dtype) -> torch.Tensor:
+    """The K2 backward: the plane gradient (3, H, W, C) in the plane dtype,
+    its float32 sums kept in shared memory tile by tile
+    (``kernels/csrc/grid_sample.cu``); its scratch (the rows' tile lists and
+    the float32 partial tiles of tiles split across blocks) comes from
+    torch's caching allocator."""
+    what = "sample_points backward kernel"
     P, H, W, C = plane_shape
     M = xyz.shape[0]
-    if P != 3 or C not in _K2_CHANNELS or H < 2 or W < 2:
-        raise ValueError(f"sample_points backward kernel: bad plane shape {plane_shape}")
+    if P != 3:
+        raise ValueError(f"{what}: bad plane shape {plane_shape}")
+    _check_sizes(plane_shape, M, what)
+    if plane_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: planes must be bf16 or f32, got {plane_dtype}")
     if g.device != xyz.device or tuple(g.shape) != (M, 3, C):
-        raise ValueError(f"sample_points backward kernel: g must be ({M}, 3, {C}) on "
-                         f"{xyz.device}, got {tuple(g.shape)} on {g.device}")
+        raise ValueError(f"{what}: g must be ({M}, 3, {C}) on {xyz.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    if M == 0:
+        return torch.zeros(plane_shape, device=xyz.device, dtype=plane_dtype)
     g = g.float().contiguous()
     xyz = xyz.contiguous()
-    acc = torch.zeros(plane_shape, device=xyz.device, dtype=torch.float32)
-    s = _build.stream(xyz.device)
-    if M > 0:
-        fn = _build.function("grid_sample", "sample_points_backward_launch", _K2_BWD_ARGS)
-        _build.check(fn(_build.ptr(xyz), _build.ptr(g), M, H, W, C, float(lbound),
-                        _build.ptr(acc), s), "sample_points backward")
-        kernels.launches["grid_sample_bwd"] += 1
-    if plane_dtype == torch.float32:
-        return acc
-    if plane_dtype != torch.bfloat16:
-        raise TypeError(f"sample_points backward kernel: planes must be bf16 or f32, got {plane_dtype}")
-    out = torch.empty(plane_shape, device=xyz.device, dtype=torch.bfloat16)
-    _cast_bf16(acc, out, s)
-    kernels.launches["grid_sample_bwd"] += 1
+    words, floats = ctypes.c_longlong(), ctypes.c_longlong()
+    ws = _build.function("grid_sample", "sample_points_backward_workspace", _K2_WORKSPACE_ARGS)
+    _build.check(ws(M, H, W, C, ctypes.byref(words), ctypes.byref(floats)), what)
+    iscratch = torch.empty((words.value,), device=xyz.device, dtype=torch.int32)
+    partials = torch.empty((floats.value,), device=xyz.device, dtype=torch.float32)
+    out = torch.empty(plane_shape, device=xyz.device, dtype=plane_dtype)
+    fn = _build.function("grid_sample", "sample_points_backward_launch", _K2_BWD_ARGS)
+    _build.check(fn(_build.ptr(xyz), _build.ptr(g), M, H, W, C, int(plane_dtype == torch.bfloat16),
+                    float(lbound), _build.ptr(out), _build.ptr(iscratch), _build.ptr(partials),
+                    _build.stream(xyz.device)), "sample_points backward")
+    kernels.launches["grid_sample_bwd"] += K2_BWD_LAUNCHES
     return out
 
 

@@ -28,6 +28,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..models.gridencoder import GridEncoderConfig, grid_encode, init_grid_params
 from ..ops import raymarch as RM
+from ..ops.raymarch import _inv
 from ..ops.activation import trunc_exp
 from .renderer import RenderConfig, _background, _linspace, _ray_weights, _uniform
 
@@ -100,7 +101,7 @@ def render_proposal(
     if perturb:
         if jitter is None:
             jitter = _uniform((N, P + 1), generator, dev)
-        jitter = (jitter.to(dev, torch.float32) - 0.5) * (fars - nears) / P
+        jitter = (jitter.to(dev, torch.float32) - 0.5) * (fars - nears) * _inv(P)  # jit's / P
         bins_p = torch.sort(bins_p + jitter, dim=-1).values
     mid_p = 0.5 * (bins_p[:, 1:] + bins_p[:, :-1])                        # (N, P)
     dt_p = bins_p[:, 1:] - bins_p[:, :-1]
@@ -118,7 +119,7 @@ def render_proposal(
     t_f = RM.sample_pdf(bins_p, w_p.detach(), F, u)                     # (N, F)
     t_f = torch.sort(t_f, dim=-1).values
     dt_f = torch.diff(t_f, dim=-1)
-    dt_f = torch.cat([dt_f, (fars - nears) / F * torch.ones_like(dt_f[:, :1])], -1)
+    dt_f = torch.cat([dt_f, (fars - nears) * _inv(F) * torch.ones_like(dt_f[:, :1])], -1)
     pts_f = (rays_o[:, None] + rays_d[:, None] * t_f[..., None]).clamp(-cfg.bound, cfg.bound)
     sigmas, geos = density_fn(pts_f.reshape(-1, 3))
     sigmas = sigmas.reshape(N, F)

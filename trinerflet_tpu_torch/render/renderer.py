@@ -34,6 +34,7 @@ from .. import kernels
 from .._device import DeviceLike, resolve_device
 from ..kernels import _build
 from ..ops import raymarch as RM
+from ..ops.raymarch import _inv
 
 __all__ = ["RenderConfig", "OccupancyState", "init_occupancy", "update_density_grid",
            "occupancy_upkeep", "occupancy_upkeep_plain", "tuned_num_coarse",
@@ -458,7 +459,7 @@ def render_dense(
     nears = torch.where(hit, nears, 0.0)[:, None]
     fars = torch.where(hit, fars, 1e-3)[:, None]
     z_vals = nears + (fars - nears) * _linspace(0.0, 1.0, T, dev)[None, :]
-    sample_dist = (fars - nears) / T
+    sample_dist = (fars - nears) * _inv(T)  # jit's / T
     if perturb:
         if jitter is None:
             jitter = _uniform((N, T), generator, dev)

@@ -266,7 +266,9 @@ class Trainer:
                                       device=self.device),
             "poses": torch.as_tensor(np.asarray(scene.poses), dtype=torch.float32,
                                      device=self.device),
-            "intrinsics": tuple(float(np.float32(x)) for x in scene.intrinsics),
+            # on the device: the rays divide by them truly (``rays_for_pixels``)
+            "intrinsics": torch.tensor([float(np.float32(x)) for x in scene.intrinsics],
+                                       dtype=torch.float32, device=self.device),
         }
 
     # ------------------------------------------------------------ train step
