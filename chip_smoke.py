@@ -106,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught):
     backward not: every training sample is differentiated in its point);
     the quaternion and lbound_scale must move and the loss fall; one
     profiled step, evaluate, one 800^2 view; a captured step holds K2
-    forward on ``full`` and both zoom-in planes, K2x on each, K4 forward
+    forward on ``full`` and both zoom-in planes, K2x on each (its plane
+    gradient bit for bit the K2 backward's on the same rows), K4 forward
     and adjoint on the crops, and the path's march, layout and upkeep to
     their plain versions; the 4,096-ray step check (the gradients of the
     quaternion, lbound_scale and the zoom-in levels included; the unused
@@ -979,8 +980,10 @@ def _sample_bwd_rows(calls, i=0, label=""):
     got = GS._sample_points_backward_cuda(g, xyz, lb, shape, dtype)
     ref = GS.sample_points_backward_plain(g, xyz, lb, shape, dtype)
     err = _rel(got, ref)
-    if err > 2.0**-7:  # float atomics in another order; one bf16 ulp of the largest texel
+    if err > 2.0**-7:  # sums in another order; one bf16 ulp of the largest texel
         raise RuntimeError(f"K2 backward rel err {err} > 2^-7")
+    if not torch.equal(got, GS._sample_points_backward_cuda(g, xyz, lb, shape, dtype)):
+        raise RuntimeError("K2 backward differs between two calls on the same inputs")
     live = int((g != 0).any(dim=-1).sum())  # (sample, plane) rows with a cotangent
     out_bytes = int(np.prod(shape)) * torch.tensor([], dtype=dtype).element_size()
     b, by = bound_ms(nbytes(g, xyz) + out_bytes, live * 4 * C * 2)
@@ -1000,7 +1003,8 @@ def _sample_bwd_rows(calls, i=0, label=""):
                                       iters=5),
                      bound_ms=b, bound_by=by, library_ms=time_ms(lib),
                      note=f"{live} of {3 * xyz.shape[0]} (sample, plane) rows carry a cotangent; "
-                          f"binned by tile, summed per tile in shared memory ({GS.K2_BWD_LAUNCHES} launches); "
+                          f"binned by tile, summed per tile in shared memory ({GS.K2_BWD_LAUNCHES} launches per "
+                          f"call, the same bits on a second call); "
                           f"library is aten.grid_sampler_2d_backward on the {dtype} planes and "
                           f"coordinates (rel diff {lib_err:.2e}); on f32 copies {lib_f32_err:.2e}"))
     return rows
@@ -1024,6 +1028,11 @@ def _sample_xyz_rows(calls, label_of):
         ex = _rel(xg.cpu(), rxg)
         if ep > 2.0**-7 or ex > 1e-5 or with_planes != kw.get("planes_grad", True):
             raise RuntimeError(f"K2x rel err: planes {ep} > 2^-7 or points {ex} > 1e-5")
+        # its plane gradient is the K2 backward's passes on the same rows
+        if with_planes and not torch.equal(
+                pg, GS._sample_points_backward_cuda(g, xyz, lb, tuple(planes.shape), planes.dtype)):
+            raise RuntimeError(f"K2x plane gradient{label_of(planes)} differs from the K2 backward's")
+        per_call = 1 + (GS.K2_BWD_LAUNCHES if with_planes else 0)
         _, H, Wd, C = planes.shape
         live = (g != 0).any(dim=-1).T  # (3, M): (plane, point) rows with a cotangent
         c2 = GS.project_to_planes(xyz, lb)
@@ -1032,7 +1041,7 @@ def _sample_xyz_rows(calls, label_of):
         # the cotangent and the points in, the live rows' corner texels read,
         # the plane gradient (when asked) and dL/dxyz written once; per live
         # row ~18 C + 20 f32 operations (weights, the two channel sums, the
-        # atomics' products)
+        # plane gradient's products)
         b, by = bound_ms(nbytes(g, xyz, xg) + touched * C * planes.element_size()
                          + (nbytes(pg) if with_planes else 0), n_live * (18 * C + 20))
         planes_nchw = planes.permute(0, 3, 1, 2).contiguous()
@@ -1060,7 +1069,9 @@ def _sample_xyz_rows(calls, label_of):
             plain_ms=time_ms(lambda: GS.sample_points_backward_xyz_plain(g, planes, xyz, lb, **kw), iters=5),
             bound_ms=b, bound_by=by, library_ms=time_ms(lib),
             note=f"M={xyz.shape[0]} points on {tuple(planes.shape)} {planes.dtype} planes, "
-                 f"{'with' if with_planes else 'without'} the plane gradient, {n_live} of "
+                 f"{'with' if with_planes else 'without'} the plane gradient"
+                 f"{' (bit for bit the K2 backward on the same rows)' if with_planes else ''}, "
+                 f"{per_call} launches per call, {n_live} of "
                  f"{3 * xyz.shape[0]} (plane, point) rows carry a cotangent, {touched} touched "
                  f"texels; rel err planes {ep:.2e}, points {ex:.2e}; library is "
                  f"aten.grid_sampler_2d_backward(output_mask={mask}) on the {planes.dtype} "

@@ -1,9 +1,11 @@
-"""K2, the triplane sampler, forward and backward, on the card, at the
-arguments the training paths hand it: bench.py's step with the tuner off
-(``perray``) and on (``autotune``), the dense renderer (``dense``) and
-multiscale k-planes (``kplanes``: 64^2, 128^2 and 256^2 x 16 f32 planes).
+"""K2, the triplane sampler, forward and backward, and K2x, its coordinate
+gradient, on the card, at the arguments the training paths hand them:
+bench.py's step with the tuner off (``perray``) and on (``autotune``), the
+dense renderer (``dense``), multiscale k-planes (``kplanes``: 64^2, 128^2
+and 256^2 x 16 f32 planes) and the triplane's variants (``variants``:
+chip_smoke's variants step, K2x on ``full`` and both zoom-in planes).
 
-    python scripts/torch_k2_timing.py [--profile] [--sass]
+    python scripts/torch_k2_timing.py [--profile] [--sass] [--paths NAME ...]
 
 For each path it trains chip_smoke's configuration on its synthetic scene
 (the path's warm-up steps, with the refresh and the retune on their
@@ -15,11 +17,17 @@ time (median of 20 calls, each behind a device sleep, warm L2, as
 chip_smoke times), the launches of one call, the bound
 (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is
 larger; chip_smoke's count), the plain version's time and one PyTorch call
-(``F.grid_sample``, ``aten.grid_sampler_2d_backward``). ``--profile`` prints
-each CUDA kernel's device time over 10 calls of every recorded backward and
-forward under ``torch.profiler`` (the backward's passes: the memset, the
-atomics and the cast before this redesign; the count, scan, scatter,
-accumulate and reduce passes after it), ``--sass`` each ``grid_sample``
+(``F.grid_sample``, ``aten.grid_sampler_2d_backward``); on ``variants``
+one row per K2x call (chip_smoke's K2x rows: dL/dxyz held to the plain
+version at 1e-5 and the plane gradient at 2^-7 of its largest entry) with
+whether its plane gradient is bit for bit the K2 backward's on the same
+rows, its device time from events around 10 calls in a row, and the time of
+the same call without the plane gradient (the dL/dxyz pass alone).
+``--profile`` prints each CUDA kernel's device time over 10 calls of
+every recorded backward and forward under ``torch.profiler`` (the K2
+backward's passes; on ``variants`` each K2x call alone: its memset, float32
+atomic kernel and bf16 cast before K2x took the K2 backward's passes, those
+passes and the dL/dxyz kernel after), ``--sass`` each ``grid_sample``
 kernel's registers and stack frame and its instructions by opcode
 (``cuobjdump`` of the built library). Run from another checkout's root it
 times that checkout's kernels (the script imports the package and
@@ -55,6 +63,7 @@ PATHS = {
     "autotune": (lambda: CS.bench_configs(budget_autotune=True), CS.WARM_STEPS),
     "dense": (CS.dense_configs, CS.DENSE_WARM),
     "kplanes": (CS.kplanes_configs, CS.PERRAY_WARM),
+    "variants": (CS.variants_configs, CS.PERRAY_WARM),
 }
 
 
@@ -74,6 +83,20 @@ def captured_calls(name: str, scene):
         state, aux = trainer.train_step(state, data, with_stats=(i + 1) % interval == 0)
     _, calls = CS.capture_step(trainer, state, data)
     return calls
+
+
+def back_to_back_ms(fn, n: int = 10) -> float:
+    """Device time of one call from CUDA events around ``n`` calls in a row
+    (the host issues ahead of the device; a check on chip_smoke's timing)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def _launches(key: str, fn) -> int:
@@ -125,54 +148,101 @@ def bwd_row(label: str, planes, g, xyz, lb, shape, dtype):
                 library_ms=CS.time_ms(lib))
 
 
+def plane_names(calls):
+    """The step's field forward calls' planes by name (``full``, then the
+    zoom-in planes ``upscale_i``), by data pointer."""
+    xyz_calls = calls["_sample_points_backward_xyz_cuda"]
+    n = len(xyz_calls) or len(calls["_sample_points_backward_cuda"])
+    fwd = calls["_sample_points_cuda"][:n]
+    return {a[0].data_ptr(): nm for (a, _), nm in zip(fwd, ["full"] + [f"upscale_{i}" for i in range(n - 1)])}
+
+
+def xyz_rows(name: str, calls):
+    """K2x on each of the step's calls, measured as chip_smoke's K2x rows,
+    with the launches of one call and whether its plane gradient is the K2
+    backward's on the same rows."""
+    names = plane_names(calls)
+    rows = CS._sample_xyz_rows(calls, lambda planes: f" {name} {names.get(planes.data_ptr(), '?')}")
+    for r, ((g, planes, xyz, lb), kw) in zip(rows, calls["_sample_points_backward_xyz_cuda"]):
+        r["ok"] = True  # _sample_xyz_rows raises where a kernel disagrees
+        call = lambda: GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb, **kw)  # noqa: E731
+        r["launches"] = _launches("grid_sample_bwd_xyz", call)
+        r["back_to_back_ms"] = back_to_back_ms(call)
+        r["xyz_only_ms"] = CS.time_ms(lambda: GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb,
+                                                                                 planes_grad=False))
+        pg = GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb, **kw)[0]
+        if pg is not None:
+            k2 = GS._sample_points_backward_cuda(g, xyz, lb, tuple(planes.shape), planes.dtype)
+            r["name"] += f" planes==K2 bwd: {torch.equal(pg, k2)}"
+    return rows
+
+
 def rows_of(name: str, calls):
     fwd, bwd = calls["_sample_points_cuda"], calls["_sample_points_backward_cuda"]
     out = []
-    for (planes, xyz, lb), _ in fwd[: len(bwd)]:  # the step's field forward calls
+    n = len(bwd) or len(calls["_sample_points_backward_xyz_cuda"])
+    for (planes, xyz, lb), _ in fwd[:n]:  # the step's field forward calls
         out.append(fwd_row(f"{name} {tuple(planes.shape)} {str(planes.dtype)[6:]} M={xyz.shape[0]}",
                            planes, xyz, lb))
     for (g, xyz, lb, shape, dtype), _ in bwd:
         planes = next(a[0] for a, _ in fwd if tuple(a[0].shape) == tuple(shape))
         out.append(bwd_row(f"{name} {tuple(shape)} {str(dtype)[6:]} M={xyz.shape[0]}",
                            planes, g, xyz, lb, shape, dtype))
+    if calls["_sample_points_backward_xyz_cuda"]:
+        out += xyz_rows(name, calls)
     return out
+
+
+def _profile(what: str, fn, args, per: str) -> None:
+    """Device time per CUDA kernel over 10 rounds of ``fn`` on each of
+    ``args`` (positional, keywords)."""
+    from torch.profiler import ProfilerActivity, profile
+    for a, k in args:
+        fn(*a, **k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            for a, k in args:
+                fn(*a, **k)
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if dt > 0:
+            total += dt
+            print(f"profile {what} {e.key[:90]}: {e.count} launches, {dt / 1e3 / 10:.4f} ms per {per}")
+    print(f"profile {what} total: {total / 1e3 / 10:.4f} ms per {per} ({len(args)} calls)")
 
 
 def profile_calls(calls) -> None:
     """Device time per CUDA kernel over 10 calls of every recorded backward,
-    then of every recorded forward."""
-    from torch.profiler import ProfilerActivity, profile
-    bwd = [a for a, _ in calls["_sample_points_backward_cuda"]]
-    fwd = [a for a, _ in calls["_sample_points_cuda"][: len(bwd)]]
-    for what, fn, args in (("backward", GS._sample_points_backward_cuda, bwd),
-                           ("forward", GS._sample_points_cuda, fwd)):
-        for a in args:
-            fn(*a)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                for a in args:
-                    fn(*a)
-            torch.cuda.synchronize()
-        total = 0.0
-        for e in prof.key_averages():
-            dt = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-            if dt > 0:
-                total += dt
-                print(f"profile {what} {e.key[:90]}: {e.count} launches, {dt / 1e3 / 10:.4f} ms per step's calls")
-        print(f"profile {what} total: {total / 1e3 / 10:.4f} ms per step's calls ({len(args)} calls)")
+    then of every recorded forward; on the variants path each K2x call
+    alone."""
+    bwd = [(a, {}) for a, _ in calls["_sample_points_backward_cuda"]]
+    xyz = calls["_sample_points_backward_xyz_cuda"]
+    fwd = [(a, {}) for a, _ in calls["_sample_points_cuda"][: len(bwd) or len(xyz)]]
+    if bwd:
+        _profile("backward", GS._sample_points_backward_cuda, bwd, "step's calls")
+    names = plane_names(calls)
+    for a, k in xyz:
+        _profile(f"K2x {names.get(a[1].data_ptr(), '?')}", GS._sample_points_backward_xyz_cuda,
+                 [(a, k)], "call")
+    _profile("forward", GS._sample_points_cuda, fwd, "step's calls")
 
 
-SASS_OPS = ("LDG", "STG", "LDS", "STS", "ATOMS", "RED", "ATOM", "ATOMG", "IMAD", "IMAD.WIDE",
-            "IMAD.HI", "IADD3", "FFMA", "FMUL", "FADD", "SHFL", "MATCH", "BRA")
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "ATOMS", "RED", "REDG", "ATOM", "ATOMG", "IMAD", "IMAD.WIDE",
+            "IMAD.HI", "IADD3", "FFMA", "FMUL", "FADD", "MUFU", "SHFL", "VOTE", "MATCH", "POPC", "FLO",
+            "BRA", "CALL")
 
 
-def sass_summary() -> None:
+def sass_summary(lib_name: str = "grid_sample", occupancy: bool = False) -> None:
     """Registers, stack frame and instruction counts of every kernel in the
-    built ``grid_sample`` library, from ``cuobjdump -res-usage`` and
-    ``-sass`` (an opcode with modifiers counts under its base name and, for
-    IMAD.WIDE and IMAD.HI, under those too)."""
-    lib = str(_build._target("grid_sample"))
+    built ``lib_name`` library, from ``cuobjdump -res-usage`` and ``-sass``
+    (an opcode with modifiers counts under its base name and, for IMAD.WIDE
+    and IMAD.HI, under those too); with ``occupancy`` also the resident
+    warps per SM its registers allow (65,536 registers an SM, allocated in
+    blocks of 256 a warp, at most 64 warps)."""
+    lib = str(_build._target(lib_name))
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     run = lambda flag: subprocess.run([tool, flag, lib], capture_output=True,  # noqa: E731
                                       text=True, check=True).stdout
@@ -192,7 +262,12 @@ def sass_summary() -> None:
                 if (base + mods).startswith(full):
                     ops[name][full] += 1
     for f, c in ops.items():
-        print(f"sass {f}: {usage.get(f, '?')} total {sum(v for k, v in c.items() if '.' not in k)} "
+        occ = ""
+        if occupancy and f in usage:
+            regs = int(re.search(r"REG:(\d+)", usage[f]).group(1))
+            per_warp = -(-max(regs, 1) * 32 // 256) * 256
+            occ = f" warps/SM by registers {min(64, 65536 // per_warp)}"
+        print(f"sass {f}: {usage.get(f, '?')}{occ} total {sum(v for k, v in c.items() if '.' not in k)} "
               + " ".join(f"{k}={c[k]}" for k in SASS_OPS if c[k]))
 
 
@@ -200,6 +275,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--paths", nargs="+", choices=list(PATHS), default=list(PATHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -212,13 +288,14 @@ def main() -> int:
     scene = make_synthetic_scene(num_views=8, H=256, W=256, num_steps=128)
     keys = ("ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err")
     failed = []
-    for name in PATHS:
+    for name in args.paths:
         t0 = time.perf_counter()
         calls = captured_calls(name, scene)
         rows = rows_of(name, calls)
         for r in rows:
             print(f"{r['name']}: launches={r['launches']} "
-                  + " ".join(f"{k}={r[k]:.6g}" for k in keys) + ("" if r["ok"] else " DISAGREES"), flush=True)
+                  + " ".join(f"{k}={r[k]:.6g}" for k in keys + ("back_to_back_ms", "xyz_only_ms") if k in r)
+                  + ("" if r["ok"] else " DISAGREES"), flush=True)
             if not r["ok"]:
                 failed.append(r["name"])
         if args.profile:

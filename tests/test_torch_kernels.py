@@ -14,10 +14,10 @@ float32 with atol 1e-5 (fused multiply-adds and summation order); K2 atol
 K4 rounds where the plain version rounds (after each 1-D operator and each
 add) but sums its taps in another order, so a bf16 rounding may flip: bf16
 outputs agree within 2^-6 of the plane's max magnitude (a few bf16 ulps);
-float32 within 1e-5. Backward kernels: K2's float atomics add in an
-unspecified order (float32 atol 1e-5 relative to the largest gradient; bf16
-one ulp, 2^-7); K3's reverse pass matches its plain version's arithmetic to
-1e-5 relative; the K4 adjoint as the forward (2^-6 relative in bf16, 1e-5 in
+float32 within 1e-5. Backward kernels: K2 sums each texel in an order fixed
+by the inputs, not the plain version's (float32 atol 1e-5 relative to the
+largest gradient; bf16 one ulp, 2^-7), the same bits on every call; K3's
+reverse pass matches its plain version's arithmetic to 1e-5 relative; the K4 adjoint as the forward (2^-6 relative in bf16, 1e-5 in
 f32). K6: the merged grid, occupancy,
 dilation and bbox are equal; the mean (a blocked float sum) to rtol 1e-5.
 K5 is equal bit for bit on every field. K3c keeps each ray's exponent in
@@ -32,9 +32,10 @@ points on one cell: each is held to a float64 sum of the same float32 terms
 within the float-summation bound n (eps sum|term| + tiny) of every entry
 (``grid_encode_backward_error``; float atomics flush subnormals), not to
 the other. K2x: the plane gradient
-as K2's backward; the coordinate gradient within 1e-5 of its largest entry
-(the kernel fuses the channel sums' multiply-adds), rows with no cotangent
-exactly 0.
+equal to K2's backward on the same inputs (the same passes), and as K2's
+backward against the plain version; the coordinate gradient within 1e-5 of
+its largest entry (the channel sums run in another order), rows with no
+cotangent exactly 0.
 K10 (the voxel grid) and K11 (the textured background) round each
 operation alone, as their plain versions do; they are held to the plain
 versions run on the CPU, where x / bound and theta / pi are true divisions
@@ -226,6 +227,24 @@ def test_sample_backward_kernel_zero_cotangent_and_no_points(dev, dtype):
     assert kernels.launches["grid_sample_bwd"] == n0 and (out == 0).all() and out.dtype == dtype
 
 
+@pytest.mark.parametrize("case", ["c16_bf16_bench", "c4_f32_one_texel", "c4_bf16_wide"])
+def test_sample_backward_kernel_is_deterministic(dev, case):
+    """Two K2 backward calls on the same cotangent and points give the same
+    bits: the tile lists hold their rows in the order the scatter walks
+    them and each texel's sum runs in an order fixed by the inputs (the
+    bench's planes, one split texel, and planes of more tiles than a
+    block-local histogram holds)."""
+    H, W, C, dtype, kind = K2_CASES[case]
+    gen = torch.Generator().manual_seed(13)
+    M = {"random": 200_000, "one_texel": 20_000}[kind]
+    xyz = _k2_points(kind, H, W, M, 1.5, gen).to(dev)
+    ct = torch.randn((M, 3, C), generator=gen).to(dev)
+    a = GS._sample_points_backward_cuda(ct, xyz, 1.5, (3, H, W, C), dtype)
+    b = GS._sample_points_backward_cuda(ct, xyz, 1.5, (3, H, W, C), dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and a.abs().max().item() > 0
+
+
 def test_composite_kernel_matches_plain(dev):
     g = torch.Generator().manual_seed(2)
     N, T = 3000, 20
@@ -241,13 +260,40 @@ def test_composite_kernel_matches_plain(dev):
         assert (a - b).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("frac,fs,cs", [(0.02, 1, 1), (0.3, 1, 1), (0.3, 2, 1), (0.1, 3, 2)])
-def test_march_kernel_matches_plain_bit_for_bit(dev, frac, fs, cs):
+# K1 cases: (grid H, cascades, max_steps, occupied fraction, fine stride,
+# coarse stride, coarse_budget, budget, num_coarse or None for the worst case
+# ceil(bound * steps / F), share of rays that miss the box). The first four
+# are the stride cases at a 64^3 grid; then bench's full width (128^3 x 2,
+# 1024 steps, num_coarse 128, the training strides), a tuner-lowered
+# num_coarse, one warp of kept segments (coarse_budget 32) and a budget past
+# one warp (40), empty and full grids, and spread ranks past the count
+# (coarse_budget 7, budget 13: ceil(b * count / budget) in float32 exceeds
+# the count on a full grid)
+K1_CASES = {
+    "sparse": (64, 2, 512, 0.02, 1, 1, 8, 20, None, 0.0),
+    "stride_1_1": (64, 2, 512, 0.3, 1, 1, 8, 20, None, 0.0),
+    "stride_2_1": (64, 2, 512, 0.3, 2, 1, 8, 20, None, 0.0),
+    "stride_3_2": (64, 2, 512, 0.1, 3, 2, 8, 20, None, 0.0),
+    "bench_width": (128, 2, 1024, 0.05, 2, 2, 8, 20, None, 0.1),
+    "tuned_num_coarse": (128, 2, 1024, 0.05, 2, 2, 8, 20, 77, 0.1),
+    "wide_budgets": (128, 2, 1024, 0.3, 1, 1, 32, 40, None, 0.1),
+    "empty_grid": (128, 2, 1024, 0.0, 2, 2, 8, 20, None, 0.25),
+    "full_grid": (128, 2, 1024, 1.0, 2, 2, 8, 20, None, 0.25),
+    "rank_past_count": (64, 2, 512, 1.0, 1, 1, 7, 13, None, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_march_kernel_matches_plain_bit_for_bit(dev, case):
+    H, CAS, steps, frac, fs, cs, cb, B, nc, miss = K1_CASES[case]
     g = torch.Generator().manual_seed(3)
-    N, H, CAS, bound, steps = 4000, 64, 2, 1.5, 512
+    N, bound = 4000, 1.5
     v = torch.randn((N, 3), generator=g)
     o = 2.0 * v / v.norm(dim=1, keepdim=True)
     d = 0.6 * (2 * torch.rand((N, 3), generator=g) - 1) - o
+    k = int(miss * N)  # rays on the plane y = 4, parallel to it: they miss the box
+    o[:k] = torch.tensor([0.0, 4.0, 0.0]) + 0.1 * torch.rand((k, 3), generator=g)
+    d[:k] = torch.randn((k, 3), generator=g) * torch.tensor([1.0, 0.0, 1.0])
     d = d / d.norm(dim=1, keepdim=True)
     occ = torch.rand((CAS, H, H, H), generator=g) < frac
     occ_c = _dilate3(occ, 2)
@@ -257,15 +303,18 @@ def test_march_kernel_matches_plain_bit_for_bit(dev, frac, fs, cs):
     hit = n < 1e30
     n, f = torch.where(hit, n, 0.0), torch.where(hit, f, 0.0)
     noise = torch.rand((N,), generator=g).to(dev)
-    kw = dict(num_coarse=int(np.ceil(bound * steps / 12)), fine_per_coarse=12, coarse_budget=8,
-              budget=20, max_steps=steps, grid_size=H, cascades=CAS, bound=bound,
+    kw = dict(num_coarse=nc or int(np.ceil(bound * steps / 12)), fine_per_coarse=12, coarse_budget=cb,
+              budget=B, max_steps=steps, grid_size=H, cascades=CAS, bound=bound,
               occ_test_stride=fs, coarse_test_stride=cs)
+    n0 = kernels.launches["march"]
     got = RM.march_hierarchical(o, d, n, f, occ, occ_c, noise, **kw)
+    assert kernels.launches["march"] == n0 + 1
     ref = RM.march_hierarchical_plain(o, d, n, f, occ, occ_c, noise, **kw)
     torch.cuda.synchronize()
-    assert ref[2].sum().item() > 0
+    assert (ref[2].sum().item() > 0) == (frac > 0)
+    assert (miss == 0 or (~hit).any()) and not ref[2][~hit].any()  # rays that miss keep nothing
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("gamma,bound,steps,frac", [
@@ -351,20 +400,32 @@ def _k2x_inputs(dev, dtype, H, W, C, M, seed):
     return planes, xyz.to(dev), ct.to(dev)
 
 
-@pytest.mark.parametrize("dtype,C", [(torch.float32, 16), (torch.bfloat16, 16), (torch.bfloat16, 8)])
-def test_sample_backward_xyz_kernel_matches_plain(dev, dtype, C):
+@pytest.mark.parametrize("case", ["random", "zoom_in"])
+@pytest.mark.parametrize("C", [4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_backward_xyz_kernel_matches_plain(dev, dtype, C, case):
     """K2x at lbound 1.0, as the learned zoom calls it (the point arrives
-    divided by the learned bound)."""
+    divided by the learned bound), on 64 x 48 planes: its plane gradient is
+    the K2 backward's bit for bit on the same cotangent and points (the same
+    passes, each sum in an order fixed by the inputs), and near the plain
+    version's; dL/dxyz within 1e-5 of its largest entry, rows with no
+    cotangent exactly 0. ``zoom_in``: as on a zoom-in plane, 90% of the
+    points carry no cotangent (the router sent them to another level)."""
     planes, xyz, ct = _k2x_inputs(dev, dtype, 64, 48, C, 20000, 6)
+    if case == "zoom_in":
+        ct[torch.rand((20000,), generator=torch.Generator().manual_seed(9)).to(dev) < 0.9] = 0.0
     n0 = kernels.launches["grid_sample_bwd_xyz"]
     pg, xg = GS._sample_points_backward_xyz_cuda(ct, planes, xyz, 1.0)
-    assert kernels.launches["grid_sample_bwd_xyz"] == n0 + (1 if dtype == torch.float32 else 2)
+    assert kernels.launches["grid_sample_bwd_xyz"] == n0 + 1 + GS.K2_BWD_LAUNCHES
+    k2 = GS._sample_points_backward_cuda(ct, xyz, 1.0, tuple(planes.shape), dtype)
     rpg, rxg = GS.sample_points_backward_xyz_plain(ct, planes, xyz, 1.0)
     torch.cuda.synchronize()
     assert pg.dtype == rpg.dtype == dtype and xg.shape == (20000, 3) and xg.dtype == torch.float32
+    assert torch.equal(pg, k2)
     assert _rel_close(pg, rpg, 1e-5 if dtype == torch.float32 else 2.0**-7)
     assert _rel_close(xg, rxg, 1e-5)
-    assert (xg[3000:5000] == 0).all() and (xg[:900] != 0).any()
+    dead = (ct == 0).all(-1).all(-1)
+    assert (xg[dead] == 0).all() and (xg[:900] != 0).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -402,9 +463,10 @@ def test_sample_points_autograd_launches_k2x_only_for_points(dev):
     planes.grad = None
     xyz = xyz.clone().requires_grad_(True)
     (GS.sample_points(planes, xyz, 1.5) * ct).sum().backward()
-    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [GS.K2_BWD_LAUNCHES, 2]
+    assert [kernels.launches[k] - a for k, a in zip(names, n0)] == [GS.K2_BWD_LAUNCHES,
+                                                                    1 + GS.K2_BWD_LAUNCHES]
     ref_pg, ref_xg = GS.sample_points_backward_xyz_plain(ct, planes.detach(), xyz.detach(), 1.5)
-    assert _rel_close(planes.grad, grad_planes, 2.0**-7) and _rel_close(planes.grad, ref_pg, 2.0**-7)
+    assert torch.equal(planes.grad, grad_planes) and _rel_close(planes.grad, ref_pg, 2.0**-7)
     # the coordinate gradient is held in L2 (the kernel fuses the channel
     # sums' multiply-adds no more, but sums them in another order)
     d = (xyz.grad - ref_xg).norm() / ref_xg.norm()

@@ -34,36 +34,41 @@
 // bytes, the cotangent read once and the gradient written once. The design
 // keeps every float32 sum on chip: the (sample, plane) rows are binned by
 // the output tile of the plane their 2x2 footprint touches (TX x TY texels; a
-// row on a tile edge is listed in each tile it touches) by a counting sort,
-// and one block per (tile, chunk of the tile's rows) accumulates w * g into
-// the tile in shared memory, each texel summed by the one lane group that
-// owns it (no float atomics: on sm_90 they are compare-and-swap loops in
-// shared memory), then writes the tile once, in the plane dtype. Five
-// launches, enqueued by one call with no
-// device-to-host copy (grids are sized from upper bounds; blocks past the
-// work exit):
+// row on a tile edge is listed in each tile it touches) by a stable counting
+// sort, and one block per (tile, chunk of the tile's rows) accumulates w * g
+// into the tile in shared memory, no two threads adding into one texel word
+// at once (no float atomics: on sm_90 they are compare-and-swap loops in
+// shared memory), then writes the tile once, in the plane dtype. Every sum
+// runs in an order fixed by the inputs (a tile's list in the order the
+// scatter walks the rows, a batch's items by (texel, warp, corner, lane)),
+// so two calls on the same inputs give the same bits. Six launches,
+// enqueued by one call with no device-to-host
+// copy (grids are sized from upper bounds; blocks past the work exit):
 //   1. count: lane groups of C / 4 lanes read each cotangent row with 16-byte
 //      loads; a row whose cotangent is all zero is dropped; the others get a
 //      key (tile, and whether the footprint crosses the tile's right or
 //      bottom edge) and count into a block-local shared-memory histogram of
-//      the tiles, added to the global counts at the block's end;
-//   2. scan: one block turns the counts into row offsets, the chunks of each
+//      the tiles over the block's contiguous run of rows, written out as the
+//      block's row of a (blocks, tiles) count matrix;
+//   2. column scan: per tile, the count matrix's column turned into each
+//      block's first entry within the tile's list, and the tile's count;
+//   3. scan: one block turns the counts into row offsets, the chunks of each
 //      tile (one, or ceil(count / cap) for a tile with more rows than the
 //      chunk cap), the scratch slots of split tiles and their list;
-//   3. scatter: each row's id to its tiles' lists, slots reserved by
-//      warp-aggregated atomics on per-tile cursors;
-//   4. accumulate: persistent blocks over the chunks, a chunk's rows in
+//   4. scatter: one warp per count block walks the block's run of rows,
+//      32 at a time, and writes each row's id to its tiles' lists, corner by
+//      corner, ranked within the warp by __match_any_sync, at per-tile
+//      cursors in shared memory;
+//   5. accumulate: persistent blocks over the chunks, a chunk's rows in
 //      batches sorted by texel in shared memory; a tile with one chunk is
-//      written straight in the plane dtype (one rounding of the float32 sum,
-//      as before); the chunks of a split tile write float32 partial tiles to
+//      written straight in the plane dtype (one rounding of the float32
+//      sum); the chunks of a split tile write float32 partial tiles to
 //      scratch;
-//   5. reduce: the partial tiles of each split tile summed in chunk order
+//   6. reduce: the partial tiles of each split tile summed in chunk order
 //      and written in the plane dtype.
 // The cap adapts to the run (at least CAP_MIN rows, and large enough that
 // the split tiles' chunks fit the NSLOT scratch slots), which keeps the
 // blocks of the small k-planes planes and of dense scene centres balanced.
-// The float sums of a texel run in the order its rows reach the tile's list
-// (the scatter's atomics), which is unspecified.
 //
 // K2x, the coordinate gradient (replaces JAX's autodiff of grid_sample_2d
 // :23 / sample_planes :61 in the coordinates, which models/triplane.py:310-321
@@ -71,13 +76,20 @@
 // and plane dL/du = (sum_c g_c [(f01 - f00)(1 - wy) + (f11 - f10) wy])
 // clip'(x) (W - 1) / 2, dL/dv alike, clip' being JAX's (1 inside, 0.5 at
 // either bound, 0 outside); the three planes' (u, v) sum into dL/dxyz
-// (plane 0 is (x, z), 1 (x, y), 2 (y, z)), over lbound. One thread per point
-// loops over the three planes: it reads the cotangent row and the four
-// corner rows, adds w * g into a float32 plane gradient with atomics, and
-// keeps dL/dxyz in registers, written once (no atomics). A second kernel
-// casts the plane gradient to bf16. Bound: bytes (the cotangent, the corner
-// rows of the points that carry one, the touched texels read-modify-written,
-// the gradients written).
+// (plane 0 is (x, z), 1 (x, y), 2 (y, z)), over lbound. Its plane gradient
+// is the K2 backward's six passes above, enqueued by the same call (so it
+// is bit for bit the K2 backward's on the same cotangent and points).
+// dL/dxyz is one more launch: a group of L lanes per point (the forward's L:
+// one 16-byte slice of a row per lane), each lane reading its slices of the
+// three cotangent rows first, then per plane of the four corner rows, the
+// group summing its partial channel sums with __shfl_xor_sync; a (point,
+// plane) row whose cotangent is all zero reads no corner, and, after the
+// plane gradient's count pass has marked it (key -1), not its cotangent
+// either. (Folded into the count pass, which reads every cotangent row
+// already, it measured slower: whole points per warp iteration leave lanes
+// idle, and the corner reads lengthen each iteration.) Bound: bytes (the
+// cotangent, the corner rows of the rows that carry one, dL/dxyz and the
+// plane gradient written).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,6 +102,7 @@
 struct Cell {
   int x0, y0;
   float w00, w01, w10, w11;
+  float xr, yr, wx, wy;  // the texel coordinates before the clamp, the weights' fractions
 };
 
 // The texel coordinate of u before the clamp.
@@ -100,21 +113,35 @@ __device__ __forceinline__ float texel(float u, float lbound, int n) {
 // The corner (x0, y0) and the four weights of plane p's (u, v) at point
 // (px, py, pz).
 __device__ __forceinline__ Cell cell_of(float px, float py, float pz, int p, float lbound, int H, int W) {
-  const float u = p == 2 ? py : px;
-  const float v = p == 1 ? py : pz;
-  const float x = fminf(fmaxf(texel(u, lbound, W), 0.f), (float)(W - 1));
-  const float y = fminf(fmaxf(texel(v, lbound, H), 0.f), (float)(H - 1));
+  Cell c;
+  c.xr = texel(p == 2 ? py : px, lbound, W);
+  c.yr = texel(p == 1 ? py : pz, lbound, H);
+  const float x = fminf(fmaxf(c.xr, 0.f), (float)(W - 1));
+  const float y = fminf(fmaxf(c.yr, 0.f), (float)(H - 1));
   const float fx0 = fminf(fmaxf(floorf(x), 0.f), (float)(W - 2));
   const float fy0 = fminf(fmaxf(floorf(y), 0.f), (float)(H - 2));
-  const float wx = x - fx0, wy = y - fy0;
-  Cell c;
+  c.wx = x - fx0;
+  c.wy = y - fy0;
   c.x0 = (int)fx0;
   c.y0 = (int)fy0;
-  c.w00 = (1.f - wx) * (1.f - wy);
-  c.w01 = wx * (1.f - wy);
-  c.w10 = (1.f - wx) * wy;
-  c.w11 = wx * wy;
+  c.w00 = (1.f - c.wx) * (1.f - c.wy);
+  c.w01 = c.wx * (1.f - c.wy);
+  c.w10 = (1.f - c.wx) * c.wy;
+  c.w11 = c.wx * c.wy;
   return c;
+}
+
+// The JAX package's gradient of clip(v, 0, hi): a tie at either bound
+// splits it, 0.5.
+__device__ __forceinline__ float clip_grad(float v, float hi) {
+  if (v > 0.f && v < hi) return 1.f;
+  return (v == 0.f || v == hi) ? 0.5f : 0.f;
+}
+
+// dL/du of a (point, plane) row from its channel sum dw (r the texel
+// coordinate before the clamp, n the plane's side along u).
+__device__ __forceinline__ float coord_grad(float dw, float r, int n) {
+  return dw * clip_grad(r, (float)(n - 1)) * (float)(n - 1) * 0.5f;
 }
 
 // A lane's slice of N channels of a plane row, as float32.
@@ -152,14 +179,6 @@ __device__ __forceinline__ void load_slice(const __nv_bfloat16* __restrict__ r, 
       v[2 * e + 1] = f.y;
     }
   }
-}
-
-// A whole row of C channels (K2x).
-template <int C, typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ r, float* v) {
-  constexpr int S = sizeof(T) == 2 ? (C >= 8 ? 8 : 4) : 4;
-#pragma unroll
-  for (int k = 0; k < C / S; ++k) load_slice<S>(r + k * S, v + k * S);
 }
 
 // ---------------------------------------------------------------------------
@@ -246,7 +265,8 @@ extern "C" int sample_points_launch(const void* planes, const float* xyz, int M,
 #define CAP_MIN 2048        // fewest rows a chunk holds before its tile splits
 #define NSLOT 1024          // float32 partial tiles in scratch
 #define SPLIT_SLICES 16     // blocks that reduce one split tile
-#define HIST_MAX 16384      // tiles a block-local histogram holds (64 KB)
+#define HIST_MAX 16384      // tiles a shared histogram (or cursor array) holds (64 KB)
+#define MATRIX_MAX (8 << 20)  // entries of the (blocks, tiles) count matrix
 
 template <int C>
 struct Tile {
@@ -264,12 +284,13 @@ struct BwdScratch {
   int* ids;          // (4R,) row ids by tile
   int* counts;       // (T,) rows per tile
   int* offsets;      // (T + 1,) first entry of each tile
-  int* cursor;       // (T,) next free entry of each tile (scatter)
   int* chunk_start;  // (T + 1,) first chunk of each tile
   int* slot_start;   // (T,) first scratch slot of a split tile
   int* split_tiles;  // (T,) the split tiles
   int* chunk_tile;   // (T + NSLOT,) the tile of each chunk
   int* meta;         // (META_WORDS,)
+  int* matrix;       // (B, T) rows of each tile in each count block's run, then
+                     // each block's first entry within the tile's list
 };
 
 static BwdScratch carve(int* base, long long R, int T) {
@@ -279,16 +300,40 @@ static BwdScratch carve(int* base, long long R, int T) {
   s.ids = p; p += 4 * R;
   s.counts = p; p += T;
   s.offsets = p; p += T + 1;
-  s.cursor = p; p += T;
   s.chunk_start = p; p += T + 1;
   s.slot_start = p; p += T;
   s.split_tiles = p; p += T;
   s.chunk_tile = p; p += T + NSLOT;
-  s.meta = p;
+  s.meta = p; p += META_WORDS;
+  s.matrix = p;
   return s;
 }
 
-static long long scratch_int_words(long long R, int T) { return 5 * R + 7LL * T + NSLOT + 2 + META_WORDS; }
+static int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// Blocks of the count pass (and warps of the scatter, which walk the same
+// runs of rows): a few rows per thread, at most 8 per SM, and few enough
+// that the count matrix stays within MATRIX_MAX entries.
+static int count_blocks(long long R, int C, int T) {
+  long long b = (R * (C / 4) + 16LL * BWD_THREADS - 1) / (16LL * BWD_THREADS);
+  const long long most = 8LL * num_sms(), fit = MATRIX_MAX / T;
+  if (b > most) b = most;
+  if (b > fit) b = fit;
+  return (int)(b < 1 ? 1 : b);
+}
+
+static long long scratch_int_words(long long R, int T, int B) {
+  return 5 * R + 6LL * T + NSLOT + 2 + META_WORDS + (long long)B * T;
+}
 
 // The k-th tile (k = 0: the row's own; 1: right, 2: below, 3: both) a
 // row's key lists it in, or -1.
@@ -299,13 +344,18 @@ __device__ __forceinline__ int tile_of_key(int key, int k, int tx_n) {
   return (key >> 2) + dx + dy * tx_n;
 }
 
+// The rows of block b are [b * span, min((b + 1) * span, rows)).
+__device__ __forceinline__ unsigned int run_span(unsigned int rows) {
+  return (rows + gridDim.x - 1) / gridDim.x;
+}
+
 template <int C>
 __global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __restrict__ xyz,
                                                                 const float* __restrict__ g,
                                                                 unsigned int rows, int H, int W,
                                                                 float lbound, int T, int use_hist,
                                                                 int* __restrict__ keys,
-                                                                int* __restrict__ counts) {
+                                                                int* __restrict__ matrix) {
   constexpr int G = C / 4, TY = Tile<C>::TY;
   extern __shared__ int hist[];
   if (use_hist) {
@@ -317,16 +367,14 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __r
   // a contiguous run of rows per block (neighbouring samples of a ray touch
   // few tiles), its warps striding through it
   const unsigned int per_warp = 32 / G, step = (blockDim.x / 32) * per_warp;
-  const unsigned int span = (rows + gridDim.x - 1) / gridDim.x;
+  const unsigned int span = run_span(rows);
   const unsigned int end = min(rows, (blockIdx.x + 1) * span);
-  for (unsigned int base = blockIdx.x * span + (threadIdx.x / 32) * per_warp; base < end; base += step) {
-    const unsigned int row = base + lane / G;
+  int* row_counts = matrix + (size_t)blockIdx.x * T;
+  int* h = use_hist ? hist : row_counts;
+  // a row's key and its tiles' counts, from its group's cotangent slices
+  auto count_row = [&](unsigned int row, float4 q) {
     const bool valid = row < end;
-    int nz = 0;
-    if (valid) {
-      const float4 q = reinterpret_cast<const float4*>(g + (size_t)row * C)[sub];
-      nz = (q.x != 0.f) | (q.y != 0.f) | (q.z != 0.f) | (q.w != 0.f);
-    }
+    int nz = valid && ((q.x != 0.f) | (q.y != 0.f) | (q.z != 0.f) | (q.w != 0.f));
 #pragma unroll
     for (int o = 1; o < G; o <<= 1) nz |= __shfl_xor_sync(0xffffffffu, nz, o);
     int key = -1;  // the row's key, on its group's first lane
@@ -339,18 +387,63 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __r
     }
     if (valid && sub == 0) keys[row] = key;
     // the lanes of the warp that count into one tile add once
-    int* h = use_hist ? hist : counts;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int t = tile_of_key(key, k, tx_n);
       const unsigned int same = __match_any_sync(0xffffffffu, t);
       if (t >= 0 && lane == __ffs(same) - 1) atomicAdd(h + t, __popc(same));
     }
+  };
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // two iterations' cotangent slices in flight at once
+  for (unsigned int base = blockIdx.x * span + (threadIdx.x / 32) * per_warp; base < end; base += 2 * step) {
+    const unsigned int row = base + lane / G, row2 = row + step;
+    const float4 q = row < end ? reinterpret_cast<const float4*>(g + (size_t)row * C)[sub] : zero;
+    const float4 q2 = row2 < end ? reinterpret_cast<const float4*>(g + (size_t)row2 * C)[sub] : zero;
+    count_row(row, q);
+    count_row(row2, q2);
   }
   if (use_hist) {
     __syncthreads();
-    for (int i = threadIdx.x; i < T; i += blockDim.x)
-      if (hist[i]) atomicAdd(counts + i, hist[i]);
+    for (int i = threadIdx.x; i < T; i += blockDim.x) row_counts[i] = hist[i];
+  }
+}
+
+// 32 tiles per block of SCAN_THREADS: lane = tile, warp = one of 32
+// segments of the count blocks. Each column of the count matrix becomes the
+// exclusive prefix over the blocks (a block's first entry within the tile's
+// list), and its sum the tile's count.
+__global__ void __launch_bounds__(SCAN_THREADS) bwd_colscan_kernel(int* __restrict__ matrix, int B, int T,
+                                                                   int* __restrict__ counts) {
+  __shared__ int seg[32][33];
+  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+  const int t = blockIdx.x * 32 + lane;
+  const int per = (B + 31) / 32, b0 = min(s * per, B), b1 = min(b0 + per, B);
+  int sum = 0;
+  if (t < T)
+    for (int b = b0; b < b1; ++b) sum += matrix[(size_t)b * T + t];
+  seg[s][lane] = sum;
+  __syncthreads();
+  {  // warp s scans the segments of tile blockIdx.x * 32 + s (lane = segment)
+    const int v = seg[lane][s];
+    int incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    seg[lane][s] = incl - v;
+    const int ts = blockIdx.x * 32 + s;
+    if (lane == 31 && ts < T) counts[ts] = incl;
+  }
+  __syncthreads();
+  if (t < T) {
+    int run = seg[s][lane];
+    for (int b = b0; b < b1; ++b) {
+      const int c = matrix[(size_t)b * T + t];
+      matrix[(size_t)b * T + t] = run;
+      run += c;
+    }
   }
 }
 
@@ -426,7 +519,6 @@ __global__ void __launch_bounds__(SCAN_THREADS) bwd_scan_kernel(const int* __res
     const int c = counts[i];
     const int n = c > cap ? (c + cap - 1) / cap : 1;
     s.offsets[i] = run.x;
-    s.cursor[i] = run.x;
     s.chunk_start[i] = run.y;
     s.slot_start[i] = run.z;
     for (int k = 0; k < n; ++k) s.chunk_tile[run.y + k] = i;  // chunks <= T + NSLOT
@@ -446,27 +538,55 @@ __global__ void __launch_bounds__(SCAN_THREADS) bwd_scan_kernel(const int* __res
   }
 }
 
-// One thread per row: its id into the list of each tile its footprint
-// touches. The lanes of a warp that go to one tile reserve their entries
-// with one atomic.
-__global__ void __launch_bounds__(BWD_THREADS) bwd_scatter_kernel(const int* __restrict__ keys,
-                                                                  unsigned int rows, int tx_n,
-                                                                  int* __restrict__ cursor,
-                                                                  int* __restrict__ ids) {
-  const unsigned int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const int key = row < rows ? keys[row] : -1;
-  const int lane = threadIdx.x & 31;
+// One warp per count block, over the block's run of rows in order: each
+// row's id into the list of each tile its footprint touches, at the tile's
+// cursor (the block's first entry within the list, then advanced), the
+// lanes that go to one tile ranked by lane. The cursors live in shared
+// memory (SHARED, T <= HIST_MAX) or in the block's row of the matrix.
+template <bool SHARED>
+__global__ void __launch_bounds__(32) bwd_scatter_kernel(const int* __restrict__ keys, unsigned int rows,
+                                                         int tx_n, int T, const int* __restrict__ offsets,
+                                                         int* __restrict__ matrix, int* __restrict__ ids) {
+  extern __shared__ int cur_s[];
+  const int lane = threadIdx.x;
   const unsigned int below = (1u << lane) - 1u;
+  int* row_pos = matrix + (size_t)blockIdx.x * T;
+  if constexpr (SHARED) {
+    for (int i = lane; i < T; i += 32) cur_s[i] = offsets[i] + row_pos[i];
+    __syncwarp();
+  }
+  volatile int* cur_g = row_pos;
+  const unsigned int span = run_span(rows);
+  const unsigned int lo = blockIdx.x * span, hi = min(rows, lo + span);
+  int key = lo + lane < hi ? keys[lo + lane] : -1;
+  for (unsigned int base = lo; base < hi; base += 32) {
+    const unsigned int row = base + lane;
+    const int next = row + 32 < hi ? keys[row + 32] : -1;
+    if (__ballot_sync(0xffffffffu, key >= 0) == 0) {  // 32 rows with no cotangent
+      key = next;
+      continue;
+    }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int t = tile_of_key(key, k, tx_n);
-    const unsigned int same = __match_any_sync(0xffffffffu, t);
-    if (t < 0) continue;
-    const int leader = __ffs(same) - 1;
-    int base = 0;
-    if (lane == leader) base = atomicAdd(cursor + t, __popc(same));
-    base = __shfl_sync(same, base, leader);
-    ids[base + __popc(same & below)] = (int)row;
+    for (int k = 0; k < 4; ++k) {
+      const int t = tile_of_key(key, k, tx_n);
+      const unsigned int same = __match_any_sync(0xffffffffu, t);
+      const int leader = __ffs(same) - 1;
+      int pos = 0;
+      if (t >= 0 && lane == leader) {
+        if constexpr (SHARED) {
+          pos = cur_s[t];
+          cur_s[t] = pos + __popc(same);
+        } else {
+          pos = cur_g[t];
+          cur_g[t] = pos + __popc(same);
+          pos += offsets[t];
+        }
+      }
+      pos = __shfl_sync(0xffffffffu, pos, leader);
+      if (t >= 0) ids[pos + __popc(same & below)] = (int)row;
+      __syncwarp();
+    }
+    key = next;
   }
 }
 
@@ -477,11 +597,38 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_scatter_kernel(const int* __r
 // no two threads add into one texel word: the chunk's rows go in batches of
 // BATCH (one per thread; a batch's cotangent rows and points are fetched
 // while the batch before it is summed), each row's cotangent, cell and
-// weights staged in shared memory, and its (row, corner) items sorted by texel with a counting
-// sort (integer shared atomics, which are native); then each texel is
-// summed by the one lane group that owns it (C / 4 lanes, a float4 of
-// channels each), in registers, and added to the tile with a plain load and
-// store.
+// weights staged in shared memory, and its (row, corner) items sorted by
+// texel with a counting sort whose ranks are fixed by (warp, corner, lane):
+// per-warp byte counts of each texel, ranks within a warp by
+// __match_any_sync; then the items, in texel order, are split evenly over
+// the lane groups (C / 4 lanes, a float4 of channels each): a group sums
+// each run of one texel in registers and adds it to the tile with a plain
+// load and store; the first and last texel of its range, which the groups
+// beside it may share, go to slots that are added afterwards in group order
+// (so a texel with many items is shared out, and every sum runs in an order
+// fixed by the inputs).
+// Channels 4 c4 .. 4 c4 + 3 of texel (oy + ly, ox + lx) of plane p, float4
+// i = (ly, lx, c4) of a tile, into the plane gradient in its dtype (rows of a
+// tile are contiguous in the plane); nothing past the plane's edge.
+template <int C, typename T>
+__device__ __forceinline__ void store_tile4(T* __restrict__ grad, int p, int oy, int ox, int H, int W, int i,
+                                            float4 v) {
+  const int ly = i / (TX * C / 4), r = i - ly * (TX * C / 4);
+  const int lx = r / (C / 4), c4 = r - lx * (C / 4);
+  const int y = oy + ly, x = ox + lx;
+  if (y >= H || x >= W) return;
+  const unsigned int o = ((unsigned int)(p * H + y) * (unsigned int)W + (unsigned int)x) * C + c4 * 4;
+  if constexpr (sizeof(T) == 2) {
+    __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y), hi2 = __floats2bfloat162_rn(v.z, v.w);
+    uint2 packed;
+    packed.x = *reinterpret_cast<unsigned int*>(&lo2);
+    packed.y = *reinterpret_cast<unsigned int*>(&hi2);
+    *reinterpret_cast<uint2*>(grad + o) = packed;
+  } else {
+    *reinterpret_cast<float4*>(grad + o) = v;
+  }
+}
+
 #define BATCH BWD_THREADS   // rows staged at once, one per thread
 
 // A row's cotangent and point (nothing for row < 0).
@@ -507,15 +654,20 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
   constexpr int NT = TX * TY;               // texels of a tile
   constexpr int GROUPS = BWD_THREADS / G;   // lane groups of a block
   constexpr int PER = NT / BWD_THREADS;     // texel counts scanned per thread
-  extern __shared__ float4 tile4[];
+  constexpr int WARPS = BWD_THREADS / 32;
+  extern __shared__ float4 tile4[];          // the tile, then the range-edge slots' sums
+  float4* edge_acc = tile4 + FLOATS / 4;     // (2 GROUPS, G) sums of the ranges' first and last texels
+  int* edge_tx = reinterpret_cast<int*>(edge_acc + 2 * GROUPS * G);  // (2 GROUPS,) their texels or -1
   __shared__ float4 sg4[BATCH * G];          // the rows' cotangents
   __shared__ float4 sw[BATCH];               // the rows' weights w00, w01, w10, w11
-  __shared__ int toff[NT + 1];               // texel counts, then their offsets
-  __shared__ unsigned short items[4 * BATCH];  // row << 2 | corner, by texel
-  __shared__ int warp_sums[BWD_THREADS / 32];
+  __shared__ int toff[NT + 1];               // texel offsets
+  __shared__ __align__(16) unsigned char wcnt[WARPS][NT];  // items of each texel per warp, then their prefix
+  __shared__ int items[4 * BATCH];           // texel << 10 | row << 2 | corner, by texel
+  __shared__ int warp_sums[WARPS];
   const int tx_n = tiles_x(W), ty_n = (H + TY - 1) / TY;
   const int chunks = s.meta[META_CHUNKS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned int below = (1u << lane) - 1u;
   const int sub = threadIdx.x % G, group = threadIdx.x / G;
   for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
     const int t = s.chunk_tile[ch];
@@ -534,9 +686,11 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
     fetch_row<C>(row, g, xyz, q, pt);
     for (int b0 = e0; b0 < e1; b0 += BATCH) {
       const int next_row = b0 + BATCH + r < e1 ? s.ids[b0 + BATCH + r] : -1;
-      for (int i = threadIdx.x; i <= NT; i += BWD_THREADS) toff[i] = 0;
+      for (int i = threadIdx.x; i < WARPS * NT / 16; i += BWD_THREADS)
+        reinterpret_cast<uint4*>(&wcnt[0][0])[i] = make_uint4(0u, 0u, 0u, 0u);
       __syncthreads();
-      // stage the row; count its corners in the tile by texel
+      // stage the row; rank its corners in the tile among the warp's items
+      // of the same texel
       int texel[4] = {-1, -1, -1, -1}, slot[4];
       if (row >= 0) {
 #pragma unroll
@@ -546,19 +700,40 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int lx = c.x0 + (k & 1) - ox, ly = c.y0 + (k >> 1) - oy;
-          if (lx >= 0 && lx < TX && ly >= 0 && ly < TY) {
-            texel[k] = ly * TX + lx;
-            slot[k] = atomicAdd(&toff[texel[k]], 1);
-          }
+          if (lx >= 0 && lx < TX && ly >= 0 && ly < TY) texel[k] = ly * TX + lx;
         }
       }
+      unsigned char* wc = wcnt[warp];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int x = texel[k];
+        const unsigned int same = __match_any_sync(0xffffffffu, x);
+        const int leader = __ffs(same) - 1;
+        int base = 0;
+        if (x >= 0 && lane == leader) {
+          base = wc[x];
+          wc[x] = (unsigned char)(base + __popc(same));
+        }
+        slot[k] = __shfl_sync(0xffffffffu, base, leader) + __popc(same & below);
+        __syncwarp();
+      }
       __syncthreads();
-      // exclusive scan of the counts: PER consecutive texels per thread
+      // per texel: the warps' counts turned into their prefix (<= 7 x 32
+      // fits a byte), then an exclusive scan of the texel totals, PER
+      // consecutive texels per thread
       int local[PER], sum = 0;
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
-        local[k] = toff[threadIdx.x * PER + k];
-        sum += local[k];
+        const int x = threadIdx.x * PER + k;
+        int run = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          const int c = wcnt[w][x];
+          wcnt[w][x] = (unsigned char)run;
+          run += c;
+        }
+        local[k] = run;
+        sum += run;
       }
       int incl = sum;
 #pragma unroll
@@ -579,55 +754,83 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
       __syncthreads();
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (texel[k] >= 0) items[toff[texel[k]] + slot[k]] = (unsigned short)((r << 2) | k);
+        if (texel[k] >= 0)
+          items[toff[texel[k]] + wc[texel[k]] + slot[k]] = (texel[k] << 10) | (r << 2) | k;
       __syncthreads();
       row = next_row;
       fetch_row<C>(row, g, xyz, q, pt);
-      // each lane group sums the items of its texels and adds them once
-      for (int tx = group; tx < NT; tx += GROUPS) {
-        const int i0 = toff[tx], i1 = toff[tx + 1];
-        if (i0 == i1) continue;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int i = i0; i < i1; ++i) {
-          const int it = items[i], rr = it >> 2, k = it & 3;
-          const float4 wv = sw[rr];
-          const float w = k == 0 ? wv.x : k == 1 ? wv.y : k == 2 ? wv.z : wv.w;
-          const float4 q = sg4[rr * G + sub];
-          acc.x += w * q.x;
-          acc.y += w * q.y;
-          acc.z += w * q.z;
-          acc.w += w * q.w;
+      // the items in texel order, split evenly over the lane groups: each
+      // sums runs of one texel and adds a run to the tile once; the first
+      // and last texel of a group's range may be shared with the groups
+      // beside it, so their sums go to the edge slots, added below in
+      // group order by the first slot of each texel
+      const int n_items = toff[NT], per = (n_items + GROUPS - 1) / GROUPS;
+      const int lo = min(group * per, n_items), hi = min(lo + per, n_items);
+      int cur = -1, runs = 0;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = lo; i < hi; ++i) {
+        const int it = items[i], tx = it >> 10, rr = (it >> 2) & 255, k = it & 3;
+        if (tx != cur) {
+          if (runs == 1) {
+            edge_acc[2 * group * G + sub] = acc;
+            if (sub == 0) edge_tx[2 * group] = cur;
+          } else if (runs > 1) {
+            float4* d = tile4 + cur * G + sub;
+            float4 v = *d;
+            v.x += acc.x;
+            v.y += acc.y;
+            v.z += acc.z;
+            v.w += acc.w;
+            *d = v;
+          }
+          cur = tx;
+          ++runs;
+          acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        const float4 wv = sw[rr];
+        const float w = k == 0 ? wv.x : k == 1 ? wv.y : k == 2 ? wv.z : wv.w;
+        const float4 q = sg4[rr * G + sub];
+        acc.x += w * q.x;
+        acc.y += w * q.y;
+        acc.z += w * q.z;
+        acc.w += w * q.w;
+      }
+      // the last run: the first slot when it is the range's only one
+      edge_acc[(2 * group + (runs > 1)) * G + sub] = acc;
+      if (sub == 0) {
+        edge_tx[2 * group + (runs > 1)] = runs > 0 ? cur : -1;
+        if (runs <= 1) edge_tx[2 * group + 1] = -1;
+      }
+      __syncthreads();
+      for (int e = 2 * group; e < 2 * group + 2; ++e) {
+        const int tx = edge_tx[e];
+        if (tx < 0) continue;
+        int before = e - 1;
+        while (before >= 0 && edge_tx[before] < 0) --before;
+        if (before >= 0 && edge_tx[before] == tx) continue;  // not this texel's first slot
+        float4 sum = edge_acc[e * G + sub];
+        for (int f = e + 1; f < 2 * GROUPS; ++f) {
+          const int fx = edge_tx[f];
+          if (fx < 0) continue;
+          if (fx != tx) break;
+          const float4 a = edge_acc[f * G + sub];
+          sum.x += a.x;
+          sum.y += a.y;
+          sum.z += a.z;
+          sum.w += a.w;
         }
         float4* d = tile4 + tx * G + sub;
         float4 v = *d;
-        v.x += acc.x;
-        v.y += acc.y;
-        v.z += acc.z;
-        v.w += acc.w;
+        v.x += sum.x;
+        v.y += sum.y;
+        v.z += sum.z;
+        v.w += sum.w;
         *d = v;
       }
       __syncthreads();
     }
     if (n == 1) {
-      // (ly, lx, 4 channels) per thread step; rows of the tile are contiguous
-      // in the plane
-      for (int i = threadIdx.x; i < FLOATS / 4; i += BWD_THREADS) {
-        const int ly = i / (TX * C / 4), r = i - ly * (TX * C / 4);
-        const int lx = r / (C / 4), c4 = r - lx * (C / 4);
-        const int y = oy + ly, x = ox + lx;
-        if (y >= H || x >= W) continue;
-        const float4 v = tile4[i];
-        const unsigned int o = ((unsigned int)(p * H + y) * (unsigned int)W + (unsigned int)x) * C + c4 * 4;
-        if constexpr (sizeof(T) == 2) {
-          __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y), hi2 = __floats2bfloat162_rn(v.z, v.w);
-          uint2 packed;
-          packed.x = *reinterpret_cast<unsigned int*>(&lo2);
-          packed.y = *reinterpret_cast<unsigned int*>(&hi2);
-          *reinterpret_cast<uint2*>(grad + o) = packed;
-        } else {
-          *reinterpret_cast<float4*>(grad + o) = v;
-        }
-      }
+      for (int i = threadIdx.x; i < FLOATS / 4; i += BWD_THREADS) store_tile4<C>(grad, p, oy, ox, H, W, i, tile4[i]);
     } else {
       float4* dst = reinterpret_cast<float4*>(partials + (size_t)(s.slot_start[t] + j) * FLOATS);
       for (int i = threadIdx.x; i < FLOATS / 4; i += BWD_THREADS) dst[i] = tile4[i];
@@ -652,10 +855,6 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_reduce_kernel(int H, int W, B
     const int p = t / (tx_n * ty_n), rem = t - p * tx_n * ty_n;
     const int oy = (rem / tx_n) * TY, ox = (rem % tx_n) * TX;
     for (int i = slice * SLICE + threadIdx.x; i < (slice + 1) * SLICE; i += BWD_THREADS) {
-      const int ly = i / (TX * C / 4), r = i - ly * (TX * C / 4);
-      const int lx = r / (C / 4), c4 = r - lx * (C / 4);
-      const int y = oy + ly, x = ox + lx;
-      if (y >= H || x >= W) continue;
       float4 v = src[i];
       for (int j = 1; j < n; ++j) {
         const float4 a = src[(size_t)j * (FLOATS / 4) + i];
@@ -664,29 +863,9 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_reduce_kernel(int H, int W, B
         v.z += a.z;
         v.w += a.w;
       }
-      const unsigned int o = ((unsigned int)(p * H + y) * (unsigned int)W + (unsigned int)x) * C + c4 * 4;
-      if constexpr (sizeof(T) == 2) {
-        __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y), hi2 = __floats2bfloat162_rn(v.z, v.w);
-        uint2 packed;
-        packed.x = *reinterpret_cast<unsigned int*>(&lo2);
-        packed.y = *reinterpret_cast<unsigned int*>(&hi2);
-        *reinterpret_cast<uint2*>(grad + o) = packed;
-      } else {
-        *reinterpret_cast<float4*>(grad + o) = v;
-      }
+      store_tile4<C>(grad, p, oy, ox, H, W, i, v);
     }
   }
-}
-
-static int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
 }
 
 static int tiles_of(int H, int W, int C) {
@@ -699,35 +878,48 @@ static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, flo
                       int* iscratch, float* partials, cudaStream_t stream) {
   const int T_ = tiles_of(H, W, C);
   const unsigned int rows = 3u * (unsigned int)M;
+  const int B = count_blocks(rows, C, T_);
   BwdScratch s = carve(iscratch, rows, T_);
-  cudaError_t err = cudaMemsetAsync(s.counts, 0, sizeof(int) * (size_t)T_, stream);
-  if (err != cudaSuccess) return (int)err;
   const int sms = num_sms();
+  cudaError_t err;
   // 1. count: each block a few rows per thread, so its histogram's zeroing
-  // and flush stay small beside them
+  // and write-out stay small beside them; without a block-local histogram
+  // the block adds into its zeroed row of the matrix
   const int use_hist = T_ <= HIST_MAX;
+  if (!use_hist && (err = cudaMemsetAsync(s.matrix, 0, sizeof(int) * (size_t)B * T_, stream)) != cudaSuccess)
+    return (int)err;
   const size_t hist_bytes = use_hist ? sizeof(int) * (size_t)T_ : 0;
   static bool hist_attr = false;
   if (!hist_attr) {
     cudaFuncSetAttribute(bwd_count_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * HIST_MAX);
     hist_attr = true;
   }
-  const unsigned long long threads_needed = (unsigned long long)rows * (C / 4);
-  unsigned long long blocks = (threads_needed + 16ULL * BWD_THREADS - 1) / (16ULL * BWD_THREADS);
-  if (blocks > 8ULL * sms) blocks = 8ULL * sms;
-  if (blocks < 1) blocks = 1;
-  bwd_count_kernel<C><<<(unsigned int)blocks, BWD_THREADS, hist_bytes, stream>>>(
-      xyz, g, rows, H, W, lbound, T_, use_hist, s.keys, s.counts);
+  bwd_count_kernel<C><<<B, BWD_THREADS, hist_bytes, stream>>>(xyz, g, rows, H, W, lbound, T_, use_hist,
+                                                              s.keys, s.matrix);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 2. scan
+  // 2. column scan of the count matrix
+  bwd_colscan_kernel<<<(T_ + 31) / 32, SCAN_THREADS, 0, stream>>>(s.matrix, B, T_, s.counts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 3. scan
   bwd_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(s.counts, T_, s);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 3. scatter
-  bwd_scatter_kernel<<<(rows + BWD_THREADS - 1) / BWD_THREADS, BWD_THREADS, 0, stream>>>(
-      s.keys, rows, tiles_x(W), s.cursor, s.ids);
+  // 4. scatter: one warp per count block
+  if (use_hist) {
+    static bool scatter_attr = false;
+    if (!scatter_attr) {
+      cudaFuncSetAttribute(bwd_scatter_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * HIST_MAX);
+      scatter_attr = true;
+    }
+    bwd_scatter_kernel<true><<<B, 32, sizeof(int) * (size_t)T_, stream>>>(s.keys, rows, tiles_x(W), T_,
+                                                                           s.offsets, s.matrix, s.ids);
+  } else {
+    bwd_scatter_kernel<false><<<B, 32, 0, stream>>>(s.keys, rows, tiles_x(W), T_, s.offsets, s.matrix, s.ids);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 4. accumulate: as many resident blocks as the tile's shared memory allows
-  const size_t tile_bytes = sizeof(float) * (size_t)Tile<C>::FLOATS;
+  // 5. accumulate: as many resident blocks as the tile's shared memory allows
+  // the tile and the edge slots: (2 GROUPS, G) float4 sums and 2 GROUPS texels
+  const size_t tile_bytes = sizeof(float) * (size_t)Tile<C>::FLOATS + sizeof(float4) * 2 * BWD_THREADS +
+                            sizeof(int) * 2 * (BWD_THREADS / (C / 4));
   static int per_sm = 0;
   if (per_sm == 0) {
     cudaFuncSetAttribute(bwd_accumulate_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -739,26 +931,27 @@ static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, flo
   bwd_accumulate_kernel<C, T><<<per_sm * sms, BWD_THREADS, tile_bytes, stream>>>(
       xyz, g, H, W, lbound, s, grad, partials);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 5. reduce the split tiles
+  // 6. reduce the split tiles
   bwd_reduce_kernel<C, T><<<2 * sms, BWD_THREADS, 0, stream>>>(H, W, s, partials, grad);
   return (int)cudaGetLastError();
 }
 
-// Scratch the K2 backward needs at these sizes: int32 words and float32
-// words (the partial tiles), allocated by the caller.
+// Scratch the K2 backward (and K2x's plane gradient) needs at these sizes:
+// int32 words and float32 words (the partial tiles), allocated by the caller.
 extern "C" int sample_points_backward_workspace(int M, int H, int W, int C, long long* int_words,
                                                 long long* float_words) {
   if (C != 4 && C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
-  const int TY = C == 32 ? 16 : 32;
-  *int_words = scratch_int_words(3LL * M, tiles_of(H, W, C));
+  const int TY = C == 32 ? 16 : 32, T = tiles_of(H, W, C);
+  *int_words = scratch_int_words(3LL * M, T, count_blocks(3LL * M, C, T));
   *float_words = (long long)NSLOT * TX * TY * C;
   return 0;
 }
 
 // xyz (M, 3) f32, g (M, 3, C) f32 -> grad (3, H, W, C) in the plane dtype
 // (bf16 != 0: bf16, else f32), every element written. iscratch and partials
-// as sample_points_backward_workspace sizes them. Five launches (and a
-// memset of the tile counts) on the stream; no synchronisation.
+// as sample_points_backward_workspace sizes them. Six launches (and, for
+// planes of more than HIST_MAX tiles, a memset of the count matrix) on the
+// stream; no synchronisation.
 extern "C" int sample_points_backward_launch(const float* xyz, const float* g, int M, int H, int W,
                                              int C, int bf16, float lbound, void* grad, int* iscratch,
                                              float* partials, cudaStream_t stream) {
@@ -784,120 +977,117 @@ extern "C" int sample_points_backward_launch(const float* xyz, const float* g, i
 // K2x
 // ---------------------------------------------------------------------------
 
-// The JAX package's gradient of clip(v, 0, hi): a tie at either bound
-// splits it, 0.5.
-__device__ __forceinline__ float clip_grad(float v, float hi) {
-  if (v > 0.f && v < hi) return 1.f;
-  return (v == 0.f || v == hi) ? 0.5f : 0.f;
-}
-
+// dL/dxyz: a group of L lanes per point (L divides 32, so a group lies in
+// one warp, and every lane of the grid's last warp runs the shuffles). The
+// three cotangent slices are loaded before any corner, so a lane has them
+// in flight together; with the count pass's keys (the plane gradient's
+// passes ran first) a row whose key is -1, an all-zero cotangent, is not
+// read at all.
 template <int C, typename T>
-__global__ void sample_points_backward_xyz_kernel(const T* __restrict__ planes,
-                                                  const float* __restrict__ xyz,
-                                                  const float* __restrict__ g, int M, int H, int W,
-                                                  float lbound, float* __restrict__ grad,
-                                                  float* __restrict__ dxyz) {
-  long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float px = xyz[3 * m], py = xyz[3 * m + 1], pz = xyz[3 * m + 2];
+__global__ void __launch_bounds__(256) bwd_xyz_kernel(const T* __restrict__ planes, const float* __restrict__ xyz,
+                                                      const float* __restrict__ g, const int* __restrict__ keys,
+                                                      unsigned int M, int H, int W, float lbound,
+                                                      float* __restrict__ dxyz) {
+  constexpr int L = FwdShape<C, T>::L, N = FwdShape<C, T>::N;
+  const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned int m = t / L;  // L is a power of two
+  const int sub = (int)(t % L);
+  const bool valid = m < M;
+  float pt[3] = {0.f, 0.f, 0.f}, gv[3][N];
+  int nz[3] = {0, 0, 0};
+  if (valid) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pt[d] = xyz[3 * m + d];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (keys == nullptr || keys[3u * m + p] >= 0) {
+        load_slice<N>(g + (3u * m + p) * C + sub * N, gv[p]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < N; ++k) gv[p][k] = 0.f;
+      }
+    }
+  }
   float du[3], dv[3];
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    du[p] = 0.f;
-    dv[p] = 0.f;
-    float gv[C];
-    const float4* gr = reinterpret_cast<const float4*>(g + (3 * m + p) * C);
-    bool any = false;
+    if (valid) {
 #pragma unroll
-    for (int k = 0; k < C / 4; ++k) {
-      float4 q = gr[k];
-      gv[4 * k] = q.x;
-      gv[4 * k + 1] = q.y;
-      gv[4 * k + 2] = q.z;
-      gv[4 * k + 3] = q.w;
-      any |= (q.x != 0.f) | (q.y != 0.f) | (q.z != 0.f) | (q.w != 0.f);
+      for (int k = 0; k < N; ++k) nz[p] |= gv[p][k] != 0.f;
     }
-    if (!any) continue;  // unrouted or masked samples: both gradients are 0
-    const float xr = texel(p == 2 ? py : px, lbound, W);
-    const float yr = texel(p == 1 ? py : pz, lbound, H);
-    float x = fminf(fmaxf(xr, 0.f), (float)(W - 1));
-    float y = fminf(fmaxf(yr, 0.f), (float)(H - 1));
-    float fx0 = fminf(fmaxf(floorf(x), 0.f), (float)(W - 2));
-    float fy0 = fminf(fmaxf(floorf(y), 0.f), (float)(H - 2));
-    float wx = x - fx0, wy = y - fy0;
-    const float w[4] = {(1.f - wx) * (1.f - wy), wx * (1.f - wy), (1.f - wx) * wy, wx * wy};
-    long long t00 = ((long long)p * H + (int)fy0) * W + (int)fx0;
-    const long long rows[4] = {t00, t00 + 1, t00 + W, t00 + W + 1};
-    float f00[C], f01[C], f10[C], f11[C];
-    load_row<C>(planes + rows[0] * C, f00);
-    load_row<C>(planes + rows[1] * C, f01);
-    load_row<C>(planes + rows[2] * C, f10);
-    load_row<C>(planes + rows[3] * C, f11);
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1) nz[p] |= __shfl_xor_sync(0xffffffffu, nz[p], o);
     float dwx = 0.f, dwy = 0.f;
+    Cell c{};
+    if (nz[p]) {  // unrouted or masked samples read no corner: both gradients are 0
+      c = cell_of(pt[0], pt[1], pt[2], p, lbound, H, W);
+      const T* r00 = planes + ((unsigned int)(p * H + c.y0) * (unsigned int)W + (unsigned int)c.x0) * C + sub * N;
+      const T* r10 = r00 + W * C;
+      float f00[N], f01[N], f10[N], f11[N];
+      load_slice<N>(r00, f00);
+      load_slice<N>(r00 + C, f01);
+      load_slice<N>(r10, f10);
+      load_slice<N>(r10 + C, f11);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dwx += gv[c] * ((f01[c] - f00[c]) * (1.f - wy) + (f11[c] - f10[c]) * wy);
-      dwy += gv[c] * ((f10[c] - f00[c]) * (1.f - wx) + (f11[c] - f01[c]) * wx);
+      for (int k = 0; k < N; ++k) {
+        dwx += gv[p][k] * ((f01[k] - f00[k]) * (1.f - c.wy) + (f11[k] - f10[k]) * c.wy);
+        dwy += gv[p][k] * ((f10[k] - f00[k]) * (1.f - c.wx) + (f11[k] - f01[k]) * c.wx);
+      }
     }
-    du[p] = dwx * clip_grad(xr, (float)(W - 1)) * (float)(W - 1) * 0.5f;
-    dv[p] = dwy * clip_grad(yr, (float)(H - 1)) * (float)(H - 1) * 0.5f;
-    if (grad == nullptr) continue;  // the planes need no gradient (an analytic normal)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float* dst = grad + rows[r] * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c) atomicAdd(dst + c, w[r] * gv[c]);
+    for (int o = 1; o < L; o <<= 1) {
+      dwx += __shfl_xor_sync(0xffffffffu, dwx, o);
+      dwy += __shfl_xor_sync(0xffffffffu, dwy, o);
     }
+    du[p] = nz[p] ? coord_grad(dwx, c.xr, W) : 0.f;
+    dv[p] = nz[p] ? coord_grad(dwy, c.yr, H) : 0.f;
   }
-  dxyz[3 * m] = (du[0] + du[1]) / lbound;
-  dxyz[3 * m + 1] = (dv[1] + du[2]) / lbound;
-  dxyz[3 * m + 2] = (dv[0] + dv[2]) / lbound;
+  if (valid && sub == 0) {
+    dxyz[3 * m] = (du[0] + du[1]) / lbound;
+    dxyz[3 * m + 1] = (dv[1] + du[2]) / lbound;
+    dxyz[3 * m + 2] = (dv[0] + dv[2]) / lbound;
+  }
 }
 
-__global__ void cast_bf16_kernel(const float* __restrict__ x, long long n,
-                                 __nv_bfloat16* __restrict__ out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(x[i]);
-}
-
-template <int C>
-static void launch_xyz_c(const void* planes, const float* xyz, const float* g, int M, int H, int W,
-                         int bf16, float lbound, float* grad, float* dxyz, cudaStream_t stream) {
-  const int threads = 128;
-  unsigned int blocks = (unsigned int)(((long long)M + threads - 1) / threads);
-  if (bf16)
-    sample_points_backward_xyz_kernel<C, __nv_bfloat16><<<blocks, threads, 0, stream>>>(
-        (const __nv_bfloat16*)planes, xyz, g, M, H, W, lbound, grad, dxyz);
-  else
-    sample_points_backward_xyz_kernel<C, float><<<blocks, threads, 0, stream>>>(
-        (const float*)planes, xyz, g, M, H, W, lbound, grad, dxyz);
+template <int C, typename T>
+static int launch_xyz(const T* planes, const float* xyz, const float* g, int M, int H, int W, float lbound,
+                      T* grad, int* iscratch, float* partials, float* dxyz, cudaStream_t stream) {
+  const int* keys = nullptr;
+  if (grad != nullptr) {
+    const int err = launch_bwd<C, T>(xyz, g, M, H, W, lbound, grad, iscratch, partials, stream);
+    if (err != 0) return err;
+    keys = carve(iscratch, 3LL * M, tiles_of(H, W, C)).keys;
+  }
+  const unsigned long long n = (unsigned long long)M * FwdShape<C, T>::L;
+  bwd_xyz_kernel<C, T><<<(unsigned int)((n + 255) / 256), 256, 0, stream>>>(planes, xyz, g, keys, (unsigned int)M,
+                                                                          H, W, lbound, dxyz);
+  return (int)cudaGetLastError();
 }
 
 // K2x. planes (3, H, W, C) channel-last, bf16 (bf16 != 0) or f32; xyz (M, 3)
-// f32; g (M, 3, C) f32 -> grad (3, H, W, C) f32, which the caller zeroes (the
-// plane gradient, float atomics in an unspecified order; null: not computed),
-// and dxyz (M, 3) f32, every row written.
+// f32; g (M, 3, C) f32 -> grad (3, H, W, C) in the plane dtype, every element
+// written (the K2 backward's passes, with iscratch and partials as
+// sample_points_backward_workspace sizes them; grad null: not computed),
+// and dxyz (M, 3) f32, every row written: seven launches, or one without the
+// plane gradient. No synchronisation.
 extern "C" int sample_points_backward_xyz_launch(const void* planes, const float* xyz,
                                                  const float* g, int M, int H, int W, int C,
-                                                 int bf16, float lbound, float* grad, float* dxyz,
-                                                 cudaStream_t stream) {
+                                                 int bf16, float lbound, void* grad, int* iscratch,
+                                                 float* partials, float* dxyz, cudaStream_t stream) {
   if (M == 0) return 0;
   if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+#define K2X(CC)                                                                                      \
+  case CC:                                                                                           \
+    return bf16 ? launch_xyz<CC, __nv_bfloat16>((const __nv_bfloat16*)planes, xyz, g, M, H, W, lbound, \
+                                                (__nv_bfloat16*)grad, iscratch, partials, dxyz, stream) \
+                : launch_xyz<CC, float>((const float*)planes, xyz, g, M, H, W, lbound, (float*)grad,   \
+                                        iscratch, partials, dxyz, stream);
   switch (C) {
-    case 4: launch_xyz_c<4>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
-    case 8: launch_xyz_c<8>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
-    case 16: launch_xyz_c<16>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
-    case 32: launch_xyz_c<32>(planes, xyz, g, M, H, W, bf16, lbound, grad, dxyz, stream); break;
+    K2X(4)
+    K2X(8)
+    K2X(16)
+    K2X(32)
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-// x (n,) f32 -> out (n,) bf16, round to nearest even.
-extern "C" int cast_bf16_launch(const float* x, long long n, void* out, cudaStream_t stream) {
-  if (n == 0) return 0;
-  const int threads = 256;
-  cast_bf16_kernel<<<(unsigned int)((n + threads - 1) / threads), threads, 0, stream>>>(
-      x, n, (__nv_bfloat16*)out);
-  return (int)cudaGetLastError();
+#undef K2X
 }

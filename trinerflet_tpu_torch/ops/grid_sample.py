@@ -20,9 +20,10 @@ coordinate gradient that JAX's autodiff of ``grid_sample_2d`` /
 tensors it launches kernel K2 forward and backward, or K2x when the
 coordinate gradient is asked for (``kernels/csrc/grid_sample.cu``: the
 forward fuses the projection; the backward sums each tile of the plane in
-shared memory after binning the rows by tile, five launches from one call;
-K2x accumulates with float32 atomics and skips the plane gradient when the
-planes need none, as for an analytic normal); on CPU tensors it runs the
+shared memory after binning the rows by tile, six launches from one call,
+each sum in an order fixed by the inputs; K2x enqueues the same passes for
+its plane gradient, or none when the planes need none, as for an analytic
+normal, and one launch for dL/dxyz); on CPU tensors it runs the
 plain versions (the plane gradient an ``index_add_`` in float32). It is
 differentiable once: a second derivative raises on both devices
 (``kernels.first_order``).
@@ -277,18 +278,27 @@ _K2_BWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ct
                 ctypes.c_void_p, ctypes.c_void_p]
 _K2_WORKSPACE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong)]
-# kernels one K2 backward call launches: count, scan, scatter, accumulate, reduce
-K2_BWD_LAUNCHES = 5
-_CAST_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+# kernels one K2 backward call launches: count, column scan, scan, scatter,
+# accumulate, reduce
+K2_BWD_LAUNCHES = 6
+
+
+def _backward_scratch(M: int, H: int, W: int, C: int, device, what: str):
+    """The K2 backward's scratch from torch's caching allocator: the rows'
+    keys, tile lists and count matrix (int32), and the float32 partial tiles
+    of tiles split across blocks."""
+    words, floats = ctypes.c_longlong(), ctypes.c_longlong()
+    ws = _build.function("grid_sample", "sample_points_backward_workspace", _K2_WORKSPACE_ARGS)
+    _build.check(ws(M, H, W, C, ctypes.byref(words), ctypes.byref(floats)), what)
+    return (torch.empty((words.value,), device=device, dtype=torch.int32),
+            torch.empty((floats.value,), device=device, dtype=torch.float32))
 
 
 def _sample_points_backward_cuda(g: torch.Tensor, xyz: torch.Tensor, lbound: float,
                                  plane_shape, plane_dtype) -> torch.Tensor:
     """The K2 backward: the plane gradient (3, H, W, C) in the plane dtype,
-    its float32 sums kept in shared memory tile by tile
-    (``kernels/csrc/grid_sample.cu``); its scratch (the rows' tile lists and
-    the float32 partial tiles of tiles split across blocks) comes from
-    torch's caching allocator."""
+    its float32 sums kept in shared memory tile by tile, each in an order
+    fixed by the inputs (``kernels/csrc/grid_sample.cu``)."""
     what = "sample_points backward kernel"
     P, H, W, C = plane_shape
     M = xyz.shape[0]
@@ -304,11 +314,7 @@ def _sample_points_backward_cuda(g: torch.Tensor, xyz: torch.Tensor, lbound: flo
         return torch.zeros(plane_shape, device=xyz.device, dtype=plane_dtype)
     g = g.float().contiguous()
     xyz = xyz.contiguous()
-    words, floats = ctypes.c_longlong(), ctypes.c_longlong()
-    ws = _build.function("grid_sample", "sample_points_backward_workspace", _K2_WORKSPACE_ARGS)
-    _build.check(ws(M, H, W, C, ctypes.byref(words), ctypes.byref(floats)), what)
-    iscratch = torch.empty((words.value,), device=xyz.device, dtype=torch.int32)
-    partials = torch.empty((floats.value,), device=xyz.device, dtype=torch.float32)
+    iscratch, partials = _backward_scratch(M, H, W, C, xyz.device, what)
     out = torch.empty(plane_shape, device=xyz.device, dtype=plane_dtype)
     fn = _build.function("grid_sample", "sample_points_backward_launch", _K2_BWD_ARGS)
     _build.check(fn(_build.ptr(xyz), _build.ptr(g), M, H, W, C, int(plane_dtype == torch.bfloat16),
@@ -318,21 +324,17 @@ def _sample_points_backward_cuda(g: torch.Tensor, xyz: torch.Tensor, lbound: flo
     return out
 
 
-def _cast_bf16(acc: torch.Tensor, out: torch.Tensor, s) -> None:
-    fn = _build.function("grid_sample", "cast_bf16_launch", _CAST_ARGS)
-    _build.check(fn(_build.ptr(acc), acc.numel(), _build.ptr(out), s), "cast to bf16")
-
-
 _K2X_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _sample_points_backward_xyz_cuda(g: torch.Tensor, planes: torch.Tensor, xyz: torch.Tensor,
                                      lbound: float, planes_grad: bool = True):
-    """K2x: the plane gradient (float32 atomics, then the plane dtype; None
-    without ``planes_grad``) and dL/dxyz (M, 3) f32, one thread per point
-    over the three planes."""
+    """K2x: the plane gradient (the K2 backward's passes, enqueued by the
+    same call, so bit for bit ``_sample_points_backward_cuda``'s on the same
+    cotangent and points; None without ``planes_grad``) and dL/dxyz (M, 3)
+    f32, one more launch of a lane group per point."""
     what = "sample_points backward (xyz) kernel"
     _check_planes_points(planes, xyz, what)
     _, H, W, C = planes.shape
@@ -340,23 +342,21 @@ def _sample_points_backward_xyz_cuda(g: torch.Tensor, planes: torch.Tensor, xyz:
     if g.device != xyz.device or tuple(g.shape) != (M, 3, C):
         raise ValueError(f"{what}: g must be ({M}, 3, {C}) on {xyz.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
+    dxyz = torch.empty((M, 3), device=xyz.device, dtype=torch.float32)
+    if M == 0:
+        pg = torch.zeros(planes.shape, device=xyz.device, dtype=planes.dtype) if planes_grad else None
+        return pg, dxyz
     g = g.float().contiguous()
     xyz = xyz.contiguous()
-    acc = torch.zeros(planes.shape, device=xyz.device, dtype=torch.float32) if planes_grad else None
-    dxyz = torch.zeros((M, 3), device=xyz.device, dtype=torch.float32)
-    s = _build.stream(xyz.device)
-    if M > 0:
-        fn = _build.function("grid_sample", "sample_points_backward_xyz_launch", _K2X_ARGS)
-        _build.check(fn(_build.ptr(planes), _build.ptr(xyz), _build.ptr(g), M, H, W, C,
-                        int(planes.dtype == torch.bfloat16), float(lbound),
-                        _build.ptr(acc) if planes_grad else None, _build.ptr(dxyz), s),
-                     "sample_points backward (xyz)")
-        kernels.launches["grid_sample_bwd_xyz"] += 1
-    if not planes_grad:
-        return None, dxyz
-    if planes.dtype == torch.float32:
-        return acc, dxyz
-    out = torch.empty(planes.shape, device=xyz.device, dtype=torch.bfloat16)
-    _cast_bf16(acc, out, s)
-    kernels.launches["grid_sample_bwd_xyz"] += 1
-    return out, dxyz
+    pg, iscratch, partials = None, None, None
+    if planes_grad:
+        iscratch, partials = _backward_scratch(M, H, W, C, xyz.device, what)
+        pg = torch.empty(planes.shape, device=xyz.device, dtype=planes.dtype)
+    fn = _build.function("grid_sample", "sample_points_backward_xyz_launch", _K2X_ARGS)
+    opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+    _build.check(fn(_build.ptr(planes), _build.ptr(xyz), _build.ptr(g), M, H, W, C,
+                    int(planes.dtype == torch.bfloat16), float(lbound), opt(pg), opt(iscratch),
+                    opt(partials), _build.ptr(dxyz), _build.stream(xyz.device)),
+                 "sample_points backward (xyz)")
+    kernels.launches["grid_sample_bwd_xyz"] += 1 + (K2_BWD_LAUNCHES if planes_grad else 0)
+    return pg, dxyz

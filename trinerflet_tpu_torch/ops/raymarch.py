@@ -308,6 +308,8 @@ def _march_cuda(rays_o, rays_d, nears, fars, occ, occ_coarse, noise, *,
                              f"got {tuple(g.shape)} {g.dtype}")
     if not 0 < coarse_budget <= _MAX_COARSE_BUDGET:
         raise ValueError(f"march kernel: coarse_budget must be in [1, {_MAX_COARSE_BUDGET}]")
+    if cascades * grid_size**3 >= 2**31:
+        raise ValueError(f"march kernel: a {grid_shape} grid exceeds its 32-bit cell index")
     ins = [x.contiguous() for x in (rays_o, rays_d, nears, fars, noise, occ, occ_coarse)]
     dt_py = 2.0 * SQRT3 / max_steps
     seg_py = dt_py * fine_per_coarse
