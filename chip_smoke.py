@@ -544,6 +544,7 @@ def kernel_phase(trainer, params, occ, poses, intr):
     err3 = max((a - b_).abs().max().item() for a, b_ in zip(got, ref))
     if err3 > 1e-5:
         raise RuntimeError(f"K3 max|err| {err3} > 1e-5")
+    _same_bits("K3", got, RM.composite_dense(*cargs, t_thresh=rcfg.t_thresh))
     b, by = bound_ms(nbytes(*cargs) + nbytes(*got), sig.numel() * 12)
     rows.append(dict(name="K3 composite_dense", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
@@ -1175,11 +1176,19 @@ def _dense_composite_rows(trainer, calls):
     return rows
 
 
+def _same_bits(what, got, again):
+    """A kernel that sums in a fixed order gives the same bits on a second
+    call."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{what} differs from itself on a second call")
+
+
 def _composite_row(cargs, name_t):
     got, ref = RM._composite_cuda(*cargs), RM.composite_dense_plain(*cargs)
     err = max((a - b_).abs().max().item() for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3 (train) max|err| {err} > 1e-5")
+    _same_bits("K3", got, RM._composite_cuda(*cargs))
     sig = cargs[0]
     b, by = bound_ms(nbytes(*cargs[:5]) + nbytes(*got), sig.numel() * 12)
     return [dict(name="K3 composite_dense" + (f" T={sig.shape[1]}" if name_t else ""),
@@ -1199,6 +1208,7 @@ def _composite_backward_row(bargs, name_t):
     err = max(_rel(a, b_) for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3 backward rel err {err} > 1e-5")
+    _same_bits("K3 backward", got, RM._composite_backward_cuda(*bargs))
     b, by = bound_ms(nbytes(*bargs[:5]) + nbytes(*bargs[6:]) + nbytes(*got), sig.numel() * 40)
     return [dict(name="K3 composite_dense backward" + (f" T={sig.shape[1]}" if name_t else ""),
                  key="composite_bwd",
@@ -1209,7 +1219,8 @@ def _composite_backward_row(bargs, name_t):
                  ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
                  plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
                  bound_ms=b, bound_by=by, library_ms=None,
-                 note="analytic reverse pass, one thread per ray; replaces autodiff of the cumprod")]
+                 note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples; analytic reverse pass, "
+                      "a lane group per ray; replaces autodiff of the cumprod")]
 
 
 def evaluate_phase(trainer, state, scene, card):

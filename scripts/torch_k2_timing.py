@@ -67,9 +67,10 @@ PATHS = {
 }
 
 
-def captured_calls(name: str, scene):
-    """One step's K2 calls on ``name``'s path after its warm-up."""
-    cfgs, warm = PATHS[name]
+def captured_calls(name: str, scene, paths=PATHS):
+    """One step's kernel calls on ``name``'s path of ``paths`` after its
+    warm-up."""
+    cfgs, warm = paths[name]
     trainer = Trainer(*cfgs(), device="cuda")
     state = trainer.init_state(density_grid=mark_untrained_grid(scene.poses, scene.intrinsics,
                                                                 trainer.render_cfg))

@@ -121,9 +121,10 @@ def test_sample_points_grad_matches_jax(dtype):
     _close(g_p.float(), g_j.astype(jnp.float32), REL[dtype])
 
 
+@pytest.mark.parametrize("T", [20, 64, 576])  # the per-ray B, the proposal P, the dense 512 + 64
 @pytest.mark.parametrize("order", ["port_first", "jax_first"])
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
-def test_composite_dense_grad_matches_jax(t_thresh, order):
+def test_composite_dense_grad_matches_jax(t_thresh, order, T):
     """Cotangents at all four outputs (weights_sum, depth, image, weights),
     in both call orders. With JAX's computations first, the port's first
     plain composite in a process used to come out up to 1e-4 off: torch's
@@ -131,7 +132,7 @@ def test_composite_dense_grad_matches_jax(t_thresh, order):
     running JAX's CPU runtime; the plain versions now take exp as exp2
     (``ops/activation.plain_exp``), ROADMAP Queue 3."""
     rng = np.random.default_rng(3)
-    N, T = 300, 20
+    N = 300
     sig = (rng.random((N, T)) * 80).astype(np.float32)
     rgb = rng.random((N, T, 3)).astype(np.float32)
     dl = (rng.random((N, T)) * 0.05).astype(np.float32)

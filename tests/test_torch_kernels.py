@@ -9,7 +9,9 @@ carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
 Tolerances: K1 must agree bit for bit (mask, stride, seg_lastocc, t), and
 so must K1f in both modes (t, dt, mask, stride, t0; ts, dts, valid): it
 rounds where its plain version rounds and calls the same expf / logf. K3 is
-float32 with atol 1e-5 (fused multiply-adds and summation order); K2 atol
+float32 with atol 1e-5 (fused multiply-adds and summation order), its
+weights the plain version's bit for bit (the transmittance in the order of
+torch's CUDA cumprod) and the same bits on every call; K2 atol
 1e-4 (see the test: a one-ulp coordinate difference times the texel slope).
 K4 rounds where the plain version rounds (after each 1-D operator and each
 add) but sums its taps in another order, so a bf16 rounding may flip: bf16
@@ -245,19 +247,68 @@ def test_sample_backward_kernel_is_deterministic(dev, case):
     assert torch.equal(a, b) and a.abs().max().item() > 0
 
 
-def test_composite_kernel_matches_plain(dev):
-    g = torch.Generator().manual_seed(2)
-    N, T = 3000, 20
-    sig = (60 * torch.rand((N, T), generator=g)).to(dev)
-    rgb = torch.rand((N, T, 3), generator=g).to(dev)
-    dl = (0.05 * torch.rand((N, T), generator=g)).to(dev)
-    ts = torch.cumsum(dl, 1)
-    mask = (torch.rand((N, T), generator=g) < 0.8).to(dev)
-    got = RM.composite_dense(sig, rgb, dl, ts, mask, t_thresh=1e-4)
-    ref = RM.composite_dense_plain(sig, rgb, dl, ts, mask, t_thresh=1e-4)
+# K3 cases: row lengths that fill no chunk (1, 7), the per-ray layout's B
+# (20), one chunk of 32 lanes exactly and one past it (32, 33), the proposal
+# weights' P (64) and the dense renderer's 512 and 576; one ray and 3,000 (no
+# multiple of a block's rays); "edge" rows: every fifth ray fully masked,
+# every fifth (offset 2) with sigma up to 1e4, so the transmittance
+# underflows through the subnormals to 0 within a few samples.
+K3_T = [1, 7, 20, 32, 33, 64, 512, 576]
+
+
+def _k3_inputs(dev, N, T, rows, scale, seed):
+    g = torch.Generator().manual_seed(seed)
+    sig = scale * torch.rand((N, T), generator=g)
+    rgb = torch.rand((N, T, 3), generator=g)
+    dl = 0.05 * torch.rand((N, T), generator=g)
+    mask = torch.rand((N, T), generator=g) < 0.8
+    if rows == "edge":
+        mask[0::5] = False
+        sig[2::5] = 1e4 * torch.rand(sig[2::5].shape, generator=g)
+    return g, (sig.to(dev), rgb.to(dev), dl.to(dev), torch.cumsum(dl, 1).to(dev), mask.to(dev))
+
+
+@pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
+@pytest.mark.parametrize("rows", ["random", "edge"])
+@pytest.mark.parametrize("N", [1, 3000])
+@pytest.mark.parametrize("T", K3_T)
+def test_composite_kernel_matches_plain(dev, T, N, rows, t_thresh):
+    _, args = _k3_inputs(dev, N, T, rows, 60.0, 2)
+    n0 = kernels.launches["composite"]
+    got = RM.composite_dense(*args, t_thresh=t_thresh)
+    assert kernels.launches["composite"] == n0 + 1
+    ref = RM.composite_dense_plain(*args, t_thresh=t_thresh)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert (a - b).abs().max().item() <= 1e-5
+    if rows == "edge":
+        assert not got[3][0::5].any() and not got[0][0::5].any()
+
+
+@pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
+@pytest.mark.parametrize("T", K3_T)
+def test_composite_weights_equal_the_plain_version_bit_for_bit(dev, T, t_thresh):
+    """K3 forms the transmittance in the order of torch's CUDA cumprod on
+    rows of many rays (blocks of 32 samples, Sklansky's tree), so the
+    weights, and with them the t_thresh cut, are the plain version's bits.
+    That order was read from, and checked against, torch 2.11.0+cu128: on
+    another torch a failure here may be ATen's scan, not the kernel."""
+    _, args = _k3_inputs(dev, 3000, T, "edge", 60.0, 3)
+    got = RM._composite_cuda(*args, t_thresh)[3]
+    assert torch.equal(got, RM.composite_dense_plain(*args, t_thresh=t_thresh)[3])
+
+
+@pytest.mark.parametrize("T", [20, 576])
+def test_composite_kernels_give_the_same_bits_on_every_call(dev, T):
+    g, args = _k3_inputs(dev, 3000, T, "edge", 60.0, 7)
+    N = args[0].shape[0]
+    cts = [torch.randn(s, generator=g).to(dev) for s in ((N,), (N,), (N, 3), (N, T))]
+    for t_thresh in (0.0, 1e-4):
+        a, b = RM._composite_cuda(*args, t_thresh), RM._composite_cuda(*args, t_thresh)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        a = RM._composite_backward_cuda(*args, t_thresh, *cts)
+        b = RM._composite_backward_cuda(*args, t_thresh, *cts)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # K1 cases: (grid H, cascades, max_steps, occupied fraction, fine stride,
@@ -476,14 +527,11 @@ def test_sample_points_autograd_launches_k2x_only_for_points(dev):
 
 
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
-def test_composite_backward_kernel_matches_plain(dev, t_thresh):
-    g = torch.Generator().manual_seed(5)
-    N, T = 3000, 20
-    sig = (80 * torch.rand((N, T), generator=g)).to(dev)
-    rgb = torch.rand((N, T, 3), generator=g).to(dev)
-    dl = (0.05 * torch.rand((N, T), generator=g)).to(dev)
-    ts = torch.cumsum(dl, 1)
-    mask = (torch.rand((N, T), generator=g) < 0.8).to(dev)
+@pytest.mark.parametrize("rows", ["random", "edge"])
+@pytest.mark.parametrize("N", [1, 3000])
+@pytest.mark.parametrize("T", K3_T)
+def test_composite_backward_kernel_matches_plain(dev, T, N, rows, t_thresh):
+    g, (sig, rgb, dl, ts, mask) = _k3_inputs(dev, N, T, rows, 80.0, 5)
     cts = [torch.randn(s, generator=g).to(dev) for s in ((N,), (N,), (N, 3), (N, T))]
     n0 = kernels.launches["composite_bwd"]
     got = RM._composite_backward_cuda(sig, rgb, dl, ts, mask, t_thresh, *cts)
@@ -492,6 +540,22 @@ def test_composite_backward_kernel_matches_plain(dev, t_thresh):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert _rel_close(a, b, 1e-5)
+
+
+def test_composite_backward_kernel_refuses_rows_past_its_shared_memory(dev):
+    """The backward keeps a block's chunk starts in 48 KB of shared memory:
+    98,304 samples a ray at most. Its launcher refuses a longer row, and
+    nothing launches."""
+    for T, refused in ((98304, False), (98305, True)):
+        g, args = _k3_inputs(dev, 1, T, "random", 1e-3, 9)
+        cts = [torch.randn(s, generator=g).to(dev) for s in ((1,), (1,), (1, 3), (1, T))]
+        n0 = kernels.launches["composite_bwd"]
+        if refused:
+            with pytest.raises(RuntimeError, match="composite_dense backward"):
+                RM._composite_backward_cuda(*args, 0.0, *cts)
+        else:
+            assert torch.isfinite(RM._composite_backward_cuda(*args, 0.0, *cts)[0]).all()
+        assert kernels.launches["composite_bwd"] == n0 + (not refused)
 
 
 @pytest.mark.parametrize("name", sorted(W._IDWT_PAD))

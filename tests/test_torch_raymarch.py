@@ -126,10 +126,11 @@ def test_march_rejects_unported_options():
         PR.render_occgrid(None, z, z, None, cfg, occ_coarse=z)
 
 
+@pytest.mark.parametrize("T", [20, 64, 576])  # the per-ray B, the proposal P, the dense 512 + 64
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
-def test_composite_dense_matches_jax(t_thresh):
+def test_composite_dense_matches_jax(t_thresh, T):
     rng = np.random.default_rng(5)
-    N, T = 400, 20
+    N = 400
     sig = (rng.random((N, T)) * 60).astype(np.float32)
     rgb = rng.random((N, T, 3)).astype(np.float32)
     dl = (rng.random((N, T)) * 0.05).astype(np.float32)

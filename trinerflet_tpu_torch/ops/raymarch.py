@@ -630,6 +630,8 @@ _K3_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float]
 def _check_composite(sigmas, rgbs, deltas, ts, mask):
     N, B = sigmas.shape
     dev = sigmas.device
+    if 3 * (N * B + 32) >= 2**31:
+        raise ValueError(f"composite kernel: N * T = {N * B} samples pass its 32-bit indices")
     for name, x, shape, dtype in (("sigmas", sigmas, (N, B), torch.float32),
                                   ("rgbs", rgbs, (N, B, 3), torch.float32),
                                   ("deltas", deltas, (N, B), torch.float32),
