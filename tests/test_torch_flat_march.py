@@ -168,13 +168,27 @@ def test_march_candidates_matches_jax(case):
         assert (pv != jv).sum() <= 1e-4 * jv.sum(), (pv != jv).sum()
 
 
+def _ranks_past_count(valid, B):
+    """Rays over the budget B whose spread rank ceil(b * count * f32(1/B))
+    (float32, as jit computes it) exceeds their count for some b <= B."""
+    count = valid.sum(1).astype(np.float32)
+    b = np.arange(1, B + 1, dtype=np.float32)
+    tgt = np.ceil(b[None, :] * count[:, None] * np.float32(1.0 / B))
+    return (count > B) & (tgt > count[:, None]).any(1)
+
+
+@pytest.mark.parametrize("B", [7, 13, 20])
 @pytest.mark.parametrize("case", ["uniform", "uniform_capped", "ladder_cli"])
-def test_compact_per_ray_and_march_flat_match_jax(case):
+def test_compact_per_ray_and_march_flat_match_jax(case, B):
     """compact_per_ray against the JAX package's under jit, on the same
     valid candidates; march_flat_plain's t and dt are the selected
-    candidates' (the JAX package's take_along_axis), zero where masked."""
+    candidates' (the JAX package's take_along_axis), zero where masked.
+    At B = 7 and 13 some rays' spread rank runs past their count (B 7:
+    counts 11-15, 22-28; B 13: 14, 15, 26-31), and the slot takes the last
+    candidate, masked true, as in the JAX package; at B = 20 none does."""
     kw, arrays, j, p = _march_both(case)
-    B = 20
+    past = _ranks_past_count(p.valid.numpy(), B)
+    assert past.any() == (B != 20), past.sum()
     fn = jax.jit(JRM.compact_per_ray, static_argnums=1)
     ji, jm, js = fn(JRM.MarchResults(j.ts, j.dts, jnp.asarray(p.valid.numpy())), B)
     pi, pm, ps = PRM.compact_per_ray(p, B)
@@ -182,7 +196,10 @@ def test_compact_per_ray_and_march_flat_match_jax(case):
     np.testing.assert_array_equal(pm.numpy(), jm)
     np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
     np.testing.assert_array_equal(pi.numpy()[jm], np.asarray(ji)[jm])
-    assert (np.asarray(js) > 1).any() and (jm.sum(1) < B).any()  # spread rays and short rays
+    Kc = kw["num_steps"]
+    assert (pi.numpy()[past][:, -1] == Kc - 1).all() and jm[past].all()
+    assert (np.asarray(js) > 1).any()  # spread rays
+    assert B < 20 or (jm.sum(1) < B).any()  # and short rays (every ray here keeps 7 or more)
     t, dt, mask, stride, t0 = PRM.march_flat(*map(torch.from_numpy, arrays), budget=B, **kw)
     np.testing.assert_array_equal(mask.numpy(), jm)
     np.testing.assert_array_equal(stride.numpy(), ps.numpy())

@@ -368,14 +368,10 @@ def test_march_kernel_matches_plain_bit_for_bit(dev, case):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("gamma,bound,steps,frac", [
-    (0.0, 1.5, 512, 0.3),          # constant dt_min, the uniform march
-    (1.0 / 128, 4.0, 1024, 0.2),   # the CLI's ladder: phases 1 and 2 within far
-    (1.0 / 64, 2.0, 64, 0.8),      # all three phases within far; the max_steps cap binds
-])
-def test_march_flat_kernel_matches_plain_bit_for_bit(dev, gamma, bound, steps, frac):
-    """K1f's per-ray and candidate modes; a quarter of the rays start inside
-    the box (at min_near, in the ladder's first phase)."""
+def _k1f_inputs(dev, gamma, bound, steps, frac):
+    """Rays, a grid and noise for K1f: a quarter of the rays start inside the
+    box (at min_near, in the ladder's first phase), a sixteenth miss it
+    (near = far = 0: no valid candidate)."""
     g = torch.Generator().manual_seed(14)
     N, H = 4000, 64
     cfg = R.RenderConfig(bound=bound, grid_size=H, max_steps=steps, dt_gamma=gamma)
@@ -386,6 +382,7 @@ def test_march_flat_kernel_matches_plain_bit_for_bit(dev, gamma, bound, steps, f
     o = r * v / v.norm(dim=1, keepdim=True)
     d = 0.5 * bound * (2 * torch.rand((N, 3), generator=g) - 1) - o
     d[:q] = torch.randn((q, 3), generator=g)
+    d[-(N // 16):] = o[-(N // 16):]  # pointing away from the box
     d = d / d.norm(dim=1, keepdim=True)
     occ = torch.rand((C, H, H, H), generator=g) < frac
     noise = torch.rand((N,), generator=g)
@@ -396,21 +393,49 @@ def test_march_flat_kernel_matches_plain_bit_for_bit(dev, gamma, bound, steps, f
     n, f = torch.where(hit, n, 0.0), torch.where(hit, f, 0.0)
     kw = dict(num_steps=cfg.num_candidates, max_steps=steps, grid_size=H, cascades=C, bound=bound,
               dt_gamma=gamma)
+    return (o, d, n, f, occ, noise), kw
+
+
+K1F_CASES = [
+    (0.0, 1.5, 512, 0.3),          # constant dt_min, the uniform march (Kc 768)
+    (1.0 / 128, 4.0, 1024, 0.2),   # the CLI's ladder: phases 1 and 2 within far (Kc 519)
+    (1.0 / 64, 2.0, 64, 0.8),      # all three phases within far; the max_steps cap binds (Kc 109)
+]
+
+
+@pytest.mark.parametrize("B", [7, 13, 20, 48])
+@pytest.mark.parametrize("gamma,bound,steps,frac", K1F_CASES)
+def test_march_flat_kernel_matches_plain_bit_for_bit(dev, gamma, bound, steps, frac, B):
+    """K1f's per-ray and candidate modes, every output, and a second call
+    the same bits. At B = 7 and 13 some rays' spread rank runs past their
+    count (the slot takes the last candidate, mask 1); B = 48 takes more
+    than a warp's 32 slots a ray; some rays keep nothing."""
+    args, kw = _k1f_inputs(dev, gamma, bound, steps, frac)
     n0 = kernels.launches["march_flat"]
-    got = RM.march_flat(o, d, n, f, occ, noise, budget=20, **kw)
-    cand = RM.march_flat_candidates(o, d, n, f, occ, noise, **kw)
+    got = RM.march_flat(*args, budget=B, **kw)
+    cand = RM.march_flat_candidates(*args, **kw)
     assert kernels.launches["march_flat"] == n0 + 2
-    ref = RM.march_flat_plain(o, d, n, f, occ, noise, budget=20, **kw)
-    ref_c = RM.march_candidates_plain(o, d, n, f, occ, noise, **kw)
+    ref = RM.march_flat_plain(*args, budget=B, **kw)
+    ref_c = RM.march_candidates_plain(*args, **kw)
+    again = list(RM.march_flat(*args, budget=B, **kw)) + list(RM.march_flat_candidates(*args, **kw))
     torch.cuda.synchronize()
-    for a, b in zip(list(got) + list(cand), list(ref) + list(ref_c)):
-        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    for a, b, c in zip(list(got) + list(cand), list(ref) + list(ref_c), again):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) and torch.equal(a, c)
     valid = ref_c.valid
+    count = valid.sum(1)
     assert ref[2].sum().item() > 0 and (ref[3] > 1).any()  # kept samples, spread rays
+    assert (count == 0).any()  # rays with no valid candidate
+    b1 = torch.arange(1, B + 1, device=dev, dtype=torch.float32)
+    tgt = torch.ceil(b1[None, :] * count[:, None].float() * RM._inv(B))
+    past = (count > B) & (tgt > count[:, None]).any(1)
+    assert past.any() == (B in (7, 13)), int(past.sum())
+    if past.any():  # the slot past the count: the last candidate, masked true
+        assert torch.equal(ref[0][past, -1], ref_c.ts[past, -1]) and ref[2][past, -1].all()
     if steps < kw["num_steps"] and frac > 0.5:
-        assert valid.sum(1).max().item() == steps
+        assert count.max().item() == steps
     if gamma > 0:  # valid candidates in every phase the case names
-        dt_min, dt_max = 2 * RM.SQRT3 / steps, 2 * RM.SQRT3 * 2 ** (C - 1) / H
+        C = kw["cascades"]
+        dt_min, dt_max = 2 * RM.SQRT3 / steps, 2 * RM.SQRT3 * 2 ** (C - 1) / kw["grid_size"]
         ts = ref_c.ts[valid]
         assert (ts < dt_min / gamma).any() and (ts > dt_min / gamma).any()
         assert (ts > dt_max / gamma).any() == (bound == 2.0)
@@ -636,23 +661,37 @@ def _dense_layout(dev, N, B, prefix, seed):
     return [x.to(dev) for x in (o, d, t, dt, mask, t0)]
 
 
+@pytest.mark.parametrize("B", [20, 520])
 @pytest.mark.parametrize("prefix", [True, False])
 @pytest.mark.parametrize("case", ["ample", "overflow", "empty"])
-def test_compact_kernel_matches_plain_bit_for_bit(dev, case, prefix):
-    N, B = 5000, 20
+def test_compact_kernel_matches_plain_bit_for_bit(dev, case, prefix, B):
+    """K5 at the per-ray budget (B = 20) and at the flat march's candidate
+    rows (B = Kc ~ 520); N = 5,000 rays, no multiple of a tile; the
+    overflowing buffer ends inside a ray; a second call gives the same
+    bits."""
+    N = 5000
     o, d, t, dt, mask, t0 = _dense_layout(dev, N, B, prefix, 8)
     if case == "empty":
         mask[:] = False
     total = int(mask.sum())
-    M = {"ample": N * B, "overflow": total - 1001, "empty": 6 * N}[case]
+    full = mask.sum(1, dtype=torch.int32)
+    start = torch.cumsum(full, 0) - full
+    M = N * B if case == "ample" else 6 * N
+    if case == "overflow":  # the buffer ends in the middle of the last ray
+        # (with two samples or more) that starts ~1,000 slots before the end
+        r = int(((start <= total - 1001) & (full >= 2)).nonzero()[-1])
+        M = int(start[r] + full[r] // 2)
     n0 = kernels.launches["compact"]
     got = RM.compact_global_dense(o, d, t, dt, mask, t0, m_budget=M, bound=1.5)
     assert kernels.launches["compact"] == n0 + 3
     ref = RM.compact_global_dense_plain(o, d, t, dt, mask, t0, m_budget=M, bound=1.5)
+    again = RM.compact_global_dense(o, d, t, dt, mask, t0, m_budget=M, bound=1.5)
     torch.cuda.synchronize()
-    for f, a, b in zip(ref._fields, got, ref):
-        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f
+    for f, a, b, c in zip(ref._fields, got, ref, again):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) and torch.equal(a, c), f
     assert int(got.num_valid) == min(total, M)
+    if case == "overflow":  # ray r keeps part of its samples
+        assert 0 < int(ref.counts[r]) < int(full[r]) and int(ref.counts[r + 1:].sum()) == 0
 
 
 def _compact_inputs(dev, N, S, seed):

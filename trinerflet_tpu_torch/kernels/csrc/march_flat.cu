@@ -19,7 +19,10 @@
 // Per-ray mode (march_flat_launch): pass 1 counts the valid candidates,
 // stopping at far (t rises with k) or at the max_steps cap; pass 2 walks
 // again and writes the spread ranks tgt_b = ceil(b * count / B) straight
-// into the (N, B) outputs. No (N, Kc) buffer, no sort. Candidate mode
+// into the (N, B) outputs. ceil(b * count * (1/B)) in float32 can exceed
+// the count by one (B 7: counts 11-15; B 13: 14, 15, 26-31); the walk never
+// reaches that rank, and the slot takes the plain version's: the last
+// candidate with mask 1. No (N, Kc) buffer, no sort. Candidate mode
 // (march_candidates_launch): one pass writes every candidate's t, dt and
 // capped validity, the MarchResults that K5 packs for the exact global
 // layout.
@@ -142,6 +145,14 @@ __global__ void march_flat_kernel(const float* __restrict__ rays_o, const float*
       ++next;
       if (next < kept) tgt = spread_target(next + 1, count, a.budget, a.inv_budget);
     }
+  }
+  // a spread rank past the count: the plain version's slot, the last
+  // candidate (first_k_valid's index Kc - 1), mask 1
+  for (; next < kept; ++next) {
+    const float t = ladder_t(L, a.num_steps - 1, a);
+    t_row[next] = t;
+    dt_row[next] = ladder_dt(t, a);
+    m_row[next] = 1;
   }
   for (int j = kept; j < a.budget; ++j) {
     t_row[j] = 0.0f;
