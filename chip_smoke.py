@@ -87,7 +87,9 @@ Phases (any failure exits non-zero; nothing is caught):
     capture's do; 64 + 50 steps on the refresh cadence (K1f, K2, K4 and K6
     must launch, with K3 or K5 + K3c, and K1 not); the loss must fall; one
     step under the profiler; evaluate; one 800^2 view; a captured step holds
-    every kernel of the path to its plain version (K1f bit for bit); the
+    every kernel of the path to its plain version (K1f and K5 bit for bit, a
+    second call the same bits), and K1f's per-ray mode at B = 13 on that
+    step's rays, where some rays' spread rank runs past their count; the
     4,096-ray step check; then the layout the tuner did not end on, forced
     for a few steps (the per-ray selection or the exact global compaction:
     K1f's other mode and K5 bit for bit), its own captured step's rows;
@@ -440,6 +442,31 @@ def k1f_uniform_check(ro, rd, nears, fars, occ, rcfg):
         f"and candidate modes equal to the plain version bit for bit; {ms:.4f} ms per-ray, "
         f"{ms_c:.4f} ms candidates; {int(ref_c.valid.sum())} valid candidates, mean kept "
         f"samples/ray {ref[2].float().sum(1).mean().item():.3f}")
+
+
+def k1f_rank_past_count_check(calls, B=13):
+    """K1f's per-ray mode at budget B = 13 on a captured step's rays, held to
+    the plain version bit for bit, where ceil(b * count * (1/B)) in float32
+    runs past some rays' counts (14, 15, 26-31, ...): those rays' last slot
+    takes the last candidate, mask 1 (a check, not a path: its launches are
+    not counted in any row)."""
+    (args, kw), = calls["_march_flat_cuda"][:1]
+    mkw = {k: v for k, v in kw.items() if k != "budget"}
+    got = RM.march_flat(*args, budget=B, **mkw)
+    ref = RM.march_flat_plain(*args, budget=B, **mkw)
+    torch.cuda.synchronize()
+    for a, b, nm in zip(got, ref, ("t", "dt", "mask", "stride", "t0")):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise RuntimeError(f"K1f (B={B}) {nm} differs from the plain version "
+                               f"({int((a != b).sum())} entries)")
+    count = RM.march_candidates_plain(*args, **mkw).valid.sum(1)
+    b1 = torch.arange(1, B + 1, device=count.device, dtype=torch.float32)
+    past = (count > B) & (torch.ceil(b1[None, :] * count[:, None].float() * RM._inv(B))
+                          > count[:, None]).any(1)
+    if not past.any():
+        raise RuntimeError(f"K1f (B={B}): no ray's spread rank runs past its count")
+    log(f"# K1f per-ray at B={B} on the captured step's {count.numel()} rays: equal to the plain "
+        f"version bit for bit; {int(past.sum())} rays' spread rank past their count")
 
 
 def _to_cpu(tree):
@@ -911,12 +938,14 @@ def _march_flat_rows(trainer, calls):
     got = RM._march_flat_cuda(*args, **kw)
     ref = (RM.march_flat_plain(*args, budget=B, **mkw) if B > 0
            else RM.march_candidates_plain(*args, **mkw))
+    again = RM._march_flat_cuda(*args, **kw)
     torch.cuda.synchronize()
     names = ("t", "dt", "mask", "stride", "t0") if B > 0 else ("ts", "dts", "valid")
     for a, b, nm in zip(got, ref, names):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise RuntimeError(f"K1f {nm} differs from the plain version ({int((a != b).sum())} "
                                f"entries)")
+    _same_bits("K1f", got, again)
     ro, rd, nears, fars, occ, noise = args
     cells, probes = k1f_need(args, mkw)
     # the rays in, one byte per distinct grid cell its probes read, the
@@ -931,7 +960,8 @@ def _march_flat_rows(trainer, calls):
     return [dict(name=f"K1f march_flat ({mode})", key="march_flat", route="cuda",
                  source="trinerflet_tpu_torch/kernels/csrc/march_flat.cu",
                  replaces="trinerflet_tpu/ops/raymarch.py:290", max_abs_err=0.0,
-                 tol="every output equal", ms=time_ms(lambda: RM._march_flat_cuda(*args, **kw)),
+                 tol="every output equal, a second call too",
+                 ms=time_ms(lambda: RM._march_flat_cuda(*args, **kw)),
                  plain_ms=time_ms(plain, iters=5), bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={ro.shape[0]} rays x Kc={kw['num_steps']} candidates, dt_gamma "
                       f"{kw['dt_gamma']}, {kw['cascades']} cascades; {kept}; {probes} probes read "
@@ -1294,10 +1324,12 @@ def _compact_rows(trainer, calls):
     ro, rd, t, dt, mask, t0, M, bound = kargs
     got = RM._compact_cuda(*kargs)
     ref = RM.compact_global_dense_plain(ro, rd, t, dt, mask, t0, m_budget=M, bound=bound)
+    again = RM._compact_cuda(*kargs)
     torch.cuda.synchronize()
     for f, a, b in zip(ref._fields, got, ref):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise RuntimeError(f"K5 {f} differs from the plain version ({int((a != b).sum())} entries)")
+    _same_bits("K5", got, again)
     N, B = t.shape
     nv = int(got.num_valid)
     rays_in = int((got.counts > 0).sum())
@@ -1314,13 +1346,15 @@ def _compact_rows(trainer, calls):
     rows.append(dict(name="K5 compact_global_dense", key="compact", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
                      replaces="trinerflet_tpu/ops/raymarch.py:422", max_abs_err=0.0,
-                     tol="every field equal", ms=time_ms(lambda: RM._compact_cuda(*kargs)),
+                     tol="every field equal, a second call too",
+                     ms=time_ms(lambda: RM._compact_cuda(*kargs)),
                      plain_ms=time_ms(lambda: RM.compact_global_dense_plain(
                          ro, rd, t, dt, mask, t0, m_budget=M, bound=bound), iters=5),
                      bound_ms=b5, bound_by=by5, library_ms=time_ms(lib),
                      note=f"N={N} rays x B={B} slots -> M={M} buffer slots, {kept} kept samples "
-                          f"({nv} in the buffer, from {rays_in} rays); 3 launches (count, "
-                          f"one-block scan, copy); library_ms is a two-call yardstick: "
+                          f"({nv} in the buffer, from {rays_in} rays); 2 launches (the tiles: "
+                          f"count, look-back scan; the copy and padding); library_ms is a two-call "
+                          f"yardstick: "
                           f"mask.nonzero() (with its host sync) + index_select of the 9-wide table"))
 
     # ---- K3c forward
@@ -1602,7 +1636,9 @@ def flat_configs(num_rays: int = 32768):
 def flat_phases(scene, card):
     """The flat march at full width: 64 + 50 steps on the refresh cadence
     with the retune, one profiled step, evaluate, one 800^2 view, a captured
-    step's rows and the step check on the layout the tuner left; then the
+    step's rows (and K1f's per-ray mode at B = 13 on its rays, where spread
+    ranks run past the count) and the step check on the layout the tuner
+    left; then the
     other layout forced for FORCED_STEPS steps (one refresh) and its own
     captured step's layout kernels (K1f's other mode; K5 and K3c, or K3).
     ``scene`` is bench's (cameras at radius 2): seen from radius 2 bound =
@@ -1624,6 +1660,7 @@ def flat_phases(scene, card):
     view_ms = view_phase(trainer, state, card, "flat")
     state, calls = capture_step(trainer, state, data)
     rows = path_kernel_rows(trainer, calls, launches, "flat train")
+    k1f_rank_past_count_check(calls)
     del calls
     step_check(trainer, state, data, "flat")
     tuned = trainer.render_cfg

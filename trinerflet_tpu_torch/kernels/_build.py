@@ -119,12 +119,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes: list):
+def function(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
     """The C launcher ``symbol`` of kernel ``name`` with its ctypes
     signature set (pointers and the stream as c_void_p)."""
     fn = getattr(load(name), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

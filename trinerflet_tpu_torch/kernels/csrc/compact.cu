@@ -11,17 +11,37 @@
 // an exclusive scan, one copy pass. An arbitrary mask is compacted in row
 // order, which is what both JAX paths yield.
 //
-// What bounds K5 on the H100: bytes. It reads the (N, B) t, dt and mask and
-// the rays, and writes 9 words per slot of the M-slot buffer plus the per-ray
-// offsets and counts; a few integer operations per candidate. The design
-// (three launches: count, one-block scan, copy) reads the mask three times;
-// the copy threads are one per candidate, so reads are coalesced and each
-// ray's writes land in one contiguous run. No atomics: the layout is
-// deterministic and equal to the JAX package's. The scan is one block of
-// 1,024 threads, each owning a contiguous chunk of rays (32 at N = 32,768).
-// Built with -fmad=false: xyz = clip(o + d*t) and ts = t + dt - t0 round as
-// separate operations, as the plain version's do, so the buffer is equal bit
-// for bit.
+// What bounds K5 on the H100: bytes. It reads the (N, B) mask once, t and
+// dt of the kept candidates and their rays, and writes 9 words per slot of
+// the M-slot buffer plus the per-ray offsets and counts; a few integer
+// operations per candidate.
+//
+// Design: two launches. compact_tile_kernel takes a tile of R rays a block
+// (tile ids from an atomic counter, so a tile only ever waits on tiles
+// whose blocks are running). The block stages the tile's mask bytes -- one
+// contiguous range -- in shared memory with 16-byte loads, each byte read
+// once. G lanes then take a row's bytes G at a time (G = 8, 16 or 32 by B:
+// a warp holds 32 / G rows); __ballot_sync gives each chunk's bits, written
+// out with the count of valid candidates before the chunk (8 bytes a chunk
+// of G candidates). Warp 0 scans the tile's row counts and finds the tile's
+// offset by a single-pass scan with decoupled look-back (each tile
+// publishes its sum, then its inclusive prefix, in one 64-bit status word;
+// the look-back reads 128 tiles' words a step; integer sums, so the offsets
+// are the same on every call), and the block writes its rays' offsets and
+// counts clipped to M, as the plain version does; the last tile writes
+// num_valid = min(total, M). compact_copy_kernel copies: S blocks a tile
+// (a tile's rows can hold every kept sample of the buffer -- a buffer
+// filled by the first rays -- so one block a tile would copy them alone),
+// each lane group a chunk, four chunks' loads in flight; the candidate of
+// rank q in its row goes to slot offset + q while q is below the clipped
+// count, so each ray's run is contiguous. Its other blocks fill the tail
+// [num_valid, M) with padding (ray id PAD_RAY_ID), reading num_valid on the
+// device (no copy to the host), and zero the tile counter and status words
+// for the next call; the caller keeps that scratch per stream. Rays and t0
+// are read through their strides (a batch's rays are often a view). Built
+// with -fmad=false: xyz = clip(o + d*t) and ts = t + dt - t0 round as
+// separate operations, as the plain version's do, so the buffer is equal
+// bit for bit.
 //
 // K3c replaces trinerflet_tpu/ops/raymarch.py:754 composite_compact (the JAX
 // package differentiates it through segmented global cumsums). One thread per
@@ -43,121 +63,315 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SCAN_THREADS 1024
 #define PAD_RAY_ID (1 << 30)
+#define FULL 0xffffffffu
+#define K5_WARPS 8
+#define K5_SMEM (46 * 1024)
+#define K5_MAX_ROWS 128
+#define K5_BATCH 4   // chunks a lane group copies at once
+#define K5_ITEMS 16  // chunks a lane group copies in all (sets S, the copy blocks a tile)
+#define K5_PAD_BLOCKS 512
+// a tile's status word: the flag in bits 32-33, the value in bits 0-31
+#define ST_SUM (1ull << 32)     // the tile's own sum
+#define ST_PREFIX (2ull << 32)  // the sum of every tile up to and including it
 
-__global__ void compact_count_kernel(const uint8_t* __restrict__ mask, int N, int B,
-                                     int* __restrict__ counts_full) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const uint8_t* row = mask + (long long)n * B;
-  int c = 0;
-  for (int k = 0; k < B; ++k) c += row[k] != 0;
-  counts_full[n] = c;
+struct K5Args {
+  int N, B, M, W, R, num_tiles, S;  // W chunks of G mask bytes a row, R rows a tile, S copy blocks a tile
+  long long ro_s0, ro_s1, rd_s0, rd_s1, t0_s;  // strides of rays_o, rays_d, t0 (elements)
+  float bound;
+};
+
+// Lanes per row: a warp holds 32 / G rows of B <= G bytes.
+__host__ __device__ inline int k5_lanes(int B) { return B > 16 ? 32 : (B > 8 ? 16 : 8); }
+__host__ __device__ inline int k5_chunks(int B) { return (B + k5_lanes(B) - 1) / k5_lanes(B); }
+
+// Shared memory of a tile of R rows: each chunk's bits and count before it,
+// the row's count and offset (4-byte words), then the staged mask bytes from
+// a 16-byte boundary, with the slack that the range's alignment and the
+// last 16-byte load take.
+__host__ __device__ inline size_t k5_words(int B, int R) {
+  return ((size_t)R * (2 + 2 * k5_chunks(B)) + 3) & ~(size_t)3;
+}
+static size_t k5_smem(int B, int R) { return 4 * k5_words(B, R) + (size_t)R * B + 32; }
+
+// Rows per tile: at most K5_MAX_ROWS, as many as the shared memory takes.
+static int k5_rows(int B) {
+  int R = K5_MAX_ROWS;
+  while (R > 1 && k5_smem(B, R) > K5_SMEM) R >>= 1;
+  return R;
 }
 
-// One block: thread i sums the counts of its chunk of rays, the block scans
-// the 1,024 partial sums (Hillis-Steele in shared memory), then each thread
-// walks its chunk again writing the clipped offsets and counts.
-__global__ void compact_scan_kernel(const int* __restrict__ counts_full, int N, int M,
-                                    int* __restrict__ offsets, int* __restrict__ counts,
-                                    int* __restrict__ num_valid) {
-  __shared__ long long part[SCAN_THREADS];
-  const int tid = threadIdx.x;
-  const int per = (N + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(tid * per, N), hi = min(lo + per, N);
-  long long s = 0;
-  for (int i = lo; i < hi; ++i) s += counts_full[i];
-  part[tid] = s;
+__device__ __forceinline__ unsigned long long read_status(const unsigned long long* st) {
+  return *reinterpret_cast<const volatile unsigned long long*>(st);
+}
+
+template <int G>
+__global__ void __launch_bounds__(32 * K5_WARPS) compact_tile_kernel(
+    const uint8_t* __restrict__ mask, K5Args a, unsigned int* __restrict__ tile_counter,
+    unsigned long long* status, unsigned int* __restrict__ bits_out, int* __restrict__ before_out,
+    int* __restrict__ offsets, int* __restrict__ counts, int* __restrict__ num_valid) {
+  constexpr int P = 32 / G;  // rows a warp holds
+  constexpr unsigned int GMASK = G == 32 ? FULL : ((1u << G) - 1u);
+  extern __shared__ uint4 smem4[];
+  const int W = a.W, R = a.R;
+  unsigned int* bits = reinterpret_cast<unsigned int*>(smem4);  // (R, W)
+  int* before = reinterpret_cast<int*>(bits + R * W);           // (R, W): valid before the chunk
+  int* rcount = before + R * W;                                  // row counts
+  int* roffset = rcount + R;                                     // row offsets in the tile
+  uint8_t* mbytes = reinterpret_cast<uint8_t*>(smem4) + 4 * k5_words(a.B, R);
+  __shared__ int s_tile, s_prefix, s_total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / G, j = lane % G;
+  if (tid == 0) s_tile = (int)atomicAdd(tile_counter, 1u);
   __syncthreads();
-  for (int d = 1; d < SCAN_THREADS; d <<= 1) {
-    long long v = tid >= d ? part[tid - d] : 0;
-    __syncthreads();
-    part[tid] += v;
-    __syncthreads();
-  }
-  long long run = tid > 0 ? part[tid - 1] : 0;
-  for (int i = lo; i < hi; ++i) {
-    const int c = counts_full[i];
-    const long long o = run < M ? run : (long long)M;
-    const long long room = (long long)M - o;
-    offsets[i] = (int)o;
-    counts[i] = (int)(c < room ? (long long)c : room);
-    run += c;
-  }
-  if (tid == SCAN_THREADS - 1) {
-    const long long total = part[SCAN_THREADS - 1];
-    num_valid[0] = (int)(total < M ? total : (long long)M);
-  }
-}
+  const int tile = s_tile;
+  const int n0 = tile * R;
+  const int rows = max(min(R, a.N - n0), 0);
 
-// One thread per candidate (n, k) of the (N, B) layout, and per buffer slot
-// for the padding: a valid candidate goes to slot offsets[n] + (its rank in
-// the row) while that is below M; slots at or past num_valid are padding.
-__global__ void compact_copy_kernel(const float* __restrict__ rays_o,
-                                    const float* __restrict__ rays_d, const float* __restrict__ t,
-                                    const float* __restrict__ dt, const uint8_t* __restrict__ mask,
-                                    const float* __restrict__ t0, int N, int B, int M, float bound,
-                                    const int* __restrict__ offsets,
-                                    const int* __restrict__ num_valid, float* __restrict__ xyzs,
-                                    float* __restrict__ dirs, float* __restrict__ ts,
-                                    float* __restrict__ dts, int* __restrict__ ray_id) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long NB = (long long)N * B;
-  if (g < NB && mask[g]) {
-    const int n = (int)(g / B);
-    const int k = (int)(g - (long long)n * B);
-    const uint8_t* row = mask + (long long)n * B;
-    int rank = 0;
-    for (int j = 0; j < k; ++j) rank += row[j] != 0;
-    const long long dst = (long long)offsets[n] + rank;
-    if (dst < M) {
-      const float tt = t[g], d0 = dt[g];
-      for (int c = 0; c < 3; ++c) {
-        const float o = rays_o[3 * n + c], d = rays_d[3 * n + c];
-        const float x = o + d * tt;  // two roundings (-fmad=false)
-        xyzs[3 * dst + c] = fminf(fmaxf(x, -bound), bound);
-        dirs[3 * dst + c] = d;
+  // 0. stage the tile's mask bytes: aligned 16-byte loads of the range,
+  // each within the pages its bytes lie on
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(mask + (size_t)n0 * a.B);
+  const uintptr_t lo16 = lo & ~(uintptr_t)15;
+  const int skew = (int)(lo - lo16);
+  const int vecs = rows * a.B > 0 ? (skew + rows * a.B + 15) >> 4 : 0;
+  uint4* mb4 = reinterpret_cast<uint4*>(mbytes);
+  for (int v = tid; v < vecs; v += 32 * K5_WARPS) mb4[v] = reinterpret_cast<const uint4*>(lo16)[v];
+  __syncthreads();
+
+  // 1. G lanes a row: chunk c holds bytes c*G + j
+  const uint8_t* mrows = mbytes + skew;
+  for (int r0 = warp * P; r0 < rows; r0 += K5_WARPS * P) {
+    const int r = r0 + sub;
+    const bool row_in = r < rows;
+    int sum = 0;
+    for (int c = 0; c < W; ++c) {
+      const int k = c * G + j;
+      const bool m = row_in && k < a.B && mrows[r * a.B + k] != 0;
+      const unsigned int mine = (__ballot_sync(FULL, m) >> (sub * G)) & GMASK;
+      if (j == 0 && row_in) {
+        bits[r * W + c] = mine;
+        before[r * W + c] = sum;
       }
-      ts[dst] = (tt + d0) - t0[n];
-      dts[dst] = d0;
-      ray_id[dst] = n;
+      sum += __popc(mine);
+    }
+    if (j == 0 && row_in) rcount[r] = sum;
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * W; i += 32 * K5_WARPS) {
+    bits_out[(size_t)n0 * W + i] = bits[i];
+    before_out[(size_t)n0 * W + i] = before[i];
+  }
+
+  // 2. warp 0: the rows' offsets in the tile, then the tile's offset
+  if (warp == 0) {
+    const int per = (R + 31) / 32;
+    const int i0 = min(lane * per, rows), i1 = min(i0 + per, rows);
+    int s = 0;
+    for (int i = i0; i < i1; ++i) s += rcount[i];
+    int x = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, d);
+      if (lane >= d) x += y;
+    }
+    const int sum = __shfl_sync(FULL, x, 31);
+    int run = x - s;
+    for (int i = i0; i < i1; ++i) {
+      const int c = rcount[i];
+      roffset[i] = run;
+      run += c;
+    }
+    int prefix = 0;
+    if (tile == 0) {
+      if (lane == 0) atomicExch(&status[0], ST_PREFIX | (unsigned int)sum);
+    } else {
+      if (lane == 0) atomicExch(&status[tile], ST_SUM | (unsigned int)sum);
+      // look back 4 x 32 tiles a step: lane i of window u reads tile
+      // look - 32 u - i and waits for its flag; the nearest prefix ends it
+      for (int look = tile - 1;; look -= 128) {
+        unsigned long long st[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = look - 32 * u - lane;
+          st[u] = i >= 0 ? read_status(&status[i]) : ST_PREFIX;  // before tile 0: a prefix of 0
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = look - 32 * u - lane;
+          while (i >= 0 && (st[u] >> 32) == 0) st[u] = read_status(&status[i]);
+        }
+        bool found = false;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (!found) {
+            const unsigned int pre = __ballot_sync(FULL, (st[u] >> 32) == 2);
+            const int first = pre ? __ffs(pre) - 1 : 31;
+            int v = lane <= first ? (int)(unsigned int)st[u] : 0;
+#pragma unroll
+            for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+            prefix += v;
+            found = pre != 0;
+          }
+        }
+        if (found) break;
+      }
+      if (lane == 0) atomicExch(&status[tile], ST_PREFIX | (unsigned int)(prefix + sum));
+    }
+    if (lane == 0) {
+      s_prefix = prefix;
+      s_total = prefix + sum;
     }
   }
-  if (g < M && g >= num_valid[0]) {
-    for (int c = 0; c < 3; ++c) {
-      xyzs[3 * g + c] = 0.0f;
-      dirs[3 * g + c] = 0.0f;
+  __syncthreads();
+
+  // 3. the rays' offsets and counts, clipped to M
+  for (int i = tid; i < rows; i += 32 * K5_WARPS) {
+    const int o = min(s_prefix + roffset[i], a.M);
+    offsets[n0 + i] = o;
+    counts[n0 + i] = min(rcount[i], a.M - o);
+  }
+  if (tile == a.num_tiles - 1 && tid == 0) num_valid[0] = min(s_total, a.M);
+}
+
+// Blocks [0, num_tiles * S): S a tile, lane group g of the tile's S * GROUPS
+// takes chunks g, g + S * GROUPS, ... of its (row, chunk) items, K5_BATCH at
+// a time. The other blocks: the padding tail [num_valid, M), and the
+// scratch zeroed for the next call.
+template <int G>
+__global__ void __launch_bounds__(32 * K5_WARPS) compact_copy_kernel(
+    const float* __restrict__ rays_o, const float* __restrict__ rays_d, const float* __restrict__ t,
+    const float* __restrict__ dt, const float* __restrict__ t0, K5Args a,
+    const unsigned int* __restrict__ bits, const int* __restrict__ before,
+    const int* __restrict__ offsets, const int* __restrict__ counts,
+    const int* __restrict__ num_valid, unsigned int* __restrict__ tile_counter,
+    unsigned long long* __restrict__ status, float* __restrict__ xyzs, float* __restrict__ dirs,
+    float* __restrict__ ts, float* __restrict__ dts, int* __restrict__ ray_id) {
+  constexpr int P = 32 / G;
+  constexpr int GROUPS = K5_WARPS * P;  // lane groups a block
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / G, j = lane % G;
+  const int copy_blocks = a.num_tiles * a.S;
+  if ((int)blockIdx.x >= copy_blocks) {
+    const long long g = (long long)(blockIdx.x - copy_blocks) * blockDim.x + tid;
+    const long long stride = (long long)(gridDim.x - copy_blocks) * blockDim.x;
+    if (g == 0) tile_counter[0] = 0u;
+    for (long long i = g; i < a.num_tiles; i += stride) status[i] = 0ull;
+    const long long nv = num_valid[0];
+    for (long long i = 3 * nv + g; i < 3 * (long long)a.M; i += stride) {
+      xyzs[i] = 0.0f;
+      dirs[i] = 0.0f;
     }
-    ts[g] = 0.0f;
-    dts[g] = 0.0f;
-    ray_id[g] = PAD_RAY_ID;
+    for (long long s = nv + g; s < a.M; s += stride) {
+      ts[s] = 0.0f;
+      dts[s] = 0.0f;
+      ray_id[s] = PAD_RAY_ID;
+    }
+    return;
+  }
+  const int tile = blockIdx.x / a.S, part = blockIdx.x - tile * a.S;
+  const int n0 = tile * a.R;
+  const int rows = min(a.R, a.N - n0);
+  if (offsets[n0] >= a.M) return;  // the buffer is full before this tile
+  const int W = a.W, items = rows * W, step = a.S * GROUPS;
+  for (int it0 = part * GROUPS + warp * P + sub; it0 < items; it0 += K5_BATCH * step) {
+    // every load of the batch issued at once: the chunk's bits, the row's
+    // offset and count, its ray and each lane's t and dt (any k < B is in
+    // the row), then the stores of the kept ones
+    unsigned int mine[K5_BATCH];
+    int q[K5_BATCH], cnt[K5_BATCH], off[K5_BATCH];
+    float tv[K5_BATCH], dv[K5_BATCH], o[K5_BATCH][3], d[K5_BATCH][3], st0[K5_BATCH];
+#pragma unroll
+    for (int u = 0; u < K5_BATCH; ++u) {
+      const int it = min(it0 + u * step, items - 1);
+      const int r = it / W, c = it - r * W;
+      const long long n = n0 + r;
+      const size_t at = (size_t)n0 * W + it;
+      const int k = min(c * G + j, a.B - 1);
+      mine[u] = it0 + u * step < items ? bits[at] : 0u;
+      q[u] = before[at];
+      cnt[u] = counts[n];
+      off[u] = offsets[n];
+      tv[u] = t[(size_t)n * a.B + k];
+      dv[u] = dt[(size_t)n * a.B + k];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        o[u][e] = rays_o[n * a.ro_s0 + e * a.ro_s1];
+        d[u][e] = rays_d[n * a.rd_s0 + e * a.rd_s1];
+      }
+      st0[u] = t0[n * a.t0_s];
+    }
+#pragma unroll
+    for (int u = 0; u < K5_BATCH; ++u) {
+      const int rank = q[u] + __popc(mine[u] & ((1u << j) - 1u));
+      if (!((mine[u] >> j) & 1u) || rank >= cnt[u]) continue;
+      const size_t s = (size_t)(off[u] + rank);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const float x = o[u][e] + d[u][e] * tv[u];  // two roundings (-fmad=false)
+        xyzs[3 * s + e] = fminf(fmaxf(x, -a.bound), a.bound);
+        dirs[3 * s + e] = d[u][e];
+      }
+      ts[s] = (tv[u] + dv[u]) - st0[u];
+      dts[s] = dv[u];
+      ray_id[s] = n0 + (min(it0 + u * step, items - 1)) / W;
+    }
   }
 }
 
-// rays_o, rays_d (N, 3), t, dt (N, B) f32, mask (N, B) bool bytes, t0 (N,) f32
-// -> xyzs, dirs (M, 3), ts, dts (M,) f32, ray_id (M,), offsets, counts (N,),
-// num_valid () int32; counts_full (N,) int32 is scratch. Three launches.
+// 64-bit words of scratch one call needs: the tile counter, then a status
+// word per tile. Zeroed before the first call; each call leaves it zeroed.
+extern "C" long long compact_scratch_words(int N, int B) {
+  const int R = k5_rows(B);
+  return 1 + (N > 0 ? (N + R - 1) / R : 1);
+}
+
+// Chunks of the (N, B) mask a call writes out, each 8 bytes (its bits and
+// the valid candidates before it in its row).
+extern "C" long long compact_chunk_words(int N, int B) { return (long long)N * k5_chunks(B); }
+
+// rays_o, rays_d (N, 3) f32 with element strides (ro_s0, ro_s1), (rd_s0,
+// rd_s1); t, dt (N, B) f32 and mask (N, B) bool bytes, contiguous; t0 (N,)
+// f32 with stride t0_s -> xyzs, dirs (M, 3), ts, dts (M,) f32, ray_id (M,),
+// offsets, counts (N,), num_valid () int32; scratch (scratch_words,) int64,
+// zero; chunks (2 * chunk_words,) int32, any. Two launches.
 extern "C" int compact_launch(const float* rays_o, const float* rays_d, const float* t,
                               const float* dt, const uint8_t* mask, const float* t0, int N, int B,
-                              int M, float bound, float* xyzs, float* dirs, float* ts, float* dts,
-                              int* ray_id, int* offsets, int* counts, int* num_valid,
-                              int* counts_full, cudaStream_t stream) {
-  if (N > 0) {
-    compact_count_kernel<<<(N + 127) / 128, 128, 0, stream>>>(mask, N, B, counts_full);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  compact_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(counts_full, N, M, offsets, counts,
-                                                       num_valid);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long NB = (long long)N * B;
-  const long long work = NB > M ? NB : (long long)M;
-  const int threads = 256;
-  compact_copy_kernel<<<(unsigned int)((work + threads - 1) / threads), threads, 0, stream>>>(
-      rays_o, rays_d, t, dt, mask, t0, N, B, M, bound, offsets, num_valid, xyzs, dirs, ts, dts,
-      ray_id);
+                              int M, float bound, long long ro_s0, long long ro_s1,
+                              long long rd_s0, long long rd_s1, long long t0_s, float* xyzs,
+                              float* dirs, float* ts, float* dts, int* ray_id, int* offsets,
+                              int* counts, int* num_valid, long long* scratch,
+                              long long scratch_words, int* chunks, cudaStream_t stream) {
+  if (B < 0 || M < 1) return (int)cudaErrorInvalidValue;
+  const int G = k5_lanes(B), R = k5_rows(B), W = k5_chunks(B);
+  const int num_tiles = N > 0 ? (N + R - 1) / R : 1;
+  const size_t smem = k5_smem(B, R);
+  if (smem > K5_SMEM || scratch_words < 1 + num_tiles) return (int)cudaErrorInvalidValue;
+  const int groups = K5_WARPS * (32 / G);
+  const int S = (R * W + groups * K5_ITEMS - 1) / (groups * K5_ITEMS);
+  unsigned int* counter = reinterpret_cast<unsigned int*>(scratch);
+  unsigned long long* status = reinterpret_cast<unsigned long long*>(scratch + 1);
+  unsigned int* bits = reinterpret_cast<unsigned int*>(chunks);
+  int* before = chunks + (size_t)N * W;
+  const K5Args a = {N, B, M, W, R, num_tiles, S > 0 ? S : 1, ro_s0, ro_s1, rd_s0, rd_s1, t0_s,
+                    bound};
+  const int threads = 32 * K5_WARPS;
+  const long long pad_work = (3LL * M + threads - 1) / threads;
+  const int pad_blocks = (int)(pad_work < K5_PAD_BLOCKS ? (pad_work > 0 ? pad_work : 1) : K5_PAD_BLOCKS);
+  const int copy_blocks = N > 0 ? num_tiles * a.S : 0;
+#define K5_LAUNCH(LANES)                                                                        \
+  do {                                                                                          \
+    compact_tile_kernel<LANES><<<num_tiles, threads, smem, stream>>>(                           \
+        mask, a, counter, status, bits, before, offsets, counts, num_valid);                   \
+    cudaError_t err = cudaGetLastError();                                                       \
+    if (err != cudaSuccess) return (int)err;                                                    \
+    compact_copy_kernel<LANES><<<copy_blocks + pad_blocks, threads, 0, stream>>>(               \
+        rays_o, rays_d, t, dt, t0, a, bits, before, offsets, counts, num_valid, counter, status, \
+        xyzs, dirs, ts, dts, ray_id);                                                           \
+  } while (0)
+  if (G == 32) K5_LAUNCH(32);
+  else if (G == 16) K5_LAUNCH(16);
+  else K5_LAUNCH(8);
+#undef K5_LAUNCH
   return (int)cudaGetLastError();
 }
 

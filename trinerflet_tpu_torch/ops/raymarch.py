@@ -486,7 +486,8 @@ def march_flat_candidates(rays_o, rays_d, nears, fars, occ, noise, *, num_steps:
     return march_candidates_plain(rays_o, rays_d, nears, fars, occ, noise, **kw)
 
 
-_K1F_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 10 + [ctypes.c_void_p] * 6
+_K1F_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 10
+             + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 6)
 
 
 def _march_flat_cuda(rays_o, rays_d, nears, fars, occ, noise, *, num_steps, max_steps, budget,
@@ -507,7 +508,9 @@ def _march_flat_cuda(rays_o, rays_d, nears, fars, occ, noise, *, num_steps, max_
         raise ValueError(f"march_flat kernel: needs num_steps >= 1, budget >= 0, dt_gamma >= 0 "
                          f"and N * max(num_steps, budget) < 2^31, got {num_steps}, {budget}, "
                          f"{dt_gamma}, N = {N}")
-    ins = [x.contiguous() for x in (rays_o, rays_d, nears, fars, noise, occ)]
+    # the rays are read through their strides (a batch's rays are often a view)
+    ins = [rays_o, rays_d] + [x.contiguous() for x in (nears, fars, noise, occ)]
+    strides = (ctypes.c_longlong * 4)(*rays_o.stride(), *rays_d.stride())
     dt_min, dt_max = _step_bounds(max_steps, grid_size, cascades)
     g = dt_gamma if dt_gamma > 0.0 else 1.0  # the ladder's constants are unused at gamma 0
     lg = math.log1p(g)
@@ -529,7 +532,7 @@ def _march_flat_cuda(rays_o, rays_d, nears, fars, occ, noise, *, num_steps, max_
     fn = _build.function("march_flat", symbol, _K1F_ARGS)
     ptrs = [_build.ptr(x) for x in outs] + [ctypes.c_void_p(0)] * (5 - len(outs))
     code = fn(*[_build.ptr(x) for x in ins], N, num_steps, max_steps, budget, grid_size, cascades,
-              *consts, *ptrs, _build.stream(dev))
+              *consts, strides, *ptrs, _build.stream(dev))
     _build.check(code, "march_flat")
     kernels.launches["march_flat"] += 1
     return outs
@@ -790,8 +793,21 @@ def compact_samples(rays_o, rays_d, march: MarchResults, *, m_budget: int,
                                 march.ts[:, 0], m_budget=m_budget, bound=bound)
 
 
-_K5_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 10)
+_K5_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_longlong] * 5
+            + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
+# (device, stream) -> K5's int64 scratch (tile counter, tile status words):
+# zero before a call and after it, so each stream keeps its own
+_k5_scratch: dict = {}
+
+
+def _compact_scratch(dev, words: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _k5_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros((max(words, 2 * (0 if buf is None else buf.numel())),), device=dev,
+                          dtype=torch.int64)
+        _k5_scratch[key] = buf
+    return buf
 
 
 def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
@@ -807,7 +823,10 @@ def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     if N * B >= 2**31 or M >= 2**31 or M < 1:
         raise ValueError(f"compact kernel: N*B ({N * B}) and m_budget ({M}) must be in [1, 2^31)")
-    ins = [x.contiguous() for x in (rays_o, rays_d, t, dt, mask, t0)]
+    # rays and t0 are read through their strides (a batch's rays are often a
+    # view), the (N, B) rows contiguous
+    ins = [rays_o, rays_d] + [x.contiguous() for x in (t, dt, mask)] + [t0]
+    strides = (*rays_o.stride(), *rays_d.stride(), t0.stride(0) if N else 1)
     i32 = dict(device=dev, dtype=torch.int32)
     out = CompactSamples(
         xyzs=torch.empty((M, 3), device=dev, dtype=torch.float32),
@@ -816,12 +835,19 @@ def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
         dts=torch.empty((M,), device=dev, dtype=torch.float32),
         ray_id=torch.empty((M,), **i32), offsets=torch.empty((N,), **i32),
         counts=torch.empty((N,), **i32), num_valid=torch.empty((), **i32))
-    counts_full = torch.empty((N,), **i32)  # scratch: unclipped counts
+    sizes = [ctypes.c_int, ctypes.c_int]
+    words = _build.function("compact", "compact_scratch_words", sizes, restype=ctypes.c_longlong)
+    chunk_words = _build.function("compact", "compact_chunk_words", sizes,
+                                  restype=ctypes.c_longlong)
+    scratch = _compact_scratch(dev, int(words(N, B)))
+    # each mask chunk's bits and the valid candidates before it in its row
+    chunks = torch.empty((2 * int(chunk_words(N, B)),), **i32)
     fn = _build.function("compact", "compact_launch", _K5_ARGS)
-    code = fn(*[_build.ptr(x) for x in ins], N, B, M, float(bound),
-              *[_build.ptr(x) for x in out], _build.ptr(counts_full), _build.stream(dev))
+    code = fn(*[_build.ptr(x) for x in ins], N, B, M, float(bound), *strides,
+              *[_build.ptr(x) for x in out], _build.ptr(scratch), scratch.numel(),
+              _build.ptr(chunks), _build.stream(dev))
     _build.check(code, "compact_global_dense")
-    kernels.launches["compact"] += 3 if N else 2  # count, scan, copy
+    kernels.launches["compact"] += 2  # the tiles (count, scan), the copy and padding
     return out
 
 
