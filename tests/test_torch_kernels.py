@@ -661,14 +661,14 @@ def _dense_layout(dev, N, B, prefix, seed):
     return [x.to(dev) for x in (o, d, t, dt, mask, t0)]
 
 
-@pytest.mark.parametrize("B", [20, 520])
+@pytest.mark.parametrize("B", [8, 12, 20, 520])
 @pytest.mark.parametrize("prefix", [True, False])
 @pytest.mark.parametrize("case", ["ample", "overflow", "empty"])
 def test_compact_kernel_matches_plain_bit_for_bit(dev, case, prefix, B):
-    """K5 at the per-ray budget (B = 20) and at the flat march's candidate
-    rows (B = Kc ~ 520); N = 5,000 rays, no multiple of a tile; the
-    overflowing buffer ends inside a ray; a second call gives the same
-    bits."""
+    """K5 at the per-ray budgets the tuner picks (B = 8 and 12: 4 and 2 rows
+    a warp; 20: a row a warp) and at the flat march's candidate rows (B =
+    Kc ~ 520); N = 5,000 rays, no multiple of a tile; the overflowing buffer
+    ends inside a ray; a second call gives the same bits."""
     N = 5000
     o, d, t, dt, mask, t0 = _dense_layout(dev, N, B, prefix, 8)
     if case == "empty":

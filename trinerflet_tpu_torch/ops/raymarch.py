@@ -795,19 +795,21 @@ def compact_samples(rays_o, rays_d, march: MarchResults, *, m_budget: int,
 
 _K5_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_longlong] * 5
             + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
-# (device, stream) -> K5's int64 scratch (tile counter, tile status words):
-# zero before a call and after it, so each stream keeps its own
+# (device, stream) -> K5's int64 scratch (tile counter, tile status words).
+# A call needs it zero and leaves it zero, so it is kept between calls (a
+# fresh zeroed buffer would cost another launch); calls on one stream run in
+# order, so each stream keeps its own.
 _k5_scratch: dict = {}
 
 
-def _compact_scratch(dev, words: int) -> torch.Tensor:
+def _compact_scratch(dev, words: int):
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     buf = _k5_scratch.get(key)
     if buf is None or buf.numel() < words:
         buf = torch.zeros((max(words, 2 * (0 if buf is None else buf.numel())),), device=dev,
                           dtype=torch.int64)
         _k5_scratch[key] = buf
-    return buf
+    return key, buf
 
 
 def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
@@ -839,13 +841,15 @@ def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
     words = _build.function("compact", "compact_scratch_words", sizes, restype=ctypes.c_longlong)
     chunk_words = _build.function("compact", "compact_chunk_words", sizes,
                                   restype=ctypes.c_longlong)
-    scratch = _compact_scratch(dev, int(words(N, B)))
+    key, scratch = _compact_scratch(dev, int(words(N, B)))
     # each mask chunk's bits and the valid candidates before it in its row
     chunks = torch.empty((2 * int(chunk_words(N, B)),), **i32)
     fn = _build.function("compact", "compact_launch", _K5_ARGS)
     code = fn(*[_build.ptr(x) for x in ins], N, B, M, float(bound), *strides,
               *[_build.ptr(x) for x in out], _build.ptr(scratch), scratch.numel(),
               _build.ptr(chunks), _build.stream(dev))
+    if code != 0:  # a launch that failed may leave the scratch dirty
+        _k5_scratch.pop(key, None)
     _build.check(code, "compact_global_dense")
     kernels.launches["compact"] += 2  # the tiles (count, scan), the copy and padding
     return out
