@@ -1157,40 +1157,60 @@ def _adjoint_rows(trainer, calls, sel=slice(None), label=""):
     return rows
 
 
-def _upkeep_rows(trainer, calls):
-    """K6: the partial refresh's upkeep."""
-    rows = []
-    (oargs, _), = calls["_occupancy_upkeep_cuda"][:1]
+def _upkeep_check(oargs, what):
+    """K6 on one call's arguments: the merged grid, occupancy, dilation and
+    bbox equal to the plain version's (thresholded at the kernel's own
+    mean), the mean within 1e-5 relative, a second call the same bits.
+    Returns the kernel's outputs and the mean's relative error."""
     grid_old, tmp, off, rcfg, decay = oargs
     got = R._occupancy_upkeep_cuda(*oargs)
+    again = R._occupancy_upkeep_cuda(*oargs)
     ref = R.occupancy_upkeep_plain(*oargs)
     if not torch.equal(got[0], ref[0]):
-        raise RuntimeError("K6 merged density grid differs from the plain version")
+        raise RuntimeError(f"K6 merged density grid differs from the plain version ({what})")
     mean_err = abs(got[3].item() - ref[3].item()) / max(ref[3].item(), 1e-30)
     if mean_err > 1e-5:
-        raise RuntimeError(f"K6 mean density rel err {mean_err} > 1e-5")
+        raise RuntimeError(f"K6 mean density rel err {mean_err} > 1e-5 ({what})")
     thresh = torch.clamp_max(got[3], rcfg.density_thresh) * rcfg.occ_thresh_scale
     occ = (ref[0] > thresh).reshape(got[1].shape)
     r = rcfg.coarse_dilation_radius
     if not (torch.equal(got[1], occ) and torch.equal(got[2], R._dilate3(occ, r))
             and torch.equal(got[4], R._occupied_bbox(occ, rcfg))):
-        raise RuntimeError("K6 occupancy, dilation or bbox differs from the plain version")
+        raise RuntimeError(f"K6 occupancy, dilation or bbox differs from the plain version ({what})")
+    _same_bits(f"K6 ({what})", got, again)
+    return got, mean_err
+
+
+def _upkeep_rows(trainer, calls):
+    """K6: the partial refresh's upkeep, held to its plain version and
+    timed; and a full refresh of the same grid (every cell queried: the
+    merged grid's densities, 5% up, as the query) held to its plain
+    version."""
+    rows = []
+    (oargs, _), = calls["_occupancy_upkeep_cuda"][:1]
+    grid_old, tmp, off, rcfg, decay = oargs
+    got, mean_err = _upkeep_check(oargs, f"refresh of {tmp.shape[1]} cells at {off}")
+    full_args = (grid_old, 1.05 * got[0].clamp_min(0), 0, rcfg, decay)
+    _, full_err = _upkeep_check(full_args, "full refresh")
+    r = rcfg.coarse_dilation_radius
     occ_f = got[1].float().unsqueeze(1)
     Cn = grid_old.numel()
     b, by = bound_ms(nbytes(grid_old, tmp) + nbytes(got[0], got[1], got[2]),
                      Cn * (2 + (2 * r + 1) ** 3))
     rows.append(dict(name="K6 occupancy_upkeep", key="occupancy", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/occupancy.cu",
-                     replaces="trinerflet_tpu/render/renderer.py:332", max_abs_err=mean_err,
-                     tol="grid, occ, occ_coarse, bbox equal; mean rel 1e-5",
+                     replaces="trinerflet_tpu/render/renderer.py:332",
+                     max_abs_err=max(mean_err, full_err),
+                     tol="grid, occ, occ_coarse, bbox equal; mean rel 1e-5; a second call the same bits",
                      ms=time_ms(lambda: R._occupancy_upkeep_cuda(*oargs)),
                      plain_ms=time_ms(lambda: R.occupancy_upkeep_plain(*oargs)),
                      bound_ms=b, bound_by=by,
                      library_ms=time_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
                      note=f"{tuple(grid_old.shape)} grid, refreshed block of {tmp.shape[1]} cells at "
-                          f"{off}, radius {r}; 4 launches (merge, mean, threshold + bbox, dilation); "
-                          f"library is F.max_pool3d for the dilation alone; max_abs_err is the "
-                          f"mean's relative error"))
+                          f"{off} (and a full refresh, held only), radius {r}; 2 launches (merge "
+                          f"and mean; threshold, bit-packed separable dilation and bbox on tiles "
+                          f"of z-rows); library is F.max_pool3d for the dilation alone; "
+                          f"max_abs_err is the mean's relative error"))
     return rows
 
 
@@ -1365,6 +1385,7 @@ def _compact_rows(trainer, calls):
     err = max(_rel(a, b_) for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3c forward rel err {err} > 1e-5")
+    _same_bits("K3c forward", got, RM._composite_compact_cuda(*cargs))
     Mc = sig.shape[0]
     seg = int(cnts.sum())  # slots inside the rays' segments, the only ones read
     # per slot in a segment sigma, dt, t (4 B each) and rgb (12 B), about 16
@@ -1377,8 +1398,9 @@ def _compact_rows(trainer, calls):
                      tol="1e-5 x max|output|", ms=time_ms(lambda: RM._composite_compact_cuda(*cargs)),
                      plain_ms=time_ms(lambda: RM.composite_compact_plain(*cargs)),
                      bound_ms=b, bound_by=by, library_ms=None,
-                     note=f"M={Mc} slots ({seg} in segments), N={n_rays} rays; one thread per "
-                          f"ray, float64 exponent"))
+                     note=f"M={Mc} slots ({seg} in segments, at most {int(cnts.max())} a ray), "
+                          f"N={n_rays} rays; a lane group per ray (8, 16 or 32 lanes by M/N), "
+                          f"float64 scans and sums"))
     # ---- K3c backward
     (bargs, _), = calls["_composite_compact_backward_cuda"][:1]
     got = RM._composite_compact_backward_cuda(*bargs)
@@ -1386,6 +1408,7 @@ def _compact_rows(trainer, calls):
     err = max(_rel(a, b_) for a, b_ in zip(got, ref))
     if err > 1e-5:
         raise RuntimeError(f"K3c backward rel err {err} > 1e-5")
+    _same_bits("K3c backward", got, RM._composite_compact_backward_cuda(*bargs))
     seg = int(bargs[6].sum())
     # per slot in a segment sigma, dt, t, ray_id (4 B each) and rgb (12 B),
     # about 30 flops; per ray offset, count and the 6 cotangent words; dsigma
@@ -1399,8 +1422,9 @@ def _compact_rows(trainer, calls):
                      ms=time_ms(lambda: RM._composite_compact_backward_cuda(*bargs)),
                      plain_ms=time_ms(lambda: RM.composite_compact_backward_plain(*bargs)),
                      bound_ms=b, bound_by=by, library_ms=None,
-                     note="analytic reverse pass, one thread per ray; replaces autodiff of the "
-                          "global cumsums"))
+                     note="analytic backward, a lane group per ray: two forward walks (the "
+                          "ray's total of a*w, then its inclusive scan; the suffix is their "
+                          "difference); replaces autodiff of the global cumsums"))
     return rows
 
 

@@ -21,11 +21,13 @@ by the inputs, not the plain version's (float32 atol 1e-5 relative to the
 largest gradient; bf16 one ulp, 2^-7), the same bits on every call; K3's
 reverse pass matches its plain version's arithmetic to 1e-5 relative; the K4 adjoint as the forward (2^-6 relative in bf16, 1e-5 in
 f32). K6: the merged grid, occupancy,
-dilation and bbox are equal; the mean (a blocked float sum) to rtol 1e-5.
+dilation and bbox are equal; the mean (a blocked float sum in a fixed
+order) to rtol 1e-5; a second call gives the same bits.
 K5 is equal bit for bit on every field. K3c keeps each ray's exponent in
 float64 and rounds it as the plain version does, so both take the same
-t_thresh cut; the sums run in f32 (forward atol 1e-5, backward 1e-5
-relative to the largest gradient). K7 rounds where its plain version rounds
+t_thresh cut; its sums run in float64 in another order than the plain
+version's (forward atol 1e-5, backward 1e-5 relative to the largest
+gradient), the same bits on every call. K7 rounds where its plain version rounds
 (the cell coordinate's fused multiply-add, then each operation alone, the
 corners summed in order): features within 1e-6 (expected equal), corner
 rows equal. Its backward's float atomics add in an unspecified order, and
@@ -618,33 +620,77 @@ def test_idwt_adjoint_identity(dev, case, name):
     assert abs(lhs - rhs) <= 1e-5 * scale, (lhs, rhs, scale)
 
 
+def _occupancy_config(H, r, bound):
+    """A render config with grid H and dilation radius r: max_steps so that
+    a coarse segment spans 2r - 1 cells (r = ceil of half of it)."""
+    cfg = R.RenderConfig(bound=bound, grid_size=H,
+                         max_steps=round(12 * 3**0.5 * H / (2 * r - 1)))
+    assert cfg.coarse_dilation_radius == r
+    return cfg
+
+
+# occupied cells that K6's tiles (16 rows a side) and words (32 cells) must
+# carry across: on the tile edges (x, y = 15, 16), on the word edges (z =
+# 31, 32) and on the grid's faces and corners
+def _edge_cells(H):
+    t = [v for v in (15, 16) if v < H]
+    w = [v for v in (31, 32) if v < H]
+    return ([(x, y, z) for x in t for y in t for z in w]
+            + [(0, 0, 0), (H - 1, H - 1, H - 1), (0, H - 1, H // 2), (H - 1, 0, 0),
+               (H // 2, 0, H - 1)])
+
+
 @pytest.mark.parametrize("frac", [1.0, 0.25])
-def test_occupancy_kernel_matches_plain(dev, frac):
-    g = torch.Generator().manual_seed(7)
-    cfg = R.RenderConfig(bound=1.5, grid_size=64, max_steps=512)
-    C, n = cfg.cascades, cfg.grid_size**3
-    old = 20 * torch.rand((C, n), generator=g) ** 4
-    old[:, : n // 10] = -1.0  # cells no camera sees
+@pytest.mark.parametrize("bound", [1.5, 4.0])  # 2 and 3 cascades
+@pytest.mark.parametrize("H", [37, 40, 64, 128])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_occupancy_kernel_matches_plain(dev, r, H, bound, frac):
+    """K6 at dilation radius 1-3, on grids no multiple of 32 (40) or of 4
+    (37: scalar loads and byte stores), with 2 and 3 cascades, full and
+    partial refresh (the partial one at an offset no multiple of 4: the
+    merge's scalar path); sparse occupancy with occupied cells on the
+    tiles', words' and grid's edges, a cascade that stays empty beside the
+    occupied ones, cells at -1 that stay; a second call gives the same bits;
+    an all-empty grid gives the scene box."""
+    g = torch.Generator().manual_seed(7 + H + r)
+    cfg = _occupancy_config(H, r, bound)
+    C, n = cfg.cascades, H**3
+    spike = lambda shape: torch.where(torch.rand(shape, generator=g) < 0.002,  # noqa: E731
+                                      50 + 50 * torch.rand(shape, generator=g),
+                                      0.01 * torch.rand(shape, generator=g))
+    old = spike((C, n))
+    old[:, n // 2 : n // 2 + n // 10] = -1.0  # cells no camera sees
+    for x, y, z in _edge_cells(H):
+        old[0, (x * H + y) * H + z] = 80.0
+    old[1] = 0.0  # cascade 1 stays empty
     S = int(n * frac)
-    off = n // 4 if frac < 1 else 0
-    tmp = 30 * torch.rand((C, S), generator=g) ** 6
+    off = n // 4 + 1 if frac < 1 else 0
+    tmp = spike((C, S))
+    tmp[1] = 0.0
     old, tmp = old.to(dev), tmp.to(dev)
     n0 = kernels.launches["occupancy"]
     got = R._occupancy_upkeep_cuda(old, tmp, off, cfg, 0.95)
-    assert kernels.launches["occupancy"] == n0 + 4
+    assert kernels.launches["occupancy"] == n0 + 2
+    again = R._occupancy_upkeep_cuda(old, tmp, off, cfg, 0.95)
     ref = R.occupancy_upkeep_plain(old, tmp, off, cfg, 0.95)
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0])
+    assert (got[0][old < 0] == -1).all()
     assert abs(got[3].item() - ref[3].item()) <= 1e-5 * ref[3].item()
     # threshold at the kernel's own mean: the plain occupancy, dilation, bbox
     thresh = torch.clamp_max(got[3], cfg.density_thresh) * cfg.occ_thresh_scale
     occ = (ref[0] > thresh).reshape(got[1].shape)
-    assert 0.01 < occ.float().mean().item() < 0.99
+    coarse = _dilate3(occ, r)
+    assert occ.any() and not occ[1].any() and coarse[0].any() and not coarse.all()
+    assert all(occ[0, x, y, z] for x, y, z in _edge_cells(H))
     assert torch.equal(got[1], occ)
-    assert torch.equal(got[2], _dilate3(occ, cfg.coarse_dilation_radius))
+    assert torch.equal(got[2], coarse)
     assert torch.equal(got[4], R._occupied_bbox(occ, cfg))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
     empty = R._occupancy_upkeep_cuda(torch.zeros_like(old), torch.zeros_like(tmp), off, cfg, 0.95)
-    assert not empty[1].any() and torch.equal(empty[4].cpu(), torch.tensor(cfg.aabb))
+    assert not empty[1].any() and not empty[2].any()
+    assert torch.equal(empty[4].cpu(), torch.tensor(cfg.aabb))
 
 
 def _dense_layout(dev, N, B, prefix, seed):
@@ -694,38 +740,86 @@ def test_compact_kernel_matches_plain_bit_for_bit(dev, case, prefix, B):
         assert 0 < int(ref.counts[r]) < int(full[r]) and int(ref.counts[r + 1:].sum()) == 0
 
 
-def _compact_inputs(dev, N, S, seed):
-    o, d, t, dt, mask, t0 = _dense_layout(dev, N, S, True, seed)
-    comp = RM.compact_global_dense_plain(o, d, t, dt, mask, t0, m_budget=N * S, bound=1.5)
-    g = torch.Generator().manual_seed(seed + 1)
-    M = comp.ts.shape[0]
-    sig = (400 * torch.rand((M,), generator=g)).to(dev)
-    rgb = torch.rand((M, 3), generator=g).to(dev)
+# the buffer's slots a ray, M / N, from which the host picks K3c's lanes a
+# ray (8 up to 24, 16 up to 64, 32 past that), and the overflowing buffer's
+K3C_SLOTS = {8: 16, 16: 48, 32: 520}
+K3C_OVERFLOW_SLOTS = {8: 16, 16: 48, 32: 72}
+
+
+def _compact_inputs(dev, G, case, seed, N=5000):
+    """A K5 buffer of N rays at M = N * K3C_SLOTS[G] slots (``samples``: a
+    ``compact_samples`` buffer of scattered valid candidates): rows of 0, 1,
+    G - 1, G + 1 slots and, every 64th ray, 519; ``overflow``: every 8th
+    ray 519, and the buffer ends 200 slots into a long row just short of N *
+    K3C_OVERFLOW_SLOTS[G]. sigma is 50x lower on the long rows, so their
+    weights live past their first few slots."""
+    g = torch.Generator().manual_seed(seed)
+    B, S = 520, K3C_SLOTS[G]
+    o, d = torch.randn((N, 3), generator=g), torch.randn((N, 3), generator=g)
+    if case == "samples":
+        mask = torch.rand((N, B), generator=g) < (S / 2) / B
+    else:
+        cnt = torch.tensor([0, 1, G - 1, G + 1])[torch.randint(0, 4, (N,), generator=g)]
+        cnt[:: 8 if case == "overflow" else 64] = 519
+        mask = torch.arange(B)[None] < cnt[:, None]
+    t = torch.where(mask, 0.5 + 2.5 * torch.rand((N, B), generator=g), 0.0)
+    dt = torch.where(mask, 0.003 + 0.003 * torch.rand((N, B), generator=g), 0.0)
+    M = N * S
+    if case == "overflow":  # the buffer ends in the middle of a long row
+        full = mask.sum(1)
+        start = torch.cumsum(full, 0) - full
+        r = int(((full == 519) & (start + 200 <= N * K3C_OVERFLOW_SLOTS[G])).nonzero()[-1])
+        M = int(start[r]) + 200
+    o, d, t, dt, mask = [x.to(dev) for x in (o, d, t, dt, mask)]
+    if case == "samples":
+        comp = RM.compact_samples(o, d, RM.MarchResults(t, dt, mask), m_budget=M, bound=1.5)
+    else:
+        comp = RM.compact_global_dense(o, d, t, dt, mask, t[:, 0], m_budget=M, bound=1.5)
+    long_row = (comp.counts.long() >= 519).cpu()[comp.ray_id.long().clamp_max(N - 1).cpu()]
+    sig = 400 * torch.rand((M,), generator=g) * torch.where(long_row, 0.02, 1.0)
+    rgb = torch.rand((M, 3), generator=g)
     cts = [torch.randn(s, generator=g).to(dev) for s in ((N,), (N,), (N, 3), (N,))]
-    return comp, sig, rgb, cts
+    return comp, sig.to(dev), rgb.to(dev), cts
 
 
 @pytest.mark.parametrize("t_thresh", [0.0, 1e-4])
-def test_composite_compact_kernels_match_plain(dev, t_thresh):
-    N, S = 5000, 16
-    comp, sig, rgb, cts = _compact_inputs(dev, N, S, 9)
+@pytest.mark.parametrize("case", ["rows", "overflow", "samples"])
+@pytest.mark.parametrize("G", sorted(K3C_SLOTS))
+def test_composite_compact_kernels_match_plain(dev, G, case, t_thresh):
+    """K3c forward and backward at 8, 16 and 32 lanes a ray (by M / N), on
+    rows of 0, 1, G - 1, G + 1 and 519 slots, on a buffer that ends inside
+    a ray and on a ``compact_samples`` buffer; a second call gives the same
+    bits, and padding slots get zero gradients."""
+    N = 5000
+    comp, sig, rgb, cts = _compact_inputs(dev, G, case, 9 + G)
+    cnt, mean = comp.counts, -(-comp.ts.shape[0] // N)
+    assert {8: mean <= 24, 16: 24 < mean <= 64, 32: mean > 64}[G]
+    if case != "samples":
+        assert {0, 1, G - 1, G + 1, 519} <= set(cnt.tolist())
+    if case == "overflow":
+        cut = int((cnt > 0).nonzero()[-1])
+        assert 0 < int(cnt[cut]) < 519 and int(comp.num_valid) == comp.ts.shape[0]
     args = (sig, rgb, comp.dts, comp.ts, comp.ray_id, comp.offsets, comp.counts, N, t_thresh)
     n0 = kernels.launches["composite_compact"]
     got = RM._composite_compact_cuda(*args)
     assert kernels.launches["composite_compact"] == n0 + 1
+    again = RM._composite_compact_cuda(*args)
     ref = RM.composite_compact_plain(*args)
     torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        assert (a - b).abs().max().item() <= 1e-5
+    for a, b, c in zip(got, ref, again):
+        assert (a - b).abs().max().item() <= 1e-5 and torch.equal(a, c)
+    assert (got[0][cnt == 0] == 0).all()
     n0 = kernels.launches["composite_compact_bwd"]
     got = RM._composite_compact_backward_cuda(*args, *cts)
     assert kernels.launches["composite_compact_bwd"] == n0 + 1
+    again = RM._composite_compact_backward_cuda(*args, *cts)
     ref = RM.composite_compact_backward_plain(*args, *cts)
     torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        assert _rel_close(a, b, 1e-5)
+    for a, b, c in zip(got, ref, again):
+        assert _rel_close(a, b, 1e-5) and torch.equal(a, c)
     pad = comp.ray_id >= N
-    assert pad.any() and (got[0][pad] == 0).all() and (got[1][pad] == 0).all()
+    assert pad.any() == (case != "overflow")
+    assert (got[0][pad] == 0).all() and (got[1][pad] == 0).all()
 
 
 K7_CASES = {  # the proposal grid, the hash-grid field's default, and the other variants

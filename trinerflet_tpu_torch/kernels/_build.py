@@ -139,3 +139,18 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def stream_scratch(cache: dict, device, words: int, dtype):
+    """Scratch of at least ``words`` elements that a kernel needs zero and
+    leaves zero (tickets, tile counters), kept in ``cache`` between calls
+    per (device, stream): calls on one stream run in order, and a fresh
+    zeroed buffer would cost another launch. Returns (key, buffer); the
+    caller drops ``cache[key]`` after a failed launch, which may leave it
+    dirty."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = cache.get(key)
+    if buf is None or buf.numel() < words:
+        grown = max(words, 2 * (0 if buf is None else buf.numel()))
+        buf = cache[key] = torch.zeros((grown,), device=device, dtype=dtype)
+    return key, buf

@@ -44,21 +44,34 @@
 // bit for bit.
 //
 // K3c replaces trinerflet_tpu/ops/raymarch.py:754 composite_compact (the JAX
-// package differentiates it through segmented global cumsums). One thread per
-// ray walks its segment [offset, offset + count) with a running sum S of
-// sd = sigma*dt, kept in float64 and rounded to f32 for T = exp(-S) as the
-// plain version rounds its float64 sum (so both take the same t_thresh cut):
-// alpha = 1 - exp(-sd), w = alpha*T where T >= t_thresh. It writes sum w,
-// sum w*t, sum w*rgb and sum w*t^2; the z-variance is formed from them in
-// the wrapper. The JAX package's global
-// f32 cumsum minus a per-ray base cancels badly on a large buffer; the
-// running per-ray sum is the quantity it stands for.
-// Backward: a forward walk parks S_i in the dsigma slot; the reverse walk
-// keeps R = sum_{k>i} a_k w_k, with a_k = g_ws + g_depth t_k +
-// g_image . rgb_k + g_z2 t_k^2, and writes
-// dsigma_i = dt_i (alive_i a_i exp(-sd_i) T_i - R), drgb_i = w_i g_image.
-// Padding slots (ray_id >= N) get zeros. Bound: bytes (per slot it reads
-// sigma, dt, t, rgb, ray_id and writes dsigma, drgb) for ~20 flops.
+// package differentiates it through segmented global cumsums). What bounds
+// it: bytes (per slot in a segment sigma, dt, t and rgb in, in the backward
+// also ray_id, and dsigma and drgb out) for ~20-30 flops. Design: a lane
+// group of G = 8, 16 or 32 lanes per ray (the host picks G from M / N: 8 up
+// to 16 slots a ray, 16 up to 48, 32 past that) walks the ray's contiguous
+// segment [offset, offset + count) in chunks of G slots, one slot a lane, so
+// every load of sigma, dt and t is contiguous across the group, and rgb
+// moves as the chunk's 3G contiguous floats that shuffles hand each lane;
+// four chunks' loads are issued at once. The exclusive sum S of sd =
+// sigma*dt is an inclusive float64 group scan plus the chunk carry, rounded
+// to f32 for T = exp(-S) as the plain version rounds its float64 sum (so
+// both take the same t_thresh cut): alpha = 1 - exp(-sd), w = alpha*T where
+// T >= t_thresh. Forward: each lane sums w, w*t, w*rgb and w*t^2 in float64
+// (the plain version's index_add_ on doubles), reduced over the group at
+// the end; the z-variance is formed from them in the wrapper. The JAX
+// package's global f32 cumsum minus a per-ray base cancels badly on a
+// large buffer; the per-ray sum is the quantity it stands for. Backward:
+// with a_k = g_ws + g_depth t_k + g_image . rgb_k + g_z2 t_k^2 and b_k =
+// a_k w_k, a first walk sums the ray's total of b in float64; a second
+// recomputes S and an inclusive float64 scan of b, and the suffix
+// sum_{k>i} b_k is the total less it (the plain version's seg_end - incl):
+// dsigma_i = dt_i (alive_i a_i exp(-sd_i) T_i - suffix_i), drgb_i = w_i
+// g_image. Where the warp's longest ray fits in one batch of four chunks
+// (the global layout's short rows), the chunks, their weights and a stay in
+// registers and both sums come from one pass over them. Nothing goes
+// through device memory between the walks, and nothing is added
+// atomically: two calls give the same bits. Other blocks of the backward's
+// launch zero the padding slots (ray_id >= N).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -375,110 +388,363 @@ extern "C" int compact_launch(const float* rays_o, const float* rays_d, const fl
   return (int)cudaGetLastError();
 }
 
-__global__ void composite_compact_kernel(const float* __restrict__ sigma,
-                                         const float* __restrict__ rgb,
-                                         const float* __restrict__ dts,
-                                         const float* __restrict__ ts,
-                                         const int* __restrict__ offsets,
-                                         const int* __restrict__ counts, int N, float t_thresh,
-                                         float* __restrict__ ws, float* __restrict__ depth,
-                                         float* __restrict__ image, float* __restrict__ z2) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int beg = offsets[n], end = offsets[n] + counts[n];
-  double S = 0.0;
-  float s_w = 0.f, s_t = 0.f, s_z = 0.f, r = 0.f, g = 0.f, b = 0.f;
-  for (int i = beg; i < end; ++i) {
-    const float sd = sigma[i] * dts[i];
-    const float T = expf(-(float)S);
-    const float w = T >= t_thresh ? (1.0f - expf(-sd)) * T : 0.0f;
-    const float wt = w * ts[i];
-    s_w += w;
-    s_t += wt;
-    s_z += wt * ts[i];
-    r += w * rgb[3 * i];
-    g += w * rgb[3 * i + 1];
-    b += w * rgb[3 * i + 2];
-    S += (double)sd;
+namespace k3c {
+
+constexpr int kThreads = 128;
+constexpr int kBatch = 4;         // chunks whose loads a group issues at once
+constexpr int kPadBlocks = 256;   // the backward's blocks that zero the padding slots
+
+// What one lane holds of a chunk of G slots: its own slot's scalars and
+// three of the chunk's 3G rgb floats (elements lane, lane + G, lane + 2G).
+struct Chunk {
+  float sigma, dt, t;
+  float rgb[3];
+};
+
+__device__ __forceinline__ Chunk load_chunk(const float* __restrict__ sigma,
+                                            const float* __restrict__ rgb,
+                                            const float* __restrict__ dts,
+                                            const float* __restrict__ ts, int beg, int cnt, int c,
+                                            int lane, int G) {
+  Chunk k;
+  const int j = c * G + lane;
+  const bool ok = j < cnt;
+  k.sigma = ok ? sigma[beg + j] : 0.0f;
+  k.dt = ok ? dts[beg + j] : 0.0f;
+  k.t = ok ? ts[beg + j] : 0.0f;
+  const long long base = 3LL * (beg + c * G);
+  const int lim = 3 * (cnt - c * G);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int el = lane + e * G;
+    k.rgb[e] = el < lim ? rgb[base + el] : 0.0f;
   }
-  ws[n] = s_w;
-  depth[n] = s_t;
-  image[3 * n] = r;
-  image[3 * n + 1] = g;
-  image[3 * n + 2] = b;
-  z2[n] = s_z;
+  return k;
 }
 
-// sigma, dts, ts (M,) f32, rgb (M, 3) f32, offsets, counts (N,) int32 -> ws,
-// depth, z2 (N,), image (N, 3) f32. Only the slots of the segments
-// [offset, offset + count) are read.
-extern "C" int composite_compact_launch(const float* sigma, const float* rgb, const float* dts,
-                                        const float* ts, const int* offsets, const int* counts,
-                                        int N, float t_thresh, float* ws, float* depth,
-                                        float* image, float* z2, cudaStream_t stream) {
-  if (N == 0) return 0;
-  const int threads = 128;
-  composite_compact_kernel<<<(N + threads - 1) / threads, threads, 0, stream>>>(
-      sigma, rgb, dts, ts, offsets, counts, N, t_thresh, ws, depth, image, z2);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ float slot(const float v[3], int j) {
+  return j == 0 ? v[0] : (j == 1 ? v[1] : v[2]);
 }
 
-// One thread per ray (its segment) and per slot (zeros for padding slots).
-__global__ void composite_compact_backward_kernel(
+// Where lane's rgb elements sit (as in composite.cu): element e_j = lane +
+// j G of a chunk is channel e_j % 3 of the chunk's slot e_j / 3; pick[ch]
+// is the element j whose channel is ch.
+template <int G>
+struct Slots {
+  int sample[3], channel[3], pick[3];
+  __device__ explicit Slots(int lane) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int e = lane + j * G;
+      sample[j] = e / 3;
+      channel[j] = e % 3;
+      pick[j] = ((j + 3 - lane % 3) * (G % 3)) % 3;
+    }
+  }
+};
+
+// The three channels of this lane's own slot from the chunk's rgb elements.
+template <int G>
+__device__ __forceinline__ void own_rgb(const Chunk& k, const Slots<G>& s, int lane, float col[3]) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    col[ch] = __shfl_sync(FULL, slot(k.rgb, s.pick[ch]), (3 * lane + ch) & (G - 1), G);
+}
+
+// Inclusive sum over a group's G lanes (Hillis-Steele, in float64).
+template <int G>
+__device__ __forceinline__ double scan_sum(double v, int lane) {
+#pragma unroll
+  for (int d = 1; d < G; d <<= 1) {
+    const double y = __shfl_up_sync(FULL, v, d, G);
+    if (lane >= d) v += y;
+  }
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ double sum_group(double v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o, G);
+  return v;
+}
+
+// A chunk's weights: S, the running exclusive sum of sd = sigma dt in
+// float64 (the plain version's per-ray sum; an inclusive group scan plus
+// the carry of the chunks before), rounded to f32 for T = exp(-S) and the
+// t_thresh cut; w = (1 - exp(-sd)) T where T >= t_thresh (0 past the count).
+struct Weights {
+  float T, e, w;  // e = exp(-sd)
+};
+
+template <int G>
+__device__ __forceinline__ Weights weights(const Chunk& k, bool ok, double& carry, int lane,
+                                           float t_thresh) {
+  const float sd = k.sigma * k.dt;
+  const double incl = scan_sum<G>((double)sd, lane);
+  const double up = __shfl_up_sync(FULL, incl, 1, G);
+  Weights q;
+  q.T = expf(-(float)(carry + (lane == 0 ? 0.0 : up)));
+  carry += __shfl_sync(FULL, incl, G - 1, G);
+  q.e = expf(-sd);
+  q.w = (ok && q.T >= t_thresh) ? (1.0f - q.e) * q.T : 0.0f;
+  return q;
+}
+
+// Walks a ray's segment in chunks of G slots, kBatch chunks' loads at once;
+// every group of the warp runs the warp's longest walk (the shuffles take
+// the whole warp), a chunk past a ray's count holding zeros.
+// visit(chunk, c, j, weights) sees each slot j = c G + lane of each chunk c
+// (every lane, every chunk of the walk).
+template <int G, typename Visit>
+__device__ __forceinline__ void walk(const float* __restrict__ sigma, const float* __restrict__ rgb,
+                                     const float* __restrict__ dts, const float* __restrict__ ts,
+                                     int beg, int cnt, int nch, int lane, float t_thresh,
+                                     Visit&& visit) {
+  double carry = 0.0;
+  for (int c0 = 0; c0 < nch; c0 += kBatch) {
+    Chunk k[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) k[u] = load_chunk(sigma, rgb, dts, ts, beg, cnt, c0 + u, lane, G);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (c0 + u >= nch) break;  // warp-uniform
+      const int j = (c0 + u) * G + lane;
+      visit(k[u], c0 + u, j, weights<G>(k[u], j < cnt, carry, lane, t_thresh));
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ int longest_walk(int cnt) {
+  return __reduce_max_sync(FULL, (cnt + G - 1) / G);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+    forward_kernel(const float* __restrict__ sigma, const float* __restrict__ rgb,
+                   const float* __restrict__ dts, const float* __restrict__ ts,
+                   const int* __restrict__ offsets, const int* __restrict__ counts, int N,
+                   float t_thresh, float* __restrict__ ws, float* __restrict__ depth,
+                   float* __restrict__ image, float* __restrict__ z2) {
+  const int lane = threadIdx.x & (G - 1);
+  const int n = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  const bool live = n < N;  // every group runs the walk: the shuffles take the whole warp
+  const int beg = live ? offsets[n] : 0, cnt = live ? counts[n] : 0;
+  const Slots<G> sl(lane);
+  double s_w = 0.0, s_t = 0.0, s_z = 0.0, s_r = 0.0, s_g = 0.0, s_b = 0.0;
+  walk<G>(sigma, rgb, dts, ts, beg, cnt, longest_walk<G>(cnt), lane, t_thresh,
+          [&](const Chunk& k, int, int, const Weights& q) {
+            float col[3];
+            own_rgb<G>(k, sl, lane, col);
+            const float wt = q.w * k.t;
+            s_w += (double)q.w;
+            s_t += (double)wt;
+            s_z += (double)(wt * k.t);
+            s_r += (double)(q.w * col[0]);
+            s_g += (double)(q.w * col[1]);
+            s_b += (double)(q.w * col[2]);
+          });
+  s_w = sum_group<G>(s_w);
+  s_t = sum_group<G>(s_t);
+  s_z = sum_group<G>(s_z);
+  s_r = sum_group<G>(s_r);
+  s_g = sum_group<G>(s_g);
+  s_b = sum_group<G>(s_b);
+  if (live && lane == 0) {
+    ws[n] = (float)s_w;
+    depth[n] = (float)s_t;
+    image[3 * n] = (float)s_r;
+    image[3 * n + 1] = (float)s_g;
+    image[3 * n + 2] = (float)s_b;
+    z2[n] = (float)s_z;
+  }
+}
+
+// One ray's cotangents (as read by a lane group), and a_k = g_ws + g_depth
+// t_k + g_image . rgb_k + g_z2 t_k^2, as the plain version associates it.
+template <int G>
+struct Cotangent {
+  float gw, gd, gz, gi[3];
+  float g_slot[3];  // g_image at each of the lane's rgb elements' channels
+  __device__ Cotangent(const float* __restrict__ g_ws, const float* __restrict__ g_depth,
+                       const float* __restrict__ g_image, const float* __restrict__ g_z2, int n,
+                       bool live, const Slots<G>& sl) {
+    gw = live ? g_ws[n] : 0.0f;
+    gd = live ? g_depth[n] : 0.0f;
+    gz = live ? g_z2[n] : 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) gi[ch] = live ? g_image[3 * n + ch] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) g_slot[q] = slot(gi, sl.channel[q]);
+  }
+  __device__ float a(const Chunk& k, const float col[3]) const {
+    return ((gw + gd * k.t) + ((gi[0] * col[0] + gi[1] * col[1]) + gi[2] * col[2])) +
+           (gz * k.t) * k.t;
+  }
+};
+
+// A chunk's gradients from its weights, its a and the inclusive sum of b =
+// a w through it: the suffix sum_{k>i} b_k is the ray's total less that
+// sum, as the plain version forms it (seg_end - incl).
+template <int G>
+__device__ __forceinline__ void write_grad(const Chunk& k, const Weights& q, float a, double incl,
+                                           double total, int beg, int cnt, int c, int lane,
+                                           float t_thresh, const Slots<G>& sl,
+                                           const Cotangent<G>& g, float* __restrict__ dsigma,
+                                           float* __restrict__ drgb) {
+  const int j = c * G + lane;
+  const float suffix = (float)(total - incl);
+  if (j < cnt) dsigma[beg + j] = k.dt * ((q.T >= t_thresh ? a * q.e * q.T : 0.0f) - suffix);
+  const long long base = 3LL * (beg + c * G);
+  const int lim = 3 * (cnt - c * G);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float we = __shfl_sync(FULL, q.w, sl.sample[e], G);
+    const int el = lane + e * G;
+    if (el < lim) drgb[base + el] = we * g.g_slot[e];
+  }
+}
+
+// Blocks [0, ray_blocks): a lane group per ray; the others zero the padding
+// slots (ray_id >= N).
+template <int G>
+__global__ void __launch_bounds__(kThreads) backward_kernel(
     const float* __restrict__ sigma, const float* __restrict__ rgb, const float* __restrict__ dts,
     const float* __restrict__ ts, const int* __restrict__ ray_id, const int* __restrict__ offsets,
     const int* __restrict__ counts, const float* __restrict__ g_ws,
     const float* __restrict__ g_depth, const float* __restrict__ g_image,
-    const float* __restrict__ g_z2, int N, int M, float t_thresh, float* __restrict__ dsigma,
-    float* __restrict__ drgb) {
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid < M && ray_id[gid] >= N) {
-    dsigma[gid] = 0.0f;
-    drgb[3 * gid] = 0.0f;
-    drgb[3 * gid + 1] = 0.0f;
-    drgb[3 * gid + 2] = 0.0f;
+    const float* __restrict__ g_z2, int N, int M, float t_thresh, int ray_blocks,
+    float* __restrict__ dsigma, float* __restrict__ drgb) {
+  if ((int)blockIdx.x >= ray_blocks) {
+    const int stride = (gridDim.x - ray_blocks) * kThreads;
+    for (int s = (blockIdx.x - ray_blocks) * kThreads + threadIdx.x; s < M; s += stride)
+      if (ray_id[s] >= N) {
+        dsigma[s] = 0.0f;
+        drgb[3LL * s] = 0.0f;
+        drgb[3LL * s + 1] = 0.0f;
+        drgb[3LL * s + 2] = 0.0f;
+      }
+    return;
   }
-  if (gid >= N) return;
-  const int n = gid;
-  const int beg = offsets[n], end = offsets[n] + counts[n];
-  double S = 0.0;
-  for (int i = beg; i < end; ++i) {
-    dsigma[i] = (float)S;  // S_i as the forward rounds it, read back by the reverse walk
-    S += (double)(sigma[i] * dts[i]);
+  const int lane = threadIdx.x & (G - 1);
+  const int n = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  const bool live = n < N;
+  const int beg = live ? offsets[n] : 0, cnt = live ? counts[n] : 0;
+  const int nch = longest_walk<G>(cnt);
+  const Slots<G> sl(lane);
+  const Cotangent<G> g(g_ws, g_depth, g_image, g_z2, n, live, sl);
+  if (nch <= kBatch) {
+    // the warp's rays fit in one batch of chunks: keep the chunks, their
+    // weights and a in registers and take both sums from them
+    Chunk k[kBatch];
+    Weights q[kBatch];
+    float a[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) k[u] = load_chunk(sigma, rgb, dts, ts, beg, cnt, u, lane, G);
+    double carry = 0.0, total = 0.0;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (u >= nch) break;  // warp-uniform
+      const bool ok = u * G + lane < cnt;
+      q[u] = weights<G>(k[u], ok, carry, lane, t_thresh);
+      float col[3];
+      own_rgb<G>(k[u], sl, lane, col);
+      a[u] = ok ? g.a(k[u], col) : 0.0f;
+      total += (double)(a[u] * q[u].w);
+    }
+    total = sum_group<G>(total);
+    double incl = 0.0;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (u >= nch) break;
+      incl += scan_sum<G>((double)(a[u] * q[u].w), lane);
+      write_grad<G>(k[u], q[u], a[u], incl, total, beg, cnt, u, lane, t_thresh, sl, g, dsigma,
+                    drgb);
+      incl = __shfl_sync(FULL, incl, G - 1, G);
+    }
+    return;
   }
-  const float gw = g_ws[n], gd = g_depth[n], gz = g_z2[n];
-  const float gr = g_image[3 * n], gg = g_image[3 * n + 1], gb = g_image[3 * n + 2];
-  float R = 0.f;
-  for (int i = end - 1; i >= beg; --i) {
-    const float T = expf(-dsigma[i]);
-    const float sd = sigma[i] * dts[i];
-    const float e = expf(-sd);
-    const bool alive = T >= t_thresh;
-    const float t = ts[i];
-    const float a = gw + gd * t + gr * rgb[3 * i] + gg * rgb[3 * i + 1] + gb * rgb[3 * i + 2] +
-                    gz * t * t;
-    const float w = alive ? (1.0f - e) * T : 0.0f;
-    drgb[3 * i] = w * gr;
-    drgb[3 * i + 1] = w * gg;
-    drgb[3 * i + 2] = w * gb;
-    dsigma[i] = dts[i] * ((alive ? a * e * T : 0.0f) - R);
-    R += a * w;
-  }
+  // longer rays: walk 1 sums the ray's total of b = a w, walk 2 recomputes
+  // the weights and a, and takes the inclusive sum of b
+  double total = 0.0;
+  walk<G>(sigma, rgb, dts, ts, beg, cnt, nch, lane, t_thresh,
+          [&](const Chunk& k, int, int j, const Weights& q) {
+            float col[3];
+            own_rgb<G>(k, sl, lane, col);
+            if (j < cnt) total += (double)(g.a(k, col) * q.w);
+          });
+  total = sum_group<G>(total);
+  double bcarry = 0.0;
+  walk<G>(sigma, rgb, dts, ts, beg, cnt, nch, lane, t_thresh,
+          [&](const Chunk& k, int c, int j, const Weights& q) {
+            float col[3];
+            own_rgb<G>(k, sl, lane, col);
+            const float a = j < cnt ? g.a(k, col) : 0.0f;
+            const double incl = bcarry + scan_sum<G>((double)(a * q.w), lane);
+            write_grad<G>(k, q, a, incl, total, beg, cnt, c, lane, t_thresh, sl, g, dsigma, drgb);
+            bcarry = __shfl_sync(FULL, incl, G - 1, G);
+          });
+}
+
+// Lanes per ray from the buffer's slots a ray, M / N (the host knows it
+// without reading the counts): short rows take several rays a warp. The
+// global layout's buffer holds 1.5x the mean kept samples (M / N = 16 on
+// bench's step: 8 lanes); the flat march's exact layout fills its N * B
+// slots from a few long rays (B 20, rays of ~250 slots: 16 lanes, measured
+// faster there than 8 or 32).
+int group_for(int M, int N) {
+  const long long mean = N > 0 ? ((long long)M + N - 1) / N : 0;
+  return mean <= 16 ? 8 : (mean <= 48 ? 16 : 32);
+}
+
+}  // namespace k3c
+
+// sigma, dts, ts (M,) f32, rgb (M, 3) f32, offsets, counts (N,) int32 -> ws,
+// depth, z2 (N,), image (N, 3) f32. Only the slots of the segments
+// [offset, offset + count) are read. One launch, a lane group per ray.
+extern "C" int composite_compact_launch(const float* sigma, const float* rgb, const float* dts,
+                                        const float* ts, const int* offsets, const int* counts,
+                                        int N, int M, float t_thresh, float* ws, float* depth,
+                                        float* image, float* z2, cudaStream_t stream) {
+  if (N == 0) return 0;
+  const int G = k3c::group_for(M, N), rays = k3c::kThreads / G;
+  const unsigned int blocks = (unsigned int)((N + rays - 1) / rays);
+#define K3C_FWD(LANES)                                                                    \
+  k3c::forward_kernel<LANES><<<blocks, k3c::kThreads, 0, stream>>>(sigma, rgb, dts, ts, \
+                                                                   offsets, counts, N,  \
+                                                                   t_thresh, ws, depth, \
+                                                                   image, z2)
+  if (G == 8) K3C_FWD(8);
+  else if (G == 16) K3C_FWD(16);
+  else K3C_FWD(32);
+#undef K3C_FWD
+  return (int)cudaGetLastError();
 }
 
 // Inputs as composite_compact_launch plus ray_id (M,) int32 (to zero the
 // padding slots) and the cotangents g_ws, g_depth, g_z2 (N,), g_image (N, 3)
-// f32 -> dsigma (M,), drgb (M, 3) f32.
+// f32 -> dsigma (M,), drgb (M, 3) f32. One launch: a lane group per ray
+// (two forward walks) and blocks that zero the padding slots.
 extern "C" int composite_compact_backward_launch(
     const float* sigma, const float* rgb, const float* dts, const float* ts, const int* ray_id,
     const int* offsets, const int* counts, const float* g_ws, const float* g_depth,
     const float* g_image, const float* g_z2, int N, int M, float t_thresh, float* dsigma,
     float* drgb, cudaStream_t stream) {
-  const int work = N > M ? N : M;
-  if (work == 0) return 0;
-  const int threads = 128;
-  composite_compact_backward_kernel<<<(work + threads - 1) / threads, threads, 0, stream>>>(
-      sigma, rgb, dts, ts, ray_id, offsets, counts, g_ws, g_depth, g_image, g_z2, N, M, t_thresh,
-      dsigma, drgb);
+  if (N == 0 && M == 0) return 0;
+  const int G = k3c::group_for(M, N), rays = k3c::kThreads / G;
+  const int ray_blocks = (N + rays - 1) / rays;
+  const long long pad_work = ((long long)M + k3c::kThreads - 1) / k3c::kThreads;
+  const int pad_blocks = (int)(pad_work < k3c::kPadBlocks ? (pad_work > 0 ? pad_work : 1)
+                                                          : k3c::kPadBlocks);
+  const unsigned int blocks = (unsigned int)(ray_blocks + pad_blocks);
+#define K3C_BWD(LANES)                                                                        \
+  k3c::backward_kernel<LANES><<<blocks, k3c::kThreads, 0, stream>>>(                        \
+      sigma, rgb, dts, ts, ray_id, offsets, counts, g_ws, g_depth, g_image, g_z2, N, M,     \
+      t_thresh, ray_blocks, dsigma, drgb)
+  if (G == 8) K3C_BWD(8);
+  else if (G == 16) K3C_BWD(16);
+  else K3C_BWD(32);
+#undef K3C_BWD
   return (int)cudaGetLastError();
 }

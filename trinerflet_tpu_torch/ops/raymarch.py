@@ -795,21 +795,8 @@ def compact_samples(rays_o, rays_d, march: MarchResults, *, m_budget: int,
 
 _K5_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_longlong] * 5
             + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
-# (device, stream) -> K5's int64 scratch (tile counter, tile status words).
-# A call needs it zero and leaves it zero, so it is kept between calls (a
-# fresh zeroed buffer would cost another launch); calls on one stream run in
-# order, so each stream keeps its own.
+# (device, stream) -> K5's int64 scratch (tile counter, tile status words)
 _k5_scratch: dict = {}
-
-
-def _compact_scratch(dev, words: int):
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _k5_scratch.get(key)
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros((max(words, 2 * (0 if buf is None else buf.numel())),), device=dev,
-                          dtype=torch.int64)
-        _k5_scratch[key] = buf
-    return key, buf
 
 
 def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
@@ -841,7 +828,7 @@ def _compact_cuda(rays_o, rays_d, t, dt, mask, t0, m_budget, bound):
     words = _build.function("compact", "compact_scratch_words", sizes, restype=ctypes.c_longlong)
     chunk_words = _build.function("compact", "compact_chunk_words", sizes,
                                   restype=ctypes.c_longlong)
-    key, scratch = _compact_scratch(dev, int(words(N, B)))
+    key, scratch = _build.stream_scratch(_k5_scratch, dev, int(words(N, B)), torch.int64)
     # each mask chunk's bits and the valid candidates before it in its row
     chunks = torch.empty((2 * int(chunk_words(N, B)),), **i32)
     fn = _build.function("compact", "compact_launch", _K5_ARGS)
@@ -965,7 +952,7 @@ def composite_compact(sigmas, rgbs, samples: CompactSamples, num_rays: int,
     return ws, depth, image, z_var
 
 
-_K3C_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_void_p] * 5
+_K3C_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 5
 _K3C_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_float]
                  + [ctypes.c_void_p] * 3)
 
@@ -994,8 +981,8 @@ def _composite_compact_cuda(sigmas, rgbs, dts, ts, ray_id, offsets, counts, num_
     if N == 0:
         return tuple(outs)
     fn = _build.function("compact", "composite_compact_launch", _K3C_ARGS)
-    code = fn(*[_build.ptr(x) for x in (sig, rgb, dts, ts, offs, cnts)], N, float(t_thresh),
-              *[_build.ptr(x) for x in outs], _build.stream(dev))
+    code = fn(*[_build.ptr(x) for x in (sig, rgb, dts, ts, offs, cnts)], N, sig.shape[0],
+              float(t_thresh), *[_build.ptr(x) for x in outs], _build.stream(dev))
     _build.check(code, "composite_compact")
     kernels.launches["composite_compact"] += 1
     return tuple(outs)

@@ -315,17 +315,13 @@ def occupancy_upkeep(density_grid: torch.Tensor, tmp: torch.Tensor, offset: int,
     return occupancy_upkeep_plain(density_grid, tmp, offset, cfg, decay)
 
 
-_K6_ARGS = {
-    "occ_merge_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_longlong] * 3
-    + [ctypes.c_float] + [ctypes.c_void_p] * 3,
-    "occ_finalize_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-                            ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3,
-    "occ_threshold_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
-    "occ_dilate_launch": [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    + [ctypes.c_float] + [ctypes.c_void_p] * 3,
-}
-_K6_THREADS = 256
+_K6_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+            + [ctypes.c_float] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 8)
 _K6_MAX_CAS = 8
+# (device, stream) -> K6's int32 scratch (the two launches' tickets, the
+# per-cascade min / max indices)
+_k6_scratch: dict = {}
 
 
 def _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay):
@@ -342,33 +338,28 @@ def _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay):
     old = density_grid.contiguous()
     tmp = tmp.float().contiguous()
     new_grid = torch.empty_like(old)
-    n_blocks = -(-C * n // _K6_THREADS)
-    partial = torch.empty((n_blocks,), device=dev, dtype=torch.float32)
+    partial_words = _build.function("occupancy", "occ_partial_words",
+                                    [ctypes.c_int, ctypes.c_longlong], restype=ctypes.c_longlong)
+    partial = torch.empty((int(partial_words(C, n)),), device=dev, dtype=torch.float32)
     stats = torch.empty((2,), device=dev, dtype=torch.float32)
-    minmax = torch.empty((C, 3, 2), device=dev, dtype=torch.int32)
     occ = torch.empty((C, H, H, H), device=dev, dtype=torch.bool)
     occ_coarse = torch.empty_like(occ)
     bbox = torch.empty((6,), device=dev, dtype=torch.float32)
     bounds = [min(2**c, cfg.bound) for c in range(C)]
     c_bounds = (ctypes.c_float * C)(*bounds)
     c_cells = (ctypes.c_float * C)(*[2.0 * b / H for b in bounds])
-    s = _build.stream(dev)
-    fn = lambda sym: _build.function("occupancy", sym, _K6_ARGS[sym])  # noqa: E731
+    words = _build.function("occupancy", "occ_scratch_words", [])
+    key, scratch = _build.stream_scratch(_k6_scratch, dev, int(words()), torch.int32)
     P = _build.ptr
-    _build.check(fn("occ_merge_launch")(P(old), P(tmp), C, n, S, offset, float(decay),
-                                        P(new_grid), P(partial), s), "occupancy merge")
-    kernels.launches["occupancy"] += 1
-    _build.check(fn("occ_finalize_launch")(P(partial), n_blocks, C * n, float(cfg.density_thresh),
-                                           float(cfg.occ_thresh_scale), C, H, P(stats),
-                                           P(minmax), s), "occupancy finalize")
-    kernels.launches["occupancy"] += 1
-    _build.check(fn("occ_threshold_launch")(P(new_grid), P(stats), C, H, P(occ), P(minmax), s),
-                 "occupancy threshold")
-    kernels.launches["occupancy"] += 1
-    _build.check(fn("occ_dilate_launch")(P(occ), C, H, cfg.coarse_dilation_radius, P(minmax),
-                                         c_bounds, c_cells, float(cfg.bound), P(occ_coarse),
-                                         P(bbox), s), "occupancy dilate")
-    kernels.launches["occupancy"] += 1
+    fn = _build.function("occupancy", "occ_upkeep_launch", _K6_ARGS)
+    code = fn(P(old), P(tmp), C, H, S, offset, float(decay), float(cfg.density_thresh),
+              float(cfg.occ_thresh_scale), cfg.coarse_dilation_radius, c_bounds, c_cells,
+              float(cfg.bound), P(new_grid), P(occ), P(occ_coarse), P(stats), P(bbox),
+              P(partial), P(scratch), _build.stream(dev))
+    if code != 0:  # a launch that failed may leave the scratch dirty
+        _k6_scratch.pop(key, None)
+    _build.check(code, "occupancy_upkeep")
+    kernels.launches["occupancy"] += 2  # merge and mean; threshold, dilation and bbox
     return new_grid, occ, occ_coarse, stats[0], bbox
 
 
