@@ -67,7 +67,8 @@ Phases (any failure exits non-zero; nothing is caught):
     it: K7 forward and backward, K2, K3 and K4 must have launched and K1,
     K5 and K6 not; the loss and the interlevel loss must fall; one step
     under the profiler; evaluate on the 8 views and one 800^2 view; one
-    captured step holds K7 forward (N x 64 points, 5 levels) and backward,
+    captured step holds K7 forward (N x 64 points, 5 levels; bit for bit,
+    a second call the same bits) and backward,
     K2, K3 (both calls) and the K4 adjoint to their plain versions; the
     4,096-ray step check on the initial parameters (the trained field sits
     on the reference's black plateau, where the check is ill-conditioned);
@@ -1449,14 +1450,17 @@ def _grid_encode_rows(trainer, calls):
 def _grid_encode_fwd_rows(calls):
     """K7 forward: every captured forward call (the field's or the proposal
     density's, a refresh's sweep, an analytic normal's) held to the plain
-    version; the first timed."""
+    version bit for bit, and a second call to the first; the first timed."""
     rows = []
     err = 0.0
     for (fargs, _) in calls["_grid_encode_cuda"]:
         got, ref = GE._grid_encode_cuda(*fargs), GE.grid_encode_plain(*fargs)
         err = max(err, (got - ref).abs().max().item())
-    if err > 1e-6:
-        raise RuntimeError(f"K7 max|err| {err} > 1e-6")
+        if err > 1e-6:
+            raise RuntimeError(f"K7 max|err| {err} > 1e-6")
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"K7 forward off its plain version's bits (max|err| {err})")
+        _same_bits("K7 forward", [got], [GE._grid_encode_cuda(*fargs)])
     (fargs, _) = calls["_grid_encode_cuda"][0]
     tables, x, cfg, bound = fargs
     N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
@@ -1465,13 +1469,16 @@ def _grid_encode_fwd_rows(calls):
     b, by = bound_ms(nbytes(x) + 4 * N * L * C + 4 * C * touched, _k7_flops(N, cfg))
     rows.append(dict(name="K7 grid_encode", key="grid_encode", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
-                     replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err, tol=1e-6,
+                     replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err, tol=0.0,
                      ms=time_ms(lambda: GE._grid_encode_cuda(*fargs)),
                      plain_ms=time_ms(lambda: GE.grid_encode_plain(*fargs), iters=5),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"N={N} points x {L} levels of C={C}; {touched} of {total} table rows "
                           f"touched; {len(calls['_grid_encode_cuda'])} captured forward call(s) "
-                          f"held to the plain version; no single library call computes it"))
+                          f"held to the plain version bit for bit, a second call the same bits; "
+                          f"a warp on 32 consecutive points at one level, a block all levels of "
+                          f"its 32 points, outputs staged in shared memory and written as one "
+                          f"slab; no single library call computes it"))
     return rows
 
 
@@ -1514,8 +1521,10 @@ def _grid_encode_bwd_rows(calls):
                      bound_ms=b, bound_by=by,
                      library_ms=time_ms(lambda: buf.index_add_(0, idx, vals)),
                      note=f"{live} of {N * L} (point, level) rows carry a cotangent; kernel "
-                          f"{frac_k:.4f}, plain {frac_p:.4f} of the float64 bound; float32 atomics "
-                          f"into {total} zeroed rows; library is Tensor.index_add_ of the "
+                          f"{frac_k:.4f}, plain {frac_p:.4f} of the float64 bound; a warp on 32 "
+                          f"consecutive points at one level, its runs of lanes on one row pair "
+                          f"merged, vector float32 atomics into {total} zeroed rows; library is "
+                          f"Tensor.index_add_ of the "
                           f"precomputed (row, w g) pairs, which computes less (rel diff "
                           f"{lib_err:.2e}); replaces the sort + one-hot scatter"))
     del idx, vals, buf

@@ -165,6 +165,27 @@ def test_backward_plain_is_the_gather_adjoint():
     assert abs(lhs.item() - rhs.item()) <= 1e-5 * abs(lhs.item())
 
 
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_k7_gradient_tables_are_zeroed_views_aligned_to_row_pairs(C):
+    """The tables the K7 backward adds into (host-side layout, the same on
+    every device): zeroed (size_l, C) f32 views of one buffer, each level
+    padded to an even number of rows, so each starts on a row pair and a
+    pair's second row exists (the proposal grid's level 0 has 17^3 rows)."""
+    cfg = PG.GridEncoderConfig(num_levels=5, level_dim=C, base_resolution=16, desired_resolution=128,
+                               log2_hashmap_size=17)
+    grads = PG._k7_grad_tables(cfg, "cpu")
+    sizes = [cfg.level_size(l) for l in range(cfg.num_levels)]
+    assert sizes[0] % 2 == 1
+    rows = np.cumsum([0] + [s + s % 2 for s in sizes])
+    base = grads[0].data_ptr()
+    for l, gr in enumerate(grads):
+        assert gr.shape == (sizes[l], C) and gr.dtype == torch.float32 and gr.is_contiguous()
+        assert bool((gr == 0).all())
+        assert gr.data_ptr() - base == 4 * C * rows[l]
+        assert gr.untyped_storage().data_ptr() == base
+    assert grads[0].untyped_storage().nbytes() == 4 * C * rows[-1]
+
+
 def test_coordinate_gradient_is_not_ported():
     """The coordinate gradient is ported now (K7x's plain version on the
     CPU): ``grid_encode`` of points that require a gradient gives dL/dx

@@ -29,8 +29,9 @@ t_thresh cut; its sums run in float64 in another order than the plain
 version's (forward atol 1e-5, backward 1e-5 relative to the largest
 gradient), the same bits on every call. K7 rounds where its plain version rounds
 (the cell coordinate's fused multiply-add, then each operation alone, the
-corners summed in order): features within 1e-6 (expected equal), corner
-rows equal. Its backward's float atomics add in an unspecified order, and
+corners summed in order): features within 1e-6 on random points, and on
+ray-ordered points (a renderer's layout) equal bit for bit, a second call
+the same bits. Its backward's float atomics add in an unspecified order, and
 so does the plain version's ``index_add_`` on the card, with up to 3,000
 points on one cell: each is held to a float64 sum of the same float32 terms
 within the float-summation bound n (eps sum|term| + tiny) of every entry
@@ -877,6 +878,77 @@ def test_grid_encode_backward_kernel_matches_plain(dev, case):
     err_k = GE.grid_encode_backward_error(got, ct, x, cfg, 1.5)
     err_p = GE.grid_encode_backward_error(ref, ct, x, cfg, 1.5)
     assert max(err_k) <= 1.0 and max(err_p) <= 1.0, (err_k, err_p)
+
+
+# ray-ordered cases: K7_CASES plus 32 levels (two groups of 16 staged
+# levels) and C = 8 over two groups of 4
+K7_RAY_CASES = dict(K7_CASES,
+                    levels32=dict(num_levels=32, level_dim=2, base_resolution=4, desired_resolution=300,
+                                  log2_hashmap_size=13),
+                    c8_groups=dict(num_levels=6, level_dim=8, base_resolution=4, desired_resolution=96,
+                                   log2_hashmap_size=12))
+
+
+def _k7_ray_inputs(dev, cfg, bound, n, seed):
+    """n points as a renderer lays them out: 64 consecutive samples along each
+    ray through the box, clipped to it (so runs of samples share a cell, and
+    some sit on the box's faces), then the tables."""
+    g = torch.Generator().manual_seed(seed)
+    rays = -(-n // 64)
+    o = (2 * torch.rand((rays, 3), generator=g) - 1) * 0.5 * bound
+    d = torch.randn((rays, 3), generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(-2.0 * bound, 2.0 * bound, 64)
+    x = (o[:, None] + d[:, None] * t[None, :, None]).clamp(-bound, bound).reshape(-1, 3)[:n]
+    tables = [torch.rand((cfg.level_size(l), cfg.level_dim), generator=g) * 2 - 1
+              for l in range(cfg.num_levels)]
+    return x.contiguous().to(dev), [t_.to(dev) for t_ in tables]
+
+
+@pytest.mark.parametrize("n", [1, 257, 20000])
+@pytest.mark.parametrize("case", sorted(K7_RAY_CASES))
+def test_grid_encode_kernel_on_ray_ordered_points_gives_the_plain_versions_bits(dev, case, n):
+    cfg = GE.GridEncoderConfig(**K7_RAY_CASES[case])
+    x, tables = _k7_ray_inputs(dev, cfg, 1.5, n, 20)
+    got = GE._grid_encode_cuda(tables, x, cfg, 1.5)
+    again = GE._grid_encode_cuda(tables, x, cfg, 1.5)
+    ref = GE.grid_encode_plain(tables, x, cfg, 1.5)
+    torch.cuda.synchronize()
+    assert got.shape == (n, cfg.output_dim)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n", [1, 257, 20000])
+@pytest.mark.parametrize("case", sorted(K7_RAY_CASES))
+def test_grid_encode_backward_kernel_on_ray_ordered_points(dev, case, n):
+    cfg = GE.GridEncoderConfig(**K7_RAY_CASES[case])
+    x, _ = _k7_ray_inputs(dev, cfg, 1.5, n, 21)
+    ct = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(22)).to(dev)
+    ct[64:128] = 0.0  # one ray with no cotangent
+    ct[::3, : cfg.level_dim] = 0.0  # every third point none at level 0
+    n0 = kernels.launches["grid_encode_bwd"]
+    got = GE._grid_encode_backward_cuda(ct, x, cfg, 1.5)
+    assert kernels.launches["grid_encode_bwd"] == n0 + 1
+    torch.cuda.synchronize()
+    for l, a in enumerate(got):
+        assert a.shape == (cfg.level_size(l), cfg.level_dim) and a.is_contiguous()
+    err = GE.grid_encode_backward_error(got, ct, x, cfg, 1.5)
+    assert max(err) <= 1.0, err
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_grid_encode_backward_kernel_with_zero_cotangent_rows(dev, C):
+    cfg = GE.GridEncoderConfig(num_levels=5, level_dim=C, base_resolution=8, desired_resolution=128,
+                               log2_hashmap_size=12)
+    x, _ = _k7_ray_inputs(dev, cfg, 1.5, 5000, 23)
+    ct = torch.zeros((5000, cfg.output_dim), device=dev)
+    assert all(bool((a == 0).all()) for a in GE._grid_encode_backward_cuda(ct, x, cfg, 1.5))
+    ct[::7] = torch.randn((len(range(0, 5000, 7)), cfg.output_dim),
+                          generator=torch.Generator().manual_seed(24)).to(dev)
+    got = GE._grid_encode_backward_cuda(ct, x, cfg, 1.5)
+    torch.cuda.synchronize()
+    err = GE.grid_encode_backward_error(got, ct, x, cfg, 1.5)  # untouched rows exactly 0
+    assert max(err) <= 1.0, err
 
 
 def test_grid_encode_autograd_launches_and_refuses(dev):

@@ -1,5 +1,5 @@
 // K7: multiresolution hash / tiled grid encoder, forward and table-gradient
-// backward, one thread per (point, level), all levels in one launch.
+// backward, all levels in one launch each.
 //
 // Replaces trinerflet_tpu/models/gridencoder.py:115 grid_encode with its row
 // gather :91 _gather_rows, and the gather's backward, the sort + one-hot
@@ -16,33 +16,59 @@
 // (pointer, resolution, wrap) entry per level by value, so nothing is
 // concatenated per call (the hash-grid field's 16 tables hold 49 MB).
 //
-// Design, forward: each thread computes JAX's function step by step for its
-// (point n, level l): u = clip((x / bound + 1) * 0.5, 0, 1), pos = u * res,
-// p0 = floor(pos), frac = pos - p0 (smoothstep: frac^2 (3 - 2 frac)); the 8
-// corners in meshgrid(..., indexing="ij") order (dimension 0 the most
-// significant bit), each weight the product over d of frac or 1 - frac taken
-// in d order, each corner coordinate clipped to [0, res]; the row index is
-// dense, sum_d c_d (res+1)^d in uint32, while the dense level fits its table
-// or the grid is tiled, else the spatial hash XOR_d c_d * prime_d (wrapping
-// uint32, primes 1, 2654435761, 805459861); then index mod size. A level's
-// size is either at least its dense count (the index is already below it)
-// or exactly 2^log2_hashmap_size, so the modulo is the identity or a mask:
-// the launcher passes wrap = size - 1 for a power-of-two size, else all
-// ones. The corner rows are summed in corner order into out[n, l*C + c]
+// The function, per (point n, level l), as JAX computes it step by step:
+// u = clip((x / bound + 1) * 0.5, 0, 1), pos = u * res, p0 = floor(pos),
+// frac = pos - p0 (smoothstep: frac^2 (3 - 2 frac)); the 8 corners in
+// meshgrid(..., indexing="ij") order (dimension 0 the most significant
+// bit), each weight the product over d of frac or 1 - frac taken in d
+// order, each corner coordinate clipped to [0, res]; the row index is dense,
+// sum_d c_d (res+1)^d in uint32, while the dense level fits its table or the
+// grid is tiled, else the spatial hash XOR_d c_d * prime_d (wrapping uint32,
+// primes 1, 2654435761, 805459861); then index mod size. A level's size is
+// either at least its dense count (the index is already below it) or
+// exactly 2^log2_hashmap_size, so the modulo is the identity or a mask: the
+// launcher passes wrap = size - 1 for a power-of-two size, else all ones.
+// The corner rows are summed in corner order into out[n, l*C + c]
 // (level-major, as jnp.concatenate(outs, -1)).
 //
 // Rounding: the JAX package runs grid_encode under jit, where XLA turns
 // x / bound into x * f32(1 / bound) and fuses the + 1 into one fused
 // multiply-add; one ulp there moves floor(pos) at a cell edge and changes
 // all 8 corners. This file is compiled with -fmad=false and uses fmaf() at
-// exactly that place, as the plain version (models/gridencoder.py) does.
+// exactly that place, as the plain version (models/gridencoder.py) does; the
+// forward gives the plain version's bits.
 //
-// Backward: the same thread recomputes its indices and weights, reads its
-// C-wide cotangent row and adds w * g into the 8 corner rows of zeroed f32
-// gradient tables with atomicAdd (one launch for all levels); rows whose
-// cotangent is all zero add nothing. Bound: bytes (cotangents and points in,
-// the touched rows read-modify-written, the gradient tables written); the
-// atomics' contention on the coarse levels' shared rows is the risk.
+// Design, forward: a block takes a tile of 32 consecutive points and all L
+// levels, one warp a level and one lane a point, so a warp holds
+// neighbouring samples of one ray (the renderers lay a ray's samples out
+// contiguously) at one level: its 32 gathers fall in one table, where
+// neighbouring samples share cells and so rows and L1 lines, and each lane
+// has exactly one (point, level), so every warp keeps its eight row loads
+// in flight at once. The tile's points are read once, coalesced, into
+// shared memory; its (32, L*C) outputs are staged in shared memory and
+// written as one coalesced slab (written straight from the lanes they
+// would be 32 rows L*C floats apart). No division per thread. Loading
+// corners j and j + 4 as one 16-byte load where their rows share an
+// aligned pair was measured and dropped: it took registers and time on
+// the proposal and hash-grid steps.
+//
+// Backward: the same blocks, each lane reading its C-wide cotangent and its
+// point straight from memory; a warp whose 32 rows carry no cotangent at
+// its level returns at once. Each corner's term w * g is combined before it
+// reaches memory: (1) at C <= 2 the terms of corners j and j + 4 go into
+// one unit, the aligned row pair, whenever both rows lie in it; (2) lanes
+// in a run of consecutive lanes that add to the same unit (a ray's samples
+// in one cell) are summed by a segmented shuffle scan (fixed order within
+// the warp) and the run's last lane adds the sum; (3) the add is one
+// vector reduction, atomicAdd on a float2 (C = 1 pairs) or float4 (C = 2
+// pairs, C = 4 rows; two for C = 8), instead of 8 C scalar float atomics a
+// (point, level). Corners are computed a pair at a time, which keeps the
+// registers down and the resident warps up. Units whose sum is zero add
+// nothing: the gradient tables are zeroed by the caller and never hold -0,
+// so adding zero changes no bit. The order of the float atomics across
+// warps is unspecified; every entry stays a float32 sum of the same terms,
+// within the float-summation bound (models/gridencoder.py
+// grid_encode_backward_error).
 //
 // K7x, the coordinate gradient (replaces JAX's autodiff of grid_encode in x,
 // trinerflet_tpu/models/gridencoder.py:115-147, which analytic normals on a
@@ -60,6 +86,7 @@
 #include <stdint.h>
 
 #define K7_MAX_LEVELS 32
+#define K7_TILE 32  // points a block, one a lane; a warp a level
 
 struct GridLevels {
   float* table[K7_MAX_LEVELS];     // (size, C) f32 rows; the gradient tables in the backward
@@ -82,58 +109,63 @@ __device__ __forceinline__ float cell(float u, float fres, uint32_t* p0) {
   return pos - f0;
 }
 
+// The table row of corner k (dimension 0 its most significant bit) of cell
+// p0 at level l.
+__device__ __forceinline__ uint32_t corner_row(const uint32_t p0[3], int k, int l, const GridLevels& lv) {
+  const uint32_t res = lv.res[l], s1 = res + 1u;
+  const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+  const uint32_t c0 = min(p0[0] + b0, res), c1 = min(p0[1] + b1, res), c2 = min(p0[2] + b2, res);
+  const uint32_t h = lv.hashed[l] ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u)) : (c0 + c1 * s1 + c2 * (s1 * s1));
+  return h & lv.wrap[l];
+}
+
 // The table rows of the 8 corners of cell p0 at level l.
 __device__ __forceinline__ void corner_rows(const uint32_t p0[3], int l, const GridLevels& lv,
                                             uint32_t idx[8]) {
-  const uint32_t res = lv.res[l];
-  const bool hashed = lv.hashed[l] != 0;
-  const uint32_t s1 = res + 1u, s2 = s1 * s1, wrap = lv.wrap[l];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
-    const uint32_t c0 = min(p0[0] + b0, res), c1 = min(p0[1] + b1, res), c2 = min(p0[2] + b2, res);
-    const uint32_t h = hashed ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u)) : (c0 + c1 * s1 + c2 * s2);
-    idx[k] = h & wrap;
-  }
+  for (int k = 0; k < 8; ++k) idx[k] = corner_row(p0, k, l, lv);
 }
 
-// Corner weights and table rows of point n at level l.
-__device__ __forceinline__ void corners(const float* __restrict__ x, long long n, int l,
-                                        const GridLevels& lv, float inv_bound, int smooth,
-                                        float w[8], uint32_t idx[8]) {
+// The weight of corner k: the product over d of frac or 1 - frac, in d order.
+__device__ __forceinline__ float corner_weight(const float frac[3], int k) {
+  const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+  float wk = b0 ? frac[0] : 1.0f - frac[0];
+  wk = wk * (b1 ? frac[1] : 1.0f - frac[1]);
+  return wk * (b2 ? frac[2] : 1.0f - frac[2]);
+}
+
+// The clipped unit coordinates of one point.
+__device__ __forceinline__ void unit_point(const float* xp, float inv_bound, float u[3]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) u[d] = fminf(fmaxf(unit_coord(xp[d], inv_bound), 0.0f), 1.0f);
+}
+
+// The cell corner p0 and the interpolation fractions (smoothstep applied)
+// at level l of a point with clipped unit coordinates u.
+__device__ __forceinline__ void level_cell(const float u[3], int l, const GridLevels& lv, int smooth,
+                                           float frac[3], uint32_t p0[3]) {
   const float fres = (float)lv.res[l];
-  float frac[3];
-  uint32_t p0[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    float u = fminf(fmaxf(unit_coord(x[3 * n + d], inv_bound), 0.0f), 1.0f);
-    float fr = cell(u, fres, &p0[d]);
+    float fr = cell(u[d], fres, &p0[d]);
     if (smooth) fr = fr * fr * (3.0f - 2.0f * fr);
     frac[d] = fr;
   }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
-    float wk = b0 ? frac[0] : 1.0f - frac[0];
-    wk = wk * (b1 ? frac[1] : 1.0f - frac[1]);
-    wk = wk * (b2 ? frac[2] : 1.0f - frac[2]);
-    w[k] = wk;
-  }
-  corner_rows(p0, l, lv, idx);
 }
 
+// One table row of C floats, through the read-only data path.
 template <int C>
-__device__ __forceinline__ void load_row(const float* __restrict__ r, float* v) {
+__device__ __forceinline__ void ldg_row(const float* __restrict__ r, float* v) {
   if constexpr (C == 1) {
-    v[0] = r[0];
+    v[0] = __ldg(r);
   } else if constexpr (C == 2) {
-    float2 q = *reinterpret_cast<const float2*>(r);
+    const float2 q = __ldg(reinterpret_cast<const float2*>(r));
     v[0] = q.x;
     v[1] = q.y;
   } else {
 #pragma unroll
     for (int k = 0; k < C / 4; ++k) {
-      float4 q = reinterpret_cast<const float4*>(r)[k];
+      const float4 q = __ldg(reinterpret_cast<const float4*>(r) + k);
       v[4 * k] = q.x;
       v[4 * k + 1] = q.y;
       v[4 * k + 2] = q.z;
@@ -142,57 +174,191 @@ __device__ __forceinline__ void load_row(const float* __restrict__ r, float* v) 
   }
 }
 
+// The 8 corner rows of one level into v[k * C + c].
 template <int C>
-__global__ void grid_encode_kernel(const float* __restrict__ x, long long N, int L, GridLevels lv,
-                                   float inv_bound, int smooth, float* __restrict__ out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * L) return;
-  long long n = i / L;
-  int l = (int)(i - n * L);
-  float w[8];
-  uint32_t idx[8];
-  corners(x, n, l, lv, inv_bound, smooth, w, idx);
-  const float* __restrict__ table = lv.table[l];
-  float acc[C], v[C];
+__device__ __forceinline__ void gather_corners(const float* __restrict__ table, const uint32_t idx[8],
+                                               float* v) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    load_row<C>(table + (size_t)idx[k] * C, v);
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = acc[c] + w[k] * v[c];
-  }
-  float* o = out + i * C;  // = n * L * C + l * C
-#pragma unroll
-  for (int c = 0; c < C; ++c) o[c] = acc[c];
+  for (int k = 0; k < 8; ++k) ldg_row<C>(table + (size_t)idx[k] * C, v + k * C);
 }
 
+// np rows of W floats from shared rows of stride S to consecutive global
+// floats, the block's threads on consecutive floats.
+__device__ __forceinline__ void write_slab(const float* sh, float* gl, int np, int W, int S) {
+  int p = threadIdx.x / W, c = threadIdx.x - p * W;
+  const int dp = blockDim.x / W, dc = blockDim.x - dp * W;
+  for (int j = threadIdx.x; j < np * W; j += blockDim.x) {
+    gl[j] = sh[p * S + c];
+    c += dc;
+    p += dp;
+    if (c >= W) {
+      c -= W;
+      ++p;
+    }
+  }
+}
+
+// The tile's points into shared memory (coalesced).
+__device__ __forceinline__ void tile_points(const float* __restrict__ x, long long n0, int np, float* xs) {
+  for (int j = threadIdx.x; j < 3 * np; j += blockDim.x) xs[j] = x[3 * n0 + j];
+}
+
+// A block: K7_TILE consecutive points (one a lane) x L levels (one a warp).
+// The bounds' minimum of one block an SM is there by measurement: with it
+// ptxas gives the C = 2 kernel 39 registers instead of 32, and the build
+// with 32 was slower than the one-thread-per-(point, level) design on the
+// proposal step (why is not visible without a per-instruction profile;
+// scripts/torch_k7_timing.py --sass prints the count).
 template <int C>
-__global__ void grid_encode_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                            long long N, int L, GridLevels lv, float inv_bound,
-                                            int smooth) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * L) return;
+__global__ void __launch_bounds__(K7_TILE * K7_MAX_LEVELS, 1) grid_encode_kernel(
+    const float* __restrict__ x, long long N, int L, GridLevels lv, float inv_bound, int smooth,
+    float* __restrict__ out) {
+  extern __shared__ float sm[];
+  const int LC = L * C, S = LC | 1;  // odd stride: a warp's rows in distinct banks
+  float* xs = sm;                    // (K7_TILE, 3) the tile's points
+  float* os = sm + 3 * K7_TILE;      // (K7_TILE, S) their features
+  const long long n0 = (long long)blockIdx.x * K7_TILE;
+  const int np = (int)min((long long)K7_TILE, N - n0);
+  const int l = threadIdx.x >> 5, p = threadIdx.x & 31;
+  tile_points(x, n0, np, xs);
+  __syncthreads();
+  if (p < np) {
+    float u[3], frac[3], w[8], v[8 * C];
+    uint32_t p0[3], idx[8];
+    unit_point(xs + 3 * p, inv_bound, u);
+    level_cell(u, l, lv, smooth, frac, p0);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = corner_weight(frac, k);
+    corner_rows(p0, l, lv, idx);
+    gather_corners<C>(lv.table[l], idx, v);
+    float* o = os + p * S + l * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc = acc + w[k] * v[k * C + c];
+      o[c] = acc;
+    }
+  }
+  __syncthreads();
+  write_slab(os, out + n0 * LC, np, LC, S);
+}
+
+// v[0..U) += into the unit at p: one vector reduction (two for U = 8).
+template <int U>
+__device__ __forceinline__ void add_unit(float* p, const float* v) {
+  if constexpr (U == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < U / 4; ++k)
+      atomicAdd(reinterpret_cast<float4*>(p) + k, make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]));
+  }
+}
+
+// One unit a lane (key: its first row): lanes whose unit sum is zero add
+// nothing; runs of consecutive adding lanes with the same key are summed by
+// a segmented inclusive shuffle scan, and each run's last lane adds the sum.
+template <int C, int U>
+__device__ __forceinline__ void merge_and_add(float* table, uint32_t key, float* v, int lane) {
+  const unsigned FULL = 0xffffffffu;
+  bool adds = false;
+#pragma unroll
+  for (int e = 0; e < U; ++e) adds |= v[e] != 0.0f;
+  const unsigned adders = __ballot_sync(FULL, adds);
+  if (adders == 0) return;
+  const uint32_t left = __shfl_up_sync(FULL, key, 1);
+  const unsigned conts = __ballot_sync(FULL, lane > 0 && adds && ((adders >> (lane - 1)) & 1u) && left == key);
+  bool last = adds;
+  if (conts) {  // some lane continues its left neighbour's run
+    const unsigned heads = ~conts, upto = FULL >> (31 - lane);  // lanes 0..lane
+    const int start = 31 - __clz(heads & upto);
+    const unsigned after = heads & ~upto;
+    const int end = after ? __ffs(after) - 1 : 32;
+    const unsigned span = __reduce_max_sync(FULL, (unsigned)(end - start));
+    for (int o = 1; o < (int)span; o <<= 1) {
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        const float y = __shfl_up_sync(FULL, v[e], o);
+        if (lane - o >= start) v[e] = y + v[e];
+      }
+    }
+    last = adds && end - 1 == lane;
+  }
+  if (last) add_unit<U>(table + (size_t)key * C, v);
+}
+
+// A term a (C floats) of row i into its unit: at C <= 2 the aligned row
+// pair (the other row's half zero), else the row.
+template <int C, int U>
+__device__ __forceinline__ void place(const float* a, uint32_t i, float* v) {
+  if constexpr (U == 2 * C) {
+    const bool odd = (i & 1u) != 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      v[c] = odd ? 0.0f : a[c];
+      v[C + c] = odd ? a[c] : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = a[c];
+  }
+}
+
+// The 8 corner terms w_k g of one (point, level) into the gradient table:
+// corners j and j + 4 share a unit where they can, then each unit is
+// merged across the warp and added.
+template <int C>
+__device__ __forceinline__ void scatter_corners(float* table, const uint32_t p0[3], const float frac[3],
+                                                int l, const GridLevels& lv, const float* gv, int lane) {
+  constexpr int U = C <= 2 ? 2 * C : C;
+  constexpr uint32_t KEY = U == 2 * C ? ~1u : ~0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t i0 = corner_row(p0, j, l, lv), i1 = corner_row(p0, j + 4, l, lv);
+    const float w0 = corner_weight(frac, j), w1 = corner_weight(frac, j + 4);
+    float a0[C], a1[C], va[U], vb[U];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      a0[c] = w0 * gv[c];
+      a1[c] = w1 * gv[c];
+    }
+    const uint32_t k0 = i0 & KEY, k1 = i1 & KEY;
+    place<C, U>(a0, i0, va);
+    place<C, U>(a1, i1, vb);
+    const bool one = k0 == k1;
+    if (one) {
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        va[e] = va[e] + vb[e];
+        vb[e] = 0.0f;
+      }
+    }
+    merge_and_add<C, U>(table, k0, va, lane);
+    merge_and_add<C, U>(table, k1, vb, lane);
+  }
+}
+
+// A block: K7_TILE consecutive points (one a lane) x L levels (one a warp).
+template <int C>
+__global__ void __launch_bounds__(K7_TILE * K7_MAX_LEVELS) grid_encode_backward_kernel(
+    const float* __restrict__ x, const float* __restrict__ g, long long N, int L, GridLevels lv,
+    float inv_bound, int smooth) {
+  const long long n = (long long)blockIdx.x * K7_TILE + (threadIdx.x & 31);
+  const int l = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float gv[C];
-  bool any = false;
+  bool live = false;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    gv[c] = g[i * C + c];
-    any |= gv[c] != 0.0f;
-  }
-  if (!any) return;
-  long long n = i / L;
-  int l = (int)(i - n * L);
-  float w[8];
-  uint32_t idx[8];
-  corners(x, n, l, lv, inv_bound, smooth, w, idx);
-  float* __restrict__ table = lv.table[l];
+  for (int c = 0; c < C; ++c) gv[c] = 0.0f;
+  if (n < N) ldg_row<C>(g + (n * L + l) * C, gv);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float* dst = table + (size_t)idx[k] * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) atomicAdd(dst + c, w[k] * gv[c]);
-  }
+  for (int c = 0; c < C; ++c) live |= gv[c] != 0.0f;
+  if (!__any_sync(0xffffffffu, live)) return;  // no cotangent in this warp's rows
+  float u[3] = {0.0f, 0.0f, 0.0f}, frac[3];
+  uint32_t p0[3];
+  if (n < N) unit_point(x + 3 * n, inv_bound, u);
+  level_cell(u, l, lv, smooth, frac, p0);
+  scatter_corners<C>(lv.table[l], p0, frac, l, lv, gv, lane);
 }
 
 // K7x: one thread per point, the levels in a loop.
@@ -238,7 +404,7 @@ __global__ void grid_encode_backward_x_kernel(const float* __restrict__ x, const
     for (int k = 0; k < 8; ++k) {
       const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
       float v[C];
-      load_row<C>(table + (size_t)idx[k] * C, v);
+      ldg_row<C>(table + (size_t)idx[k] * C, v);
       float s = 0.0f;
 #pragma unroll
       for (int c = 0; c < C; ++c) s = s + gv[c] * v[c];
@@ -268,6 +434,11 @@ static int fill_levels(GridLevels* lv, int L, void* const* tables, const uint32_
   return 0;
 }
 
+// Shared memory of a K7 block: its points and their L * C floats.
+static size_t tile_bytes(int L, int C) {
+  return (size_t)(3 + ((L * C) | 1)) * K7_TILE * sizeof(float);
+}
+
 // x (N, 3) f32 in world units; L level tables (size_l, C) f32 given by host
 // arrays of device pointers, resolutions, wraps and hash flags -> out
 // (N, L*C) f32. C must be 1, 2, 4 or 8 and 1 <= L <= 32.
@@ -278,21 +449,23 @@ extern "C" int grid_encode_launch(const float* x, long long N, int L, int C, voi
   int err = fill_levels(&lv, L, tables, res, wrap, hashed);
   if (err) return err;
   if (N == 0) return 0;
-  const int threads = 256;
-  unsigned int blocks = (unsigned int)((N * L + threads - 1) / threads);
+  const unsigned int blocks = (unsigned int)((N + K7_TILE - 1) / K7_TILE), threads = K7_TILE * L;
+  const size_t sh = tile_bytes(L, C);
   switch (C) {
-    case 1: grid_encode_kernel<1><<<blocks, threads, 0, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
-    case 2: grid_encode_kernel<2><<<blocks, threads, 0, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
-    case 4: grid_encode_kernel<4><<<blocks, threads, 0, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
-    case 8: grid_encode_kernel<8><<<blocks, threads, 0, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
+    case 1: grid_encode_kernel<1><<<blocks, threads, sh, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
+    case 2: grid_encode_kernel<2><<<blocks, threads, sh, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
+    case 4: grid_encode_kernel<4><<<blocks, threads, sh, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
+    case 8: grid_encode_kernel<8><<<blocks, threads, sh, stream>>>(x, N, L, lv, inv_bound, smooth, out); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
 // x (N, 3) f32, g (N, L*C) f32 -> adds w * g into the L gradient tables
-// (size_l, C) f32, which the caller zeroes (order of the float atomics
-// unspecified).
+// (size_l, C) f32, which the caller zeroes. Each table must be aligned to
+// its units (8 bytes at C = 1, else 16) and, at C <= 2, hold an even
+// number of rows (a pair's second row may be a padding row, which receives
+// zeros only). The order of the float atomics is unspecified.
 extern "C" int grid_encode_backward_launch(const float* x, const float* g, long long N, int L, int C,
                                            void* const* grads, const uint32_t* res,
                                            const uint32_t* wrap, const int* hashed,
@@ -300,9 +473,10 @@ extern "C" int grid_encode_backward_launch(const float* x, const float* g, long 
   GridLevels lv;
   int err = fill_levels(&lv, L, grads, res, wrap, hashed);
   if (err) return err;
+  for (int l = 0; l < L; ++l)
+    if ((uintptr_t)grads[l] % (C == 1 ? 8 : 16)) return (int)cudaErrorMisalignedAddress;
   if (N == 0) return 0;
-  const int threads = 256;
-  unsigned int blocks = (unsigned int)((N * L + threads - 1) / threads);
+  const unsigned int blocks = (unsigned int)((N + K7_TILE - 1) / K7_TILE), threads = K7_TILE * L;
   switch (C) {
     case 1: grid_encode_backward_kernel<1><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth); break;
     case 2: grid_encode_backward_kernel<2><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth); break;

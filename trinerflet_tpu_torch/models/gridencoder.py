@@ -9,13 +9,15 @@ package's dict of per-level f32 tables ``level_{l}`` of shape
 
 ``grid_encode`` is an autograd function differentiable in the tables and,
 when the points require it, in the points: on CUDA tensors it launches
-kernel K7 forward and backward (``kernels/csrc/gridencoder.cu``; the
-backward accumulates with float32 atomics and replaces the JAX package's
-sort + one-hot scatter) and K7x for the coordinate gradient (JAX's autodiff
-through the corner weights, which analytic normals on a hash-grid field
-take); on CPU tensors it runs the plain versions below (the backward an
-``index_add_``). It is differentiable once: a second derivative raises on
-both devices (``kernels.first_order``).
+kernel K7 forward and backward (``kernels/csrc/gridencoder.cu``: a warp
+on 32 consecutive points at one level; the backward merges a warp's
+updates of one row pair and adds them with vector float32 atomics, and
+replaces the JAX package's sort + one-hot scatter) and K7x for the
+coordinate gradient (JAX's autodiff through the corner weights, which
+analytic normals on a hash-grid field take); on CPU tensors it runs the
+plain versions below (the backward an ``index_add_``). It is
+differentiable once: a second derivative raises on both devices
+(``kernels.first_order``).
 
 Rounding: the JAX package runs under jit, where XLA turns ``x / bound`` into
 ``x * f32(1 / bound)`` and fuses the ``+ 1`` into one fused multiply-add.
@@ -356,6 +358,19 @@ def _grid_encode_cuda(tables: List[torch.Tensor], x: torch.Tensor, cfg: GridEnco
     return out
 
 
+def _k7_grad_tables(cfg: GridEncoderConfig, device) -> List[torch.Tensor]:
+    """The zeroed (size_l, C) f32 gradient tables the K7 backward adds into:
+    views of one buffer (one memset), each level padded to an even number
+    of rows, so every table starts aligned to a row pair (8 C bytes) and a
+    pair's second row exists (K7 adds a row pair as one vector atomic at
+    C <= 2; the padding row receives zeros only)."""
+    C = cfg.level_dim
+    sizes = [cfg.level_size(l) for l in range(cfg.num_levels)]
+    spans = [(s + s % 2) * C for s in sizes]
+    flat = torch.zeros((sum(spans),), device=device, dtype=torch.float32)
+    return [v[: s * C].view(s, C) for v, s in zip(torch.split(flat, spans), sizes)]
+
+
 def _grid_encode_backward_cuda(g: torch.Tensor, x: torch.Tensor, cfg: GridEncoderConfig,
                                bound: float) -> List[torch.Tensor]:
     c_res, c_wrap, c_hashed = _k7_levels(cfg, x, "grid_encode backward kernel")
@@ -366,9 +381,7 @@ def _grid_encode_backward_cuda(g: torch.Tensor, x: torch.Tensor, cfg: GridEncode
                          f"got {tuple(g.shape)} on {g.device}")
     g = g.float().contiguous()
     x = x.contiguous()
-    sizes = [cfg.level_size(l) * C for l in range(L)]
-    flat = torch.zeros((sum(sizes),), device=x.device, dtype=torch.float32)  # one memset
-    grads = [v.view(-1, C) for v in torch.split(flat, sizes)]
+    grads = _k7_grad_tables(cfg, x.device)
     if N > 0:
         ptrs = (ctypes.c_void_p * L)(*[t.data_ptr() for t in grads])
         fn = _build.function("gridencoder", "grid_encode_backward_launch", _K7_BWD_ARGS)
