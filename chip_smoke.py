@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them: the wavelet-triplane field on the occupancy-grid renderer (the
+"""Drive the PyTorch port's serving and training paths and its CLI on one
+NVIDIA GPU and check them: the wavelet-triplane field on the occupancy-grid renderer (the
 hierarchical march, and the flat march on the dt_gamma ladder), the
 proposal renderer, the hash-grid field, the dense renderer, the triplane's
 variants (learned rotation and lbound zoom, zoom-in planes, background net),
@@ -142,19 +142,38 @@ Phases (any failure exits non-zero; nothing is caught):
     diffuse material with analytic normals: one 800^2 view (K7 and K7x),
     K7x held to its plain version on a captured chunk, the same normal
     checks;
-19. second-order: a create_graph=True first derivative through each kernel
+19. cli: a synthetic Blender scene (30 training, 8 val and 8 test views of
+    400^2, written with ``write_synthetic_scene`` on the card; PNG decode
+    ms per view), then ``trinerflet_tpu_torch.cli`` on the README's
+    two-stage recipe at its widths (512^2 then 1024^2 x 16, 8 then 16
+    wavelet levels, 20,000 then 60,000 rays, -O, dt_gamma 0, wavelet L1
+    0.2), 256 + 256 steps with an evaluation and a rotating checkpoint every
+    32; counters zeroed and read around it (K1, K2 forward and backward, K4
+    forward and adjoint, K6, and K3 or K3c must launch); the workspace's
+    checkpoints and results; ms/step by stage; a save / load round trip on
+    the card (params, EMA, Adam moments, occ, occ_coarse, bbox, one view and
+    one step on the same batch bit for bit); the step check on stage 2; one
+    profiled step and a captured step's rows; ``--test --test_with_ema``
+    (a finite PSNR above a black render's, the test PNGs, a non-empty
+    ``mesh.obj`` at resolution 192, the video or its frames; K6's rebuild of
+    the checkpoint's occupancy held to its plain version) and ``--test
+    --save_planes``;
+20. second-order: a create_graph=True first derivative through each kernel
     function (K2, K7, K10, K11, K4, K3, K3c) on the card, then a backward
     through it, which must raise torch's once_differentiable error as the
     CPU tests' plain versions do;
-20. print the kernels line, then the device line last.
+21. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -2389,6 +2408,264 @@ def registry_hash_phase(card, hash_stats):
     return rows, dict(view_ms=ms, launches=launches, cos_median=med, cos_p10=p10)
 
 
+# ---------------------------------------------------------------------------
+# The CLI: the README's two-stage recipe through trinerflet_tpu_torch.cli,
+# checkpoints, stage growth, --test (evaluation, mesh, video) and the planes
+# ---------------------------------------------------------------------------
+
+# the README's recipe at its widths, the step counts cut to 256 + 256: after
+# fewer steps the field's density stays near or below the mesh export's
+# threshold of 10 and mesh.obj comes out empty or nearly so
+# (scripts/torch_cli_probe.py); --scale 1.0 as the README runs the synthetic
+# scene (its cameras orbit at radius 2)
+CLI_ARGS = ["-O", "--triplane_wavelet", "--bound", "1.5", "--dt_gamma", "0", "--scale", "1.0",
+            "--triplane_resolution", "512", "1024", "--triplane_wavelet_levels", "8", "16",
+            "--triplane_channels", "16", "--num_rays", "20000", "60000",
+            "--wavelet_regularization", "0.2", "--iters", "256", "256",
+            "--eval_interval_stages", "32", "--max_keep_ckpt", "2"]
+CLI_SCENE = dict(num_views=30, num_test_views=8, H=400, W=400)
+CLI_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint", "occupancy")
+CLI_TEST_KERNELS = ("march", "grid_sample", "composite", "idwt", "occupancy")
+CLI_FILES = ("latest_model.pkl", "best_model.pkl", "stage_0.pkl", "stage_1.pkl",
+             "results_stage0.json", "results_stage1.json")
+
+
+class _Timed:
+    """Device-synchronised wall time of the trainer's fit, evaluate,
+    checkpoint and mesh calls while the CLI runs (patched on the class);
+    ``fit_rows`` holds each fit's (seconds, seconds of the evaluations and
+    checkpoints inside it, steps)."""
+
+    NAMES = ("fit", "evaluate", "save_checkpoint", "load_checkpoint", "save_mesh")
+
+    def __init__(self):
+        self.secs = defaultdict(list)
+        self.fit_rows = []
+        self._inner = None
+        self._orig = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            orig = getattr(Trainer, name)
+            self._orig[name] = orig
+
+            def wrap(tr, *a, _orig=orig, _name=name, **k):
+                if _name == "fit":
+                    self._inner = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(tr, *a, **k)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                self.secs[_name].append(s)
+                if _name == "fit":
+                    self.fit_rows.append((s, self._inner, tr.cfg.iters + max(tr.cfg.warmup_steps, 0)))
+                    self._inner = None
+                elif self._inner is not None:
+                    self._inner += s
+                return out
+
+            setattr(Trainer, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(Trainer, name, orig)
+
+
+def _psnr_black(scene) -> float:
+    """Mean PSNR of an all-black render against the views over background 0."""
+    gt = scene.images[..., :3] * scene.images[..., 3:] if scene.images.shape[-1] == 4 else scene.images
+    mse = (gt.astype(np.float64) ** 2).reshape(len(gt), -1).mean(1)
+    return float(np.mean(-10.0 * np.log10(mse)))
+
+
+def _rebuild_row(trainer, state, launches):
+    """K6's rebuild (a checkpoint's occupancy from its stored grid and mean)
+    held to its plain version on the CLI state's grid and timed."""
+    grid, mean, rcfg = state.occ.density_grid, float(state.occ.mean_density), trainer.render_cfg
+    got = R._occupancy_rebuild_cuda(grid, mean, rcfg)
+    again = R._occupancy_rebuild_cuda(grid, mean, rcfg)
+    ref = R.occupancy_rebuild_plain(grid, mean, rcfg)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise RuntimeError("K6 rebuild differs from its plain version")
+    _same_bits("K6 rebuild", got, again)
+    r = rcfg.coarse_dilation_radius
+    occ_f = got[0].float().unsqueeze(1)
+    b, by = bound_ms(nbytes(grid) + nbytes(*got), grid.numel() * (1 + (2 * r + 1) ** 3))
+    return dict(name="K6 occupancy_rebuild (cli --test)", route="cuda",
+                source="trinerflet_tpu_torch/kernels/csrc/occupancy.cu",
+                replaces="trinerflet_tpu/train/trainer.py:884", launches=launches["occupancy"],
+                path="cli --test", max_abs_err=0.0, tol="occ, occ_coarse, bbox equal; a second call "
+                                                         "the same bits",
+                ms=time_ms(lambda: R._occupancy_rebuild_cuda(grid, mean, rcfg)),
+                plain_ms=time_ms(lambda: R.occupancy_rebuild_plain(grid, mean, rcfg)),
+                bound_ms=b, bound_by=by,
+                library_ms=time_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
+                note=f"{tuple(grid.shape)} stored grid at its stored mean, radius {r}; 2 launches "
+                     f"(the reset; threshold, dilation and bbox: K6's second launch); library is "
+                     f"F.max_pool3d for the dilation alone")
+
+
+def _round_trip(trainer, state, data, path):
+    """save_checkpoint and load_checkpoint on the card: params, EMA, Adam
+    moments, occ, occ_coarse, bbox, one rendered view and one step on the
+    same batch must come back bit for bit. Returns (save s, load s, the
+    live state after its step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(state, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = trainer.load_checkpoint(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = [("params", state.params, loaded.params), ("ema", state.ema_params, loaded.ema_params),
+             ("adam mu", state.opt_state["mu"], loaded.opt_state["mu"]),
+             ("adam nu", state.opt_state["nu"], loaded.opt_state["nu"])]
+    for what, a, b in pairs:
+        la, lb = TR._leaves(a), TR._leaves(b)
+        if [n for n, _ in la] != [n for n, _ in lb] or not all(
+                torch.equal(x.detach(), y.detach()) for (_, x), (_, y) in zip(la, lb)):
+            raise RuntimeError(f"checkpoint round trip: {what} differ")
+    if (loaded.step, loaded.ema_count, loaded.opt_state["count"]) != (
+            state.step, state.ema_count, state.opt_state["count"]):
+        raise RuntimeError("checkpoint round trip: counts differ")
+    for f in ("occ", "occ_coarse", "bbox", "density_grid", "mean_density"):
+        if not torch.equal(getattr(state.occ, f), getattr(loaded.occ, f)):
+            raise RuntimeError(f"checkpoint round trip: the rebuilt {f} differs from the live one")
+    intr = synthetic_intrinsics(CLI_SCENE["H"], CLI_SCENE["W"])
+    pose = orbit_pose(np.arccos(1 - 1.6 * 0.5 / 8), 0.0, 2.0)
+    views = [trainer.render_image(s.ema_params, s.occ, pose, intr, CLI_SCENE["H"], CLI_SCENE["W"])[0]
+             for s in (state, loaded)]
+    if not torch.equal(*views):
+        raise RuntimeError("checkpoint round trip: the rendered view differs")
+    V, H, Wd = data["images"].shape[:3]
+    batch = _batch(trainer, trainer.cfg.num_rays, V, H * Wd, SEED + 3)
+    loaded, aux_l = trainer.train_step(loaded, data, with_stats=False, batch=batch)
+    state, aux_s = trainer.train_step(state, data, with_stats=False, batch=batch)
+    la, ls = TR._leaves(loaded.params), TR._leaves(state.params)
+    if not (torch.equal(aux_l["loss"], aux_s["loss"])
+            and all(torch.equal(x.detach(), y.detach()) for (_, x), (_, y) in zip(la, ls))):
+        raise RuntimeError("checkpoint round trip: one step on the same batch differs")
+    log(f"# cli checkpoint round trip ({path}, {os.path.getsize(path) / 2**20:.1f} MiB): params, EMA, "
+        f"Adam moments, occ, occ_coarse, bbox, one {H}x{Wd} view and one step (loss "
+        f"{float(aux_s['loss']):.6f}) bit for bit; save {save_s:.3f} s, load {load_s:.3f} s")
+    del loaded
+    return save_s, load_s, state
+
+
+def cli_phase(card):
+    """The CLI on the README's two-stage recipe at its widths (the step
+    counts cut) on a written synthetic scene, then its checkpoints, the
+    stage-2 step check, the round trip, ``--test --test_with_ema`` and
+    ``--test --save_planes``. Returns (kernel rows, stats)."""
+    from trinerflet_tpu_torch import cli, native
+    from trinerflet_tpu_torch.data.images import read_images
+    from trinerflet_tpu_torch.data.synthetic import write_synthetic_scene
+
+    t0 = time.perf_counter()
+    native.load()  # built here, so that the decode's time below is the decode's
+    log(f"# host library (PNG decode, marching tetrahedra) built in {time.perf_counter() - t0:.2f} s "
+        f"into {native.BUILD_DIR}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        scene_dir, ws = os.path.join(root, "scene"), os.path.join(root, "ws")
+        t0 = time.perf_counter()
+        write_synthetic_scene(scene_dir, seed=SEED, device=DEVICE, **CLI_SCENE)
+        paths = [os.path.join(scene_dir, "train", f"r_{v}.png") for v in range(CLI_SCENE["num_views"])]
+        t1 = time.perf_counter()
+        read_images(paths)
+        decode_ms = (time.perf_counter() - t1) / len(paths) * 1e3
+        log(f"# cli scene: {CLI_SCENE} written in {t1 - t0:.2f} s; PNG decode (host library, "
+            f"{os.cpu_count()} host cores) {decode_ms:.3f} ms per {CLI_SCENE['H']}x{CLI_SCENE['W']} RGBA "
+            f"view; free disk {shutil.disk_usage(root).free / 2**30:.1f} GiB")
+        args = ["--path", scene_dir, "--workspace", ws] + CLI_ARGS
+        kernels.reset_launches()
+        with _Timed() as timed:
+            trainer, state = cli.main(args, device=DEVICE)
+        launches = dict(kernels.launches)
+        stage_ms = [(s - inner) / steps * 1e3 for s, inner, steps in timed.fit_rows]
+        log(f"# cli train ({card}): ms/step by stage {[round(m, 3) for m in stage_ms]} (fit's wall "
+            f"time less its evaluations and checkpoints, refreshes included); fit, evaluate, "
+            f"save_checkpoint seconds {dict((k, [round(s, 3) for s in v]) for k, v in timed.secs.items())}; "
+            f"launches {launches}")
+        for name in CLI_KERNELS:
+            if launches[name] == 0:
+                raise RuntimeError(f"kernel {name} was not launched on the cli path")
+        if not (launches["composite"] or launches["composite_compact"]) or not (
+                launches["composite_bwd"] or launches["composite_compact_bwd"]):
+            raise RuntimeError("neither K3 nor K3c (forward and backward) launched on the cli path")
+        present = sorted(os.listdir(ws))
+        ckpts = [f for f in present if f.startswith("ckpt_")]
+        missing = [f for f in CLI_FILES if f not in present]
+        if missing or not 1 <= len(ckpts) <= 2:
+            raise RuntimeError(f"cli workspace: missing {missing}, rotating checkpoints {ckpts}")
+        with open(os.path.join(ws, "results_stage1.json")) as f:
+            val = json.load(f)
+        log(f"# cli workspace: {present}; stage 1 val PSNR {val['PSNR']:.4f} SSIM {val['SSIM']:.5f}")
+
+        opt = cli.get_params(args)
+        opt.downscale = 1
+        data = trainer.scene_to_device(cli.load_scene(opt, "train"))
+        save_s, load_s, state = _round_trip(trainer, state, data, os.path.join(root, "round_trip.pkl"))
+        step_check(trainer, state, data, "cli stage 2")
+        state = profile_step(trainer, state, data, "cli stage 2")
+        state, calls = capture_step(trainer, state, data)
+        rows = path_kernel_rows(trainer, calls, launches, "cli stage 2")
+        del calls, trainer, state, data
+
+        kernels.reset_launches()
+        with _Timed() as timed:
+            trainer, state = cli.main(args + ["--test", "--test_with_ema"], device=DEVICE)
+        test_launches = dict(kernels.launches)
+        for name in CLI_TEST_KERNELS:
+            if test_launches[name] == 0:
+                raise RuntimeError(f"kernel {name} was not launched on the cli --test path")
+        with open(os.path.join(ws, "results.json")) as f:
+            res = json.load(f)
+        black = _psnr_black(cli.load_scene(opt, "test"))
+        if not (np.isfinite(res["PSNR"]) and np.isfinite(res["SSIM"]) and res["PSNR"] > black):
+            raise RuntimeError(f"cli --test: PSNR {res['PSNR']} (a black render: {black})")
+        n_test = CLI_SCENE["num_test_views"]
+        pngs = [os.path.join(ws, "test_renders", f"results_{v:03d}.png") for v in range(n_test)]
+        frames = os.path.join(ws, "test_video_frames")
+        video = os.path.join(ws, "test_video.mp4")
+        with open(os.path.join(ws, "mesh.obj")) as f:
+            faces = sum(1 for line in f if line.startswith("f "))
+        if not all(os.path.exists(p) for p in pngs) or faces == 0:
+            raise RuntimeError(f"cli --test: test PNGs {[os.path.exists(p) for p in pngs]}, "
+                               f"{faces} mesh faces")
+        if os.path.isdir(frames):
+            video_out = f"{len(os.listdir(frames))} PNG frames"
+            if len(os.listdir(frames)) != n_test:
+                raise RuntimeError(f"cli --test: {video_out}, {n_test} views")
+        elif os.path.exists(video) and os.path.getsize(video) > 0:
+            video_out = f"test_video.mp4 ({os.path.getsize(video)} bytes)"
+        else:
+            raise RuntimeError("cli --test wrote neither a video nor its frames")
+        mesh_s = timed.secs["save_mesh"][0]
+        log(f"# cli --test --test_with_ema ({card}): PSNR {res['PSNR']:.4f} dB, SSIM {res['SSIM']:.5f} "
+            f"(a black render {black:.4f} dB); density grid max "
+            f"{state.occ.density_grid.max().item():.3f}; mesh.obj {faces} faces at resolution 192, "
+            f"extract_mesh + write {mesh_s:.3f} s; load_checkpoint {timed.secs['load_checkpoint'][0]:.3f} s; "
+            f"{video_out}; launches {test_launches}")
+        rows.append(_rebuild_row(trainer, state, test_launches))
+        del trainer, state
+
+        cli.main(args + ["--test", "--save_planes"], device=DEVICE)
+        planes = sorted(os.listdir(os.path.join(ws, "planes")))
+        want = [f"plane_{g}_{p}.png" for g in ("base", "level_0") for p in range(3)]
+        if not set(want) <= set(planes):
+            raise RuntimeError(f"cli --save_planes wrote {planes}")
+        log(f"# cli --test --save_planes: {len(planes)} plane PNGs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats = dict(stage_ms=stage_ms, save_s=save_s, load_s=load_s, mesh_s=mesh_s, decode_ms=decode_ms,
+                 psnr=res["PSNR"], ssim=res["SSIM"], launches=launches, test_launches=test_launches)
+    return rows, stats
+
+
 def second_order_phase():
     """A create_graph=True first derivative through each kernel function on
     the card, then a backward through it: each must raise torch's
@@ -2682,6 +2959,9 @@ def main() -> int:
     rows += rh_rows
     del hstats["params"], hstats["occ"]
     log(f"# registry-hash-normals phase done at {time.perf_counter() - t_start:.1f} s")
+    cli_rows, cstats = cli_phase(card)
+    rows += cli_rows
+    log(f"# cli phase done at {time.perf_counter() - t_start:.1f} s")
     second_order_phase()
 
     for r in rows:
@@ -2741,6 +3021,11 @@ def main() -> int:
     log(f"# registry-hash-normals view (hash grid, diffuse material, analytic normals): ms/view "
         f"{rhstats['view_ms']}; cos(analytic, FD) median {rhstats['cos_median']:.4f}, 10th percentile "
         f"{rhstats['cos_p10']:.4f} on {card}; launches {rhstats['launches']}")
+    log(f"# cli (README recipe, 256 + 256 steps): ms/step by stage {cstats['stage_ms']}; save "
+        f"{cstats['save_s']:.3f} s, load {cstats['load_s']:.3f} s, extract_mesh {cstats['mesh_s']:.3f} s; "
+        f"PNG decode {cstats['decode_ms']:.3f} ms/view; test PSNR {cstats['psnr']:.4f} dB, SSIM "
+        f"{cstats['ssim']:.5f} on {card}; launches {cstats['launches']}, --test "
+        f"{cstats['test_launches']}")
     log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -141,3 +141,44 @@ def test_trainer_rejects_state_on_another_device():
         tr.render_image(moved, occ, pose, intr, 4, 4)
     with pytest.raises(ValueError, match="occupancy are on meta"):
         tr.update_grid(params, type(occ)(*[x.to("meta") for x in occ]))
+
+
+def _code_strings(path):
+    """The string constants of a module's code (docstrings aside)."""
+    tree = ast.parse(Path(path).read_text())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef)) and n.body
+            and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_host_library_and_cli_read_nothing_of_the_jax_package():
+    """The port's host library builds from its own source into the checkout's
+    build/, and neither it nor the CLI names a path of the JAX package or of
+    the repository's native/ directory in its code."""
+    from trinerflet_tpu_torch import cli, native
+
+    assert Path(native._SRC).parent == PKG / "native" and Path(native._SRC).exists()
+    assert Path(native.BUILD_DIR) == ROOT / "build" / "native"
+    for f in (PKG / "cli.py", PKG / "native" / "__init__.py"):
+        for s in _code_strings(f):
+            assert ".." not in s and "trinerflet_tpu/" not in s, f"{f}: {s!r}"
+    assert [ln for ln in Path(native._SRC).read_text().splitlines() if ln.startswith("#include")] == [
+        "#include <cmath>", "#include <cstdint>", "#include <cstdio>", "#include <cstring>",
+        "#include <vector>", "#include <zlib.h>"]
+    assert cli.__file__.startswith(str(PKG))
+
+
+def test_cli_raises_without_cuda(monkeypatch, tmp_path):
+    from trinerflet_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ws = tmp_path / "ws"
+    for argv in (["--path", str(tmp_path), "--workspace", str(ws)],
+                 ["--path", str(tmp_path), "--workspace", str(ws), "--test"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(argv)
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.run(cli.get_params(argv))
+    assert not ws.exists()

@@ -694,6 +694,42 @@ def test_occupancy_kernel_matches_plain(dev, r, H, bound, frac):
     assert torch.equal(empty[4].cpu(), torch.tensor(cfg.aabb))
 
 
+@pytest.mark.parametrize("bound", [1.5, 4.0])
+@pytest.mark.parametrize("H", [37, 40, 128])
+@pytest.mark.parametrize("r", [1, 3])
+def test_occupancy_rebuild_matches_plain(dev, r, H, bound):
+    """K6's rebuild of a checkpoint's occupancy (its second launch on a
+    stored grid at a stored mean) against its plain version, at a mean below
+    and above density_thresh; between upkeep calls on the same stream (the
+    scratch each leaves behind); on an upkeep's own output at its own mean
+    it gives the upkeep's occupancy, dilation and bbox."""
+    g = torch.Generator().manual_seed(11 + H + r)
+    cfg = _occupancy_config(H, r, bound)
+    C, n = cfg.cascades, H**3
+    grid = torch.where(torch.rand((C, n), generator=g) < 0.003, 60 * torch.rand((C, n), generator=g),
+                       0.5 * torch.rand((C, n), generator=g))
+    grid[:, : n // 7] = -1.0
+    for x, y, z in _edge_cells(H):
+        grid[0, (x * H + y) * H + z] = 70.0
+    grid = grid.to(dev)
+    up = R._occupancy_upkeep_cuda(grid, grid[:, : n // 3].clone(), 0, cfg, 0.95)
+    for mean in (float(up[3]), 0.0371, 12.5):
+        n0 = kernels.launches["occupancy"]
+        got = R._occupancy_rebuild_cuda(grid, mean, cfg)
+        assert kernels.launches["occupancy"] == n0 + 2
+        ref = R.occupancy_rebuild_plain(grid, mean, cfg)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert got[0].any() and not got[1].all()
+    again = R._occupancy_upkeep_cuda(grid, grid[:, : n // 3].clone(), 0, cfg, 0.95)
+    for a, b in zip(up, again):
+        assert torch.equal(a, b)
+    own = R._occupancy_rebuild_cuda(up[0], float(up[3]), cfg)
+    for a, b in zip(own, (up[1], up[2], up[4])):
+        assert torch.equal(a, b)
+
+
 def _dense_layout(dev, N, B, prefix, seed):
     g = torch.Generator().manual_seed(seed)
     o, d = torch.randn((N, 3), generator=g), torch.randn((N, 3), generator=g)

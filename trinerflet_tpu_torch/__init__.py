@@ -16,7 +16,11 @@ the hierarchical march or on the flat march (which also walks the
 ``dt_gamma`` ladder), with the proposal estimator or with the dense
 renderer, the hash / tiled grid field, k-planes, the triplane's variants,
 the model registry (``models/registry.py``: voxel-grid and SDF geometry,
-materials, backgrounds, every normal type), and evaluation. The CLI,
+materials, backgrounds, every normal type), evaluation, checkpoints (the
+JAX package's files, read and written by both), stage growth, mesh export,
+the scene loaders (Blender, LLFF, COLMAP, NSVF, NeRF++, Topia, RTMV; PNG
+through the host library in ``native/``) and the CLI (``python -m
+trinerflet_tpu_torch.cli``). The CLI's ``--gui`` and ``--rand_pose``,
 training through analytic normals and the super-resolution app raise
 ``NotImplementedError`` naming the slice that ports them.
 """

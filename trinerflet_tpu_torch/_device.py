@@ -12,7 +12,7 @@ DeviceLike = Optional[Union[str, torch.device]]
 # Slices of the port that later work fills in; NotImplementedError messages
 # name them so a caller knows where the missing piece is queued.
 SLICE_LATER = ("a later slice (the second derivatives of K2x, K7x and K10, which training "
-               "through analytic normals needs; the CLI and checkpoints)")
+               "through analytic normals needs)")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -16,7 +16,7 @@ from ._device import DeviceLike, resolve_device
 from .render.renderer import OccupancyState
 from .train.trainer import TrainState, _map
 
-__all__ = ["params_from_jax", "occupancy_from_jax", "train_state_from_jax"]
+__all__ = ["params_from_jax", "occupancy_from_jax", "adam_state_from_jax", "train_state_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -103,6 +103,17 @@ def occupancy_from_jax(state: Any, device: DeviceLike = None) -> OccupancyState:
     return OccupancyState(**{k: _tensor(_get(state, k), device) for k in OccupancyState._fields})
 
 
+def adam_state_from_jax(opt_state: Any, device: DeviceLike = None) -> Dict:
+    """The trainer's Adam state ({"count", "mu", "nu"}, trees on ``device``)
+    from the JAX optax chain's state: its first entry, ``ScaleByAdamState``
+    (or a stand-in with the same fields, as a checkpoint holds it)."""
+    device = resolve_device(device)
+    adam = opt_state[0]
+    return {"count": int(np.asarray(_get(adam, "count"))),
+            "mu": params_from_jax(_get(adam, "mu"), device),
+            "nu": params_from_jax(_get(adam, "nu"), device)}
+
+
 def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
     """The JAX ``TrainState`` (or a mapping with its fields) as this
     package's, on ``device`` (``cuda`` by default), so training continues
@@ -114,14 +125,11 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
     with ``seed``. The retune's EMAs and counters belong to the trainer, not
     to the state, and are not carried: a continued run re-learns them."""
     device = resolve_device(device)
-    adam = _get(state, "opt_state")[0]
     error_map = _get(state, "error_map", None)
     params = _map(lambda t: t.requires_grad_(True), params_from_jax(_get(state, "params"), device))
     return TrainState(
         params=params,
-        opt_state={"count": int(np.asarray(_get(adam, "count"))),
-                   "mu": params_from_jax(_get(adam, "mu"), device),
-                   "nu": params_from_jax(_get(adam, "nu"), device)},
+        opt_state=adam_state_from_jax(_get(state, "opt_state"), device),
         ema_params=params_from_jax(_get(state, "ema_params"), device),
         ema_count=int(np.asarray(_get(state, "ema_count"))),
         occ=occupancy_from_jax(_get(state, "occ"), device),

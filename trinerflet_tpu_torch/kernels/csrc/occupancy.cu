@@ -43,6 +43,12 @@
 // version's float32 arithmetic (built with -fmad=false). The two tickets
 // and the min / max words are scratch the caller keeps per stream: zero
 // before the first call, and each call leaves the tickets at zero.
+//
+// occ_rebuild_launch rebuilds a checkpoint's occupancy from its stored grid
+// and mean (trinerflet_tpu/train/trainer.py:884-898, load_checkpoint's
+// threshold, _dilate3 and _occupied_bbox): launch 2 alone, after a one-block
+// launch that writes the caller's threshold and resets what the merge
+// would.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -381,9 +387,59 @@ __global__ void __launch_bounds__(kTileThreads)
   scratch[1] = 0;
 }
 
+// The rebuild's first launch: a threshold from the caller (a checkpoint's
+// stored mean) where the merge would have written its own, and the second
+// launch's ticket and min / max scratch reset as the merge resets them.
+__global__ void rebuild_init_kernel(float mean, float thresh, int C, int H, float* stats,
+                                    int* scratch) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    stats[0] = mean;
+    stats[1] = thresh;
+    scratch[1] = 0;
+  }
+  if (tid < 3 * C) {
+    scratch[kMinMax + 2 * tid] = H;
+    scratch[kMinMax + 2 * tid + 1] = -1;
+  }
+}
+
 size_t tile_smem(int T, int r, int W) {
   const size_t E = T + 2 * r;
   return 4 * (2 * E * E * W + E * T * W);
+}
+
+// Launch 2 on the merged grid with stats[1] as the threshold.
+int tile_launch(const float* grid, int C, int H, int r, const float* bounds, const float* cells,
+                float full_bound, uint8_t* occ, uint8_t* occ_coarse, const float* stats,
+                float* bbox, int* scratch, cudaStream_t stream) {
+  TileArgs a;
+  a.C = C;
+  a.H = H;
+  a.r = r;
+  a.W = (H + 31) / 32;
+  a.T = 16;  // the largest tile side whose words fit in 48 KB
+  while (a.T > 1 && tile_smem(a.T, r, a.W) > kTileSmem) a.T >>= 1;
+  const size_t smem = tile_smem(a.T, r, a.W);
+  if (smem > kTileSmem) return (int)cudaErrorInvalidValue;
+  a.tiles = (H + a.T - 1) / a.T;
+  for (int c = 0; c < MAX_CAS; ++c) {
+    a.box.bound[c] = c < C ? bounds[c] : 0.f;
+    a.box.cell[c] = c < C ? cells[c] : 0.f;
+  }
+  a.box.full_lo = -full_bound;
+  a.box.full_hi = full_bound;
+  const unsigned int blocks2 = (unsigned int)(C * a.tiles * a.tiles);
+  const bool vload = H % 4 == 0 && (uintptr_t)grid % 16 == 0;
+  const bool vstore = H % 16 == 0 && ((uintptr_t)occ | (uintptr_t)occ_coarse) % 16 == 0;
+#define K6_TILE(VL, VS)                                                                         \
+  tile_kernel<VL, VS><<<blocks2, kTileThreads, smem, stream>>>(grid, stats, a, occ, occ_coarse, \
+                                                               scratch, bbox)
+  if (vload && vstore) K6_TILE(true, true);
+  else if (vload) K6_TILE(true, false);
+  else K6_TILE(false, false);
+#undef K6_TILE
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -422,31 +478,23 @@ extern "C" int occ_upkeep_launch(const float* old, const float* tmp, int C, int 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  TileArgs a;
-  a.C = C;
-  a.H = H;
-  a.r = r;
-  a.W = (H + 31) / 32;
-  a.T = 16;  // the largest tile side whose words fit in 48 KB
-  while (a.T > 1 && tile_smem(a.T, r, a.W) > kTileSmem) a.T >>= 1;
-  const size_t smem = tile_smem(a.T, r, a.W);
-  if (smem > kTileSmem) return (int)cudaErrorInvalidValue;
-  a.tiles = (H + a.T - 1) / a.T;
-  for (int c = 0; c < MAX_CAS; ++c) {
-    a.box.bound[c] = c < C ? bounds[c] : 0.f;
-    a.box.cell[c] = c < C ? cells[c] : 0.f;
-  }
-  a.box.full_lo = -full_bound;
-  a.box.full_hi = full_bound;
-  const unsigned int blocks2 = (unsigned int)(C * a.tiles * a.tiles);
-  const bool vload = H % 4 == 0 && (uintptr_t)out % 16 == 0;
-  const bool vstore = H % 16 == 0 && ((uintptr_t)occ | (uintptr_t)occ_coarse) % 16 == 0;
-#define K6_TILE(VL, VS)                                                                         \
-  tile_kernel<VL, VS><<<blocks2, kTileThreads, smem, stream>>>(out, stats, a, occ, occ_coarse, \
-                                                               scratch, bbox)
-  if (vload && vstore) K6_TILE(true, true);
-  else if (vload) K6_TILE(true, false);
-  else K6_TILE(false, false);
-#undef K6_TILE
-  return (int)cudaGetLastError();
+  return tile_launch(out, C, H, r, bounds, cells, full_bound, occ, occ_coarse, stats, bbox, scratch,
+                     stream);
+}
+
+// A checkpoint's occupancy: launch 2 alone on a stored grid (C, n = H^3) f32
+// with the threshold min(mean, density_thresh) * scale the caller computed
+// from the stored mean -> occ, occ_coarse, bbox; stats (2,) f32 = (mean,
+// thresh). scratch as occ_upkeep_launch's. Two launches (the reset, then
+// the tiles).
+extern "C" int occ_rebuild_launch(const float* grid, int C, int H, float mean, float thresh,
+                                  int r, const float* bounds, const float* cells,
+                                  float full_bound, uint8_t* occ, uint8_t* occ_coarse,
+                                  float* stats, float* bbox, int* scratch, cudaStream_t stream) {
+  if (C < 1 || C > MAX_CAS || H < 1 || r < 1 || r > MAX_R) return (int)cudaErrorInvalidValue;
+  rebuild_init_kernel<<<1, 32, 0, stream>>>(mean, thresh, C, H, stats, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return tile_launch(grid, C, H, r, bounds, cells, full_bound, occ, occ_coarse, stats, bbox,
+                     scratch, stream);
 }

@@ -37,7 +37,8 @@ from ..ops import raymarch as RM
 from ..ops.raymarch import _inv
 
 __all__ = ["RenderConfig", "OccupancyState", "init_occupancy", "update_density_grid",
-           "occupancy_upkeep", "occupancy_upkeep_plain", "tuned_num_coarse",
+           "occupancy_upkeep", "occupancy_upkeep_plain", "occupancy_rebuild",
+           "occupancy_rebuild_plain", "rebuild_threshold", "tuned_num_coarse",
            "mark_untrained_grid", "render_dense", "render_occgrid"]
 
 
@@ -361,6 +362,63 @@ def _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay):
     _build.check(code, "occupancy_upkeep")
     kernels.launches["occupancy"] += 2  # merge and mean; threshold, dilation and bbox
     return new_grid, occ, occ_coarse, stats[0], bbox
+
+
+def rebuild_threshold(mean_density: float, cfg: RenderConfig) -> float:
+    """A checkpoint's occupancy threshold from its stored mean, as the JAX
+    package's ``load_checkpoint`` computes it: min(mean, density_thresh) *
+    occ_thresh_scale in float64, compared in float32."""
+    return float(np.float32(min(float(mean_density), cfg.density_thresh) * cfg.occ_thresh_scale))
+
+
+def occupancy_rebuild_plain(density_grid: torch.Tensor, mean_density: float, cfg: RenderConfig):
+    """Plain version of K6's rebuild: a stored density_grid (CAS, H^3) f32
+    and its stored mean -> (occ (CAS, H, H, H) bool, occ_coarse, bbox (6,)
+    f32), thresholded at ``rebuild_threshold``."""
+    H, C = cfg.grid_size, cfg.cascades
+    occ = (density_grid > rebuild_threshold(mean_density, cfg)).reshape(C, H, H, H)
+    return occ, _dilate3(occ, cfg.coarse_dilation_radius), _occupied_bbox(occ, cfg)
+
+
+def occupancy_rebuild(density_grid: torch.Tensor, mean_density: float, cfg: RenderConfig):
+    """Kernel K6's threshold, dilation and bbox on a CUDA grid (no merge: the
+    threshold comes from the stored mean), the plain version on a CPU one."""
+    if density_grid.is_cuda:
+        return _occupancy_rebuild_cuda(density_grid, mean_density, cfg)
+    return occupancy_rebuild_plain(density_grid, mean_density, cfg)
+
+
+_K6_REBUILD_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_void_p] * 6)
+
+
+def _occupancy_rebuild_cuda(density_grid, mean_density, cfg):
+    H, C = cfg.grid_size, cfg.cascades
+    n = H**3
+    dev = density_grid.device
+    if C > _K6_MAX_CAS or tuple(density_grid.shape) != (C, n) or density_grid.dtype != torch.float32:
+        raise ValueError(f"occupancy rebuild: density_grid must be ({C}, {n}) f32 with at most "
+                         f"{_K6_MAX_CAS} cascades, got {tuple(density_grid.shape)} {density_grid.dtype}")
+    grid = density_grid.contiguous()
+    stats = torch.empty((2,), device=dev, dtype=torch.float32)
+    occ = torch.empty((C, H, H, H), device=dev, dtype=torch.bool)
+    occ_coarse = torch.empty_like(occ)
+    bbox = torch.empty((6,), device=dev, dtype=torch.float32)
+    bounds = [min(2**c, cfg.bound) for c in range(C)]
+    c_bounds = (ctypes.c_float * C)(*bounds)
+    c_cells = (ctypes.c_float * C)(*[2.0 * b / H for b in bounds])
+    words = _build.function("occupancy", "occ_scratch_words", [])
+    key, scratch = _build.stream_scratch(_k6_scratch, dev, int(words()), torch.int32)
+    P = _build.ptr
+    fn = _build.function("occupancy", "occ_rebuild_launch", _K6_REBUILD_ARGS)
+    code = fn(P(grid), C, H, float(mean_density), rebuild_threshold(mean_density, cfg),
+              cfg.coarse_dilation_radius, c_bounds, c_cells, float(cfg.bound), P(occ), P(occ_coarse),
+              P(stats), P(bbox), P(scratch), _build.stream(dev))
+    if code != 0:  # a launch that failed may leave the scratch dirty
+        _k6_scratch.pop(key, None)
+    _build.check(code, "occupancy_rebuild")
+    kernels.launches["occupancy"] += 2  # the reset; threshold, dilation and bbox
+    return occ, occ_coarse, bbox
 
 
 def tuned_num_coarse(cfg: RenderConfig, bbox: np.ndarray) -> Optional[int]:

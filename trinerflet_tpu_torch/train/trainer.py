@@ -8,7 +8,10 @@ a grid-backed density proxy places the samples and trains on the interlevel
 loss) or the dense renderer (``renderer="dense"``: uniform depths with
 optional importance upsampling). The last two have no occupancy refresh and
 no retune; their CLIP steps render through the dense renderer, as the JAX
-package's do.
+package's do. Checkpoints are the JAX package's files (``train/
+checkpoint.py``), read and written by both packages; ``load_model_for_stage``
+grows a stage into the next and ``save_mesh`` exports the density's
+iso-surface.
 
 Differences from the JAX package, none of which changes a result:
 
@@ -29,6 +32,10 @@ Differences from the JAX package, none of which changes a result:
   the layout and its slots); there is nothing to recompile.
 * ``evaluate`` runs in one process (the multi-host view split is not
   ported) and writes its PNGs with a small zlib PNG writer (no OpenCV).
+* The wavelet levels that ``load_model_for_stage`` adds are drawn from a
+  torch generator seeded with seed + 7, not from JAX's PRNG key of that
+  seed; every carried leaf is the same.
+* No ``ExperimentLogger``: ``fit`` prints its log lines.
 """
 
 from __future__ import annotations
@@ -37,22 +44,21 @@ import dataclasses
 import json
 import math
 import os
-import struct
 import time
-import zlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..data.images import write_png
 from ..data.rays import (rand_poses, rays_full_image, sample_ray_batch,
                          sample_ray_batch_error_map, sample_ray_batch_pregen)
 from ..models.nerf import NeRFConfig, NeRFField, init_nerf_params
-from ..models.triplane import wavelet_l1
+from ..models.triplane import grow_params, wavelet_l1
 from ..render import renderer as R
 from ..render.proposal import ProposalConfig, init_proposal_params, interlevel_loss, render_proposal
-from . import metrics
+from . import checkpoint, metrics
 
 __all__ = ["TrainConfig", "TrainState", "Trainer", "lr_schedule", "global_slots_for", "write_png"]
 
@@ -145,6 +151,14 @@ def _map(fn, tree: Dict) -> Dict:
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _fresh_adam(params: Dict) -> Dict:
+    return {"count": 0, "mu": _map(torch.zeros_like, params), "nu": _map(torch.zeros_like, params)}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 def _ema_of(prev: Optional[float], x: float) -> float:
     """The retune statistics' EMA: 0.5 prev + 0.5 x (x on the first read)."""
     return x if prev is None else 0.5 * prev + 0.5 * x
@@ -217,8 +231,7 @@ class Trainer:
         params = _map(lambda t: t.requires_grad_(True), self.init_params(generator))
         return TrainState(
             params=params,
-            opt_state={"count": 0, "mu": _map(torch.zeros_like, params),
-                       "nu": _map(torch.zeros_like, params)},
+            opt_state=_fresh_adam(params),
             ema_params=_map(lambda t: t.detach().clone(), params),
             ema_count=0,
             occ=self.init_occupancy(density_grid),
@@ -727,19 +740,96 @@ class Trainer:
                 json.dump(results, f, indent=2)
         return results
 
+    def save_mesh(self, state: TrainState, path: str, resolution: int = 256,
+                  threshold: float = 10.0):
+        """The density's iso-surface as an OBJ: the field (``state.params``)
+        queried on the trainer's device over a resolution^3 grid of
+        [-bound, bound]^3, marching tetrahedra on the host. Returns
+        (vertices, faces)."""
+        from ..ops.meshing import extract_mesh, write_obj
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """An 8-bit PNG of a (H, W) grey or (H, W, 3) RGB uint8 array, written
-    with zlib alone (no image library)."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    H, W = img.shape[:2]
-    color = 2 if img.ndim == 3 else 0
+        params = state.params
+        with torch.no_grad():
+            planes = self.field.build_planes(params)
 
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+            def density_fn(pts):
+                x = torch.as_tensor(pts, dtype=torch.float32, device=self.device)
+                return _to_numpy(self.field.density(params, planes, x)[0].float())
 
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(H))  # filter 0 per row
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+            verts, faces = extract_mesh(density_fn, bound=self.nerf_cfg.bound,
+                                        resolution=resolution, threshold=threshold)
+        write_obj(path, verts, faces)
+        return verts, faces
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save_checkpoint(self, state: TrainState, path: str, full: bool = True) -> None:
+        """The JAX package's checkpoint (``train/checkpoint.py``): params, EMA
+        and its count, step, the density grid and its mean, and with
+        ``full`` the optimiser state as the JAX trainer's optax chain."""
+        payload = {
+            "params": _map(_to_numpy, state.params),
+            "ema_params": _map(_to_numpy, state.ema_params),
+            "ema_count": int(state.ema_count),
+            "step": int(state.step),
+            "density_grid": _to_numpy(state.occ.density_grid),
+            "mean_density": float(state.occ.mean_density),
+        }
+        if full:
+            adam = dict(state.opt_state, mu=_map(_to_numpy, state.opt_state["mu"]),
+                        nu=_map(_to_numpy, state.opt_state["nu"]))
+            payload["opt_state"] = checkpoint.optax_chain_state(adam, self.cfg.mlp_weight_decay > 0)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        checkpoint.save(path, payload)
+
+    def load_checkpoint(self, path: str, state: Optional[TrainState] = None) -> TrainState:
+        """A checkpoint of either package into ``state`` (a fresh
+        ``init_state()`` by default): params, EMA, counts, the density grid
+        and its stored mean, the Adam state when the file holds one. occ,
+        occ_coarse and bbox are rebuilt from the grid at the stored mean's
+        threshold (K6 on CUDA); ``iter_density``, the step generator and the
+        error map stay ``state``'s."""
+        from ..carry import adam_state_from_jax, params_from_jax
+
+        payload = checkpoint.load(path)
+        if state is None:
+            state = self.init_state()
+        mean = float(payload["mean_density"])
+        grid = torch.as_tensor(np.asarray(payload["density_grid"], np.float32), device=self.device)
+        occ_bits, occ_coarse, bbox = R.occupancy_rebuild(grid, mean, self.render_cfg)
+        occ = state.occ._replace(
+            density_grid=grid,
+            mean_density=torch.tensor(mean, dtype=torch.float32, device=self.device),
+            occ=occ_bits, occ_coarse=occ_coarse, bbox=bbox)
+        state = state._replace(
+            params=_map(lambda t: t.requires_grad_(True),
+                        params_from_jax(payload["params"], self.device)),
+            ema_params=params_from_jax(payload["ema_params"], self.device),
+            ema_count=int(payload["ema_count"]),
+            step=int(payload["step"]),
+            occ=occ,
+        )
+        if "opt_state" in payload:
+            state = state._replace(opt_state=adam_state_from_jax(payload["opt_state"], self.device))
+        return state
+
+    def load_model_for_stage(self, path: str, generator: Optional[torch.Generator],
+                             old_nerf_cfg: NeRFConfig) -> TrainState:
+        """Cross-stage resume: a fresh state (``init_state(generator)``) whose
+        triplane pyramid takes over the previous (smaller) stage's base and
+        every level of matching shape (``grow_params``; new levels drawn
+        with seed + 7), and whose MLPs are the previous stage's; fresh Adam
+        moments, the EMA equal to the params."""
+        from ..carry import params_from_jax
+
+        old = params_from_jax(checkpoint.load(path)["params"], self.device)
+        state = self.init_state(generator)
+        new = dict(state.params)
+        new["encoder"] = grow_params(old["encoder"], old_nerf_cfg.triplane, self.nerf_cfg.triplane,
+                                     torch.Generator().manual_seed(self.cfg.seed + 7), self.device)
+        for k in ("sigma_net", "color_net", "bg_net"):
+            if k in old and k in new:
+                new[k] = old[k]
+        params = _map(lambda t: t.detach().requires_grad_(True), new)
+        return state._replace(params=params, opt_state=_fresh_adam(params),
+                              ema_params=_map(lambda t: t.detach().clone(), params))
