@@ -143,14 +143,15 @@ Phases (any failure exits non-zero; nothing is caught):
     K7x held to its plain version on a captured chunk, the same normal
     checks;
 19. cli: a synthetic Blender scene (30 training, 8 val and 8 test views of
-    400^2, written with ``write_synthetic_scene`` on the card; PNG decode
+    400^2, written with ``write_synthetic_scene`` on the host; PNG decode
     ms per view), then ``trinerflet_tpu_torch.cli`` on the README's
     two-stage recipe at its widths (512^2 then 1024^2 x 16, 8 then 16
     wavelet levels, 20,000 then 60,000 rays, -O, dt_gamma 0, wavelet L1
     0.2), 256 + 256 steps with an evaluation and a rotating checkpoint every
     32; counters zeroed and read around it (K1, K2 forward and backward, K4
     forward and adjoint, K6, and K3 or K3c must launch); the workspace's
-    checkpoints and results; ms/step by stage; a save / load round trip on
+    checkpoints and results; the field's density quantiles on a 96^3
+    sweep; ms/step by stage; a save / load round trip on
     the card (params, EMA, Adam moments, occ, occ_coarse, bbox, one view and
     one step on the same batch bit for bit); the step check on stage 2; one
     profiled step and a captured step's rows; ``--test --test_with_ema``
@@ -274,6 +275,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound_ms(nbytes: float, flops: float):
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k6_ops(cells: int, r: int, merge: bool) -> int:
+    """The operations K6 needs: a compare a cell and the separable
+    dilation's 3 x 2r ORs a cell (counted on bools: the kernel does them on
+    bit-packed words, 32 at once); with ``merge`` also the decay's multiply,
+    the max and the mean's add."""
+    return cells * (1 + 6 * r + (3 if merge else 0))
 
 
 def nbytes(*ts) -> int:
@@ -1215,8 +1224,7 @@ def _upkeep_rows(trainer, calls):
     r = rcfg.coarse_dilation_radius
     occ_f = got[1].float().unsqueeze(1)
     Cn = grid_old.numel()
-    b, by = bound_ms(nbytes(grid_old, tmp) + nbytes(got[0], got[1], got[2]),
-                     Cn * (2 + (2 * r + 1) ** 3))
+    b, by = bound_ms(nbytes(grid_old, tmp) + nbytes(got[0], got[1], got[2]), k6_ops(Cn, r, merge=True))
     rows.append(dict(name="K6 occupancy_upkeep", key="occupancy", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/occupancy.cu",
                      replaces="trinerflet_tpu/render/renderer.py:332",
@@ -2415,9 +2423,9 @@ def registry_hash_phase(card, hash_stats):
 
 # the README's recipe at its widths, the step counts cut to 256 + 256: after
 # fewer steps the field's density stays near or below the mesh export's
-# threshold of 10 and mesh.obj comes out empty or nearly so
-# (scripts/torch_cli_probe.py); --scale 1.0 as the README runs the synthetic
-# scene (its cameras orbit at radius 2)
+# threshold of 10 and mesh.obj comes out empty or nearly so (the cli log line
+# prints the density's quantiles and its share above 10); --scale 1.0 as the
+# README runs the synthetic scene (its cameras orbit at radius 2)
 CLI_ARGS = ["-O", "--triplane_wavelet", "--bound", "1.5", "--dt_gamma", "0", "--scale", "1.0",
             "--triplane_resolution", "512", "1024", "--triplane_wavelet_levels", "8", "16",
             "--triplane_channels", "16", "--num_rays", "20000", "60000",
@@ -2492,7 +2500,7 @@ def _rebuild_row(trainer, state, launches):
     _same_bits("K6 rebuild", got, again)
     r = rcfg.coarse_dilation_radius
     occ_f = got[0].float().unsqueeze(1)
-    b, by = bound_ms(nbytes(grid) + nbytes(*got), grid.numel() * (1 + (2 * r + 1) ** 3))
+    b, by = bound_ms(nbytes(grid) + nbytes(*got), k6_ops(grid.numel(), r, merge=False))
     return dict(name="K6 occupancy_rebuild (cli --test)", route="cuda",
                 source="trinerflet_tpu_torch/kernels/csrc/occupancy.cu",
                 replaces="trinerflet_tpu/train/trainer.py:884", launches=launches["occupancy"],
@@ -2505,6 +2513,21 @@ def _rebuild_row(trainer, state, launches):
                 note=f"{tuple(grid.shape)} stored grid at its stored mean, radius {r}; 2 launches "
                      f"(the reset; threshold, dilation and bbox: K6's second launch); library is "
                      f"F.max_pool3d for the dilation alone")
+
+
+@torch.no_grad()
+def _density_quantiles(trainer, state) -> str:
+    """The trained field's density on a 96^3 sweep of the box: its max,
+    quantiles and share above the mesh export's threshold of 10."""
+    planes = trainer.field.build_planes(state.params)
+    b = trainer.nerf_cfg.bound
+    ax = torch.linspace(-b, b, 96, device=DEVICE)
+    pts = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    sig = torch.cat([trainer.field.density(state.params, planes, pts[k:k + 262144])[0].float()
+                     for k in range(0, len(pts), 262144)])
+    q = torch.quantile(sig[:1_000_000], torch.tensor([0.5, 0.99, 0.999], device=DEVICE))
+    return (f"max {sig.max().item():.4f}, quantiles 0.5 / 0.99 / 0.999 {[round(x, 4) for x in q.tolist()]}, "
+            f"share above 10 {(sig > 10).float().mean().item():.6f}")
 
 
 def _round_trip(trainer, state, data, path):
@@ -2572,12 +2595,13 @@ def cli_phase(card):
     try:
         scene_dir, ws = os.path.join(root, "scene"), os.path.join(root, "ws")
         t0 = time.perf_counter()
-        write_synthetic_scene(scene_dir, seed=SEED, device=DEVICE, **CLI_SCENE)
+        write_synthetic_scene(scene_dir, seed=SEED, **CLI_SCENE)
         paths = [os.path.join(scene_dir, "train", f"r_{v}.png") for v in range(CLI_SCENE["num_views"])]
         t1 = time.perf_counter()
         read_images(paths)
         decode_ms = (time.perf_counter() - t1) / len(paths) * 1e3
-        log(f"# cli scene: {CLI_SCENE} written in {t1 - t0:.2f} s; PNG decode (host library, "
+        log(f"# cli scene: {CLI_SCENE} rendered (numpy, a thread per view up to {os.cpu_count()}) and "
+            f"written in {t1 - t0:.2f} s; PNG decode (host library, "
             f"{os.cpu_count()} host cores) {decode_ms:.3f} ms per {CLI_SCENE['H']}x{CLI_SCENE['W']} RGBA "
             f"view; free disk {shutil.disk_usage(root).free / 2**30:.1f} GiB")
         args = ["--path", scene_dir, "--workspace", ws] + CLI_ARGS
@@ -2604,6 +2628,7 @@ def cli_phase(card):
         with open(os.path.join(ws, "results_stage1.json")) as f:
             val = json.load(f)
         log(f"# cli workspace: {present}; stage 1 val PSNR {val['PSNR']:.4f} SSIM {val['SSIM']:.5f}")
+        log(f"# cli density (96^3 sweep of the box): {_density_quantiles(trainer, state)}")
 
         opt = cli.get_params(args)
         opt.downscale = 1

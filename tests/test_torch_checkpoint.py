@@ -290,3 +290,27 @@ def test_unpickler_refuses_other_globals(tmp_path):
     back = CK.load(path)["opt_state"]
     assert [type(s).__name__ for s in back] == ["ScaleByAdamState", "MaskedState", "ScaleByScheduleState"]
     assert int(back[0].count) == int(back[2].count) == 2 and back[1].inner_state == CK.EmptyState()
+
+
+@pytest.mark.parametrize("target", ["numpy.testing._private.utils.runstring", "numpy.save",
+                                    "numpy.load"])
+def test_unpickler_refuses_numpy_globals_that_run_code(tmp_path, target):
+    """numpy names callables that execute code or touch files; only the
+    globals that rebuild arrays, scalars and dtypes pass, at every protocol
+    either package may write."""
+    module, name = target.rsplit(".", 1)
+    path = str(tmp_path / "evil.pkl")
+    with open(path, "wb") as f:  # GLOBAL module name, EMPTY_TUPLE, REDUCE: a call
+        f.write(b"\x80\x04c" + f"{module}\n{name}\n".encode() + b")R.")
+    with pytest.raises(pickle.UnpicklingError, match=target.replace(".", r"\.")):
+        CK.load(path)
+    payload = {"f32": np.arange(6, dtype=np.float32).reshape(2, 3), "i32": np.int32(7),
+               "strided": np.arange(8.0)[::2], "empty": np.zeros((0, 2), np.uint8)}
+    for protocol in (3, 4, 5):
+        with open(path, "wb") as f:
+            pickle.dump(dict(payload, dtype=np.dtype(np.float16)), f, protocol=protocol)
+        back = CK.load(path)
+        assert back.pop("dtype") == np.dtype(np.float16)
+        for k, v in payload.items():
+            assert type(back[k]) is type(v) and back[k].dtype == v.dtype
+            np.testing.assert_array_equal(back[k], v)

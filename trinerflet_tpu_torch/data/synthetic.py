@@ -1,18 +1,18 @@
 """The analytic synthetic scene (port of ``trinerflet_tpu/data/synthetic.py``,
 the spheres variant): soft coloured spheres rendered by a brute-force
-marcher (numpy, or torch on a device), orbit poses looking at the origin
-and the intrinsics law fx = fy = 0.9 W, c = (W/2, H/2); and
-``write_synthetic_scene``, which writes it to disk in the Blender format.
-An end-to-end fit target that needs no download."""
+numpy marcher, orbit poses looking at the origin and the intrinsics law
+fx = fy = 0.9 W, c = (W/2, H/2); and ``write_synthetic_scene``, which
+writes it to disk in the Blender format. An end-to-end fit target that
+needs no download."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple
 
 import numpy as np
-import torch
 
 from .blender import SceneData
 from .images import write_png
@@ -60,43 +60,12 @@ def _render_view(pose, intrinsics, H, W, num_steps=192, near=0.8, far=3.2) -> np
     return np.concatenate([img, acc[:, None]], axis=-1).reshape(H, W, 4)
 
 
-@torch.no_grad()
-def _render_view_torch(pose, intrinsics, H, W, device, num_steps=192, near=0.8,
-                       far=3.2) -> np.ndarray:
-    """``_render_view``'s quadrature in float32 torch on ``device``."""
-    rays_o, rays_d = (torch.as_tensor(a, device=device) for a in rays_full_image(pose, intrinsics, H, W))
-    t = np.linspace(near, far, num_steps, dtype=np.float32)
-    dt = float(t[1] - t[0])
-    img = torch.zeros((H * W, 3), device=device)
-    acc = torch.zeros((H * W,), device=device)
-    T = torch.ones((H * W,), device=device)
-    spheres = [(torch.tensor(c, device=device), r, torch.tensor(col, device=device), dens)
-               for c, r, col, dens in _SPHERES]
-    for tk in t.tolist():
-        pts = rays_o + rays_d * tk
-        sigma = torch.zeros_like(acc)
-        rgb = torch.zeros_like(img)
-        for c, r, col, dens in spheres:
-            d = torch.linalg.norm(pts - c, dim=-1)
-            sk = dens * torch.sigmoid(-torch.clamp((d - r) / 0.01, -60, 60))
-            sigma = sigma + sk
-            rgb = rgb + sk[:, None] * col
-        rgb = rgb / torch.clamp_min(sigma[:, None], 1e-8)
-        alpha = 1.0 - torch.exp(-sigma * dt)
-        w = alpha * T
-        img += w[:, None] * rgb
-        acc += w
-        T *= 1.0 - alpha
-    return torch.cat([img, acc[:, None]], -1).reshape(H, W, 4).cpu().numpy()
-
-
 def make_synthetic_scene(num_views: int = 20, H: int = 100, W: int = 100, radius: float = 2.0,
-                         seed: int = 0, num_steps: int = 192,
-                         device: Optional[str] = None) -> SceneData:
+                         seed: int = 0, num_steps: int = 192) -> SceneData:
     """``num_views`` orbit views (golden-angle azimuths with a seeded jitter,
-    polar angles avoiding the poles) of the spheres scene, rendered in numpy
-    (``device`` None, the JAX package's numpy backend) or in torch on
-    ``device`` (float32 in another order: the same images within 1e-5)."""
+    polar angles avoiding the poles) of the spheres scene. The views render
+    on up to a thread per core (numpy's loops release the GIL), each as the
+    JAX package renders it, so the images are its images bit for bit."""
     rng = np.random.default_rng(seed)
     intr = synthetic_intrinsics(H, W)
     poses = []
@@ -104,10 +73,8 @@ def make_synthetic_scene(num_views: int = 20, H: int = 100, W: int = 100, radius
         theta = np.arccos(1 - 1.6 * (v + 0.5) / num_views)
         phi = (v * 2.399963) % (2 * np.pi) + rng.uniform(0, 0.1)
         poses.append(orbit_pose(theta, phi, radius))
-    if device is None:
-        images = [_render_view(p, intr, H, W, num_steps) for p in poses]
-    else:
-        images = [_render_view_torch(p, intr, H, W, device, num_steps) for p in poses]
+    with ThreadPoolExecutor(max(1, min(num_views, os.cpu_count() or 1))) as pool:
+        images = list(pool.map(lambda p: _render_view(p, intr, H, W, num_steps), poses))
     return SceneData(images=np.stack(images), poses=np.stack(poses), intrinsics=intr, H=H, W=W)
 
 
@@ -147,17 +114,17 @@ def _ngp_to_blender(pose: np.ndarray) -> np.ndarray:
 
 
 def write_synthetic_scene(root: str, num_views: int = 20, num_test_views: int = 4, H: int = 100,
-                          W: int = 100, seed: int = 0, device: Optional[str] = None) -> str:
+                          W: int = 100, seed: int = 0) -> str:
     """Write the spheres scene to ``root`` in the Blender transforms format
     (loadable by ``load_blender(root, scale=1.0)``): train views from
     ``seed``, val and test views from ``seed + 1``, RGBA PNGs through
-    ``write_png``. ``device`` as in ``make_synthetic_scene``."""
+    ``write_png``."""
     os.makedirs(root, exist_ok=True)
     splits = [("train", num_views, seed), ("val", num_test_views, seed + 1),
               ("test", num_test_views, seed + 1)]
     cam_angle_x = 2 * np.arctan(0.5 * W / (0.9 * W))
     for split, n, s in splits:
-        scene = make_synthetic_scene(n, H, W, seed=s, device=device)
+        scene = make_synthetic_scene(n, H, W, seed=s)
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for v in range(n):

@@ -325,16 +325,47 @@ _K6_MAX_CAS = 8
 _k6_scratch: dict = {}
 
 
+def _k6_launch(density_grid, cfg, entry, argtypes, what, args):
+    """The frame both K6 entries share: checks the grid, allocates occ,
+    occ_coarse, the stats and the bbox, takes the stream's scratch and calls
+    ``entry`` with ``args(outputs, geometry, scratch)`` and the stream.
+    ``outputs`` are the four outputs' pointers, ``geometry`` the dilation
+    radius, the per-cascade bounds and cell sizes and the bound. A failed
+    launch drops the scratch (it may be left dirty) and raises. Returns
+    (occ, occ_coarse, stats, bbox)."""
+    H, C = cfg.grid_size, cfg.cascades
+    dev = density_grid.device
+    if C > _K6_MAX_CAS or tuple(density_grid.shape) != (C, H**3) or density_grid.dtype != torch.float32:
+        raise ValueError(f"{what}: density_grid must be ({C}, {H**3}) f32 with at most "
+                         f"{_K6_MAX_CAS} cascades, got {tuple(density_grid.shape)} {density_grid.dtype}")
+    occ = torch.empty((C, H, H, H), device=dev, dtype=torch.bool)
+    occ_coarse = torch.empty_like(occ)
+    stats = torch.empty((2,), device=dev, dtype=torch.float32)
+    bbox = torch.empty((6,), device=dev, dtype=torch.float32)
+    bounds = [min(2**c, cfg.bound) for c in range(C)]
+    geometry = (cfg.coarse_dilation_radius, (ctypes.c_float * C)(*bounds),
+                (ctypes.c_float * C)(*[2.0 * b / H for b in bounds]), float(cfg.bound))
+    words = _build.function("occupancy", "occ_scratch_words", [])
+    key, scratch = _build.stream_scratch(_k6_scratch, dev, int(words()), torch.int32)
+    P = _build.ptr
+    fn = _build.function("occupancy", entry, argtypes)
+    code = fn(*args((P(occ), P(occ_coarse), P(stats), P(bbox)), geometry, P(scratch)),
+              _build.stream(dev))
+    if code != 0:
+        _k6_scratch.pop(key, None)
+    _build.check(code, what)
+    kernels.launches["occupancy"] += 2
+    return occ, occ_coarse, stats, bbox
+
+
 def _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay):
+    """Two launches: merge and mean; threshold, dilation and bbox."""
     H, C = cfg.grid_size, cfg.cascades
     n = H**3
     dev = density_grid.device
-    if C > _K6_MAX_CAS or tuple(density_grid.shape) != (C, n) or density_grid.dtype != torch.float32:
-        raise ValueError(f"occupancy kernel: density_grid must be ({C}, {n}) f32 with at most "
-                         f"{_K6_MAX_CAS} cascades, got {tuple(density_grid.shape)} {density_grid.dtype}")
     S = tmp.shape[1]
     if (tmp.device != dev or tmp.dim() != 2 or tmp.shape[0] != C or not 0 <= offset <= n - S):
-        raise ValueError(f"occupancy kernel: tmp must be ({C}, S) on {dev} with 0 <= offset <= "
+        raise ValueError(f"occupancy_upkeep: tmp must be ({C}, S) on {dev} with 0 <= offset <= "
                          f"{n} - S, got {tuple(tmp.shape)} on {tmp.device}, offset {offset}")
     old = density_grid.contiguous()
     tmp = tmp.float().contiguous()
@@ -342,25 +373,12 @@ def _occupancy_upkeep_cuda(density_grid, tmp, offset, cfg, decay):
     partial_words = _build.function("occupancy", "occ_partial_words",
                                     [ctypes.c_int, ctypes.c_longlong], restype=ctypes.c_longlong)
     partial = torch.empty((int(partial_words(C, n)),), device=dev, dtype=torch.float32)
-    stats = torch.empty((2,), device=dev, dtype=torch.float32)
-    occ = torch.empty((C, H, H, H), device=dev, dtype=torch.bool)
-    occ_coarse = torch.empty_like(occ)
-    bbox = torch.empty((6,), device=dev, dtype=torch.float32)
-    bounds = [min(2**c, cfg.bound) for c in range(C)]
-    c_bounds = (ctypes.c_float * C)(*bounds)
-    c_cells = (ctypes.c_float * C)(*[2.0 * b / H for b in bounds])
-    words = _build.function("occupancy", "occ_scratch_words", [])
-    key, scratch = _build.stream_scratch(_k6_scratch, dev, int(words()), torch.int32)
     P = _build.ptr
-    fn = _build.function("occupancy", "occ_upkeep_launch", _K6_ARGS)
-    code = fn(P(old), P(tmp), C, H, S, offset, float(decay), float(cfg.density_thresh),
-              float(cfg.occ_thresh_scale), cfg.coarse_dilation_radius, c_bounds, c_cells,
-              float(cfg.bound), P(new_grid), P(occ), P(occ_coarse), P(stats), P(bbox),
-              P(partial), P(scratch), _build.stream(dev))
-    if code != 0:  # a launch that failed may leave the scratch dirty
-        _k6_scratch.pop(key, None)
-    _build.check(code, "occupancy_upkeep")
-    kernels.launches["occupancy"] += 2  # merge and mean; threshold, dilation and bbox
+    occ, occ_coarse, stats, bbox = _k6_launch(
+        old, cfg, "occ_upkeep_launch", _K6_ARGS, "occupancy_upkeep",
+        lambda out, geometry, scratch: (
+            P(old), P(tmp), C, H, S, offset, float(decay), float(cfg.density_thresh),
+            float(cfg.occ_thresh_scale), *geometry, P(new_grid), *out, P(partial), scratch))
     return new_grid, occ, occ_coarse, stats[0], bbox
 
 
@@ -393,31 +411,14 @@ _K6_REBUILD_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_float] * 
 
 
 def _occupancy_rebuild_cuda(density_grid, mean_density, cfg):
+    """Two launches: the reset; threshold, dilation and bbox."""
     H, C = cfg.grid_size, cfg.cascades
-    n = H**3
-    dev = density_grid.device
-    if C > _K6_MAX_CAS or tuple(density_grid.shape) != (C, n) or density_grid.dtype != torch.float32:
-        raise ValueError(f"occupancy rebuild: density_grid must be ({C}, {n}) f32 with at most "
-                         f"{_K6_MAX_CAS} cascades, got {tuple(density_grid.shape)} {density_grid.dtype}")
     grid = density_grid.contiguous()
-    stats = torch.empty((2,), device=dev, dtype=torch.float32)
-    occ = torch.empty((C, H, H, H), device=dev, dtype=torch.bool)
-    occ_coarse = torch.empty_like(occ)
-    bbox = torch.empty((6,), device=dev, dtype=torch.float32)
-    bounds = [min(2**c, cfg.bound) for c in range(C)]
-    c_bounds = (ctypes.c_float * C)(*bounds)
-    c_cells = (ctypes.c_float * C)(*[2.0 * b / H for b in bounds])
-    words = _build.function("occupancy", "occ_scratch_words", [])
-    key, scratch = _build.stream_scratch(_k6_scratch, dev, int(words()), torch.int32)
-    P = _build.ptr
-    fn = _build.function("occupancy", "occ_rebuild_launch", _K6_REBUILD_ARGS)
-    code = fn(P(grid), C, H, float(mean_density), rebuild_threshold(mean_density, cfg),
-              cfg.coarse_dilation_radius, c_bounds, c_cells, float(cfg.bound), P(occ), P(occ_coarse),
-              P(stats), P(bbox), P(scratch), _build.stream(dev))
-    if code != 0:  # a launch that failed may leave the scratch dirty
-        _k6_scratch.pop(key, None)
-    _build.check(code, "occupancy_rebuild")
-    kernels.launches["occupancy"] += 2  # the reset; threshold, dilation and bbox
+    occ, occ_coarse, _, bbox = _k6_launch(
+        grid, cfg, "occ_rebuild_launch", _K6_REBUILD_ARGS, "occupancy_rebuild",
+        lambda out, geometry, scratch: (
+            _build.ptr(grid), C, H, float(mean_density), rebuild_threshold(mean_density, cfg),
+            *geometry, *out, scratch))
     return occ, occ_coarse, bbox
 
 

@@ -13,9 +13,9 @@ This package imports no optax, so the chain's states are stand-ins of the
 same fields:
 
 * ``load`` unpickles with a ``find_class`` that maps optax's class names to
-  the stand-ins, takes numpy's own globals, and refuses any other global
-  (a checkpoint holds nothing else; unpickling an unknown global could run
-  code).
+  the stand-ins, takes the few numpy globals that rebuild arrays, scalars
+  and dtypes, and refuses any other global (a checkpoint holds nothing
+  else; unpickling another global, numpy's included, could run code).
 * ``save`` writes each stand-in as the optax class it stands for, by module
   and name, so the JAX package's ``pickle.load`` rebuilds real optax
   states. The pure-Python pickler's dispatch table does this without
@@ -48,6 +48,12 @@ _WRITE = {
 }
 # (module, name) a checkpoint may name -> stand-in
 _READ = {v: k for k, v in _WRITE.items()}
+# the numpy globals that an array, a numpy scalar or a dtype pickles as
+# (protocols 3-5; numpy 2's ``numpy._core`` and numpy 1's ``numpy.core``)
+_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype")} | {
+    (f"{core}.{module}", name) for core in ("numpy._core", "numpy.core")
+    for module, name in (("multiarray", "_reconstruct"), ("multiarray", "scalar"),
+                         ("numeric", "_frombuffer"))}
 
 
 def optax_chain_state(opt_state: Dict, weight_decay: bool) -> Tuple:
@@ -83,7 +89,7 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if (module, name) in _READ:
             return _READ[(module, name)]
-        if module == "numpy" or module.startswith("numpy."):
+        if (module, name) in _NUMPY:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"a checkpoint holds numpy arrays and optax states; this file names {module}.{name}")
