@@ -128,8 +128,11 @@ Phases (any failure exits non-zero; nothing is caught):
     configuration with every cell occupied (as the JAX registry tests
     render), MSE and the trainer's Adam: 64 + 50 steps (K10 and K11 forward
     and backward, K1 and K3 must launch; K2, K4, K6 not), one 800^2 view in
-    chunks of 16,384 rays; a captured step holds K10 and K11 forward and
-    backward to their plain versions on the CPU; the step check;
+    chunks of 16,384 rays, one step under the profiler; a captured step
+    holds K10 and K11 forward and backward to their plain versions on the
+    CPU (K10 forward bit for bit); one 16,384-ray chunk of the trained grid
+    with the diffuse material's analytic normals (K10's backward for dL/dx
+    alone) holds and times K10's coordinate gradient; the step check;
 17. registry-sdf: ``implicit-sdf`` on bench's triplane with
     ``diffuse-with-point-light-material`` (finite-difference normals) and
     the env-map background: 64 + 50 steps; the step check on the initial
@@ -809,15 +812,16 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
     return state, launches, stats
 
 
-def profile_step(trainer, state, data, what="train"):
-    """Device time by kernel over one train step, and the device's idle share."""
+def profile_step(trainer, state, data, what="train", step=None):
+    """Device time by kernel over one train step (``step(state)``, default
+    the trainer's), and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = trainer.train_step(state, data, with_stats=False)
+        state, _ = step(state) if step else trainer.train_step(state, data, with_stats=False)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2108,9 +2112,35 @@ def _capture_registry_step(trainer, field, state, data):
     return state, cap.calls
 
 
-def _voxel_rows_touched(x, R_, bound):
+def _voxel_rows(x, R_, bound):
+    """The 8 corner rows of each point, (N, 8)."""
     _, q0, f = REG._voxel_cell(x, R_, bound)
-    return torch.unique(torch.cat([REG._voxel_corner(q0, f, R_, c)[0] for c in REG._CORNERS_3D])).numel()
+    return torch.stack([REG._voxel_corner(q0, f, R_, c)[0] for c in REG._CORNERS_3D], -1)
+
+
+def _voxel_rows_touched(x, R_, bound):
+    return torch.unique(_voxel_rows(x, R_, bound)).numel()
+
+
+def _corner_sharing(x, g, R_, bound):
+    """Of the consecutive point pairs that both carry a cotangent, the share
+    in one cell (every corner row the same: the runs K10's backward sums
+    before its atomics) and the share with any corner row in common."""
+    rows, live = _voxel_rows(x, R_, bound), (g != 0).any(-1)
+    pair = live[1:] & live[:-1]
+    same = ((rows[1:] == rows[:-1]).all(-1) & pair).sum().item()
+    common = (torch.stack([(rows[1:] == rows[:-1, k : k + 1]).any(-1) for k in range(8)], -1).any(-1)
+              & pair).sum().item()
+    n = max(int(pair.sum()), 1)
+    return same / n, common / n
+
+
+def _volume_grid_lib(grid, x, R_, bound):
+    """F.grid_sample's layout of the grid (1, CH, R, R, R) and the points
+    (1, N, 1, 1, 3) in (z, y, x) order, for the library calls."""
+    N, CH = x.shape[0], grid.shape[1]
+    vol = grid.view(R_, R_, R_, CH).permute(3, 0, 1, 2).contiguous()[None]
+    return vol, (x[:, [2, 1, 0]] / bound).reshape(1, N, 1, 1, 3).contiguous()
 
 
 def _volume_grid_rows(calls):
@@ -2122,13 +2152,12 @@ def _volume_grid_rows(calls):
     (grid, x, R_, bound), _ = calls["_sample_volume_grid_cuda"][0]
     N, CH = x.shape[0], grid.shape[1]
     got = REG._sample_volume_grid_cuda(grid, x, R_, bound)
-    err = (got.cpu() - REG.sample_volume_grid_plain(grid.cpu(), x.cpu(), R_, bound)).abs().max().item()
-    tol = 1e-6 * grid.abs().max().item()
-    if err > tol:
-        raise RuntimeError(f"K10 max|err| {err} > {tol}")
+    ref = REG.sample_volume_grid_plain(grid.cpu(), x.cpu(), R_, bound)
+    err = (got.cpu() - ref).abs().max().item()
+    if not torch.equal(got.cpu(), ref):
+        raise RuntimeError(f"K10 differs from its plain version's bits (max|err| {err})")
     touched = _voxel_rows_touched(x, R_, bound)
-    vol = grid.view(R_, R_, R_, CH).permute(3, 0, 1, 2).contiguous()[None]
-    coords = (x[:, [2, 1, 0]] / bound).reshape(1, N, 1, 1, 3).contiguous()
+    vol, coords = _volume_grid_lib(grid, x, R_, bound)
 
     def lib():
         return F.grid_sample(vol, coords, mode="bilinear", padding_mode="border", align_corners=True)
@@ -2137,12 +2166,13 @@ def _volume_grid_rows(calls):
     b, by = bound_ms(nbytes(x, got) + 4 * CH * touched, N * (40 + 16 * CH))
     rows = [dict(name="K10 sample_volume_grid", key="volume_grid", route="cuda",
                  source="trinerflet_tpu_torch/kernels/csrc/volume_grid.cu",
-                 replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=err, tol=tol,
+                 replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=err,
+                 tol="equal bit for bit to the plain version on the CPU",
                  ms=time_ms(lambda: REG._sample_volume_grid_cuda(grid, x, R_, bound)),
                  plain_ms=time_ms(lambda: REG.sample_volume_grid_plain(grid, x, R_, bound), iters=5),
                  bound_ms=b, bound_by=by, library_ms=time_ms(lib),
-                 note=f"N={N} points, R={R_}, 1+F={CH} f32; {touched} of {R_ ** 3} rows touched; held "
-                      f"to the plain version on the CPU; library F.grid_sample 5-D border "
+                 note=f"N={N} points, R={R_}, 1+F={CH} f32; {touched} of {R_ ** 3} rows touched; equal "
+                      f"to the plain version on the CPU bit for bit; library F.grid_sample 5-D border "
                       f"align_corners (rel diff {lib_err:.2e})")]
     (g, grid, x, R_, bound, need_grid, need_x), _ = calls["_sample_volume_grid_backward_cuda"][0]
     gg, gx = REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, True, True)
@@ -2151,6 +2181,7 @@ def _volume_grid_rows(calls):
     if err_g > 1e-5 or err_x > 1e-5:
         raise RuntimeError(f"K10 backward off its plain version: grid {err_g}, x {err_x} (rel, tol 1e-5)")
     live = int((g != 0).any(-1).sum())
+    same, common = _corner_sharing(x, g, R_, bound)
     b, by = bound_ms(nbytes(g, x) + 4 * R_ ** 3 * CH + (4 * CH * touched + 12 * N if need_x else 0),
                      live * 16 * CH * (2 if need_x else 1))
     g5 = g.float().T.reshape(1, CH, N, 1, 1).contiguous()
@@ -2169,9 +2200,72 @@ def _volume_grid_rows(calls):
                      bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
                      note=f"the path's call (grid gradient {need_grid}, point gradient {need_x}); both "
                           f"outputs held (rel {err_g:.2e}, {err_x:.2e}); {live} of {N} points carry a "
-                          f"cotangent; float32 atomics into {R_ ** 3} zeroed rows; library "
-                          f"aten.grid_sampler_3d_backward"))
+                          f"cotangent; of consecutive pairs of them {same:.4f} share a cell and {common:.4f} "
+                          f"a corner row (runs in one cell merged in a lane group's walk of 8 points); float4 "
+                          f"atomics into {R_ ** 3} zeroed rows; "
+                          f"library aten.grid_sampler_3d_backward"))
     return rows
+
+
+def _volume_grid_x_rows(calls, xcalls):
+    """K10's coordinate gradient alone (the analytic normal's call on a voxel
+    grid): every call of the normal chunk ``xcalls`` held to the plain
+    version on the CPU, then the call on the captured step's points and
+    cotangents (``calls``) held the same way, equal to the point gradient of
+    the both-outputs call, and timed beside the plain version and
+    aten.grid_sampler_3d_backward with output mask [False, True]."""
+    err = 0.0
+    for (g, grid, x, R_, bound, need_grid, need_x), _ in xcalls["_sample_volume_grid_backward_cuda"]:
+        if need_grid or not need_x:
+            raise RuntimeError("the analytic normal's K10 backward asked for the grid gradient")
+        got = REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, False, True)[1]
+        ref = REG.sample_volume_grid_backward_plain(g.cpu(), grid.cpu(), x.cpu(), R_, bound, False, True)[1]
+        err = max(err, _rel(got.cpu(), ref))
+    (g, grid, x, R_, bound, _, _), _ = calls["_sample_volume_grid_backward_cuda"][0]
+    N, CH = x.shape[0], grid.shape[1]
+    gx = REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, False, True)[1]
+    err = max(err, _rel(gx.cpu(), REG.sample_volume_grid_backward_plain(g.cpu(), grid.cpu(), x.cpu(), R_, bound,
+                                                                        False, True)[1]))
+    if err > 1e-5:
+        raise RuntimeError(f"K10 coordinate gradient off its plain version: {err} (rel, tol 1e-5)")
+    if not torch.equal(gx, REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, True, True)[1]):
+        raise RuntimeError("K10's point gradient alone differs from the both-outputs call's")
+    live = (g != 0).any(-1)
+    touched = _voxel_rows_touched(x[live], R_, bound)
+    b, by = bound_ms(nbytes(g, x) + 4 * CH * touched + 12 * N, int(live.sum()) * 16 * CH)
+    vol, coords = _volume_grid_lib(grid, x, R_, bound)
+    g5 = g.float().T.reshape(1, CH, N, 1, 1).contiguous()
+
+    def lib():
+        return torch.ops.aten.grid_sampler_3d_backward(g5, vol, coords, 0, 1, True, [False, True])
+
+    n_calls = len(xcalls["_sample_volume_grid_backward_cuda"])
+    return [dict(name="K10 sample_volume_grid coordinate gradient", key="volume_grid_bwd", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/volume_grid.cu",
+                 replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=err,
+                 tol="1e-5 of the largest entry, against the plain version on the CPU",
+                 ms=time_ms(lambda: REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, False, True)),
+                 plain_ms=time_ms(lambda: REG.sample_volume_grid_backward_plain(g, grid, x, R_, bound, False,
+                                                                                True), iters=5),
+                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                 note=f"dL/dx alone (no atomic), timed on the registry-grid step's N={N} points and "
+                      f"cotangents ({int(live.sum())} live, {touched} rows touched); {n_calls} call(s) of "
+                      f"an analytic-normal view chunk on the trained grid held too; equal to the "
+                      f"both-outputs call's dL/dx; library aten.grid_sampler_3d_backward [False, True]")]
+
+
+def _grid_normal_chunk(trainer, nerf_cfg, params, occ):
+    """One 16,384-ray chunk of a view of the trained voxel grid under the
+    diffuse material with analytic normals (K10's backward for dL/dx alone),
+    the counts zeroed before it and read after it. Returns (launches,
+    calls)."""
+    an = REG.RegistryField(nerf_cfg, "volume-grid", "diffuse-with-point-light-material", "textured-background",
+                           normal_type="analytic")
+    kernels.reset_launches()
+    calls = _capture_view_chunk(trainer, an, params, occ)
+    launches = dict(kernels.launches)
+    log(f"# registry-grid analytic-normal chunk: launches {launches}")
+    return launches, calls
 
 
 def _k11_errors(got, tex, d):
@@ -2313,10 +2407,13 @@ def registry_grid_phase(scene, card):
                                             REG_GRID_ABSENT)
     ms, _, _ = registry_view(trainer, field, state.ema_params, state.occ, card, "registry-grid",
                              REG_GRID_VIEW_KERNELS)
+    state = profile_step(trainer, state, data, "registry-grid train", step=registry_step(trainer, field, data))
     state, calls = _capture_registry_step(trainer, field, state, data)
     rows = (label_rows(_volume_grid_rows(calls) + _textured_bg_rows(calls), launches, what)
             + path_kernel_rows(trainer, calls, launches, what))
-    del calls
+    xlaunches, xcalls = _grid_normal_chunk(trainer, nerf_cfg, state.ema_params, state.occ)
+    rows += label_rows(_volume_grid_x_rows(calls, xcalls), xlaunches, "registry-grid analytic-normal chunk")
+    del calls, xcalls
     step_check(trainer, state, data, "registry-grid", loss_fn=registry_loss_fn(field))
     return rows, dict(stats, launches=launches, view_ms=ms)
 

@@ -46,7 +46,7 @@ operation alone, as their plain versions do; they are held to the plain
 versions run on the CPU, where x / bound and theta / pi are true divisions
 as in the kernels (on the card torch divides by a CPU scalar as a multiply
 by its reciprocal, so a point on a node could take the neighbour cell).
-K10's features within 1e-6 of the grid's magnitude (expected equal); K11's
+K10's features equal bit for bit, on random and on ray-ordered points; K11's
 colours within 1e-4: CUDA's acosf and atan2f differ from the CPU's by an
 ulp or two (~5e-7 rad), which moves u or v by up to ~5e-5 texels, times
 this N(0, 1) texture's steepest neighbour difference (~6) and the
@@ -1031,40 +1031,62 @@ def test_grid_encode_autograd_launches_k7x_for_points(dev):
     assert torch.isfinite(gx).all() and gx.abs().sum() > 0
 
 
-def _volume_inputs(dev, R, CH, N, bound, seed):
+def _volume_inputs(dev, R, CH, N, bound, seed, layout="random"):
+    """A grid, points and cotangents. ``random``: points spread inside and
+    outside the box, on the nodes, on the faces and 3,000 on one point;
+    ``rays``: a renderer's layout, runs of 20 samples along straight lines,
+    consecutive in memory, every other run 0.4 cells a step (within and
+    across cells) and the rest 3 cells a step, and 58 samples in one cell
+    from index 1003 (across the warp boundaries of every lane-group width)."""
     g = torch.Generator().manual_seed(seed)
     grid = torch.randn((R**3, CH), generator=g)
-    x = (2 * torch.rand((N, 3), generator=g) - 1) * 1.1 * bound     # inside and outside
-    k = torch.randint(0, R, (N // 4, 3), generator=g)
-    x[: N // 4] = (2.0 * k / (R - 1) - 1.0) * bound                 # on the nodes
-    x[N // 4 : N // 4 + 6] = torch.tensor([[bound, 0.1, 0.2], [-bound, 0.1, 0.2], [0.1, bound, 0.2],
-                                           [0.1, -bound, 0.2], [0.1, 0.2, bound], [0.1, 0.2, -bound]])
-    x[N // 2 : N // 2 + 3000] = 0.3                                   # contention on one cell
+    if layout == "rays":
+        cell = 2 * bound / (R - 1)
+        o = (2 * torch.rand((N // 20, 1, 3), generator=g) - 1) * bound
+        d = torch.nn.functional.normalize(torch.randn((N // 20, 1, 3), generator=g), dim=-1)
+        step = cell * torch.where(torch.arange(N // 20) % 2 == 0, 0.4, 3.0)[:, None, None]
+        x = (o + d * step * torch.arange(20.0)[None, :, None]).reshape(N, 3)
+        corner = (2.0 * torch.randint(0, R - 1, (1, 3), generator=g) / (R - 1) - 1.0) * bound
+        x[1003:1061] = corner + 0.1 * cell + 0.8 * cell * torch.linspace(0, 1, 58)[:, None] * d[0].abs()
+    else:
+        x = (2 * torch.rand((N, 3), generator=g) - 1) * 1.1 * bound     # inside and outside
+        k = torch.randint(0, R, (N // 4, 3), generator=g)
+        x[: N // 4] = (2.0 * k / (R - 1) - 1.0) * bound                 # on the nodes
+        x[N // 4 : N // 4 + 6] = torch.tensor([[bound, 0.1, 0.2], [-bound, 0.1, 0.2], [0.1, bound, 0.2],
+                                               [0.1, -bound, 0.2], [0.1, 0.2, bound], [0.1, 0.2, -bound]])
+        x[N // 2 : N // 2 + 3000] = 0.3                                   # contention on one cell
     ct = torch.randn((N, CH), generator=g)
     ct[N - 4000 :] = 0.0                                              # masked samples
     return grid.to(dev), x.to(dev), ct.to(dev)
 
 
-@pytest.mark.parametrize("R,CH", [(64, 16), (16, 5), (128, 8)])
-def test_volume_grid_kernels_match_plain(dev, R, CH):
+@pytest.mark.parametrize("layout", ["random", "rays"])
+@pytest.mark.parametrize("R,CH", [(64, 16), (16, 5), (128, 8), (32, 36)])  # 36: two slices a lane
+def test_volume_grid_kernels_match_plain(dev, R, CH, layout):
     bound = 1.5
-    grid, x, ct = _volume_inputs(dev, R, CH, 60000, bound, 17)
+    grid, x, ct = _volume_inputs(dev, R, CH, 60000, bound, 17, layout)
+    if layout == "rays":  # the one-cell run crosses warp boundaries in one cell
+        rows = REG._voxel_corner(*REG._voxel_cell(x.cpu(), R, bound)[1:], R, (0, 0, 0))[0]
+        assert (rows[1003:1061] == rows[1003]).all()
     n0 = kernels.launches["volume_grid"]
     got = REG._sample_volume_grid_cuda(grid, x, R, bound)
     assert kernels.launches["volume_grid"] == n0 + 1
     ref = REG.sample_volume_grid_plain(grid.cpu(), x.cpu(), R, bound)
     assert got.shape == ref.shape == (60000, CH)
-    assert (got.cpu() - ref).abs().max().item() <= 1e-6 * grid.abs().max().item()
-    n0 = kernels.launches["volume_grid_bwd"]
-    gg, gx = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound)
-    assert kernels.launches["volume_grid_bwd"] == n0 + 1
+    assert torch.equal(got.cpu(), ref)  # the plain version's bits
+    calls = {}
+    for asked in ((True, True), (True, False), (False, True)):
+        n0 = kernels.launches["volume_grid_bwd"]
+        calls[asked] = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound, *asked)
+        assert kernels.launches["volume_grid_bwd"] == n0 + 1
+    gg, gx = calls[True, True]
     rgg, rgx = REG.sample_volume_grid_backward_plain(ct.cpu(), grid.cpu(), x.cpu(), R, bound)
     assert _rel_close(gg.cpu(), rgg, 1e-5) and _rel_close(gx.cpu(), rgx, 1e-5)
     assert (gx[-4000:] == 0).all() and (gg.abs().sum(-1) > 0).any()
-    only_grid = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound, x_grad=False)
-    only_x = REG._sample_volume_grid_backward_cuda(ct, grid, x, R, bound, grid_grad=False)
+    only_grid, only_x = calls[True, False], calls[False, True]
     assert only_grid[1] is None and only_x[0] is None
-    assert _rel_close(only_grid[0].cpu(), rgg, 1e-5) and torch.equal(only_x[1], gx)
+    assert _rel_close(only_grid[0].cpu(), rgg, 1e-5) and _rel_close(only_grid[0], gg, 1e-5)
+    assert torch.equal(only_x[1], gx)
 
 
 def test_volume_grid_autograd_and_refusals(dev):

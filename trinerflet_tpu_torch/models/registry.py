@@ -654,7 +654,8 @@ def _check_volume(grid: torch.Tensor, x: torch.Tensor, R: int, what: str) -> Non
 
 
 def _sample_volume_grid_cuda(grid: torch.Tensor, x: torch.Tensor, R: int, bound: float) -> torch.Tensor:
-    """K10 forward: one thread per (point, group of 4 channels)."""
+    """K10 forward: a lane group per point, a lane per float4 slice of its
+    row; the plain version's bits."""
     _check_volume(grid, x, R, "sample_volume_grid kernel")
     x = x.contiguous()
     N, CH = x.shape[0], grid.shape[1]
@@ -670,8 +671,10 @@ def _sample_volume_grid_cuda(grid: torch.Tensor, x: torch.Tensor, R: int, bound:
 
 def _sample_volume_grid_backward_cuda(g: torch.Tensor, grid: torch.Tensor, x: torch.Tensor, R: int,
                                       bound: float, grid_grad: bool = True, x_grad: bool = True):
-    """K10 backward: one launch, one thread per point; the grid gradient
-    (float32 atomics) and dL/dx (N, 3), each only when asked for."""
+    """K10 backward: one launch, lane groups as in the forward; the grid
+    gradient (float4 atomics where the rows allow, a run of points in one
+    cell summed first) and dL/dx (N, 3), each only when asked for (the grid
+    gradient alone reads no grid row; dL/dx alone adds nothing)."""
     what = "sample_volume_grid backward kernel"
     _check_volume(grid, x, R, what)
     N, CH = x.shape[0], grid.shape[1]
