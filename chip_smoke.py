@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
 2. build kernels K1-K11 (with K1f, K2x, K3c and K7x) from
    ``trinerflet_tpu_torch/kernels/csrc`` with nvcc, one process per source,
-   in parallel;
+   in parallel; print the launch floor (``time_ms`` of a one-element
+   ``fill_``), which the launch-bound rows (K3, K3c, K11) set their time
+   beside in their notes;
 3. serve: the full-width bench model (1024^2 x 16-channel bf16 wavelet
    triplane, bior6.8, 4 IDWT levels, bf16 MLPs, bound 1.5, 128^3 x 2-cascade
    occupancy grid, max_steps 1024, 20 samples per ray), seeded random weights
@@ -132,7 +134,9 @@ Phases (any failure exits non-zero; nothing is caught):
     holds K10 and K11 forward and backward to their plain versions on the
     CPU (K10 forward bit for bit); one 16,384-ray chunk of the trained grid
     with the diffuse material's analytic normals (K10's backward for dL/dx
-    alone) holds and times K10's coordinate gradient; the step check;
+    alone) holds and times K10's coordinate gradient, and K11's forward on
+    its one camera's rays (the share of a warp's taps that share a texel
+    row in the backward row's note and this one's); the step check;
 17. registry-sdf: ``implicit-sdf`` on bench's triplane with
     ``diffuse-with-point-light-material`` (finite-difference normals) and
     the env-map background: 64 + 50 steps; the step check on the initial
@@ -143,8 +147,9 @@ Phases (any failure exits non-zero; nothing is caught):
     against finite differences (float32 copies, eps 0.05 of a cell);
 18. registry-hash-normals: the hash-grid phase's trained field under the
     diffuse material with analytic normals: one 800^2 view (K7 and K7x),
-    K7x held to its plain version on a captured chunk, the same normal
-    checks;
+    K7x held to its plain version on a captured chunk (bit for bit at the
+    field's C = 2) and timed beside the K7 forward on the same chunk, the
+    same normal checks;
 19. cli: a synthetic Blender scene (30 training, 8 val and 8 test views of
     400^2, written with ``write_synthetic_scene`` on the host; PNG decode
     ms per view), then ``trinerflet_tpu_torch.cli`` on the README's
@@ -290,6 +295,25 @@ def k6_ops(cells: int, r: int, merge: bool) -> int:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+_FLOOR_MS = []
+
+
+def launch_floor_ms() -> float:
+    """The launch floor: ``time_ms`` of a one-element ``fill_``, the least a
+    timed call of one launch takes on this card (measured once)."""
+    if not _FLOOR_MS:
+        z = torch.empty((1,), device=DEVICE)
+        _FLOOR_MS.append(time_ms(lambda: z.fill_(1.0), iters=50))
+    return _FLOOR_MS[0]
+
+
+def with_floor(row):
+    """A launch-bound row: its time beside the launch floor, in its note."""
+    f = launch_floor_ms()
+    row["note"] += f"; {row['ms']:.4f} ms is {row['ms'] / f:.2f}x the launch floor ({f:.4f} ms)"
+    return row
 
 
 def serve_setup():
@@ -605,13 +629,13 @@ def kernel_phase(trainer, params, occ, poses, intr):
         raise RuntimeError(f"K3 max|err| {err3} > 1e-5")
     _same_bits("K3", got, RM.composite_dense(*cargs, t_thresh=rcfg.t_thresh))
     b, by = bound_ms(nbytes(*cargs) + nbytes(*got), sig.numel() * 12)
-    rows.append(dict(name="K3 composite_dense", route="cuda",
-                     source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
-                     replaces="trinerflet_tpu/ops/raymarch.py:805",
-                     max_abs_err=err3, tol=1e-5,
-                     ms=time_ms(lambda: RM.composite_dense(*cargs, t_thresh=rcfg.t_thresh)),
-                     plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs, t_thresh=rcfg.t_thresh)),
-                     bound_ms=b, bound_by=by, library_ms=None, note=f"N={N} rays x {B} samples"))
+    rows.append(with_floor(dict(name="K3 composite_dense", route="cuda",
+                                source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
+                                replaces="trinerflet_tpu/ops/raymarch.py:805",
+                                max_abs_err=err3, tol=1e-5,
+                                ms=time_ms(lambda: RM.composite_dense(*cargs, t_thresh=rcfg.t_thresh)),
+                                plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs, t_thresh=rcfg.t_thresh)),
+                                bound_ms=b, bound_by=by, library_ms=None, note=f"N={N} rays x {B} samples")))
 
     # ---- K4: the four IDWT levels of the plane build
     tcfg = trainer.nerf_cfg.triplane
@@ -1273,14 +1297,14 @@ def _composite_row(cargs, name_t):
     _same_bits("K3", got, RM._composite_cuda(*cargs))
     sig = cargs[0]
     b, by = bound_ms(nbytes(*cargs[:5]) + nbytes(*got), sig.numel() * 12)
-    return [dict(name="K3 composite_dense" + (f" T={sig.shape[1]}" if name_t else ""),
+    return [with_floor(dict(name="K3 composite_dense" + (f" T={sig.shape[1]}" if name_t else ""),
                  key="composite", route="cuda",
                  source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
                  replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
                  ms=time_ms(lambda: RM._composite_cuda(*cargs)),
                  plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
                  bound_ms=b, bound_by=by, library_ms=None,
-                 note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples")]
+                 note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples"))]
 
 
 def _composite_backward_row(bargs, name_t):
@@ -1292,7 +1316,7 @@ def _composite_backward_row(bargs, name_t):
         raise RuntimeError(f"K3 backward rel err {err} > 1e-5")
     _same_bits("K3 backward", got, RM._composite_backward_cuda(*bargs))
     b, by = bound_ms(nbytes(*bargs[:5]) + nbytes(*bargs[6:]) + nbytes(*got), sig.numel() * 40)
-    return [dict(name="K3 composite_dense backward" + (f" T={sig.shape[1]}" if name_t else ""),
+    return [with_floor(dict(name="K3 composite_dense backward" + (f" T={sig.shape[1]}" if name_t else ""),
                  key="composite_bwd",
                  route="cuda", source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
                  replaces="trinerflet_tpu/ops/raymarch.py:805",
@@ -1302,7 +1326,7 @@ def _composite_backward_row(bargs, name_t):
                  plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
                  bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples; analytic reverse pass, "
-                      "a lane group per ray; replaces autodiff of the cumprod")]
+                      "a lane group per ray; replaces autodiff of the cumprod"))]
 
 
 def evaluate_phase(trainer, state, scene, card):
@@ -1423,7 +1447,7 @@ def _compact_rows(trainer, calls):
     # per slot in a segment sigma, dt, t (4 B each) and rgb (12 B), about 16
     # flops; per ray its offset and count, and its four sums written once
     b, by = bound_ms(24 * seg + nbytes(offs, cnts) + nbytes(*got), seg * 16)
-    rows.append(dict(name="K3c composite_compact", key="composite_compact", route="cuda",
+    rows.append(with_floor(dict(name="K3c composite_compact", key="composite_compact", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
                      replaces="trinerflet_tpu/ops/raymarch.py:754",
                      max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
@@ -1432,7 +1456,7 @@ def _compact_rows(trainer, calls):
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"M={Mc} slots ({seg} in segments, at most {int(cnts.max())} a ray), "
                           f"N={n_rays} rays; a lane group per ray (8, 16 or 32 lanes by M/N), "
-                          f"float64 scans and sums"))
+                          f"float64 scans and sums")))
     # ---- K3c backward
     (bargs, _), = calls["_composite_compact_backward_cuda"][:1]
     got = RM._composite_compact_backward_cuda(*bargs)
@@ -1446,7 +1470,7 @@ def _compact_rows(trainer, calls):
     # about 30 flops; per ray offset, count and the 6 cotangent words; dsigma
     # and drgb written over all M slots (zeros on padding)
     b, by = bound_ms(28 * seg + nbytes(bargs[5], bargs[6], *bargs[9:]) + nbytes(*got), seg * 30)
-    rows.append(dict(name="K3c composite_compact backward", key="composite_compact_bwd",
+    rows.append(with_floor(dict(name="K3c composite_compact backward", key="composite_compact_bwd",
                      route="cuda", source="trinerflet_tpu_torch/kernels/csrc/compact.cu",
                      replaces="trinerflet_tpu/ops/raymarch.py:754",
                      max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
@@ -1456,7 +1480,7 @@ def _compact_rows(trainer, calls):
                      bound_ms=b, bound_by=by, library_ms=None,
                      note="analytic backward, a lane group per ray: two forward walks (the "
                           "ray's total of a*w, then its inclusive scan; the suffix is their "
-                          "difference); replaces autodiff of the global cumsums"))
+                          "difference); replaces autodiff of the global cumsums")))
     return rows
 
 
@@ -2288,20 +2312,34 @@ def _k11_errors(got, tex, d):
     return mx(err, ~seam & ~pole), mx(err, pole & ~seam), mx(err_seam, seam), seam, pole
 
 
-def _textured_bg_rows(calls):
-    """K11 forward and backward on the captured step's arguments, held to the
-    plain versions on the CPU and timed beside the plain versions on the
-    card and a 2-D F.grid_sample of the texture (and its backward) at the
+def _texel_sharing(d, H, W, live=None):
+    """How far K11's backward merges a warp's taps (32 consecutive rays, the
+    4 taps apart): the share of the live rays' taps whose add another live
+    lane of the warp makes for them (the same texel row at the same tap:
+    1 - groups / taps), the (warp, tap, row) groups, each one float2 and one
+    scalar atomic, and the taps."""
+    warp = torch.arange(d.shape[0], device=d.device) // 32
+    live = torch.ones(d.shape[0], dtype=torch.bool, device=d.device) if live is None else live
+    groups = taps = 0
+    for rows, _ in REG._texel_taps(d, H, W):
+        key = (warp * (H * W) + rows)[live]
+        groups += torch.unique(key).numel()
+        taps += key.numel()
+    return 1.0 - groups / max(taps, 1), groups, taps
+
+
+def _k11_fwd_row(tex, d, name, what):
+    """K11 forward on (tex, d) held to its plain version on the CPU and timed
+    beside the plain version and a 2-D F.grid_sample of the texture at the
     same texel coordinates, which computes less (no direction arithmetic,
     no sigmoid)."""
-    (tex, d), _ = calls["_background_textured_cuda"][0]
     H, W = tex.shape[:2]
     N = d.shape[0]
     got = REG._background_textured_cuda(tex, d)
     e_main, e_pole, e_seam, seam, pole = _k11_errors(got, tex, d)
     if e_main > 1e-4 or e_pole > 1e-3 or e_seam > 1e-4:
-        raise RuntimeError(f"K11 off its plain version: {e_main} (tol 1e-4), poles {e_pole} (1e-3), "
-                           f"seam {e_seam} (1e-4)")
+        raise RuntimeError(f"K11 off its plain version ({what}): {e_main} (tol 1e-4), poles {e_pole} "
+                           f"(1e-3), seam {e_seam} (1e-4)")
     taps = REG._texel_taps(d, H, W)
     touched = torch.unique(torch.cat([r for r, _ in taps])).numel()
     dn = d / d.norm(dim=-1, keepdim=True)
@@ -2314,17 +2352,29 @@ def _textured_bg_rows(calls):
         return F.grid_sample(img, coords, mode="bilinear", padding_mode="border", align_corners=True)
 
     b, by = bound_ms(nbytes(d, got) + 12 * touched, N * 80)
-    rows = [dict(name="K11 background_textured", key="textured_bg", route="cuda",
-                 source="trinerflet_tpu_torch/kernels/csrc/textured_bg.cu",
-                 replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=max(e_main, e_seam),
-                 tol="1e-4 (acosf/atan2f ulps times the texel slope; 1e-3 within 2.6 degrees of a "
-                     "pole; either side of the seam)",
-                 ms=time_ms(lambda: REG._background_textured_cuda(tex, d)),
-                 plain_ms=time_ms(lambda: REG.background_textured_plain(tex, d), iters=5),
-                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
-                 note=f"N={N} rays, {H}x{W} texture ({touched} texels touched); {int(seam.sum())} rays on "
-                      f"the seam, {int(pole.sum())} near a pole (max|err| {e_pole:.2e}); library "
-                      f"F.grid_sample 2-D at precomputed texel coordinates, no sigmoid")]
+    row = with_floor(dict(name=name, key="textured_bg", route="cuda",
+                          source="trinerflet_tpu_torch/kernels/csrc/textured_bg.cu",
+                          replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=max(e_main, e_seam),
+                          tol="1e-4 (acosf/atan2f ulps times the texel slope; 1e-3 within 2.6 degrees of "
+                              "a pole; either side of the seam)",
+                          ms=time_ms(lambda: REG._background_textured_cuda(tex, d)),
+                          plain_ms=time_ms(lambda: REG.background_textured_plain(tex, d), iters=5),
+                          bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                          note=f"{what}: N={N} rays, {H}x{W} texture ({touched} texels touched); "
+                               f"{int(seam.sum())} rays on the seam, {int(pole.sum())} near a pole "
+                               f"(max|err| {e_pole:.2e}); a thread per ray; library "
+                               f"F.grid_sample 2-D at precomputed texel coordinates, no sigmoid"))
+    return row, got, seam, pole, (img, coords)
+
+
+def _textured_bg_rows(calls):
+    """K11 forward and backward on the captured step's arguments, held to the
+    plain versions on the CPU and timed beside the plain versions on the
+    card and a 2-D F.grid_sample of the texture (and its backward)."""
+    (tex, d), _ = calls["_background_textured_cuda"][0]
+    N = d.shape[0]
+    row, got, seam, pole, (img, coords) = _k11_fwd_row(tex, d, "K11 background_textured", "the step's rays")
+    rows = [row]
     (g, s, d, H, W), _ = calls["_background_textured_backward_cuda"][0]
     gz = torch.where((seam | pole).to(g.device)[:, None], 0.0, g)  # rays whose taps may differ
     gt = REG._background_textured_backward_cuda(gz, s, d, H, W)
@@ -2336,41 +2386,68 @@ def _textured_bg_rows(calls):
     def lib_bwd():
         return torch.ops.aten.grid_sampler_2d_backward(gpre, img, coords, 0, 1, True, [True, False])
 
+    live = ((g * (s * (1 - s))) != 0).any(-1)
+    share, groups, taps = _texel_sharing(d, H, W, live)
     b, by = bound_ms(nbytes(g, s, d) + 12 * H * W, N * 90)
-    rows.append(dict(name="K11 background_textured backward", key="textured_bg_bwd", route="cuda",
-                     source="trinerflet_tpu_torch/kernels/csrc/textured_bg.cu",
-                     replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=err,
-                     tol="1e-5 of the largest gradient (seam and pole rays without cotangent)",
-                     ms=time_ms(lambda: REG._background_textured_backward_cuda(g, s, d, H, W)),
-                     plain_ms=time_ms(lambda: REG.background_textured_backward_plain(g, s, d, H, W), iters=5),
-                     bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
-                     note=f"float32 atomics into the {H}x{W}x3 texture gradient; library "
-                          f"aten.grid_sampler_2d_backward of the precomputed sigmoid cotangent"))
+    rows.append(with_floor(dict(
+        name="K11 background_textured backward", key="textured_bg_bwd", route="cuda",
+        source="trinerflet_tpu_torch/kernels/csrc/textured_bg.cu",
+        replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=err,
+        tol="1e-5 of the largest gradient (seam and pole rays without cotangent)",
+        ms=time_ms(lambda: REG._background_textured_backward_cuda(g, s, d, H, W)),
+        plain_ms=time_ms(lambda: REG.background_textured_backward_plain(g, s, d, H, W), iters=5),
+        bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
+        note=f"one cooperative launch: the {H}x{W}x3 gradient zeroed, one grid.sync, then each "
+             f"warp's taps merged by texel row and added with a float2 and a scalar atomic; "
+             f"{int(live.sum())} of {N} rays live, {share:.4f} of their {taps} taps merged into "
+             f"another lane's add of the same row ({groups} adds); library aten.grid_sampler_2d_backward "
+             f"of the precomputed sigmoid cotangent")))
     return rows
 
 
-def _k7x_rows(calls):
+def _textured_bg_view_rows(xcalls):
+    """K11 forward on one camera's 16,384 rays (the analytic-normal chunk's
+    background call), held and timed as on the step; its note gives the
+    share of a warp's taps merged into another lane's add on those rays."""
+    (tex, d), _ = xcalls["_background_textured_cuda"][0]
+    H, W = tex.shape[:2]
+    row = _k11_fwd_row(tex, d, "K11 background_textured (view chunk)", "one camera's view chunk")[0]
+    share, groups, taps = _texel_sharing(d, H, W)
+    row["note"] += (f"; in a backward on these rays {share:.4f} of the {taps} taps would merge into "
+                    f"another lane's add of the same row ({groups} adds)")
+    return [row]
+
+
+def _k7x_rows(calls, k7_ms=None):
     """K7x on the first captured chunk's arguments: every captured call held
-    to its plain version on the card, the first timed."""
-    err = 0.0
+    to its plain version on the card (bit for bit at C <= 2, where the
+    channel sum has one order; else within 1e-5 of the largest entry), the
+    first timed beside the K7 forward's time on the same chunk."""
+    err, equal = 0.0, True
     for (args, _) in calls["_grid_encode_backward_x_cuda"]:
-        err = max(err, _rel(GE._grid_encode_backward_x_cuda(*args), GE.grid_encode_backward_x_plain(*args)))
+        got, ref = GE._grid_encode_backward_x_cuda(*args), GE.grid_encode_backward_x_plain(*args)
+        err = max(err, _rel(got, ref))
+        equal = equal and torch.equal(got, ref)
+    (g, tables, x, cfg, bound), _ = calls["_grid_encode_backward_x_cuda"][0]
     if err > 1e-5:
         raise RuntimeError(f"K7x off its plain version: {err} (rel, tol 1e-5)")
-    (g, tables, x, cfg, bound), _ = calls["_grid_encode_backward_x_cuda"][0]
+    if cfg.level_dim <= 2 and not equal:
+        raise RuntimeError(f"K7x off its plain version's bits at C={cfg.level_dim} (rel {err})")
     N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
     touched = _touched_rows(x, cfg, bound)
     b, by = bound_ms(nbytes(g, x) + 12 * N + 4 * C * touched, N * L * (30 + 8 * (2 * C + 8)))
+    k7 = f"; the K7 forward on the same chunk {k7_ms:.4f} ms" if k7_ms is not None else ""
     return [dict(name="K7x grid_encode coordinate gradient", key="grid_encode_bwd_x", route="cuda",
                  source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
                  replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err,
-                 tol="1e-5 of the largest entry",
+                 tol="the plain version's bits at C <= 2, else 1e-5 of the largest entry",
                  ms=time_ms(lambda: GE._grid_encode_backward_x_cuda(g, tables, x, cfg, bound)),
                  plain_ms=time_ms(lambda: GE.grid_encode_backward_x_plain(g, tables, x, cfg, bound), iters=5),
                  bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={N} points x {L} levels of C={C}; {touched} table rows touched; "
-                      f"{len(calls['_grid_encode_backward_x_cuda'])} call(s) of one view chunk held; "
-                      f"library: none (no single call)")]
+                      f"{len(calls['_grid_encode_backward_x_cuda'])} call(s) of one view chunk held "
+                      f"({'bit for bit' if equal else 'within 1e-5'}); a thread per point over the "
+                      f"levels{k7}; library: none (no single call)")]
 
 
 def _capture_view_chunk(trainer, field, params, occ):
@@ -2412,7 +2489,8 @@ def registry_grid_phase(scene, card):
     rows = (label_rows(_volume_grid_rows(calls) + _textured_bg_rows(calls), launches, what)
             + path_kernel_rows(trainer, calls, launches, what))
     xlaunches, xcalls = _grid_normal_chunk(trainer, nerf_cfg, state.ema_params, state.occ)
-    rows += label_rows(_volume_grid_x_rows(calls, xcalls), xlaunches, "registry-grid analytic-normal chunk")
+    rows += label_rows(_volume_grid_x_rows(calls, xcalls) + _textured_bg_view_rows(xcalls), xlaunches,
+                       "registry-grid analytic-normal chunk")
     del calls, xcalls
     step_check(trainer, state, data, "registry-grid", loss_fn=registry_loss_fn(field))
     return rows, dict(stats, launches=launches, view_ms=ms)
@@ -2505,7 +2583,8 @@ def registry_hash_phase(card, hash_stats):
     ms, launches, x = registry_view(trainer, an, params, occ, card, "registry-hash-normals",
                                     REG_HASH_VIEW_KERNELS)
     calls = _capture_view_chunk(trainer, an, params, occ)
-    rows = label_rows(_grid_encode_fwd_rows(calls) + _k7x_rows(calls), launches, "registry-hash-normals view")
+    fwd = _grid_encode_fwd_rows(calls)
+    rows = label_rows(fwd + _k7x_rows(calls, fwd[0]["ms"]), launches, "registry-hash-normals view")
     del calls
     grid = grid_config(nerf_cfg.encoding, grid_cfg=nerf_cfg.grid)
     cell = 2 * nerf_cfg.bound / grid.level_resolution(grid.num_levels - 1)
@@ -3006,6 +3085,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f} s (per kernel {secs}) into {_build.BUILD_DIR}")
+    log(f"# launch floor: {launch_floor_ms():.4f} ms (time_ms of a one-element fill_) on {card}")
 
     torch.manual_seed(SEED)
     with torch.no_grad():

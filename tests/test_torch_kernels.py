@@ -58,9 +58,12 @@ backwards' float atomics add in an unspecified
 order: gradients within 1e-5 of the largest entry; K11's within 1e-4, from
 the same sigmoid output and with no cotangent on the seam's and the poles'
 rays, since its tap weights inherit the direction arithmetic's ulps as its
-colours do. K7x fuses no
-multiply-add where its plain version does not, but sums the corners and
-channels in another order: within 1e-5 of its largest entry. A second
+colours do; other texture sizes scale the N(0, 1) texture by 63 / (H - 1),
+so that its slope per radian, which turns those ulps into colour, is the
+64 x 128 one's. K7x fuses no
+multiply-add where its plain version does not and sums the corners and the
+levels in its order: the plain version's bits at C <= 2, where the
+channel sum has one order, else within 1e-5 of its largest entry. A second
 derivative through each kernel function raises as on the CPU
 (``tests/test_torch_second_order.py``'s cases).
 """
@@ -70,6 +73,7 @@ import pytest
 import torch
 
 from trinerflet_tpu_torch import kernels
+from trinerflet_tpu_torch.kernels import _build
 from tests.test_torch_second_order import check_second_order_raises, second_order_cases
 from trinerflet_tpu_torch.models import gridencoder as GE
 from trinerflet_tpu_torch.models import registry as REG
@@ -1001,22 +1005,38 @@ def test_grid_encode_autograd_launches_and_refuses(dev):
         GE._grid_encode_cuda([t.double() for t in tables], x, cfg, 1.5)
 
 
-@pytest.mark.parametrize("case", sorted(K7_CASES))
-def test_grid_encode_backward_x_kernel_matches_plain(dev, case):
-    cfg = GE.GridEncoderConfig(**K7_CASES[case])
-    x, tables = _k7_inputs(dev, cfg, 1.5, 50000, 14)
-    x[2:100] = torch.tensor([1.0, -1.0, 0.5], device=dev)  # u = 0 or 1 exactly at bound 1: the ties
-    ct = torch.randn((50000, cfg.output_dim), generator=torch.Generator().manual_seed(15)).to(dev)
-    ct[5000:9000] = 0.0
+# K7x cases: the ray-ordered cases (dense and hashed levels, tiled,
+# smoothstep, C 1-8, 32 levels) and the largest block, 32 levels of C = 8
+K7X_CASES = dict(K7_RAY_CASES, levels32_c8=dict(num_levels=32, level_dim=8, base_resolution=4,
+                                                desired_resolution=300, log2_hashmap_size=12))
+
+
+@pytest.mark.parametrize("n", [257, 50000])  # neither a multiple of the 32-point tile
+@pytest.mark.parametrize("layout", ["random", "rays"])
+@pytest.mark.parametrize("case", sorted(K7X_CASES))
+def test_grid_encode_backward_x_kernel_matches_plain(dev, case, layout, n):
+    cfg = GE.GridEncoderConfig(**K7X_CASES[case])
+    C = cfg.level_dim
+    if layout == "rays":
+        x, tables = _k7_ray_inputs(dev, cfg, 1.5, n, 14)
+    else:
+        x, tables = _k7_inputs(dev, cfg, 1.5, n, 14)
+        x[2:100] = torch.tensor([1.0, -1.0, 0.5], device=dev)  # u = 0 or 1 exactly at bound 1: the ties
+    ct = torch.randn((n, cfg.output_dim), generator=torch.Generator().manual_seed(15)).to(dev)
+    ct[n // 10 : n // 5] = 0.0      # points with no cotangent
+    ct[:64, C : 2 * C] = 0.0        # level 1 of two whole tiles: warps with no live lane
+    ct[::7, :C] = 0.0               # single lanes with none at level 0
     for bound in (1.0, 1.5):
         n0 = kernels.launches["grid_encode_bwd_x"]
         got = GE._grid_encode_backward_x_cuda(ct, tables, x, cfg, bound)
         assert kernels.launches["grid_encode_bwd_x"] == n0 + 1
         ref = GE.grid_encode_backward_x_plain(ct, tables, x, cfg, bound)
         torch.cuda.synchronize()
-        assert got.shape == ref.shape == (50000, 3)
+        assert got.shape == ref.shape == (n, 3)
         assert _rel_close(got, ref, 1e-5)
-        assert (got[5000:9000] == 0).all()
+        if C <= 2:  # the channel sum has one order: the plain version's bits (gridencoder.cu)
+            assert torch.equal(got, ref)
+        assert (got[n // 10 : n // 5] == 0).all()
 
 
 def test_grid_encode_autograd_launches_k7x_for_points(dev):
@@ -1103,15 +1123,37 @@ def test_volume_grid_autograd_and_refusals(dev):
         REG._sample_volume_grid_cuda(grid[:100], x, 32, 1.0)
 
 
-def test_textured_background_kernels_match_plain(dev):
+def _camera_directions(n, H=224, W=224):
+    """One camera's rays in pixel order (a 40-degree pinhole looking along
+    (0.3, 0.2, 1)): neighbouring rays share texels."""
+    j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32), torch.arange(W, dtype=torch.float32),
+                          indexing="ij")
+    f = 0.5 * W / np.tan(np.radians(20.0))
+    cam = torch.stack([(i - W / 2) / f, (j - H / 2) / f, torch.ones_like(i)], -1).reshape(-1, 3)
+    fwd = torch.nn.functional.normalize(torch.tensor([0.3, 0.2, 1.0]), dim=0)
+    right = torch.nn.functional.normalize(torch.linalg.cross(torch.tensor([0.0, 1.0, 0.0]), fwd), dim=0)
+    up = torch.linalg.cross(fwd, right)
+    return (cam @ torch.stack([right, up, fwd]))[:n].contiguous()
+
+
+@pytest.mark.parametrize("dirs", ["random", "camera"])
+@pytest.mark.parametrize("n", [45, 50000])  # below one of the backward's 64-ray blocks and no multiple of 32; many blocks
+@pytest.mark.parametrize("hw", [(64, 128), (17, 33), (256, 512)])
+def test_textured_background_kernels_match_plain(dev, hw, n, dirs):
     g = torch.Generator().manual_seed(19)
-    H, W = 64, 128
-    tex = torch.randn((H, W, 3), generator=g).to(dev)
-    d = torch.randn((50000, 3), generator=g)
-    d[:200, 0] = 0.0                                   # on the seam (d_z < 0 for about half)
-    d[200:400] = d[200:400] * torch.tensor([0.0, 1.0, 1.0]) + torch.tensor([1e-7, 0.0, -0.0])
-    d[400:402] = torch.tensor([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0]])  # the poles
-    d[402:450, 1] = 300.0 * torch.sign(d[402:450, 1])                  # near them
+    H, W = hw
+    # as steep a radian as the 64 x 128 N(0, 1) texture the tolerances are
+    # derived for: an ulp of angle moves (H - 1) / pi texels a radian
+    tex = (torch.randn((H, W, 3), generator=g) * (63 / (H - 1))).to(dev)
+    if dirs == "camera":
+        d = _camera_directions(n)
+    else:
+        d = torch.randn((50000, 3), generator=g)
+        d[:200, 0] = 0.0                                   # on the seam (d_z < 0 for about half)
+        d[200:400] = d[200:400] * torch.tensor([0.0, 1.0, 1.0]) + torch.tensor([1e-7, 0.0, -0.0])
+        d[400:402] = torch.tensor([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0]])  # the poles
+        d[402:450, 1] = 300.0 * torch.sign(d[402:450, 1])                  # near them
+        d = d[:n] if n > 450 else d[-n:]
     d = d.to(dev)
     n0 = kernels.launches["textured_bg"]
     got = REG._background_textured_cuda(tex, d)
@@ -1124,18 +1166,30 @@ def test_textured_background_kernels_match_plain(dev):
     pole = (dc[:, 1] / dc.norm(dim=-1)).abs() > 0.999
     err = (got.cpu() - ref).abs().amax(-1)
     err_other = (got.cpu() - other).abs().amax(-1)
-    assert seam.sum() > 100 and pole.sum() > 10
-    assert err[~seam & ~pole].max().item() <= 1e-4
-    assert torch.minimum(err, err_other)[seam].max().item() <= 1e-4
-    assert err[pole & ~seam].max().item() <= 1e-3
-    ct = torch.randn((50000, 3), generator=g)
+    if dirs == "random" and n > 450:
+        assert seam.sum() > 100 and pole.sum() > 10
+    assert err[~seam & ~pole].max().item() <= 1e-4, err[~seam & ~pole].max().item()
+    if seam.any():
+        assert torch.minimum(err, err_other)[seam].max().item() <= 1e-4
+    if (pole & ~seam).any():
+        assert err[pole & ~seam].max().item() <= 1e-3
+    ct = torch.randn((n, 3), generator=g)
     ct[seam | pole] = 0.0  # rays whose taps may differ
+    ct[::5] = 0.0          # rays with no cotangent add nothing
     n0 = kernels.launches["textured_bg_bwd"]
     gt = REG._background_textured_backward_cuda(ct.to(dev), got, d, H, W)
-    assert kernels.launches["textured_bg_bwd"] == n0 + 1
+    assert kernels.launches["textured_bg_bwd"] == n0 + 1  # the zero fill folded into the one launch
     rgt = REG.background_textured_backward_plain(ct, got.cpu(), dc, H, W)  # the same sigmoid output
     rel = (gt.cpu() - rgt).abs().max().item() / rgt.abs().max().item()
     assert gt.shape == (H, W, 3) and rel <= 1e-4, rel
+    # the launch zeroes the gradient itself: a buffer full of NaN comes out as the sum
+    dirty, ctd = torch.full((H, W, 3), float("nan"), device=dev), ct.to(dev)
+    fn = _build.function("textured_bg", "textured_bg_backward_launch", REG._K11_BWD_ARGS)
+    _build.check(fn(_build.ptr(d), _build.ptr(ctd), _build.ptr(got), n, H, W, REG._clip_hi(H),
+                    REG._clip_hi(W), _build.ptr(dirty), _build.stream(d.device)),
+                 "background_textured backward")
+    rel = (dirty.cpu() - rgt).abs().max().item() / rgt.abs().max().item()
+    assert rel <= 1e-4, rel
 
 
 @pytest.mark.parametrize("name", sorted(second_order_cases("cpu")))

@@ -80,7 +80,15 @@
 // then multiplied by the clip's gradient (JAX's: 1 inside, 0.5 where the
 // coordinate sits exactly on 0 or 1, 0 outside), 0.5 and 1 / bound. Bound:
 // bytes (the same row reads as the forward, the cotangents, the points in
-// and (N, 3) out); about 30 flops per corner and channel.
+// and (N, 3) out); about 30 flops per corner and channel. Rounding: each
+// term and the level sum are the plain version's, operation by operation,
+// a level without cotangent skipped where the plain version adds zero, and
+// the channel sum g . row runs in channel order: at C <= 2, where that is
+// the only order, dx is the plain version's bits. The forward's layout (a
+// warp per (32-point tile, level), cotangents and level terms staged in
+// shared memory, the levels summed in order after a barrier) was measured
+// and dropped: ~1.6x the instructions, and 0.097 ms against this loop's
+// 0.094 on a registry-hash-normals chunk (scripts/torch_k7x_k11_timing.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

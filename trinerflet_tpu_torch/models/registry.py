@@ -726,7 +726,9 @@ def _background_textured_cuda(tex: torch.Tensor, d: torch.Tensor) -> torch.Tenso
 
 def _background_textured_backward_cuda(g: torch.Tensor, s: torch.Tensor, d: torch.Tensor, H: int,
                                        W: int) -> torch.Tensor:
-    """K11 backward: the texture gradient (H, W, 3) f32, float32 atomics."""
+    """K11 backward: the texture gradient (H, W, 3) f32, one cooperative
+    launch that zeroes it and adds each warp's merged texel sums with
+    vector atomics."""
     what = "background_textured backward kernel"
     _check_directions(d, what)
     N = d.shape[0]
@@ -735,10 +737,9 @@ def _background_textured_backward_cuda(g: torch.Tensor, s: torch.Tensor, d: torc
             raise ValueError(f"{what}: {name} must be ({N}, 3) on {d.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
     g, s, d = g.float().contiguous(), s.float().contiguous(), d.contiguous()
-    acc = torch.zeros((H, W, 3), device=d.device, dtype=torch.float32)
-    if N > 0:
-        fn = _build.function("textured_bg", "textured_bg_backward_launch", _K11_BWD_ARGS)
-        _build.check(fn(_build.ptr(d), _build.ptr(g), _build.ptr(s), N, H, W, _clip_hi(H),
-                        _clip_hi(W), _build.ptr(acc), _build.stream(d.device)), what)
-        kernels.launches["textured_bg_bwd"] += 1
+    acc = torch.empty((H, W, 3), device=d.device, dtype=torch.float32)  # the kernel zeroes it
+    fn = _build.function("textured_bg", "textured_bg_backward_launch", _K11_BWD_ARGS)
+    _build.check(fn(_build.ptr(d), _build.ptr(g), _build.ptr(s), N, H, W, _clip_hi(H), _clip_hi(W),
+                    _build.ptr(acc), _build.stream(d.device)), what)
+    kernels.launches["textured_bg_bwd"] += 1
     return acc
