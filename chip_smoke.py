@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving and training paths and its CLI on one
+"""Drive the PyTorch port's serving and training paths, its CLI and its
+super-resolution app on one
 NVIDIA GPU and check them: the wavelet-triplane field on the occupancy-grid renderer (the
 hierarchical march, and the flat march on the dt_gamma ladder), the
 proposal renderer, the hash-grid field, the dense renderer, the triplane's
@@ -156,7 +157,7 @@ Phases (any failure exits non-zero; nothing is caught):
     two-stage recipe at its widths (512^2 then 1024^2 x 16, 8 then 16
     wavelet levels, 20,000 then 60,000 rays, -O, dt_gamma 0, wavelet L1
     0.2), 256 + 256 steps with an evaluation and a rotating checkpoint every
-    32; counters zeroed and read around it (K1, K2 forward and backward, K4
+    64; counters zeroed and read around it (K1, K2 forward and backward, K4
     forward and adjoint, K6, and K3 or K3c must launch); the workspace's
     checkpoints and results; the field's density quantiles on a 96^3
     sweep; ms/step by stage; a save / load round trip on
@@ -167,11 +168,31 @@ Phases (any failure exits non-zero; nothing is caught):
     ``mesh.obj`` at resolution 192, the video or its frames; K6's rebuild of
     the checkpoint's occupancy held to its plain version) and ``--test
     --save_planes``;
-20. second-order: a create_graph=True first derivative through each kernel
+20. sr: ``configs/triplane-sr100_400-srtex.yaml`` through
+    ``sr.launch.build``, ``SRSystem.fit`` and ``evaluate`` at its widths
+    (1024^2 x 16 bior6.8 planes with the 256^2 ``low_res`` snapshot, 64-wide
+    bf16 MLPs, a 128^3 grid, 8,192 LR rays, 32-LR-pixel crops, 100^2 LR and
+    400^2 HR views, the resize guidance), the views and steps cut (8 views,
+    400 + 200 steps, a refresh every 100; each cut printed); counters
+    zeroed before fit and read at the phase switch and its end (K1-K4
+    forward and backward and K6 must launch in each phase); ms/step of each
+    phase, one step of each under the profiler, seconds per pseudo-GT
+    refresh; captured steps of both phases and one HR view chunk hold K1,
+    K2 forward and backward (on the 256^2 snapshot in phase 1), K3, K4
+    forward (to the snapshot, and to 1024^2) and adjoint and K6 to their
+    plain versions, timed; evaluate (LR PSNR, HR PSNR and SSIM beside the
+    bilinear baseline; LR PSNR 3 dB above a black render's); then the x4
+    upscaler's UNet (468.4 M), VAE (55.3 M) and text encoder (23 x 1024) at
+    their published widths with seeded random weights: one generate_sr on
+    a 100^2 LR view and its 400^2 render (4 DDIM steps, ignore_t 600, text
+    CFG 7.5), ms per UNet call, VAE encode / decode ms, peak memory, one
+    text_encode; one UNet call and one VAE decode at 16^2 latents and the
+    text encoder held to the CPU (float32, TF32 off);
+21. second-order: a create_graph=True first derivative through each kernel
     function (K2, K7, K10, K11, K4, K3, K3c) on the card, then a backward
     through it, which must raise torch's once_differentiable error as the
     CPU tests' plain versions do;
-21. print the kernels line, then the device line last.
+22. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -661,7 +682,7 @@ def _k4_level(yl, yh, name):
     tol4 = 2.0**-6 * ref.float().abs().max().item()
     if e > tol4:
         raise RuntimeError(f"K4 {tuple(yl.shape)}: max|err| {e} > {tol4}")
-    g0, g1 = W.synthesis_taps(name, torch.bfloat16)
+    g0, g1 = W.synthesis_taps(name, yl.dtype)
     L = len(g0)
     pl, _ = W.synthesis_pads(name)
     P, n = yl.shape[0] * yl.shape[1], yl.shape[-1]
@@ -836,6 +857,9 @@ def train_phase(trainer, state, data, card, warm=WARM_STEPS, n_windows=WINDOWS,
     return state, launches, stats
 
 
+PROFILED = {}  # what -> (wall ms, device busy ms) of the last profiled step
+
+
 def profile_step(trainer, state, data, what="train", step=None):
     """Device time by kernel over one train step (``step(state)``, default
     the trainer's), and the device's idle share."""
@@ -850,6 +874,7 @@ def profile_step(trainer, state, data, what="train", step=None):
         wall = (time.perf_counter() - t0) * 1e3
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
+    PROFILED[what] = (wall, busy)
     log(f"# profile of one {what} step: {wall:.2f} ms wall under the profiler, device busy "
         f"{busy:.2f} ms, idle share {1.0 - busy / wall:.3f}, {sum(e.count for e in evs)} kernels")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:16]:
@@ -1173,14 +1198,14 @@ def _adjoint_rows(trainer, calls, sel=slice(None), label=""):
     """The K4 adjoint: every level of the step's ladder (``sel`` of its
     calls, in the order the backward ran them)."""
     tcfg = trainer.nerf_cfg.triplane
-    g0, g1 = W.synthesis_taps(tcfg.wavelet_type, torch.bfloat16)
-    L = len(g0)
     pl, pr = W.synthesis_pads(tcfg.wavelet_type)
     rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     err4, sizes, level_by = 0.0, [], []
     for (ga, _) in calls["_idwt2d_adjoint_cuda"][sel]:
         G, name = ga
+        g0, g1 = W.synthesis_taps(tcfg.wavelet_type, G.dtype)  # the planes' dtype (bf16 or f32)
+        L = len(g0)
         got, ref = W._idwt2d_adjoint_cuda(G, name), W.idwt2d_adjoint_plain(G, name)
         e = max(_rel(a, b_) for a, b_ in zip(got, ref))
         if e > 2.0**-6:
@@ -1192,7 +1217,7 @@ def _adjoint_rows(trainer, calls, sel=slice(None), label=""):
         level_by.append((bm, lvl_by))
         w2 = torch.stack([torch.outer(torch.tensor(a), torch.tensor(c)) for a, c in
                           ((g0, g0), (g0, g1), (g1, g0), (g1, g1))])  # yl, lh, hl, hh
-        wt = w2.repeat(P, 1, 1).reshape(4 * P, 1, L, L).to(G.device, torch.bfloat16)
+        wt = w2.repeat(P, 1, 1).reshape(4 * P, 1, L, L).to(G.device, G.dtype)
         st = L - 1 - pl
         Gp = F.pad(G.reshape(1, P, Ho, Wo), (st, 2 * n + L - 2 - st - Wo, st, 2 * n + L - 2 - st - Ho))
         lib = lambda: F.conv2d(Gp, wt, stride=2, groups=P)  # noqa: E731
@@ -1210,7 +1235,7 @@ def _adjoint_rows(trainer, calls, sel=slice(None), label=""):
                      bound_ms=tot["bound_ms"], bound_by=max(level_by)[1],
                      library_ms=tot["library_ms"],
                      note=f"sum over the {len(sizes)} levels " + ", ".join(sizes)
-                          + "; library is a strided grouped F.conv2d (bf16)"))
+                          + f"; library is a strided grouped F.conv2d ({G.dtype})"))
     return rows
 
 
@@ -2601,12 +2626,14 @@ def registry_hash_phase(card, hash_stats):
 # fewer steps the field's density stays near or below the mesh export's
 # threshold of 10 and mesh.obj comes out empty or nearly so (the cli log line
 # prints the density's quantiles and its share above 10); --scale 1.0 as the
-# README runs the synthetic scene (its cameras orbit at radius 2)
+# README runs the synthetic scene (its cameras orbit at radius 2); an
+# evaluation and a checkpoint every 64 steps (every 32 put the whole script
+# at 586 s of its 600 s share once the SR phase came)
 CLI_ARGS = ["-O", "--triplane_wavelet", "--bound", "1.5", "--dt_gamma", "0", "--scale", "1.0",
             "--triplane_resolution", "512", "1024", "--triplane_wavelet_levels", "8", "16",
             "--triplane_channels", "16", "--num_rays", "20000", "60000",
             "--wavelet_regularization", "0.2", "--iters", "256", "256",
-            "--eval_interval_stages", "32", "--max_keep_ckpt", "2"]
+            "--eval_interval_stages", "64", "--max_keep_ckpt", "2"]
 CLI_SCENE = dict(num_views=30, num_test_views=8, H=400, W=400)
 CLI_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint", "occupancy")
 CLI_TEST_KERNELS = ("march", "grid_sample", "composite", "idwt", "occupancy")
@@ -2865,6 +2892,350 @@ def cli_phase(card):
     stats = dict(stage_ms=stage_ms, save_s=save_s, load_s=load_s, mesh_s=mesh_s, decode_ms=decode_ms,
                  psnr=res["PSNR"], ssim=res["SSIM"], launches=launches, test_launches=test_launches)
     return rows, stats
+
+
+# ---------------------------------------------------------------------------
+# The super-resolution app: the srtex recipe through sr.launch.build, fit and
+# evaluate (the dual-resolution triplane), then the x4 upscaler's networks
+# ---------------------------------------------------------------------------
+
+SR_CONFIG = "configs/triplane-sr100_400-srtex.yaml"
+# the recipe's step counts and view count cut (widths kept): 100 views,
+# 16,000 steps with SR from 6,000, a refresh every 500 -> 8 views, 600 steps
+# with SR from 400, a refresh every 100; the schedules that name steps
+# (lambda_l1_hr, the guidance's anneal) scaled the same way
+SR_CUTS = {"data.num_views": 8, "data.cache": "", "system.total_steps": 600,
+           "system.sr_start_step": 400, "system.hr_fit_refresh_every": 100,
+           "system.lambda_l1_hr": [400, 0.0, 1.0, 600], "guidance.sr_start_step": 400,
+           "guidance.anneal_end_step": 600}
+SR_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "composite", "composite_bwd", "idwt",
+              "idwt_adjoint", "occupancy")
+SR_VIEW_KERNELS = ("march", "grid_sample", "composite", "idwt")
+SR_VIEW_ABSENT = ("grid_sample_bwd", "composite_bwd", "idwt_adjoint")
+SR_MIN_GAIN_DB = 3.0  # the fit's LR PSNR over a black render's
+SR_UPSCALER_STEPS, SR_IGNORE_T = 4, 600  # DDIM 751, 501, 251, 1: one re-noise, three denoising steps
+# the x4 networks on the card against the CPU, float32, TF32 off on the card:
+# max|card - cpu| within this share of max|cpu| (the convolutions and matmuls
+# sum in other orders over up to 2,048 x 9 terms)
+SR_NET_TOL = 1e-4
+
+
+def _sr_config():
+    from trinerflet_tpu_torch.sr.config import load_yaml_config
+
+    cfg = load_yaml_config(SR_CONFIG)
+    for key, value in SR_CUTS.items():
+        sec, name = key.split(".")
+        log(f"# sr cut: {key} {cfg[sec].get(name)!r} -> {value!r}")
+        cfg[sec][name] = value
+    return cfg
+
+
+def _sr_tensors(system, scene):
+    """The LR data and HR ray grids as fit holds them."""
+    from trinerflet_tpu_torch.sr.data import view_ray_grid
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=DEVICE)
+
+    data = {"images": t(scene.lr.images[..., :3]), "poses": t(scene.lr.poses),
+            "intrinsics": t([float(np.float32(x)) for x in scene.lr.intrinsics])}
+    grids = [view_ray_grid(scene.hr, v) for v in range(scene.num_views)]
+    return data, torch.stack([t(g[0]) for g in grids]), torch.stack([t(g[1]) for g in grids])
+
+
+def _sr_crop(system, scene, data, hr_ro, hr_rd, pseudo, v=0):
+    """The centre crop of view ``v`` as fit cuts one: rays, pseudo-GT, LR GT."""
+    cl, s = system.cfg.crop_size_lr, scene.scale
+    x0l = (scene.lr.H - cl) // 2
+    x0, ch = x0l * s, cl * s
+    return (hr_ro[v, x0 : x0 + ch, x0 : x0 + ch].reshape(-1, 3),
+            hr_rd[v, x0 : x0 + ch, x0 : x0 + ch].reshape(-1, 3),
+            pseudo[x0 : x0 + ch, x0 : x0 + ch], data["images"][v, x0l : x0l + cl, x0l : x0l + cl])
+
+
+def _sr_weights(cfg, step, hr):
+    from trinerflet_tpu_torch.sr.config import C
+
+    if not hr:
+        return {"lr": C(cfg.lambda_lr, step), "reg": C(cfg.wavelet_regularization, step)}
+    return {"l2_hr": C(cfg.lambda_l2_hr, step), "l1_hr": C(cfg.lambda_l1_hr, step),
+            "consistency": C(cfg.lambda_lr_consistency, step), "reg": C(cfg.wavelet_regularization, step),
+            "percep": C(cfg.lambda_lr_consistency_perceptual, step), "sds": C(cfg.lambda_sds, step)}
+
+
+def _k4_forward_rows(calls, label):
+    """K4 forward on every level the captured build ran (to the snapshot
+    or to the full plane), held to its plain version and timed."""
+    levels = [_k4_level(*a)[1] for a, _ in calls["_idwt2d_cuda"]]
+    return [_k4_row(levels, "K4 idwt2d" + label, f"sum over the {len(levels)} levels ")]
+
+
+def sr_phase(card):
+    """The srtex SR recipe at its widths (steps and views cut), through
+    ``sr.launch.build``, ``SRSystem.fit`` and ``evaluate``; the launches,
+    ms/step and device time of each phase; captured steps' kernel rows;
+    then the x4 upscaler. Returns (kernel rows, stats)."""
+    from trinerflet_tpu_torch.sr.launch import build
+    from trinerflet_tpu_torch.train.metrics import psnr
+
+    cfg = _sr_config()
+    ws = tempfile.mkdtemp(prefix="chip_smoke_sr_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system, scene = build(cfg, ws, device=DEVICE)
+        torch.cuda.synchronize()
+        tri = system.nerf_cfg.triplane
+        log(f"# sr scene: {scene.num_views} views of the srtex field, HR {scene.hr.H}^2 rendered on the card "
+            f"({cfg['data']['backend']} backend: {384} steps a ray), LR {scene.lr.H}^2 box-filtered, in "
+            f"{time.perf_counter() - t0:.2f} s; triplane {tri.resolution}^2 x {tri.channels} {tri.wavelet_type}, "
+            f"{tri.levels} levels, low_res {tri.resolution // tri.low_res_scale}^2, planes "
+            f"{system.nerf_cfg.plane_dtype}, MLPs {system.nerf_cfg.compute_dtype}, grid "
+            f"{system.render_cfg.grid_size}^3; {system.cfg.num_rays_lr} LR rays a step, HR crops of "
+            f"{system.cfg.crop_size_lr * scene.scale}^2 rays; guidance {cfg['guidance']['kind']}")
+        grid = mark_untrained_grid(scene.lr.poses, scene.lr.intrinsics, system.render_cfg)
+        state = system.init_state(density_grid=grid)
+
+        # fit, the counters zeroed before it and read at the phase switch and
+        # at its end; each pseudo-GT refresh timed
+        real_view, refresh_s = system.render_view, []
+
+        def timed_view(*a, deep=True, **k):
+            if deep:
+                return real_view(*a, deep=deep, **k)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_view(*a, deep=deep, **k)
+            torch.cuda.synchronize()
+            refresh_s.append(time.perf_counter() - t)
+            return out
+
+        marks = {}
+
+        def at_step(st, aux):
+            if st.step in (system.cfg.sr_start_step, system.cfg.total_steps):
+                loss = float(aux["loss"])  # waits for the step
+                marks[st.step] = (time.perf_counter(), dict(kernels.launches), loss)
+                kernels.reset_launches()
+
+        system.render_view = timed_view
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter()
+        state = system.fit(state, scene, log_every=100, callback=at_step)
+        del system.render_view
+        s1, s2 = system.cfg.sr_start_step, system.cfg.total_steps
+        (t1, p1_launches, loss1), (t2, p2_launches, loss2) = marks[s1], marks[s2]
+        p1_ms = (t1 - t_fit) / s1 * 1e3
+        p2_ms = (t2 - t1) / (s2 - s1) * 1e3
+        p2_ms_net = (t2 - t1 - sum(refresh_s)) / (s2 - s1) * 1e3
+        for what, launches in (("sr phase 1", p1_launches), ("sr phase 2", p2_launches)):
+            log(f"# {what} launches: {launches}")
+            for name in SR_KERNELS:
+                if launches[name] == 0:
+                    raise RuntimeError(f"kernel {name} was not launched on the {what} path")
+        if not (np.isfinite(loss1) and np.isfinite(loss2)):
+            raise RuntimeError("non-finite SR loss")
+
+        # one step of each phase under the profiler, then captured
+        data, hr_ro, hr_rd = _sr_tensors(system, scene)
+        view0 = system.render_view(state.params, state.occ, None, None, scene.hr.H, scene.hr.W,
+                                   mode="high_res", rays=(hr_ro[0], hr_rd[0]), deep=False)
+        pseudo = system.guidance.generate_sr(data["images"][0].permute(2, 0, 1)[None],
+                                             view0.permute(2, 0, 1)[None])[0].permute(1, 2, 0)
+        crop = _sr_crop(system, scene, data, hr_ro, hr_rd, pseudo)
+        w1, w2 = _sr_weights(system.cfg, s2, False), _sr_weights(system.cfg, s2, True)
+
+        def lr_step(st):
+            return system._lr_step(st, data, w1)
+
+        def hr_step(st):
+            return system._hr_step(st, *crop, w2)
+
+        state = profile_step(None, state, None, "sr phase 1", step=lr_step)
+        state = profile_step(None, state, None, "sr phase 2", step=hr_step)
+        busy = {what: PROFILED[f"sr {what}"][1] for what in ("phase 1", "phase 2")}
+        with Capture() as cap_grid:
+            state = system._update_grid(state)
+        with Capture() as cap:
+            state, _ = lr_step(state)
+        torch.cuda.synchronize()
+        cap.calls["_occupancy_upkeep_cuda"] = cap_grid.calls["_occupancy_upkeep_cuda"]
+        rows = path_kernel_rows(system, cap.calls, p1_launches, "sr phase 1")
+        rows += label_rows(_k4_forward_rows(cap.calls, ""), p1_launches, "sr phase 1")
+        with Capture() as cap:
+            state, _ = hr_step(state)
+        torch.cuda.synchronize()
+        rows += path_kernel_rows(system, cap.calls, p2_launches, "sr phase 2")
+        rows += label_rows(_k4_forward_rows(cap.calls, ""), p2_launches, "sr phase 2")
+
+        # one HR view at the training budget (the refresh's render), counted
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        system.render_view(state.params, state.occ, None, None, scene.hr.H, scene.hr.W, mode="high_res",
+                           rays=(hr_ro[1], hr_rd[1]), deep=False)
+        torch.cuda.synchronize()
+        view_ms = (time.perf_counter() - t) * 1e3
+        view_launches = dict(kernels.launches)
+        log(f"# sr HR view ({scene.hr.H}^2 at the training budget, chunks of "
+            f"{max(system.eval_chunk, system.cfg.eval_chunk)}): {view_ms:.2f} ms; launches {view_launches}")
+        for name in SR_VIEW_KERNELS:
+            if view_launches[name] == 0:
+                raise RuntimeError(f"kernel {name} was not launched on the sr HR view")
+        for name in SR_VIEW_ABSENT:
+            if view_launches[name] != 0:
+                raise RuntimeError(f"kernel {name} launched on the sr HR view, which has no backward")
+        n = min(max(system.eval_chunk, system.cfg.eval_chunk), scene.hr.H * scene.hr.W)
+        with Capture() as cap:
+            system.render_view(state.params, state.occ, None, None, 1, n, mode="high_res",
+                               rays=(hr_ro[1].reshape(-1, 3)[:n], hr_rd[1].reshape(-1, 3)[:n]), deep=False)
+        torch.cuda.synchronize()
+        vrows = path_kernel_rows(system, cap.calls, view_launches, "sr HR view",
+                                 only=("_march_cuda", "_composite_cuda"))
+        (planes, xyz, lb), _ = cap.calls["_sample_points_cuda"][0]
+        vrows += label_rows(_sample_fwd_rows(planes, xyz, lb) + _k4_forward_rows(cap.calls, ""),
+                            view_launches, "sr HR view")
+        rows += vrows
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = system.evaluate(state, scene)
+        eval_s = time.perf_counter() - t
+        black = float(np.mean([psnr(np.zeros_like(im[..., :3]), im[..., :3]) for im in scene.lr.images]))
+        log(f"# sr evaluate ({card}): {scene.num_views} views in {eval_s:.2f} s; LR PSNR {res['PSNR_lr']:.4f} "
+            f"dB, HR PSNR {res['PSNR_hr']:.4f} dB beside bilinear {res['PSNR_bilinear']:.4f} dB, HR SSIM "
+            f"{res['SSIM_hr']:.5f}; a black LR render {black:.4f} dB; per view "
+            f"{[(m['view'], round(m['PSNR_lr'], 3), round(m['PSNR_hr'], 3)) for m in res['per_frame']]}")
+        if not all(np.isfinite(res[k]) for k in ("PSNR_lr", "PSNR_hr", "PSNR_bilinear", "SSIM_hr")):
+            raise RuntimeError("sr evaluate gave a non-finite number")
+        if not res["PSNR_lr"] > black + SR_MIN_GAIN_DB:
+            raise RuntimeError(f"sr: LR PSNR {res['PSNR_lr']} is not {SR_MIN_GAIN_DB} dB above a black "
+                               f"render's {black}")
+        stats = dict(p1_ms=p1_ms, p2_ms=p2_ms, p2_ms_net=p2_ms_net, busy=busy,
+                     refresh_s=float(np.mean(refresh_s)), n_refresh=len(refresh_s), loss1=loss1, loss2=loss2,
+                     view_ms=view_ms, res=res, eval_s=eval_s, p1_launches=p1_launches,
+                     p2_launches=p2_launches, view_launches=view_launches)
+        log(f"# sr fit ({card}): phase 1 {p1_ms:.3f} ms/step over {s1} steps (device busy "
+            f"{busy['phase 1']:.3f} ms for one step), phase 2 {p2_ms:.3f} ms/step over {s2 - s1} steps, "
+            f"{p2_ms_net:.3f} without the refreshes (device busy {busy['phase 2']:.3f} ms for one step); "
+            f"{len(refresh_s)} pseudo-GT refreshes, {stats['refresh_s']:.3f} s each; loss {loss1:.5f} at "
+            f"the switch, {loss2:.5f} at the end")
+        lr_view, hr_render = data["images"][0], view0
+        del system, state, data, hr_ro, hr_rd, cap, cap_grid
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    stats["upscaler"] = upscaler_phase(card, lr_view, hr_render)
+    return rows, stats
+
+
+def _n_params(tree) -> int:
+    return sum(t.numel() for _, t in TR._leaves(tree))
+
+
+def upscaler_phase(card, lr_view, hr_render):
+    """The x4 upscaler at its published widths with seeded random weights:
+    one ``generate_sr`` on a 100^2 LR view and its 400^2 render (noise level
+    20, text CFG 7.5, a fixed ignore_t, 4 DDIM steps), one ``text_encode``
+    at ``TextConfig()`` widths; ms per UNet call, VAE encode / decode ms,
+    peak memory; one UNet call and one VAE decode at a reduced size and the
+    text encoder held to the same modules on the CPU (float32, TF32 off)."""
+    from trinerflet_tpu_torch.sr import diffusion as D
+    from trinerflet_tpu_torch.sr import text as X
+    from trinerflet_tpu_torch.sr.guidance import GuidanceConfig, UpscalerGuidance
+
+    g = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    ucfg, vcfg, tcfg = D.SD_X4_UPSCALER_UNET, D.SD_X4_UPSCALER_VAE, X.TextConfig()
+    unet, vae = D.init_unet_params(ucfg, g, DEVICE), D.init_vae_params(vcfg, g, DEVICE)
+    text = X.init_text_params(tcfg, g, DEVICE)
+    torch.cuda.synchronize()
+    log(f"# sr x4 upscaler: UNet {_n_params(unet) / 1e6:.1f} M, VAE {_n_params(vae) / 1e6:.1f} M, text "
+        f"encoder {_n_params(text) / 1e6:.1f} M parameters ({tcfg.num_layers} layers of {tcfg.hidden_size}), "
+        f"seeded random weights, made in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, tcfg.vocab_size, (2, tcfg.max_length), generator=g)
+    with torch.no_grad():
+        emb = X.text_encode(text, tcfg, tokens.to(DEVICE))
+        text_ms = time_ms(lambda: X.text_encode(text, tcfg, tokens.to(DEVICE)), iters=5, warmup=1)
+    cond, uncond = emb[:1], emb[1:]
+
+    timings = defaultdict(list)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def encode(x):
+        with torch.no_grad():
+            return D.vae_encode(vae, vcfg, 2.0 * x - 1.0)
+
+    def decode(z):
+        with torch.no_grad():
+            return 0.5 * (D.vae_decode(vae, vcfg, z) + 1.0)
+
+    gcfg = GuidanceConfig(num_inference_steps=SR_UPSCALER_STEPS, noise_level=20, guidance_scale=7.5)
+    guide = UpscalerGuidance(gcfg, timed("unet", D.make_unet_denoiser(unet, ucfg, cond, uncond)),
+                             encode=timed("encode", encode), decode=timed("decode", decode))
+    lr = lr_view.permute(2, 0, 1)[None].contiguous()
+    hr = hr_render.permute(2, 0, 1)[None].contiguous()
+    guide.generate_sr(lr, hr, ignore_t=SR_IGNORE_T, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    timings.clear()  # the first call carried the one-time costs
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = guide.generate_sr(lr, hr, ignore_t=SR_IGNORE_T,
+                            generator=torch.Generator(device=DEVICE).manual_seed(1))
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(out.shape) != (1, 3, 4 * lr.shape[2], 4 * lr.shape[3]) or not torch.isfinite(out).all():
+        raise RuntimeError(f"generate_sr gave {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    stats = dict(unet_ms=float(np.median(timings["unet"])), unet_calls=len(timings["unet"]),
+                 encode_ms=timings["encode"][0], decode_ms=timings["decode"][0], gen_ms=gen_ms,
+                 peak_gib=peak, text_ms=text_ms, latent=tuple(encode(hr).shape))
+    log(f"# sr generate_sr ({card}, TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'} for "
+        f"convolutions, {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} for matmuls): "
+        f"{lr.shape[2]}^2 LR and {hr.shape[2]}^2 render, latents {stats['latent']}, {SR_UPSCALER_STEPS} DDIM "
+        f"steps with ignore_t {SR_IGNORE_T}: {gen_ms:.1f} ms; {stats['unet_calls']} UNet calls "
+        f"{stats['unet_ms']:.2f} ms each (median), VAE encode {stats['encode_ms']:.2f} ms, decode "
+        f"{stats['decode_ms']:.2f} ms; peak memory {peak:.2f} GiB; text_encode (2 x {tcfg.max_length} "
+        f"tokens) {text_ms:.2f} ms")
+
+    # the networks on the card against the CPU, float32 with TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = lambda tree: TR._map(lambda x: x.cpu(), tree)  # noqa: E731
+        x = torch.randn((1, 7, 16, 16), generator=g)
+        z = 0.2 * torch.randn((1, 4, 16, 16), generator=g)
+        checks = []
+        with torch.no_grad():
+            for name, card_fn, cpu_fn in (
+                    ("UNet (16^2 latents, t 501, noise level 20)",
+                     lambda: D.unet_apply(unet, ucfg, x.to(DEVICE), 501, cond, 20),
+                     lambda: D.unet_apply(cpu(unet), ucfg, x, 501, cond.cpu(), 20)),
+                    ("VAE decode (16^2 latents -> 64^2)", lambda: D.vae_decode(vae, vcfg, z.to(DEVICE)),
+                     lambda: D.vae_decode(cpu(vae), vcfg, z)),
+                    ("text_encode (2 x 77 tokens)", lambda: X.text_encode(text, tcfg, tokens.to(DEVICE)),
+                     lambda: X.text_encode(cpu(text), tcfg, tokens))):
+                a, b = card_fn().cpu(), cpu_fn()
+                err = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                checks.append(f"{name} max|diff| {err:.3e} of max|cpu| {scale:.3e}")
+                if not (torch.isfinite(a).all() and err <= SR_NET_TOL * scale):
+                    raise RuntimeError(f"sr {name}: card vs CPU max|diff| {err} > {SR_NET_TOL} x {scale}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"# sr x4 networks, card vs CPU (float32, TF32 off, tolerance {SR_NET_TOL} x max|cpu|): "
+        + "; ".join(checks))
+    return stats
 
 
 def second_order_phase():
@@ -3164,6 +3535,10 @@ def main() -> int:
     cli_rows, cstats = cli_phase(card)
     rows += cli_rows
     log(f"# cli phase done at {time.perf_counter() - t_start:.1f} s")
+    t_sr = time.perf_counter()
+    sr_rows, srstats = sr_phase(card)
+    rows += sr_rows
+    log(f"# sr phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_sr:.1f} s)")
     second_order_phase()
 
     for r in rows:
@@ -3228,6 +3603,17 @@ def main() -> int:
         f"PNG decode {cstats['decode_ms']:.3f} ms/view; test PSNR {cstats['psnr']:.4f} dB, SSIM "
         f"{cstats['ssim']:.5f} on {card}; launches {cstats['launches']}, --test "
         f"{cstats['test_launches']}")
+    up, sres = srstats["upscaler"], srstats["res"]
+    log(f"# sr (srtex recipe at its widths, 8 views, 400 + 200 steps): phase 1 {srstats['p1_ms']:.3f} "
+        f"ms/step (one step's device busy {srstats['busy']['phase 1']:.3f} ms), phase 2 "
+        f"{srstats['p2_ms']:.3f} ms/step with the refreshes, {srstats['p2_ms_net']:.3f} without (device busy "
+        f"{srstats['busy']['phase 2']:.3f} ms), {srstats['refresh_s']:.3f} s per pseudo-GT refresh "
+        f"({srstats['n_refresh']}); HR view {srstats['view_ms']:.2f} ms; LR PSNR {sres['PSNR_lr']:.4f}, HR "
+        f"PSNR {sres['PSNR_hr']:.4f} (bilinear {sres['PSNR_bilinear']:.4f}) dB, HR SSIM {sres['SSIM_hr']:.5f}; "
+        f"x4 upscaler: generate_sr {up['gen_ms']:.1f} ms, UNet {up['unet_ms']:.2f} ms/call, VAE encode "
+        f"{up['encode_ms']:.2f} ms, decode {up['decode_ms']:.2f} ms, peak {up['peak_gib']:.2f} GiB, "
+        f"text_encode {up['text_ms']:.2f} ms on {card}; launches phase 1 {srstats['p1_launches']}, "
+        f"phase 2 {srstats['p2_launches']}, HR view {srstats['view_launches']}")
     log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,14 +95,31 @@ def test_trunc_exp_forward_and_clamped_grad():
 
 def test_unported_field_options_raise():
     """k-planes and the background network are ported (their parity tests
-    are in tests/test_torch_variants.py); what still raises is the SR
-    snapshot planes, and an encoding the JAX package does not define."""
+    are in tests/test_torch_variants.py), and so are the SR snapshot
+    planes: a field with ``low_res_scale`` 2 samples ``low_res`` and
+    ``full`` as the JAX field does (float32 tolerances above). What still
+    raises is an encoding the JAX package does not define."""
     assert PN.NeRFField(PN.NeRFConfig(encoding="k_planes")).cfg.in_dim == 48
     cfg = PN.NeRFConfig(encoding="k_planes", bg_radius=2.0)
     params = PN.init_nerf_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert params["bg_net"]["w0"].shape == (cfg.in_dim_dir + 2, cfg.hidden_dim_bg)
-    with pytest.raises(NotImplementedError, match="SR slice"):
-        PN.NeRFField(PN.NeRFConfig(triplane=PT.TriplaneConfig(low_res_scale=2)))
+    cj = JN.NeRFConfig(triplane=JT.TriplaneConfig(**DIMS, low_res_scale=2), bound=1.5)
+    cp = PN.NeRFConfig(triplane=PT.TriplaneConfig(**DIMS, low_res_scale=2), bound=1.5)
+    p = _params(4, cj)
+    jf, pf = JN.NeRFField(cj), PN.NeRFField(cp)
+    jparams, pparams = _jax_tree(p), params_from_jax(p, device="cpu")
+    jplanes, pplanes = jf.build_planes(jparams), pf.build_planes(pparams)
+    assert set(pplanes) == set(jplanes) == {"full", "low_res"}
+    assert tuple(pplanes["low_res"].shape) == (3, 32, 32, 8)
+    x = np.random.default_rng(5).uniform(-1.5, 1.5, (1500, 3)).astype(np.float32)
+    for mode in ("low_res", "full"):
+        js, jg = jf.density(jparams, jplanes, jnp.asarray(x), resolution_mode=mode)
+        ps, pg = pf.density(pparams, pplanes, torch.from_numpy(x), resolution_mode=mode)
+        np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=1e-5, atol=1e-6, err_msg=mode)
+        np.testing.assert_allclose(pg.numpy(), np.asarray(jg), rtol=0, atol=1e-5, err_msg=mode)
+    low, full = (pf.density(pparams, pplanes, torch.from_numpy(x), resolution_mode=m)[0]
+                 for m in ("low_res", "full"))
+    assert not torch.equal(low, full)
     with pytest.raises(ValueError, match="unknown encoding"):
         PN.NeRFField(PN.NeRFConfig(encoding="bogus"))
 

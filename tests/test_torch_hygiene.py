@@ -38,8 +38,8 @@ def test_port_modules_import_without_jax():
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'trinerflet_tpu' or m.startswith('trinerflet_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'trinerflet_tpu', 'safetensors', 'optax')]\n"
         "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -49,6 +49,9 @@ def test_port_modules_import_without_jax():
 
 
 def test_port_sources_name_no_jax_import():
+    """No port source (the SR app's and the utilities' included) imports
+    JAX, the JAX package, safetensors (the port reads the format itself) or
+    optax."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -59,7 +62,8 @@ def test_port_sources_name_no_jax_import():
                 names = [node.module or ""]
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "trinerflet_tpu"), f"{f}: imports {n}"
+                assert root not in ("jax", "jaxlib", "trinerflet_tpu", "safetensors", "optax"), \
+                    f"{f}: imports {n}"
 
 
 def _tensors_of(ts):
@@ -113,6 +117,30 @@ def test_state_makers_default_to_cuda(monkeypatch):
             {"params": tree, "opt_state": ({"count": 3, "mu": tree, "nu": tree},),
              "ema_params": tree, "ema_count": 3, "occ": state, "step": 3}, **kw)),
     }
+    from trinerflet_tpu_torch.carry import network_params_from_jax, sr_state_from_jax
+    from trinerflet_tpu_torch.sr import diffusion, guidance, system, text
+    from trinerflet_tpu_torch.utils.lpips import init_lpips_params
+
+    tiny_vae = diffusion.VAEConfig(block_out_channels=(8, 16), latent_channels=4, layers_per_block=1,
+                                   norm_num_groups=4)
+    sr_ncfg = NeRFConfig(triplane=TriplaneConfig(channels=4, resolution=64, wavelet_scale=4,
+                                                 low_res_scale=2))
+    makers.update({
+        "init_vae_params": lambda **kw: diffusion.init_vae_params(tiny_vae, **kw),
+        "init_text_params": lambda **kw: text.init_text_params(text.TextConfig(
+            vocab_size=8, hidden_size=8, num_layers=1, num_heads=2, intermediate_size=8,
+            max_length=4), **kw),
+        "init_lpips_params": lambda **kw: (lambda lp: (lp["backbone"], tuple(lp["lins"])))(
+            init_lpips_params("alex", **kw)),
+        "network_params_from_jax": lambda **kw: network_params_from_jax(
+            {"conv": {"weight": np.zeros((3, 3, 2, 4), np.float32)}}, **kw),
+        "sr_state_from_jax": lambda **kw: _map(lambda t: t, sr_state_from_jax(
+            {"params": tree, "opt_state": ({"count": 3, "mu": tree, "nu": tree},), "occ": state,
+             "step": 3}, **kw).params),
+        "SRSystem.init_state": lambda **kw: system.SRSystem(
+            sr_ncfg, rcfg, system.SRConfig(), guidance.make_resize_guidance(guidance.GuidanceConfig()),
+            **kw).init_state().params,
+    })
     for name, make in makers.items():
         with pytest.raises(RuntimeError, match="cuda"):
             make()

@@ -407,8 +407,19 @@ def test_make_field_default_names_and_errors():
     params = f.init_params(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="positions"):
         f.color(params, torch.zeros((4, 3)), torch.zeros((4, cp.geo_feat_dim)))
-    with pytest.raises(NotImplementedError, match="SR"):
-        f.density(params, f.build_planes(params), torch.zeros((4, 3)), resolution_mode="low")
+    # the SR snapshot planes pass through the registry's implicit volume as
+    # through NeRFField (float32: rtol 1e-5 on sigma, atol 1e-5 on features)
+    tj = JR.RegistryField(JN.NeRFConfig(triplane=JT.TriplaneConfig(**TRI, low_res_scale=2), **SMALL))
+    tp = PR.RegistryField(PN.NeRFConfig(triplane=PT.TriplaneConfig(**TRI, low_res_scale=2), **SMALL))
+    jp = jax.tree.map(lambda a: a + 0.05, tj.init_params(jax.random.PRNGKey(2)))
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    x = np.random.default_rng(3).uniform(-1, 1, (N_PTS, 3)).astype(np.float32)
+    jplanes, pplanes = tj.build_planes(jp), tp.build_planes(pp, modes=("low_res",))
+    assert set(pplanes) == {"low_res"} and tuple(pplanes["low_res"].shape) == (3, 16, 16, 4)
+    js, jg = tj.density(jp, jplanes, jnp.asarray(x), resolution_mode="low_res")
+    ps, pg = tp.density(pp, pplanes, torch.from_numpy(x), resolution_mode="low_res")
+    np.testing.assert_allclose(_np(ps), np.asarray(js), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(pg), np.asarray(jg), rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="cannot produce normals"):
         PR.RegistryField(cp).normal(params, {}, torch.zeros((4, 3)))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -253,17 +253,30 @@ def test_render_occgrid_global_layout_matches_jax(slots, monkeypatch):
 def test_unported_render_options_raise():
     """Every march, layout and renderer of the JAX package is ported (the
     flat march and dt_gamma > 0 in tests/test_torch_flat_march.py, the dense
-    renderer in tests/test_torch_dense.py), and so is the background network
-    (bg_radius > 0, tests/test_torch_variants.py); what still raises is a
-    field with the SR snapshot planes, and a renderer name the JAX package
-    does not define."""
+    renderer in tests/test_torch_dense.py), and so are the background
+    network (bg_radius > 0, tests/test_torch_variants.py) and a field with
+    the SR snapshot planes: the trainer builds ``low_res`` beside ``full``
+    and renders ``full``, as JAX's does (float32 atol 1e-4, the jitted JAX
+    renderer's tolerance above). What still raises is a renderer name the
+    JAX package does not define."""
     rp = PR.RenderConfig(**RKW)
     bg = PTR.Trainer(PN.NeRFConfig(triplane=PT.TriplaneConfig(**DIMS), bg_radius=2.0), rp,
                      PTR.TrainConfig(), device="cpu")
     assert "bg_net" in bg.init_params()
-    with pytest.raises(NotImplementedError, match="SR slice"):
-        PTR.Trainer(PN.NeRFConfig(triplane=PT.TriplaneConfig(low_res_scale=2)), rp, PTR.TrainConfig(),
-                    device="cpu")
+    cj, cp, rj, _, _, jparams, pparams, jstate, _ = _refresh_both("float32")
+    sj = dataclasses.replace(cj, triplane=dataclasses.replace(cj.triplane, low_res_scale=2))
+    sp = dataclasses.replace(cp, triplane=dataclasses.replace(cp.triplane, low_res_scale=2))
+    jtr = JTR.Trainer(sj, rj, JTR.TrainConfig(eval_chunk=1024))
+    ptr = PTR.Trainer(sp, rp, PTR.TrainConfig(eval_chunk=1024), device="cpu")
+    planes = ptr.field.build_planes(pparams)
+    assert set(planes) == set(jtr.field.build_planes(jparams)) == {"full", "low_res"}
+    assert tuple(planes["low_res"].shape) == (3, 32, 32, 8)
+    H, W = 12, 10
+    jimg, _ = jtr.render_image(jparams, jstate, _poses()[2], synthetic_intrinsics(H, W), H, W)
+    pimg, _ = ptr.render_image(pparams, occupancy_from_jax(jstate, device="cpu"), _poses()[2],
+                               synthetic_intrinsics(H, W), H, W)
+    assert np.asarray(jimg).std() > 1e-3
+    np.testing.assert_allclose(pimg.numpy(), np.asarray(jimg), rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="unknown renderer"):
         PTR.Trainer(PN.NeRFConfig(), rp, PTR.TrainConfig(renderer="nerfacc"), device="cpu")
     for renderer in ("occgrid", "proposal", "dense"):

@@ -40,6 +40,10 @@ def _jax_tree(t):
     return {k: _jax_tree(v) for k, v in t.items()} if isinstance(t, dict) else jnp.asarray(t)
 
 
+def _torch_tree(t):
+    return {k: _torch_tree(v) for k, v in t.items()} if isinstance(t, dict) else torch.from_numpy(t)
+
+
 def test_config_shapes_match_jax():
     for kw in (DIMS, dict(channels=16, resolution=1024, wavelet_scale=16),
                dict(channels=4, resolution=256, wavelet_scale=8, current_scale=2)):
@@ -108,7 +112,34 @@ def test_unported_variants_raise():
     assert {k: tuple(v.shape) for k, v in params["upscale"].items()} == {
         "level_0": (3, 4, 3, 32, 32), "level_1": (3, 4, 3, 32, 32)}
     assert params["rotation"].tolist() == [1.0, 0.0, 0.0, 0.0] and params["lbound_scale"].item() == 1.0
-    with pytest.raises(NotImplementedError):
-        PT.init_triplane_params(PT.TriplaneConfig(high_res_scale=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        PT.build_planes({}, PT.TriplaneConfig(low_res_scale=2))
+    _snapshot_planes_match_jax()
+
+
+def _snapshot_planes_match_jax():
+    """The SR snapshot planes against JAX's (float32 atol 2e-5, as above),
+    whole, stopped at ``max_resolution``, and with ``high_res`` on a side
+    the ladder never has (it is then ``full``); ``modes`` builds only as far
+    as the finest plane it names and gives the same bits as the whole build."""
+    for kw, max_res in ((dict(low_res_scale=4, high_res_scale=2), -1),
+                        (dict(low_res_scale=4, high_res_scale=2), 32),
+                        (dict(low_res_scale=2, high_res_scale=64), -1)):
+        cj = JT.TriplaneConfig(channels=8, resolution=64, wavelet_scale=8, **kw)
+        cp = PT.TriplaneConfig(channels=8, resolution=64, wavelet_scale=8, **kw)
+        enc = _enc(6, cj)
+        jp = JT.build_planes(_jax_tree(enc), cj, max_resolution=max_res)
+        pp = PT.build_planes(_torch_tree(enc), cp, max_resolution=max_res)
+        assert set(pp) == set(jp), (kw, max_res)
+        for k in jp:
+            assert tuple(pp[k].shape) == jp[k].shape, (k, kw, max_res)
+            np.testing.assert_allclose(pp[k].numpy(), np.asarray(jp[k]), rtol=0, atol=2e-5,
+                                       err_msg=f"{k} {kw} {max_res}")
+    penc = _torch_tree(enc)
+    whole = PT.build_planes(penc, cp)
+    calls = []
+    real = PT.W.idwt2d
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PT.W, "idwt2d", lambda *a: calls.append(a[0].shape[-1]) or real(*a))
+        low = PT.build_planes(penc, cp, modes=("low_res",))
+    assert set(low) == {"low_res"} and len(calls) == 2  # two of the three levels: 8 -> 16 -> 32
+    assert torch.equal(low["low_res"], whole["low_res"])
+    assert torch.equal(PT.build_planes(penc, cp, modes=("high_res",))["high_res"], whole["full"])

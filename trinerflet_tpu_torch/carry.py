@@ -16,7 +16,8 @@ from ._device import DeviceLike, resolve_device
 from .render.renderer import OccupancyState
 from .train.trainer import TrainState, _map
 
-__all__ = ["params_from_jax", "occupancy_from_jax", "adam_state_from_jax", "train_state_from_jax"]
+__all__ = ["params_from_jax", "occupancy_from_jax", "adam_state_from_jax", "train_state_from_jax",
+           "network_params_from_jax", "sr_state_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -138,3 +139,41 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
         error_map=None if error_map is None else _tensor(error_map, device),
     )
 
+
+
+def network_params_from_jax(tree: Any, device: DeviceLike = None):
+    """A network tree of the SR app from the JAX package (the x4 upscaler's
+    UNet and VAE, the CLIP text encoder, LPIPS) as this package's, on
+    ``device`` (``cuda`` by default): the same keys and lists, conv kernels
+    HWIO -> OIHW (every 4-D leaf), everything else as it is."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, Mapping):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        a = np.asarray(t)
+        if a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))
+        return _tensor(np.ascontiguousarray(a), device)
+
+    return conv(tree)
+
+
+def sr_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
+    """The JAX ``SRState`` (or a mapping with its fields) as this package's
+    ``sr.system.SRState``, on ``device``: params, the Adam moments and count
+    (the optax chain's first entry), the occupancy state and the step; the
+    step generator is seeded with ``seed`` (a JAX key does not carry)."""
+    from .sr.system import SRState
+
+    device = resolve_device(device)
+    params = _map(lambda t: t.requires_grad_(True), params_from_jax(_get(state, "params"), device))
+    return SRState(
+        params=params,
+        opt_state=adam_state_from_jax(_get(state, "opt_state"), device),
+        occ=occupancy_from_jax(_get(state, "occ"), device),
+        step=int(np.asarray(_get(state, "step"))),
+        rng=torch.Generator(device=device).manual_seed(seed),
+    )

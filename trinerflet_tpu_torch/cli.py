@@ -512,10 +512,11 @@ def run(opt, device=None):
     (trainer, state)."""
     if opt.gui:
         raise not_ported("--gui (the HTTP viewer, utils/gui.py)",
-                         "ROADMAP Queue 1 item 4 (the utilities that need no SR module)")
+                         "ROADMAP Queue 1 item 4 (the utilities: gui, viewer, logging)")
     if opt.rand_pose >= 0:
-        raise not_ported("--rand_pose (CLIP guidance, utils/clip_loss.py)",
-                         "ROADMAP Queue 1 item 5 (super-resolution and the utilities built on it)")
+        raise not_ported("--rand_pose (CLIP guidance, utils/clip_loss.py; the SR app it builds on, "
+                         "sr/text.py, is ported)",
+                         "ROADMAP Queue 1 item 5 (utils/clip_loss.py, after sr/text_to_3d.py)")
     device = resolve_device(device)
     if opt.path is None or not os.path.exists(opt.path):
         raise FileNotFoundError(f"--path {opt.path!r} does not exist")

@@ -50,16 +50,15 @@ class NeRFConfig:
     compute_dtype: str = "float32"
     plane_dtype: str = "float32"
 
-    def check_ported(self) -> None:
-        if self.encoding == "triplane_wavelet":
-            self.triplane.check_ported()
-        else:
-            encoder_dim(self.encoding, grid_cfg=self.grid, kplanes_cfg=self.kplanes)  # unknown names
+    def validate(self) -> None:
+        """Raise for an encoding name the JAX package does not define."""
+        if self.encoding != "triplane_wavelet":
+            encoder_dim(self.encoding, grid_cfg=self.grid, kplanes_cfg=self.kplanes)
 
     @property
     def in_dim(self) -> int:
         """The encoding's width, from the configuration (no table is made)."""
-        self.check_ported()
+        self.validate()
         if self.encoding == "triplane_wavelet":
             return self.triplane.feature_dim
         return encoder_dim(self.encoding, grid_cfg=self.grid, kplanes_cfg=self.kplanes)
@@ -82,7 +81,7 @@ def _init_mlp(dims, generator) -> Dict[str, torch.Tensor]:
 def init_nerf_params(cfg: NeRFConfig, generator: Optional[torch.Generator] = None,
                      device: DeviceLike = None) -> Dict:
     """Seeded random params on ``device`` (``cuda`` by default)."""
-    cfg.check_ported()
+    cfg.validate()
     device = resolve_device(device)
     sigma_dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [1 + cfg.geo_feat_dim]
     color_dims = ([cfg.in_dim_dir + cfg.geo_feat_dim]
@@ -121,7 +120,7 @@ class NeRFField:
     """Stateless field; planes are built once and passed to every query."""
 
     def __init__(self, cfg: NeRFConfig):
-        cfg.check_ported()
+        cfg.validate()
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.plane_dtype = _DTYPES[cfg.plane_dtype]
@@ -130,9 +129,12 @@ class NeRFField:
             self._enc_apply = encoder_apply(cfg.encoding, grid_cfg=cfg.grid, kplanes_cfg=cfg.kplanes,
                                             bound=cfg.bound)
 
-    def build_planes(self, params: Dict, max_resolution: int = -1) -> Dict[str, torch.Tensor]:
-        """The triplane's planes (``full``, and the zoom-in planes when
-        configured); {} for the other encodings."""
+    def build_planes(self, params: Dict, max_resolution: int = -1,
+                     modes: Optional[Tuple[str, ...]] = None) -> Dict[str, torch.Tensor]:
+        """The triplane's planes (``full``, the SR snapshots and the zoom-in
+        planes when configured; only ``modes`` and only as far as they need
+        when given, see ``triplane.build_planes``); {} for the other
+        encodings."""
         if self._enc_apply is not None:
             return {}
         enc = params["encoder"]
@@ -142,7 +144,7 @@ class NeRFField:
             # rotation and the lbound zoom stay f32
             enc = {k: (_cast(v, torch.bfloat16) if k in ("base", "wavelets", "upscale") else v)
                    for k, v in enc.items()}
-        planes = build_planes(enc, self.cfg.triplane, max_resolution)
+        planes = build_planes(enc, self.cfg.triplane, max_resolution, modes)
         return {k: v.to(self.plane_dtype) for k, v in planes.items()}
 
     def _density_blob(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -152,14 +154,15 @@ class NeRFField:
                      * plain_exp(-0.5 * (x * x).sum(-1) * _inv(cfg.density_blob_std**2)))
         return h
 
-    def density(self, params: Dict, planes: Dict[str, torch.Tensor],
-                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (N, 3) in [-bound, bound] -> (sigma (N,) f32, geo_feat (N, G))."""
+    def density(self, params: Dict, planes: Dict[str, torch.Tensor], x: torch.Tensor,
+                resolution_mode: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (N, 3) in [-bound, bound] -> (sigma (N,) f32, geo_feat (N, G)),
+        the triplane sampled on ``planes[resolution_mode]``."""
         if self._enc_apply is not None:
             feats = self._enc_apply(params["encoder"], x)
         else:
             feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound,
-                                    enc_params=params["encoder"])
+                                    resolution_mode=resolution_mode, enc_params=params["encoder"])
         h = _mlp(params["sigma_net"], feats, self.dtype)
         sigma = trunc_exp(self._density_blob(x, h[..., 0]))
         return sigma, h[..., 1:]
@@ -172,8 +175,8 @@ class NeRFField:
         return torch.sigmoid(h.float())
 
     def __call__(self, params: Dict, planes: Dict[str, torch.Tensor], x: torch.Tensor,
-                 d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        sigma, geo = self.density(params, planes, x)
+                 d: torch.Tensor, resolution_mode: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
+        sigma, geo = self.density(params, planes, x, resolution_mode)
         return sigma, self.color(params, d, geo)
 
     def background(self, params: Dict, sph: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

@@ -481,17 +481,17 @@ class RegistryField:
         return params
 
     # -- NeRFField interface
-    def build_planes(self, params: Dict, max_resolution: int = -1) -> Dict:
+    def build_planes(self, params: Dict, max_resolution: int = -1,
+                     modes: Optional[Tuple[str, ...]] = None) -> Dict:
         if self.geometry == "volume-grid":
             return {}
-        return self._inner.build_planes(params, max_resolution)
+        return self._inner.build_planes(params, max_resolution, modes)
 
     def density(self, params: Dict, planes: Dict, x: torch.Tensor,
                 resolution_mode: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (N, 3) -> (sigma (N,) f32, geo_feat (N, G))."""
-        if resolution_mode != "full":
-            raise not_ported(f"resolution_mode={resolution_mode!r} (the SR snapshot planes)",
-                             "the SR slice")
+        """x (N, 3) -> (sigma (N,) f32, geo_feat (N, G)); ``resolution_mode``
+        picks the triplane's plane on the implicit volume (the other
+        geometries ignore it, as in the JAX package)."""
         if self.geometry == "volume-grid":
             feats = sample_volume_grid(params["encoder"], x, self.grid_cfg, self.cfg.bound)
             sigma = trunc_exp(self._inner._density_blob(x, feats[..., 0]))
@@ -502,7 +502,7 @@ class RegistryField:
             feats = _mlp(params["feature_net"], enc, self.dtype)
             sigma = laplace_density(sdf, plain_exp(params["log_beta"]))
             return sigma, feats.float()
-        return self._inner.density(params, planes, x)
+        return self._inner.density(params, planes, x, resolution_mode)
 
     def sdf(self, params: Dict, planes: Dict, x: torch.Tensor,
             enc: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .._device import DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 from ..ops import wavelets as W
 from ..ops.grid_sample import project_to_planes, sample_points
 from ..ops.raymarch import _inv
@@ -81,10 +81,16 @@ class TriplaneConfig:
     def upscale_enabled(self) -> bool:
         return 0.0 < self.upscale_ratio_bound < 1.0
 
-    def check_ported(self) -> None:
-        """Raise for the variants the port does not have yet."""
-        if self.low_res_scale > 1 or self.high_res_scale > 1:
-            raise not_ported("SR snapshot planes (low_res/high_res)", "the SR slice")
+    def snapshot_resolutions(self) -> Dict[str, int]:
+        """The SR snapshot planes ("double resolution mode"): ``low_res`` at
+        resolution / low_res_scale and ``high_res`` at resolution /
+        high_res_scale, each when its scale is above 1."""
+        out = {}
+        if self.low_res_scale > 1:
+            out["low_res"] = self.resolution // self.low_res_scale
+        if self.high_res_scale > 1:
+            out["high_res"] = self.resolution // self.high_res_scale
+        return out
 
 
 def _upscale_geometry(cfg: TriplaneConfig) -> Tuple[List[int], List[int], List[float]]:
@@ -109,7 +115,6 @@ def init_triplane_params(cfg: TriplaneConfig, generator: Optional[torch.Generato
                          device: DeviceLike = None) -> Dict:
     """Base plane ~ N(0, init_sigma); learnable detail levels zero; on
     ``device`` (``cuda`` by default)."""
-    cfg.check_ported()
     device = resolve_device(device)
     b = cfg.base_resolution
     base = torch.randn((3, cfg.channels, b, b), generator=generator, dtype=torch.float32)
@@ -144,12 +149,17 @@ def _to(tree, device):
 
 
 def _idwt_ladder(x: torch.Tensor, yh_list: List[Optional[torch.Tensor]],
-                 yh_sizes: Tuple[int, ...], cfg: TriplaneConfig) -> torch.Tensor:
+                 yh_sizes: Tuple[int, ...], cfg: TriplaneConfig,
+                 snapshots: Tuple[int, ...] = ()) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """The inverse pyramid: per level yl = 2*x, yh = learned coefficients or
     zeros (frozen levels), both padded by the wavelet pad when the lowpass
-    has reached ``wavelet_base_resolution``, then one IDWT level."""
+    has reached ``wavelet_base_resolution``, then one IDWT level. Also
+    returns the intermediate planes whose side is in ``snapshots``, by side."""
     pad = W.idwt_pad(cfg.wavelet_type)
+    snaps: Dict[int, torch.Tensor] = {}
     for i, s in enumerate(yh_sizes):
+        if x.shape[-1] in snapshots:
+            snaps[x.shape[-1]] = x
         yl = 2.0 * x
         yh = yh_list[i]
         if yh is None:
@@ -158,39 +168,71 @@ def _idwt_ladder(x: torch.Tensor, yh_list: List[Optional[torch.Tensor]],
             yl = torch.nn.functional.pad(yl, (pad, pad, pad, pad))
             yh = torch.nn.functional.pad(yh, (pad, pad, pad, pad))
         x = W.idwt2d(yl, yh, cfg.wavelet_type)
-    return x
+    if x.shape[-1] in snapshots:
+        snaps[x.shape[-1]] = x
+    return x, snaps
 
 
-def build_planes(params: Dict, cfg: TriplaneConfig, max_resolution: int = -1) -> Dict[str, torch.Tensor]:
-    """{"full": (3, H, W, C)} channel-last planes from the wavelet parameters,
-    and with the zoom-in planes ``upscale_{level}``: each one IDWT level on
-    the centre crop of the plane before it, with that level's learned
-    coefficients. ``max_resolution`` stops the ladder at the first level
-    reaching it and builds no zoom-in plane (the density-grid refresh needs
-    only 2x the grid resolution)."""
-    cfg.check_ported()
+def _levels_to(cfg: TriplaneConfig, resolution: int) -> int:
+    """IDWT levels the ladder runs before its plane's side reaches
+    ``resolution`` (all of them when it never does)."""
+    sizes_after = list(cfg.yh_sizes[1:]) + [cfg.resolution]
+    return next((i + 1 for i, s in enumerate(sizes_after) if s >= resolution), cfg.levels)
+
+
+def build_planes(params: Dict, cfg: TriplaneConfig, max_resolution: int = -1,
+                 modes: Optional[Tuple[str, ...]] = None) -> Dict[str, torch.Tensor]:
+    """Channel-last (3, H, W, C) planes from the wavelet parameters:
+    ``full``; the SR snapshots ``low_res`` / ``high_res`` (the ladder's
+    intermediate plane at resolution / scale; ``high_res`` is ``full`` when
+    that side is not one of the ladder's); with the zoom-in planes
+    ``upscale_{level}``, each one IDWT level on the centre crop of the plane
+    before it, with that level's learned coefficients.
+
+    ``max_resolution`` stops the ladder at the first level reaching it and
+    builds no zoom-in plane (the density-grid refresh needs only 2x the grid
+    resolution); ``full`` is then the plane where it stopped, and a snapshot
+    finer than that is left out.
+
+    ``modes`` names the planes the caller reads (``full``, ``low_res``,
+    ``high_res``): the ladder then runs only as far as the finest of them and
+    only those are returned, each with the same bits as a whole build gives
+    (JAX drops the unread levels when it compiles; an eager build would run
+    them). Zoom-in planes come with ``full``."""
     yh_sizes = cfg.yh_sizes
     n_learn = cfg.num_learnable_levels
     yh_list = [params["wavelets"][f"level_{i}"] if i < n_learn else None
                for i in range(cfg.levels)]
-    sizes_after = list(yh_sizes[1:]) + [cfg.resolution]
-    n_levels = cfg.levels
-    if max_resolution > 0:
-        n_levels = next((i + 1 for i, s in enumerate(sizes_after) if s >= max_resolution),
-                        cfg.levels)
-    x = _idwt_ladder(params["base"], yh_list[:n_levels], yh_sizes[:n_levels], cfg)
+    snap_res = cfg.snapshot_resolutions()
+    truncated = max_resolution > 0
+    if modes is not None:
+        sides = set(yh_sizes) | {cfg.resolution}
+        top = max(snap_res[m] if m != "full" and snap_res[m] in sides else cfg.resolution
+                  for m in modes)
+        max_resolution = min(max_resolution, top) if truncated else top
+    n_levels = _levels_to(cfg, max_resolution) if max_resolution > 0 else cfg.levels
+    x, snaps = _idwt_ladder(params["base"], yh_list[:n_levels], yh_sizes[:n_levels], cfg,
+                            tuple(snap_res.values()))
     out = {"full": x.permute(0, 2, 3, 1).contiguous()}
-    if cfg.upscale_enabled and max_resolution <= 0:
+    for name, r in snap_res.items():
+        if r in snaps:
+            out[name] = out["full"] if snaps[r] is x else snaps[r].permute(0, 2, 3, 1).contiguous()
+        elif name == "high_res":
+            out[name] = out["full"]
+    if cfg.upscale_enabled and not truncated and (modes is None or "full" in modes):
         sizes, corners, _ = _upscale_geometry(cfg)
         for level, (c, s) in enumerate(zip(corners, sizes)):
-            x = _idwt_ladder(x[:, :, c : c + s, c : c + s], [params["upscale"][f"level_{level}"]],
-                             (s,), cfg)
+            x, _ = _idwt_ladder(x[:, :, c : c + s, c : c + s],
+                                [params["upscale"][f"level_{level}"]], (s,), cfg)
             out[f"upscale_{level}"] = x.permute(0, 2, 3, 1).contiguous()
+    if modes is not None:
+        out = {k: v for k, v in out.items() if k in modes or k.startswith("upscale_")}
     return out
 
 
 def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: TriplaneConfig,
-                    lbound: Optional[float] = None, enc_params: Optional[Dict] = None) -> torch.Tensor:
+                    lbound: Optional[float] = None, resolution_mode: str = "full",
+                    enc_params: Optional[Dict] = None) -> torch.Tensor:
     """Features of (N, 3) points in [-lbound, lbound]^3 -> (N, 3C) float32.
 
     ``enc_params`` supplies the learned rotation (the points become ``coords
@@ -200,8 +242,8 @@ def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: 
     every zoom level, and its inf-norm picks one (``torch.where``): level l
     takes the points with ratio_bound^(l+2) lb < |p|_inf <= ratio_bound^(l+1)
     lb (the last level everything inside its bound), sampled at that bound.
-    Without zoom-in planes in ``planes`` (the density refresh's) every point
-    reads ``full``."""
+    Without zoom-in planes in ``planes`` (the density refresh's, the SR
+    snapshots') every point reads ``planes[resolution_mode]``."""
     lb = cfg.lbound if lbound is None else lbound
     N = coords.shape[0]
     if enc_params is not None:
@@ -216,7 +258,7 @@ def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: 
         return sample_points(plane_stack, coords, bound).reshape(N, -1)
 
     if not cfg.upscale_enabled or "upscale_0" not in planes:
-        return flat_sample(planes["full"], lb)
+        return flat_sample(planes[resolution_mode], lb)
     _, _, ratio_bounds = _upscale_geometry(cfg)
     coords_max = coords.detach().abs().amax(dim=-1)
     out = flat_sample(planes["full"], lb)
@@ -245,7 +287,6 @@ def wavelet_l1(params: Dict, cfg: TriplaneConfig, weighted: bool = False) -> tor
     number of levels; in weighted mode finest-first 1/4^i weights instead;
     plus, with the zoom-in planes, mean|coefs| * 1/4^(l+1) * (numel /
     total) for each zoom level l."""
-    cfg.check_ported()
     levels = [params["wavelets"][f"level_{i}"] for i in range(cfg.num_learnable_levels)]
     if not levels:
         return torch.zeros((), dtype=torch.float32, device=params["base"].device)

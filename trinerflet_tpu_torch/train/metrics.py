@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["PSNRMeter", "SSIMMeter", "psnr", "ssim"]
+__all__ = ["PSNRMeter", "SSIMMeter", "LPIPSMeter", "psnr", "ssim"]
 
 
 def _f64(x, device=None) -> torch.Tensor:
@@ -94,3 +94,40 @@ class SSIMMeter(_MeanMeter):
         else:
             self.V += ssim(preds, truths)
             self.N += 1
+
+
+class LPIPSMeter(_MeanMeter):
+    """LPIPS meter: ``fn(pred, truth) -> float`` from ``utils.lpips.
+    make_lpips_fn``. No weights are in the repository; without ``fn`` the
+    meter takes nothing and reports NaN."""
+
+    name = "LPIPS"
+
+    def __init__(self, fn=None):
+        super().__init__()
+        self.fn = fn
+
+    @classmethod
+    def from_weights(cls, backbone_path: str, lin_path: str, net: str = "vgg", device=None):
+        from ..utils.lpips import make_lpips_fn
+
+        return cls(fn=make_lpips_fn(backbone_path, lin_path, net=net, device=device))
+
+    @classmethod
+    def from_params(cls, params, net: str = "vgg"):
+        from ..utils.lpips import make_lpips_fn
+
+        return cls(fn=make_lpips_fn(params=params, net=net))
+
+    @property
+    def available(self) -> bool:
+        return self.fn is not None
+
+    def update(self, preds, truths):
+        if self.fn is None:
+            return
+        self.V += float(self.fn(preds, truths))
+        self.N += 1
+
+    def measure(self) -> float:
+        return float("nan") if self.N == 0 else self.V / self.N

@@ -60,7 +60,8 @@ from ..render import renderer as R
 from ..render.proposal import ProposalConfig, init_proposal_params, interlevel_loss, render_proposal
 from . import checkpoint, metrics
 
-__all__ = ["TrainConfig", "TrainState", "Trainer", "lr_schedule", "global_slots_for", "write_png"]
+__all__ = ["TrainConfig", "TrainState", "Trainer", "adam_update", "lr_schedule", "global_slots_for",
+           "write_png"]
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-15
 
@@ -124,6 +125,36 @@ def lr_schedule(cfg: TrainConfig):
         return f32(cfg.lr) * decay
 
     return fn
+
+
+def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor], opt: Dict, lr_fn,
+                decay: Optional[List[float]] = None) -> int:
+    """optax.chain(scale_by_adam(0.9, 0.99, 1e-15)[, add_decayed_weights
+    (``decay``: a coefficient per leaf, 0 for none)], scale_by_schedule(-lr))
+    in place on ``params`` (leaves in ``_leaves`` order, as ``opt``'s
+    ``mu`` / ``nu``). Returns the new update count."""
+    mu = [t for _, t in _leaves(opt["mu"])]
+    nu = [t for _, t in _leaves(opt["nu"])]
+    count = opt["count"] + 1
+    f32 = np.float32
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, grads, alpha=1 - ADAM_B1)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - ADAM_B2)
+    bc1 = float(f32(1) - f32(ADAM_B1) ** f32(count))
+    bc2 = float(f32(1) - f32(ADAM_B2) ** f32(count))
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, denom)
+    if decay is not None:
+        for u, p, wd in zip(upd, params, decay):
+            if wd:
+                u.add_(p, alpha=wd)
+    torch._foreach_mul_(upd, -float(lr_fn(count - 1)))
+    torch._foreach_add_(params, upd)
+    return count
 
 
 def _criterion(cfg: TrainConfig, pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -416,28 +447,11 @@ class Trainer:
               opt: Dict) -> int:
         """optax.chain(scale_by_adam(0.9, 0.99, 1e-15)[, add_decayed_weights
         on the MLP groups], scale_by_schedule(-lr)) applied in place."""
-        mu = [t for _, t in _leaves(opt["mu"])]
-        nu = [t for _, t in _leaves(opt["nu"])]
-        count = opt["count"] + 1
-        f32 = np.float32
-        torch._foreach_mul_(mu, ADAM_B1)
-        torch._foreach_add_(mu, grads, alpha=1 - ADAM_B1)
-        torch._foreach_mul_(nu, ADAM_B2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1 - ADAM_B2)
-        bc1 = float(f32(1) - f32(ADAM_B1) ** f32(count))
-        bc2 = float(f32(1) - f32(ADAM_B2) ** f32(count))
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, denom)
+        decay = None
         if self.cfg.mlp_weight_decay > 0:
-            for name, u, p in zip(names, upd, params):
-                if name.split(".")[0] in ("sigma_net", "color_net"):
-                    u.add_(p, alpha=self.cfg.mlp_weight_decay)
-        torch._foreach_mul_(upd, -float(self.lr_fn(count - 1)))
-        torch._foreach_add_(params, upd)
-        return count
+            decay = [self.cfg.mlp_weight_decay if n.split(".")[0] in ("sigma_net", "color_net") else 0.0
+                     for n in names]
+        return adam_update(params, grads, opt, self.lr_fn, decay)
 
     def _ema(self, state: TrainState, params: List[torch.Tensor]) -> int:
         """ema = ema * d + p * (1 - d), d = min(ema_decay, (1 + n) / (10 + n))."""
