@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's serving and training paths, its CLI and its
-super-resolution app on one
-NVIDIA GPU and check them: the wavelet-triplane field on the occupancy-grid renderer (the
+"""Drive the PyTorch port's serving and training paths, its CLI, its
+super-resolution and text-to-3D apps, CLIP guidance, the HTTP viewer and
+the web launcher on one NVIDIA GPU and check them: the wavelet-triplane field on the occupancy-grid renderer (the
 hierarchical march, and the flat march on the dt_gamma ladder), the
 proposal renderer, the hash-grid field, the dense renderer, the triplane's
 variants (learned rotation and lbound zoom, zoom-in planes, background net),
@@ -152,12 +152,12 @@ Phases (any failure exits non-zero; nothing is caught):
     field's C = 2) and timed beside the K7 forward on the same chunk, the
     same normal checks;
 19. cli: a synthetic Blender scene (30 training, 8 val and 8 test views of
-    400^2, written with ``write_synthetic_scene`` on the host; PNG decode
+    400^2, rendered on the card by ``write_synthetic_scene``; PNG decode
     ms per view), then ``trinerflet_tpu_torch.cli`` on the README's
     two-stage recipe at its widths (512^2 then 1024^2 x 16, 8 then 16
     wavelet levels, 20,000 then 60,000 rays, -O, dt_gamma 0, wavelet L1
     0.2), 256 + 256 steps with an evaluation and a rotating checkpoint every
-    64; counters zeroed and read around it (K1, K2 forward and backward, K4
+    128; counters zeroed and read around it (K1, K2 forward and backward, K4
     forward and adjoint, K6, and K3 or K3c must launch); the workspace's
     checkpoints and results; the field's density quantiles on a 96^3
     sweep; ms/step by stage; a save / load round trip on
@@ -188,11 +188,45 @@ Phases (any failure exits non-zero; nothing is caught):
     CFG 7.5), ms per UNet call, VAE encode / decode ms, peak memory, one
     text_encode; one UNet call and one VAE decode at 16^2 latents and the
     text encoder held to the CPU (float32, TF32 off);
-21. second-order: a create_graph=True first derivative through each kernel
+21. gen: text-to-3D generation through ``sr.launch.build`` on a generation
+    config made of the srtex recipe's model, triplane and renderer sections
+    (its widths), ``TextTo3DConfig``'s defaults (128^2 views, 8 a round,
+    64^2 crops) and the weights-free conditioning guidance (the full DDIM
+    tail); the steps and the refresh period cut (4,000 -> 400, 400 -> 100,
+    each cut printed); counters zeroed and read around ``fit`` (K1, K2
+    forward and backward, K3 forward and backward, K4 forward and adjoint
+    and K6 must launch); ms/step, seconds per refresh, one profiled step; a
+    captured step's and a refresh view's kernel rows; the step check (one
+    step's gradients, card vs CPU plain versions); finite losses; the
+    turntable (ms per frame, its file or frames);
+22. t2i: one ``Text2ImgGuidance.generate_sr`` refresh of a 128^2 render with
+    seeded random weights at Stable Diffusion 2.1-base's published widths
+    (the UNet 4 -> 4, (320, 640, 1280, 1280), heads (5, 10, 20, 20),
+    cross-attention 1024, linear projections, no class embedding; the VAE
+    (128, 256, 512, 512), scaling 0.18215; 77 x 1024 prompt embeddings): ms
+    per UNet call at 16^2 latents, VAE encode and decode ms, peak memory;
+    one UNet call at 8^2 latents held to the CPU (float32, TF32 off);
+23. clip: a --clip_ckpt directory at ViT-B/16's published widths (seeded
+    random weights as ``pytorch_model.bin``, a character vocabulary), then
+    ``trinerflet_tpu_torch.cli`` on the cli phase's scene at the README's
+    stage-1 widths with ``--rand_pose 3`` for 64 steps: the launches of the
+    run and of its CLIP steps, ms per CLIP step beside ms per supervised
+    step, a captured CLIP step's kernel rows, the step check on one CLIP
+    step, ``CLIPLoss`` card vs CPU (float32, TF32 off);
+24. gui: ``cli --gui --test`` over the cli phase's checkpoint, a loopback
+    client fetching the page, /state, five 800^2 frames (each the native
+    encoder's bytes of ``render_image`` at its pose; ms per frame) and
+    /stop; then ``cli --gui`` training 64 iterations of the stage-1 recipe
+    (/state advances, a frame mid-run, ``latest_model.pkl`` at the end);
+25. webapp: ``LaunchMonitor`` and ``make_server`` on loopback; POST /run of
+    the SR launcher on a generation YAML at the srtex widths (32 steps, 2
+    views a round, a refresh every 16); /status until the child exits 0;
+    /artifact serves its turntable;
+26. second-order: a create_graph=True first derivative through each kernel
     function (K2, K7, K10, K11, K4, K3, K3c) on the card, then a backward
     through it, which must raise torch's once_differentiable error as the
     CPU tests' plain versions do;
-22. print the kernels line, then the device line last.
+27. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -261,6 +295,7 @@ GLOBAL_WINDOWS = 2
 FORCED_STEPS = 4                                # the flat phase's other layout
 DENSE_WARM, DENSE_WINDOW = 16, 16              # the dense phase, cut
 CHECK_RAYS = 4096
+REF_ITERS = 5  # timed calls of a plain version or a library call (ref_ms)
 # the 4,096-ray step check, kernels on the card vs plain versions on the CPU:
 # both round to bf16 at the same points, but f32 sums run in other orders
 # (cuBLAS vs CPU GEMMs, K2's float atomics, K4's tap order), so a bf16
@@ -299,6 +334,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def ref_ms(fn) -> float:
+    """``time_ms`` of a reference call (a kernel's plain version or the
+    library call beside it): the median of REF_ITERS calls after one
+    warm-up; a kernel's own time is the median of 20."""
+    return time_ms(fn, iters=REF_ITERS, warmup=1)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -590,7 +632,7 @@ def kernel_phase(trainer, params, occ, poses, intr):
                      replaces="trinerflet_tpu/ops/raymarch.py:604",
                      max_abs_err=0.0, tol="mask, t, stride, seg_lastocc equal",
                      ms=time_ms(lambda: RM.march_hierarchical(*margs, **mkw)),
-                     plain_ms=time_ms(lambda: RM.march_hierarchical_plain(*margs, **mkw), iters=5),
+                     plain_ms=ref_ms(lambda: RM.march_hierarchical_plain(*margs, **mkw)),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"N={N} rays, mean kept samples/ray {mask.float().sum(1).mean().item():.2f}; "
                           f"{probes} probes read {cells_c} coarse and {cells_f} fine grid cells "
@@ -621,15 +663,15 @@ def kernel_phase(trainer, params, occ, poses, intr):
     grid = c2[:, :, None, :].to(planes.dtype).contiguous()
     planes_f32, grid_f32 = planes_nchw.float(), c2[:, :, None, :].contiguous()
     lib_err = (F.grid_sample(planes_f32, grid_f32, **gs)[..., 0].permute(2, 0, 1) - got).abs().max().item()
-    lib_f32_ms = time_ms(lambda: F.grid_sample(planes_f32, grid_f32, **gs))
+    lib_f32_ms = ref_ms(lambda: F.grid_sample(planes_f32, grid_f32, **gs))
     rows.append(dict(name="K2 sample_planes", route="cuda",
                      source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
                      replaces="trinerflet_tpu/ops/grid_sample.py:131",
                      max_abs_err=err2, tol=1e-4,
                      ms=time_ms(lambda: GS.sample_points(planes, xyz, lb)),
-                     plain_ms=time_ms(lambda: GS.sample_points_plain(planes, xyz, lb), iters=5),
+                     plain_ms=ref_ms(lambda: GS.sample_points_plain(planes, xyz, lb)),
                      bound_ms=b, bound_by=by,
-                     library_ms=time_ms(lambda: F.grid_sample(planes_nchw, grid, **gs)),
+                     library_ms=ref_ms(lambda: F.grid_sample(planes_nchw, grid, **gs)),
                      note=f"M={xyz.shape[0]} points, {touched} touched texels; library_ms is "
                           f"F.grid_sample on the {planes.dtype} planes; on f32 copies it takes "
                           f"{lib_f32_ms:.4f} ms and differs from the kernel by {lib_err:.2e}"))
@@ -655,7 +697,7 @@ def kernel_phase(trainer, params, occ, poses, intr):
                                 replaces="trinerflet_tpu/ops/raymarch.py:805",
                                 max_abs_err=err3, tol=1e-5,
                                 ms=time_ms(lambda: RM.composite_dense(*cargs, t_thresh=rcfg.t_thresh)),
-                                plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs, t_thresh=rcfg.t_thresh)),
+                                plain_ms=ref_ms(lambda: RM.composite_dense_plain(*cargs, t_thresh=rcfg.t_thresh)),
                                 bound_ms=b, bound_by=by, library_ms=None, note=f"N={N} rays x {B} samples")))
 
     # ---- K4: the four IDWT levels of the plane build
@@ -699,8 +741,8 @@ def _k4_level(yl, yh, name):
     lib = F.conv_transpose2d(inp, wt, stride=2, groups=P)[0, :, st : st + Ho, st : st + Ho]
     lib_err = (lib.float() - got.reshape(P, Ho, Ho).float()).abs().max().item()
     return got, dict(err=e, ms=time_ms(lambda: W.idwt2d(yl, yh, name)),
-                     plain_ms=time_ms(lambda: W.idwt2d_plain(yl, yh, name), iters=5),
-                     library_ms=time_ms(lambda: F.conv_transpose2d(inp, wt, stride=2, groups=P)),
+                     plain_ms=ref_ms(lambda: W.idwt2d_plain(yl, yh, name)),
+                     library_ms=ref_ms(lambda: F.conv_transpose2d(inp, wt, stride=2, groups=P)),
                      bound_ms=bm, bound_by=by,
                      size=f"{n}->{Ho} (conv_transpose2d max|diff| {lib_err:.2e})")
 
@@ -1002,7 +1044,7 @@ def _march_rows(trainer, calls):
                      replaces="trinerflet_tpu/ops/raymarch.py:604", max_abs_err=0.0,
                      tol="mask, t, stride, seg_lastocc equal",
                      ms=time_ms(lambda: RM._march_cuda(*args, **kw)),
-                     plain_ms=time_ms(lambda: RM.march_hierarchical_plain(*args, **kw), iters=5),
+                     plain_ms=ref_ms(lambda: RM.march_hierarchical_plain(*args, **kw)),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"N={ro.shape[0]} rays, occ_test_stride {kw['occ_test_stride']}, "
                           f"num_coarse {kw['num_coarse']}, mean kept samples/ray "
@@ -1044,7 +1086,7 @@ def _march_flat_rows(trainer, calls):
                  replaces="trinerflet_tpu/ops/raymarch.py:290", max_abs_err=0.0,
                  tol="every output equal, a second call too",
                  ms=time_ms(lambda: RM._march_flat_cuda(*args, **kw)),
-                 plain_ms=time_ms(plain, iters=5), bound_ms=b, bound_by=by, library_ms=None,
+                 plain_ms=ref_ms(plain), bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={ro.shape[0]} rays x Kc={kw['num_steps']} candidates, dt_gamma "
                       f"{kw['dt_gamma']}, {kw['cascades']} cascades; {kept}; {probes} probes read "
                       f"{cells} grid cells of {occ.numel()}; no library call computes it")]
@@ -1073,9 +1115,9 @@ def _sample_fwd_rows(planes, xyz, lb, label=""):
                  source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
                  replaces="trinerflet_tpu/ops/grid_sample.py:131", max_abs_err=err, tol=1e-4,
                  ms=time_ms(lambda: GS._sample_points_cuda(planes, xyz, lb)),
-                 plain_ms=time_ms(lambda: GS.sample_points_plain(planes, xyz, lb), iters=5),
+                 plain_ms=ref_ms(lambda: GS.sample_points_plain(planes, xyz, lb)),
                  bound_ms=b, bound_by=by,
-                 library_ms=time_ms(lambda: F.grid_sample(planes_nchw, grid, **gs)),
+                 library_ms=ref_ms(lambda: F.grid_sample(planes_nchw, grid, **gs)),
                  note=f"M={xyz.shape[0]} points on {tuple(planes.shape)} {planes.dtype} planes, "
                       f"{touched} touched texels")]
 
@@ -1112,9 +1154,8 @@ def _sample_bwd_rows(calls, i=0, label=""):
                      replaces="trinerflet_tpu/ops/grid_sample.py:151", max_abs_err=(got.float() - ref.float()).abs().max().item(),
                      tol="2^-7 x max|grad|",
                      ms=time_ms(lambda: GS._sample_points_backward_cuda(g, xyz, lb, shape, dtype)),
-                     plain_ms=time_ms(lambda: GS.sample_points_backward_plain(g, xyz, lb, shape, dtype),
-                                      iters=5),
-                     bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                     plain_ms=ref_ms(lambda: GS.sample_points_backward_plain(g, xyz, lb, shape, dtype)),
+                     bound_ms=b, bound_by=by, library_ms=ref_ms(lib),
                      note=f"{live} of {3 * xyz.shape[0]} (sample, plane) rows carry a cotangent; "
                           f"binned by tile, summed per tile in shared memory ({GS.K2_BWD_LAUNCHES} launches per "
                           f"call, the same bits on a second call); "
@@ -1179,8 +1220,8 @@ def _sample_xyz_rows(calls, label_of):
             max_abs_err=(xg.cpu() - rxg).abs().max().item(),
             tol="points 1e-5 x max|dL/dxyz|" + (", planes 2^-7 x max|grad|" if with_planes else ""),
             ms=time_ms(lambda: GS._sample_points_backward_xyz_cuda(g, planes, xyz, lb, **kw)),
-            plain_ms=time_ms(lambda: GS.sample_points_backward_xyz_plain(g, planes, xyz, lb, **kw), iters=5),
-            bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+            plain_ms=ref_ms(lambda: GS.sample_points_backward_xyz_plain(g, planes, xyz, lb, **kw)),
+            bound_ms=b, bound_by=by, library_ms=ref_ms(lib),
             note=f"M={xyz.shape[0]} points on {tuple(planes.shape)} {planes.dtype} planes, "
                  f"{'with' if with_planes else 'without'} the plane gradient"
                  f"{' (bit for bit the K2 backward on the same rows)' if with_planes else ''}, "
@@ -1224,8 +1265,8 @@ def _adjoint_rows(trainer, calls, sel=slice(None), label=""):
         lo = lib().reshape(P, 4, n, n)
         lib_err = _rel(lo[:, 0], got[0].reshape(P, n, n))
         tot["ms"] += time_ms(lambda: W._idwt2d_adjoint_cuda(G, name))
-        tot["plain_ms"] += time_ms(lambda: W.idwt2d_adjoint_plain(G, name), iters=5)
-        tot["library_ms"] += time_ms(lib)
+        tot["plain_ms"] += ref_ms(lambda: W.idwt2d_adjoint_plain(G, name))
+        tot["library_ms"] += ref_ms(lib)
         tot["bound_ms"] += bm
         sizes.append(f"{Ho}->{n} (conv2d rel diff {lib_err:.2e})")
     rows.append(dict(name="K4 idwt2d adjoint" + label, key="idwt_adjoint", route="cuda",
@@ -1284,9 +1325,9 @@ def _upkeep_rows(trainer, calls):
                      max_abs_err=max(mean_err, full_err),
                      tol="grid, occ, occ_coarse, bbox equal; mean rel 1e-5; a second call the same bits",
                      ms=time_ms(lambda: R._occupancy_upkeep_cuda(*oargs)),
-                     plain_ms=time_ms(lambda: R.occupancy_upkeep_plain(*oargs)),
+                     plain_ms=ref_ms(lambda: R.occupancy_upkeep_plain(*oargs)),
                      bound_ms=b, bound_by=by,
-                     library_ms=time_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
+                     library_ms=ref_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
                      note=f"{tuple(grid_old.shape)} grid, refreshed block of {tmp.shape[1]} cells at "
                           f"{off} (and a full refresh, held only), radius {r}; 2 launches (merge "
                           f"and mean; threshold, bit-packed separable dilation and bbox on tiles "
@@ -1327,7 +1368,7 @@ def _composite_row(cargs, name_t):
                  source="trinerflet_tpu_torch/kernels/csrc/composite.cu",
                  replaces="trinerflet_tpu/ops/raymarch.py:805", max_abs_err=err, tol=1e-5,
                  ms=time_ms(lambda: RM._composite_cuda(*cargs)),
-                 plain_ms=time_ms(lambda: RM.composite_dense_plain(*cargs)),
+                 plain_ms=ref_ms(lambda: RM.composite_dense_plain(*cargs)),
                  bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples"))]
 
@@ -1348,7 +1389,7 @@ def _composite_backward_row(bargs, name_t):
                  max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
                  tol="1e-5 x max|grad|",
                  ms=time_ms(lambda: RM._composite_backward_cuda(*bargs)),
-                 plain_ms=time_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
+                 plain_ms=ref_ms(lambda: RM.composite_dense_backward_plain(*bargs)),
                  bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={sig.shape[0]} rays x {sig.shape[1]} samples; analytic reverse pass, "
                       "a lane group per ray; replaces autodiff of the cumprod"))]
@@ -1449,9 +1490,9 @@ def _compact_rows(trainer, calls):
                      replaces="trinerflet_tpu/ops/raymarch.py:422", max_abs_err=0.0,
                      tol="every field equal, a second call too",
                      ms=time_ms(lambda: RM._compact_cuda(*kargs)),
-                     plain_ms=time_ms(lambda: RM.compact_global_dense_plain(
-                         ro, rd, t, dt, mask, t0, m_budget=M, bound=bound), iters=5),
-                     bound_ms=b5, bound_by=by5, library_ms=time_ms(lib),
+                     plain_ms=ref_ms(lambda: RM.compact_global_dense_plain(
+                         ro, rd, t, dt, mask, t0, m_budget=M, bound=bound)),
+                     bound_ms=b5, bound_by=by5, library_ms=ref_ms(lib),
                      note=f"N={N} rays x B={B} slots -> M={M} buffer slots, {kept} kept samples "
                           f"({nv} in the buffer, from {rays_in} rays); 2 launches (the tiles: "
                           f"count, look-back scan; the copy and padding); library_ms is a two-call "
@@ -1477,7 +1518,7 @@ def _compact_rows(trainer, calls):
                      replaces="trinerflet_tpu/ops/raymarch.py:754",
                      max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
                      tol="1e-5 x max|output|", ms=time_ms(lambda: RM._composite_compact_cuda(*cargs)),
-                     plain_ms=time_ms(lambda: RM.composite_compact_plain(*cargs)),
+                     plain_ms=ref_ms(lambda: RM.composite_compact_plain(*cargs)),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"M={Mc} slots ({seg} in segments, at most {int(cnts.max())} a ray), "
                           f"N={n_rays} rays; a lane group per ray (8, 16 or 32 lanes by M/N), "
@@ -1501,7 +1542,7 @@ def _compact_rows(trainer, calls):
                      max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
                      tol="1e-5 x max|grad|",
                      ms=time_ms(lambda: RM._composite_compact_backward_cuda(*bargs)),
-                     plain_ms=time_ms(lambda: RM.composite_compact_backward_plain(*bargs)),
+                     plain_ms=ref_ms(lambda: RM.composite_compact_backward_plain(*bargs)),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note="analytic backward, a lane group per ray: two forward walks (the "
                           "ray's total of a*w, then its inclusive scan; the suffix is their "
@@ -1551,7 +1592,7 @@ def _grid_encode_fwd_rows(calls):
                      source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
                      replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err, tol=0.0,
                      ms=time_ms(lambda: GE._grid_encode_cuda(*fargs)),
-                     plain_ms=time_ms(lambda: GE.grid_encode_plain(*fargs), iters=5),
+                     plain_ms=ref_ms(lambda: GE.grid_encode_plain(*fargs)),
                      bound_ms=b, bound_by=by, library_ms=None,
                      note=f"N={N} points x {L} levels of C={C}; {touched} of {total} table rows "
                           f"touched; {len(calls['_grid_encode_cuda'])} captured forward call(s) "
@@ -1597,9 +1638,9 @@ def _grid_encode_bwd_rows(calls):
                      max_abs_err=max((a - b_).abs().max().item() for a, b_ in zip(got, ref)),
                      tol="n (eps sum|term| + tiny) per entry, against float64",
                      ms=time_ms(lambda: GE._grid_encode_backward_cuda(*bargs)),
-                     plain_ms=time_ms(lambda: GE.grid_encode_backward_plain(*bargs), iters=5),
+                     plain_ms=ref_ms(lambda: GE.grid_encode_backward_plain(*bargs)),
                      bound_ms=b, bound_by=by,
-                     library_ms=time_ms(lambda: buf.index_add_(0, idx, vals)),
+                     library_ms=ref_ms(lambda: buf.index_add_(0, idx, vals)),
                      note=f"{live} of {N * L} (point, level) rows carry a cotangent; kernel "
                           f"{frac_k:.4f}, plain {frac_p:.4f} of the float64 bound; a warp on 32 "
                           f"consecutive points at one level, its runs of lanes on one row pair "
@@ -1998,6 +2039,7 @@ REG_GRID_VIEW_KERNELS = ("volume_grid", "textured_bg", "march", "composite")
 REG_VIEW_ABSENT = ("grid_sample_bwd", "grid_encode_bwd", "idwt_adjoint", "composite_bwd",
                    "volume_grid_bwd", "textured_bg_bwd")  # serving: no parameter gradient
 REG_CHUNK = 16384
+SDF_BF16_BATCHES = 1  # batches of the bf16 SDF step check (read, not held; cut from 3, ~10 s each on the CPU)
 REG_COS_POINTS = 65536
 
 
@@ -2218,8 +2260,8 @@ def _volume_grid_rows(calls):
                  replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=err,
                  tol="equal bit for bit to the plain version on the CPU",
                  ms=time_ms(lambda: REG._sample_volume_grid_cuda(grid, x, R_, bound)),
-                 plain_ms=time_ms(lambda: REG.sample_volume_grid_plain(grid, x, R_, bound), iters=5),
-                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                 plain_ms=ref_ms(lambda: REG.sample_volume_grid_plain(grid, x, R_, bound)),
+                 bound_ms=b, bound_by=by, library_ms=ref_ms(lib),
                  note=f"N={N} points, R={R_}, 1+F={CH} f32; {touched} of {R_ ** 3} rows touched; equal "
                       f"to the plain version on the CPU bit for bit; library F.grid_sample 5-D border "
                       f"align_corners (rel diff {lib_err:.2e})")]
@@ -2244,9 +2286,9 @@ def _volume_grid_rows(calls):
                      tol="1e-5 of the largest gradient, against the plain version on the CPU",
                      ms=time_ms(lambda: REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, need_grid,
                                                                               need_x)),
-                     plain_ms=time_ms(lambda: REG.sample_volume_grid_backward_plain(g, grid, x, R_, bound,
-                                                                                    need_grid, need_x), iters=5),
-                     bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
+                     plain_ms=ref_ms(lambda: REG.sample_volume_grid_backward_plain(g, grid, x, R_, bound,
+                                                                                    need_grid, need_x)),
+                     bound_ms=b, bound_by=by, library_ms=ref_ms(lib_bwd),
                      note=f"the path's call (grid gradient {need_grid}, point gradient {need_x}); both "
                           f"outputs held (rel {err_g:.2e}, {err_x:.2e}); {live} of {N} points carry a "
                           f"cotangent; of consecutive pairs of them {same:.4f} share a cell and {common:.4f} "
@@ -2294,9 +2336,9 @@ def _volume_grid_x_rows(calls, xcalls):
                  replaces="trinerflet_tpu/models/registry.py:68", max_abs_err=err,
                  tol="1e-5 of the largest entry, against the plain version on the CPU",
                  ms=time_ms(lambda: REG._sample_volume_grid_backward_cuda(g, grid, x, R_, bound, False, True)),
-                 plain_ms=time_ms(lambda: REG.sample_volume_grid_backward_plain(g, grid, x, R_, bound, False,
-                                                                                True), iters=5),
-                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                 plain_ms=ref_ms(lambda: REG.sample_volume_grid_backward_plain(g, grid, x, R_, bound, False,
+                                                                                True)),
+                 bound_ms=b, bound_by=by, library_ms=ref_ms(lib),
                  note=f"dL/dx alone (no atomic), timed on the registry-grid step's N={N} points and "
                       f"cotangents ({int(live.sum())} live, {touched} rows touched); {n_calls} call(s) of "
                       f"an analytic-normal view chunk on the trained grid held too; equal to the "
@@ -2383,8 +2425,8 @@ def _k11_fwd_row(tex, d, name, what):
                           tol="1e-4 (acosf/atan2f ulps times the texel slope; 1e-3 within 2.6 degrees of "
                               "a pole; either side of the seam)",
                           ms=time_ms(lambda: REG._background_textured_cuda(tex, d)),
-                          plain_ms=time_ms(lambda: REG.background_textured_plain(tex, d), iters=5),
-                          bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                          plain_ms=ref_ms(lambda: REG.background_textured_plain(tex, d)),
+                          bound_ms=b, bound_by=by, library_ms=ref_ms(lib),
                           note=f"{what}: N={N} rays, {H}x{W} texture ({touched} texels touched); "
                                f"{int(seam.sum())} rays on the seam, {int(pole.sum())} near a pole "
                                f"(max|err| {e_pole:.2e}); a thread per ray; library "
@@ -2420,8 +2462,8 @@ def _textured_bg_rows(calls):
         replaces="trinerflet_tpu/models/registry.py:204", max_abs_err=err,
         tol="1e-5 of the largest gradient (seam and pole rays without cotangent)",
         ms=time_ms(lambda: REG._background_textured_backward_cuda(g, s, d, H, W)),
-        plain_ms=time_ms(lambda: REG.background_textured_backward_plain(g, s, d, H, W), iters=5),
-        bound_ms=b, bound_by=by, library_ms=time_ms(lib_bwd),
+        plain_ms=ref_ms(lambda: REG.background_textured_backward_plain(g, s, d, H, W)),
+        bound_ms=b, bound_by=by, library_ms=ref_ms(lib_bwd),
         note=f"one cooperative launch: the {H}x{W}x3 gradient zeroed, one grid.sync, then each "
              f"warp's taps merged by texel row and added with a float2 and a scalar atomic; "
              f"{int(live.sum())} of {N} rays live, {share:.4f} of their {taps} taps merged into "
@@ -2467,7 +2509,7 @@ def _k7x_rows(calls, k7_ms=None):
                  replaces="trinerflet_tpu/models/gridencoder.py:115", max_abs_err=err,
                  tol="the plain version's bits at C <= 2, else 1e-5 of the largest entry",
                  ms=time_ms(lambda: GE._grid_encode_backward_x_cuda(g, tables, x, cfg, bound)),
-                 plain_ms=time_ms(lambda: GE.grid_encode_backward_x_plain(g, tables, x, cfg, bound), iters=5),
+                 plain_ms=ref_ms(lambda: GE.grid_encode_backward_x_plain(g, tables, x, cfg, bound)),
                  bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={N} points x {L} levels of C={C}; {touched} table rows touched; "
                       f"{len(calls['_grid_encode_backward_x_cuda'])} call(s) of one view chunk held "
@@ -2568,7 +2610,7 @@ def registry_sdf_phase(scene, card):
     del calls
     # the check is held with the MLPs in float32: the finite-difference
     # normal divides the bf16 MLPs' rounding, which the card and the CPU may
-    # flip, by eps; the bf16 field's readings on three batches are logged
+    # flip, by eps; the bf16 field's readings on SDF_BF16_BATCHES batches are logged
     # beside it; diffuse shading reads no colour net (its gradient is 0)
     f32 = dataclasses.replace(nerf_cfg, compute_dtype="float32")
     step_check(Trainer(f32, render_cfg, train_cfg, device=DEVICE), initial, data,
@@ -2576,7 +2618,7 @@ def registry_sdf_phase(scene, card):
                loss_fn=registry_loss_fn(REG.RegistryField(f32, *names, normal_type="finite_difference")))
     bf16 = [step_check(trainer, initial, data, f"registry-sdf (initial field, bf16 MLPs, batch {k})",
                        unused=("color_net",), loss_fn=registry_loss_fn(field), seed=SEED + 2 + k, hold=False)
-            for k in range(3)]
+            for k in range(SDF_BF16_BATCHES)]
     log(f"# registry-sdf bf16 step check readings (not held): largest gradient rel L2 per batch "
         f"{[float(f'{max(e.values()):.3e}') for _, e in bf16]}, loss rel {[float(f'{l:.2e}') for l, _ in bf16]}")
     an = REG.RegistryField(nerf_cfg, *names, normal_type="analytic")
@@ -2627,13 +2669,13 @@ def registry_hash_phase(card, hash_stats):
 # threshold of 10 and mesh.obj comes out empty or nearly so (the cli log line
 # prints the density's quantiles and its share above 10); --scale 1.0 as the
 # README runs the synthetic scene (its cameras orbit at radius 2); an
-# evaluation and a checkpoint every 64 steps (every 32 put the whole script
-# at 586 s of its 600 s share once the SR phase came)
+# evaluation and a rotating checkpoint every 128 steps, two a stage (the
+# script's share of its time limit holds the later phases too)
 CLI_ARGS = ["-O", "--triplane_wavelet", "--bound", "1.5", "--dt_gamma", "0", "--scale", "1.0",
             "--triplane_resolution", "512", "1024", "--triplane_wavelet_levels", "8", "16",
             "--triplane_channels", "16", "--num_rays", "20000", "60000",
             "--wavelet_regularization", "0.2", "--iters", "256", "256",
-            "--eval_interval_stages", "64", "--max_keep_ckpt", "2"]
+            "--eval_interval_stages", "128", "--max_keep_ckpt", "2"]
 CLI_SCENE = dict(num_views=30, num_test_views=8, H=400, W=400)
 CLI_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "idwt", "idwt_adjoint", "occupancy")
 CLI_TEST_KERNELS = ("march", "grid_sample", "composite", "idwt", "occupancy")
@@ -2710,9 +2752,9 @@ def _rebuild_row(trainer, state, launches):
                 path="cli --test", max_abs_err=0.0, tol="occ, occ_coarse, bbox equal; a second call "
                                                          "the same bits",
                 ms=time_ms(lambda: R._occupancy_rebuild_cuda(grid, mean, rcfg)),
-                plain_ms=time_ms(lambda: R.occupancy_rebuild_plain(grid, mean, rcfg)),
+                plain_ms=ref_ms(lambda: R.occupancy_rebuild_plain(grid, mean, rcfg)),
                 bound_ms=b, bound_by=by,
-                library_ms=time_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
+                library_ms=ref_ms(lambda: F.max_pool3d(occ_f, 2 * r + 1, 1, r)),
                 note=f"{tuple(grid.shape)} stored grid at its stored mean, radius {r}; 2 launches "
                      f"(the reset; threshold, dilation and bbox: K6's second launch); library is "
                      f"F.max_pool3d for the dilation alone")
@@ -2781,116 +2823,116 @@ def _round_trip(trainer, state, data, path):
     return save_s, load_s, state
 
 
-def cli_phase(card):
+def cli_phase(card, root):
     """The CLI on the README's two-stage recipe at its widths (the step
-    counts cut) on a written synthetic scene, then its checkpoints, the
-    stage-2 step check, the round trip, ``--test --test_with_ema`` and
-    ``--test --save_planes``. Returns (kernel rows, stats)."""
+    counts cut) on a synthetic scene written under ``root``, then its
+    checkpoints, the stage-2 step check, the round trip, ``--test
+    --test_with_ema`` and ``--test --save_planes``. The scene and the
+    workspace stay (the clip and gui phases read them). Returns (kernel
+    rows, stats)."""
     from trinerflet_tpu_torch import cli, native
     from trinerflet_tpu_torch.data.images import read_images
     from trinerflet_tpu_torch.data.synthetic import write_synthetic_scene
 
     t0 = time.perf_counter()
     native.load()  # built here, so that the decode's time below is the decode's
-    log(f"# host library (PNG decode, marching tetrahedra) built in {time.perf_counter() - t0:.2f} s "
+    log(f"# host library (PNG decode, marching tetrahedra, JPEG encode) built in {time.perf_counter() - t0:.2f} s "
         f"into {native.BUILD_DIR}")
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        scene_dir, ws = os.path.join(root, "scene"), os.path.join(root, "ws")
-        t0 = time.perf_counter()
-        write_synthetic_scene(scene_dir, seed=SEED, **CLI_SCENE)
-        paths = [os.path.join(scene_dir, "train", f"r_{v}.png") for v in range(CLI_SCENE["num_views"])]
-        t1 = time.perf_counter()
-        read_images(paths)
-        decode_ms = (time.perf_counter() - t1) / len(paths) * 1e3
-        log(f"# cli scene: {CLI_SCENE} rendered (numpy, a thread per view up to {os.cpu_count()}) and "
-            f"written in {t1 - t0:.2f} s; PNG decode (host library, "
-            f"{os.cpu_count()} host cores) {decode_ms:.3f} ms per {CLI_SCENE['H']}x{CLI_SCENE['W']} RGBA "
-            f"view; free disk {shutil.disk_usage(root).free / 2**30:.1f} GiB")
-        args = ["--path", scene_dir, "--workspace", ws] + CLI_ARGS
-        kernels.reset_launches()
-        with _Timed() as timed:
-            trainer, state = cli.main(args, device=DEVICE)
-        launches = dict(kernels.launches)
-        stage_ms = [(s - inner) / steps * 1e3 for s, inner, steps in timed.fit_rows]
-        log(f"# cli train ({card}): ms/step by stage {[round(m, 3) for m in stage_ms]} (fit's wall "
-            f"time less its evaluations and checkpoints, refreshes included); fit, evaluate, "
-            f"save_checkpoint seconds {dict((k, [round(s, 3) for s in v]) for k, v in timed.secs.items())}; "
-            f"launches {launches}")
-        for name in CLI_KERNELS:
-            if launches[name] == 0:
-                raise RuntimeError(f"kernel {name} was not launched on the cli path")
-        if not (launches["composite"] or launches["composite_compact"]) or not (
-                launches["composite_bwd"] or launches["composite_compact_bwd"]):
-            raise RuntimeError("neither K3 nor K3c (forward and backward) launched on the cli path")
-        present = sorted(os.listdir(ws))
-        ckpts = [f for f in present if f.startswith("ckpt_")]
-        missing = [f for f in CLI_FILES if f not in present]
-        if missing or not 1 <= len(ckpts) <= 2:
-            raise RuntimeError(f"cli workspace: missing {missing}, rotating checkpoints {ckpts}")
-        with open(os.path.join(ws, "results_stage1.json")) as f:
-            val = json.load(f)
-        log(f"# cli workspace: {present}; stage 1 val PSNR {val['PSNR']:.4f} SSIM {val['SSIM']:.5f}")
-        log(f"# cli density (96^3 sweep of the box): {_density_quantiles(trainer, state)}")
+    scene_dir, ws = os.path.join(root, "scene"), os.path.join(root, "ws")
+    t0 = time.perf_counter()
+    write_synthetic_scene(scene_dir, seed=SEED, backend="torch", device=DEVICE, **CLI_SCENE)
+    paths = [os.path.join(scene_dir, "train", f"r_{v}.png") for v in range(CLI_SCENE["num_views"])]
+    t1 = time.perf_counter()
+    read_images(paths)
+    decode_ms = (time.perf_counter() - t1) / len(paths) * 1e3
+    log(f"# cli scene: {CLI_SCENE} rendered on the card (torch; on the host's threads, numpy took 52-81 s) "
+        f"and "
+        f"written in {t1 - t0:.2f} s; PNG decode (host library, "
+        f"{os.cpu_count()} host cores) {decode_ms:.3f} ms per {CLI_SCENE['H']}x{CLI_SCENE['W']} RGBA "
+        f"view; free disk {shutil.disk_usage(root).free / 2**30:.1f} GiB")
+    args = ["--path", scene_dir, "--workspace", ws] + CLI_ARGS
+    kernels.reset_launches()
+    with _Timed() as timed:
+        trainer, state = cli.main(args, device=DEVICE)
+    launches = dict(kernels.launches)
+    stage_ms = [(s - inner) / steps * 1e3 for s, inner, steps in timed.fit_rows]
+    log(f"# cli train ({card}): ms/step by stage {[round(m, 3) for m in stage_ms]} (fit's wall "
+        f"time less its evaluations and checkpoints, refreshes included); fit, evaluate, "
+        f"save_checkpoint seconds {dict((k, [round(s, 3) for s in v]) for k, v in timed.secs.items())}; "
+        f"launches {launches}")
+    for name in CLI_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the cli path")
+    if not (launches["composite"] or launches["composite_compact"]) or not (
+            launches["composite_bwd"] or launches["composite_compact_bwd"]):
+        raise RuntimeError("neither K3 nor K3c (forward and backward) launched on the cli path")
+    present = sorted(os.listdir(ws))
+    ckpts = [f for f in present if f.startswith("ckpt_")]
+    missing = [f for f in CLI_FILES if f not in present]
+    if missing or not 1 <= len(ckpts) <= 2:
+        raise RuntimeError(f"cli workspace: missing {missing}, rotating checkpoints {ckpts}")
+    with open(os.path.join(ws, "results_stage1.json")) as f:
+        val = json.load(f)
+    log(f"# cli workspace: {present}; stage 1 val PSNR {val['PSNR']:.4f} SSIM {val['SSIM']:.5f}")
+    log(f"# cli density (96^3 sweep of the box): {_density_quantiles(trainer, state)}")
 
-        opt = cli.get_params(args)
-        opt.downscale = 1
-        data = trainer.scene_to_device(cli.load_scene(opt, "train"))
-        save_s, load_s, state = _round_trip(trainer, state, data, os.path.join(root, "round_trip.pkl"))
-        step_check(trainer, state, data, "cli stage 2")
-        state = profile_step(trainer, state, data, "cli stage 2")
-        state, calls = capture_step(trainer, state, data)
-        rows = path_kernel_rows(trainer, calls, launches, "cli stage 2")
-        del calls, trainer, state, data
+    opt = cli.get_params(args)
+    opt.downscale = 1
+    data = trainer.scene_to_device(cli.load_scene(opt, "train"))
+    save_s, load_s, state = _round_trip(trainer, state, data, os.path.join(root, "round_trip.pkl"))
+    step_check(trainer, state, data, "cli stage 2")
+    state = profile_step(trainer, state, data, "cli stage 2")
+    state, calls = capture_step(trainer, state, data)
+    rows = path_kernel_rows(trainer, calls, launches, "cli stage 2")
+    del calls, trainer, state, data
 
-        kernels.reset_launches()
-        with _Timed() as timed:
-            trainer, state = cli.main(args + ["--test", "--test_with_ema"], device=DEVICE)
-        test_launches = dict(kernels.launches)
-        for name in CLI_TEST_KERNELS:
-            if test_launches[name] == 0:
-                raise RuntimeError(f"kernel {name} was not launched on the cli --test path")
-        with open(os.path.join(ws, "results.json")) as f:
-            res = json.load(f)
-        black = _psnr_black(cli.load_scene(opt, "test"))
-        if not (np.isfinite(res["PSNR"]) and np.isfinite(res["SSIM"]) and res["PSNR"] > black):
-            raise RuntimeError(f"cli --test: PSNR {res['PSNR']} (a black render: {black})")
-        n_test = CLI_SCENE["num_test_views"]
-        pngs = [os.path.join(ws, "test_renders", f"results_{v:03d}.png") for v in range(n_test)]
-        frames = os.path.join(ws, "test_video_frames")
-        video = os.path.join(ws, "test_video.mp4")
-        with open(os.path.join(ws, "mesh.obj")) as f:
-            faces = sum(1 for line in f if line.startswith("f "))
-        if not all(os.path.exists(p) for p in pngs) or faces == 0:
-            raise RuntimeError(f"cli --test: test PNGs {[os.path.exists(p) for p in pngs]}, "
-                               f"{faces} mesh faces")
-        if os.path.isdir(frames):
-            video_out = f"{len(os.listdir(frames))} PNG frames"
-            if len(os.listdir(frames)) != n_test:
-                raise RuntimeError(f"cli --test: {video_out}, {n_test} views")
-        elif os.path.exists(video) and os.path.getsize(video) > 0:
-            video_out = f"test_video.mp4 ({os.path.getsize(video)} bytes)"
-        else:
-            raise RuntimeError("cli --test wrote neither a video nor its frames")
-        mesh_s = timed.secs["save_mesh"][0]
-        log(f"# cli --test --test_with_ema ({card}): PSNR {res['PSNR']:.4f} dB, SSIM {res['SSIM']:.5f} "
-            f"(a black render {black:.4f} dB); density grid max "
-            f"{state.occ.density_grid.max().item():.3f}; mesh.obj {faces} faces at resolution 192, "
-            f"extract_mesh + write {mesh_s:.3f} s; load_checkpoint {timed.secs['load_checkpoint'][0]:.3f} s; "
-            f"{video_out}; launches {test_launches}")
-        rows.append(_rebuild_row(trainer, state, test_launches))
-        del trainer, state
+    kernels.reset_launches()
+    with _Timed() as timed:
+        trainer, state = cli.main(args + ["--test", "--test_with_ema"], device=DEVICE)
+    test_launches = dict(kernels.launches)
+    for name in CLI_TEST_KERNELS:
+        if test_launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the cli --test path")
+    with open(os.path.join(ws, "results.json")) as f:
+        res = json.load(f)
+    black = _psnr_black(cli.load_scene(opt, "test"))
+    if not (np.isfinite(res["PSNR"]) and np.isfinite(res["SSIM"]) and res["PSNR"] > black):
+        raise RuntimeError(f"cli --test: PSNR {res['PSNR']} (a black render: {black})")
+    n_test = CLI_SCENE["num_test_views"]
+    pngs = [os.path.join(ws, "test_renders", f"results_{v:03d}.png") for v in range(n_test)]
+    frames = os.path.join(ws, "test_video_frames")
+    video = os.path.join(ws, "test_video.mp4")
+    with open(os.path.join(ws, "mesh.obj")) as f:
+        faces = sum(1 for line in f if line.startswith("f "))
+    if not all(os.path.exists(p) for p in pngs) or faces == 0:
+        raise RuntimeError(f"cli --test: test PNGs {[os.path.exists(p) for p in pngs]}, "
+                           f"{faces} mesh faces")
+    if os.path.isdir(frames):
+        video_out = f"{len(os.listdir(frames))} PNG frames"
+        if len(os.listdir(frames)) != n_test:
+            raise RuntimeError(f"cli --test: {video_out}, {n_test} views")
+    elif os.path.exists(video) and os.path.getsize(video) > 0:
+        video_out = f"test_video.mp4 ({os.path.getsize(video)} bytes)"
+    else:
+        raise RuntimeError("cli --test wrote neither a video nor its frames")
+    mesh_s = timed.secs["save_mesh"][0]
+    log(f"# cli --test --test_with_ema ({card}): PSNR {res['PSNR']:.4f} dB, SSIM {res['SSIM']:.5f} "
+        f"(a black render {black:.4f} dB); density grid max "
+        f"{state.occ.density_grid.max().item():.3f}; mesh.obj {faces} faces at resolution 192, "
+        f"extract_mesh + write {mesh_s:.3f} s; load_checkpoint {timed.secs['load_checkpoint'][0]:.3f} s; "
+        f"{video_out}; launches {test_launches}")
+    rows.append(_rebuild_row(trainer, state, test_launches))
+    del trainer, state
 
-        cli.main(args + ["--test", "--save_planes"], device=DEVICE)
-        planes = sorted(os.listdir(os.path.join(ws, "planes")))
-        want = [f"plane_{g}_{p}.png" for g in ("base", "level_0") for p in range(3)]
-        if not set(want) <= set(planes):
-            raise RuntimeError(f"cli --save_planes wrote {planes}")
-        log(f"# cli --test --save_planes: {len(planes)} plane PNGs")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    cli.main(args + ["--test", "--save_planes"], device=DEVICE)
+    planes = sorted(os.listdir(os.path.join(ws, "planes")))
+    want = [f"plane_{g}_{p}.png" for g in ("base", "level_0") for p in range(3)]
+    if not set(want) <= set(planes):
+        raise RuntimeError(f"cli --save_planes wrote {planes}")
+    log(f"# cli --test --save_planes: {len(planes)} plane PNGs")
     stats = dict(stage_ms=stage_ms, save_s=save_s, load_s=load_s, mesh_s=mesh_s, decode_ms=decode_ms,
-                 psnr=res["PSNR"], ssim=res["SSIM"], launches=launches, test_launches=test_launches)
+                 psnr=res["PSNR"], ssim=res["SSIM"], launches=launches, test_launches=test_launches,
+                 scene_dir=scene_dir, ws=ws)
     return rows, stats
 
 
@@ -3238,6 +3280,770 @@ def upscaler_phase(card, lr_view, hr_render):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Text-to-3D generation: sr.launch.build on a generation config at the srtex
+# widths, TextTo3DSystem.fit, its kernel rows, a step check, the turntable
+# ---------------------------------------------------------------------------
+
+# TextTo3DConfig's defaults (128^2 views, 8 a round, 64^2 crops), the steps
+# and the refresh period cut (widths kept)
+GEN_CUTS = {"total_steps": (4000, 400), "refresh_every": (400, 100)}
+GEN_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "composite", "composite_bwd", "idwt",
+               "idwt_adjoint", "occupancy")
+GEN_VIEW_ABSENT = ("grid_sample_bwd", "composite_bwd", "idwt_adjoint")
+GEN_TURNTABLE_FRAMES = 30
+
+
+def gen_config(**system):
+    """A generation config from the srtex recipe's model, triplane and
+    renderer sections (its widths), the weights-free conditioning guidance
+    (the full DDIM tail) and ``system`` over TextTo3DConfig's defaults."""
+    from trinerflet_tpu_torch.sr.config import load_yaml_config
+
+    src = load_yaml_config(SR_CONFIG)
+    cfg = {k: dict(src[k]) for k in ("model", "triplane", "renderer")}
+    cfg["system"] = dict(kind="generation", **system)
+    cfg["guidance"] = {"kind": "cond"}
+    return cfg
+
+
+def _gen_loss(inner, params, occ, ro, rd, tgt, noise, w):
+    """The HR step's loss (L2 to the crop's pseudo-GT and the wavelet L1, as
+    the generation step weighs them) on given rays and noise."""
+    out = inner._render(params, occ, ro, rd, "high_res", noise=noise)
+    pred = out["image"].reshape(tgt.shape)
+    return w["l2_hr"] * ((pred - tgt) ** 2).mean() + w["reg"] * inner._reg(params)
+
+
+def gen_step_check(system, state, ro, rd, tgt, w, card):
+    """One generation step's loss and per-group gradients at full width,
+    kernels on the card against the plain versions on the CPU, on the same
+    rays, crop and injected noise."""
+    from trinerflet_tpu_torch.sr.system import SRSystem
+
+    inner = system.inner
+    noise = torch.rand((ro.shape[0],), generator=torch.Generator().manual_seed(SEED + 5))
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        sys_ = inner if dev == DEVICE else SRSystem(inner.nerf_cfg, inner.render_cfg, inner.cfg, None,
+                                                    device="cpu")
+        params = TR._map(lambda t: t.detach().to(dev).requires_grad_(True), state.params)
+        occ = type(state.occ)(*[x.to(dev) for x in state.occ])
+        t0 = time.perf_counter()
+        loss = _gen_loss(sys_, params, occ, ro.to(dev), rd.to(dev), tgt.to(dev), noise.to(dev), w)
+        named = TR._leaves(params)
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[dev] = (loss.item(), _groups(zip([n for n, _ in named], grads)), time.perf_counter() - t0)
+    (lg, gg, tg), (lc, gc, tc) = results[DEVICE], results["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    errs = {k: (torch.linalg.norm(gg[k] - gc[k]) / torch.linalg.norm(gc[k])).item() for k in gc}
+    log(f"# gen step check ({ro.shape[0]} rays, full width, {card}): loss card {lg:.7f} vs CPU plain "
+        f"{lc:.7f} (rel {loss_err:.2e}, tol {CHECK_LOSS_TOL}); gradient rel L2 "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {CHECK_GRAD_TOL}); {tg:.2f} s on the "
+        f"card, {tc:.2f} s on the CPU")
+    if loss_err > CHECK_LOSS_TOL or max(errs.values()) > CHECK_GRAD_TOL:
+        raise RuntimeError("the gen kernel step disagrees with the plain versions")
+    if min(torch.linalg.norm(gc[k]).item() for k in errs) == 0:
+        raise RuntimeError("a gen parameter group got no gradient")
+
+
+def gen_phase(card):
+    """Text-to-3D generation at the srtex widths through ``sr.launch.build``
+    (steps and refresh period cut), ``fit`` with its launches, ms/step and
+    seconds per refresh, one profiled step, a captured step's and a refresh
+    view's kernel rows, the step check and the turntable. Returns (kernel
+    rows, stats)."""
+    from trinerflet_tpu_torch.data.rays import rays_for_pixels as rays_px
+    from trinerflet_tpu_torch.ops.resize import resize
+    from trinerflet_tpu_torch.sr.launch import build
+    from trinerflet_tpu_torch.sr.text_to_3d import TextTo3DConfig, _intrinsics, sample_orbit_cameras
+
+    for key, (was, now) in GEN_CUTS.items():
+        if getattr(TextTo3DConfig(), key) != was:
+            raise RuntimeError(f"TextTo3DConfig.{key} is no longer {was}")
+        log(f"# gen cut: system.{key} {was} -> {now}")
+    cfg = gen_config(**{k: now for k, (_, now) in GEN_CUTS.items()})
+    ws = tempfile.mkdtemp(prefix="chip_smoke_gen_")
+    try:
+        system, scene = build(cfg, ws, device=DEVICE)
+        inner, gcfg = system.inner, system.cfg
+        if scene is not None:
+            raise RuntimeError("the generation build made a scene")
+        tri = inner.nerf_cfg.triplane
+        S, V = gcfg.render_size, gcfg.views_per_refresh
+        log(f"# gen config: triplane {tri.resolution}^2 x {tri.channels} {tri.wavelet_type}, {tri.levels} "
+            f"levels, low_res {tri.resolution // tri.low_res_scale}^2, MLPs {inner.nerf_cfg.compute_dtype}, "
+            f"grid {inner.render_cfg.grid_size}^3; {S}^2 views, {V} a round, a refresh every "
+            f"{gcfg.refresh_every} of {gcfg.total_steps} steps, {min(64, S)}^2 crops; guidance "
+            f"{cfg['guidance']['kind']} ({type(system.guidance).__name__}, "
+            f"{system.guidance.cfg.num_inference_steps} DDIM steps)")
+        state = system.init_state()
+
+        real_view, real_gen, refresh = inner.render_view, system.guidance.generate_sr, defaultdict(float)
+
+        def timed(fn, key):
+            def call(*a, **k):
+                if key == "view" and k.get("deep", True):
+                    return fn(*a, **k)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                refresh[key] += time.perf_counter() - t
+                return out
+            return call
+
+        inner.render_view = timed(real_view, "view")
+        system.guidance.generate_sr = timed(real_gen, "guidance")
+        losses = []
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = system.fit(state, log_every=100, callback=lambda s, a: losses.append(a["loss"]))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        del inner.render_view, system.guidance.generate_sr
+        n_ref = gcfg.total_steps // gcfg.refresh_every
+        refresh_s = (refresh["view"] + refresh["guidance"]) / n_ref
+        ms_step = (fit_s - refresh["view"] - refresh["guidance"]) / gcfg.total_steps * 1e3
+        loss = torch.stack(losses).float().cpu().numpy()
+        log(f"# gen fit ({card}): {fit_s:.2f} s for {gcfg.total_steps} steps; {ms_step:.3f} ms/step without "
+            f"the refreshes (the grid upkeep included); {n_ref} refreshes, {refresh_s:.3f} s each "
+            f"({refresh['view'] / n_ref:.3f} s rendering {V} views, {refresh['guidance'] / n_ref:.3f} s of "
+            f"guidance); loss {loss[0]:.5f} -> {loss[-1]:.5f}; launches {launches}")
+        for name in GEN_KERNELS:
+            if launches[name] == 0:
+                raise RuntimeError(f"kernel {name} was not launched on the gen path")
+        if not np.isfinite(loss).all():
+            raise RuntimeError("non-finite gen loss")
+
+        # a step as fit takes one: a crop of a refreshed view
+        rng = np.random.default_rng(SEED + 9)
+        poses = sample_orbit_cameras(rng, V)
+        intr = _intrinsics(S, gcfg.fovy_deg)
+        view = inner.render_view(state.params, state.occ, poses[0], intr, S, S, mode="full", deep=False)
+        hr = view.permute(2, 0, 1)[None]
+        pseudo = system.guidance.generate_sr(resize(hr, (1, 3, S // 4, S // 4)), hr, step=gcfg.total_steps,
+                                             generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        tgt_all = pseudo[0].permute(1, 2, 0)
+        crop = min(64, S)
+        x0, y0 = (S - crop) // 2, (S - crop) // 3
+        dy, dx = torch.meshgrid(torch.arange(crop, device=DEVICE), torch.arange(crop, device=DEVICE),
+                                indexing="ij")
+        pix = ((x0 + dy) * S + (y0 + dx)).reshape(-1)
+        intr_t = torch.tensor([float(np.float32(x)) for x in intr], device=DEVICE)
+        ro, rd = rays_px(torch.from_numpy(poses).to(DEVICE), intr_t, S, torch.zeros_like(pix), pix)
+        tgt = tgt_all[x0 : x0 + crop, y0 : y0 + crop]
+        lr_tgt = resize(tgt, (crop // 4, crop // 4, 3))
+        w = {"l2_hr": 1.0, "l1_hr": 0.0, "consistency": 0.0, "reg": float(gcfg.wavelet_regularization),
+             "percep": 0.0, "sds": 0.0}
+
+        def step(st):
+            return inner._hr_step(st, ro, rd, tgt, lr_tgt, w)
+
+        state = profile_step(None, state, None, "gen", step=step)
+        with Capture() as cap_grid:
+            state = inner._update_grid(state)
+        with Capture() as cap:
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        cap.calls["_occupancy_upkeep_cuda"] = cap_grid.calls["_occupancy_upkeep_cuda"]
+        rows = path_kernel_rows(inner, cap.calls, launches, "gen step")
+        rows += label_rows(_k4_forward_rows(cap.calls, ""), launches, "gen step")
+        gen_step_check(system, state, ro, rd, tgt, w, card)
+
+        # one refresh view (the training budget, one chunk), counted
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with Capture() as cap:
+            inner.render_view(state.params, state.occ, poses[1], intr, S, S, mode="full", deep=False)
+        torch.cuda.synchronize()
+        view_ms = (time.perf_counter() - t) * 1e3
+        view_launches = dict(kernels.launches)
+        for name in GEN_VIEW_ABSENT:
+            if view_launches[name] != 0:
+                raise RuntimeError(f"kernel {name} launched on the gen refresh view, which has no backward")
+        vrows = path_kernel_rows(inner, cap.calls, view_launches, "gen refresh view",
+                                 only=("_march_cuda", "_composite_cuda"))
+        (planes, xyz, lb), _ = cap.calls["_sample_points_cuda"][0]
+        vrows += label_rows(_sample_fwd_rows(planes, xyz, lb) + _k4_forward_rows(cap.calls, ""),
+                            view_launches, "gen refresh view")
+        rows += vrows
+        log(f"# gen refresh view ({S}^2 at the training budget, {card}): {view_ms:.2f} ms with the capture; "
+            f"launches {view_launches}")
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = system.render_turntable(state, os.path.join(ws, "turntable.mp4"), frames=GEN_TURNTABLE_FRAMES)
+        torch.cuda.synchronize()
+        tt_ms = (time.perf_counter() - t) / GEN_TURNTABLE_FRAMES * 1e3
+        if os.path.isdir(out):
+            made = f"{len(os.listdir(out))} PNG frames in {os.path.basename(out)}/"
+            if len(os.listdir(out)) != GEN_TURNTABLE_FRAMES:
+                raise RuntimeError(f"gen turntable: {made}")
+        elif os.path.getsize(out) > 0:
+            made = f"{os.path.basename(out)} ({os.path.getsize(out)} bytes)"
+        else:
+            raise RuntimeError("gen turntable wrote an empty file")
+        log(f"# gen turntable ({card}): {GEN_TURNTABLE_FRAMES} frames of {S}^2 at the test-time budget, "
+            f"{tt_ms:.2f} ms a frame (render and encode); {made}")
+        stats = dict(ms_step=ms_step, fit_s=fit_s, refresh_s=refresh_s, busy=PROFILED["gen"][1],
+                     wall=PROFILED["gen"][0], loss_first=float(loss[0]), loss_last=float(loss[-1]),
+                     turntable_ms=tt_ms, turntable=made, launches=launches, view_launches=view_launches)
+        del system, state, cap, cap_grid
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    return rows, stats
+
+
+# ---------------------------------------------------------------------------
+# The text-to-image prior at Stable Diffusion 2.1-base's published widths
+# ---------------------------------------------------------------------------
+
+T2I_STEPS, T2I_IGNORE_T = 4, 600  # DDIM 751, 501, 251, 1: one re-noise, three denoising steps
+T2I_VAE_SCALING = 0.18215
+
+
+def t2i_phase(card):
+    """One ``Text2ImgGuidance.generate_sr`` refresh of a 128^2 render with
+    seeded random weights at SD 2.1-base's widths (the UNet: 4 -> 4,
+    (320, 640, 1280, 1280), heads (5, 10, 20, 20), cross-attention 1024,
+    linear projections, no class embedding; the VAE (128, 256, 512, 512),
+    scaling 0.18215; 77 x 1024 prompt embeddings): ms per UNet call at 16^2
+    latents, VAE encode / decode ms, peak memory; one UNet call at 8^2
+    latents held to the CPU (float32, TF32 off)."""
+    from trinerflet_tpu_torch.sr import diffusion as D
+    from trinerflet_tpu_torch.sr.guidance import GuidanceConfig, Text2ImgGuidance
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    ucfg = D.SD2_TEXT2IMG_UNET
+    vcfg = D.VAEConfig(block_out_channels=(128, 256, 512, 512), scaling_factor=T2I_VAE_SCALING)
+    t0 = time.perf_counter()
+    unet, vae = D.init_unet_params(ucfg, g, DEVICE), D.init_vae_params(vcfg, g, DEVICE)
+    cond = torch.randn((1, 77, ucfg.cross_attention_dim), generator=g).to(DEVICE)
+    uncond = torch.randn((1, 77, ucfg.cross_attention_dim), generator=g).to(DEVICE)
+    torch.cuda.synchronize()
+    log(f"# t2i (SD 2.1-base widths, seeded random weights): UNet {_n_params(unet) / 1e6:.1f} M, VAE "
+        f"{_n_params(vae) / 1e6:.1f} M parameters, 77 x {ucfg.cross_attention_dim} prompt embeddings; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    timings = defaultdict(list)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def encode(x):
+        with torch.no_grad():
+            return D.vae_encode(vae, vcfg, 2.0 * x - 1.0)
+
+    def decode(z):
+        with torch.no_grad():
+            return 0.5 * (D.vae_decode(vae, vcfg, z) + 1.0)
+
+    guide = Text2ImgGuidance(GuidanceConfig(num_inference_steps=T2I_STEPS, guidance_scale=7.5),
+                             timed("unet", D.make_text2img_denoiser(unet, ucfg, cond, uncond)),
+                             encode=timed("encode", encode), decode=timed("decode", decode))
+    render = torch.rand((1, 3, 128, 128), generator=g).to(DEVICE)
+    lr = render[:, :, ::4, ::4]
+    guide.generate_sr(lr, render, ignore_t=T2I_IGNORE_T, generator=torch.Generator(device=DEVICE).manual_seed(1))
+    timings.clear()  # the first call carried the one-time costs
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = guide.generate_sr(lr, render, ignore_t=T2I_IGNORE_T,
+                            generator=torch.Generator(device=DEVICE).manual_seed(1))
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    latent = tuple(encode(render).shape)
+    if tuple(out.shape) != (1, 3, 128, 128) or not torch.isfinite(out).all() or latent != (1, 4, 16, 16):
+        raise RuntimeError(f"t2i generate_sr gave {tuple(out.shape)} (latents {latent}), finite "
+                           f"{bool(torch.isfinite(out).all())}")
+    stats = dict(gen_ms=gen_ms, unet_ms=float(np.median(timings["unet"])), unet_calls=len(timings["unet"]),
+                 encode_ms=timings["encode"][0], decode_ms=timings["decode"][0], peak_gib=peak)
+    log(f"# t2i generate_sr ({card}, TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'} for "
+        f"convolutions, {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} for matmuls): a 128^2 "
+        f"render, latents {latent}, {T2I_STEPS} DDIM steps with ignore_t {T2I_IGNORE_T}, text CFG 7.5: "
+        f"{gen_ms:.1f} ms; {stats['unet_calls']} UNet calls {stats['unet_ms']:.2f} ms each (median, 16^2 "
+        f"latents), VAE encode {stats['encode_ms']:.2f} ms, decode {stats['decode_ms']:.2f} ms; peak memory "
+        f"{peak:.2f} GiB")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        x = torch.randn((1, 4, 8, 8), generator=g)
+        with torch.no_grad():
+            a = D.unet_apply(unet, ucfg, x.to(DEVICE), 501, cond).cpu()
+            b = D.unet_apply(TR._map(lambda v: v.cpu(), unet), ucfg, x, 501, cond.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    err, scale = (a - b).abs().max().item(), b.abs().max().item()
+    log(f"# t2i UNet (8^2 latents, t 501), card vs CPU (float32, TF32 off, tolerance {SR_NET_TOL} x "
+        f"max|cpu|): max|diff| {err:.3e} of max|cpu| {scale:.3e}")
+    if not (torch.isfinite(a).all() and err <= SR_NET_TOL * scale):
+        raise RuntimeError(f"t2i UNet: card vs CPU max|diff| {err} > {SR_NET_TOL} x {scale}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# CLIP-guided --rand_pose through the CLI, at ViT-B/16's published widths
+# ---------------------------------------------------------------------------
+
+# openai/clip-vit-base-patch16's config.json widths
+CLIP_VISION = dict(image_size=224, patch_size=16, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                   intermediate_size=3072, hidden_act="quick_gelu")
+CLIP_TEXT = dict(vocab_size=49408, hidden_size=512, num_hidden_layers=12, num_attention_heads=8,
+                 intermediate_size=2048, max_position_embeddings=77, hidden_act="quick_gelu")
+CLIP_PROJECTION = 512
+CLIP_PROMPT = "a wooden chair"
+# the README's stage-1 recipe at its widths, one stage, cut to 64 steps; a
+# CLIP step after every 3 supervised ones (--rand_pose 3)
+STAGE1_ARGS = ["-O", "--triplane_wavelet", "--bound", "1.5", "--dt_gamma", "0", "--scale", "1.0",
+               "--triplane_resolution", "512", "--triplane_wavelet_levels", "8", "--triplane_channels", "16",
+               "--num_rays", "20000", "--wavelet_regularization", "0.2"]
+CLIP_ITERS, CLIP_K = 64, 3
+CLIP_KERNELS = ("march", "grid_sample", "grid_sample_bwd", "composite", "composite_bwd", "idwt",
+                "idwt_adjoint")
+
+
+def write_clip_checkpoint(d):
+    """A --clip_ckpt directory at ViT-B/16's widths: seeded random weights
+    as ``pytorch_model.bin`` (torch.save of the state dict), ``config.json``
+    and a character-level ``vocab.json`` / ``merges.txt`` that cover the
+    prompt (BOS 49406, EOS 49407, the largest id)."""
+    from trinerflet_tpu_torch.sr.text import TextConfig
+    from trinerflet_tpu_torch.utils.clip_loss import VisionConfig, init_clip_params
+
+    os.makedirs(d, exist_ok=True)
+    config = {"projection_dim": CLIP_PROJECTION, "vision_config": CLIP_VISION, "text_config": CLIP_TEXT}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+    vcfg = VisionConfig.from_json(os.path.join(d, "config.json"))
+    tcfg = TextConfig(vocab_size=CLIP_TEXT["vocab_size"], hidden_size=CLIP_TEXT["hidden_size"],
+                      num_layers=CLIP_TEXT["num_hidden_layers"], num_heads=CLIP_TEXT["num_attention_heads"],
+                      intermediate_size=CLIP_TEXT["intermediate_size"],
+                      max_length=CLIP_TEXT["max_position_embeddings"], hidden_act="quick_gelu")
+    params = init_clip_params(vcfg, tcfg, torch.Generator().manual_seed(SEED + 13), "cpu")
+    state = {n: t.contiguous() for n, t in TR._leaves(params)}
+    torch.save(state, os.path.join(d, "pytorch_model.bin"))
+    vocab = {"<|startoftext|>": 49406, "<|endoftext|>": 49407}
+    for i, c in enumerate("abcdefghijklmnopqrstuvwxyz"):
+        vocab[c], vocab[c + "</w>"] = i, 26 + i
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return vcfg, tcfg, sum(t.numel() for t in state.values())
+
+
+def clip_step_check(trainer, state, card):
+    """One CLIP step's loss and per-group gradients at full width (the CLI's
+    field and the CLIP loss at ViT-B/16's widths), kernels on the card
+    against the plain versions on the CPU, on the same pose and noise."""
+    from trinerflet_tpu_torch.utils.clip_loss import CLIPLoss
+
+    H, W = trainer.clip_hw
+    pose = TR.rand_poses(np.random.default_rng(SEED + 17), 1, radius=trainer.clip_radius)[0]
+    f = 0.5 * W / np.tan(0.5 * np.radians(53.0))
+    ro, rd = (torch.as_tensor(a) for a in rays_full_image(pose, (f, f, W / 2, H / 2), H, W))
+    noise = torch.rand((H * W,), generator=torch.Generator().manual_seed(SEED + 19))
+    cl = trainer.clip_loss
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        if dev == DEVICE:
+            tr = trainer
+        else:
+            tr = Trainer(trainer.nerf_cfg, trainer.render_cfg, trainer.cfg, device="cpu")
+            cpu = CLIPLoss(params=TR._map(lambda t: t.cpu(), cl.params), vision_cfg=cl.vision_cfg,
+                           text_cfg=cl.text_cfg)
+            cpu.text_zs = cl.text_zs.cpu()
+            tr.set_clip_guidance(cpu, trainer.rand_pose_interval, radius=trainer.clip_radius)
+        params = TR._map(lambda t: t.detach().to(dev).requires_grad_(True), state.params)
+        occ = type(state.occ)(*[x.to(dev) for x in state.occ])
+        t0 = time.perf_counter()
+        loss = tr._clip_loss_fn(params, occ, ro.to(dev), rd.to(dev), None, noise=noise.to(dev))
+        named = TR._leaves(params)
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        results[dev] = (loss.item(), _groups(zip([n for n, _ in named], grads)), time.perf_counter() - t0)
+    (lg, gg, tg), (lc, gc, tc) = results[DEVICE], results["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    errs = {k: (torch.linalg.norm(gg[k] - gc[k]) / torch.linalg.norm(gc[k])).item() for k in gc
+            if torch.linalg.norm(gc[k]) > 0}
+    log(f"# clip step check ({H}^2 render, full width, ViT-B/16 widths, {card}): loss card {lg:.7f} vs CPU "
+        f"plain {lc:.7f} (rel {loss_err:.2e}, tol {CHECK_LOSS_TOL}); gradient rel L2 "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {CHECK_GRAD_TOL}); {tg:.2f} s on the card, "
+        f"{tc:.2f} s on the CPU")
+    if loss_err > CHECK_LOSS_TOL or not errs or max(errs.values()) > CHECK_GRAD_TOL:
+        raise RuntimeError("the clip kernel step disagrees with the plain versions")
+
+
+def clip_network_check(trainer, card):
+    """``CLIPLoss`` at ViT-B/16's widths on the card against the CPU
+    (float32, TF32 off): the loss and its image gradient on a 141^2 image
+    (up to 224) and an 800^2 one (down to 224)."""
+    from trinerflet_tpu_torch.utils.clip_loss import CLIPLoss
+
+    cl = trainer.clip_loss
+    cpu = CLIPLoss(params=TR._map(lambda t: t.cpu(), cl.params), vision_cfg=cl.vision_cfg, text_cfg=cl.text_cfg)
+    cpu.text_zs = cl.text_zs.cpu()
+    g = torch.Generator().manual_seed(SEED + 23)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    checks = []
+    try:
+        for side in (trainer.clip_hw[0], 800):
+            x = torch.rand((1, side, side, 3), generator=g)
+            out = {}
+            for dev, fn in ((DEVICE, cl), ("cpu", cpu)):
+                xi = x.to(dev).requires_grad_(True)
+                v = fn(xi)
+                (gx,) = torch.autograd.grad(v, [xi])
+                out[dev] = (v.item(), gx.cpu())
+            (vg, gg), (vc, gc) = out[DEVICE], out["cpu"]
+            gerr = ((gg - gc).abs().max() / gc.abs().max()).item()
+            checks.append(f"{side}^2: loss {vg:.7f} vs {vc:.7f} (rel {abs(vg - vc) / abs(vc):.2e}), image "
+                          f"gradient max|diff| / max|cpu| {gerr:.2e}")
+            if abs(vg - vc) > SR_NET_TOL * abs(vc) or gerr > SR_NET_TOL * 10:
+                raise RuntimeError(f"CLIPLoss at {side}^2: card vs CPU {checks[-1]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(f"# clip CLIPLoss at ViT-B/16 widths, card vs CPU (float32, TF32 off; loss within {SR_NET_TOL} "
+        f"relative, gradient within {SR_NET_TOL * 10} of its largest entry, {card}): " + "; ".join(checks))
+
+
+def clip_phase(card, scene_dir, root):
+    """``trinerflet_tpu_torch.cli`` with ``--rand_pose 3 --clip_ckpt`` on the
+    cli phase's scene at the README's stage-1 widths (64 steps): launches of
+    the whole run and of its CLIP steps, ms per CLIP step beside ms per
+    supervised step; a captured CLIP step's kernel rows; the step check on
+    one CLIP step; ``CLIPLoss`` card vs CPU. Returns (kernel rows, stats)."""
+    from trinerflet_tpu_torch import cli
+
+    d = os.path.join(root, "clip_ckpt")
+    t0 = time.perf_counter()
+    vcfg, tcfg, n = write_clip_checkpoint(d)
+    log(f"# clip checkpoint: ViT-B/16 widths (vision {vcfg.image_size}/{vcfg.patch_size}, {vcfg.hidden_size} "
+        f"wide, {vcfg.num_layers} layers; text {tcfg.hidden_size} wide, {tcfg.num_layers} layers, vocab "
+        f"{tcfg.vocab_size}; projection {vcfg.projection_dim}), {n / 1e6:.1f} M seeded random parameters "
+        f"written as pytorch_model.bin ({os.path.getsize(os.path.join(d, 'pytorch_model.bin')) / 2**20:.0f} "
+        f"MiB) in {time.perf_counter() - t0:.2f} s; prompt {CLIP_PROMPT!r}")
+    ws = os.path.join(root, "ws_clip")
+    args = (["--path", scene_dir, "--workspace", ws, "--clip_ckpt", d, "--clip_text", CLIP_PROMPT] + STAGE1_ARGS
+            + ["--iters", str(CLIP_ITERS), "--rand_pose", str(CLIP_K)])
+    secs, clip_launches = defaultdict(list), defaultdict(int)
+    orig_clip, orig_step = Trainer.clip_guidance_step, Trainer.train_step
+
+    def clip_step(tr, st):
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_clip(tr, st)
+        torch.cuda.synchronize()
+        secs["clip"].append(time.perf_counter() - t)
+        for k, v in kernels.launches.items():
+            clip_launches[k] += v - before.get(k, 0)
+        return out
+
+    def train_step(tr, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_step(tr, *a, **k)
+        torch.cuda.synchronize()
+        secs["step"].append(time.perf_counter() - t)
+        return out
+
+    Trainer.clip_guidance_step, Trainer.train_step = clip_step, train_step
+    kernels.reset_launches()
+    try:
+        trainer, state = cli.main(args, device=DEVICE)
+    finally:
+        Trainer.clip_guidance_step, Trainer.train_step = orig_clip, orig_step
+    launches, clip_launches = dict(kernels.launches), dict(clip_launches)
+    n_clip, n_sup = len(secs["clip"]), len(secs["step"])
+    if (n_clip, n_sup) != (CLIP_ITERS // (CLIP_K + 1), CLIP_ITERS) or state.step != n_clip + n_sup:
+        raise RuntimeError(f"clip: {n_clip} CLIP and {n_sup} supervised steps, step {state.step}")
+    clip_ms, sup_ms = (float(np.median(secs[k][2:])) * 1e3 for k in ("clip", "step"))
+    log(f"# clip cli ({card}): {n_sup} supervised + {n_clip} CLIP steps on a {trainer.clip_hw[0]}^2 render, "
+        f"{sup_ms:.3f} ms per supervised step, {clip_ms:.3f} ms per CLIP step (medians, host-synchronised); "
+        f"launches {launches}; in the CLIP steps {clip_launches}")
+    for name in CLIP_KERNELS:
+        if launches[name] == 0 or clip_launches.get(name, 0) == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the clip path")
+    state = profile_step(None, state, None, "clip", step=trainer.clip_guidance_step)
+    with Capture() as cap:
+        state, _ = trainer.clip_guidance_step(state)
+    torch.cuda.synchronize()
+    rows = path_kernel_rows(trainer, cap.calls, clip_launches, "clip step")
+    rows += label_rows(_k4_forward_rows(cap.calls, ""), clip_launches, "clip step")
+    del cap
+    clip_step_check(trainer, state, card)
+    clip_network_check(trainer, card)
+    return rows, dict(clip_ms=clip_ms, sup_ms=sup_ms, launches=launches, clip_launches=clip_launches,
+                      busy=PROFILED["clip"][1], wall=PROFILED["clip"][0])
+
+
+# ---------------------------------------------------------------------------
+# The HTTP viewer: --gui --test over the cli phase's checkpoint, then --gui
+# training
+# ---------------------------------------------------------------------------
+
+GUI_FRAMES = [(1.2, 0.0), (1.0, 0.8), (1.4, 2.0), (0.8, 3.5), (1.6, 5.0)]  # (theta, phi) at radius 2
+GUI_HW = 800
+GUI_TRAIN_ITERS = 64
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url, timeout=300):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+class _SyncTimed:
+    """Device-synchronised wall time of each call of the given (class,
+    method name) pairs while inside (patched on the class), in ``secs``."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.secs = defaultdict(list)
+        self._orig = {}
+
+    def __enter__(self):
+        for cls, name in self.targets:
+            orig = getattr(cls, name)
+            self._orig[(cls, name)] = orig
+
+            def wrap(obj, *a, _orig=orig, _name=name, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _orig(obj, *a, **k)
+                torch.cuda.synchronize()
+                self.secs[_name].append(time.perf_counter() - t)
+                return out
+
+            setattr(cls, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), orig in self._orig.items():
+            setattr(cls, name, orig)
+
+
+def gui_phase(card, scene_dir, ws):
+    """``cli --gui --test`` serving the cli phase's checkpoint: a loopback
+    client fetches the page, /state, five 800^2 frames and /stop; each
+    frame's bytes must be the encoder's bytes of ``render_image`` at the same
+    orbit pose. Then ``cli --gui`` training: /state advances, a frame is
+    served mid-run, the loop ends at its iterations and writes
+    ``latest_model.pkl``. Returns stats."""
+    import threading
+
+    from trinerflet_tpu_torch import cli, native
+    from trinerflet_tpu_torch.utils.gui import NeRFGUI, OrbitCamera
+
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    got, errors = {}, []
+
+    def client():
+        try:
+            for _ in range(600):  # the server comes up once the checkpoint has loaded
+                try:
+                    got["page"] = _http(base + "/", timeout=5)
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            got["state"] = json.loads(_http(base + "/state"))
+            got["frames"], got["ms"] = [], []
+            for th, ph in GUI_FRAMES:
+                t = time.perf_counter()
+                got["frames"].append(_http(f"{base}/frame?theta={th}&phi={ph}&radius=2.0&w={GUI_HW}&h={GUI_HW}"))
+                got["ms"].append((time.perf_counter() - t) * 1e3)
+            got["stop"] = _http(base + "/stop")
+        except Exception as e:  # reported below: the loop then ends at its deadline
+            errors.append(repr(e))
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    args = ["--path", scene_dir, "--workspace", ws] + CLI_ARGS
+    with _SyncTimed((NeRFGUI, "render_frame"), (Trainer, "render_image")) as timed:
+        trainer, state = cli.main(args + ["--gui", "--test", "--gui_port", str(port), "--W", str(GUI_HW),
+                                          "--H", str(GUI_HW)], device=DEVICE)
+    t.join(timeout=60)
+    if errors or got.get("stop") != b"ok" or len(got.get("frames", [])) != len(GUI_FRAMES):
+        raise RuntimeError(f"gui --test client: {errors}, got {sorted(got)}")
+    if b"/frame?theta=" not in got["page"] or got["state"]["training"] or got["state"]["step"] != state.step:
+        raise RuntimeError(f"gui --test: page or state {got['state']}")
+    cam = OrbitCamera(GUI_HW, GUI_HW, 2.0, 60.0)
+    enc_ms = []
+    for (th, ph), body in zip(GUI_FRAMES, got["frames"]):
+        img, _ = trainer.render_image(state.ema_params, state.occ, cam.pose(th, ph, 2.0),
+                                      cam.intrinsics(GUI_HW, GUI_HW), GUI_HW, GUI_HW)
+        u8 = (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        t0 = time.perf_counter()
+        want = native.encode_jpeg(u8, 90)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+        if body != want:
+            raise RuntimeError(f"gui frame ({th}, {ph}): {len(body)} bytes served, the encoder gives "
+                               f"{len(want)} bytes of render_image's frame")
+    log(f"# gui --test ({card}): page, /state {got['state']}, {len(GUI_FRAMES)} {GUI_HW}^2 frames "
+        f"{[round(m, 1) for m in got['ms']]} ms each (request to last byte; render_frame "
+        f"{[round(1e3 * x, 1) for x in timed.secs['render_frame']]} ms, of which render_image "
+        f"{[round(1e3 * x, 1) for x in timed.secs['render_image']]}), {len(got['frames'][0])} bytes the "
+        f"first; JPEG encode alone {float(np.median(enc_ms)):.2f} ms (median, {os.cpu_count()} host cores); "
+        f"each frame's bytes the encoder's bytes of render_image at its pose; /stop ended the loop")
+    del trainer, state
+
+    # --gui training on the stage-1 recipe
+    ws_gui = ws + "_gui"
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    seen, frame, errors = [], {}, []
+
+    def poller():
+        try:
+            for _ in range(600):  # the server comes up once the scene has loaded
+                try:
+                    st = json.loads(_http(base + "/state", timeout=5))
+                    break
+                except OSError:
+                    time.sleep(0.2)
+            while True:
+                seen.append((st["step"], st["training"], st["loss"]))
+                if st["training"] and 0 < st["step"] < GUI_TRAIN_ITERS and "body" not in frame:
+                    t = time.perf_counter()
+                    frame["body"] = _http(f"{base}/frame?theta=1.2&phi=0.5&radius=2.0&w=400&h=400")
+                    frame["ms"], frame["step"] = (time.perf_counter() - t) * 1e3, st["step"]
+                st = json.loads(_http(base + "/state"))
+        except OSError:
+            pass  # the loop ended and closed its server
+        except Exception as e:
+            errors.append(repr(e))
+
+    t = threading.Thread(target=poller, daemon=True)
+    t.start()
+    gui_args = (["--path", scene_dir, "--workspace", ws_gui] + STAGE1_ARGS
+                + ["--iters", str(GUI_TRAIN_ITERS), "--gui", "--gui_port", str(port)])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _SyncTimed((NeRFGUI, "train_loop"), (NeRFGUI, "render_frame"), (Trainer, "train_step"),
+                    (Trainer, "update_grid"), (Trainer, "save_checkpoint")) as timed:
+        trainer, state = cli.main(gui_args, device=DEVICE)
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    t.join(timeout=60)
+    steps = [s for s, _, _ in seen]
+    log(f"# gui train ({card}): {GUI_TRAIN_ITERS} iterations in {train_s:.2f} s (cli.main: the scene's load, "
+        f"the trainer, the loop and the checkpoint); seconds in "
+        f"{dict((k, round(sum(v), 3)) for k, v in timed.secs.items())} ({len(timed.secs['train_step'])} train "
+        f"steps, {len(timed.secs['update_grid'])} refreshes); /state steps seen {steps}; a 400^2 frame at step "
+        f"{frame.get('step')} in {frame.get('ms', float('nan')):.1f} ms; files {sorted(os.listdir(ws_gui))}; "
+        f"launches {launches}")
+    if errors or state.step != GUI_TRAIN_ITERS or not os.path.exists(os.path.join(ws_gui, "latest_model.pkl")):
+        raise RuntimeError(f"gui train: {errors}, step {state.step}")
+    if not (len(set(steps)) >= 2 and steps == sorted(steps) and "body" in frame
+            and frame["body"][:2] == b"\xff\xd8"):
+        raise RuntimeError(f"gui train: /state steps {steps}, a frame mid-run {sorted(frame)}")
+    for name in CLI_KERNELS:
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the gui train path")
+    return dict(frame_ms=float(np.median(got["ms"])), enc_ms=float(np.median(enc_ms)), train_s=train_s,
+                steps=steps)
+
+
+# ---------------------------------------------------------------------------
+# The web launcher: LaunchMonitor and make_server on loopback, a generation
+# run as its child
+# ---------------------------------------------------------------------------
+
+WEBAPP_GEN = dict(total_steps=32, views_per_refresh=2, refresh_every=16)
+WEBAPP_EXTRA = ""  # the child's extra arguments (none: it runs on the card, its default)
+
+
+def webapp_phase(card):
+    """``webapp.LaunchMonitor`` and ``make_server`` on loopback: POST /run of
+    the SR launcher on a generation YAML at the srtex widths (32 steps, 2
+    views a round, a refresh every 16) written to a temporary configs
+    directory; /status polled until the child exits with rc 0; /artifact
+    must serve its turntable. Returns stats."""
+    import threading
+    import urllib.request
+
+    import yaml
+
+    from trinerflet_tpu_torch.webapp import LaunchMonitor, make_server
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_webapp_")
+    try:
+        cfgs = os.path.join(root, "configs")
+        os.makedirs(cfgs)
+        with open(os.path.join(cfgs, "gen.yaml"), "w") as f:
+            yaml.safe_dump(gen_config(**WEBAPP_GEN), f)
+        mon = LaunchMonitor(configs_dir=cfgs)
+        srv = make_server(mon, port=0)
+        port = srv.server_address[1]
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            if json.loads(_http(f"http://127.0.0.1:{port}/configs")) != ["gen.yaml"]:
+                raise RuntimeError("webapp: /configs")
+            ws = os.path.join(root, "ws")
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/run", method="POST", headers={"Content-Type": "application/json"},
+                data=json.dumps({"app": "sr", "config": "gen.yaml", "workspace": ws, "extra": WEBAPP_EXTRA}).encode())
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=30) as r:
+                started = json.loads(r.read())
+            st = {}
+            while time.perf_counter() - t0 < 300:
+                st = json.loads(_http(f"http://127.0.0.1:{port}/status"))
+                if not st["alive"]:
+                    break
+                time.sleep(1.0)
+            run_s = time.perf_counter() - t0
+            if st.get("alive") or st.get("returncode") != 0:
+                mon.stop()
+                raise RuntimeError(f"webapp child: {st.get('returncode')} after {run_s:.0f} s; log tail:\n"
+                                   f"{st.get('log', '')}")
+            art = _http(f"http://127.0.0.1:{port}/artifact")
+            name = st["artifact"]
+            if not (name == "turntable.mp4" or name.endswith(".png")) or len(art) == 0:
+                raise RuntimeError(f"webapp /artifact: {name!r}, {len(art)} bytes")
+            if not os.path.exists(os.path.join(ws, "sr_state.pkl")):
+                raise RuntimeError(f"webapp child wrote {sorted(os.listdir(ws))}")
+        finally:
+            mon.stop()
+            srv.shutdown()
+            srv.server_close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"# webapp ({card}): POST /run started {started['cmd']!r}; the child ran {WEBAPP_GEN} at the srtex "
+        f"widths and exited 0 after {run_s:.1f} s (its start, the kernels' load and the turntable included); "
+        f"/artifact served {name} ({len(art)} bytes); log tail {st['log'][-160:]!r}")
+    return dict(run_s=run_s, artifact=name)
+
+
 def second_order_phase():
     """A create_graph=True first derivative through each kernel function on
     the card, then a backward through it: each must raise torch's
@@ -3444,6 +4250,15 @@ def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=(), loss_fn
     return loss_err, errs
 
 
+# each cut of an earlier phase's depth that made room for the text-to-3D,
+# CLIP, viewer and web-launcher phases: (what, before, after), printed first
+CUTS = (("cli: an evaluation and a rotating checkpoint every N steps", 64,
+         int(CLI_ARGS[CLI_ARGS.index("--eval_interval_stages") + 1])),
+        ("registry-sdf: batches of the bf16 step check's readings (not held)", 3, SDF_BF16_BATCHES),
+        ("kernel rows: timed calls of each plain version and library call", "20 after 3 warm-ups",
+         f"{REF_ITERS} after 1"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs an NVIDIA GPU",
@@ -3457,6 +4272,8 @@ def main() -> int:
     secs = _build.build_all()
     log(f"# kernels built in {time.perf_counter() - t0:.1f} s (per kernel {secs}) into {_build.BUILD_DIR}")
     log(f"# launch floor: {launch_floor_ms():.4f} ms (time_ms of a one-element fill_) on {card}")
+    for what, was, now in CUTS:
+        log(f"# cut: {what}: {was} -> {now}")
 
     torch.manual_seed(SEED)
     with torch.no_grad():
@@ -3532,13 +4349,34 @@ def main() -> int:
     rows += rh_rows
     del hstats["params"], hstats["occ"]
     log(f"# registry-hash-normals phase done at {time.perf_counter() - t_start:.1f} s")
-    cli_rows, cstats = cli_phase(card)
-    rows += cli_rows
-    log(f"# cli phase done at {time.perf_counter() - t_start:.1f} s")
-    t_sr = time.perf_counter()
-    sr_rows, srstats = sr_phase(card)
-    rows += sr_rows
-    log(f"# sr phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_sr:.1f} s)")
+    cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_rows, cstats = cli_phase(card, cli_root)
+        rows += cli_rows
+        log(f"# cli phase done at {time.perf_counter() - t_start:.1f} s")
+        t_sr = time.perf_counter()
+        sr_rows, srstats = sr_phase(card)
+        rows += sr_rows
+        log(f"# sr phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_sr:.1f} s)")
+        t_ph = time.perf_counter()
+        gen_rows, genstats = gen_phase(card)
+        rows += gen_rows
+        log(f"# gen phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+        t_ph = time.perf_counter()
+        t2istats = t2i_phase(card)
+        log(f"# t2i phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+        t_ph = time.perf_counter()
+        clip_rows, clipstats = clip_phase(card, cstats["scene_dir"], cli_root)
+        rows += clip_rows
+        log(f"# clip phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+        t_ph = time.perf_counter()
+        guistats = gui_phase(card, cstats["scene_dir"], cstats["ws"])
+        log(f"# gui phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
+    t_ph = time.perf_counter()
+    webstats = webapp_phase(card)
+    log(f"# webapp phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
     second_order_phase()
 
     for r in rows:
@@ -3614,6 +4452,25 @@ def main() -> int:
         f"{up['encode_ms']:.2f} ms, decode {up['decode_ms']:.2f} ms, peak {up['peak_gib']:.2f} GiB, "
         f"text_encode {up['text_ms']:.2f} ms on {card}; launches phase 1 {srstats['p1_launches']}, "
         f"phase 2 {srstats['p2_launches']}, HR view {srstats['view_launches']}")
+    log(f"# gen (text-to-3D at the srtex widths, 400 steps, a refresh of 8 views every 100): "
+        f"{genstats['ms_step']:.3f} ms/step without the refreshes (one step's device busy "
+        f"{genstats['busy']:.3f} ms of {genstats['wall']:.3f} ms under the profiler), {genstats['refresh_s']:.3f} s "
+        f"per refresh, loss {genstats['loss_first']:.5f} -> {genstats['loss_last']:.5f}; turntable "
+        f"{genstats['turntable_ms']:.2f} ms a frame ({genstats['turntable']}) on {card}; launches "
+        f"{genstats['launches']}, refresh view {genstats['view_launches']}")
+    log(f"# t2i (SD 2.1-base widths, random weights): generate_sr {t2istats['gen_ms']:.1f} ms, UNet "
+        f"{t2istats['unet_ms']:.2f} ms/call at 16^2 latents ({t2istats['unet_calls']} calls), VAE encode "
+        f"{t2istats['encode_ms']:.2f} ms, decode {t2istats['decode_ms']:.2f} ms, peak {t2istats['peak_gib']:.2f} "
+        f"GiB on {card}")
+    log(f"# clip (--rand_pose 3, ViT-B/16 widths, README stage-1 field): {clipstats['sup_ms']:.3f} ms per "
+        f"supervised step, {clipstats['clip_ms']:.3f} ms per CLIP step (one's device busy "
+        f"{clipstats['busy']:.3f} ms of {clipstats['wall']:.3f} ms under the profiler) on {card}; launches "
+        f"{clipstats['launches']}, in the CLIP steps {clipstats['clip_launches']}")
+    log(f"# gui: {GUI_HW}^2 frame {guistats['frame_ms']:.1f} ms (median, request to last byte), JPEG encode "
+        f"{guistats['enc_ms']:.2f} ms; --gui training {GUI_TRAIN_ITERS} iterations in {guistats['train_s']:.2f} s "
+        f"on {card}")
+    log(f"# webapp: a generation child through POST /run exited 0 in {webstats['run_s']:.1f} s, artifact "
+        f"{webstats['artifact']} on {card}")
     log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,10 +112,18 @@ def test_load_scene_routes_as_jax(dataset_roots, name, args, split):
 @pytest.mark.parametrize("flags,what", [(["--gui"], "--gui"), (["--rand_pose", "0"], "--rand_pose"),
                                         (["--rand_pose", "3", "--test"], "--rand_pose")])
 def test_refused_flags_raise_before_any_work(tmp_path, flags, what):
+    """--gui and --rand_pose are ported: with a missing scene each raises
+    for the path before any work; --rand_pose without a --clip_ckpt
+    directory raises for it (no CLIP weights are in the repository) before
+    any work."""
     ws = tmp_path / "ws"
-    with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1 item"):
+    with pytest.raises(FileNotFoundError, match="--path"):
         PCLI.main(["--path", str(tmp_path / "missing"), "--workspace", str(ws)] + flags, device="cpu")
     assert not ws.exists()
+    if what == "--rand_pose" and "--test" not in flags:
+        with pytest.raises(NotImplementedError, match="--rand_pose needs --clip_ckpt"):
+            PCLI.main(["--path", str(tmp_path), "--workspace", str(ws)] + flags, device="cpu")
+        assert not ws.exists()
 
 
 def test_stage_keys_must_broadcast(tmp_path):

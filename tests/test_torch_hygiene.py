@@ -210,3 +210,53 @@ def test_cli_raises_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             cli.run(cli.get_params(argv))
     assert not ws.exists()
+
+
+def test_generation_gui_and_clip_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The text-to-3D system and its launcher, the CLI with --gui or
+    --rand_pose, and the CLIP tree makers default to CUDA and raise without
+    it, before any work (no workspace appears)."""
+    import yaml
+
+    from trinerflet_tpu_torch import cli
+    from trinerflet_tpu_torch.models.nerf import NeRFConfig
+    from trinerflet_tpu_torch.models.triplane import TriplaneConfig
+    from trinerflet_tpu_torch.render.renderer import RenderConfig
+    from trinerflet_tpu_torch.sr import guidance, launch
+    from trinerflet_tpu_torch.sr.text import TextConfig
+    from trinerflet_tpu_torch.sr.text_to_3d import TextTo3DConfig, TextTo3DSystem
+    from trinerflet_tpu_torch.utils import clip_loss
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ncfg = NeRFConfig(triplane=TriplaneConfig(channels=4, resolution=64, wavelet_scale=4))
+    g = guidance.make_cond_guidance(guidance.GuidanceConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        TextTo3DSystem(ncfg, RenderConfig(grid_size=8), TextTo3DConfig(), g)
+    assert TextTo3DSystem(ncfg, RenderConfig(grid_size=8), TextTo3DConfig(), g, device="cpu").device.type == "cpu"
+    gen = {"triplane": {"channels": 4, "resolution": 32, "wavelet_scale": 2},
+           "system": {"kind": "generation", "total_steps": 1}, "guidance": {"kind": "cond"}}
+    path = tmp_path / "gen.yaml"
+    path.write_text(yaml.safe_dump(gen))
+    ws = tmp_path / "ws"
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch.build(gen, str(ws))
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch.main(["--config", str(path), "--train", "--workspace", str(ws)])
+    for flags in (["--gui"], ["--gui", "--test"], ["--rand_pose", "1", "--clip_ckpt", str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(["--path", str(tmp_path), "--workspace", str(ws)] + flags)
+    assert not ws.exists()
+    vcfg = clip_loss.VisionConfig(image_size=16, patch_size=8, hidden_size=8, num_layers=1, num_heads=2,
+                                  intermediate_size=8, projection_dim=4)
+    tcfg = TextConfig(vocab_size=8, hidden_size=8, num_layers=1, num_heads=2, intermediate_size=8,
+                      max_length=4)
+    makers = {"init_vision_params": lambda **kw: clip_loss.init_vision_params(vcfg, **kw),
+              "init_clip_params": lambda **kw: clip_loss.init_clip_params(vcfg, tcfg, **kw),
+              "state_dict_to_tree": lambda **kw: clip_loss.state_dict_to_tree(
+                  {"visual_projection.weight": np.zeros((4, 8), np.float32)}, **kw)}
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+        leaves = []
+        _map(leaves.append, make(device="cpu"))
+        assert leaves and all(t.device.type == "cpu" for t in leaves), name

@@ -10,8 +10,9 @@ the start of ``fit`` (tests/test_torch_sr_system.py's ``Draws``).
 Compared: the results files (PSNR within 1e-3 dB, SSIM within 1e-5), the
 checkpoints (the trajectory tolerance of tests/test_torch_sr_system.py),
 and each package resuming the other's ``sr_state.pkl`` and scene npz with
-``--test`` (the same numbers as its own). Also: the refusals (text-to-3D
-generation, the default CUDA device without a card).
+``--test`` (the same numbers as its own). Also: the refusals (a
+generation config with the SR system's keys, the default CUDA device
+without a card).
 """
 
 import json
@@ -177,7 +178,7 @@ def test_launcher_refusals(tmp_path):
     gen = str(tmp_path / "gen.yaml")
     with open(gen, "w") as f:
         yaml.safe_dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="text_to_3d"):
+    with pytest.raises(ValueError, match="unknown config keys for TextTo3DConfig"):
         PLAUNCH.main(["--config", gen, "--workspace", str(tmp_path / "g"), "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,6 +1,6 @@
 """PyTorch + CUDA port of the wavelet-triplane NeRF (occupancy-grid,
-proposal and dense renderers; triplane, hash-grid and table-free encodings)
-and its super-resolution app.
+proposal and dense renderers; triplane, hash-grid and table-free encodings),
+its super-resolution and text-to-3D apps, and their viewer and launcher.
 
 This package runs beside the JAX package ``trinerflet_tpu`` and mirrors its
 module names, public layouts and arithmetic. It imports ``torch`` and numpy
@@ -21,19 +21,21 @@ materials, backgrounds, every normal type), evaluation, checkpoints (the
 JAX package's files, read and written by both), stage growth, mesh export,
 the scene loaders (Blender, LLFF, COLMAP, NSVF, NeRF++, Topia, RTMV; PNG
 through the host library in ``native/``), the CLI (``python -m
-trinerflet_tpu_torch.cli``) and the super-resolution app (``sr/``: the
-dual-resolution triplane's two-phase system, the x4 upscaler's UNet and
-VAE, the CLIP text encoder, the guidances and the YAML launcher ``python -m
-trinerflet_tpu_torch.sr.launch``; ``utils/lpips.py``).
+trinerflet_tpu_torch.cli``, with CLIP guidance for ``--rand_pose`` in
+``utils/clip_loss.py`` and the HTTP viewer for ``--gui`` in
+``utils/gui.py``), the super-resolution app (``sr/``: the dual-resolution
+triplane's two-phase system, the x4 upscaler's UNet and VAE, the CLIP text
+encoder, the guidances and the YAML launcher ``python -m
+trinerflet_tpu_torch.sr.launch``; ``utils/lpips.py``), text-to-3D
+generation (``sr/text_to_3d.py``), the experiment logger
+(``utils/logging.py``), the orbit turntable (``utils/viewer.py``) and the
+web launcher (``python -m trinerflet_tpu_torch.webapp``).
 
-Still missing, each raising ``NotImplementedError`` that names where it is
-queued: the CLI's ``--gui`` (``utils/gui.py``, ``utils/viewer.py``) and
-``--rand_pose`` (``utils/clip_loss.py``), the SR launcher's
-``system.kind: generation`` (``sr/text_to_3d.py``), and training through
-analytic normals (the kernels' second derivatives). Not ported yet and not
-reachable from the port's entry points: ``parallel/`` (multi-card
-training), ``utils/logging.py`` and ``utils/gan.py``, ``ops/losses.py``,
-``ops/morton.py`` and ``webapp.py``.
+Still missing: training through analytic normals (the kernels' second
+derivatives), which raises ``NotImplementedError`` naming where it is
+queued. Not ported yet and not reachable from the port's entry points:
+``parallel/`` (multi-card training), ``utils/gan.py``, ``ops/losses.py``
+and ``ops/morton.py``.
 """
 
 from ._device import resolve_device

@@ -7,6 +7,7 @@ module needs neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -17,7 +18,7 @@ from .render.renderer import OccupancyState
 from .train.trainer import TrainState, _map
 
 __all__ = ["params_from_jax", "occupancy_from_jax", "adam_state_from_jax", "train_state_from_jax",
-           "network_params_from_jax", "sr_state_from_jax"]
+           "network_params_from_jax", "sr_state_from_jax", "clip_params_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -159,6 +160,22 @@ def network_params_from_jax(tree: Any, device: DeviceLike = None):
         return _tensor(np.ascontiguousarray(a), device)
 
     return conv(tree)
+
+
+def clip_params_from_jax(tree: Any, device: DeviceLike = None) -> Dict:
+    """A CLIP tree of the JAX package (``utils/clip_loss.py``) as this
+    package's, on ``device`` (``cuda`` by default): the same keys and
+    values, except the patch embedding, whose (P * P * 3, D) matmul kernel
+    in (i, j, c) order becomes the state dict's OIHW ``weight`` (D, 3, P, P)
+    again."""
+    device = resolve_device(device)
+    out = _tree(tree, device)
+    if "vision_model" in out:
+        pe = out["vision_model"]["embeddings"]["patch_embedding"]
+        k = pe.pop("kernel")
+        P = int(round(math.sqrt(k.shape[0] // 3)))
+        pe["weight"] = k.reshape(P, P, 3, k.shape[1]).permute(3, 2, 0, 1).contiguous()
+    return out
 
 
 def sr_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):

@@ -17,11 +17,19 @@ mesh, renders the test views as a video (or a PNG sequence) and, with
 --cuda_ray --preload``: bfloat16 planes and MLPs on the occupancy-grid
 renderer.
 
+``--gui`` serves the HTTP orbit viewer (``utils/gui.py``) while training
+the first stage, or with ``--test`` over ``latest_model.pkl`` until
+``/stop``; ``--rand_pose k`` adds CLIP-guided steps on random poses
+(``utils/clip_loss.py``) from the ``--clip_ckpt`` directory (a transformers
+``CLIPModel``: ``config.json``, ``*.safetensors`` or ``*.bin``,
+``vocab.json``, ``merges.txt``).
+
 Differences from the JAX CLI: ``run`` and ``main`` take ``device`` (None:
 ``cuda``, which raises without a card; the tests pass ``"cpu"``); there is
-no ``JAX_PLATFORMS`` handling; ``--gui`` and ``--rand_pose >= 0`` raise
-``NotImplementedError`` before any work (their modules are not ported); a
-failed mesh export raises instead of printing.
+no ``JAX_PLATFORMS`` handling; a failed mesh export raises instead of
+printing; the CLIP loss is built once, before the first stage (the JAX CLI
+builds it in each stage), so a missing ``--clip_ckpt`` raises before any
+work.
 """
 
 from __future__ import annotations
@@ -35,8 +43,9 @@ import time
 import numpy as np
 import torch
 
-from ._device import not_ported, resolve_device
+from ._device import resolve_device
 from .data.images import write_png
+
 
 def get_params(argv=None):
     parser = argparse.ArgumentParser(description="trinerflet_tpu_torch reconstruction")
@@ -385,18 +394,66 @@ def write_video(path, frames, fps=25):
     return seq_dir
 
 
-def run_stage(opt, stage_idx, prev_cfgs, device=None):
-    """One stage: build the trainer, grow from ``latest_model.pkl`` after
-    the first stage (else cull the untrained grid cells), ``fit`` with the
-    periodic evaluation and rotating checkpoints of
-    ``--eval_interval_stages``, save ``latest_model.pkl`` and
-    ``stage_<i>.pkl``, evaluate on the val split. Returns (configs,
+def _build_clip_loss(opt, device=None):
+    """``CLIPLoss`` from the ``--clip_ckpt`` directory of a transformers
+    ``CLIPModel``: ``config.json``, the weights as ``*.safetensors`` (read
+    with the port's own reader) or ``*.bin`` (``torch.load`` with
+    ``weights_only``), and the tokenizer's ``vocab.json`` and
+    ``merges.txt``; the ``--clip_text`` prompt (default "an object")
+    embedded once. No CLIP weights are in the repository."""
+    import glob
+    import json
+
+    from .sr.diffusion import read_safetensors
+    from .sr.text import CLIPTokenizer, TextConfig
+    from .utils.clip_loss import CLIPLoss, VisionConfig, state_dict_to_tree
+
+    d = opt.clip_ckpt
+    if not d or not os.path.isdir(d):
+        raise NotImplementedError(
+            "--rand_pose needs --clip_ckpt <dir> with a CLIP ViT checkpoint (config.json, "
+            "*.safetensors or *.bin, vocab.json, merges.txt); none is in the repository")
+    cfg_path = os.path.join(d, "config.json")
+    vcfg = VisionConfig.from_json(cfg_path)
+    with open(cfg_path) as f:
+        tc = json.load(f).get("text_config", {})
+    tcfg = TextConfig(
+        vocab_size=tc.get("vocab_size", 49408),
+        hidden_size=tc.get("hidden_size", 512),
+        num_layers=tc.get("num_hidden_layers", 12),
+        num_heads=tc.get("num_attention_heads", 8),
+        intermediate_size=tc.get("intermediate_size", 2048),
+        max_length=tc.get("max_position_embeddings", 77),
+        hidden_act=tc.get("hidden_act", "quick_gelu"),
+    )
+    st = sorted(glob.glob(os.path.join(d, "*.safetensors")))
+    if st:
+        flat = read_safetensors(st[0])
+    else:
+        flat = torch.load(sorted(glob.glob(os.path.join(d, "*.bin")))[0], map_location="cpu",
+                          weights_only=True)
+    tok = CLIPTokenizer(os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt"), tcfg.max_length)
+    loss = CLIPLoss(params=state_dict_to_tree(flat, device=device), vision_cfg=vcfg, text_cfg=tcfg,
+                    tokenizer=tok)
+    loss.prepare_text([opt.clip_text or "an object"])
+    return loss
+
+
+def run_stage(opt, stage_idx, prev_cfgs, device=None, clip_loss=None):
+    """One stage: build the trainer (with CLIP guidance every
+    ``--rand_pose`` steps when ``clip_loss`` is given), grow from
+    ``latest_model.pkl`` after the first stage (else cull the untrained
+    grid cells), ``fit`` with the periodic evaluation and rotating
+    checkpoints of ``--eval_interval_stages``, save ``latest_model.pkl``
+    and ``stage_<i>.pkl``, evaluate on the val split. Returns (configs,
     trainer, state)."""
     from .render.renderer import mark_untrained_grid
     from .train.trainer import Trainer
 
     nerf_cfg, render_cfg, train_cfg = build_configs(opt)
     trainer = Trainer(nerf_cfg, render_cfg, train_cfg, device=device, workspace=opt.workspace)
+    if clip_loss is not None:
+        trainer.set_clip_guidance(clip_loss, opt.rand_pose)
 
     scene = load_scene(opt, "train")
     ckpt_path = os.path.join(opt.workspace, "latest_model.pkl")
@@ -461,6 +518,41 @@ def run_stage(opt, stage_idx, prev_cfgs, device=None):
     return (nerf_cfg, render_cfg, train_cfg), trainer, state
 
 
+def run_gui(opt, device=None):
+    """``--gui``: with ``--test``, serve frames of ``latest_model.pkl`` until
+    ``/stop``; else train the stage's configuration through the viewer's
+    train loop (``cfg.iters`` steps or until ``/stop``) and save
+    ``latest_model.pkl``. Returns (trainer, state)."""
+    from .render.renderer import mark_untrained_grid
+    from .train.trainer import Trainer
+    from .utils.gui import NeRFGUI
+
+    nerf_cfg, render_cfg, train_cfg = build_configs(opt)
+    trainer = Trainer(nerf_cfg, render_cfg, train_cfg, device=device, workspace=opt.workspace)
+    ckpt_path = os.path.join(opt.workspace, "latest_model.pkl")
+    if opt.test:
+        state = trainer.load_checkpoint(ckpt_path)
+        gui = NeRFGUI(trainer, state, W=opt.W, H=opt.H, radius=opt.radius, fovy=opt.fovy,
+                      port=opt.gui_port)
+        print(f"[gui] viewing on http://127.0.0.1:{gui.port}/ (GET /stop to quit)", flush=True)
+        gui.test_loop()
+        gui.close()
+        return trainer, state
+    scene = load_scene(opt, "train")
+    if getattr(scene, "poses", None) is not None:
+        grid = mark_untrained_grid(scene.poses, scene.intrinsics, render_cfg)
+        state = trainer.init_state(density_grid=grid)
+    else:
+        state = trainer.init_state()
+    gui = NeRFGUI(trainer, state, W=opt.W, H=opt.H, radius=opt.radius, fovy=opt.fovy,
+                  port=opt.gui_port)
+    print(f"[gui] training on http://127.0.0.1:{gui.port}/ (GET /stop to quit)", flush=True)
+    state = gui.train_loop(scene)
+    trainer.save_checkpoint(state, ckpt_path)
+    gui.close()
+    return trainer, state
+
+
 def run_test(opt, device=None):
     """``--test``: load ``--ckpt`` (latest | best | a path), then either dump
     the planes (``--save_planes``) or evaluate the test split into
@@ -507,16 +599,10 @@ def run_test(opt, device=None):
 
 
 def run(opt, device=None):
-    """Train the stages, or with ``--test`` evaluate a checkpoint, on
-    ``device`` (None: ``cuda``). Returns the last stage's (or the test's)
-    (trainer, state)."""
-    if opt.gui:
-        raise not_ported("--gui (the HTTP viewer, utils/gui.py)",
-                         "ROADMAP Queue 1 item 4 (the utilities: gui, viewer, logging)")
-    if opt.rand_pose >= 0:
-        raise not_ported("--rand_pose (CLIP guidance, utils/clip_loss.py; the SR app it builds on, "
-                         "sr/text.py, is ported)",
-                         "ROADMAP Queue 1 item 5 (utils/clip_loss.py, after sr/text_to_3d.py)")
+    """Train the stages, or with ``--test`` evaluate a checkpoint, or with
+    ``--gui`` run the viewer (the first stage's keys, or with ``--test`` the
+    last's), on ``device`` (None: ``cuda``). Returns the last stage's (or
+    the test's, or the viewer's) (trainer, state)."""
     device = resolve_device(device)
     if opt.path is None or not os.path.exists(opt.path):
         raise FileNotFoundError(f"--path {opt.path!r} does not exist")
@@ -531,12 +617,19 @@ def run(opt, device=None):
         if len(opt_vars[k]) not in (1, length):
             raise ValueError(f"--{k} has {len(opt_vars[k])} values; give 1 or {length}")
 
+    if opt.gui:
+        o = copy.deepcopy(opt)
+        for k in STAGE_KEYS:
+            vars(o)[k] = opt_vars[k][-1] if opt.test else opt_vars[k][0]
+        return run_gui(o, device)
+
     if opt.test:
         o = copy.deepcopy(opt)
         for k in STAGE_KEYS:
             vars(o)[k] = opt_vars[k][-1]
         return run_test(o, device)
 
+    clip_loss = _build_clip_loss(opt, device) if opt.rand_pose >= 0 else None
     prev_cfgs = trainer = state = None
     for i in range(length):
         o = copy.deepcopy(opt)
@@ -545,7 +638,7 @@ def run(opt, device=None):
             vars(o)[k] = vals[i] if len(vals) == length else vals[0]
         print(f"===== stage {i + 1}/{length}: res={o.triplane_resolution} "
               f"levels={o.triplane_wavelet_levels} iters={o.iters} rays={o.num_rays}")
-        prev_cfgs, trainer, state = run_stage(o, i, prev_cfgs, device)
+        prev_cfgs, trainer, state = run_stage(o, i, prev_cfgs, device, clip_loss)
     return trainer, state
 
 

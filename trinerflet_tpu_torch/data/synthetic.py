@@ -323,17 +323,19 @@ def _ngp_to_blender(pose: np.ndarray) -> np.ndarray:
 
 
 def write_synthetic_scene(root: str, num_views: int = 20, num_test_views: int = 4, H: int = 100,
-                          W: int = 100, seed: int = 0, variant: str = "spheres") -> str:
+                          W: int = 100, seed: int = 0, variant: str = "spheres", backend: str = "numpy",
+                          device: DeviceLike = None) -> str:
     """Write the ``variant`` scene to ``root`` in the Blender transforms format
     (loadable by ``load_blender(root, scale=1.0)``): train views from
     ``seed``, val and test views from ``seed + 1``, RGBA PNGs through
-    ``write_png``."""
+    ``write_png``. ``backend`` and ``device`` are ``make_synthetic_scene``'s
+    (numpy, the JAX package's images bit for bit, by default)."""
     os.makedirs(root, exist_ok=True)
     splits = [("train", num_views, seed), ("val", num_test_views, seed + 1),
               ("test", num_test_views, seed + 1)]
     cam_angle_x = 2 * np.arctan(0.5 * W / (0.9 * W))
     for split, n, s in splits:
-        scene = make_synthetic_scene(n, H, W, seed=s, variant=variant)
+        scene = make_synthetic_scene(n, H, W, seed=s, variant=variant, backend=backend, device=device)
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for v in range(n):

@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host library (``trinerflet_native.cpp``
-beside this file): the PNG decoder, a threaded batch decoder and marching
-tetrahedra.
+beside this file): the PNG decoder, a threaded batch decoder, marching
+tetrahedra and a baseline JPEG encoder (the HTTP viewer's frames).
 
 The library is built with ``g++`` at first use into ``build/native/`` at the
 root of the checkout (listed in ``.gitignore``), under a name that carries a
@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["load", "png_shape", "decode_png", "decode_png_batch", "marching_tetrahedra"]
+__all__ = ["load", "png_shape", "decode_png", "decode_png_batch", "marching_tetrahedra", "encode_jpeg"]
 
 _SRC = Path(__file__).resolve().parent / "trinerflet_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -71,6 +71,9 @@ def load() -> ctypes.CDLL:
     lib.tn_marching_tets.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
                                      + [ctypes.c_void_p, ctypes.c_long])
     lib.tn_marching_tets.restype = ctypes.c_long
+    lib.tn_encode_jpeg.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_long]
+    lib.tn_encode_jpeg.restype = ctypes.c_long
     _lib = lib
     return lib
 
@@ -141,3 +144,18 @@ def marching_tetrahedra(grid: np.ndarray, threshold: float, origin=(0.0, 0.0, 0.
     if n:
         lib.tn_marching_tets(*args, out.ctypes.data, int(n))
     return out
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90) -> bytes:
+    """(H, W, 3) uint8 RGB -> baseline JPEG bytes (JFIF, YCbCr 4:2:0, the
+    Annex K tables scaled to ``quality`` the IJG way, Huffman coded)."""
+    a = np.ascontiguousarray(rgb)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got {a.dtype} {a.shape}")
+    lib = load()
+    H, W = a.shape[:2]
+    out = np.empty((((H + 15) // 16) * ((W + 15) // 16) * 256 * 10 + 2048,), np.uint8)
+    n = lib.tn_encode_jpeg(a.ctypes.data, H, W, int(quality), out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError(f"encode_jpeg failed ({n}) on a {a.shape} image")
+    return out[:n].tobytes()

@@ -11,8 +11,11 @@ says otherwise. The checkpoint ``sr_state.pkl`` is the JAX package's
 payload, a pickle of {"params": a numpy tree, "step": int}, so either
 package resumes the other's run. ``data.backend: jax`` (the JAX package's
 "render the ground truth on the accelerator") renders it on this package's
-device. ``system.kind: generation`` raises: text-to-3D comes with a later
-slice.
+device. ``system.kind: generation`` builds the text-to-3D system
+(``sr/text_to_3d.py``) with no data section (random orbit cameras); its
+``--train`` fits, writes ``sr_state.pkl`` and renders ``turntable.mp4`` (or
+its frames), and its ``--test`` renders the turntable of a fresh state, as
+the JAX launcher does.
 """
 
 from __future__ import annotations
@@ -24,15 +27,14 @@ import pickle
 import numpy as np
 import torch
 
-from .._device import DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 
 __all__ = ["build", "build_diffusion_guidance", "main", "save_sr_state", "load_sr_state"]
 
-SLICE_TEXT_TO_3D = "the slice that ports sr/text_to_3d.py (text-to-3D generation)"
-
 
 def build(cfg_dict, workspace, device: DeviceLike = None):
-    """(system, scene) from a config dict."""
+    """(system, scene) from a config dict; ``system.kind: generation`` gives
+    (``TextTo3DSystem``, None) when the config has no data section."""
     from ..models.nerf import NeRFConfig
     from ..models.triplane import TriplaneConfig
     from ..render.renderer import RenderConfig
@@ -44,11 +46,12 @@ def build(cfg_dict, workspace, device: DeviceLike = None):
 
     device = resolve_device(device)
     sys_dict = dict(cfg_dict.get("system", {}))
-    if sys_dict.pop("kind", "sr") == "generation":
-        raise not_ported("system.kind: generation (text-to-3D)", SLICE_TEXT_TO_3D)
+    sys_kind = sys_dict.pop("kind", "sr")
 
     data_cfg = cfg_dict.get("data", {})
-    if data_cfg.get("synthetic", False):
+    if sys_kind == "generation" and not data_cfg:
+        scene = None  # generation is data-free (random orbit cameras)
+    elif data_cfg.get("synthetic", False):
         cache = data_cfg.get("cache", "")
         if cache and os.path.exists(cache):
             scene = load_sr_scene_npz(cache)
@@ -113,6 +116,8 @@ def build(cfg_dict, workspace, device: DeviceLike = None):
     g_kind = g_dict.pop("kind", "resize")
     weights = g_dict.pop("weights", {})  # checkpoint paths for 'diffusion'
     gcfg = parse_structured(GuidanceConfig, g_dict)
+    if g_kind in ("oracle", "resize") and scene is None:
+        raise ValueError(f"{g_kind} guidance needs a data section")
     if g_kind == "oracle":
         target = torch.from_numpy(np.ascontiguousarray(scene.hr.images[..., :3]).mean(0))
         guidance = make_oracle_guidance(gcfg, target.permute(2, 0, 1)[None].to(device))
@@ -124,6 +129,13 @@ def build(cfg_dict, workspace, device: DeviceLike = None):
         guidance = build_diffusion_guidance(gcfg, weights, workspace, kind=g_kind, device=device)
     else:
         raise ValueError(f"unknown guidance kind {g_kind!r}")
+
+    if sys_kind == "generation":
+        from .text_to_3d import TextTo3DConfig, TextTo3DSystem
+
+        system = TextTo3DSystem(nerf_cfg, render_cfg, parse_structured(TextTo3DConfig, sys_dict),
+                                guidance, workspace=workspace, device=device)
+        return system, scene
 
     sys_cfg = parse_structured(SRConfig, sys_dict)
     lpips_params = None
@@ -228,13 +240,25 @@ def main(argv=None, device: DeviceLike = None):
     workspace = args.workspace or cfg.get("workspace", "sr_workspace")
     os.makedirs(workspace, exist_ok=True)
     system, scene = build(cfg, workspace, device)
+    ckpt = os.path.join(workspace, "sr_state.pkl")
+
+    from .text_to_3d import TextTo3DSystem
+
+    if isinstance(system, TextTo3DSystem):
+        state = system.init_state()
+        if args.train:
+            state = system.fit(state)
+            save_sr_state(ckpt, state)
+        if args.test or args.train:
+            out = system.render_turntable(state, os.path.join(workspace, "turntable.mp4"))
+            print(f"turntable -> {out}")
+        return state
 
     grid = None
     if getattr(scene.lr, "poses", None) is not None:
         # cull the occupancy grid to the LR cameras' frusta
         grid = mark_untrained_grid(scene.lr.poses, scene.lr.intrinsics, system.render_cfg)
     state = system.init_state(density_grid=grid)
-    ckpt = os.path.join(workspace, "sr_state.pkl")
     if os.path.exists(ckpt):
         state = system._update_grid(load_sr_state(ckpt, state, device))
         print(f"resumed from {ckpt} at step {state.step}")

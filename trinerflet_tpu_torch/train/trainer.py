@@ -35,7 +35,10 @@ Differences from the JAX package, none of which changes a result:
 * The wavelet levels that ``load_model_for_stage`` adds are drawn from a
   torch generator seeded with seed + 7, not from JAX's PRNG key of that
   seed; every carried leaf is the same.
-* No ``ExperimentLogger``: ``fit`` prints its log lines.
+* With a workspace, ``fit``'s log lines go through the port's
+  ``ExperimentLogger`` (``log_trinerflet.txt``, tensorboardX scalars where
+  it is installed) and ``__init__`` writes ``config.json``, as the JAX
+  trainer does; the scalars read their floats on log steps only.
 """
 
 from __future__ import annotations
@@ -217,8 +220,13 @@ class Trainer:
         self.field = NeRFField(nerf_cfg)
         self.lr_fn = lr_schedule(train_cfg)
         self.workspace = workspace
+        self.logger = None
         if workspace:
+            from ..utils.logging import ExperimentLogger
+
             os.makedirs(workspace, exist_ok=True)
+            self.logger = ExperimentLogger(workspace)
+            self.logger.config({"nerf": nerf_cfg, "render": render_cfg, "train": train_cfg})
         # deep test-time rendering: wider per-ray budget, smaller ray chunks
         self.eval_render_cfg = render_cfg.for_eval()
         ratio = max(1, self.eval_render_cfg.samples_per_ray_budget
@@ -591,8 +599,15 @@ class Trainer:
             last_aux = aux
             if log_every and (it % log_every == 0 or it == total - 1):
                 dt = time.time() - t0
-                print(f"step {state.step:6d} loss {float(aux['loss']):.5f} "
-                      f"({self.cfg.num_rays * (it + 1) / max(dt, 1e-9):,.0f} rays/s)")
+                msg = (f"step {state.step:6d} loss {float(aux['loss']):.5f} "
+                       f"({self.cfg.num_rays * (it + 1) / max(dt, 1e-9):,.0f} rays/s)")
+                if self.logger is not None:
+                    self.logger.text(msg)
+                    scal = {k: v for k, v in aux.items() if v.ndim == 0}
+                    scal["lr"] = self.lr_fn(state.step)
+                    self.logger.scalars(state.step, scal)
+                else:
+                    print(msg)
             if callback is not None:
                 callback(state, aux)
         return state
@@ -602,8 +617,8 @@ class Trainer:
     def set_clip_guidance(self, clip_loss: Callable, rand_pose_interval: int,
                           radius: Optional[float] = None) -> None:
         """Enable random-pose CLIP steps: ``clip_loss(image (1, H, W, 3)) ->
-        scalar`` is any differentiable callable (the CLIP network itself is
-        not ported). ``rand_pose_interval`` k: one CLIP step after every k
+        scalar`` is any differentiable callable (``utils.clip_loss.CLIPLoss``
+        for the CLIP network). ``rand_pose_interval`` k: one CLIP step after every k
         supervised steps; k = 0: CLIP steps only. The render is a full frame
         of side max(16, sqrt(num_rays)) from an orbit pose at ``radius``
         (the scene bound by default), perturbed, on the occgrid renderer or
