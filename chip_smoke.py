@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving and training paths, its CLI, its
-super-resolution and text-to-3D apps, CLIP guidance, the HTTP viewer and
-the web launcher on one NVIDIA GPU and check them: the wavelet-triplane field on the occupancy-grid renderer (the
+super-resolution and text-to-3D apps, CLIP guidance, the HTTP viewer, the
+web launcher, multi-process training over torch.distributed and the GAN
+stack on one NVIDIA GPU and check them: the wavelet-triplane field on the occupancy-grid renderer (the
 hierarchical march, and the flat march on the dt_gamma ladder), the
 proposal renderer, the hash-grid field, the dense renderer, the triplane's
 variants (learned rotation and lbound zoom, zoom-in planes, background net),
@@ -222,11 +223,37 @@ Phases (any failure exits non-zero; nothing is caught):
     the SR launcher on a generation YAML at the srtex widths (32 steps, 2
     views a round, a refresh every 16); /status until the child exits 0;
     /artifact serves its turntable;
-26. second-order: a create_graph=True first derivative through each kernel
+26. parallel: (a) ``parallel.launch.run_on_mesh`` forms a one-rank NCCL
+    group on the card and trains bench's model (32,768 rays per data rank,
+    the tuner off) 20 steps on the per-ray layout and 20 on the global
+    layout at the tuner's slots for the live mean: K1, K2 forward and
+    backward, K3, K4 forward and adjoint, K6, then K5 and K3c must launch;
+    the group's size, backend and all-reduce count are printed. (b) Two
+    processes share the one card over gloo (NCCL refuses two ranks on one
+    device): the channel split M = 2 (K2 and K4 at 8 channels) and the ray
+    split D = 2. Each run's first-step gradient, after the reductions, is
+    held to one process's on the same draws, per group: 1e-4 relative L2
+    with float32 planes and MLPs, 1e-3 with bench's bf16 ones (printed
+    beside one process's own floor, a batch against the same batch
+    reversed); its 50-step loss trajectory's tail (steps 10-49) to one
+    process's (1e-3 relative, the JAX dry run's bound); ms/step beside one process's
+    (not a scaling figure: the processes share the card); one captured M = 2
+    step's K2 forward and backward and K4 forward and adjoint rows at 8
+    channels; ``evaluate`` on the two ranks against one process's table
+    (PSNR within 1e-4); the M = 2 checkpoint, written at full width by rank
+    0, loaded into one process with the same params;
+27. gan: ``init_gan_stack`` at ``GANConfig``'s defaults with seeded weights;
+    ``gan_render`` at levels 0-2 from a 128^2 render of the cli phase's
+    checkpoint (its RGB with seeded latent moments) to 512^2 (the ground
+    truth a 512^2 render of the same view), timed; one generator and one
+    discriminator step at that size; then gan_render and one G and one D
+    step at level 2 on a 32^2 crop held to the CPU (float32, TF32 off, as
+    the sr phase holds the x4 networks);
+28. second-order: a create_graph=True first derivative through each kernel
     function (K2, K7, K10, K11, K4, K3, K3c) on the card, then a backward
     through it, which must raise torch's once_differentiable error as the
     CPU tests' plain versions do;
-27. print the kernels line, then the device line last.
+29. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -4250,6 +4277,409 @@ def step_check(trainer, state, data, what, n_rays=CHECK_RAYS, unused=(), loss_fn
     return loss_err, errs
 
 
+# ---------------------------------------------------------------------------
+# Multi-process training and evaluation (parallel/): a one-rank NCCL group,
+# then two ranks sharing the one card over gloo, the channel split (M = 2)
+# and the ray split (D = 2), each against one process on the same draws
+# ---------------------------------------------------------------------------
+
+PAR_RAYS = 32768                  # rays per data rank (bench.py:47 scales num_rays by the device count)
+PAR_STEPS = 20                    # steps of each layout on the one-rank NCCL group
+PAR_TRAJ = 50                     # the trajectory's steps (the JAX dry run's)
+# the first step's gradient against one process's: 1e-4 relative L2 per
+# group in float32; with bench's bf16 planes and MLPs a reordered float32
+# sum (the model group's partial products, the K2 backward's per-texel sums
+# at C / M channels, GEMMs of other shapes) can flip a bf16 rounding, which
+# moved the M = 2 encoder gradient by 1.26e-4, so there the bound is the
+# trajectory's 1e-3; one process's own reordering floor (the same batch in
+# reverse order) is printed beside it
+PAR_GRAD_TOL, PAR_GRAD_BF16_TOL, PAR_TRAJ_TOL = 1e-4, 1e-3, 1e-3
+PAR_GLOBAL_KERNELS = ("compact", "composite_compact", "composite_compact_bwd")
+
+
+def _par_scene():
+    return make_synthetic_scene(num_views=8, H=256, W=256, num_steps=128)
+
+
+def _par_trainer(cfgs, num_rays, mesh=None, slots=0, workspace=None):
+    """A trainer of ``cfgs`` (bench's, the tuner off) at ``num_rays`` global
+    rays, on the global layout at ``slots`` when given."""
+    nerf_cfg, render_cfg, train_cfg = cfgs
+    train_cfg = dataclasses.replace(train_cfg, num_rays=num_rays)
+    if slots:
+        render_cfg = dataclasses.replace(render_cfg, compaction="global", global_slots_per_ray=slots)
+    return Trainer(nerf_cfg, render_cfg, train_cfg, device=DEVICE, mesh=mesh, workspace=workspace)
+
+
+def _par_rank_setup(device):
+    """A rank's module state: the device its tensors live on (a spawned
+    rank imports this script afresh)."""
+    global DEVICE
+    DEVICE = device
+
+
+def _par_state(trainer, scene):
+    grid = mark_untrained_grid(scene.poses, scene.intrinsics, trainer.render_cfg)
+    return trainer.init_state(density_grid=grid)
+
+
+def _par_nccl_rank(mesh, scene, cfgs, device, rays):
+    """The one-rank NCCL group: PAR_STEPS steps on the per-ray layout, then
+    PAR_STEPS on the global layout at the slots the tuner's rule gives for
+    the live mean; launches and collectives over both."""
+    import torch.distributed as dist
+    from trinerflet_tpu_torch.parallel import launch
+
+    _par_rank_setup(device)
+    tr = _par_trainer(cfgs, rays, mesh)
+    data = tr.scene_to_device(scene)
+    kernels.reset_launches()
+    state, _, secs, aux = launch.trajectory(tr, _par_state(tr, scene), data, PAR_STEPS)
+    per_ray = dict(kernels.launches)
+    slots = TR.global_slots_for(float(aux["num_samples"]) / rays)
+    trg = _par_trainer(cfgs, rays, mesh, slots)
+    kernels.reset_launches()
+    state, _, secs_g, auxg = launch.trajectory(trg, state, data, PAR_STEPS)
+    return dict(backend=dist.get_backend(), world=dist.get_world_size(), shape=mesh.shape,
+                staged=mesh.staged, per_ray=per_ray, global_=dict(kernels.launches), slots=slots,
+                fill=float(auxg["global_fill"]), ms_per_ray=secs / PAR_STEPS * 1e3,
+                ms_global=secs_g / PAR_STEPS * 1e3, loss=(float(aux["loss"]), float(auxg["loss"])),
+                collectives=dict(mesh.counts))
+
+
+def _par_draws(scene, n, seed, reverse=False):
+    g = torch.Generator().manual_seed(seed)
+    batch = {"img_idx": torch.randint(0, scene.num_views, (n,), generator=g),
+             "pix_idx": torch.randint(0, scene.H * scene.W, (n,), generator=g),
+             "noise": torch.rand((n,), generator=g)}
+    return {k: v.flip(0) for k, v in batch.items()} if reverse else batch
+
+
+def _par_precision(cfgs, prec):
+    """``cfgs`` with float32 planes and MLPs (``prec`` "f32"), or as they
+    are (bench's bf16)."""
+    if prec == "bf16":
+        return cfgs
+    nerf_cfg, render_cfg, train_cfg = cfgs
+    return (dataclasses.replace(nerf_cfg, compute_dtype="float32", plane_dtype="float32"),
+            render_cfg, train_cfg)
+
+
+def _par_gradient(cfgs, scene, N, mesh=None, reverse=False):
+    """The first step's gradient (after the mesh's reductions) on the seeded
+    draws, from the seeded state after one full refresh."""
+    tr = _par_trainer(cfgs, N, mesh)
+    state = _refresh(tr, _par_state(tr, scene), full=True)
+    batch = _par_draws(scene, N, SEED + 5, reverse)
+    return tr.gradients(state, tr.scene_to_device(scene), with_stats=False, batch=batch)[0]
+
+
+def _grad_errors(grads, ref, mesh):
+    """Relative L2 error of each parameter group's gradient (the triplane,
+    each MLP) against one process's (``ref``, full width; its channel slice
+    on a model rank)."""
+    got = dict(TR._leaves(grads))
+    want = dict(TR._leaves(ref))
+    out = {}
+    groups = {g: [n for n in want if n.split(".")[0] == g] for g in ("encoder", "sigma_net", "color_net")}
+    for g, names in groups.items():
+        num = den = 0.0
+        for n in names:
+            w = want[n].to(got[n].device)
+            if got[n].shape != w.shape:  # a channel shard (``mesh`` not None)
+                c = got[n].shape[1]
+                w = w[:, mesh.model_index * c:(mesh.model_index + 1) * c]
+            num += float(((got[n].float() - w.float()) ** 2).sum())
+            den += float((w.float() ** 2).sum())
+        out[g] = (num / max(den, 1e-30)) ** 0.5
+    return out
+
+
+def _fmt(errs):
+    return {k: f"{v:.2e}" for k, v in errs.items()}
+
+
+def _par_pair_rank(mesh, scene, root, cfgs, device, rays):
+    """One of the two ranks sharing the card: the first step's gradient
+    after the reductions against one process's (saved under ``root``),
+    the PAR_TRAJ-step trajectory, and on the channel split (M = 2) one
+    captured step's K2 and K4 rows at the shard's width, evaluate and a
+    checkpoint; on the ray split (D = 2) evaluate beside one process's
+    evaluate of the same params on rank 0."""
+    from trinerflet_tpu_torch.parallel import launch
+
+    _par_rank_setup(device)
+    what = f"parallel M={mesh.model}" if mesh.model > 1 else f"parallel D={mesh.data}"
+    N = rays * mesh.data
+    ws = os.path.join(root, f"ws_{mesh.model}{mesh.data}")
+    errs = {}
+    for prec in ("f32", "bf16"):
+        grads = _par_gradient(_par_precision(cfgs, prec), scene, N, mesh)
+        ref = torch.load(os.path.join(root, f"grads_{prec}_{N}.pt"), map_location=DEVICE)
+        errs[prec] = _grad_errors(grads, ref, mesh)
+        del grads, ref
+    tr = _par_trainer(cfgs, N, mesh, workspace=ws)
+    data = tr.scene_to_device(scene)
+    state = _par_state(tr, scene)
+    kernels.reset_launches()
+    state, losses, secs, _ = launch.trajectory(tr, state, data, PAR_TRAJ)
+    launches = dict(kernels.launches)
+    out = dict(shape=mesh.shape, rank=mesh.rank, staged=mesh.staged, grad_err=errs, losses=losses,
+               ms=secs / PAR_TRAJ * 1e3, launches=launches)
+    if mesh.model > 1:
+        state, calls = capture_step(tr, state, data)
+        rows = path_kernel_rows(tr, calls, launches, what, only=("_sample_points_cuda",
+                                                                   "_idwt2d_adjoint_cuda"))
+        rows += label_rows(_k4_forward_rows(calls, ""), launches, what)
+        for r in rows:
+            r["name"] = r["name"].replace(" (", f" at {tr.nerf_cfg.triplane.channels // mesh.model} "
+                                                 "channels (", 1)
+        out["rows"] = rows
+        del calls
+        tr.save_checkpoint(state, os.path.join(root, "grid_m2.pkl"), full=False)
+        from trinerflet_tpu_torch.parallel.sharding import gather_params
+
+        full = gather_params(mesh, state.params)
+        out["param_sums"] = {n: float(t.double().sum()) for n, t in TR._leaves(full)}
+        del full
+    out["evaluate"] = tr.evaluate(state, scene)
+    if mesh.data > 1 and mesh.rank == 0:  # the same (replicated) params in one process
+        out["evaluate_one"] = _par_trainer(cfgs, N).evaluate(state, scene)
+    out["collectives"] = dict(mesh.counts)
+    return out
+
+
+def _par_one_process(cfgs, scene, N, root):
+    """One process on the same draws: the first step's gradient in float32
+    and in bf16 (saved for the ranks), the bf16 gradient's reordering floor
+    (the same batch in reverse order), and the PAR_TRAJ-step trajectory."""
+    from trinerflet_tpu_torch.parallel import launch
+
+    for prec in ("f32", "bf16"):
+        grads = _par_gradient(_par_precision(cfgs, prec), scene, N)
+        torch.save(TR._map(lambda t: t.detach(), grads), os.path.join(root, f"grads_{prec}_{N}.pt"))
+    floor = _grad_errors(_par_gradient(cfgs, scene, N, reverse=True), grads, None)
+    del grads
+    tr = _par_trainer(cfgs, N)
+    _, losses, secs, _ = launch.trajectory(tr, _par_state(tr, scene), tr.scene_to_device(scene), PAR_TRAJ)
+    torch.cuda.synchronize()
+    return losses, secs / PAR_TRAJ * 1e3, floor
+
+
+PAR_BACKENDS = ("nccl", "gloo")  # the one-rank group's, the pair's (NCCL refuses two ranks on one card)
+
+
+def parallel_phase(card, cfgs=None, scene=None):
+    """(a) A one-rank NCCL group through ``parallel.launch.run_on_mesh``:
+    per-ray and global-layout steps at bench's width; every kernel of each
+    layout must launch. (b) Two ranks sharing the card over gloo, M = 2 and
+    D = 2: the first step's gradient and the trajectory's tail against one
+    process, the K2 / K4 rows at 8 channels, evaluate and a checkpoint.
+    Returns (kernel rows, stats)."""
+    from trinerflet_tpu_torch.parallel import launch
+    from trinerflet_tpu_torch.train import checkpoint
+
+    cfgs = cfgs or bench_configs(PAR_RAYS, budget_autotune=False)
+    scene = _par_scene() if scene is None else scene
+    t0 = time.perf_counter()
+    r = launch.run_on_mesh(_par_nccl_rank, 1, 1, DEVICE, PAR_BACKENDS[0], timeout=600,
+                           args=(scene, cfgs, DEVICE, PAR_RAYS))[0]
+    log(f"# parallel (a): {r['backend'].upper()} formed a group of {r['world']} (mesh {r['shape']}) on "
+        f"{card}; {r['collectives']['all_reduce']} all-reduces and {r['collectives']['all_gather']} "
+        f"all-gathers ran over {2 * PAR_STEPS} steps; per-ray {r['ms_per_ray']:.3f} ms/step, global "
+        f"layout (x{r['slots']}, fill {r['fill']:.4f}) {r['ms_global']:.3f} ms/step, losses {r['loss']}; "
+        f"{time.perf_counter() - t0:.1f} s with the rank's start")
+    log(f"# parallel (a) launches: per-ray {r['per_ray']}; global {r['global_']}")
+    for name in TRAIN_KERNELS:
+        if r["per_ray"][name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the one-rank NCCL per-ray run")
+    for name in GLOBAL_KERNELS:
+        if r["global_"][name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the one-rank NCCL global-layout run")
+    if r["backend"] != PAR_BACKENDS[0] or r["world"] != 1 or r["collectives"]["all_reduce"] == 0:
+        raise RuntimeError(f"the one-rank group is not an NCCL group that reduced: {r}")
+    stats = {"nccl": r}
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    rows = []
+    try:
+        for M, D in ((2, 1), (1, 2)):
+            N = PAR_RAYS * D
+            t0 = time.perf_counter()
+            one_losses, one_ms, floor = _par_one_process(cfgs, scene, N, root)
+            t1 = time.perf_counter()
+            res = launch.run_on_mesh(_par_pair_rank, 2, M, DEVICE, PAR_BACKENDS[1], timeout=900,
+                                     args=(scene, root, cfgs, DEVICE, PAR_RAYS))
+            t2 = time.perf_counter()
+            what = f"M={M}" if M > 1 else f"D={D}"
+            r0 = res[0]
+            gaps = [launch.tail_gap(x["losses"], one_losses) for x in res]
+            log(f"# parallel (b) {what}: two processes sharing one card over gloo (mesh {r0['shape']}; "
+                f"collectives staged through the host: {list(r0['staged']) or 'none, gloo took the CUDA tensors'}); "
+                f"{N} rays a step; first-step gradient rel L2 vs one process per group, by rank, "
+                f"float32 {[_fmt(x['grad_err']['f32']) for x in res]}, bf16 "
+                f"{[_fmt(x['grad_err']['bf16']) for x in res]} (one process's bf16 reordering floor "
+                f"{_fmt(floor)}); trajectory tail "
+                f"(steps 10-{PAR_TRAJ - 1}) max rel gap by rank {[f'{g:.2e}' for g in gaps]}; losses "
+                f"{r0['losses'][0]:.5f} -> {r0['losses'][-1]:.5f} (one process {one_losses[0]:.5f} -> "
+                f"{one_losses[-1]:.5f}); {r0['ms']:.3f} ms/step per rank, one process {one_ms:.3f} ms/step "
+                f"on {card}: two processes share one card, so this is not a scaling figure; "
+                f"collectives of rank 0 {r0['collectives']}; one process {t1 - t0:.1f} s, the pair "
+                f"{t2 - t1:.1f} s with the ranks' start")
+            log(f"# parallel (b) {what} launches (rank 0, over the trajectory): {r0['launches']}")
+            for x in res:
+                bad = {k: v for k, v in x["grad_err"]["f32"].items() if not v <= PAR_GRAD_TOL}
+                bad.update({f"{k} (bf16)": v for k, v in x["grad_err"]["bf16"].items()
+                            if not v <= PAR_GRAD_BF16_TOL})
+                if bad:
+                    raise RuntimeError(f"parallel {what} rank {x['rank']}: first-step gradient {bad} "
+                                       f"over {PAR_GRAD_TOL} relative L2 (float32) or "
+                                       f"{PAR_GRAD_BF16_TOL} (bf16)")
+            if not max(gaps) < PAR_TRAJ_TOL:
+                raise RuntimeError(f"parallel {what}: trajectory tail gap {max(gaps)} >= {PAR_TRAJ_TOL}")
+            for name in TRAIN_KERNELS:
+                if r0["launches"][name] == 0:
+                    raise RuntimeError(f"kernel {name} was not launched on the parallel {what} run")
+            table = r0["evaluate"]["per_image"]
+            if M > 1:
+                one = _par_trainer(cfgs, N)
+                loaded = one.load_checkpoint(os.path.join(root, "grid_m2.pkl"))
+                sums = {n: float(t.double().sum()) for n, t in TR._leaves(loaded.params)}
+                if sums != r0["param_sums"]:
+                    raise RuntimeError("the M=2 checkpoint loaded into one process holds other params")
+                payload = checkpoint.load(os.path.join(root, "grid_m2.pkl"))
+                base = payload["params"]["encoder"]["base"]
+                want = one.evaluate(loaded, scene)["per_image"]
+                rows += r0["rows"]
+                log(f"# parallel (b) M=2 checkpoint: written by rank 0 at full width (base {base.shape}), "
+                    f"loaded into one process with the same params ({len(sums)} leaves, sums equal)")
+            else:
+                want = r0["evaluate_one"]["per_image"]
+            diff = max(abs(a["PSNR"] - b["PSNR"]) for a, b in zip(table, want))
+            if [a["view"] for a in table] != [b["view"] for b in want] or diff > 1e-4:
+                raise RuntimeError(f"parallel {what} evaluate: views {[a['view'] for a in table]} vs "
+                                   f"{[b['view'] for b in want]}, max PSNR diff {diff}")
+            log(f"# parallel (b) {what} evaluate on 2 ranks: PSNR {r0['evaluate']['PSNR']:.4f} dB over "
+                f"views {[a['view'] for a in table]}, one process's table within {diff:.2e} dB")
+            stats[what] = dict(ms=r0["ms"], one_ms=one_ms, gaps=gaps, floor=floor,
+                               grad_err=[x["grad_err"] for x in res], staged=r0["staged"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rows, stats
+
+
+# ---------------------------------------------------------------------------
+# The GAN stack (utils/gan.py) at GANConfig's defaults on a render of the
+# cli phase's checkpoint
+# ---------------------------------------------------------------------------
+
+GAN_LR, GAN_CHECK_LR = 128, 32   # the low-res render's side, and the CPU check's
+GAN_TOL = 1e-4                   # card vs CPU, float32 with TF32 off, of max|cpu|
+
+
+def _gan_steps(params, cfg, lr, gt, level, noise2):
+    """One generator step's loss and gradient (L1 to ``gt`` + 1e-3 x the
+    generator loss through gan_render) and one discriminator step's (the
+    hinge loss on ``gt`` against that render)."""
+    from trinerflet_tpu_torch.utils import gan as G
+
+    gen = TR._map(lambda t: t.detach().clone().requires_grad_(True), params["generator"])
+    out = G.gan_render(dict(params, generator=gen), cfg, lr, gt_rgb=gt, generator_level=level,
+                       noise_level2=noise2)
+    g_loss = (out["comp_gan_rgb"] - gt).abs().mean() + 1e-3 * G.generator_loss(
+        params["discriminator"], out["comp_gan_rgb"])
+    g_grads = torch.autograd.grad(g_loss, [t for _, t in TR._leaves(gen)])
+    disc = TR._map(lambda t: t.detach().clone().requires_grad_(True), params["discriminator"])
+    d_loss = G.discriminator_loss(disc, gt, out["comp_gan_rgb"].detach())
+    d_grads = torch.autograd.grad(d_loss, [t for _, t in TR._leaves(disc)])
+    return out, g_loss.detach(), list(g_grads), d_loss.detach(), list(d_grads)
+
+
+def gan_phase(card, scene_dir, ws):
+    """``init_gan_stack`` at ``GANConfig``'s defaults (seeded weights) and
+    ``gan_render`` at levels 0-2 on a 128^2 render of the cli phase's
+    checkpoint (its RGB, with seeded latent moments) to 512^2, the ground
+    truth a 512^2 render of the same view; one generator and one
+    discriminator step at that size on the card (timed); then, held to the
+    CPU (float32, TF32 off), gan_render and one G and one D step at level 2
+    on a 32^2 crop of the input (128^2 out). Returns stats."""
+    from trinerflet_tpu_torch import cli
+    from trinerflet_tpu_torch.utils import gan as G
+
+    opt = cli.get_params(["--path", scene_dir, "--workspace", ws] + CLI_ARGS)
+    opt.fp16 = opt.cuda_ray = opt.preload = True  # -O, as cli.run sets it
+    for k in cli.STAGE_KEYS:  # the last stage's widths, as --test reads them
+        vars(opt)[k] = vars(opt)[k][-1]
+    tr = Trainer(*cli.build_configs(opt), device=DEVICE)
+    state = tr.load_checkpoint(os.path.join(ws, "latest_model.pkl"))
+    test = cli.load_scene(opt, "test")
+    fx, fy, cx, cy = test.intrinsics
+
+    def view(side):
+        s = side / test.W
+        return tr.render_image(state.ema_params, state.occ, test.poses[0], (fx * s, fy * s, cx * s, cy * s),
+                               side, side)[0]
+
+    cfg = G.GANConfig()
+    g = torch.Generator().manual_seed(SEED)
+    rgb, gt = view(GAN_LR)[None], view(4 * GAN_LR)[None]
+    moments = torch.cat([0.5 * torch.randn((1, GAN_LR, GAN_LR, cfg.z_channels), generator=g),
+                         torch.rand((1, GAN_LR, GAN_LR, cfg.z_channels), generator=g) - 2.0], -1)
+    lr = torch.cat([rgb, moments.to(DEVICE)], -1)
+    t0 = time.perf_counter()
+    params = G.init_gan_stack(torch.Generator().manual_seed(SEED), cfg, DEVICE)
+    n_par = {k: _n_params(v) for k, v in params.items()}
+    log(f"# gan stack: GANConfig() (ch {cfg.ch}, mult {cfg.ch_mult}, z {cfg.z_channels}), seeded "
+        f"weights in {time.perf_counter() - t0:.2f} s: " + ", ".join(f"{k} {v / 1e6:.2f} M" for k, v in n_par.items()))
+    noise2 = torch.randn((1, GAN_LR, GAN_LR, cfg.z_channels), generator=g).to(DEVICE)
+    render_ms = {}
+    with torch.no_grad():
+        for level in (0, 1, 2):
+            fn = lambda: G.gan_render(params, cfg, lr, gt_rgb=gt, generator_level=level,  # noqa: E731
+                                      noise_level2=noise2)
+            out = fn()
+            if tuple(out["comp_gan_rgb"].shape) != (1, 4 * GAN_LR, 4 * GAN_LR, 3) or not all(
+                    torch.isfinite(v).all() for v in out.values()):
+                raise RuntimeError(f"gan_render level {level}: {tuple(out['comp_gan_rgb'].shape)}")
+            render_ms[level] = time_ms(fn, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, g_loss, g_grads, d_loss, d_grads = _gan_steps(params, cfg, lr, gt, 0, noise2)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.isfinite(g_loss) and torch.isfinite(d_loss)
+            and all(torch.isfinite(x).all() for x in g_grads + d_grads)):
+        raise RuntimeError("gan: non-finite G or D step")
+    log(f"# gan ({card}): gan_render {GAN_LR}^2 -> {4 * GAN_LR}^2 ms by level {render_ms}; one G step and one "
+        f"D step at that size {step_ms:.1f} ms (G loss {float(g_loss):.5f}, D loss {float(d_loss):.5f})")
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        c = GAN_CHECK_LR
+        lr_c, gt_c, n2_c = lr[:, :c, :c].contiguous(), gt[:, :4 * c, :4 * c].contiguous(), noise2[:, :c, :c]
+        card_out = _gan_steps(params, cfg, lr_c, gt_c, 2, n2_c)
+        cpu = lambda tree: TR._map(lambda x: x.detach().cpu(), tree)  # noqa: E731
+        cpu_out = _gan_steps(cpu(params), cfg, lr_c.cpu(), gt_c.cpu(), 2, n2_c.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    checks = []
+    for name, a, b in (("gan_render", card_out[0]["comp_gan_rgb"], cpu_out[0]["comp_gan_rgb"]),
+                       ("G loss", card_out[1], cpu_out[1]), ("D loss", card_out[3], cpu_out[3]),
+                       ("G grads", torch.cat([x.reshape(-1) for x in card_out[2]]),
+                        torch.cat([x.reshape(-1) for x in cpu_out[2]])),
+                       ("D grads", torch.cat([x.reshape(-1) for x in card_out[4]]),
+                        torch.cat([x.reshape(-1) for x in cpu_out[4]]))):
+        err = (a.detach().cpu() - b).abs().max().item()
+        scale = b.abs().max().item()
+        checks.append(f"{name} max|diff| {err:.3e} of max|cpu| {scale:.3e}")
+        if not err <= GAN_TOL * scale:
+            raise RuntimeError(f"gan {name}: card vs CPU max|diff| {err} > {GAN_TOL} x {scale}")
+    log(f"# gan, card vs CPU at level 2 on a {c}^2 input ({4 * c}^2 out; float32, TF32 off, tolerance "
+        f"{GAN_TOL} x max|cpu|): " + "; ".join(checks))
+    return dict(render_ms=render_ms, step_ms=step_ms)
+
+
 # each cut of an earlier phase's depth that made room for the text-to-3D,
 # CLIP, viewer and web-launcher phases: (what, before, after), printed first
 CUTS = (("cli: an evaluation and a rotating checkpoint every N steps", 64,
@@ -4372,11 +4802,18 @@ def main() -> int:
         t_ph = time.perf_counter()
         guistats = gui_phase(card, cstats["scene_dir"], cstats["ws"])
         log(f"# gui phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+        t_ph = time.perf_counter()
+        webstats = webapp_phase(card)
+        log(f"# webapp phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+        t_ph = time.perf_counter()
+        par_rows, parstats = parallel_phase(card)
+        rows += par_rows
+        log(f"# parallel phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
+        t_ph = time.perf_counter()
+        ganstats = gan_phase(card, cstats["scene_dir"], cstats["ws"])
+        log(f"# gan phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
-    t_ph = time.perf_counter()
-    webstats = webapp_phase(card)
-    log(f"# webapp phase done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
     second_order_phase()
 
     for r in rows:
@@ -4471,6 +4908,15 @@ def main() -> int:
         f"on {card}")
     log(f"# webapp: a generation child through POST /run exited 0 in {webstats['run_s']:.1f} s, artifact "
         f"{webstats['artifact']} on {card}")
+    nc = parstats["nccl"]
+    log(f"# parallel: a one-rank NCCL group, per-ray {nc['ms_per_ray']:.3f} ms/step, global layout "
+        f"{nc['ms_global']:.3f} ms/step, {nc['collectives']['all_reduce']} all-reduces; two processes "
+        f"sharing the card over gloo (not a scaling figure): M=2 {parstats['M=2']['ms']:.3f} ms/step (one "
+        f"process {parstats['M=2']['one_ms']:.3f}), D=2 {parstats['D=2']['ms']:.3f} ms/step (one process "
+        f"{parstats['D=2']['one_ms']:.3f}); trajectory tail gaps M=2 {max(parstats['M=2']['gaps']):.2e}, "
+        f"D=2 {max(parstats['D=2']['gaps']):.2e} on {card}")
+    log(f"# gan: gan_render {GAN_LR}^2 -> {4 * GAN_LR}^2 ms by level {ganstats['render_ms']}, one G + one D "
+        f"step {ganstats['step_ms']:.1f} ms on {card}")
     log(f"# chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in fields} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

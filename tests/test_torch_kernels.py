@@ -1195,3 +1195,42 @@ def test_textured_background_kernels_match_plain(dev, hw, n, dirs):
 @pytest.mark.parametrize("name", sorted(second_order_cases("cpu")))
 def test_second_derivative_raises_on_the_card(dev, name):
     check_second_order_raises(second_order_cases(dev)[name])
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_channel_shards_of_k2_and_k4(dev, dtype, M):
+    """The model axis's shards of a 16-channel triplane (``parallel``: 8
+    channels at M = 2, 4 at M = 4): K4 forward and adjoint on a shard give
+    the full-width call's channels bit for bit (the ladder is depthwise),
+    K2 forward the full-width call's channels within 1e-6, and both K2
+    passes stay within their plain versions' bounds at the shard's width."""
+    gen = torch.Generator().manual_seed(21)
+    C, w, n = 16, 16 // M, 20_000
+    yl = torch.randn((3, C, 72, 72), generator=gen).to(dev, dtype)
+    yh = (0.3 * torch.randn((3, C, 3, 72, 72), generator=gen)).to(dev, dtype)
+    full = W.idwt2d(yl, yh, "bior6.8")
+    g_up = torch.randn(tuple(full.shape), generator=gen).to(dev, dtype)
+    adj_full = W._idwt2d_adjoint_cuda(g_up, "bior6.8")
+    planes_full = full.permute(0, 2, 3, 1).contiguous()
+    xyz = (3.0 * torch.rand((n, 3), generator=gen) - 1.5).to(dev)
+    ct = torch.randn((n, 3, C), generator=gen).to(dev)
+    f_full = GS._sample_points_cuda(planes_full, xyz, 1.5)
+    for m in range(M):
+        sl = slice(m * w, (m + 1) * w)
+        n0 = kernels.launches["idwt"]
+        part = W.idwt2d(yl[:, sl].contiguous(), yh[:, sl].contiguous(), "bior6.8")
+        assert kernels.launches["idwt"] == n0 + 1 and torch.equal(part, full[:, sl])
+        adj = W._idwt2d_adjoint_cuda(g_up[:, sl].contiguous(), "bior6.8")
+        assert all(torch.equal(a, b[:, sl]) for a, b in zip(adj, adj_full))
+        planes = part.permute(0, 2, 3, 1).contiguous()
+        n0 = kernels.launches["grid_sample"]
+        f = GS.sample_points(planes, xyz, 1.5)
+        assert kernels.launches["grid_sample"] == n0 + 1 and f.shape == (n, 3, w)
+        assert (f - f_full[..., sl]).abs().max().item() <= 1e-6
+        assert (f - GS.sample_points_plain(planes, xyz, 1.5)).abs().max().item() <= 1e-4
+        ctm = ct[..., sl].contiguous()
+        got = GS._sample_points_backward_cuda(ctm, xyz, 1.5, tuple(planes.shape), dtype)
+        ref = GS.sample_points_backward_plain(ctm, xyz, 1.5, tuple(planes.shape), dtype)
+        torch.cuda.synchronize()
+        assert _rel_close(got, ref, 1e-5 if dtype == torch.float32 else 2.0**-7)

@@ -28,14 +28,18 @@ triplane's two-phase system, the x4 upscaler's UNet and VAE, the CLIP text
 encoder, the guidances and the YAML launcher ``python -m
 trinerflet_tpu_torch.sr.launch``; ``utils/lpips.py``), text-to-3D
 generation (``sr/text_to_3d.py``), the experiment logger
-(``utils/logging.py``), the orbit turntable (``utils/viewer.py``) and the
-web launcher (``python -m trinerflet_tpu_torch.webapp``).
+(``utils/logging.py``), the orbit turntable (``utils/viewer.py``), the
+web launcher (``python -m trinerflet_tpu_torch.webapp``), multi-process
+training and evaluation on a (data, model) process grid over
+``torch.distributed`` (``parallel/``: ``make_mesh``, ``Trainer(...,
+mesh=...)``, ``python -m trinerflet_tpu_torch.parallel.launch``), the loss
+library (``ops/losses.py``), Morton codes (``ops/morton.py``) and the GAN
+stack (``utils/gan.py``).
 
 Still missing: training through analytic normals (the kernels' second
 derivatives), which raises ``NotImplementedError`` naming where it is
-queued. Not ported yet and not reachable from the port's entry points:
-``parallel/`` (multi-card training), ``utils/gan.py``, ``ops/losses.py``
-and ``ops/morton.py``.
+queued. It is the last gap against the JAX package, where only its tests
+reach it.
 """
 
 from ._device import resolve_device

@@ -9,10 +9,11 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
-# Slices of the port that later work fills in; NotImplementedError messages
-# name them so a caller knows where the missing piece is queued.
+# The one part of the JAX package the port has not taken yet;
+# NotImplementedError messages name it so a caller knows where it is queued.
 SLICE_LATER = ("a later slice (the second derivatives of K2x, K7x and K10, which training "
-               "through analytic normals needs)")
+               "through analytic normals needs: the last gap against the JAX package, whose "
+               "entry points never reach it)")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -18,7 +18,8 @@ from .render.renderer import OccupancyState
 from .train.trainer import TrainState, _map
 
 __all__ = ["params_from_jax", "occupancy_from_jax", "adam_state_from_jax", "train_state_from_jax",
-           "network_params_from_jax", "sr_state_from_jax", "clip_params_from_jax"]
+           "network_params_from_jax", "sr_state_from_jax", "clip_params_from_jax",
+           "gan_params_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -116,7 +117,7 @@ def adam_state_from_jax(opt_state: Any, device: DeviceLike = None) -> Dict:
             "nu": params_from_jax(_get(adam, "nu"), device)}
 
 
-def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
+def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0, mesh=None):
     """The JAX ``TrainState`` (or a mapping with its fields) as this
     package's, on ``device`` (``cuda`` by default), so training continues
     where the JAX package stopped: params, the Adam moments and count (the
@@ -125,11 +126,14 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
     set), on either renderer and for every ported encoder. A JAX PRNG key
     does not carry over: the step generator is seeded
     with ``seed``. The retune's EMAs and counters belong to the trainer, not
-    to the state, and are not carried: a continued run re-learns them."""
+    to the state, and are not carried: a continued run re-learns them.
+    With a ``mesh`` (``parallel.make_mesh``) the state comes back as this
+    rank's shard (``parallel.shard_state``), so the JAX state continues on
+    the port's grid."""
     device = resolve_device(device)
     error_map = _get(state, "error_map", None)
     params = _map(lambda t: t.requires_grad_(True), params_from_jax(_get(state, "params"), device))
-    return TrainState(
+    out = TrainState(
         params=params,
         opt_state=adam_state_from_jax(_get(state, "opt_state"), device),
         ema_params=params_from_jax(_get(state, "ema_params"), device),
@@ -139,6 +143,11 @@ def train_state_from_jax(state: Any, device: DeviceLike = None, seed: int = 0):
         rng=torch.Generator(device=device).manual_seed(seed),
         error_map=None if error_map is None else _tensor(error_map, device),
     )
+    if mesh is None:
+        return out
+    from .parallel.sharding import shard_state
+
+    return shard_state(mesh, out)
 
 
 
@@ -160,6 +169,13 @@ def network_params_from_jax(tree: Any, device: DeviceLike = None):
         return _tensor(np.ascontiguousarray(a), device)
 
     return conv(tree)
+
+
+def gan_params_from_jax(tree: Any, device: DeviceLike = None) -> Dict:
+    """A GAN stack tree of the JAX package (``utils/gan.py``: generator,
+    local and global encoders, discriminator) as this package's, on
+    ``device``: conv kernels HWIO -> OIHW, everything else as it is."""
+    return network_params_from_jax(tree, device)
 
 
 def clip_params_from_jax(tree: Any, device: DeviceLike = None) -> Dict:

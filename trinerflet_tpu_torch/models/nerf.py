@@ -100,16 +100,43 @@ def init_nerf_params(cfg: NeRFConfig, generator: Optional[torch.Generator] = Non
             **{k: {n: w.to(device) for n, w in v.items()} for k, v in nets.items()}}
 
 
-def _mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+class _RoundedWeight(torch.autograd.Function):
+    """``w.to(dtype).float()`` whose float32 gradient is ``reduce``d (a
+    data rank's mean over its group) before it is rounded to ``dtype``, as
+    one process rounds the gradient of the whole batch once."""
+
+    @staticmethod
+    def forward(ctx, w, dtype, reduce):
+        ctx.dtype, ctx.reduce, ctx.w_dtype = dtype, reduce, w.dtype
+        return w.to(dtype).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.reduce(g).to(ctx.dtype).to(ctx.w_dtype), None, None
+
+
+def _mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, dtype: torch.dtype,
+         rows=None, reduce=None, grad_reduce=None) -> torch.Tensor:
     """Bias-free ReLU MLP with the JAX package's precision: inputs and weights
     rounded to ``dtype``, float32 accumulation, output of every layer rounded
     back to ``dtype``. The product runs in float32 on the rounded values,
-    which is exactly a ``dtype`` x ``dtype`` -> f32 product."""
+    which is exactly a ``dtype`` x ``dtype`` -> f32 product.
+
+    On a model rank ``rows(w0)`` picks the first layer's rows of its
+    features and ``reduce`` sums the partial products over the model group,
+    in float32, before the ReLU and the rounding (as XLA's psum). On a data
+    rank ``grad_reduce`` averages each weight's float32 gradient over the
+    data group before it is rounded (``_RoundedWeight``)."""
     n = len(params)
     h = x.to(dtype)
     for i in range(n):
-        w = params[f"w{i}"].to(dtype)
-        h = torch.matmul(h.float(), w.float())
+        w = params[f"w{i}"]
+        if i == 0 and rows is not None:
+            w = rows(w)
+        w = w.to(dtype).float() if grad_reduce is None else _RoundedWeight.apply(w, dtype, grad_reduce)
+        h = torch.matmul(h.float(), w)
+        if i == 0 and reduce is not None:
+            h = reduce(h)
         if i != n - 1:
             h = torch.relu(h)
         h = h.to(dtype)
@@ -117,17 +144,48 @@ def _mlp(params: Dict[str, torch.Tensor], x: torch.Tensor, dtype: torch.dtype) -
 
 
 class NeRFField:
-    """Stateless field; planes are built once and passed to every query."""
+    """Stateless field; planes are built once and passed to every query.
 
-    def __init__(self, cfg: NeRFConfig):
+    With a ``mesh`` (``parallel.sharding``) the triplane params and planes
+    are this rank's channel shard: the density contracts its 3 C/M
+    features with the rows ``p C + c`` of ``sigma_net.w0`` that belong to
+    them and sums over the model group (``model_sum``); on a data axis of
+    more than one rank the plane gradients and the MLP weights' gradients
+    are averaged over the data group in float32 before they are rounded
+    (``sample_points_reduced``, ``_RoundedWeight``)."""
+
+    def __init__(self, cfg: NeRFConfig, mesh=None):
         cfg.validate()
         self.cfg = cfg
+        self.mesh = mesh
+        self._rows = self._reduce = self._grad_reduce = None
+        if mesh is not None:
+            self._shard(mesh)
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.plane_dtype = _DTYPES[cfg.plane_dtype]
         self._enc_apply = None  # the triplane samples built planes instead
         if cfg.encoding != "triplane_wavelet":
             self._enc_apply = encoder_apply(cfg.encoding, grid_cfg=cfg.grid, kplanes_cfg=cfg.kplanes,
                                             bound=cfg.bound)
+
+    def _shard(self, mesh) -> None:
+        from ..parallel.sharding import DATA_AXIS, check_channels, model_sum
+
+        if mesh.model > 1:
+            if self.cfg.encoding != "triplane_wavelet":
+                raise ValueError(f"the model axis splits the wavelet triplane's channels; the "
+                                 f"{self.cfg.encoding!r} field has none (model_parallel=1)")
+            C = self.cfg.triplane.channels
+            check_channels(C, mesh.model, mesh.device)
+            w, m = C // mesh.model, mesh.model_index
+
+            def rows(w0):
+                return w0.reshape(3, C, -1)[:, m * w:(m + 1) * w].reshape(3 * w, -1)
+
+            self._rows = rows
+            self._reduce = lambda h: model_sum(h, mesh)
+        if mesh.data > 1:
+            self._grad_reduce = lambda g: mesh.all_reduce(g, DATA_AXIS) / mesh.data
 
     def build_planes(self, params: Dict, max_resolution: int = -1,
                      modes: Optional[Tuple[str, ...]] = None) -> Dict[str, torch.Tensor]:
@@ -162,8 +220,9 @@ class NeRFField:
             feats = self._enc_apply(params["encoder"], x)
         else:
             feats = sample_triplane(planes, x, self.cfg.triplane, lbound=self.cfg.bound,
-                                    resolution_mode=resolution_mode, enc_params=params["encoder"])
-        h = _mlp(params["sigma_net"], feats, self.dtype)
+                                    resolution_mode=resolution_mode, enc_params=params["encoder"],
+                                    grad_reduce=self._grad_reduce)
+        h = _mlp(params["sigma_net"], feats, self.dtype, self._rows, self._reduce, self._grad_reduce)
         sigma = trunc_exp(self._density_blob(x, h[..., 0]))
         return sigma, h[..., 1:]
 
@@ -171,7 +230,7 @@ class NeRFField:
         """d (N, 3) directions -> rgb (N, 3) in [0, 1], f32."""
         sh = sh_encode(d, self.cfg.sh_degree)
         h = torch.cat([sh.to(self.dtype), geo_feat.to(self.dtype)], dim=-1)
-        h = _mlp(params["color_net"], h, self.dtype)
+        h = _mlp(params["color_net"], h, self.dtype, grad_reduce=self._grad_reduce)
         return torch.sigmoid(h.float())
 
     def __call__(self, params: Dict, planes: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -184,7 +243,7 @@ class NeRFField:
         coordinates in [-1, 1] (``ops.raymarch.sph_from_ray``) and d (N, 3)
         directions -> rgb (N, 3) in [0, 1], f32."""
         h = torch.cat([sh_encode(d, self.cfg.sh_degree), sph], dim=-1)
-        return torch.sigmoid(_mlp(params["bg_net"], h, self.dtype).float())
+        return torch.sigmoid(_mlp(params["bg_net"], h, self.dtype, grad_reduce=self._grad_reduce).float())
 
 
 def _cast(tree, dtype):

@@ -21,7 +21,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..ops import wavelets as W
-from ..ops.grid_sample import project_to_planes, sample_points
+from ..ops.grid_sample import project_to_planes, sample_points, sample_points_reduced
 from ..ops.raymarch import _inv
 
 __all__ = ["TriplaneConfig", "get_levels", "init_triplane_params", "build_planes",
@@ -163,7 +163,8 @@ def _idwt_ladder(x: torch.Tensor, yh_list: List[Optional[torch.Tensor]],
         yl = 2.0 * x
         yh = yh_list[i]
         if yh is None:
-            yh = torch.zeros((3, cfg.channels, 3, s, s), dtype=x.dtype, device=x.device)
+            # the width of ``x``: a model rank's channel shard builds its own
+            yh = torch.zeros((3, x.shape[1], 3, s, s), dtype=x.dtype, device=x.device)
         if yl.shape[-1] >= cfg.wavelet_base_resolution and pad > 0:
             yl = torch.nn.functional.pad(yl, (pad, pad, pad, pad))
             yh = torch.nn.functional.pad(yh, (pad, pad, pad, pad))
@@ -232,8 +233,10 @@ def build_planes(params: Dict, cfg: TriplaneConfig, max_resolution: int = -1,
 
 def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: TriplaneConfig,
                     lbound: Optional[float] = None, resolution_mode: str = "full",
-                    enc_params: Optional[Dict] = None) -> torch.Tensor:
-    """Features of (N, 3) points in [-lbound, lbound]^3 -> (N, 3C) float32.
+                    enc_params: Optional[Dict] = None, grad_reduce=None) -> torch.Tensor:
+    """Features of (N, 3) points in [-lbound, lbound]^3 -> (N, 3C) float32
+    (C the planes' width: a model rank's channel shard gives its 3 C/M
+    features, plane-major).
 
     ``enc_params`` supplies the learned rotation (the points become ``coords
     @ R(q)^T``) and the lbound zoom (``lb = lbound * lbound_scale``) when the
@@ -243,7 +246,9 @@ def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: 
     takes the points with ratio_bound^(l+2) lb < |p|_inf <= ratio_bound^(l+1)
     lb (the last level everything inside its bound), sampled at that bound.
     Without zoom-in planes in ``planes`` (the density refresh's, the SR
-    snapshots') every point reads ``planes[resolution_mode]``."""
+    snapshots') every point reads ``planes[resolution_mode]``.
+    ``grad_reduce`` (a data rank's mean over its group) takes each plane
+    gradient in float32 before it is rounded (``sample_points_reduced``)."""
     lb = cfg.lbound if lbound is None else lbound
     N = coords.shape[0]
     if enc_params is not None:
@@ -252,10 +257,15 @@ def sample_triplane(planes: Dict[str, torch.Tensor], coords: torch.Tensor, cfg: 
         if cfg.lbound_auto_scale and "lbound_scale" in enc_params:
             lb = lb * enc_params["lbound_scale"]
 
+    def sample(plane_stack, xyz, bound):
+        if grad_reduce is None:
+            return sample_points(plane_stack, xyz, bound)
+        return sample_points_reduced(plane_stack, xyz, bound, grad_reduce)
+
     def flat_sample(plane_stack, bound):
         if torch.is_tensor(bound):  # a learned zoom: divide here, autograd carries dL/dlb
-            return sample_points(plane_stack, coords / bound, 1.0).reshape(N, -1)
-        return sample_points(plane_stack, coords, bound).reshape(N, -1)
+            return sample(plane_stack, coords / bound, 1.0).reshape(N, -1)
+        return sample(plane_stack, coords, bound).reshape(N, -1)
 
     if not cfg.upscale_enabled or "upscale_0" not in planes:
         return flat_sample(planes[resolution_mode], lb)

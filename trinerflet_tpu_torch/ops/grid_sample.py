@@ -44,7 +44,7 @@ from .. import kernels
 from ..kernels import _build
 
 __all__ = ["grid_sample_2d", "sample_planes", "project_to_planes", "sample_points",
-           "sample_points_plain", "sample_points_backward_plain",
+           "sample_points_reduced", "sample_points_plain", "sample_points_backward_plain",
            "sample_points_backward_xyz_plain"]
 
 
@@ -214,6 +214,43 @@ def sample_points(planes: torch.Tensor, xyz: torch.Tensor, lbound: float) -> tor
     """Triplane features at world points: (M, 3, C) float32; differentiable
     in the planes and, when ``xyz`` requires it, in the points (K2x)."""
     return _SamplePoints.apply(planes, xyz, float(lbound))
+
+
+class _SamplePointsReduced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, planes, xyz, lbound, reduce):
+        ctx.save_for_backward(xyz, planes if ctx.needs_input_grad[1] else None)
+        ctx.lbound, ctx.reduce = lbound, reduce
+        ctx.plane_shape, ctx.plane_dtype = tuple(planes.shape), planes.dtype
+        if xyz.is_cuda:
+            return _sample_points_cuda(planes, xyz, lbound)
+        return sample_points_plain(planes, xyz, lbound)
+
+    @staticmethod
+    @kernels.first_order
+    def backward(ctx, g):
+        xyz, planes = ctx.saved_tensors
+        dxyz = None
+        if ctx.needs_input_grad[1]:
+            fn = _sample_points_backward_xyz_cuda if xyz.is_cuda else sample_points_backward_xyz_plain
+            dxyz = fn(g, planes, xyz, ctx.lbound, planes_grad=False)[1]
+        pg = None
+        if ctx.needs_input_grad[0]:
+            bwd = _sample_points_backward_cuda if xyz.is_cuda else sample_points_backward_plain
+            pg = ctx.reduce(bwd(g, xyz, ctx.lbound, ctx.plane_shape, torch.float32))
+            pg = pg.to(ctx.plane_dtype)
+        return pg, dxyz, None, None
+
+
+def sample_points_reduced(planes: torch.Tensor, xyz: torch.Tensor, lbound: float,
+                          reduce) -> torch.Tensor:
+    """``sample_points`` whose plane gradient is ``reduce``d in float32
+    before it is rounded to the plane dtype: the K2 backward writes float32
+    sums, ``reduce`` (e.g. a data-group mean) takes and returns them, and
+    the cast follows, as the JAX package's per-shard scatter psums its
+    float32 partials. The point gradient, when ``xyz`` requires one, is
+    K2x's alone (no plane gradient pass)."""
+    return _SamplePointsReduced.apply(planes, xyz, float(lbound), reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -563,6 +563,19 @@ def _residual_T(flagged: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
                        / torch.clamp_min(n, 1).float(), 0.0)
 
 
+def _shard_slots(ray_gather, mask: torch.Tensor, slots: int):
+    """A data shard's part of the global layout's buffer: the shards'
+    valid counts are gathered (the host reads them) and this shard keeps the
+    samples that fall inside the global batch's ``slots`` x shards buffer
+    at its place in row order, as one process's buffer keeps them. Returns
+    (slots kept here, the buffer's mask (all False when none is kept), the
+    global buffer's kept count, its size)."""
+    counts = [int(c) for c in ray_gather(mask.sum().reshape(1).float()).cpu().tolist()]
+    cap = slots * len(counts)
+    keep = max(0, min(counts[ray_gather.index], cap - sum(counts[:ray_gather.index])))
+    return keep, (mask if keep else torch.zeros_like(mask)), min(sum(counts), cap), cap
+
+
 def _composite_per_ray(field_fn, rays_o, rays_d, t, dt, mask, t0, cfg: RenderConfig):
     """The field on the (N, B) layout's points and the dense compositor at
     the early-exit threshold; ts accumulate relative to the ray start t0.
@@ -588,7 +601,7 @@ def _composite_global(field_fn, comp: RM.CompactSamples, N: int, cfg: RenderConf
 
 
 def _render_hierarchical(field_fn, rays_o, rays_d, nears, fars, hit, occ, occ_coarse, noise,
-                         cfg: RenderConfig, with_stats: bool):
+                         cfg: RenderConfig, with_stats: bool, ray_gather=None):
     """K1, then the per-ray layout or the S-slot global buffer (K5 + K3c)."""
     N = rays_o.shape[0]
     steps = cfg.max_steps
@@ -611,11 +624,18 @@ def _render_hierarchical(field_fn, rays_o, rays_d, nears, fars, hit, occ, occ_co
     needed_seg = seg_lastocc
     if cfg.compaction == "global":
         slots = N * cfg.global_slots_per_ray
-        comp = RM.compact_global_dense(rays_o, rays_d, t, dt, mask, t0, m_budget=slots,
+        cmask = mask
+        if ray_gather is not None:
+            keep, cmask, kept, cap = _shard_slots(ray_gather, mask, slots)
+            slots = max(keep, 1)
+        comp = RM.compact_global_dense(rays_o, rays_d, t, dt, cmask, t0, m_budget=slots,
                                        bound=cfg.bound)
         ws, depth_raw, image, z_var = _composite_global(field_fn, comp, N, cfg)
         stats["num_samples"] = comp.num_valid
         stats["global_fill"] = comp.num_valid.float() / slots
+        if ray_gather is not None:
+            stats["num_samples"] = torch.tensor(kept, dtype=torch.int32, device=rays_o.device)
+            stats["global_fill"] = torch.tensor(kept / cap, dtype=torch.float32, device=rays_o.device)
     else:
         ws, depth_raw, image, z_var, weights, ts_rel = _composite_per_ray(
             field_fn, rays_o, rays_d, t, dt, mask, t0, cfg)
@@ -627,6 +647,17 @@ def _render_hierarchical(field_fn, rays_o, rays_d, nears, fars, hit, occ, occ_co
                 saturated = ws > 1.0 - 10.0 * cfg.t_thresh
                 needed_seg = torch.where(saturated, torch.minimum(
                     t_sat / (dt_scalar * Fc) + 2.0, seg_lastocc), seg_lastocc)
+    ws_rays = ws
+    if ray_gather is not None:
+        # the global batch's statistics: every data shard's rays, in order
+        cols = ray_gather(torch.stack([demand, span_ray, needed_seg.float(), ws.detach(),
+                                       mask.sum(-1).float()], 1))
+        demand, span_ray, needed_seg, ws_rays, kept = cols.unbind(1)
+        N = cols.shape[0]
+        capped = demand > B
+        span_capped = span_ray > (num_coarse * Fc) * (2.0 * RM.SQRT3 / steps) * 0.995
+        if cfg.compaction != "global":
+            stats["num_samples"] = kept.sum()
     if with_stats:
         # all three p99s from one sort
         with torch.no_grad():
@@ -637,13 +668,13 @@ def _render_hierarchical(field_fn, rays_o, rays_d, nears, fars, hit, occ, occ_co
         stats["needed_seg_p99"] = stats3[2, qi]
     stats["overflow_frac"] = capped.float().mean()
     stats["samples_mean"] = demand.mean()
-    stats["trunc_T"] = _residual_T(capped, ws)
-    stats["span_trunc_T"] = _residual_T(span_capped, ws)
+    stats["trunc_T"] = _residual_T(capped, ws_rays)
+    stats["span_trunc_T"] = _residual_T(span_capped, ws_rays)
     return ws, depth_raw, image, z_var, stats
 
 
 def _render_flat(field_fn, rays_o, rays_d, nears, fars, occ, noise, cfg: RenderConfig,
-                 with_stats: bool):
+                 with_stats: bool, ray_gather=None):
     """K1f on ``num_candidates`` candidates, then the per-ray layout, or the
     exact global compaction of every valid candidate into N*B slots (K5 +
     K3c; no statistics, as in the JAX package)."""
@@ -653,23 +684,35 @@ def _render_flat(field_fn, rays_o, rays_d, nears, fars, occ, noise, cfg: RenderC
               cascades=cfg.cascades, bound=cfg.bound, dt_gamma=cfg.dt_gamma)
     if cfg.compaction == "global":
         march = RM.march_flat_candidates(rays_o, rays_d, nears, fars, occ, noise, **kw)
-        comp = RM.compact_samples(rays_o, rays_d, march, m_budget=N * B, bound=cfg.bound)
+        slots = N * B
+        if ray_gather is not None:
+            keep, valid_mask, kept, _ = _shard_slots(ray_gather, march.valid, slots)
+            march, slots = march._replace(valid=valid_mask), max(keep, 1)
+        comp = RM.compact_samples(rays_o, rays_d, march, m_budget=slots, bound=cfg.bound)
         ws, depth_raw, image, z_var = _composite_global(field_fn, comp, N, cfg)
-        return ws, depth_raw, image, z_var, {"num_samples": comp.num_valid}
+        valid = comp.num_valid
+        if ray_gather is not None:
+            valid = torch.tensor(kept, dtype=torch.int32, device=rays_o.device)
+        return ws, depth_raw, image, z_var, {"num_samples": valid}
     t, dt, mask, stride, t0 = RM.march_flat(rays_o, rays_d, nears, fars, occ, noise, budget=B,
                                             **kw)
     dt = torch.where(mask, dt * stride[:, None], 0.0)
     ws, depth_raw, image, z_var, _, _ = _composite_per_ray(field_fn, rays_o, rays_d, t, dt, mask,
                                                            t0, cfg)
     demand = mask.sum(-1).float() * stride
-    capped = demand > B
     stats = {"num_samples": mask.sum()}
+    ws_rays = ws
+    if ray_gather is not None:  # the global batch's statistics
+        cols = ray_gather(torch.stack([demand, ws.detach(), mask.sum(-1).float()], 1))
+        demand, ws_rays, kept = cols.unbind(1)
+        stats["num_samples"] = kept.sum()
+    capped = demand > B
     if with_stats:
         with torch.no_grad():
             stats["samples_p99"] = torch.quantile(demand, 0.99)
     stats["overflow_frac"] = capped.float().mean()
     stats["samples_mean"] = demand.mean()
-    stats["trunc_T"] = _residual_T(capped, ws)
+    stats["trunc_T"] = _residual_T(capped, ws_rays)
     return ws, depth_raw, image, z_var, stats
 
 
@@ -685,6 +728,7 @@ def render_occgrid(
     occ_coarse: Optional[torch.Tensor] = None,
     occ_bbox: Optional[torch.Tensor] = None,
     with_stats: bool = True,
+    ray_gather: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """March + field + composite. The hierarchical march runs when
     ``march="hierarchical"``, ``dt_gamma == 0``, ``occ_coarse`` is given and
@@ -705,7 +749,12 @@ def render_occgrid(
       use; num_samples is then the slots kept);
     * flat, per-ray: overflow_frac, samples_mean, trunc_T; with
       ``with_stats`` samples_p99 (linearly interpolated);
-    * flat, exact global: none."""
+    * flat, exact global: none.
+    ``ray_gather(t (N, k)) -> (N_total, k)`` (a data rank's gather over
+    its group, in the global batch's order; ``ray_gather.index`` is this
+    rank's place in it) makes every statistic the global batch's, and on
+    the global layouts each rank keeps the samples that one process's
+    buffer of the global batch keeps (``_shard_slots``)."""
     if cfg.compaction not in ("per_ray", "global"):
         raise ValueError(f"unknown compaction {cfg.compaction!r}")
     N = rays_o.shape[0]
@@ -721,10 +770,11 @@ def render_occgrid(
                     and (cfg.compaction != "global" or cfg.global_slots_per_ray > 0))
     if hierarchical:
         ws, depth_raw, image, z_var, stats = _render_hierarchical(
-            field_fn, rays_o, rays_d, nears_c, fars_c, hit, occ, occ_coarse, noise, cfg, with_stats)
+            field_fn, rays_o, rays_d, nears_c, fars_c, hit, occ, occ_coarse, noise, cfg, with_stats,
+            ray_gather)
     else:
         ws, depth_raw, image, z_var, stats = _render_flat(
-            field_fn, rays_o, rays_d, nears_c, fars_c, occ, noise, cfg, with_stats)
+            field_fn, rays_o, rays_d, nears_c, fars_c, occ, noise, cfg, with_stats, ray_gather)
     image = image + (1.0 - ws)[:, None] * _background(rays_o, rays_d, bg_color, bg_fn, cfg)
     # ts are relative to the (perturbed) ray start, so depth_raw already is
     # "depth - near"

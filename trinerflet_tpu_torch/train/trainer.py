@@ -30,8 +30,16 @@ Differences from the JAX package, none of which changes a result:
   independent).
 * A retune re-plans the shapes of the next call (budget B, ``num_coarse``,
   the layout and its slots); there is nothing to recompile.
-* ``evaluate`` runs in one process (the multi-host view split is not
-  ported) and writes its PNGs with a small zlib PNG writer (no OpenCV).
+* On a process grid (``Trainer(..., mesh=parallel.make_mesh(M))``) every
+  rank draws the global batch and keeps its contiguous data shard, and the
+  collectives are explicit (``parallel/sharding.py``). The retune's
+  statistics are the global batch's (gathered over the data group), and on
+  the global layouts a data rank keeps the samples that one process's
+  buffer of the global batch keeps at its place in row order (the host
+  reads the shards' counts). A mesh ``evaluate`` splits the views over the
+  data index, gathers the metric rows and writes ``<tag>.json`` on the
+  primary rank; each view's PNGs come from the rank of model index 0 that
+  rendered it. PNGs go through a small zlib PNG writer (no OpenCV).
 * The wavelet levels that ``load_model_for_stage`` adds are drawn from a
   torch generator seeded with seed + 7, not from JAX's PRNG key of that
   seed; every carried leaf is the same.
@@ -207,21 +215,30 @@ def global_slots_for(mean_samples: float) -> int:
 class Trainer:
     def __init__(self, nerf_cfg: NeRFConfig, render_cfg: R.RenderConfig,
                  train_cfg: TrainConfig, device: DeviceLike = None,
-                 workspace: Optional[str] = None):
+                 workspace: Optional[str] = None, mesh=None):
+        """``mesh`` (``parallel.make_mesh``): train and evaluate on a (data,
+        model) process grid, this process being one rank; ``train_step``
+        then computes what one process computes for the same global batch,
+        up to the order of float sums. Every rank makes the same calls in
+        the same order."""
         if train_cfg.renderer not in ("occgrid", "proposal", "dense"):
             raise ValueError(f"unknown renderer {train_cfg.renderer!r} (occgrid, proposal, dense)")
         if train_cfg.wavelet_regularization > 0 and nerf_cfg.encoding != "triplane_wavelet":
             raise ValueError(f"wavelet_regularization > 0 regularises the wavelet triplane; the "
                              f"{nerf_cfg.encoding!r} field has none (set it to 0)")
         self.device = resolve_device(device)
+        if mesh is not None and train_cfg.num_rays % mesh.data:
+            raise ValueError(f"num_rays {train_cfg.num_rays} does not split into {mesh.data} "
+                             f"data shards")
+        self.mesh = mesh
         self.nerf_cfg = nerf_cfg
         self.render_cfg = render_cfg
         self.cfg = train_cfg
-        self.field = NeRFField(nerf_cfg)
+        self.field = NeRFField(nerf_cfg, mesh)
         self.lr_fn = lr_schedule(train_cfg)
         self.workspace = workspace
         self.logger = None
-        if workspace:
+        if workspace and self._primary():
             from ..utils.logging import ExperimentLogger
 
             os.makedirs(workspace, exist_ok=True)
@@ -266,7 +283,22 @@ class Trainer:
         """Fresh training state: seeded params, zero Adam moments, the EMA
         equal to the params, an empty occupancy state (or one holding
         ``density_grid``, e.g. from ``mark_untrained_grid``) and the step
-        generator seeded with ``TrainConfig.seed``."""
+        generator seeded with ``TrainConfig.seed``. On a mesh, this rank's
+        shard of the same state (``parallel.shard_state``)."""
+        state = self._full_state(generator, density_grid)
+        return self._shard(state)
+
+    def _shard(self, state: TrainState) -> TrainState:
+        if self.mesh is None:
+            return state
+        from ..parallel.sharding import shard_state
+
+        return shard_state(self.mesh, state)
+
+    def _primary(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _full_state(self, generator, density_grid=None) -> TrainState:
         params = _map(lambda t: t.requires_grad_(True), self.init_params(generator))
         return TrainState(
             params=params,
@@ -354,13 +386,16 @@ class Trainer:
             rays_o, rays_d, pixels = sample_ray_batch(
                 data["images"], data["poses"], data["intrinsics"], N, generator,
                 batch.get("img_idx"), batch.get("pix_idx"))
+        shard = self._data_shard
+        rays_o, rays_d, pixels = shard(rays_o), shard(rays_d), shard(pixels)
         if cfg.train_rand_bg:
             bg = batch.get("bg")
             if bg is None:
                 bg = torch.rand((N, 3), generator=generator, device=generator.device)
-            bg = bg.to(self.device, torch.float32)
+            bg = shard(bg.to(self.device, torch.float32))
         else:
-            bg = torch.full((N, 3), cfg.background_color, dtype=torch.float32, device=self.device)
+            bg = torch.full((rays_o.shape[0], 3), cfg.background_color, dtype=torch.float32,
+                            device=self.device)
         if pixels.shape[-1] == 4:
             gt = pixels[..., :3] * pixels[..., 3:] + bg * (1 - pixels[..., 3:])
         else:
@@ -368,18 +403,24 @@ class Trainer:
 
         planes = self.field.build_planes(params)
         if cfg.renderer == "proposal":
+            jitter, u = self._global_draws(batch, generator, ("prop_jitter", self.prop_cfg.
+                                                              num_proposal_samples + 1),
+                                           ("prop_u", self.prop_cfg.num_final_samples))
             out = render_proposal(
                 lambda x: self.field.density(params, planes, x),
                 lambda d, g: self.field.color(params, d, g),
                 params["proposal"], rays_o, rays_d, self.render_cfg, self.prop_cfg, bg_color=bg,
-                perturb=True, jitter=batch.get("prop_jitter"), u=batch.get("prop_u"),
-                generator=generator)
+                perturb=True, jitter=jitter, u=u, generator=generator)
         elif cfg.renderer == "dense":
+            ups = self.render_cfg.upsample_steps
+            jitter, u = self._global_draws(batch, generator,
+                                           ("dense_jitter", self.render_cfg.num_steps),
+                                           ("dense_u", ups if ups > 0 else None))
             out = R.render_dense(
                 lambda x: self.field.density(params, planes, x),
                 lambda d, g: self.field.color(params, d, g),
                 rays_o, rays_d, self.render_cfg, bg_color=bg, perturb=True,
-                jitter=batch.get("dense_jitter"), u=batch.get("dense_u"), generator=generator)
+                jitter=jitter, u=u, generator=generator)
         else:
             noise = batch.get("noise")
             if noise is None:
@@ -389,9 +430,9 @@ class Trainer:
                 return self.field(params, planes, xyzs, dirs)
 
             out = R.render_occgrid(field_fn, rays_o, rays_d, occ.occ, self.render_cfg,
-                                   noise=noise.to(self.device, torch.float32), bg_color=bg,
+                                   noise=shard(noise.to(self.device, torch.float32)), bg_color=bg,
                                    occ_coarse=occ.occ_coarse, occ_bbox=occ.bbox,
-                                   with_stats=with_stats)
+                                   with_stats=with_stats, ray_gather=self._ray_gather())
         pred = out["image"]
         loss_pix = _criterion(cfg, pred, gt)
         loss = loss_pix.mean()
@@ -402,6 +443,10 @@ class Trainer:
             aux["interlevel"] = il
         if cfg.wavelet_regularization > 0:
             reg = wavelet_l1(params["encoder"], self.nerf_cfg.triplane, cfg.weighted_regularization)
+            if self.mesh is not None and self.mesh.model > 1:
+                # the global mean |coef| of a level is the mean of its
+                # channel shards' means
+                reg = reg / self.mesh.model
             loss = loss + cfg.wavelet_regularization * reg
             aux["wavelet_reg"] = reg
         if cfg.alpha_bce > 0:
@@ -414,13 +459,73 @@ class Trainer:
             if k in out:
                 aux[k] = out[k]
         if err_info is not None:
-            # EMA of the per-cell training error: 0.1 old + 0.9 new
+            # EMA of the per-cell training error: 0.1 old + 0.9 new, at the
+            # global batch's cells (a mesh gathers the errors in its order)
             img_idx, cell = err_info
+            err = loss_pix.detach()
+            gather = self._ray_gather()
+            if gather is not None:
+                err = gather(err)
             flat = img_idx * error_map.shape[1] + cell
             new_map = error_map.reshape(-1).clone()
-            new_map[flat] = 0.1 * error_map.reshape(-1)[flat] + 0.9 * loss_pix.detach()
+            new_map[flat] = 0.1 * error_map.reshape(-1)[flat] + 0.9 * err
             aux["_new_error_map"] = new_map.reshape(error_map.shape)
         return loss, aux
+
+    def _data_shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's contiguous rows of a global-batch tensor."""
+        if self.mesh is None:
+            return t
+        n = t.shape[0] // self.mesh.data
+        return t[self.mesh.data_index * n:(self.mesh.data_index + 1) * n]
+
+    def _ray_gather(self) -> Optional[Callable]:
+        """The data group's gather of per-ray rows in global order (None
+        off a mesh or on one data rank)."""
+        if self.mesh is None or self.mesh.data == 1:
+            return None
+        from ..parallel.sharding import RayGather
+
+        return RayGather(self.mesh)
+
+    def _global_draws(self, batch: Dict, generator: torch.Generator, *specs):
+        """The (name, width) draws of the proposal or dense renderer: the
+        injected ones, or on a data axis of several ranks the global batch's
+        drawn here in the renderer's order (U[0, 1) of (N, width) each),
+        then this rank's rows; else None (the renderer draws them)."""
+        N = self.cfg.num_rays
+        out = []
+        for name, width in specs:
+            t = batch.get(name)
+            if t is None and width is not None and self._ray_gather() is not None:
+                t = torch.rand((N, width), generator=generator, dtype=torch.float32,
+                               device=generator.device)
+            out.append(None if t is None else self._data_shard(t.to(self.device, torch.float32)))
+        return out
+
+    def _global_aux(self, aux: Dict, reg_term: Optional[torch.Tensor]) -> Dict:
+        """The logged scalars of the global batch: on a mesh the data
+        rank's means averaged over the data group and the regulariser's
+        channel shards summed over the model group."""
+        mesh = self.mesh
+        if mesh is None:
+            return aux
+        from ..parallel.sharding import DATA_AXIS, MODEL_AXIS
+
+        keys = [k for k in ("loss", "mse", "interlevel") if k in aux]
+        out = dict(aux)
+        if reg_term is not None:
+            out["loss"] = aux["loss"] - reg_term
+        if mesh.data > 1:
+            vals = mesh.all_reduce(torch.stack([out[k].float() for k in keys]), DATA_AXIS) / mesh.data
+            out.update(zip(keys, vals.unbind()))
+        if reg_term is not None:
+            terms = torch.stack([reg_term.float(), aux["wavelet_reg"].float()])
+            if mesh.model > 1:
+                terms = mesh.all_reduce(terms, MODEL_AXIS)
+            out["loss"] = out["loss"] + terms[0]
+            out["wavelet_reg"] = terms[1]
+        return out
 
     def train_step(self, state: TrainState, data: Dict, with_stats: bool = True,
                    batch: Optional[Dict] = None) -> Tuple[TrainState, Dict]:
@@ -435,16 +540,50 @@ class Trainer:
                                   state.error_map)
         error_map = aux.pop("_new_error_map", state.error_map)
         state = self._apply_grads(state, named, leaves, loss)
+        return state._replace(error_map=error_map), self._step_aux(loss, aux)
+
+    def _step_aux(self, loss: torch.Tensor, aux: Dict) -> Dict:
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = loss.detach()
-        return state._replace(error_map=error_map), aux
+        reg_term = None
+        if "wavelet_reg" in aux:
+            reg_term = self.cfg.wavelet_regularization * aux["wavelet_reg"]
+        return self._global_aux(aux, reg_term)
+
+    def gradients(self, state: TrainState, data: Dict, with_stats: bool = True,
+                  batch: Optional[Dict] = None) -> Tuple[Dict, Dict]:
+        """The gradient ``train_step`` would apply (after the mesh's
+        reductions) as a tree like ``state.params``, and the step's aux;
+        nothing is updated except the generator's draws."""
+        named = _leaves(state.params)
+        leaves = [p.requires_grad_(True) for _, p in named]
+        loss, aux = self._loss_fn(state.params, state.occ, data, batch, with_stats, state.rng,
+                                  state.error_map)
+        aux.pop("_new_error_map", None)
+        grads = self._grads(named, leaves, loss)
+        tree: Dict = {}
+        for (name, _), g in zip(named, grads):
+            node = tree
+            *path, last = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = g
+        return tree, self._step_aux(loss, aux)
+
+    def _grads(self, named, leaves: List[torch.Tensor], loss: torch.Tensor) -> List[torch.Tensor]:
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if self.mesh is not None:
+            from ..parallel.sharding import reduce_gradients
+
+            grads = reduce_gradients(self.mesh, [n for n, _ in named], grads)
+        return grads
 
     def _apply_grads(self, state: TrainState, named, leaves: List[torch.Tensor],
                      loss: torch.Tensor) -> TrainState:
-        """Gradients of ``loss``, then Adam and the EMA in place; the step
-        advances."""
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        """Gradients of ``loss`` (reduced over the mesh), then Adam and the
+        EMA in place; the step advances."""
+        grads = self._grads(named, leaves, loss)
         with torch.no_grad():
             count = self._adam([n for n, _ in named], leaves, grads, state.opt_state)
             ema_count = self._ema(state, leaves)
@@ -606,7 +745,7 @@ class Trainer:
                     scal = {k: v for k, v in aux.items() if v.ndim == 0}
                     scal["lr"] = self.lr_fn(state.step)
                     self.logger.scalars(state.step, scal)
-                else:
+                elif self._primary():
                     print(msg)
             if callback is not None:
                 callback(state, aux)
@@ -738,10 +877,20 @@ class Trainer:
         default) and score it against the ground truth, alpha composited over
         the background: returns {"PSNR", "SSIM" (means), "per_image"}. Writes
         ``<workspace>/<tag>.json`` when a workspace is set, and with
-        ``save_dir`` each view's RGB and span-normalised depth as PNGs."""
+        ``save_dir`` each view's RGB and span-normalised depth as PNGs.
+        On a mesh each data index renders its round-robin views (its model
+        group together), the rows are gathered (``parallel.multihost``) and
+        every rank returns the whole table; the table is written on the
+        primary rank, each view's PNGs by the model index 0 rank that
+        rendered it."""
+        from ..parallel.multihost import allgather_rows, process_view_slice
+
         params = state.ema_params if (use_ema and self.cfg.ema_decay > 0) else state.params
+        mesh = self.mesh
+        views = range(scene.num_views) if mesh is None else process_view_slice(scene.num_views, mesh)
+        write_pngs = save_dir and (mesh is None or mesh.model_index == 0)
         rows = []
-        for v in range(scene.num_views):
+        for v in views:
             if getattr(scene, "rays_o", None) is not None:
                 img, dep = self.render_rays(params, state.occ, scene.rays_o[v], scene.rays_d[v],
                                             scene.H, scene.W)
@@ -753,18 +902,22 @@ class Trainer:
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + self.cfg.background_color * (1 - gt[..., 3:])
             rows.append({"view": v, "PSNR": metrics.psnr(img, gt), "SSIM": metrics.ssim(img, gt)})
-            if save_dir:
+            if write_pngs:
                 os.makedirs(save_dir, exist_ok=True)
                 rgb8 = (img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
                 write_png(os.path.join(save_dir, f"{tag}_{v:03d}.png"), rgb8)
                 d8 = (dep.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
                 write_png(os.path.join(save_dir, f"{tag}_{v:03d}_depth.png"), d8)
+        if mesh is not None:
+            table = allgather_rows(np.asarray([[r["view"], r["PSNR"], r["SSIM"]] for r in rows],
+                                              np.float32).reshape(-1, 3), scene.num_views, mesh)
+            rows = [{"view": int(r[0]), "PSNR": float(r[1]), "SSIM": float(r[2])} for r in table]
         results = {
             "PSNR": float(np.mean([r["PSNR"] for r in rows])) if rows else float("nan"),
             "SSIM": float(np.mean([r["SSIM"] for r in rows])) if rows else float("nan"),
             "per_image": rows,
         }
-        if self.workspace:
+        if self.workspace and self._primary():
             with open(os.path.join(self.workspace, f"{tag}.json"), "w") as f:
                 json.dump(results, f, indent=2)
         return results
@@ -787,7 +940,8 @@ class Trainer:
 
             verts, faces = extract_mesh(density_fn, bound=self.nerf_cfg.bound,
                                         resolution=resolution, threshold=threshold)
-        write_obj(path, verts, faces)
+        if self._primary():
+            write_obj(path, verts, faces)
         return verts, faces
 
     # ----------------------------------------------------------- checkpoints
@@ -795,7 +949,16 @@ class Trainer:
     def save_checkpoint(self, state: TrainState, path: str, full: bool = True) -> None:
         """The JAX package's checkpoint (``train/checkpoint.py``): params, EMA
         and its count, step, the density grid and its mean, and with
-        ``full`` the optimiser state as the JAX trainer's optax chain."""
+        ``full`` the optimiser state as the JAX trainer's optax chain. On a
+        mesh every rank calls it: the shards are gathered over the model
+        group and the primary rank writes the file a single process
+        writes."""
+        if self.mesh is not None:
+            from ..parallel.sharding import gather_state
+
+            state = gather_state(self.mesh, state)
+            if not self._primary():
+                return
         payload = {
             "params": _map(_to_numpy, state.params),
             "ema_params": _map(_to_numpy, state.ema_params),
@@ -817,10 +980,12 @@ class Trainer:
         and its stored mean, the Adam state when the file holds one. occ,
         occ_coarse and bbox are rebuilt from the grid at the stored mean's
         threshold (K6 on CUDA); ``iter_density``, the step generator and the
-        error map stay ``state``'s."""
+        error map stay ``state``'s. On a mesh every rank loads the file and
+        keeps its shard."""
         from ..carry import adam_state_from_jax, params_from_jax
 
         payload = checkpoint.load(path)
+        cut = self._shard_tree
         if state is None:
             state = self.init_state()
         mean = float(payload["mean_density"])
@@ -832,15 +997,25 @@ class Trainer:
             occ=occ_bits, occ_coarse=occ_coarse, bbox=bbox)
         state = state._replace(
             params=_map(lambda t: t.requires_grad_(True),
-                        params_from_jax(payload["params"], self.device)),
-            ema_params=params_from_jax(payload["ema_params"], self.device),
+                        cut(params_from_jax(payload["params"], self.device))),
+            ema_params=cut(params_from_jax(payload["ema_params"], self.device)),
             ema_count=int(payload["ema_count"]),
             step=int(payload["step"]),
             occ=occ,
         )
         if "opt_state" in payload:
-            state = state._replace(opt_state=adam_state_from_jax(payload["opt_state"], self.device))
+            adam = adam_state_from_jax(payload["opt_state"], self.device)
+            state = state._replace(opt_state=dict(adam, mu=cut(adam["mu"]), nu=cut(adam["nu"])))
         return state
+
+    def _shard_tree(self, tree: Dict) -> Dict:
+        """This rank's slice of a full-width param-shaped tree (the tree
+        itself off a mesh)."""
+        if self.mesh is None:
+            return tree
+        from ..parallel.sharding import shard_params
+
+        return shard_params(self.mesh, tree)
 
     def load_model_for_stage(self, path: str, generator: Optional[torch.Generator],
                              old_nerf_cfg: NeRFConfig) -> TrainState:
@@ -852,7 +1027,7 @@ class Trainer:
         from ..carry import params_from_jax
 
         old = params_from_jax(checkpoint.load(path)["params"], self.device)
-        state = self.init_state(generator)
+        state = self._full_state(generator)
         new = dict(state.params)
         new["encoder"] = grow_params(old["encoder"], old_nerf_cfg.triplane, self.nerf_cfg.triplane,
                                      torch.Generator().manual_seed(self.cfg.seed + 7), self.device)
@@ -860,5 +1035,5 @@ class Trainer:
             if k in old and k in new:
                 new[k] = old[k]
         params = _map(lambda t: t.detach().requires_grad_(True), new)
-        return state._replace(params=params, opt_state=_fresh_adam(params),
-                              ema_params=_map(lambda t: t.detach().clone(), params))
+        return self._shard(state._replace(params=params, opt_state=_fresh_adam(params),
+                                          ema_params=_map(lambda t: t.detach().clone(), params)))
