@@ -12,7 +12,7 @@ env-map backgrounds, the SDF, the diffuse material, analytic normals).
 
 Phases (any failure exits non-zero; nothing is caught):
 1. print the card (``nvidia-smi`` name and power limit);
-2. build kernels K1-K11 (with K1f, K2x, K3c and K7x) from
+2. build kernels K1-K11 (with K1f, K2x, K3c, K7x and K2x², K7x², K10²) from
    ``trinerflet_tpu_torch/kernels/csrc`` with nvcc, one process per source,
    in parallel; print the launch floor (``time_ms`` of a one-element
    ``fill_``), which the launch-bound rows (K3, K3c, K11) set their time
@@ -152,7 +152,26 @@ Phases (any failure exits non-zero; nothing is caught):
     K7x held to its plain version on a captured chunk (bit for bit at the
     field's C = 2) and timed beside the K7 forward on the same chunk, the
     same normal checks;
-19. cli: a synthetic Blender scene (30 training, 8 val and 8 test views of
+19. registry-sdf-analytic: phase 17's field with analytic normals, trained
+    through them (the loss differentiated through the normal into every
+    parameter, as JAX's ``jax.value_and_grad`` does): bench's 32,768 rays,
+    32 + 32 steps with the trainer's Adam on a full grid; K2, K2x, K2x²,
+    K4 and its adjoint must launch, and K2x only as one launch a call
+    (the normal's inner gradient runs no plane-gradient pass); the loss
+    must fall; one step under the profiler; a captured step's K2x² held to
+    its plain version on the CPU and timed beside its bound, the plain
+    version and ``autograd.grad`` twice through ``F.grid_sample`` (NCHW);
+    the step check on the initial parameters with float32 MLPs
+    (1,024 rays; every parameter's gradient card vs CPU);
+20. registry-hash-analytic: the hash-grid field (``hashgrid_configs``)
+    under the diffuse material with analytic normals, the same steps and
+    checks: K7, K7x and K7x² must launch; K7x² held to its plain version
+    at the field's C = 2 (no library call);
+21. registry-grid-analytic: phase 16's voxel grid (64^3 x 16 f32) under
+    the diffuse material with analytic normals, the same steps and checks:
+    K10, K10x and K10² must launch; the library call is ``F.grid_sample``
+    5-D differentiated twice;
+22. cli: a synthetic Blender scene (30 training, 8 val and 8 test views of
     400^2, rendered on the card by ``write_synthetic_scene``; PNG decode
     ms per view), then ``trinerflet_tpu_torch.cli`` on the README's
     two-stage recipe at its widths (512^2 then 1024^2 x 16, 8 then 16
@@ -169,7 +188,7 @@ Phases (any failure exits non-zero; nothing is caught):
     ``mesh.obj`` at resolution 192, the video or its frames; K6's rebuild of
     the checkpoint's occupancy held to its plain version) and ``--test
     --save_planes``;
-20. sr: ``configs/triplane-sr100_400-srtex.yaml`` through
+23. sr: ``configs/triplane-sr100_400-srtex.yaml`` through
     ``sr.launch.build``, ``SRSystem.fit`` and ``evaluate`` at its widths
     (1024^2 x 16 bior6.8 planes with the 256^2 ``low_res`` snapshot, 64-wide
     bf16 MLPs, a 128^3 grid, 8,192 LR rays, 32-LR-pixel crops, 100^2 LR and
@@ -189,7 +208,7 @@ Phases (any failure exits non-zero; nothing is caught):
     CFG 7.5), ms per UNet call, VAE encode / decode ms, peak memory, one
     text_encode; one UNet call and one VAE decode at 16^2 latents and the
     text encoder held to the CPU (float32, TF32 off);
-21. gen: text-to-3D generation through ``sr.launch.build`` on a generation
+24. gen: text-to-3D generation through ``sr.launch.build`` on a generation
     config made of the srtex recipe's model, triplane and renderer sections
     (its widths), ``TextTo3DConfig``'s defaults (128^2 views, 8 a round,
     64^2 crops) and the weights-free conditioning guidance (the full DDIM
@@ -200,30 +219,30 @@ Phases (any failure exits non-zero; nothing is caught):
     captured step's and a refresh view's kernel rows; the step check (one
     step's gradients, card vs CPU plain versions); finite losses; the
     turntable (ms per frame, its file or frames);
-22. t2i: one ``Text2ImgGuidance.generate_sr`` refresh of a 128^2 render with
+25. t2i: one ``Text2ImgGuidance.generate_sr`` refresh of a 128^2 render with
     seeded random weights at Stable Diffusion 2.1-base's published widths
     (the UNet 4 -> 4, (320, 640, 1280, 1280), heads (5, 10, 20, 20),
     cross-attention 1024, linear projections, no class embedding; the VAE
     (128, 256, 512, 512), scaling 0.18215; 77 x 1024 prompt embeddings): ms
     per UNet call at 16^2 latents, VAE encode and decode ms, peak memory;
     one UNet call at 8^2 latents held to the CPU (float32, TF32 off);
-23. clip: a --clip_ckpt directory at ViT-B/16's published widths (seeded
+26. clip: a --clip_ckpt directory at ViT-B/16's published widths (seeded
     random weights as ``pytorch_model.bin``, a character vocabulary), then
     ``trinerflet_tpu_torch.cli`` on the cli phase's scene at the README's
     stage-1 widths with ``--rand_pose 3`` for 64 steps: the launches of the
     run and of its CLIP steps, ms per CLIP step beside ms per supervised
     step, a captured CLIP step's kernel rows, the step check on one CLIP
     step, ``CLIPLoss`` card vs CPU (float32, TF32 off);
-24. gui: ``cli --gui --test`` over the cli phase's checkpoint, a loopback
+27. gui: ``cli --gui --test`` over the cli phase's checkpoint, a loopback
     client fetching the page, /state, five 800^2 frames (each the native
     encoder's bytes of ``render_image`` at its pose; ms per frame) and
     /stop; then ``cli --gui`` training 64 iterations of the stage-1 recipe
     (/state advances, a frame mid-run, ``latest_model.pkl`` at the end);
-25. webapp: ``LaunchMonitor`` and ``make_server`` on loopback; POST /run of
+28. webapp: ``LaunchMonitor`` and ``make_server`` on loopback; POST /run of
     the SR launcher on a generation YAML at the srtex widths (32 steps, 2
     views a round, a refresh every 16); /status until the child exits 0;
     /artifact serves its turntable;
-26. parallel: (a) ``parallel.launch.run_on_mesh`` forms a one-rank NCCL
+29. parallel: (a) ``parallel.launch.run_on_mesh`` forms a one-rank NCCL
     group on the card and trains bench's model (32,768 rays per data rank,
     the tuner off) 20 steps on the per-ray layout and 20 on the global
     layout at the tuner's slots for the live mean: K1, K2 forward and
@@ -242,18 +261,21 @@ Phases (any failure exits non-zero; nothing is caught):
     channels; ``evaluate`` on the two ranks against one process's table
     (PSNR within 1e-4); the M = 2 checkpoint, written at full width by rank
     0, loaded into one process with the same params;
-27. gan: ``init_gan_stack`` at ``GANConfig``'s defaults with seeded weights;
+30. gan: ``init_gan_stack`` at ``GANConfig``'s defaults with seeded weights;
     ``gan_render`` at levels 0-2 from a 128^2 render of the cli phase's
     checkpoint (its RGB with seeded latent moments) to 512^2 (the ground
     truth a 512^2 render of the same view), timed; one generator and one
     discriminator step at that size; then gan_render and one G and one D
     step at level 2 on a 32^2 crop held to the CPU (float32, TF32 off, as
     the sr phase holds the x4 networks);
-28. second-order: a create_graph=True first derivative through each kernel
+31. second-order: a create_graph=True first derivative through each kernel
     function (K2, K7, K10, K11, K4, K3, K3c) on the card, then a backward
-    through it, which must raise torch's once_differentiable error as the
-    CPU tests' plain versions do;
-29. print the kernels line, then the device line last.
+    through it: through K11, K4, K3, K3c and the K2 backward taken in the
+    planes alone it must raise torch's once_differentiable error, as the CPU
+    tests' plain versions do; through the coordinate gradients of K2, K7
+    and K10 it must launch K2x², K7x² and K10², and a backward through that
+    second derivative must raise;
+32. print the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -964,7 +986,9 @@ class Capture:
                (GE, "_grid_encode_cuda"), (GE, "_grid_encode_backward_cuda"),
                (GE, "_grid_encode_backward_x_cuda"), (REG, "_sample_volume_grid_cuda"),
                (REG, "_sample_volume_grid_backward_cuda"), (REG, "_background_textured_cuda"),
-               (REG, "_background_textured_backward_cuda"))
+               (REG, "_background_textured_backward_cuda"), (GS, "_sample_points_backward_xyz_backward_cuda"),
+               (GE, "_grid_encode_backward_x_backward_cuda"),
+               (REG, "_sample_volume_grid_backward_x_backward_cuda"))
 
     def __init__(self):
         self.calls = defaultdict(list)
@@ -2064,7 +2088,8 @@ REG_SDF_VIEW_KERNELS = ("grid_sample", "grid_sample_bwd_xyz", "idwt", "march", "
 REG_HASH_VIEW_KERNELS = ("grid_encode", "grid_encode_bwd_x", "march", "composite")
 REG_GRID_VIEW_KERNELS = ("volume_grid", "textured_bg", "march", "composite")
 REG_VIEW_ABSENT = ("grid_sample_bwd", "grid_encode_bwd", "idwt_adjoint", "composite_bwd",
-                   "volume_grid_bwd", "textured_bg_bwd")  # serving: no parameter gradient
+                   "volume_grid_bwd", "textured_bg_bwd", "grid_sample_bwd_xyz_bwd", "grid_encode_bwd_x_bwd",
+                   "volume_grid_bwd_x_bwd")  # serving: no parameter gradient, no second derivative
 REG_CHUNK = 16384
 SDF_BF16_BATCHES = 1  # batches of the bf16 SDF step check (read, not held; cut from 3, ~10 s each on the CPU)
 REG_COS_POINTS = 65536
@@ -2684,6 +2709,300 @@ def registry_hash_phase(card, hash_stats):
     cell = 2 * nerf_cfg.bound / grid.level_resolution(grid.num_levels - 1)
     med, p10 = normal_checks(an, params, {}, x, cell, "registry-hash-normals")
     return rows, dict(view_ms=ms, launches=launches, cos_median=med, cos_p10=p10)
+
+
+# ---------------------------------------------------------------------------
+# Training through analytic normals: the samplers' second derivatives K2x²
+# (the SDF on bench's triplane), K7x² (the hash grid) and K10² (the voxel
+# grid), each field trained with the loss differentiated through its normal
+# ---------------------------------------------------------------------------
+
+ANALYTIC_WARM, ANALYTIC_WINDOW = 32, 32  # 32 warm-up steps, one timed window of 32
+ANALYTIC_CHECK_RAYS = 1024               # the step checks' rays (the CPU side runs every plain version)
+REG_SDF_AN_KERNELS = ("grid_sample", "grid_sample_bwd", "grid_sample_bwd_xyz", "grid_sample_bwd_xyz_bwd", "idwt",
+                      "idwt_adjoint", "march", "composite", "composite_bwd")
+REG_HASH_AN_KERNELS = ("grid_encode", "grid_encode_bwd", "grid_encode_bwd_x", "grid_encode_bwd_x_bwd", "march",
+                       "composite", "composite_bwd")
+REG_GRID_AN_KERNELS = ("volume_grid", "volume_grid_bwd", "volume_grid_bwd_x_bwd", "march", "composite",
+                       "composite_bwd")
+REG_AN_ABSENT = ("occupancy", "march_flat")  # the full grid needs no refresh
+
+
+def _cpu(args):
+    """The arguments with every tensor (also in a list) copied to the CPU."""
+    def one(a):
+        if torch.is_tensor(a):
+            return a.cpu()
+        if isinstance(a, list):
+            return [one(t) for t in a]
+        return a
+    return [one(a) for a in args]
+
+
+def _second_order_err(got, ref):
+    """The largest error of each output (None where neither has one), as a
+    fraction of the plain version's largest entry; tensors or lists of
+    them."""
+    errs = []
+    for a, b in zip(got, ref):
+        if (a is None) != (b is None):
+            raise RuntimeError("a second-order kernel and its plain version returned different outputs")
+        if a is None:
+            continue
+        if isinstance(a, list):
+            a, b = torch.cat([t.reshape(-1) for t in a]), torch.cat([t.reshape(-1) for t in b])
+        errs.append(_rel(a.cpu(), b.cpu()))
+    return errs
+
+
+def _k2xx_library(planes, xyz, g, gg, lb):
+    """``autograd.grad`` twice through ``F.grid_sample`` (bilinear, border,
+    align_corners) on the same planes in NCHW and the same points: the
+    first-order gradient in the points with ``create_graph=True``, then its
+    gradient along gg in (planes, points, cotangent). Returns (a function
+    that runs both, its dL/dg in the port's (M, 3, C) layout)."""
+    p_nchw = planes.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    g_nchw = g.permute(1, 2, 0)[..., None].to(planes.dtype).contiguous().requires_grad_(True)  # (3, C, M, 1)
+
+    def run():
+        x = xyz.detach().requires_grad_(True)
+        grid = GS.project_to_planes(x, lb)[:, :, None, :].to(planes.dtype)
+        out = F.grid_sample(p_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
+        (gx,) = torch.autograd.grad(out, x, g_nchw, create_graph=True)
+        return torch.autograd.grad(gx, [p_nchw, x, g_nchw], gg)
+
+    return run, run()[2][..., 0].permute(2, 0, 1)
+
+
+def _k2xx_rows(calls):
+    """K2x² on the captured step's call, as the step asked it (the normal's
+    planes are built from the parameters, its points are not): every output
+    held to the plain version on the CPU (dL/dg and dL/dxyz within 1e-5 of
+    their largest entries, the plane gradient as the K2 backward's: 1e-5 in
+    f32, one bf16 ulp, 2^-7, in bf16), the plane gradient the same bits on a
+    second call; timed beside its bound, the plain version on the card and
+    the library's double backward."""
+    args, _ = calls["_sample_points_backward_xyz_backward_cuda"][0]
+    gg, ggp, planes, xyz, g, lb, wants = args
+    got = GS._sample_points_backward_xyz_backward_cuda(*args)
+    again = GS._sample_points_backward_xyz_backward_cuda(*args)
+    ref = GS.sample_points_backward_xyz_backward_plain(*_cpu(args))
+    errs = _second_order_err(got, ref)
+    tol_p = 1e-5 if planes.dtype == torch.float32 else 2.0**-7
+    dp = got[0]
+    if dp is not None and (not torch.equal(dp, again[0]) or errs[0] > tol_p):
+        raise RuntimeError(f"K2x² plane gradient off its plain version ({errs[0]}) or not the same bits twice")
+    if max(errs[1 if dp is not None else 0 :], default=0.0) > 1e-5:
+        raise RuntimeError(f"K2x² off its plain version: {errs} (rel, tol 1e-5)")
+    _, H, Wd, C = planes.shape
+    M = xyz.shape[0]
+    # the (plane, point) rows gg reaches: gg has a component along the
+    # plane's axes, (x, z), (x, y) and (y, z); no other row needs g or a
+    # corner (its derivative weights are zero)
+    nz = gg != 0
+    live = torch.stack([nz[:, 0] | nz[:, 2], nz[:, 0] | nz[:, 1], nz[:, 1] | nz[:, 2]])  # (3, M)
+    n_live, n_pts = int(live.sum()), int(live.any(0).sum())
+    touched = _touched_texels(GS.project_to_planes(xyz, lb), H, Wd, live)
+    # in: gg, the live points, g and the corner texels of the live rows (and
+    # gg_P where given); out: dL/dg, dL/dxyz when asked, the plane gradient
+    # once; per live row ~26 C + 40 f32 operations (dL/dg 8 C, h 4 C, the
+    # four weighted corner terms 8 C ...)
+    out_bytes = sum(nbytes(t) for t in got if t is not None)
+    in_bytes = (nbytes(gg) + n_pts * 3 * xyz.element_size() + n_live * C * g.element_size()
+                + touched * C * planes.element_size() + (nbytes(ggp) if ggp is not None else 0))
+    b, by = bound_ms(in_bytes + out_bytes, n_live * (26 * C + 40))
+    note_lib = ""
+    try:
+        lib, lgr = _k2xx_library(planes, xyz, g, gg, lb)
+        lib_ms = ref_ms(lib)
+        note_lib = (f"library autograd.grad twice through F.grid_sample (NCHW {planes.dtype}, its first-order "
+                    f"pass with create_graph included; coordinates rounded to {planes.dtype}): rel diff "
+                    f"{_rel(lgr.float(), got[2]):.2e} (dL/dg)")
+    except RuntimeError as e:  # a torch without grid_sampler's double backward
+        lib_ms, note_lib = None, f"library: none ({str(e).splitlines()[0][:120]})"
+    return [dict(name="K2x² sample_planes second derivative", key="grid_sample_bwd_xyz_bwd", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/grid_sample.cu",
+                 replaces="trinerflet_tpu/ops/grid_sample.py:23 (autodiff of grid_sample_2d twice, via "
+                          "models/registry.py:443 under jax.value_and_grad)",
+                 max_abs_err=max(errs), tol="dL/dg, dL/dxyz 1e-5 x max; planes 2^-7 (bf16) or 1e-5 (f32) x max",
+                 ms=time_ms(lambda: GS._sample_points_backward_xyz_backward_cuda(*args)),
+                 plain_ms=ref_ms(lambda: GS.sample_points_backward_xyz_backward_plain(*args)),
+                 bound_ms=b, bound_by=by, library_ms=lib_ms,
+                 note=f"M={M} points on {tuple(planes.shape)} {planes.dtype} planes; asked for (planes, points, "
+                      f"cotangent) {tuple(wants)}; gg reaches {n_live} of {3 * M} (plane, point) rows of {n_pts} "
+                      f"points ({int((g != 0).any(-1).sum())} rows carry a g), {touched} touched texels; rel err {[float(f'{e:.2e}') for e in errs]}; one launch for "
+                      f"dL/dg (and dL/dxyz) and the K2 backward's six binned passes with the weights' "
+                      f"derivatives for the plane gradient (the same bits on a second call); {note_lib}")]
+
+
+def _k7xx_rows(calls):
+    """K7x² on the captured step's call: every output held to the plain
+    version on the card (which rounds the cell coordinate as the kernel does,
+    as K7's rows hold it; dL/dg and dL/dx within 1e-5 of their largest
+    entries, the table gradient, float atomics in an unspecified order,
+    likewise) and timed beside its bound and the plain version; no single
+    library call computes it."""
+    args, _ = calls["_grid_encode_backward_x_backward_cuda"][0]
+    gg, ggt, x, g, tables, cfg, bound, wants = args
+    got = GE._grid_encode_backward_x_backward_cuda(*args)
+    ref = GE.grid_encode_backward_x_backward_plain(*args)
+    errs = _second_order_err(got, ref)
+    if max(errs) > 1e-5:
+        raise RuntimeError(f"K7x² off its plain version: {errs} (rel, tol 1e-5)")
+    N, L, C = x.shape[0], cfg.num_levels, cfg.level_dim
+    # the points gg reaches (A = gg clip'(u) not zero); no other point needs
+    # g or a table row
+    mask = ((gg * GE._clip_grad(GE._unit_coord(x, bound), 1.0)) != 0).any(-1)
+    live, n_pts = int(mask.sum()), int((gg != 0).any(-1).sum())
+    touched = _touched_rows(x[mask], cfg, bound)
+    out_bytes = sum(nbytes(*t) if isinstance(t, list) else nbytes(t) for t in got if t is not None)
+    in_bytes = nbytes(gg) + n_pts * 3 * x.element_size() + live * L * C * g.element_size() + 4 * C * touched
+    b, by = bound_ms(in_bytes + out_bytes, live * L * 8 * (40 + 8 * C))
+    return [dict(name="K7x² grid_encode second derivative", key="grid_encode_bwd_x_bwd", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/gridencoder.cu",
+                 replaces="trinerflet_tpu/models/gridencoder.py:115-147 (autodiff of grid_encode twice, via "
+                          "models/registry.py:443 under jax.value_and_grad)",
+                 max_abs_err=max(errs), tol="1e-5 of each output's largest entry, against the plain version",
+                 ms=time_ms(lambda: GE._grid_encode_backward_x_backward_cuda(*args)),
+                 plain_ms=ref_ms(lambda: GE.grid_encode_backward_x_backward_plain(*args)),
+                 bound_ms=b, bound_by=by, library_ms=None,
+                 note=f"N={N} points x {L} levels of C={C} ({cfg.interpolation}); asked for (points, "
+                      f"cotangent, tables) {tuple(wants)}; gg reaches {live} points ({n_pts} with gg != 0); "
+                      f"{touched} table rows touched there; rel err {[float(f'{e:.2e}') for e in errs]}; a thread per point over the "
+                      f"levels, the table gradient by scalar float atomics; library: none (no single PyTorch "
+                      f"call computes a hash grid's second derivative)")]
+
+
+def _k10xx_rows(calls):
+    """K10² on the captured step's call: every output held to the plain
+    version on the CPU (where x / bound is a true division, as in the
+    kernel; dL/dg and dL/dx within 1e-5 of their largest entries, the grid
+    gradient likewise) and timed beside its bound, the plain version and
+    F.grid_sample 5-D differentiated twice."""
+    args, _ = calls["_sample_volume_grid_backward_x_backward_cuda"][0]
+    gg, ggg, grid, x, g, R_, bound, wants = args
+    got = REG._sample_volume_grid_backward_x_backward_cuda(*args)
+    ref = REG.sample_volume_grid_backward_x_backward_plain(*_cpu(args))
+    errs = _second_order_err(got, ref)
+    if max(errs) > 1e-5:
+        raise RuntimeError(f"K10² off its plain version: {errs} (rel, tol 1e-5)")
+    N, CH = x.shape[0], grid.shape[1]
+    live = (gg != 0).any(-1)
+    touched = _voxel_rows_touched(x[live], R_, bound)
+    out_bytes = sum(nbytes(t) for t in got if t is not None)
+    in_bytes = nbytes(gg, x[live], g[live]) + 4 * CH * touched  # x and g of the points gg reaches
+    b, by = bound_ms(in_bytes + out_bytes, int(live.sum()) * 8 * (8 * CH + 20))
+    vol, coords = _volume_grid_lib(grid, x, R_, bound)
+    g5 = g.float().T.reshape(1, CH, N, 1, 1).contiguous()
+    gg5 = (gg[:, [2, 1, 0]] * (1.0 / bound)).reshape(1, N, 1, 1, 3)  # along the library's (z, y, x) / bound
+
+    def lib():
+        v = vol.detach().requires_grad_(True)
+        c = coords.detach().requires_grad_(True)
+        gv = g5.detach().requires_grad_(True)
+        out = F.grid_sample(v, c, mode="bilinear", padding_mode="border", align_corners=True)
+        (gc,) = torch.autograd.grad(out, c, gv, create_graph=True)
+        return torch.autograd.grad(gc, [v, c, gv], gg5)
+
+    try:
+        lib()
+        lib_ms, note_lib = ref_ms(lib), ("library F.grid_sample 5-D border align_corners, autograd.grad twice "
+                                        "(its first-order pass with create_graph included)")
+    except RuntimeError as e:
+        lib_ms, note_lib = None, f"library: none ({str(e).splitlines()[0][:120]})"
+    return [dict(name="K10² sample_volume_grid second derivative", key="volume_grid_bwd_x_bwd", route="cuda",
+                 source="trinerflet_tpu_torch/kernels/csrc/volume_grid.cu",
+                 replaces="trinerflet_tpu/models/registry.py:68 (autodiff of sample_volume_grid twice, via "
+                          ":443 under jax.value_and_grad)",
+                 max_abs_err=max(errs), tol="1e-5 of each output's largest entry, against the plain version on "
+                                            "the CPU",
+                 ms=time_ms(lambda: REG._sample_volume_grid_backward_x_backward_cuda(*args)),
+                 plain_ms=ref_ms(lambda: REG.sample_volume_grid_backward_x_backward_plain(*args)),
+                 bound_ms=b, bound_by=by, library_ms=lib_ms,
+                 note=f"N={N} points, R={R_}, 1+F={CH} f32; asked for (grid, points, cotangent) {tuple(wants)}; "
+                      f"{int(live.sum())} points carry a cotangent, {touched} rows touched; rel err "
+                      f"{[float(f'{e:.2e}') for e in errs]}; a lane group per point, float4 atomics into the "
+                      f"zeroed grid gradient; {note_lib}")]
+
+
+def _no_inner_param_pass(calls, what, kind):
+    """The normal's inner gradient (in the points alone) ran no plane, table
+    or grid gradient: on the SDF every K2x call asked for none; on the hash
+    grid the step's K7 table-gradient calls are as many as its K7 forward
+    calls (one per sampling the loss reaches, none from the normal's
+    gradient); on the voxel grid every K10 backward asked for one output."""
+    if kind == "k2x":
+        bad = [kw for _, kw in calls["_sample_points_backward_xyz_cuda"] if kw.get("planes_grad", True)]
+        ok = calls["_sample_points_backward_xyz_cuda"] and not bad
+    elif kind == "k7x":
+        ok = len(calls["_grid_encode_backward_cuda"]) == len(calls["_grid_encode_cuda"])
+    else:
+        ok = all(not (a[5] and a[6]) for a, _ in calls["_sample_volume_grid_backward_cuda"])
+    if not ok:
+        raise RuntimeError(f"{what}: the analytic normal's inner gradient ran a parameter-gradient pass")
+    log(f"# {what}: the captured step's sampler calls "
+        f"{ {k: len(v) for k, v in calls.items() if v} }; the normal's inner gradient ran no parameter-gradient "
+        f"pass")
+
+
+def analytic_phase(scene, card, what, configs, names, required, rows_fn, inner, field_kw=None):
+    """One field trained through its analytic normals: ``train_phase`` with
+    ``registry_step`` (32 warm-up steps, one window of 32; the loss must
+    fall), ``required`` launched; one step under the profiler; a captured
+    step's second-order row (``rows_fn``) and the check that the normal's
+    inner gradient ran no parameter-gradient pass (``inner``, as
+    ``_no_inner_param_pass`` takes it); the step check on the initial
+    parameters with float32 MLPs."""
+    field_kw = field_kw or {}
+    nerf_cfg, render_cfg, train_cfg = configs
+    trainer = Trainer(nerf_cfg, render_cfg, train_cfg, device=DEVICE)
+    init_fn, field = REG.make_field(nerf_cfg, *names, normal_type="analytic", **field_kw)
+    state = registry_state(init_fn, full_occupancy(render_cfg))
+    initial = _snapshot(state)
+    data = trainer.scene_to_device(scene)
+    step = registry_step(trainer, field, data)
+    twhat = f"{what} train"
+    state, launches, stats = train_phase(trainer, state, data, card, warm=ANALYTIC_WARM, n_windows=1,
+                                         window_steps=ANALYTIC_WINDOW, required=required, what=twhat,
+                                         absent=REG_AN_ABSENT, step=step, refresh=False)
+    state = profile_step(trainer, state, data, twhat, step=step)
+    state, calls = _capture_registry_step(trainer, field, state, data)
+    _no_inner_param_pass(calls, twhat, inner)
+    rows = label_rows(rows_fn(calls), launches, twhat)
+    del calls
+    f32 = dataclasses.replace(nerf_cfg, compute_dtype="float32")
+    t0 = time.perf_counter()
+    _, errs = step_check(Trainer(f32, render_cfg, train_cfg, device=DEVICE), initial, data,
+                         f"{what} (initial field, float32 MLPs)", n_rays=ANALYTIC_CHECK_RAYS, unused=("color_net",),
+                         loss_fn=registry_loss_fn(REG.RegistryField(f32, *names, normal_type="analytic", **field_kw)))
+    return rows, dict(stats, launches=launches, check_s=time.perf_counter() - t0, check_err=max(errs.values()))
+
+
+def registry_sdf_analytic_phase(scene, card):
+    """implicit-sdf on bench's triplane (1024^2 x 16 bf16), the diffuse
+    material with analytic normals and the env map, trained through the
+    normals: K2x² (its plane gradient the K2 backward's binned passes)."""
+    return analytic_phase(scene, card, "registry-sdf-analytic", registry_configs(),
+                          ("implicit-sdf", "diffuse-with-point-light-material", "neural-environment-map-background"),
+                          REG_SDF_AN_KERNELS, _k2xx_rows, "k2x")
+
+
+def registry_hash_analytic_phase(scene, card):
+    """The hash-grid field (the JAX default grid: 16 levels x 2, 2^19 rows)
+    under the diffuse material with analytic normals, trained through them
+    on a full grid: K7x²."""
+    _, render_cfg, train_cfg = registry_configs()
+    return analytic_phase(scene, card, "registry-hash-analytic", (hashgrid_configs()[0], render_cfg, train_cfg),
+                          ("implicit-volume", "diffuse-with-point-light-material", "solid-color-background"),
+                          REG_HASH_AN_KERNELS, _k7xx_rows, "k7x")
+
+
+def registry_grid_analytic_phase(scene, card):
+    """Phase 16's voxel grid (R 64 x 16 f32) and textured background under
+    the diffuse material with analytic normals, trained through them: K10²."""
+    return analytic_phase(scene, card, "registry-grid-analytic", registry_configs(),
+                          ("volume-grid", "diffuse-with-point-light-material", "textured-background"),
+                          REG_GRID_AN_KERNELS, _k10xx_rows, "k10x")
 
 
 # ---------------------------------------------------------------------------
@@ -4073,9 +4392,12 @@ def webapp_phase(card):
 
 def second_order_phase():
     """A create_graph=True first derivative through each kernel function on
-    the card, then a backward through it: each must raise torch's
+    the card, then a backward through it: through K11, K4, K3, K3c and the
+    K2 backward taken in the planes alone it must raise torch's
     once_differentiable error, as the CPU tests' plain versions do
-    (``tests/test_torch_second_order.py``)."""
+    (``tests/test_torch_second_order.py``); through the coordinate gradients
+    of K2, K7 and K10 it runs K2x², K7x² and K10², and a backward through
+    that second derivative must raise."""
     g = torch.Generator().manual_seed(SEED)
 
     def rnd(*shape, lo=0.0, hi=1.0, grad=False):
@@ -4101,14 +4423,18 @@ def second_order_phase():
             x, cfg7, 1.0),
         "K10 sample_volume_grid": lambda x: REG.sample_volume_grid(
             {"grid": rnd(16, 16, 16, 4, lo=-1.0, grad=True)}, x, REG.VolumeGridConfig(16, 3), 1.0),
+        "K2 backward (planes alone)": None,
         "K11 background_textured": None,
         "K4 idwt2d": None,
         "K3 composite_dense": None,
         "K3c composite_compact": None,
     }
-    inputs = {"K11 background_textured": rnd(64, 128, 3, lo=-1.0, grad=True),
+    twice = ("K2 sample_points", "K7 grid_encode", "K10 sample_volume_grid")
+    inputs = {"K2 backward (planes alone)": rnd(3, 16, 16, 16, grad=True),
+              "K11 background_textured": rnd(64, 128, 3, lo=-1.0, grad=True),
               "K4 idwt2d": rnd(3, 4, 12, 12, grad=True), "K3 composite_dense": rnd(16, 8, hi=5.0, grad=True),
               "K3c composite_compact": rnd(N * S, hi=5.0, grad=True)}
+    cases["K2 backward (planes alone)"] = lambda t: GS.sample_points(t, pts().detach(), 1.0)
     cases["K11 background_textured"] = lambda t: REG.background_textured({"bg_texture": t}, rnd(256, 3, lo=-1.0))
     cases["K4 idwt2d"] = lambda yl: W.idwt2d(yl, rnd(3, 4, 3, 12, 12, grad=True), "bior2.2")
     cases["K3 composite_dense"] = lambda s: RM.composite_dense(s, rnd(16, 8, 3, grad=True), deltas,
@@ -4119,20 +4445,26 @@ def second_order_phase():
         x = inputs.get(name)
         x = pts() if x is None else x
         (gx,) = torch.autograd.grad(fn(x).sum(), [x], create_graph=True)
+        if name in twice:  # differentiable twice: the second derivative runs, the third must raise
+            (gx,) = torch.autograd.grad(gx.square().sum(), [x], create_graph=True)
+            if not torch.isfinite(gx).all():
+                raise RuntimeError(f"a non-finite second derivative through {name} on the card")
         try:
             gx.square().sum().backward()
             raised = ""
         except RuntimeError as e:
             raised = str(e)
         if "differentiate twice" not in raised:
-            raise RuntimeError(f"a second derivative through {name} on the card did not raise torch's "
-                               f"once_differentiable error: {raised!r}")
+            raise RuntimeError(f"a {'third' if name in twice else 'second'} derivative through {name} on the "
+                               f"card did not raise torch's once_differentiable error: {raised!r}")
     torch.cuda.synchronize()
     launched = {k: v for k, v in kernels.launches.items() if v}
     log(f"# second-order: a backward through each create_graph=True first derivative raised on the card "
-        f"({', '.join(cases)}); first-order launches {launched}")
-    for name in ("grid_sample_bwd_xyz", "grid_encode_bwd_x", "volume_grid_bwd", "textured_bg_bwd",
-                 "idwt_adjoint", "composite_bwd", "composite_compact_bwd"):
+        f"({', '.join(n for n in cases if n not in twice)}); through {', '.join(twice)} the second derivative "
+        f"ran and a third raised; launches {launched}")
+    for name in ("grid_sample_bwd", "grid_sample_bwd_xyz", "grid_encode_bwd_x", "volume_grid_bwd",
+                 "textured_bg_bwd", "idwt_adjoint", "composite_bwd", "composite_compact_bwd",
+                 "grid_sample_bwd_xyz_bwd", "grid_encode_bwd_x_bwd", "volume_grid_bwd_x_bwd"):
         if launched.get(name, 0) == 0:
             raise RuntimeError(f"the second-order phase did not launch {name}")
 
@@ -4779,6 +5111,12 @@ def main() -> int:
     rows += rh_rows
     del hstats["params"], hstats["occ"]
     log(f"# registry-hash-normals phase done at {time.perf_counter() - t_start:.1f} s")
+    an_stats = {}
+    for phase in (registry_sdf_analytic_phase, registry_hash_analytic_phase, registry_grid_analytic_phase):
+        t_ph = time.perf_counter()
+        an_rows, an_stats[phase] = phase(scene, card)
+        rows += an_rows
+        log(f"# {phase.__name__} done at {time.perf_counter() - t_start:.1f} s ({time.perf_counter() - t_ph:.1f} s)")
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         cli_rows, cstats = cli_phase(card, cli_root)
@@ -4873,6 +5211,12 @@ def main() -> int:
     log(f"# registry-hash-normals view (hash grid, diffuse material, analytic normals): ms/view "
         f"{rhstats['view_ms']}; cos(analytic, FD) median {rhstats['cos_median']:.4f}, 10th percentile "
         f"{rhstats['cos_p10']:.4f} on {card}; launches {rhstats['launches']}")
+    for phase, st in an_stats.items():
+        log(f"# {phase.__name__[:-6].replace('_', '-')} (trained through analytic normals): "
+            f"{st['ms_per_step']:.3f} ms/step, {st['rays_per_s']:.1f} rays/s, {st['samples_per_ray']:.3f} kept "
+            f"samples/ray, loss {st['loss_first']:.5f} -> {st['loss_last']:.5f}; step check (float32 MLPs, "
+            f"{ANALYTIC_CHECK_RAYS} rays) largest gradient rel L2 {st['check_err']:.3e} in {st['check_s']:.1f} s "
+            f"on {card}; launches {st['launches']}")
     log(f"# cli (README recipe, 256 + 256 steps): ms/step by stage {cstats['stage_ms']}; save "
         f"{cstats['save_s']:.3f} s, load {cstats['load_s']:.3f} s, extract_mesh {cstats['mesh_s']:.3f} s; "
         f"PNG decode {cstats['decode_ms']:.3f} ms/view; test PSNR {cstats['psnr']:.4f} dB, SSIM "

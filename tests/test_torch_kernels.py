@@ -1,6 +1,7 @@
 """Each CUDA kernel (K1-K4 forward and backward, K2x, K1f, K5, K3c forward
 and backward, K6, K7 forward and backward, K7x, K10 and K11 forward and
-backward) against its plain PyTorch version, on the card.
+backward, and the second derivatives K2x², K7x², K10²) against its plain
+PyTorch version, on the card.
 
 These tests need an NVIDIA GPU and nvcc (the kernels have no CPU mode); they
 carry the ``cuda`` marker and skip elsewhere. Run them on a GPU machine with
@@ -63,9 +64,17 @@ so that its slope per radian, which turns those ulps into colour, is the
 64 x 128 one's. K7x fuses no
 multiply-add where its plain version does not and sums the corners and the
 levels in its order: the plain version's bits at C <= 2, where the
-channel sum has one order, else within 1e-5 of its largest entry. A second
-derivative through each kernel function raises as on the CPU
-(``tests/test_torch_second_order.py``'s cases).
+channel sum has one order, else within 1e-5 of its largest entry.
+K2x², K7x² and K10² against their plain versions run on the CPU (true
+divisions there, as in the kernels): dL/dg and dL/dx within 1e-5 of their
+largest entries (channel and corner sums in other orders); K2x²'s plane
+gradient as the K2 backward's (1e-5 relative in f32, one bf16 ulp, 2^-7,
+in bf16), the same bits on a second call; K7x²'s table and K10²'s grid
+gradients (float atomics) within 1e-5 of the largest entry; each with and
+without a cotangent on the first-order parameter gradient. A second
+derivative through each kernel function raises as on the CPU, or, for the
+samplers' coordinate gradients, matches the plain second derivative and a
+third raises (``tests/test_torch_second_order.py``'s cases).
 """
 
 import numpy as np
@@ -74,7 +83,8 @@ import torch
 
 from trinerflet_tpu_torch import kernels
 from trinerflet_tpu_torch.kernels import _build
-from tests.test_torch_second_order import check_second_order_raises, second_order_cases
+from tests.test_torch_second_order import (TWICE, check_second_order_matches_plain, check_second_order_raises,
+                                           second_order_cases)
 from trinerflet_tpu_torch.models import gridencoder as GE
 from trinerflet_tpu_torch.models import registry as REG
 from trinerflet_tpu_torch.ops import grid_sample as GS
@@ -1192,9 +1202,119 @@ def test_textured_background_kernels_match_plain(dev, hw, n, dirs):
     assert rel <= 1e-4, rel
 
 
+@pytest.mark.parametrize("C", [4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_backward_xyz_backward_kernel_matches_plain(dev, dtype, C):
+    """K2x² at lbound 1.0 on 64 x 48 planes (border ties, cell edges, one
+    contended texel, rows with no cotangent, points with no gg, points whose
+    gg misses one plane's axes): one launch
+    for dL/dg and dL/dxyz and the K2 backward's six passes for the plane
+    gradient; with gg on the plane gradient, K2 forward and K2x's pass on it
+    besides."""
+    planes, xyz, ct = _k2x_inputs(dev, dtype, 64, 48, C, 20000, 21)
+    gen = torch.Generator().manual_seed(22)
+    gg = torch.randn((20000, 3), generator=gen)
+    gg[6000:7000] = 0.0
+    gg[7000:8000, :2] = 0.0  # gg along z alone: the (x, y) plane's rows have zero weights and are left out
+    gg = gg.to(dev)
+    ggp = torch.randn(planes.shape, generator=gen).to(dev, dtype)
+    cpu = [t.cpu() for t in (planes, xyz, ct, gg, ggp)]
+    first = {}
+    for with_ggp in (False, True):
+        n0 = kernels.launches["grid_sample_bwd_xyz_bwd"]
+        dp, dx, dg = GS._sample_points_backward_xyz_backward_cuda(gg, ggp if with_ggp else None, planes, xyz, ct,
+                                                                   1.0)
+        assert kernels.launches["grid_sample_bwd_xyz_bwd"] == n0 + 1 + GS.K2_BWD_LAUNCHES
+        again = GS._sample_points_backward_xyz_backward_cuda(gg, None, planes, xyz, ct, 1.0)[0]
+        rp, rx, rg = GS.sample_points_backward_xyz_backward_plain(cpu[3], cpu[4] if with_ggp else None, *cpu[:2],
+                                                                  cpu[2], 1.0)
+        torch.cuda.synchronize()
+        assert dp.dtype == rp.dtype == dtype and dx.shape == (20000, 3) and dg.shape == (20000, 3, C)
+        assert torch.equal(dp, again) and (dp.float().abs().max() > 0)
+        assert _rel_close(dp.cpu(), rp, 1e-5 if dtype == torch.float32 else 2.0**-7)
+        assert _rel_close(dx.cpu(), rx, 1e-5) and _rel_close(dg.cpu(), rg, 1e-5)
+        first.setdefault("dx", dx)
+        first.setdefault("dg", dg)
+    # no plane gradient asked for (an analytic normal's parameters are leaves): one launch, the same bits
+    n0 = kernels.launches["grid_sample_bwd_xyz_bwd"]
+    none, dx1, dg1 = GS._sample_points_backward_xyz_backward_cuda(gg, None, planes, xyz, ct, 1.0,
+                                                                  wants=(False, True, True))
+    assert none is None and kernels.launches["grid_sample_bwd_xyz_bwd"] == n0 + 1
+    assert torch.equal(dx1, first["dx"]) and torch.equal(dg1, first["dg"])
+
+
+@pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])
+def test_grid_encode_backward_x_backward_kernel_matches_plain(dev, interpolation):
+    """K7x² at C = 2 (the hash-grid field's levels, fewer of them) on random
+    and ray-ordered points, bound 1.0 (border ties) and 1.5."""
+    cfg = GE.GridEncoderConfig(**K7_CASES["proposal"], interpolation=interpolation)
+    for layout, n in (("random", 20000), ("rays", 20000)):
+        if layout == "rays":
+            x, tables = _k7_ray_inputs(dev, cfg, 1.5, n, 23)
+        else:
+            x, tables = _k7_inputs(dev, cfg, 1.5, n, 23)
+            x[2:100] = torch.tensor([1.0, -1.0, 0.5], device=dev)
+        gen = torch.Generator().manual_seed(24)
+        ct = torch.randn((n, cfg.output_dim), generator=gen).to(dev)
+        ct[n // 10 : n // 5] = 0.0
+        gg = torch.randn((n, 3), generator=gen)
+        gg[n // 4 : n // 3] = 0.0
+        gg = gg.to(dev)
+        ggt = [torch.randn(t.shape, generator=gen).to(dev) for t in tables]
+        cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+        for bound in (1.0, 1.5):
+            for gg_tables in (None, ggt):
+                n0 = kernels.launches["grid_encode_bwd_x_bwd"]
+                dx, dg, dt = GE._grid_encode_backward_x_backward_cuda(gg, gg_tables, x, ct, tables, cfg, bound)
+                assert kernels.launches["grid_encode_bwd_x_bwd"] == n0 + 1
+                rx, rg, rt = GE.grid_encode_backward_x_backward_plain(
+                    gg.cpu(), None if gg_tables is None else cpu(gg_tables), x.cpu(), ct.cpu(), cpu(tables), cfg,
+                    bound)
+                torch.cuda.synchronize()
+                assert dx.shape == (n, 3) and dg.shape == (n, cfg.output_dim)
+                assert _rel_close(dx.cpu(), rx, 1e-5) and _rel_close(dg.cpu(), rg, 1e-5)
+                for a, b in zip(dt, rt):
+                    assert a.shape == b.shape and _rel_close(a.cpu(), b, 1e-5)
+                if gg_tables is None:  # points with no gg read nothing and write zeros
+                    assert (dg[n // 4 : n // 3] == 0).all() and (dx[n // 4 : n // 3] == 0).all()
+
+
+def test_volume_grid_backward_x_backward_kernel_matches_plain(dev):
+    """K10² at R = 64, 16 channels (the registry-grid field), random and
+    ray-ordered points, with and without a cotangent on the grid
+    gradient."""
+    R, CH, bound = 64, 16, 1.5
+    for layout in ("random", "rays"):
+        grid, x, ct = _volume_inputs(dev, R, CH, 60000, bound, 25, layout)
+        gen = torch.Generator().manual_seed(26)
+        gg = torch.randn((60000, 3), generator=gen)
+        gg[:5000] = 0.0
+        gg = gg.to(dev)
+        ggrid = torch.randn(grid.shape, generator=gen).to(dev)
+        for gg_grid in (None, ggrid):
+            n0 = kernels.launches["volume_grid_bwd_x_bwd"]
+            dgrid, dx, dg = REG._sample_volume_grid_backward_x_backward_cuda(gg, gg_grid, grid, x, ct, R, bound)
+            assert kernels.launches["volume_grid_bwd_x_bwd"] == n0 + 1
+            rgrid, rx, rg = REG.sample_volume_grid_backward_x_backward_plain(
+                gg.cpu(), None if gg_grid is None else gg_grid.cpu(), grid.cpu(), x.cpu(), ct.cpu(), R, bound)
+            torch.cuda.synchronize()
+            assert dgrid.shape == (R**3, CH) and dx.shape == (60000, 3) and dg.shape == (60000, CH)
+            assert _rel_close(dgrid.cpu(), rgrid, 1e-5)
+            assert _rel_close(dx.cpu(), rx, 1e-5) and _rel_close(dg.cpu(), rg, 1e-5)
+            if gg_grid is None:
+                assert (dg[:5000] == 0).all() and (dx[:5000] == 0).all()
+
+
 @pytest.mark.parametrize("name", sorted(second_order_cases("cpu")))
 def test_second_derivative_raises_on_the_card(dev, name):
-    check_second_order_raises(second_order_cases(dev)[name])
+    """As ``test_second_derivative_raises``: the samplers' coordinate
+    gradients match the plain second derivative (within 1e-5 of the largest
+    entry) and a third derivative raises; every other case raises at the
+    second."""
+    if name in TWICE:
+        check_second_order_matches_plain(second_order_cases(dev)[name], name, rel=1e-5)
+    else:
+        check_second_order_raises(second_order_cases(dev)[name])
 
 
 @pytest.mark.parametrize("M", [2, 4])

@@ -21,6 +21,9 @@ import torch
 
 from tests.test_torch_registry import N_PTS, _fields, _flat, _np, _rays
 from tests.test_torch_train import one_torch_thread  # noqa: F401 (autouse)
+from trinerflet_tpu_torch.models import gridencoder as PG
+from trinerflet_tpu_torch.models import registry as PR
+from trinerflet_tpu_torch.ops import grid_sample as GS
 
 
 # ---------------------------------------------------------------------------
@@ -81,28 +84,84 @@ def test_field_normals_and_shading_match_jax(geometry, encoding, normal_type):
     np.testing.assert_allclose(_np(prgb), np.asarray(jrgb), rtol=0, atol=1e-4 if fd else 1e-6)
 
 
+def _trainable(tree):
+    """A copy of a parameter tree whose every leaf requires a gradient."""
+    if isinstance(tree, dict):
+        return {k: _trainable(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
 @pytest.mark.parametrize("geometry", ["implicit-volume", "volume-grid", "implicit-sdf"])
 def test_analytic_normal_in_training_raises_before_any_work(geometry, monkeypatch):
-    """Training through an analytic normal needs the kernels' second
-    derivative: the normal raises first (nothing is sampled). Under no_grad
-    (a served view), or with no parameter requiring a gradient, it works."""
+    """Training through an analytic normal (it raised before the samplers'
+    second derivatives were ported; the test keeps its name). Under no_grad
+    (a served view), or with no parameter requiring a gradient, the normal
+    runs the first-order path alone: no second-order plain version (K2x²,
+    K7x², K10²) is called and nothing carries a graph. With every parameter
+    requiring a gradient the normal is the same, carries a graph, and a loss
+    through the diffuse colour gives finite gradients in every parameter,
+    nonzero in the encoding's, through exactly one second-order call."""
     _, pf, _, pp = _fields(geometry, "diffuse-with-point-light-material", normal_type="analytic")
-    planes = pf.build_planes(pp)
     x, d = _rays(16, 16)
     x, d = torch.from_numpy(x), torch.from_numpy(d)
-    calls = []
-    for name in ("_density_only", "sdf"):
-        orig = getattr(pf, name)
-        monkeypatch.setattr(pf, name, lambda *a, _o=orig, _n=name, **k: calls.append(_n) or _o(*a, **k))
-    train = {k: v for k, v in pp.items()}
-    leaf = next(t for t in _flat(train).values())
-    leaf.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="analytic normals"):
-        pf.normal(train, planes, x)
-    assert calls == []
+    second = []
+    for mod, name in ((GS, "sample_points_backward_xyz_backward_plain"),
+                      (PG, "grid_encode_backward_x_backward_plain"),
+                      (PR, "sample_volume_grid_backward_x_backward_plain")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **k: second.append(_n) or _o(*a, **k))
+    planes = pf.build_planes(pp)
+    served = pf.normal(pp, planes, x)
+    train = _trainable(pp)
     with torch.no_grad():
-        n = pf.normal(train, planes, x)
-        sigma, rgb = pf(train, planes, x, d)
-    assert calls and torch.isfinite(n).all() and torch.isfinite(rgb).all() and not rgb.requires_grad
-    leaf.requires_grad_(False)
-    assert torch.isfinite(pf.normal(pp, planes, x)).all()
+        tplanes = pf.build_planes(train)
+        n = pf.normal(train, tplanes, x)
+        _, rgb = pf(train, tplanes, x, d)
+    assert torch.equal(n, served) and not n.requires_grad and not rgb.requires_grad
+    assert torch.isfinite(rgb).all() and second == []
+    tplanes = pf.build_planes(train)
+    n = pf.normal(train, tplanes, x)
+    assert n.requires_grad and second == []
+    torch.testing.assert_close(n.detach(), served, rtol=0, atol=1e-6)
+    _, rgb = pf(train, tplanes, x, d)
+    leaves = _flat(train)
+    grads = torch.autograd.grad(rgb.square().sum(), list(leaves.values()), allow_unused=True)
+    assert len(second) == 1
+    for k, g in zip(leaves, grads):
+        assert g is None or torch.isfinite(g).all(), k
+    enc = [g for k, g in zip(leaves, grads) if k.startswith("encoder.")]
+    assert enc and all(g is not None for g in enc) and any(g.abs().max() > 0 for g in enc)
+
+
+@pytest.mark.parametrize("geometry,encoding", [("implicit-volume", "triplane_wavelet"),
+                                               ("implicit-sdf", "triplane_wavelet"),
+                                               ("volume-grid", "triplane_wavelet"),
+                                               ("implicit-volume", "hashgrid")])
+def test_analytic_normal_inner_gradient_runs_no_parameter_pass(geometry, encoding, monkeypatch):
+    """The analytic normal's inner gradient in the points, taken with a
+    graph while every parameter requires a gradient, runs no plane, table
+    or grid gradient (``kernels.wanted``: the engine runs none of their
+    nodes there), and the parameters still get their gradients through the
+    second derivative."""
+    _, pf, _, pp = _fields(geometry, "diffuse-with-point-light-material", encoding=encoding,
+                           normal_type="analytic")
+    x = torch.from_numpy(_rays(16, 16)[0])
+    passes = []
+
+    def spy(mod, name, asked):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, **k: (passes.append(name) if asked(a, k) else None)
+                            or orig(*a, **k))
+
+    spy(GS, "sample_points_backward_xyz_plain", lambda a, k: k.get("planes_grad", True))
+    spy(GS, "sample_points_backward_plain", lambda a, k: True)
+    spy(PG, "grid_encode_backward_plain", lambda a, k: True)
+    spy(PR, "sample_volume_grid_backward_plain", lambda a, k: a[5])
+    train = _trainable(pp)
+    n = pf.normal(train, pf.build_planes(train), x)
+    assert n.requires_grad and passes == []
+    leaves = _flat(train)
+    grads = torch.autograd.grad(n.sum(), list(leaves.values()), allow_unused=True)
+    enc = [g for k, g in zip(leaves, grads) if k.startswith("encoder.")]
+    assert enc and all(g is not None and torch.isfinite(g).all() for g in enc)
+    assert any(g.abs().max() > 0 for g in enc)

@@ -1,18 +1,34 @@
-"""Second derivatives through the port's kernel functions raise, on the CPU
-as on the card.
+"""Second derivatives through the port's kernel functions: where none is
+ported they raise, on the CPU as on the card; the samplers' coordinate
+gradients are differentiable twice, and a third derivative raises.
 
 Each kernel's ``torch.autograd.Function`` (K2 / K2x ``_SamplePoints``, K7 /
 K7x ``_GridEncode``, K4 ``_Idwt2d``, K3 ``_CompositeDense``, K3c
 ``_CompositeCompact``, K10 ``_SampleVolumeGrid``, K11
-``_TexturedBackground``) marks its backward ``kernels.first_order``. On the
-card the backward is a kernel launch into a fresh tensor with no graph, so
-a second derivative would come out as a silent zero; on the CPU the plain
-backward is torch ops that autograd would record. Both now raise torch's
-``once_differentiable`` error when a ``create_graph=True`` gradient is
-differentiated again, even when the first cotangent is a constant (the
-``y.sum()`` of an analytic normal). A first-order ``create_graph=True``
-call still works. ``trunc_exp``'s backward is plain torch on both devices
-and stays twice differentiable.
+``_TexturedBackground``) marks the backward it runs once
+``kernels.first_order``. On the card the backward is a kernel launch into a
+fresh tensor with no graph, so a second derivative would come out as a
+silent zero; on the CPU the plain backward is torch ops that autograd would
+record. Both raise torch's ``once_differentiable`` error when a
+``create_graph=True`` gradient is differentiated again, even when the first
+cotangent is a constant (the ``y.sum()`` of an analytic normal): K3, K3c,
+K4, K11, and the K2 backward taken in the planes alone (no path needs their
+second derivatives). A first-order ``create_graph=True`` call still works.
+``trunc_exp``'s backward is plain torch on both devices and stays twice
+differentiable.
+
+The coordinate gradients of K2 (K2x), K7 (K7x) and K10 (K10x), which
+training through an analytic normal differentiates once more, are autograd
+functions under grad mode whose backwards are K2x², K7x² and K10² (marked
+``first_order``): their second derivative in (points, parameters,
+cotangent) equals the plain versions' autograd-free results
+(``sample_points_backward_xyz_backward_plain``,
+``grid_encode_backward_x_backward_plain``,
+``sample_volume_grid_backward_x_backward_plain``; bit for bit on the CPU,
+where autograd runs exactly those; within 1e-5 of the largest entry on the
+card, where the kernels sum in other orders), and a third derivative
+raises. ``tests/test_torch_second_order_parity.py`` holds the plain versions
+against the JAX package.
 
 The cases take a device: ``tests/test_torch_kernels.py`` runs the same
 cases on the card. No JAX here (the card's machine has none).
@@ -29,6 +45,10 @@ from trinerflet_tpu_torch.ops import wavelets as W
 from trinerflet_tpu_torch.ops.activation import trunc_exp
 
 SECOND_ORDER_ERROR = "differentiate twice"
+K7_CFG = GE.GridEncoderConfig(num_levels=3, level_dim=2, base_resolution=4, desired_resolution=16,
+                              log2_hashmap_size=8)
+K10_CFG = REG.VolumeGridConfig(resolution=8, feature_dim=3)
+TWICE = ("grid_encode", "sample_points", "volume_grid")  # differentiable twice in the points
 
 
 def _rand(g, dev, *shape, lo=0.0, hi=1.0):
@@ -49,12 +69,14 @@ def second_order_cases(dev):
         x = points()
         return GS.sample_points(planes, x, 1.0), x, [planes]
 
+    def sample_points_planes():  # the first gradient in the planes: the K2 backward alone
+        planes = _rand(g, dev, 3, 8, 8, 4).requires_grad_(True)
+        return GS.sample_points(planes, points().detach(), 1.0), planes, []
+
     def grid_encode():
-        cfg = GE.GridEncoderConfig(num_levels=3, level_dim=2, base_resolution=4,
-                                   desired_resolution=16, log2_hashmap_size=8)
-        params = {k: v.requires_grad_(True) for k, v in GE.init_grid_params(cfg, g, dev, std=0.5).items()}
+        params = {k: v.requires_grad_(True) for k, v in GE.init_grid_params(K7_CFG, g, dev, std=0.5).items()}
         x = points()
-        return GE.grid_encode(params, x, cfg, 1.0), x, list(params.values())
+        return GE.grid_encode(params, x, K7_CFG, 1.0), x, list(params.values())
 
     def idwt2d():
         yl = _rand(g, dev, 3, 4, 12, 12).requires_grad_(True)
@@ -83,16 +105,16 @@ def second_order_cases(dev):
         return RM.composite_compact(sig, rgb, comp, N)[2], sig, [rgb]
 
     def volume_grid():
-        cfg = REG.VolumeGridConfig(resolution=8, feature_dim=3)
         params = {"grid": _rand(g, dev, 8, 8, 8, 4, lo=-1.0).requires_grad_(True)}
         x = points()
-        return REG.sample_volume_grid(params, x, cfg, 1.0), x, [params["grid"]]
+        return REG.sample_volume_grid(params, x, K10_CFG, 1.0), x, [params["grid"]]
 
     def textured_background():
         tex = _rand(g, dev, 8, 16, 3, lo=-1.0).requires_grad_(True)
         return REG.background_textured({"bg_texture": tex}, points(b=1.0)), tex, []
 
-    return {"sample_points": sample_points, "grid_encode": grid_encode, "idwt2d": idwt2d,
+    return {"sample_points": sample_points, "sample_points_planes": sample_points_planes,
+            "grid_encode": grid_encode, "idwt2d": idwt2d,
             "composite_dense": composite_dense, "composite_compact": composite_compact,
             "volume_grid": volume_grid, "textured_background": textured_background}
 
@@ -113,9 +135,59 @@ def check_second_order_raises(make):
             gx.square().sum().backward()
 
 
+def _plain_second(name, gg, ct, x, others):
+    """The plain K2x², K7x² or K10² on the CPU: the second derivative of
+    sum(gg * dL/dx), dL/dx the coordinate gradient under cotangent ct, in
+    [x, *others, ct]."""
+    x, gg, ct, others = x.cpu(), gg.cpu(), ct.cpu(), [t.cpu() for t in others]
+    if name == "sample_points":
+        dp, dx, dg = GS.sample_points_backward_xyz_backward_plain(gg, None, others[0], x, ct, 1.0)
+        return [dx, dp, dg]
+    if name == "grid_encode":
+        dx, dg, dt = GE.grid_encode_backward_x_backward_plain(gg, None, x, ct, others, K7_CFG, 1.0)
+        return [dx, *dt, dg]
+    (grid,) = others
+    R = K10_CFG.resolution
+    dgrid, dx, dg = REG.sample_volume_grid_backward_x_backward_plain(gg, None, grid.reshape(R**3, -1), x, ct, R,
+                                                                     1.0)
+    return [dx, dgrid.reshape(grid.shape), dg]
+
+
+def check_second_order_matches_plain(make, name, rel=0.0):
+    """For a sampler whose coordinate gradient is differentiable twice: its
+    second derivative in (x, the parameters, the first cotangent) equals
+    the plain version's (within ``rel`` of each output's largest entry; 0:
+    equal), and a derivative of it raises."""
+    out, x, others = make()
+    gen = torch.Generator().manual_seed(3)
+    ct = torch.randn(out.shape, generator=gen).to(out.device).requires_grad_(True)
+    gg = torch.randn(x.shape, generator=gen).to(x.device)
+    (gx,) = torch.autograd.grad((out * ct).sum(), [x], create_graph=True)
+    got = torch.autograd.grad((gx * gg).sum(), [x, *others, ct], create_graph=True)
+    want = _plain_second(name, gg, ct.detach(), x.detach(), [t.detach() for t in others])
+    for a, b in zip(got, want):
+        a = a.detach().cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if rel == 0.0:
+            assert torch.equal(a, b)
+        else:
+            assert (a - b).abs().max().item() <= rel * max(b.abs().max().item(), 1e-30)
+    assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+    with pytest.raises(RuntimeError, match=SECOND_ORDER_ERROR):
+        sum(t.square().sum() for t in got).backward()
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_second_derivative_raises(name):
-    check_second_order_raises(second_order_cases("cpu")[name])
+    """K3, K3c, K4, K11 and the K2 backward in the planes alone raise at the
+    second derivative. The samplers' coordinate gradients (K2x, K7x, K10x)
+    are differentiable twice now: their second derivative equals the plain
+    K2x², K7x², K10² bit for bit, and the third derivative raises."""
+    make = second_order_cases("cpu")[name]
+    if name in TWICE:
+        check_second_order_matches_plain(make, name)
+    else:
+        check_second_order_raises(make)
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -9,13 +9,6 @@ import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
 
-# The one part of the JAX package the port has not taken yet;
-# NotImplementedError messages name it so a caller knows where it is queued.
-SLICE_LATER = ("a later slice (the second derivatives of K2x, K7x and K10, which training "
-               "through analytic normals needs: the last gap against the JAX package, whose "
-               "entry points never reach it)")
-
-
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``. Raises when CUDA is asked for and absent."""
     dev = torch.device("cuda" if device is None else device)
@@ -25,7 +18,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch versions on the CPU")
     return dev
-
-
-def not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with {where}")

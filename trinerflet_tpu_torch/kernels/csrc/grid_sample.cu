@@ -90,6 +90,30 @@
 // idle, and the corner reads lengthen each iteration.) Bound: bytes (the
 // cotangent, the corner rows of the rows that carry one, dL/dxyz and the
 // plane gradient written).
+//
+// K2x², the backward of K2x (replaces JAX's autodiff of grid_sample_2d :23 /
+// sample_planes :61 twice, which training through an analytic normal takes:
+// trinerflet_tpu/models/registry.py:443 under jax.value_and_grad). Given the
+// cotangent gg of dL/dxyz, per (point, plane) with (a_u, a_v) the plane's
+// axes of gg / lbound, c_u = a_u clip'(x)(W - 1)/2, c_v alike and h =
+// sum_c g_c (f00 - f01 - f10 + f11):
+//   dL/dg = c_u [(f01 - f00)(1 - wy) + (f11 - f10) wy] + c_v [(f10 - f00)(1 - wx) + (f11 - f01) wx],
+//   dL/dxyz: the plane's u axis gets c_v h s_u, its v axis c_u h s_v (the
+//     bilinear Hessian's cross term; clip'' is 0), summed into the point's
+//     axes as K2x sums and over lbound,
+//   dL/dplanes: each corner row gets g times its weight's derivative along
+//     gg: f00 -(c_u (1 - wy) + c_v (1 - wx)), f01 c_u (1 - wy) - c_v wx,
+//     f10 c_v (1 - wx) - c_u wy, f11 c_u wy + c_v wx.
+// dL/dg and dL/dxyz are one launch shaped as K2x's dL/dxyz pass (a lane
+// group per point, a 16-byte slice of each row per lane; the group's h by
+// __shfl_xor_sync; a (point, plane) row whose c_u and c_v are both zero reads
+// no corner). dL/dplanes is the K2 backward's six passes with the derivative
+// weights in place of the bilinear ones (the count pass leaves out a row
+// whose gg has no component along its plane's axes; the accumulate pass's
+// DERIV mode computes a row's weights from its cell and gg when it is
+// staged), so it keeps their deterministic order. Bound: bytes (gg and the
+// points in; g and the corner rows of the rows gg reaches; dL/dg and dL/dxyz
+// written, the plane gradient written once).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -355,7 +379,8 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __r
                                                                 unsigned int rows, int H, int W,
                                                                 float lbound, int T, int use_hist,
                                                                 int* __restrict__ keys,
-                                                                int* __restrict__ matrix) {
+                                                                int* __restrict__ matrix,
+                                                                const float* __restrict__ ggx) {
   constexpr int G = C / 4, TY = Tile<C>::TY;
   extern __shared__ int hist[];
   if (use_hist) {
@@ -378,9 +403,12 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __r
 #pragma unroll
     for (int o = 1; o < G; o <<= 1) nz |= __shfl_xor_sync(0xffffffffu, nz, o);
     int key = -1;  // the row's key, on its group's first lane
-    if (valid && sub == 0 && nz) {
-      const unsigned int m = row / 3u;
-      const int p = (int)(row - 3u * m);
+    const unsigned int m = row / 3u;
+    const int p = (int)(row - 3u * m);
+    // K2x²: a row whose gg has no component along its plane's axes has zero
+    // derivative weights, and is left out as a row without cotangent is
+    if (valid && sub == 0 && nz &&
+        (ggx == nullptr || ggx[3 * m + (p == 2 ? 1 : 0)] != 0.f || ggx[3 * m + (p == 1 ? 1 : 2)] != 0.f)) {
       const Cell c = cell_of(xyz[3 * m], xyz[3 * m + 1], xyz[3 * m + 2], p, lbound, H, W);
       const int t = (p * ty_n + c.y0 / TY) * tx_n + c.x0 / TX;
       key = (t << 2) | (((c.y0 % TY) == TY - 1) << 1) | ((c.x0 % TX) == TX - 1);
@@ -631,10 +659,11 @@ __device__ __forceinline__ void store_tile4(T* __restrict__ grad, int p, int oy,
 
 #define BATCH BWD_THREADS   // rows staged at once, one per thread
 
-// A row's cotangent and point (nothing for row < 0).
-template <int C>
+// A row's cotangent and point (nothing for row < 0), and in DERIV mode the
+// point's gg.
+template <int C, bool DERIV>
 __device__ __forceinline__ void fetch_row(int row, const float* __restrict__ g, const float* __restrict__ xyz,
-                                          float4* q, float* pt) {
+                                          const float* __restrict__ ggx, float4* q, float* pt, float* gx) {
   if (row < 0) return;
   const float4* gr = reinterpret_cast<const float4*>(g + (size_t)row * C);
 #pragma unroll
@@ -642,14 +671,44 @@ __device__ __forceinline__ void fetch_row(int row, const float* __restrict__ g, 
   const unsigned int m = (unsigned int)row / 3u;
 #pragma unroll
   for (int d = 0; d < 3; ++d) pt[d] = xyz[3 * m + d];
+  if constexpr (DERIV) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) gx[d] = ggx[3 * m + d];
+  }
 }
 
-template <int C, typename T>
+// (s_u, s_v) = clip'(r)(n - 1)/2 of a cell's two texel coordinates: the
+// derivatives of wx and wy in the plane's coordinates u and v.
+__device__ __forceinline__ float2 texel_scales(const Cell& c, int H, int W) {
+  return make_float2(clip_grad(c.xr, (float)(W - 1)) * (float)(W - 1) * 0.5f,
+                     clip_grad(c.yr, (float)(H - 1)) * (float)(H - 1) * 0.5f);
+}
+
+// The coefficients (c_u, c_v) of K2x² at plane p's cell: gg's components
+// along the plane's axes over lbound, times (s_u, s_v).
+__device__ __forceinline__ float2 deriv_coeffs(int p, const float* gx, float lbound, float2 s) {
+  const float au = (p == 2 ? gx[1] : gx[0]) / lbound, av = (p == 1 ? gx[1] : gx[2]) / lbound;
+  return make_float2(au * s.x, av * s.y);
+}
+
+// The derivatives of the four bilinear weights along gg (K2x²'s plane
+// gradient weights), in the order w00, w01, w10, w11.
+__device__ __forceinline__ float4 deriv_weights(const Cell& c, int p, const float* gx, float lbound, int H, int W) {
+  const float2 k = deriv_coeffs(p, gx, lbound, texel_scales(c, H, W));
+  const float cu = k.x, cv = k.y;
+  return make_float4(-(cu * (1.f - c.wy) + cv * (1.f - c.wx)), cu * (1.f - c.wy) - cv * c.wx,
+                     cv * (1.f - c.wx) - cu * c.wy, cu * c.wy + cv * c.wx);
+}
+
+// DERIV: K2x²'s plane gradient, each row's weights the derivatives of the
+// bilinear weights along its point's gg (deriv_weights).
+template <int C, typename T, bool DERIV>
 __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float* __restrict__ xyz,
                                                                      const float* __restrict__ g,
                                                                      int H, int W, float lbound,
                                                                      BwdScratch s, T* __restrict__ grad,
-                                                                     float* __restrict__ partials) {
+                                                                     float* __restrict__ partials,
+                                                                     const float* __restrict__ ggx) {
   constexpr int G = C / 4, TY = Tile<C>::TY, FLOATS = Tile<C>::FLOATS;
   constexpr int NT = TX * TY;               // texels of a tile
   constexpr int GROUPS = BWD_THREADS / G;   // lane groups of a block
@@ -682,8 +741,8 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
     const int r = threadIdx.x;
     int row = e0 + r < e1 ? s.ids[e0 + r] : -1;
     float4 q[G];
-    float pt[3];
-    fetch_row<C>(row, g, xyz, q, pt);
+    float pt[3], gx[3];
+    fetch_row<C, DERIV>(row, g, xyz, ggx, q, pt, gx);
     for (int b0 = e0; b0 < e1; b0 += BATCH) {
       const int next_row = b0 + BATCH + r < e1 ? s.ids[b0 + BATCH + r] : -1;
       for (int i = threadIdx.x; i < WARPS * NT / 16; i += BWD_THREADS)
@@ -695,8 +754,13 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
       if (row >= 0) {
 #pragma unroll
         for (int k = 0; k < G; ++k) sg4[r * G + k] = q[k];
-        const Cell c = cell_of(pt[0], pt[1], pt[2], (int)((unsigned int)row % 3u), lbound, H, W);
-        sw[r] = make_float4(c.w00, c.w01, c.w10, c.w11);
+        const int p = (int)((unsigned int)row % 3u);
+        const Cell c = cell_of(pt[0], pt[1], pt[2], p, lbound, H, W);
+        if constexpr (DERIV) {
+          sw[r] = deriv_weights(c, p, gx, lbound, H, W);
+        } else {
+          sw[r] = make_float4(c.w00, c.w01, c.w10, c.w11);
+        }
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int lx = c.x0 + (k & 1) - ox, ly = c.y0 + (k >> 1) - oy;
@@ -758,7 +822,7 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
           items[toff[texel[k]] + wc[texel[k]] + slot[k]] = (texel[k] << 10) | (r << 2) | k;
       __syncthreads();
       row = next_row;
-      fetch_row<C>(row, g, xyz, q, pt);
+      fetch_row<C, DERIV>(row, g, xyz, ggx, q, pt, gx);
       // the items in texel order, split evenly over the lane groups: each
       // sums runs of one texel and adds a run to the tile once; the first
       // and last texel of a group's range may be shared with the groups
@@ -873,9 +937,11 @@ static int tiles_of(int H, int W, int C) {
   return 3 * ((H + TY - 1) / TY) * tiles_x(W);
 }
 
-template <int C, typename T>
+// ggx: K2x²'s gg (the accumulate pass's DERIV mode), or null for the K2
+// backward.
+template <int C, typename T, bool DERIV = false>
 static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, float lbound, T* grad,
-                      int* iscratch, float* partials, cudaStream_t stream) {
+                      int* iscratch, float* partials, cudaStream_t stream, const float* ggx = nullptr) {
   const int T_ = tiles_of(H, W, C);
   const unsigned int rows = 3u * (unsigned int)M;
   const int B = count_blocks(rows, C, T_);
@@ -895,7 +961,7 @@ static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, flo
     hist_attr = true;
   }
   bwd_count_kernel<C><<<B, BWD_THREADS, hist_bytes, stream>>>(xyz, g, rows, H, W, lbound, T_, use_hist,
-                                                              s.keys, s.matrix);
+                                                              s.keys, s.matrix, ggx);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 2. column scan of the count matrix
   bwd_colscan_kernel<<<(T_ + 31) / 32, SCAN_THREADS, 0, stream>>>(s.matrix, B, T_, s.counts);
@@ -922,14 +988,14 @@ static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, flo
                             sizeof(int) * 2 * (BWD_THREADS / (C / 4));
   static int per_sm = 0;
   if (per_sm == 0) {
-    cudaFuncSetAttribute(bwd_accumulate_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(bwd_accumulate_kernel<C, T, DERIV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)tile_bytes);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_accumulate_kernel<C, T>, BWD_THREADS,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_accumulate_kernel<C, T, DERIV>, BWD_THREADS,
                                                   tile_bytes);
     if (per_sm < 1) per_sm = 1;
   }
-  bwd_accumulate_kernel<C, T><<<per_sm * sms, BWD_THREADS, tile_bytes, stream>>>(
-      xyz, g, H, W, lbound, s, grad, partials);
+  bwd_accumulate_kernel<C, T, DERIV><<<per_sm * sms, BWD_THREADS, tile_bytes, stream>>>(
+      xyz, g, H, W, lbound, s, grad, partials, ggx);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 6. reduce the split tiles
   bwd_reduce_kernel<C, T><<<2 * sms, BWD_THREADS, 0, stream>>>(H, W, s, partials, grad);
@@ -1090,4 +1156,116 @@ extern "C" int sample_points_backward_xyz_launch(const void* planes, const float
     default: return (int)cudaErrorInvalidValue;
   }
 #undef K2X
+}
+
+// ---------------------------------------------------------------------------
+// K2x²
+// ---------------------------------------------------------------------------
+
+// dL/dg and dL/dxyz: a group of L lanes per point, as bwd_xyz_kernel. Every
+// lane runs the group's shuffles (lanes past M with zero coefficients).
+template <int C, typename T>
+__global__ void __launch_bounds__(256) bwd_xyz_bwd_kernel(const T* __restrict__ planes, const float* __restrict__ xyz,
+                                                          const float* __restrict__ g, const float* __restrict__ ggx,
+                                                          unsigned int M, int H, int W, float lbound,
+                                                          float* __restrict__ dg, float* __restrict__ dxyz) {
+  constexpr int L = FwdShape<C, T>::L, N = FwdShape<C, T>::N;
+  const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned int m = t / L;  // L is a power of two
+  const int sub = (int)(t % L);
+  const bool valid = m < M;
+  float pt[3] = {0.f, 0.f, 0.f}, gx[3] = {0.f, 0.f, 0.f};
+  if (valid) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      pt[d] = xyz[3 * m + d];
+      gx[d] = ggx[3 * m + d];
+    }
+  }
+  float du[3], dv[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const Cell c = cell_of(pt[0], pt[1], pt[2], p, lbound, H, W);
+    const float2 sc = texel_scales(c, H, W), k = deriv_coeffs(p, gx, lbound, sc);
+    const float cu = k.x, cv = k.y;
+    float h = 0.f;
+    float* out = dg == nullptr ? nullptr : dg + (3u * m + p) * C + sub * N;
+    if (valid && (cu != 0.f || cv != 0.f)) {  // the same for the whole group
+      const T* r00 = planes + ((unsigned int)(p * H + c.y0) * (unsigned int)W + (unsigned int)c.x0) * C + sub * N;
+      const T* r10 = r00 + W * C;
+      float gv[N], f00[N], f01[N], f10[N], f11[N], ov[N];
+      load_slice<N>(g + (3u * m + p) * C + sub * N, gv);
+      load_slice<N>(r00, f00);
+      load_slice<N>(r00 + C, f01);
+      load_slice<N>(r10, f10);
+      load_slice<N>(r10 + C, f11);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        ov[e] = cu * ((f01[e] - f00[e]) * (1.f - c.wy) + (f11[e] - f10[e]) * c.wy) +
+               cv * ((f10[e] - f00[e]) * (1.f - c.wx) + (f11[e] - f01[e]) * c.wx);
+        h += gv[e] * (f00[e] - f01[e] - f10[e] + f11[e]);
+      }
+      if (out != nullptr) {
+#pragma unroll
+        for (int e = 0; e < N / 4; ++e)
+          reinterpret_cast<float4*>(out)[e] = make_float4(ov[4 * e], ov[4 * e + 1], ov[4 * e + 2], ov[4 * e + 3]);
+      }
+    } else if (valid && out != nullptr) {
+#pragma unroll
+      for (int e = 0; e < N / 4; ++e) reinterpret_cast<float4*>(out)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1) h += __shfl_xor_sync(0xffffffffu, h, o);
+    du[p] = cv * h * sc.x;
+    dv[p] = cu * h * sc.y;
+  }
+  if (valid && sub == 0 && dxyz != nullptr) {
+    dxyz[3 * m] = (du[0] + du[1]) / lbound;
+    dxyz[3 * m + 1] = (dv[1] + du[2]) / lbound;
+    dxyz[3 * m + 2] = (dv[0] + dv[2]) / lbound;
+  }
+}
+
+template <int C, typename T>
+static int launch_xyz_bwd(const T* planes, const float* xyz, const float* g, const float* ggx, int M, int H, int W,
+                          float lbound, float* dg, float* dxyz, T* grad, int* iscratch, float* partials,
+                          cudaStream_t stream) {
+  if (dg != nullptr || dxyz != nullptr) {
+    const unsigned long long n = (unsigned long long)M * FwdShape<C, T>::L;
+    bwd_xyz_bwd_kernel<C, T><<<(unsigned int)((n + 255) / 256), 256, 0, stream>>>(planes, xyz, g, ggx, (unsigned int)M,
+                                                                                H, W, lbound, dg, dxyz);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (grad != nullptr) return launch_bwd<C, T, true>(xyz, g, M, H, W, lbound, grad, iscratch, partials, stream, ggx);
+  return 0;
+}
+
+// K2x². planes (3, H, W, C) channel-last, bf16 (bf16 != 0) or f32; xyz (M, 3)
+// f32; g (M, 3, C) f32, K2x's cotangent; ggx (M, 3) f32, the cotangent of
+// K2x's dL/dxyz -> dg (M, 3, C) f32 and dxyz (M, 3) f32 (one launch; either
+// null: not computed), and grad (3, H, W, C) in the plane dtype, every
+// element written (the K2 backward's six passes in DERIV mode, iscratch and
+// partials as sample_points_backward_workspace sizes them; null: not
+// computed). No synchronisation.
+extern "C" int sample_points_backward_xyz_backward_launch(const void* planes, const float* xyz, const float* g,
+                                                          const float* ggx, int M, int H, int W, int C, int bf16,
+                                                          float lbound, float* dg, float* dxyz, void* grad,
+                                                          int* iscratch, float* partials, cudaStream_t stream) {
+  if (M == 0) return 0;
+  if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+#define K2XX(CC)                                                                                          \
+  case CC:                                                                                                \
+    return bf16 ? launch_xyz_bwd<CC, __nv_bfloat16>((const __nv_bfloat16*)planes, xyz, g, ggx, M, H, W, lbound, \
+                                                    dg, dxyz, (__nv_bfloat16*)grad, iscratch, partials, stream) \
+                : launch_xyz_bwd<CC, float>((const float*)planes, xyz, g, ggx, M, H, W, lbound, dg, dxyz,       \
+                                            (float*)grad, iscratch, partials, stream);
+  switch (C) {
+    K2XX(4)
+    K2XX(8)
+    K2XX(16)
+    K2XX(32)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K2XX
 }

@@ -89,6 +89,27 @@
 // shared memory, the levels summed in order after a barrier) was measured
 // and dropped: ~1.6x the instructions, and 0.097 ms against this loop's
 // 0.094 on a registry-hash-normals chunk (scripts/torch_k7x_k11_timing.py).
+//
+// K7x², the backward of K7x (replaces JAX's autodiff of grid_encode twice,
+// trinerflet_tpu/models/gridencoder.py:115-147, which training through an
+// analytic normal on a hash-grid field takes: models/registry.py:443 under
+// jax.value_and_grad). Given the cotangent gg of dL/dx, per level with A_d =
+// gg_d clip'(u_d) 0.5 / bound, f the fraction (smoothstep applied), f', f''
+// its derivatives in the linear fraction, c_d = A_d f'_d res and omega_k =
+// sum_d c_d dw_k/df_d (a corner weight's derivative along gg):
+//   dL/dg_l = sum_k omega_k T[idx_k];  dL/dT[idx_k] += omega_k g_l;
+//   dL/dx_e += (sum_{d != e} c_d sum_k s_k d2w_k/df_d df_e f'_e
+//               + A_e res f''_e sum_k s_k dw_k/df_e) res clip'(u_e) 0.5 / bound,
+// s_k = g_l . T[idx_k] (the trilinear weights' d2w/df_d^2 is 0; f'' is
+// 6 - 12 t under smoothstep, 0 for linear). First design, as K7x: one thread
+// per point over the levels (no atomics for dL/dx and dL/dg, each written
+// once), the table gradient by scalar float atomics of the nonzero terms
+// into tables the caller zeroes (an unspecified order, each entry a float32
+// sum of the same terms). A point whose A is zero (a masked sample) reads
+// only its point and gg, and writes zeros. Bound: bytes (gg and the points
+// in; g and the corner rows of the points whose A is not zero; dL/dg and
+// dL/dx out, the touched rows of the table gradient updated); about 60
+// flops per corner.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -430,6 +451,107 @@ __global__ void grid_encode_backward_x_kernel(const float* __restrict__ x, const
   for (int d = 0; d < 3; ++d) dx[3 * n + d] = acc[d] * clip_g[d] * 0.5f * inv_bound;
 }
 
+// K7x²: one thread per point, the levels in a loop. grads.table[l] is the
+// level's gradient table (want_t), dx and dg may be null.
+template <int C>
+__global__ void grid_encode_backward_x_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                                                       const float* __restrict__ ggx, long long N, int L,
+                                                       GridLevels lv, GridLevels grads, int want_t, float inv_bound,
+                                                       int smooth, float* __restrict__ dx, float* __restrict__ dg) {
+  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float u[3], q[3], A[3];
+  bool live = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float v = unit_coord(x[3 * n + d], inv_bound);
+    u[d] = fminf(fmaxf(v, 0.0f), 1.0f);
+    const float cg = (v > 0.0f && v < 1.0f) ? 1.0f : ((v == 0.0f || v == 1.0f) ? 0.5f : 0.0f);
+    q[d] = cg * 0.5f * inv_bound;
+    A[d] = ggx[3 * n + d] * q[d];
+    live |= A[d] != 0.0f;
+  }
+  if (!live) {  // no cotangent reaches this point: zeros, and no g or table read
+    if (dg != nullptr)
+      for (int i = 0; i < L * C; ++i) dg[n * L * C + i] = 0.0f;
+    if (dx != nullptr)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dx[3 * n + d] = 0.0f;
+    return;
+  }
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < L; ++l) {
+    float gv[C], dgl[C];
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      gv[c] = g[(n * L + l) * C + c];
+      any |= gv[c] != 0.0f;
+      dgl[c] = 0.0f;
+    }
+    if (any || dg != nullptr) {
+      const float fres = (float)lv.res[l];
+      float frac[3], dfrac[3], ddfrac[3], cd[3];
+      uint32_t p0[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float lin = cell(u[d], fres, &p0[d]);
+        frac[d] = smooth ? lin * lin * (3.0f - 2.0f * lin) : lin;
+        dfrac[d] = smooth ? 6.0f * lin * (1.0f - lin) : 1.0f;
+        ddfrac[d] = smooth ? 6.0f - 12.0f * lin : 0.0f;
+        cd[d] = A[d] * dfrac[d] * fres;
+      }
+      uint32_t idx[8];
+      corner_rows(p0, l, lv, idx);
+      const float* __restrict__ table = lv.table[l];
+      float dw[3] = {0.0f, 0.0f, 0.0f}, hx[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int b[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
+        float fac[3], sg[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          fac[d] = b[d] ? frac[d] : 1.0f - frac[d];
+          sg[d] = b[d] ? 1.0f : -1.0f;
+        }
+        const float dwk[3] = {sg[0] * (fac[1] * fac[2]), sg[1] * (fac[0] * fac[2]), sg[2] * (fac[0] * fac[1])};
+        const float omega = cd[0] * dwk[0] + cd[1] * dwk[1] + cd[2] * dwk[2];
+        float v[C];
+        ldg_row<C>(table + (size_t)idx[k] * C, v);
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dgl[c] = dgl[c] + omega * v[c];
+          s = s + gv[c] * v[c];
+          if (want_t) {
+            const float t = omega * gv[c];
+            if (t != 0.0f) atomicAdd(grads.table[l] + (size_t)idx[k] * C + c, t);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          dw[e] = dw[e] + s * dwk[e];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            if (d == e) continue;
+            hx[e] = hx[e] + cd[d] * s * (sg[d] * sg[e] * fac[3 - d - e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 3; ++e) acc[e] = acc[e] + (hx[e] * dfrac[e] + A[e] * fres * ddfrac[e] * dw[e]) * fres * q[e];
+    }
+    if (dg != nullptr) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) dg[(n * L + l) * C + c] = dgl[c];
+    }
+  }
+  if (dx != nullptr) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dx[3 * n + d] = acc[d];
+  }
+}
+
 static int fill_levels(GridLevels* lv, int L, void* const* tables, const uint32_t* res,
                        const uint32_t* wrap, const int* hashed) {
   if (L < 1 || L > K7_MAX_LEVELS) return (int)cudaErrorInvalidValue;
@@ -515,5 +637,39 @@ extern "C" int grid_encode_backward_x_launch(const float* x, const float* g, lon
     case 8: grid_encode_backward_x_kernel<8><<<blocks, threads, 0, stream>>>(x, g, N, L, lv, inv_bound, smooth, dx); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K7x². x (N, 3) f32, g (N, L*C) f32 (K7x's cotangent), ggx (N, 3) f32 (the
+// cotangent of K7x's dx), the L tables (size_l, C) f32 -> dx (N, 3) f32 and
+// dg (N, L*C) f32, every row written (either null: not computed), and, when
+// grads is not null, adds into the L gradient tables (size_l, C) f32, which
+// the caller zeroes (float atomics in an unspecified order).
+extern "C" int grid_encode_backward_x_backward_launch(const float* x, const float* g, const float* ggx, long long N,
+                                                      int L, int C, void* const* tables, const uint32_t* res,
+                                                      const uint32_t* wrap, const int* hashed, float inv_bound,
+                                                      int smooth, float* dx, float* dg, void* const* grads,
+                                                      cudaStream_t stream) {
+  GridLevels lv, gl{};
+  int err = fill_levels(&lv, L, tables, res, wrap, hashed);
+  if (err) return err;
+  if (grads != nullptr && (err = fill_levels(&gl, L, grads, res, wrap, hashed))) return err;
+  if (N == 0) return 0;
+  const int want_t = grads != nullptr;
+  const int threads = 128;
+  unsigned int blocks = (unsigned int)((N + threads - 1) / threads);
+#define K7XX(CC)                                                                                            \
+  case CC:                                                                                                  \
+    grid_encode_backward_x_backward_kernel<CC><<<blocks, threads, 0, stream>>>(x, g, ggx, N, L, lv, gl, want_t, \
+                                                                               inv_bound, smooth, dx, dg);      \
+    break;
+  switch (C) {
+    K7XX(1)
+    K7XX(2)
+    K7XX(4)
+    K7XX(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K7XX
   return (int)cudaGetLastError();
 }

@@ -67,6 +67,22 @@
 // when the cell changes: on the registry-grid step 36% of consecutive
 // samples share a cell, and the merge took the call from 0.141 to 0.109 ms
 // on an H100 (4 points a group: 0.111).
+//
+// K10², the backward of the coordinate gradient (replaces JAX's autodiff of
+// sample_volume_grid twice, which training through an analytic normal on a
+// voxel grid takes: models/registry.py:443 under jax.value_and_grad). Given
+// the cotangent gg of dL/dx, with q_d = clip'(q_d) (R - 1) 0.5 rinv (dq/dx),
+// A_d = gg_d q_d and omega_k = sum_d A_d dw_k/df_d (corner k's weight
+// differentiated along gg):
+//   dL/dg = sum_k omega_k row_k;  dL/drow_k += omega_k g;
+//   dL/dx_e = q_e sum_{d != e} A_d sum_k s_k (+-1)(+-1) w_third,
+// s_k = g . row_k (the trilinear Hessian has no diagonal). First design: the
+// forward's lane groups, one point a group, each lane its float4 slices of g
+// and of the 8 rows; dL/dg stored per slice; the grid gradient by float4
+// atomics of omega_k g (no run merging); the s_k by the xor butterfly, dL/dx
+// by lane d of the group. A point whose A is zero reads nothing. Bound:
+// bytes (g, gg and the points in, the 8 rows a point, dL/dg and dL/dx out,
+// the touched rows of the grid gradient updated).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -290,6 +306,95 @@ volume_grid_backward_kernel(const float* __restrict__ x, const float* __restrict
   }
 }
 
+// K10²: one point a lane group; ggrid, gx and dg may each be null.
+template <int LP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+volume_grid_backward_x_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                                       const float* __restrict__ ggx, const float* __restrict__ grid, long long N,
+                                       int R, int CH, float rinv, float hi, float* __restrict__ ggrid,
+                                       float* __restrict__ gx, float* __restrict__ dg) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long n = t / LP;
+  const int s = (int)(t % LP);
+  const bool live = n < N;
+  float xv[3];
+  load_point<LP>(x, live ? n : N - 1, s, xv);
+  VoxelCell c;
+  voxel_cell(xv, R, rinv, hi, c);
+  float q[3], A[3];
+  bool any = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float v = c.qpre[d];
+    const float cg = (v > 0.0f && v < hi) ? 1.0f : ((v == 0.0f || v == hi) ? 0.5f : 0.0f);
+    q[d] = cg * (float)(R - 1) * 0.5f * rinv;
+    A[d] = live ? __ldg(ggx + 3 * n + d) * q[d] : 0.0f;
+    any |= A[d] != 0.0f;
+  }
+  float omega[8], sk[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+    const float wx = b0 ? c.f[0] : 1.0f - c.f[0];
+    const float wy = b1 ? c.f[1] : 1.0f - c.f[1];
+    const float wz = b2 ? c.f[2] : 1.0f - c.f[2];
+    omega[k] = A[0] * ((b0 ? 1.0f : -1.0f) * (wy * wz)) + A[1] * ((b1 ? 1.0f : -1.0f) * (wx * wz)) +
+               A[2] * ((b2 ? 1.0f : -1.0f) * (wx * wy));
+    sk[k] = 0.0f;
+  }
+  if (live) {
+    for (int c0 = 4 * s; c0 < CH; c0 += 4 * LP) {
+      const int nc = min(4, CH - c0);
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (any) {
+        const float4 gv = load_slice<VEC>(g + n * CH + c0, nc);
+        const bool gz = gv.x == 0.0f && gv.y == 0.0f && gv.z == 0.0f && gv.w == 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float4 r = load_slice<VEC>(grid + (size_t)c.rows[k] * CH + c0, nc);
+          acc = add4(acc, scale(omega[k], r));
+          sk[k] = sk[k] + gv.x * r.x;
+          sk[k] = sk[k] + gv.y * r.y;
+          sk[k] = sk[k] + gv.z * r.z;
+          sk[k] = sk[k] + gv.w * r.w;
+          if (ggrid != nullptr && !gz && omega[k] != 0.0f)
+            add_slice<VEC>(ggrid + (size_t)c.rows[k] * CH + c0, scale(omega[k], gv), nc);
+        }
+      }
+      if (dg != nullptr) store_slice<VEC>(dg + n * CH + c0, acc, nc);
+    }
+  }
+  if (gx == nullptr) return;
+#pragma unroll
+  for (int o = LP / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sk[k] = sk[k] + __shfl_xor_sync(kFull, sk[k], o);
+  }
+  if (!live) return;
+  float hx[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int b[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
+    float fac[3], sg[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      fac[d] = b[d] ? c.f[d] : 1.0f - c.f[d];
+      sg[d] = b[d] ? 1.0f : -1.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (d == e) continue;
+        hx[e] = hx[e] + A[d] * sk[k] * (sg[d] * sg[e] * fac[3 - d - e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    if (d % LP == s) gx[3 * n + d] = hx[d] * q[d];
+}
+
 // The lanes a point takes: the power of two covering its float4 slices, at
 // most 8.
 int lanes_per_point(int CH) {
@@ -333,6 +438,14 @@ void launch_backward(const float* x, const float* g, const float* grid, long lon
         x, g, grid, N, R, CH, rinv, hi, ggrid, gx);
 }
 
+template <int LP, bool VEC>
+void launch_backward_x_backward(const float* x, const float* g, const float* ggx, const float* grid, long long N,
+                                int R, int CH, float rinv, float hi, float* ggrid, float* gx, float* dg,
+                                cudaStream_t stream) {
+  volume_grid_backward_x_backward_kernel<LP, VEC><<<blocks_for(N, LP), kThreads, 0, stream>>>(
+      x, g, ggx, grid, N, R, CH, rinv, hi, ggrid, gx, dg);
+}
+
 // F(LP, VEC) for the LP and VEC of this call.
 #define K10_DISPATCH(F, LP, VEC, ...)                                          \
   switch (LP) {                                                                 \
@@ -370,5 +483,22 @@ extern "C" int volume_grid_backward_launch(const float* x, const float* g, const
   const int LP = lanes_per_point(CH);
   const bool vec = CH % 4 == 0 && aligned16(g) && aligned16(grid) && aligned16(ggrid);
   K10_DISPATCH(launch_backward, LP, vec, x, g, grid, N, R, CH, rinv, hi, ggrid, gx, stream)
+  return (int)cudaGetLastError();
+}
+
+// K10². x (N, 3) f32, g (N, CH) f32 (the coordinate gradient's cotangent),
+// ggx (N, 3) f32 (the cotangent of its dL/dx), grid (R^3, CH) f32 rows ->
+// adds omega_k g into ggrid (R^3, CH) f32, which the caller zeroes (float
+// atomics in an unspecified order), writes dL/dx into gx (N, 3) and dL/dg
+// into dg (N, CH) f32; each null: not computed. One launch.
+extern "C" int volume_grid_backward_x_backward_launch(const float* x, const float* g, const float* ggx,
+                                                      const float* grid, long long N, int R, int CH, float rinv,
+                                                      float hi, float* ggrid, float* gx, float* dg,
+                                                      cudaStream_t stream) {
+  if (N == 0 || (!ggrid && !gx && !dg)) return 0;
+  if (!valid_shape(R, CH)) return (int)cudaErrorInvalidValue;
+  const int LP = lanes_per_point(CH);
+  const bool vec = CH % 4 == 0 && aligned16(g) && aligned16(grid) && aligned16(ggrid) && aligned16(dg);
+  K10_DISPATCH(launch_backward_x_backward, LP, vec, x, g, ggx, grid, N, R, CH, rinv, hi, ggrid, gx, dg, stream)
   return (int)cudaGetLastError();
 }

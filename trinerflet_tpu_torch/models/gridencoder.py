@@ -15,9 +15,15 @@ updates of one row pair and adds them with vector float32 atomics, and
 replaces the JAX package's sort + one-hot scatter) and K7x for the
 coordinate gradient (JAX's autodiff through the corner weights, which
 analytic normals on a hash-grid field take); on CPU tensors it runs the
-plain versions below (the backward an ``index_add_``). It is
-differentiable once: a second derivative raises on both devices
-(``kernels.first_order``).
+plain versions below (the backward an ``index_add_``). Its table gradient
+alone is differentiable once: a second derivative through it raises on both
+devices (``kernels.first_order``). When the points want a gradient under
+grad mode, the backward is an autograd function (``_GridEncodeBackward``)
+whose own backward is K7x² (one thread per point over the levels, the table
+gradient by float atomics; the same file) on CUDA tensors and
+``grid_encode_backward_x_backward_plain`` on CPU tensors, so training
+through an analytic normal differentiates the coordinate gradient once
+more; a third derivative raises.
 
 Rounding: the JAX package runs under jit, where XLA turns ``x / bound`` into
 ``x * f32(1 / bound)`` and fuses the ``+ 1`` into one fused multiply-add.
@@ -46,7 +52,7 @@ from ..ops.raymarch import _fma
 
 __all__ = ["GridEncoderConfig", "init_grid_params", "grid_encode", "grid_encode_plain",
            "grid_encode_backward_plain", "grid_encode_backward_x_plain",
-           "grid_encode_backward_error"]
+           "grid_encode_backward_x_backward_plain", "grid_encode_backward_error"]
 
 _PRIMES = (1, 2654435761, 805459861)  # instant-ngp spatial hash primes
 _U32 = 0xFFFFFFFF
@@ -187,6 +193,15 @@ def grid_encode_backward_plain(g: torch.Tensor, x: torch.Tensor, cfg: GridEncode
     return grads
 
 
+def _fraction_derivatives(lin: torch.Tensor, smooth: bool):
+    """The interpolation fraction of the linear fraction ``lin`` and its
+    first and second derivatives: smoothstep t^2 (3 - 2t), 6 t (1 - t),
+    6 - 12 t; or t, 1, 0."""
+    if smooth:
+        return lin * lin * (3.0 - 2.0 * lin), 6.0 * lin * (1.0 - lin), 6.0 - 12.0 * lin
+    return lin, torch.ones_like(lin), torch.zeros_like(lin)
+
+
 def grid_encode_backward_x_plain(g: torch.Tensor, tables: List[torch.Tensor], x: torch.Tensor,
                                  cfg: GridEncoderConfig, bound: float = 1.0) -> torch.Tensor:
     """Plain version of K7x: g (N, L*C) -> dL/dx (N, D) f32, JAX's autodiff
@@ -203,10 +218,7 @@ def grid_encode_backward_x_plain(g: torch.Tensor, tables: List[torch.Tensor], x:
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for l, table in enumerate(tables):
         p0, lin = _cell_plain(x, cfg, bound, l)
-        if cfg.interpolation == "smoothstep":
-            frac, dfrac = lin * lin * (3.0 - 2.0 * lin), 6.0 * lin * (1.0 - lin)
-        else:
-            frac, dfrac = lin, torch.ones_like(lin)
+        frac, dfrac, _ = _fraction_derivatives(lin, cfg.interpolation == "smoothstep")
         gl = g[:, l * C : (l + 1) * C]
         dw = torch.zeros_like(acc)
         for corner in itertools.product((0, 1), repeat=D):
@@ -256,6 +268,119 @@ def grid_encode_backward_error(grads: List[torch.Tensor], g: torch.Tensor, x: to
     return out
 
 
+def grid_encode_backward_x_backward_plain(gg_x, gg_tables, x: torch.Tensor, g: torch.Tensor,
+                                          tables: List[torch.Tensor], cfg: GridEncoderConfig,
+                                          bound: float = 1.0, wants=(True, True, True)):
+    """Plain version of K7x², the backward of K7x: K7x maps (x, g, tables)
+    to dL/dx; given its cotangent ``gg_x`` (N, D), and ``gg_tables`` (the
+    cotangents of the K7 backward's table gradients, a list or None), return
+    (dL/dx (N, D) f32, dL/dg (N, L*C) f32, the L table gradients (size_l, C)
+    f32), each None where ``wants`` (x, g, tables) says it is not asked for
+    or nothing reaches it. Per level, with A_d = gg_d clip'(u_d) 0.5 /
+    bound, the level's resolution r, f the fraction (smoothstep applied),
+    f' and f'' its derivatives in the linear fraction, c_d = A_d f'_d r and
+    omega_k = sum_d c_d dw_k/df_d:
+
+        dL/dg_l    = sum_k omega_k T[idx_k]
+        dL/dT[idx_k] += omega_k g_l
+        dL/dx_e   += (sum_{d != e} c_d sum_k s_k d^2w_k/df_d df_e f'_e
+                      + A_e r f''_e sum_k s_k dw_k/df_e) r clip'(u_e) 0.5 / bound
+
+    with s_k = g_l . T[idx_k] (trilinear weights: d^2w_k/df_d^2 = 0).
+    ``gg_tables`` adds the K7 forward on them to dL/dg and K7x on them, with
+    cotangent g, to dL/dx."""
+    want_x, want_g, want_t = wants
+    C, D, L = cfg.level_dim, cfg.input_dim, cfg.num_levels
+    N = x.shape[0]
+    g = g.float()
+    dx = dg = dT = None
+    if gg_x is not None:
+        v = _unit_coord(x, bound)
+        q = _clip_grad(v, 1.0) * 0.5 * _inv_bound(bound)  # du/dx
+        A = gg_x.float() * q
+        dx = torch.zeros((N, D), dtype=torch.float32, device=x.device) if want_x else None
+        dg = torch.zeros((N, L * C), dtype=torch.float32, device=x.device) if want_g else None
+        dT = [torch.zeros_like(t, dtype=torch.float32) for t in tables] if want_t else None
+        for l, table in enumerate(tables):
+            res = cfg.level_resolution(l)
+            p0, lin = _cell_plain(x, cfg, bound, l)
+            frac, dfrac, ddfrac = _fraction_derivatives(lin, cfg.interpolation == "smoothstep")
+            c = A * dfrac * res
+            gl = g[:, l * C : (l + 1) * C]
+            dw = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+            hx = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+            for corner in itertools.product((0, 1), repeat=D):
+                rows = _corner_rows_plain(p0, cfg, l, corner)
+                fac = [frac[:, d] if b else 1.0 - frac[:, d] for d, b in enumerate(corner)]
+                sgn = [1.0 if b else -1.0 for b in corner]
+
+                def prod_except(*skip):
+                    out = torch.ones_like(lin[:, 0])
+                    for e in range(D):
+                        if e not in skip:
+                            out = out * fac[e]
+                    return out
+
+                dwk = [sgn[d] * prod_except(d) for d in range(D)]
+                omega = sum(c[:, d] * dwk[d] for d in range(D))
+                row = table[rows].float()
+                if want_g:
+                    dg[:, l * C : (l + 1) * C] += omega[:, None] * row
+                if want_t:
+                    dT[l].index_add_(0, rows, omega[:, None] * gl)
+                if want_x:
+                    s = (gl * row).sum(-1)
+                    for e in range(D):
+                        dw[:, e] += s * dwk[e]
+                        for d in range(D):
+                            if d != e:
+                                hx[:, e] += c[:, d] * s * (sgn[d] * sgn[e] * prod_except(d, e))
+            if want_x:
+                dx += (hx * dfrac + A * res * ddfrac * dw) * res * q
+    if gg_tables is not None and any(t is not None for t in gg_tables):
+        gg_tables = [torch.zeros_like(t, dtype=torch.float32) if u is None else u.float()
+                     for t, u in zip(tables, gg_tables)]
+        if want_g:
+            f = grid_encode_plain(gg_tables, x, cfg, bound)
+            dg = f if dg is None else dg + f
+        if want_x:
+            d = grid_encode_backward_x_plain(g, gg_tables, x, cfg, bound)
+            dx = d if dx is None else dx + d
+    return dx, dg, dT
+
+
+class _GridEncodeBackward(torch.autograd.Function):
+    """The K7 backward and K7x as a function of (x, g, tables), so that its
+    results can be differentiated once more (K7x²): what
+    ``_GridEncode.backward`` runs when the points want a gradient (under
+    ``no_grad``, ``apply`` runs ``forward`` alone). Returns (dL/dx, *the table gradients), the tables' only with
+    ``tables_grad``."""
+
+    @staticmethod
+    def forward(ctx, x, g, cfg, bound, tables_grad, *tables):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, g, *tables)
+        ctx.cfg, ctx.bound, ctx.tables_grad = cfg, bound, tables_grad
+        fn = _grid_encode_backward_x_cuda if x.is_cuda else grid_encode_backward_x_plain
+        dx = fn(g, list(tables), x, cfg, bound)
+        if not tables_grad:
+            return dx
+        fn = _grid_encode_backward_cuda if x.is_cuda else grid_encode_backward_plain
+        return (dx, *fn(g, x, cfg, bound))
+
+    @staticmethod
+    @kernels.first_order
+    def backward(ctx, gg_x, *gg_tables):
+        x, g, *tables = ctx.saved_tensors
+        wants = (kernels.wanted(ctx, 0), kernels.wanted(ctx, 1),
+                 any(kernels.wanted(ctx, 5 + l, 2 + l) for l in range(len(tables))))
+        fn = (_grid_encode_backward_x_backward_cuda if x.is_cuda
+              else grid_encode_backward_x_backward_plain)
+        dx, dg, dT = fn(gg_x, list(gg_tables) if ctx.tables_grad else None, x, g, list(tables), ctx.cfg,
+                        ctx.bound, wants)
+        return (dx, dg, None, None, None, *(dT or [None] * len(tables)))
+
+
 class _GridEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cfg, bound, *tables):
@@ -266,18 +391,25 @@ class _GridEncode(torch.autograd.Function):
         return grid_encode_plain(list(tables), x, cfg, bound)
 
     @staticmethod
-    @kernels.first_order
     def backward(ctx, g):
         x, *tables = ctx.saved_tensors
-        cfg, bound = ctx.cfg, ctx.bound
-        dx, grads = None, [None] * len(tables)
-        if ctx.needs_input_grad[0]:
-            fn = _grid_encode_backward_x_cuda if x.is_cuda else grid_encode_backward_x_plain
-            dx = fn(g, tables, x, cfg, bound)
-        if any(ctx.needs_input_grad[3:]):
+        if kernels.wanted(ctx, 0):
+            # K7x (and the K7 backward) as an autograd function, differentiable once more (K7x²)
+            tables_grad = any(kernels.wanted(ctx, 3 + l, 1 + l) for l in range(len(tables)))
+            out = _GridEncodeBackward.apply(x, g, ctx.cfg, ctx.bound, tables_grad, *tables)
+            dx, grads = (out[0], list(out[1:])) if tables_grad else (out, [None] * len(tables))
+            return (dx, None, None, *grads)
+        return _GridEncode.tables_backward(ctx, g)
+
+    @staticmethod
+    @kernels.first_order
+    def tables_backward(ctx, g):
+        x, *tables = ctx.saved_tensors
+        grads = [None] * len(tables)
+        if any(kernels.wanted(ctx, 3 + l, 1 + l) for l in range(len(tables))):
             fn = _grid_encode_backward_cuda if x.is_cuda else grid_encode_backward_plain
-            grads = fn(g, x, cfg, bound)
-        return (dx, None, None, *grads)
+            grads = fn(g, x, ctx.cfg, ctx.bound)
+        return (None, None, None, *grads)
 
 
 def grid_encode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg: GridEncoderConfig,
@@ -418,3 +550,56 @@ def _grid_encode_backward_x_cuda(g: torch.Tensor, tables: List[torch.Tensor], x:
                         _build.stream(x.device)), what)
         kernels.launches["grid_encode_bwd_x"] += 1
     return dx
+
+
+_K7XX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+
+
+def _grid_encode_backward_x_backward_cuda(gg_x, gg_tables, x: torch.Tensor, g: torch.Tensor,
+                                          tables: List[torch.Tensor], cfg: GridEncoderConfig, bound: float,
+                                          wants=(True, True, True)):
+    """K7x²: (dL/dx (N, 3) f32, dL/dg (N, L*C) f32, the L table gradients)
+    as ``grid_encode_backward_x_backward_plain`` defines them. From ``gg_x``:
+    one launch, a thread per point over the levels, the table gradient by
+    float atomics into zeroed tables. ``gg_tables`` adds the K7 forward and
+    K7x on them."""
+    what = "grid_encode backward (x) backward kernel"
+    want_x, want_g, want_t = wants
+    c_res, c_wrap, c_hashed = _k7_levels(cfg, x, what)
+    L, C = cfg.num_levels, cfg.level_dim
+    N = x.shape[0]
+    _check_tables(tables, cfg, x, what)
+    if g.device != x.device or tuple(g.shape) != (N, L * C):
+        raise ValueError(f"{what}: g must be ({N}, {L * C}) on {x.device}, got {tuple(g.shape)} "
+                         f"on {g.device}")
+    g = g.float().contiguous()
+    x = x.contiguous()
+    dx = dg = dT = None
+    if gg_x is not None and (want_x or want_g or want_t):
+        if gg_x.device != x.device or tuple(gg_x.shape) != (N, 3):
+            raise ValueError(f"{what}: gg_x must be ({N}, 3) on {x.device}, got {tuple(gg_x.shape)} "
+                             f"on {gg_x.device}")
+        gg_x = gg_x.float().contiguous()
+        dx = torch.empty((N, 3), device=x.device, dtype=torch.float32) if want_x else None
+        dg = torch.empty((N, L * C), device=x.device, dtype=torch.float32) if want_g else None
+        dT = _k7_grad_tables(cfg, x.device) if want_t else None
+        if N > 0:
+            ptrs = (ctypes.c_void_p * L)(*[t.data_ptr() for t in tables])
+            gptrs = None if dT is None else (ctypes.c_void_p * L)(*[t.data_ptr() for t in dT])
+            opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+            fn = _build.function("gridencoder", "grid_encode_backward_x_backward_launch", _K7XX_ARGS)
+            _build.check(fn(_build.ptr(x), _build.ptr(g), _build.ptr(gg_x), N, L, C, ptrs, c_res, c_wrap,
+                            c_hashed, _inv_bound(bound), int(cfg.interpolation == "smoothstep"), opt(dx),
+                            opt(dg), gptrs, _build.stream(x.device)), what)
+            kernels.launches["grid_encode_bwd_x_bwd"] += 1
+    if gg_tables is not None and any(t is not None for t in gg_tables):
+        gg_tables = [torch.zeros_like(t) if u is None else u.float().contiguous()
+                     for t, u in zip(tables, gg_tables)]
+        if want_g:
+            f = _grid_encode_cuda(gg_tables, x, cfg, bound)
+            dg = f if dg is None else dg + f
+        if want_x:
+            d = _grid_encode_backward_x_cuda(g, gg_tables, x, cfg, bound)
+            dx = d if dx is None else dx + d
+    return dx, dg, dT

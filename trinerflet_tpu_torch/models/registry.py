@@ -28,9 +28,10 @@ through the field's sampler: K2's coordinate gradient (K2x) on a triplane,
 K7x on a hash or tiled grid, K10's on a voxel grid. The port's sampler
 carries coordinate gradients whenever the points require one, so the JAX
 package's gradient-exact twin field (``_exact_inner``, ``fast_sampler=False``)
-has no counterpart here. Training through an analytic normal needs the
-second derivative of those kernels, which is not ported: it raises before
-any work is done, on both devices.
+has no counterpart here. Training through an analytic normal differentiates
+those coordinate gradients once more: K2x², K7x² and K10² (their backwards'
+kernels, the same files) on CUDA tensors, their plain versions on CPU
+tensors.
 
 Deviations from the JAX package, neither of which changes a result it
 gives: the ``pred`` normal and the SDF heads on a non-triplane field read
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .._device import SLICE_LATER, DeviceLike, not_ported, resolve_device
+from .._device import DeviceLike, resolve_device
 from ..kernels import _build
 from ..ops.activation import plain_exp, trunc_exp
 from ..ops.encoders import sh_dim, sh_encode
@@ -62,7 +63,8 @@ from .triplane import sample_triplane
 __all__ = [
     "GEOMETRY_REGISTRY", "MATERIAL_REGISTRY", "BACKGROUND_REGISTRY", "NORMAL_TYPES",
     "VolumeGridConfig", "SDFConfig", "init_volume_grid", "sample_volume_grid",
-    "sample_volume_grid_plain", "sample_volume_grid_backward_plain", "shifted_sdf",
+    "sample_volume_grid_plain", "sample_volume_grid_backward_plain",
+    "sample_volume_grid_backward_x_backward_plain", "shifted_sdf",
     "laplace_density", "material_no_material", "material_diffuse_point_light",
     "init_env_map_bg", "background_env_map", "init_textured_bg", "background_textured",
     "background_textured_plain", "background_textured_backward_plain", "background_solid",
@@ -171,6 +173,91 @@ def sample_volume_grid_backward_plain(g: torch.Tensor, grid: torch.Tensor, x: to
     return ggrid, gx
 
 
+def sample_volume_grid_backward_x_backward_plain(gg_x, gg_grid, grid: torch.Tensor, x: torch.Tensor,
+                                                 g: torch.Tensor, R: int, bound: float,
+                                                 wants=(True, True, True)):
+    """Plain version of K10², the backward of K10's coordinate gradient: that
+    maps (grid, x, g) to dL/dx (and the grid gradient); given the cotangent
+    ``gg_x`` (N, 3) of dL/dx and ``gg_grid`` (R^3, CH) of the grid gradient,
+    either None, return (the grid gradient (R^3, CH) f32, dL/dx (N, 3) f32,
+    dL/dg (N, CH) f32), each None where ``wants`` (grid, x, g) says it is not
+    asked for or nothing reaches it. With q_d = clip'(q_d) (R - 1) 0.5 /
+    bound (dq/dx), A_d = gg_d q_d and omega_k = sum_d A_d dw_k/df_d:
+
+        dL/dg       = sum_k omega_k row_k
+        dL/drow_k  += omega_k g
+        dL/dx_e     = q_e sum_{d != e} A_d sum_k s_k d^2w_k/df_d df_e
+
+    with s_k = g . row_k (trilinear: the Hessian's diagonal is 0).
+    ``gg_grid`` adds the K10 forward on it to dL/dg and its coordinate
+    gradient, with cotangent g, to dL/dx."""
+    want_grid, want_x, want_g = wants
+    N = x.shape[0]
+    g = g.float()
+    ggrid = dx = dg = None
+    if gg_x is not None:
+        qpre, q0, f = _voxel_cell(x, R, bound)
+        q = _clip_grad(qpre, _clip_hi(R)) * (R - 1) * 0.5 * _inv(bound)
+        A = gg_x.float() * q
+        ggrid = torch.zeros_like(grid, dtype=torch.float32) if want_grid else None
+        dg = torch.zeros((N, grid.shape[1]), dtype=torch.float32, device=x.device) if want_g else None
+        hx = torch.zeros_like(x, dtype=torch.float32)
+        for corner in _CORNERS_3D:
+            rows, fac = _voxel_corner(q0, f, R, corner)
+            sgn = [1.0 if b else -1.0 for b in corner]
+            dwk = (sgn[0] * (fac[1] * fac[2]), sgn[1] * (fac[0] * fac[2]), sgn[2] * (fac[0] * fac[1]))
+            omega = A[:, 0] * dwk[0] + A[:, 1] * dwk[1] + A[:, 2] * dwk[2]
+            row = grid[rows].float()
+            if want_g:
+                dg += omega[:, None] * row
+            if want_grid:
+                ggrid.index_add_(0, rows, omega[:, None] * g)
+            if want_x:
+                s = (g * row).sum(-1)
+                for e in range(3):
+                    for d in range(3):
+                        if d != e:
+                            hx[:, e] += A[:, d] * s * (sgn[d] * sgn[e] * fac[3 - d - e])
+        dx = hx * q if want_x else None
+    if gg_grid is not None:
+        gg_grid = gg_grid.float()
+        if want_g:
+            s = sample_volume_grid_plain(gg_grid, x, R, bound)
+            dg = s if dg is None else dg + s
+        if want_x:
+            d = sample_volume_grid_backward_plain(g, gg_grid, x, R, bound, grid_grad=False)[1]
+            dx = d if dx is None else dx + d
+    return ggrid, dx, dg
+
+
+class _SampleVolumeGridBackward(torch.autograd.Function):
+    """K10's backward as a function of (grid, x, g), so that its coordinate
+    gradient can be differentiated once more (K10²): what
+    ``_SampleVolumeGrid.backward`` runs when the points want a gradient
+    (under ``no_grad``, ``apply`` runs ``forward`` alone). Returns (the grid gradient, dL/dx), or dL/dx alone without
+    ``grid_grad``."""
+
+    @staticmethod
+    def forward(ctx, grid, x, g, R, bound, grid_grad):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(grid, x, g)
+        ctx.R, ctx.bound, ctx.grid_grad = R, bound, grid_grad
+        fn = _sample_volume_grid_backward_cuda if x.is_cuda else sample_volume_grid_backward_plain
+        ggrid, gx = fn(g, grid, x, R, bound, grid_grad, True)
+        return (ggrid, gx) if grid_grad else gx
+
+    @staticmethod
+    @kernels.first_order
+    def backward(ctx, *grads):
+        gg_grid, gg_x = grads if ctx.grid_grad else (None, grads[0])
+        grid, x, g = ctx.saved_tensors
+        wants = (kernels.wanted(ctx, 0), kernels.wanted(ctx, 1), kernels.wanted(ctx, 2))
+        fn = (_sample_volume_grid_backward_x_backward_cuda if x.is_cuda
+              else sample_volume_grid_backward_x_backward_plain)
+        ggrid, dx, dg = fn(gg_x, gg_grid, grid, x, g, ctx.R, ctx.bound, wants)
+        return ggrid, dx, dg, None, None, None
+
+
 class _SampleVolumeGrid(torch.autograd.Function):
     @staticmethod
     def forward(ctx, grid, x, R, bound):
@@ -181,12 +268,22 @@ class _SampleVolumeGrid(torch.autograd.Function):
         return sample_volume_grid_plain(grid, x, R, bound)
 
     @staticmethod
-    @kernels.first_order
     def backward(ctx, g):
         grid, x = ctx.saved_tensors
+        if kernels.wanted(ctx, 1):
+            # the coordinate gradient as an autograd function, differentiable once more (K10²)
+            grid_grad = kernels.wanted(ctx, 0)
+            out = _SampleVolumeGridBackward.apply(grid, x, g, ctx.R, ctx.bound, grid_grad)
+            return (*(out if grid_grad else (None, out)), None, None)
+        return _SampleVolumeGrid.grid_backward(ctx, g)
+
+    @staticmethod
+    @kernels.first_order
+    def grid_backward(ctx, g):
+        grid, x = ctx.saved_tensors
         fn = _sample_volume_grid_backward_cuda if x.is_cuda else sample_volume_grid_backward_plain
-        ggrid, gx = fn(g, grid, x, ctx.R, ctx.bound, ctx.needs_input_grad[0], ctx.needs_input_grad[1])
-        return ggrid, gx, None, None
+        ggrid, _ = fn(g, grid, x, ctx.R, ctx.bound, kernels.wanted(ctx, 0), False)
+        return ggrid, None, None, None
 
 
 def sample_volume_grid(params: Dict, x: torch.Tensor, cfg: VolumeGridConfig,
@@ -390,6 +487,12 @@ def _detached(tree):
     return tree.detach() if torch.is_tensor(tree) else tree
 
 
+def _views(tree):
+    if isinstance(tree, dict):
+        return {k: _views(v) for k, v in tree.items()}
+    return tree.view_as(tree) if torch.is_tensor(tree) else tree
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -538,14 +641,15 @@ class RegistryField:
         * ``analytic``: ``-normalize(grad_x density)`` by
           ``torch.autograd.grad`` on a detached copy of x under
           ``torch.enable_grad()`` (so it also serves under ``no_grad``);
+          with grad mode on and a parameter requiring a gradient (training
+          through it) with ``create_graph=True`` on the live parameters, so
+          a loss's gradient reaches every parameter through the samplers'
+          second derivatives (K2x², K7x², K10²), as ``jax.grad`` inside
+          ``jax.value_and_grad`` does;
         * ``pred``: an MLP head on the spatial encoding.
 
         For ``implicit-sdf`` the differenced scalar is the SDF with a
-        positive sign (outward) instead of the density's negative.
-
-        An analytic normal while grad mode is on and a parameter requires a
-        gradient (training through it) needs the second derivative of the
-        sampler kernels, which is not ported: that raises first."""
+        positive sign (outward) instead of the density's negative."""
         b = self.cfg.bound
         if self.geometry == "implicit-sdf":
             def scalar(p, prm=params, pl=planes):
@@ -571,15 +675,20 @@ class RegistryField:
                 d0 = scalar(x)
                 g = sign * (dd.reshape(-1, 3) - d0[:, None]) * _inv(eps)
         elif self.normal_type == "analytic":
-            if torch.is_grad_enabled() and any(t.requires_grad for tree in (params, planes)
-                                               for t in _leaves(tree)):
-                raise not_ported("training through analytic normals (the second derivative of "
-                                 "K2x, K7x and K10)", SLICE_LATER)
-            # no parameter gradient is wanted here: the samplers' backwards
-            # compute the coordinate gradient alone
+            train = torch.is_grad_enabled() and any(t.requires_grad for tree in (params, planes)
+                                                    for t in _leaves(tree))
             with torch.enable_grad():
                 xr = x.detach().requires_grad_(True)
-                g = sign * torch.autograd.grad(scalar(xr, _detached(params), _detached(planes)).sum(), xr)[0]
+                # views, not leaves, go in, so the samplers' backwards see
+                # (kernels.wanted) that the inner gradient reads no plane,
+                # table or grid gradient and the loss's no point gradient
+                xv = xr.view_as(xr)
+                if train:  # differentiable in the parameters (K2x², K7x², K10² behind it)
+                    s = scalar(xv, _views(params), _views(planes))
+                    g = sign * torch.autograd.grad(s.sum(), xr, create_graph=True)[0]
+                else:
+                    g = sign * torch.autograd.grad(scalar(xv, _detached(params), _detached(planes)).sum(),
+                                                   xr)[0]
         elif self.normal_type == "pred":
             enc = self._encode(params, planes, x).to(self.dtype)
             g = _mlp(params["normal_net"], enc, self.dtype).float()
@@ -743,3 +852,51 @@ def _background_textured_backward_cuda(g: torch.Tensor, s: torch.Tensor, d: torc
                     _build.ptr(acc), _build.stream(d.device)), what)
     kernels.launches["textured_bg_bwd"] += 1
     return acc
+
+
+_K10XX_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                       ctypes.c_float] + [ctypes.c_void_p] * 4
+
+
+def _sample_volume_grid_backward_x_backward_cuda(gg_x, gg_grid, grid: torch.Tensor, x: torch.Tensor,
+                                                 g: torch.Tensor, R: int, bound: float,
+                                                 wants=(True, True, True)):
+    """K10²: (the grid gradient (R^3, CH) f32, dL/dx (N, 3) f32, dL/dg (N,
+    CH) f32) as ``sample_volume_grid_backward_x_backward_plain`` defines
+    them. From ``gg_x``: one launch, a lane group per point, the grid
+    gradient by float4 atomics into a zeroed grid. ``gg_grid`` adds the K10
+    forward and K10's coordinate gradient on it."""
+    what = "sample_volume_grid backward (x) backward kernel"
+    want_grid, want_x, want_g = wants
+    _check_volume(grid, x, R, what)
+    N, CH = x.shape[0], grid.shape[1]
+    if g.device != x.device or tuple(g.shape) != (N, CH):
+        raise ValueError(f"{what}: g must be ({N}, {CH}) on {x.device}, got {tuple(g.shape)} "
+                         f"on {g.device}")
+    g = g.float().contiguous()
+    x = x.contiguous()
+    ggrid = dx = dg = None
+    if gg_x is not None and (want_grid or want_x or want_g):
+        if gg_x.device != x.device or tuple(gg_x.shape) != (N, 3):
+            raise ValueError(f"{what}: gg_x must be ({N}, 3) on {x.device}, got {tuple(gg_x.shape)} "
+                             f"on {gg_x.device}")
+        gg_x = gg_x.float().contiguous()
+        ggrid = torch.zeros_like(grid) if want_grid else None
+        dx = torch.empty((N, 3), device=x.device, dtype=torch.float32) if want_x else None
+        dg = torch.empty((N, CH), device=x.device, dtype=torch.float32) if want_g else None
+        if N > 0:
+            opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+            fn = _build.function("volume_grid", "volume_grid_backward_x_backward_launch", _K10XX_ARGS)
+            _build.check(fn(_build.ptr(x), _build.ptr(g), _build.ptr(gg_x), _build.ptr(grid), N, R, CH,
+                            _inv(bound), _clip_hi(R), opt(ggrid), opt(dx), opt(dg), _build.stream(x.device)),
+                         what)
+            kernels.launches["volume_grid_bwd_x_bwd"] += 1
+    if gg_grid is not None:
+        gg_grid = gg_grid.float().contiguous()
+        if want_g:
+            f = _sample_volume_grid_cuda(gg_grid, x, R, bound)
+            dg = f if dg is None else dg + f
+        if want_x:
+            d = _sample_volume_grid_backward_cuda(g, gg_grid, x, R, bound, False, True)[1]
+            dx = d if dx is None else dx + d
+    return ggrid, dx, dg

@@ -24,9 +24,16 @@ shared memory after binning the rows by tile, six launches from one call,
 each sum in an order fixed by the inputs; K2x enqueues the same passes for
 its plane gradient, or none when the planes need none, as for an analytic
 normal, and one launch for dL/dxyz); on CPU tensors it runs the
-plain versions (the plane gradient an ``index_add_`` in float32). It is
-differentiable once: a second derivative raises on both devices
-(``kernels.first_order``).
+plain versions (the plane gradient an ``index_add_`` in float32). Its plane
+gradient is differentiable once: a second derivative through it raises on
+both devices (``kernels.first_order``). Its coordinate gradient is
+differentiable twice, as training through an analytic normal needs: under
+grad mode K2x is an autograd function (``_SamplePointsBackwardXyz``) whose
+backward is K2x² on CUDA tensors (one launch of a lane group per point for
+dL/dg and dL/dxyz, and the K2 backward's six binned passes with the
+bilinear weights' derivatives in place of the weights for dL/dplanes; the
+same file) and ``sample_points_backward_xyz_backward_plain`` on CPU
+tensors. A third derivative raises.
 
 Rounding: ``x / lbound`` is a true division on every device, as the JAX
 package computes it op by op and as the kernels divide (``_divide``: torch
@@ -45,7 +52,7 @@ from ..kernels import _build
 
 __all__ = ["grid_sample_2d", "sample_planes", "project_to_planes", "sample_points",
            "sample_points_reduced", "sample_points_plain", "sample_points_backward_plain",
-           "sample_points_backward_xyz_plain"]
+           "sample_points_backward_xyz_plain", "sample_points_backward_xyz_backward_plain"]
 
 
 def _cell(H: int, W: int, xr: torch.Tensor, yr: torch.Tensor):
@@ -185,6 +192,105 @@ def sample_points_backward_xyz_plain(g: torch.Tensor, planes: torch.Tensor, xyz:
     return sample_points_backward_plain(g, xyz, lbound, tuple(planes.shape), planes.dtype), dxyz
 
 
+def sample_points_backward_xyz_backward_plain(gg_xyz, gg_planes, planes: torch.Tensor,
+                                              xyz: torch.Tensor, g: torch.Tensor, lbound: float,
+                                              wants=(True, True, True)):
+    """Plain version of K2x², the backward of K2x: K2x maps (planes, xyz, g)
+    to (the plane gradient, dL/dxyz); given their cotangents ``gg_planes``
+    (3, H, W, C) and ``gg_xyz`` (M, 3), either None, return (dL/dplanes in
+    the plane dtype, dL/dxyz (M, 3) f32, dL/dg (M, 3, C) f32), each None
+    where ``wants`` (planes, xyz, g) says it is not asked for or nothing
+    reaches it. Per plane, with a_u, a_v the plane's axes of
+    ``gg_xyz / lbound``, s_u = clip'(x) (W - 1) / 2 and s_v alike, c_u =
+    a_u s_u, c_v = a_v s_v and h = sum_c g_c (f00 - f01 - f10 + f11):
+
+        dL/dg      = c_u [(f01 - f00)(1 - wy) + (f11 - f10) wy]
+                   + c_v [(f10 - f00)(1 - wx) + (f11 - f01) wx]
+        dL/df00   += -(c_u (1 - wy) + c_v (1 - wx)) g, f01: c_u (1 - wy) - c_v wx,
+                     f10: c_v (1 - wx) - c_u wy, f11: c_u wy + c_v wx
+        dL/du     += c_v h s_u,  dL/dv += c_u h s_v  (then over lbound)
+
+    (the bilinear Hessian's cross term; clip'' is 0). ``gg_planes`` adds the
+    K2 forward on it to dL/dg and K2x's dL/dxyz on it, with cotangent g, to
+    dL/dxyz."""
+    want_p, want_x, want_g = wants
+    P, H, W, C = planes.shape
+    M = xyz.shape[0]
+    g = g.float()
+    dplanes = dxyz = dg = None
+    if gg_xyz is not None:
+        a = _divide(gg_xyz.float(), lbound)
+        acc = torch.zeros((P * H * W, C), dtype=torch.float32, device=g.device) if want_p else None
+        dg = torch.zeros((M, P, C), dtype=torch.float32, device=g.device) if want_g else None
+        duv = []
+        for p, (xr, yr) in enumerate(_point_cells(planes.shape, xyz, lbound)):
+            x, y = torch.clamp(xr, 0.0, W - 1), torch.clamp(yr, 0.0, H - 1)
+            x0, y0 = torch.clamp(torch.floor(x), 0, W - 2), torch.clamp(torch.floor(y), 0, H - 2)
+            idx = (y0 * W + x0).long()
+            wx, wy = x - x0, y - y0
+            su = _clip_grad(xr, W - 1) * (W - 1) * 0.5
+            sv = _clip_grad(yr, H - 1) * (H - 1) * 0.5
+            au, av = (a[:, ax] for ax in _PLANE_AXES[p])
+            cu, cv = au * su, av * sv
+            gp = g[:, p]
+            if want_p:
+                ws = (-(cu * (1 - wy) + cv * (1 - wx)), cu * (1 - wy) - cv * wx,
+                      cv * (1 - wx) - cu * wy, cu * wy + cv * wx)
+                for w, off in zip(ws, (0, 1, W, W + 1)):
+                    acc.index_add_(0, idx + (p * H * W + off), w[:, None] * gp)
+            if want_g or want_x:
+                flat = planes[p].reshape(H * W, C).float()
+                f00, f01, f10, f11 = flat[idx], flat[idx + 1], flat[idx + W], flat[idx + W + 1]
+            if want_g:
+                dg[:, p] = (cu[:, None] * ((f01 - f00) * (1 - wy[:, None]) + (f11 - f10) * wy[:, None])
+                            + cv[:, None] * ((f10 - f00) * (1 - wx[:, None]) + (f11 - f01) * wx[:, None]))
+            if want_x:
+                h = (gp * (f00 - f01 - f10 + f11)).sum(-1)
+                duv.append((cv * h * su, cu * h * sv))
+        if want_p:
+            dplanes = acc.reshape(P, H, W, C).to(planes.dtype)
+        if want_x:
+            (du0, dv0), (du1, dv1), (du2, dv2) = duv
+            dxyz = _divide(torch.stack([du0 + du1, dv1 + du2, dv0 + dv2], dim=-1), lbound)
+    if gg_planes is not None:
+        gg_planes = gg_planes.to(planes.dtype)
+        if want_g:
+            f = sample_points_plain(gg_planes, xyz, lbound)
+            dg = f if dg is None else dg + f
+        if want_x:
+            d = sample_points_backward_xyz_plain(g, gg_planes, xyz, lbound, planes_grad=False)[1]
+            dxyz = d if dxyz is None else dxyz + d
+    return dplanes, dxyz, dg
+
+
+class _SamplePointsBackwardXyz(torch.autograd.Function):
+    """K2x as a function of (planes, xyz, g), so that its results can be
+    differentiated once more (K2x²): what ``_SamplePoints.backward`` runs
+    when the points want a gradient (under ``no_grad``, ``apply`` runs
+    ``forward`` alone). Returns (the plane
+    gradient, dL/dxyz), or dL/dxyz alone without ``planes_grad``."""
+
+    @staticmethod
+    def forward(ctx, planes, xyz, g, lbound, planes_grad):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(planes, xyz, g)
+        ctx.lbound, ctx.planes_grad = lbound, planes_grad
+        fn = _sample_points_backward_xyz_cuda if xyz.is_cuda else sample_points_backward_xyz_plain
+        pg, dxyz = fn(g, planes, xyz, lbound, planes_grad=planes_grad)
+        return (pg, dxyz) if planes_grad else dxyz
+
+    @staticmethod
+    @kernels.first_order
+    def backward(ctx, *grads):
+        gg_planes, gg_xyz = grads if ctx.planes_grad else (None, grads[0])
+        planes, xyz, g = ctx.saved_tensors
+        wants = (kernels.wanted(ctx, 0), kernels.wanted(ctx, 1), kernels.wanted(ctx, 2))
+        fn = (_sample_points_backward_xyz_backward_cuda if xyz.is_cuda
+              else sample_points_backward_xyz_backward_plain)
+        dplanes, dxyz, dg = fn(gg_xyz, gg_planes, planes, xyz, g, ctx.lbound, wants)
+        return dplanes, dxyz, dg, None, None
+
+
 class _SamplePoints(torch.autograd.Function):
     @staticmethod
     def forward(ctx, planes, xyz, lbound):
@@ -197,13 +303,19 @@ class _SamplePoints(torch.autograd.Function):
         return sample_points_plain(planes, xyz, lbound)
 
     @staticmethod
-    @kernels.first_order
     def backward(ctx, g):
-        xyz, planes = ctx.saved_tensors
-        if ctx.needs_input_grad[1]:
-            fn = _sample_points_backward_xyz_cuda if xyz.is_cuda else sample_points_backward_xyz_plain
-            plane_grad, xyz_grad = fn(g, planes, xyz, ctx.lbound, planes_grad=ctx.needs_input_grad[0])
-            return plane_grad, xyz_grad, None
+        if kernels.wanted(ctx, 1):
+            # K2x as an autograd function, differentiable once more (K2x²)
+            xyz, planes = ctx.saved_tensors
+            planes_grad = kernels.wanted(ctx, 0)
+            out = _SamplePointsBackwardXyz.apply(planes, xyz, g, ctx.lbound, planes_grad)
+            return (*(out if planes_grad else (None, out)), None)
+        return _SamplePoints.planes_backward(ctx, g)
+
+    @staticmethod
+    @kernels.first_order
+    def planes_backward(ctx, g):
+        xyz, _ = ctx.saved_tensors
         args = (g, xyz, ctx.lbound, ctx.plane_shape, ctx.plane_dtype)
         if xyz.is_cuda:
             return _sample_points_backward_cuda(*args), None, None
@@ -397,3 +509,58 @@ def _sample_points_backward_xyz_cuda(g: torch.Tensor, planes: torch.Tensor, xyz:
                  "sample_points backward (xyz)")
     kernels.launches["grid_sample_bwd_xyz"] += 1 + (K2_BWD_LAUNCHES if planes_grad else 0)
     return pg, dxyz
+
+
+_K2XX_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 6
+
+
+def _sample_points_backward_xyz_backward_cuda(gg_xyz, gg_planes, planes: torch.Tensor,
+                                              xyz: torch.Tensor, g: torch.Tensor, lbound: float,
+                                              wants=(True, True, True)):
+    """K2x²: (dL/dplanes in the plane dtype, dL/dxyz (M, 3) f32, dL/dg (M, 3,
+    C) f32) as ``sample_points_backward_xyz_backward_plain`` defines them.
+    From ``gg_xyz``: one launch of a lane group per point for dL/dg and
+    dL/dxyz, and the K2 backward's six binned passes with the bilinear
+    weights' derivatives for dL/dplanes (each sum in an order fixed by the
+    inputs). ``gg_planes`` adds the K2 forward and K2x's dL/dxyz pass on it."""
+    what = "sample_points backward (xyz) backward kernel"
+    want_p, want_x, want_g = wants
+    _check_planes_points(planes, xyz, what)
+    _, H, W, C = planes.shape
+    M = xyz.shape[0]
+    if g.device != xyz.device or tuple(g.shape) != (M, 3, C):
+        raise ValueError(f"{what}: g must be ({M}, 3, {C}) on {xyz.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    dplanes = dxyz = dg = None
+    g = g.float().contiguous()
+    xyz = xyz.contiguous()
+    if gg_xyz is not None and (want_p or want_x or want_g):
+        if gg_xyz.device != xyz.device or tuple(gg_xyz.shape) != (M, 3):
+            raise ValueError(f"{what}: gg_xyz must be ({M}, 3) on {xyz.device}, got "
+                             f"{tuple(gg_xyz.shape)} on {gg_xyz.device}")
+        gg_xyz = gg_xyz.float().contiguous()
+        dg = torch.empty((M, 3, C), device=xyz.device, dtype=torch.float32) if want_g else None
+        dxyz = torch.empty((M, 3), device=xyz.device, dtype=torch.float32) if want_x else None
+        iscratch = partials = None
+        if want_p:
+            iscratch, partials = _backward_scratch(M, H, W, C, xyz.device, what)
+            dplanes = torch.empty(planes.shape, device=xyz.device, dtype=planes.dtype)
+        if M == 0:
+            dplanes = None if dplanes is None else dplanes.zero_()
+        else:
+            fn = _build.function("grid_sample", "sample_points_backward_xyz_backward_launch", _K2XX_ARGS)
+            opt = lambda t: None if t is None else _build.ptr(t)  # noqa: E731
+            _build.check(fn(_build.ptr(planes), _build.ptr(xyz), _build.ptr(g), _build.ptr(gg_xyz), M, H, W, C,
+                            int(planes.dtype == torch.bfloat16), float(lbound), opt(dg), opt(dxyz),
+                            opt(dplanes), opt(iscratch), opt(partials), _build.stream(xyz.device)), what)
+            kernels.launches["grid_sample_bwd_xyz_bwd"] += ((1 if want_g or want_x else 0)
+                                                           + (K2_BWD_LAUNCHES if want_p else 0))
+    if gg_planes is not None:
+        gg_planes = gg_planes.to(planes.dtype).contiguous()
+        if want_g:
+            f = _sample_points_cuda(gg_planes, xyz, lbound)
+            dg = f if dg is None else dg + f
+        if want_x:
+            d = _sample_points_backward_xyz_cuda(g, gg_planes, xyz, lbound, planes_grad=False)[1]
+            dxyz = d if dxyz is None else dxyz + d
+    return dplanes, dxyz, dg
