@@ -2830,9 +2830,10 @@ def _k2xx_rows(calls):
                  bound_ms=b, bound_by=by, library_ms=lib_ms,
                  note=f"M={M} points on {tuple(planes.shape)} {planes.dtype} planes; asked for (planes, points, "
                       f"cotangent) {tuple(wants)}; gg reaches {n_live} of {3 * M} (plane, point) rows of {n_pts} "
-                      f"points ({int((g != 0).any(-1).sum())} rows carry a g), {touched} touched texels; rel err {[float(f'{e:.2e}') for e in errs]}; one launch for "
-                      f"dL/dg (and dL/dxyz) and the K2 backward's six binned passes with the weights' "
-                      f"derivatives for the plane gradient (the same bits on a second call); {note_lib}")]
+                      f"points ({int((g != 0).any(-1).sum())} rows carry a g), {touched} touched texels; rel err {[float(f'{e:.2e}') for e in errs]}; a first pass "
+                      f"for dL/dg (and dL/dxyz) that bins the rows gg reaches, then the K2 backward's other five "
+                      f"passes with the weights' derivatives for the plane gradient (the same bits on a second "
+                      f"call); {note_lib}")]
 
 
 def _k7xx_rows(calls):
@@ -2868,9 +2869,10 @@ def _k7xx_rows(calls):
                  bound_ms=b, bound_by=by, library_ms=None,
                  note=f"N={N} points x {L} levels of C={C} ({cfg.interpolation}); asked for (points, "
                       f"cotangent, tables) {tuple(wants)}; gg reaches {live} points ({n_pts} with gg != 0); "
-                      f"{touched} table rows touched there; rel err {[float(f'{e:.2e}') for e in errs]}; a thread per point over the "
-                      f"levels, the table gradient by scalar float atomics; library: none (no single PyTorch "
-                      f"call computes a hash grid's second derivative)")]
+                      f"{touched} table rows touched there; rel err {[float(f'{e:.2e}') for e in errs]}; a block per 128 points, "
+                      f"their live points in tiles of 32, a warp a level, the table gradient merged across the "
+                      f"warp and added by float2 / float4 atomics; library: none (no single PyTorch call "
+                      f"computes a hash grid's second derivative)")]
 
 
 def _k10xx_rows(calls):

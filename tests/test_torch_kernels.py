@@ -66,7 +66,8 @@ multiply-add where its plain version does not and sums the corners and the
 levels in its order: the plain version's bits at C <= 2, where the
 channel sum has one order, else within 1e-5 of its largest entry.
 K2x², K7x² and K10² against their plain versions run on the CPU (true
-divisions there, as in the kernels): dL/dg and dL/dx within 1e-5 of their
+divisions there, as in the kernels; K2x² on 1024^2 planes against the plain
+version on the card): dL/dg and dL/dx within 1e-5 of their
 largest entries (channel and corner sums in other orders); K2x²'s plane
 gradient as the K2 backward's (1e-5 relative in f32, one bf16 ulp, 2^-7,
 in bf16), the same bits on a second call; K7x²'s table and K10²'s grid
@@ -1207,10 +1208,10 @@ def test_textured_background_kernels_match_plain(dev, hw, n, dirs):
 def test_sample_backward_xyz_backward_kernel_matches_plain(dev, dtype, C):
     """K2x² at lbound 1.0 on 64 x 48 planes (border ties, cell edges, one
     contended texel, rows with no cotangent, points with no gg, points whose
-    gg misses one plane's axes): one launch
-    for dL/dg and dL/dxyz and the K2 backward's six passes for the plane
-    gradient; with gg on the plane gradient, K2 forward and K2x's pass on it
-    besides."""
+    gg misses one plane's axes): a first pass for dL/dg and dL/dxyz that
+    also bins the rows gg reaches, then the K2 backward's five other passes
+    for the plane gradient; with gg on the plane gradient, K2 forward and
+    K2x's pass on it besides."""
     planes, xyz, ct = _k2x_inputs(dev, dtype, 64, 48, C, 20000, 21)
     gen = torch.Generator().manual_seed(22)
     gg = torch.randn((20000, 3), generator=gen)
@@ -1224,7 +1225,7 @@ def test_sample_backward_xyz_backward_kernel_matches_plain(dev, dtype, C):
         n0 = kernels.launches["grid_sample_bwd_xyz_bwd"]
         dp, dx, dg = GS._sample_points_backward_xyz_backward_cuda(gg, ggp if with_ggp else None, planes, xyz, ct,
                                                                    1.0)
-        assert kernels.launches["grid_sample_bwd_xyz_bwd"] == n0 + 1 + GS.K2_BWD_LAUNCHES
+        assert kernels.launches["grid_sample_bwd_xyz_bwd"] == n0 + GS.K2_BWD_LAUNCHES
         again = GS._sample_points_backward_xyz_backward_cuda(gg, None, planes, xyz, ct, 1.0)[0]
         rp, rx, rg = GS.sample_points_backward_xyz_backward_plain(cpu[3], cpu[4] if with_ggp else None, *cpu[:2],
                                                                   cpu[2], 1.0)
@@ -1241,6 +1242,81 @@ def test_sample_backward_xyz_backward_kernel_matches_plain(dev, dtype, C):
                                                                   wants=(False, True, True))
     assert none is None and kernels.launches["grid_sample_bwd_xyz_bwd"] == n0 + 1
     assert torch.equal(dx1, first["dx"]) and torch.equal(dg1, first["dg"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_backward_xyz_backward_kernel_on_sparse_rows_of_large_planes(dev, dtype):
+    """K2x² on 1024^2 x 16 planes (the SDF step's triplane) with gg on about
+    16% of the points, as the analytic-normal step's masked samples leave
+    it, the points inside [-0.3, 0.5]^3, so whole tiles of each plane have no
+    row: those tiles come out exactly zero; the plane gradient the same bits
+    on a second call, every output held to the plain version (on the card)."""
+    M, C = 131072, 16
+    gen = torch.Generator().manual_seed(27)
+    planes = torch.randn((3, 1024, 1024, C), generator=gen).to(dev, dtype)
+    xyz = (-0.3 + 0.8 * torch.rand((M, 3), generator=gen)).to(dev)
+    ct = torch.randn((M, 3, C), generator=gen).to(dev)
+    gg = torch.randn((M, 3), generator=gen)
+    gg[torch.rand((M,), generator=gen) > 0.16] = 0.0
+    gg[:2000, 1] = 0.0  # gg along x and z: every plane still reached
+    gg = gg.to(dev)
+    n0 = kernels.launches["grid_sample_bwd_xyz_bwd"]
+    dp, dx, dg = GS._sample_points_backward_xyz_backward_cuda(gg, None, planes, xyz, ct, 1.0)
+    assert kernels.launches["grid_sample_bwd_xyz_bwd"] == n0 + GS.K2_BWD_LAUNCHES
+    again = GS._sample_points_backward_xyz_backward_cuda(gg, None, planes, xyz, ct, 1.0)[0]
+    rp, rx, rg = GS.sample_points_backward_xyz_backward_plain(gg, None, planes, xyz, ct, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, again)
+    assert _rel_close(dp, rp, 1e-5 if dtype == torch.float32 else 2.0**-7)
+    assert _rel_close(dx, rx, 1e-5) and _rel_close(dg, rg, 1e-5)
+    lo = int((1 - 0.3) / 2 * 1023) // 32 * 32  # the first tile row and column any point reaches
+    assert (dp[:, :lo] == 0).all() and (dp[:, :, :lo] == 0).all() and (dp[:, lo:, lo:].float().abs().sum() > 0)
+    dead = (gg == 0).all(-1)
+    assert (dg[dead] == 0).all() and (dx[dead] == 0).all()
+
+
+# K7x² cases: C = 1 (dense coarse levels, hashed fine ones), 4 (tiled,
+# smoothstep) and 8 (a dense level of resolution 4, hashed ones), and 32
+# levels of C = 8, the largest block and its shared memory
+K7XX_CASES = {name: K7X_CASES[name] for name in ("c1", "tiled_smoothstep", "c8", "levels32_c8")}
+
+
+@pytest.mark.parametrize("case", sorted(K7XX_CASES))
+def test_grid_encode_backward_x_backward_kernel_on_sparse_ray_samples(dev, case):
+    """K7x² on ray-ordered points as the analytic-normal step hands them: a
+    ray's 64 samples in one coarse cell (a warp's lanes merge their adds into
+    one unit), gg on one sample in five (masked samples in every tile), two
+    whole 128-point spans without gg and points with gg but no g; every
+    output held to the plain version, the points without gg exactly zero."""
+    cfg = GE.GridEncoderConfig(**K7XX_CASES[case])
+    n, bound = 20000, 1.5
+    x, tables = _k7_ray_inputs(dev, cfg, bound, n, 28)
+    cell = 2 * bound / cfg.level_resolution(0)
+    x[64:128] = -bound + cell * (0.3 + 0.4 * torch.linspace(0, 1, 64, device=dev)[:, None])  # one coarse cell
+    gen = torch.Generator().manual_seed(29)
+    ct = torch.randn((n, cfg.output_dim), generator=gen)
+    ct[3000:3100] = 0.0
+    gg = torch.randn((n, 3), generator=gen)
+    gg[1000:] *= (torch.arange(n - 1000) % 5 == 0)[:, None].float()  # one live sample in five
+    gg[256:512] = 0.0                                                # two spans with no live point
+    ct, gg = ct.to(dev), gg.to(dev)
+    n0 = kernels.launches["grid_encode_bwd_x_bwd"]
+    dx, dg, dt = GE._grid_encode_backward_x_backward_cuda(gg, None, x, ct, tables, cfg, bound)
+    assert kernels.launches["grid_encode_bwd_x_bwd"] == n0 + 1
+    rx, rg, rt = GE.grid_encode_backward_x_backward_plain(gg.cpu(), None, x.cpu(), ct.cpu(),
+                                                          [t.cpu() for t in tables], cfg, bound)
+    torch.cuda.synchronize()
+    assert _rel_close(dx.cpu(), rx, 1e-5) and _rel_close(dg.cpu(), rg, 1e-5)
+    for a, b in zip(dt, rt):
+        assert a.shape == b.shape and _rel_close(a.cpu(), b, 1e-5)
+    dead = (gg == 0).all(-1)
+    assert (dg[dead] == 0).all() and (dx[dead] == 0).all() and (dg[~dead] != 0).any()
+    for want in ((True, False, False), (False, True, False), (False, False, True)):  # one output at a time
+        one = GE._grid_encode_backward_x_backward_cuda(gg, None, x, ct, tables, cfg, bound, want)
+        for got, ref, w in zip(one, (dx, dg, dt), want):
+            assert (got is None) != w
+            if w and not isinstance(ref, list):
+                assert torch.equal(got, ref)  # dL/dx and dL/dg: no atomics, the same bits
 
 
 @pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])

@@ -104,16 +104,36 @@
 //   dL/dplanes: each corner row gets g times its weight's derivative along
 //     gg: f00 -(c_u (1 - wy) + c_v (1 - wx)), f01 c_u (1 - wy) - c_v wx,
 //     f10 c_v (1 - wx) - c_u wy, f11 c_u wy + c_v wx.
-// dL/dg and dL/dxyz are one launch shaped as K2x's dL/dxyz pass (a lane
-// group per point, a 16-byte slice of each row per lane; the group's h by
-// __shfl_xor_sync; a (point, plane) row whose c_u and c_v are both zero reads
-// no corner). dL/dplanes is the K2 backward's six passes with the derivative
-// weights in place of the bilinear ones (the count pass leaves out a row
-// whose gg has no component along its plane's axes; the accumulate pass's
-// DERIV mode computes a row's weights from its cell and gg when it is
-// staged), so it keeps their deterministic order. Bound: bytes (gg and the
-// points in; g and the corner rows of the rows gg reaches; dL/dg and dL/dxyz
-// written, the plane gradient written once).
+// Bound: bytes (gg and the points in; g and the corner rows of the rows gg
+// reaches; dL/dg and dL/dxyz written, the plane gradient written once). On
+// a training step gg reaches ~19% of the rows (masked samples carry none),
+// and the first design (a dL/dg launch, then the K2 backward's six binned
+// passes) spent three quarters of its time in those passes: the count pass
+// read every row's g, the scatter's warps walked every row's key, and the
+// accumulate pass staged a zeroed shared tile for tiles no row touches.
+// Design, six launches: (1) a first pass shaped as K2x's dL/dxyz pass (a lane
+// group per point, a 16-byte slice of each row per lane, the group's h by
+// __shfl_xor_sync), its points in contiguous runs, a run per count block and
+// a part of it per warp: per row gg first, then g only for a row gg reaches
+// (a component along its plane's axes) and the four corner rows only where
+// c_u or c_v is not zero; it writes dL/dg (zeros for the rest) and dL/dxyz,
+// and, with the plane gradient, gives each reached row with a g its key
+// and count in the block's histogram, as the count pass would, and writes
+// the warp's reached rows (ids and keys) to its list in row order, ranked by
+// ballots; (2, 3) the column scan and scan; (4) the scatter walks the
+// block's lists, warp by warp, in place of every row's key, so the tiles'
+// lists are the row walk's, entry for entry; (5) the accumulate pass in
+// DERIV mode computes a row's weights (the bilinear weights' derivatives
+// along gg) from its cell and gg when it is staged, its blocks take the
+// next chunk from a counter (a third of the tiles have no row, and static
+// turns left blocks idle), and a tile with no row writes its zeros from
+// registers without touching the shared tile; (6) the reduce. Every sum
+// keeps the first design's order, so dL/dg, dL/dxyz and the plane gradient
+// are its bits. Without the plane gradient the first pass runs alone.
+// Measured and kept out: thread 0 taking the next chunk and reading its
+// head while the current one is summed (slower). What bounds it now: the
+// accumulate pass's batches (their barriers and shared-memory sort) and the
+// plane gradient's write; the first pass's dL/dg write.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -359,6 +379,15 @@ static long long scratch_int_words(long long R, int T, int B) {
   return 5 * R + 6LL * T + NSLOT + 2 + META_WORDS + (long long)B * T;
 }
 
+// A row's key: its cell's tile, and whether its footprint crosses the
+// tile's right or bottom edge.
+template <int C>
+__device__ __forceinline__ int key_of(const Cell& c, int p, int tx_n, int ty_n) {
+  constexpr int TY = Tile<C>::TY;
+  const int t = (p * ty_n + c.y0 / TY) * tx_n + c.x0 / TX;
+  return (t << 2) | (((c.y0 % TY) == TY - 1) << 1) | ((c.x0 % TX) == TX - 1);
+}
+
 // The k-th tile (k = 0: the row's own; 1: right, 2: below, 3: both) a
 // row's key lists it in, or -1.
 __device__ __forceinline__ int tile_of_key(int key, int k, int tx_n) {
@@ -368,19 +397,30 @@ __device__ __forceinline__ int tile_of_key(int key, int k, int tx_n) {
   return (key >> 2) + dx + dy * tx_n;
 }
 
+// A row's tiles counted into the histogram h: the lanes of the warp that
+// count into one tile add once (every lane calls it; key -1: none).
+__device__ __forceinline__ void count_key(int key, int tx_n, int lane, int* h) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = tile_of_key(key, k, tx_n);
+    const unsigned int same = __match_any_sync(0xffffffffu, t);
+    if (t >= 0 && lane == __ffs(same) - 1) atomicAdd(h + t, __popc(same));
+  }
+}
+
 // The rows of block b are [b * span, min((b + 1) * span, rows)).
 __device__ __forceinline__ unsigned int run_span(unsigned int rows) {
   return (rows + gridDim.x - 1) / gridDim.x;
 }
 
+// At most 32 registers: count_blocks launches 8 blocks an SM, all resident.
 template <int C>
-__global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __restrict__ xyz,
-                                                                const float* __restrict__ g,
-                                                                unsigned int rows, int H, int W,
-                                                                float lbound, int T, int use_hist,
-                                                                int* __restrict__ keys,
-                                                                int* __restrict__ matrix,
-                                                                const float* __restrict__ ggx) {
+__global__ void __launch_bounds__(BWD_THREADS, 8) bwd_count_kernel(const float* __restrict__ xyz,
+                                                                   const float* __restrict__ g,
+                                                                   unsigned int rows, int H, int W,
+                                                                   float lbound, int T, int use_hist,
+                                                                   int* __restrict__ keys,
+                                                                   int* __restrict__ matrix) {
   constexpr int G = C / 4, TY = Tile<C>::TY;
   extern __shared__ int hist[];
   if (use_hist) {
@@ -405,22 +445,10 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_count_kernel(const float* __r
     int key = -1;  // the row's key, on its group's first lane
     const unsigned int m = row / 3u;
     const int p = (int)(row - 3u * m);
-    // K2x²: a row whose gg has no component along its plane's axes has zero
-    // derivative weights, and is left out as a row without cotangent is
-    if (valid && sub == 0 && nz &&
-        (ggx == nullptr || ggx[3 * m + (p == 2 ? 1 : 0)] != 0.f || ggx[3 * m + (p == 1 ? 1 : 2)] != 0.f)) {
-      const Cell c = cell_of(xyz[3 * m], xyz[3 * m + 1], xyz[3 * m + 2], p, lbound, H, W);
-      const int t = (p * ty_n + c.y0 / TY) * tx_n + c.x0 / TX;
-      key = (t << 2) | (((c.y0 % TY) == TY - 1) << 1) | ((c.x0 % TX) == TX - 1);
-    }
+    if (valid && sub == 0 && nz)
+      key = key_of<C>(cell_of(xyz[3 * m], xyz[3 * m + 1], xyz[3 * m + 2], p, lbound, H, W), p, tx_n, ty_n);
     if (valid && sub == 0) keys[row] = key;
-    // the lanes of the warp that count into one tile add once
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = tile_of_key(key, k, tx_n);
-      const unsigned int same = __match_any_sync(0xffffffffu, t);
-      if (t >= 0 && lane == __ffs(same) - 1) atomicAdd(h + t, __popc(same));
-    }
+    count_key(key, tx_n, lane, h);
   };
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   // two iterations' cotangent slices in flight at once
@@ -566,55 +594,123 @@ __global__ void __launch_bounds__(SCAN_THREADS) bwd_scan_kernel(const int* __res
   }
 }
 
-// One warp per count block, over the block's run of rows in order: each
-// row's id into the list of each tile its footprint touches, at the tile's
-// cursor (the block's first entry within the list, then advanced), the
+// 32 rows (one a lane, in row order; key -1: none) into the lists of the
+// tiles their footprints touch, at the tiles' cursors (then advanced), the
 // lanes that go to one tile ranked by lane. The cursors live in shared
-// memory (SHARED, T <= HIST_MAX) or in the block's row of the matrix.
+// memory (SHARED) or in the block's row of the matrix (cur_g, each a
+// tile's entries before the block's).
+template <bool SHARED>
+__device__ __forceinline__ void scatter_rows(int key, int row, int tx_n, int lane, int* cur_s, volatile int* cur_g,
+                                             const int* __restrict__ offsets, int* __restrict__ ids) {
+  const unsigned int below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = tile_of_key(key, k, tx_n);
+    const unsigned int same = __match_any_sync(0xffffffffu, t);
+    const int leader = __ffs(same) - 1;
+    int pos = 0;
+    if (t >= 0 && lane == leader) {
+      if constexpr (SHARED) {
+        pos = cur_s[t];
+        cur_s[t] = pos + __popc(same);
+      } else {
+        pos = cur_g[t];
+        cur_g[t] = pos + __popc(same);
+        pos += offsets[t];
+      }
+    }
+    pos = __shfl_sync(0xffffffffu, pos, leader);
+    if (t >= 0) ids[pos + __popc(same & below)] = row;
+    __syncwarp();
+  }
+}
+
+// One warp per count block, over the block's run of rows in order: each
+// row's id into the list of each tile its footprint touches.
 template <bool SHARED>
 __global__ void __launch_bounds__(32) bwd_scatter_kernel(const int* __restrict__ keys, unsigned int rows,
                                                          int tx_n, int T, const int* __restrict__ offsets,
                                                          int* __restrict__ matrix, int* __restrict__ ids) {
   extern __shared__ int cur_s[];
   const int lane = threadIdx.x;
-  const unsigned int below = (1u << lane) - 1u;
   int* row_pos = matrix + (size_t)blockIdx.x * T;
   if constexpr (SHARED) {
     for (int i = lane; i < T; i += 32) cur_s[i] = offsets[i] + row_pos[i];
     __syncwarp();
   }
-  volatile int* cur_g = row_pos;
   const unsigned int span = run_span(rows);
   const unsigned int lo = blockIdx.x * span, hi = min(rows, lo + span);
   int key = lo + lane < hi ? keys[lo + lane] : -1;
   for (unsigned int base = lo; base < hi; base += 32) {
     const unsigned int row = base + lane;
     const int next = row + 32 < hi ? keys[row + 32] : -1;
-    if (__ballot_sync(0xffffffffu, key >= 0) == 0) {  // 32 rows with no cotangent
-      key = next;
-      continue;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = tile_of_key(key, k, tx_n);
-      const unsigned int same = __match_any_sync(0xffffffffu, t);
-      const int leader = __ffs(same) - 1;
-      int pos = 0;
-      if (t >= 0 && lane == leader) {
-        if constexpr (SHARED) {
-          pos = cur_s[t];
-          cur_s[t] = pos + __popc(same);
-        } else {
-          pos = cur_g[t];
-          cur_g[t] = pos + __popc(same);
-          pos += offsets[t];
-        }
-      }
-      pos = __shfl_sync(0xffffffffu, pos, leader);
-      if (t >= 0) ids[pos + __popc(same & below)] = (int)row;
-      __syncwarp();
-    }
+    if (__ballot_sync(0xffffffffu, key >= 0) != 0)  // else 32 rows with no cotangent
+      scatter_rows<SHARED>(key, (int)row, tx_n, lane, cur_s, row_pos, offsets, ids);
     key = next;
+  }
+}
+
+// The points of K2x²'s first pass: a contiguous run per block, a contiguous
+// part of it per warp (COUNT_WARPS warps a block); [*lo, *hi) is warp w's.
+#define COUNT_WARPS (BWD_THREADS / 32)
+__device__ __forceinline__ void warp_points(unsigned int M, int w, unsigned int* lo, unsigned int* hi) {
+  const unsigned int pspan = (M + gridDim.x - 1) / gridDim.x, wspan = (pspan + COUNT_WARPS - 1) / COUNT_WARPS;
+  const unsigned int b0 = blockIdx.x * pspan, b1 = min(M, b0 + pspan);
+  *lo = min(b1, b0 + w * wspan);
+  *hi = min(b1, *lo + wspan);
+}
+
+// K2x²: a block per count block, over the lists of reached rows its first
+// pass wrote (warp by warp, each in row order), so the tiles' lists come out
+// as the row walk above makes them. The block's threads set the cursors;
+// one warp walks the block's lists as one sequence, 32 entries at a time,
+// the next 32 loaded while it places these.
+template <bool SHARED>
+__global__ void __launch_bounds__(BWD_THREADS) bwd_scatter_list_kernel(const int* __restrict__ keys,
+                                                                       const int* __restrict__ rowlist,
+                                                                       const int* __restrict__ list_count,
+                                                                       unsigned int M, int tx_n, int T,
+                                                                       const int* __restrict__ offsets,
+                                                                       int* __restrict__ matrix,
+                                                                       int* __restrict__ ids) {
+  extern __shared__ int cur_s[];
+  const int lane = threadIdx.x;
+  int* row_pos = matrix + (size_t)blockIdx.x * T;
+  if constexpr (SHARED) {
+    for (int i = threadIdx.x; i < T; i += blockDim.x) cur_s[i] = offsets[i] + row_pos[i];
+    __syncthreads();
+  }
+  if (threadIdx.x >= 32) return;
+  // lane w < COUNT_WARPS: list w's first slot (3 lo) and the entries up to its end
+  unsigned int lo = 0, hi = 0;
+  int upto = 0;
+  if (lane < COUNT_WARPS) {
+    warp_points(M, lane, &lo, &hi);
+    upto = list_count[blockIdx.x * COUNT_WARPS + lane];
+  }
+#pragma unroll
+  for (int o = 1; o < COUNT_WARPS; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, upto, o);
+    if (lane >= o) upto += y;
+  }
+  const int total = __shfl_sync(0xffffffffu, upto, COUNT_WARPS - 1);
+  // entry i of the sequence: its list's slot
+  auto slot = [&](int i) {
+    int w = 0;
+#pragma unroll
+    for (int k = 0; k < COUNT_WARPS - 1; ++k) w += __shfl_sync(0xffffffffu, upto, k) <= i;
+    const int before = __shfl_sync(0xffffffffu, upto, (w + COUNT_WARPS - 1) % COUNT_WARPS);
+    return 3 * (long long)__shfl_sync(0xffffffffu, lo, w) + i - (w ? before : 0);
+  };
+  long long at = slot(lane);
+  int key = lane < total ? keys[at] : -1, row = lane < total ? rowlist[at] : 0;
+  for (int i = 0; i < total; i += 32) {
+    at = slot(i + 32 + lane);
+    const bool more = i + 32 + lane < total;
+    const int next_key = more ? keys[at] : -1, next_row = more ? rowlist[at] : 0;
+    scatter_rows<SHARED>(key, row, tx_n, lane, cur_s, row_pos, offsets, ids);
+    key = next_key;
+    row = next_row;
   }
 }
 
@@ -708,7 +804,8 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
                                                                      int H, int W, float lbound,
                                                                      BwdScratch s, T* __restrict__ grad,
                                                                      float* __restrict__ partials,
-                                                                     const float* __restrict__ ggx) {
+                                                                     const float* __restrict__ ggx,
+                                                                     int* __restrict__ next_chunk) {
   constexpr int G = C / 4, TY = Tile<C>::TY, FLOATS = Tile<C>::FLOATS;
   constexpr int NT = TX * TY;               // texels of a tile
   constexpr int GROUPS = BWD_THREADS / G;   // lane groups of a block
@@ -723,18 +820,35 @@ __global__ void __launch_bounds__(BWD_THREADS) bwd_accumulate_kernel(const float
   __shared__ __align__(16) unsigned char wcnt[WARPS][NT];  // items of each texel per warp, then their prefix
   __shared__ int items[4 * BATCH];           // texel << 10 | row << 2 | corner, by texel
   __shared__ int warp_sums[WARPS];
+  __shared__ int taken[2];                   // DERIV: the chunks taken, by parity of the turn
   const int tx_n = tiles_x(W), ty_n = (H + TY - 1) / TY;
   const int chunks = s.meta[META_CHUNKS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned int below = (1u << lane) - 1u;
   const int sub = threadIdx.x % G, group = threadIdx.x / G;
-  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+  // the K2 backward's blocks take every gridDim.x-th chunk; K2x²'s take the
+  // next from a counter, so blocks that drew empty or light tiles take more
+  for (int turn = 0;; ++turn) {
+    int ch = blockIdx.x + turn * gridDim.x;
+    if constexpr (DERIV) {
+      if (threadIdx.x == 0) taken[turn & 1] = atomicAdd(next_chunk, 1);
+      __syncthreads();
+      ch = taken[turn & 1];
+    }
+    if (ch >= chunks) break;
     const int t = s.chunk_tile[ch];
     const int j = ch - s.chunk_start[t], n = s.chunk_start[t + 1] - s.chunk_start[t];
     const int first = s.offsets[t], cnt = s.offsets[t + 1] - first;
     const int e0 = first + (int)((long long)cnt * j / n), e1 = first + (int)((long long)cnt * (j + 1) / n);
     const int p = t / (tx_n * ty_n), rem = t - p * tx_n * ty_n;
     const int oy = (rem / tx_n) * TY, ox = (rem % tx_n) * TX;
+    if constexpr (DERIV) {
+      if (cnt == 0) {  // a tile no row touches: its zeros from registers, the shared tile left alone
+        for (int i = threadIdx.x; i < FLOATS / 4; i += BWD_THREADS)
+          store_tile4<C>(grad, p, oy, ox, H, W, i, make_float4(0.f, 0.f, 0.f, 0.f));
+        continue;
+      }
+    }
     for (int i = threadIdx.x; i < FLOATS / 4; i += BWD_THREADS) tile4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     // one row per thread: the first batch's fetched now, each later batch's
     // while the batch before it is summed
@@ -937,32 +1051,20 @@ static int tiles_of(int H, int W, int C) {
   return 3 * ((H + TY - 1) / TY) * tiles_x(W);
 }
 
-// ggx: K2x²'s gg (the accumulate pass's DERIV mode), or null for the K2
-// backward.
-template <int C, typename T, bool DERIV = false>
-static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, float lbound, T* grad,
-                      int* iscratch, float* partials, cudaStream_t stream, const float* ggx = nullptr) {
-  const int T_ = tiles_of(H, W, C);
+// K2x²'s lists of reached rows, after the count matrix: (R,) row ids, then
+// (B, COUNT_WARPS) counts, then the accumulate pass's chunk counter.
+static int* list_rows(const BwdScratch& s, int B, int T) { return s.matrix + (size_t)B * T; }
+
+// The passes after the count: column scan, scan, scatter, accumulate,
+// reduce. DERIV: K2x²'s (the scatter over the first pass's lists of reached
+// rows; the accumulate pass's derivative weights from ggx).
+template <int C, typename T, bool DERIV>
+static int launch_bins(const float* xyz, const float* g, int M, int H, int W, float lbound, T* grad,
+                       const BwdScratch& s, int B, int T_, float* partials, cudaStream_t stream,
+                       const float* ggx = nullptr) {
   const unsigned int rows = 3u * (unsigned int)M;
-  const int B = count_blocks(rows, C, T_);
-  BwdScratch s = carve(iscratch, rows, T_);
-  const int sms = num_sms();
+  const int sms = num_sms(), use_hist = T_ <= HIST_MAX;
   cudaError_t err;
-  // 1. count: each block a few rows per thread, so its histogram's zeroing
-  // and write-out stay small beside them; without a block-local histogram
-  // the block adds into its zeroed row of the matrix
-  const int use_hist = T_ <= HIST_MAX;
-  if (!use_hist && (err = cudaMemsetAsync(s.matrix, 0, sizeof(int) * (size_t)B * T_, stream)) != cudaSuccess)
-    return (int)err;
-  const size_t hist_bytes = use_hist ? sizeof(int) * (size_t)T_ : 0;
-  static bool hist_attr = false;
-  if (!hist_attr) {
-    cudaFuncSetAttribute(bwd_count_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * HIST_MAX);
-    hist_attr = true;
-  }
-  bwd_count_kernel<C><<<B, BWD_THREADS, hist_bytes, stream>>>(xyz, g, rows, H, W, lbound, T_, use_hist,
-                                                              s.keys, s.matrix, ggx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 2. column scan of the count matrix
   bwd_colscan_kernel<<<(T_ + 31) / 32, SCAN_THREADS, 0, stream>>>(s.matrix, B, T_, s.counts);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -970,7 +1072,23 @@ static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, flo
   bwd_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(s.counts, T_, s);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 4. scatter: one warp per count block
-  if (use_hist) {
+  if constexpr (DERIV) {
+    const int* rl = list_rows(s, B, T_);
+    const int* lc = rl + rows;
+    if (use_hist) {
+      static bool attr = false;
+      if (!attr) {
+        cudaFuncSetAttribute(bwd_scatter_list_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             4 * HIST_MAX);
+        attr = true;
+      }
+      bwd_scatter_list_kernel<true><<<B, BWD_THREADS, sizeof(int) * (size_t)T_, stream>>>(
+          s.keys, rl, lc, (unsigned int)M, tiles_x(W), T_, s.offsets, s.matrix, s.ids);
+    } else {
+      bwd_scatter_list_kernel<false><<<B, 32, 0, stream>>>(s.keys, rl, lc, (unsigned int)M, tiles_x(W), T_,
+                                                           s.offsets, s.matrix, s.ids);
+    }
+  } else if (use_hist) {
     static bool scatter_attr = false;
     if (!scatter_attr) {
       cudaFuncSetAttribute(bwd_scatter_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * HIST_MAX);
@@ -995,11 +1113,37 @@ static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, flo
     if (per_sm < 1) per_sm = 1;
   }
   bwd_accumulate_kernel<C, T, DERIV><<<per_sm * sms, BWD_THREADS, tile_bytes, stream>>>(
-      xyz, g, H, W, lbound, s, grad, partials, ggx);
+      xyz, g, H, W, lbound, s, grad, partials, ggx, DERIV ? list_rows(s, B, T_) + rows + COUNT_WARPS * B : nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 6. reduce the split tiles
   bwd_reduce_kernel<C, T><<<2 * sms, BWD_THREADS, 0, stream>>>(H, W, s, partials, grad);
   return (int)cudaGetLastError();
+}
+
+template <int C, typename T>
+static int launch_bwd(const float* xyz, const float* g, int M, int H, int W, float lbound, T* grad,
+                      int* iscratch, float* partials, cudaStream_t stream) {
+  const int T_ = tiles_of(H, W, C);
+  const unsigned int rows = 3u * (unsigned int)M;
+  const int B = count_blocks(rows, C, T_);
+  BwdScratch s = carve(iscratch, rows, T_);
+  cudaError_t err;
+  // 1. count: each block a few rows per thread, so its histogram's zeroing
+  // and write-out stay small beside them; without a block-local histogram
+  // the block adds into its zeroed row of the matrix
+  const int use_hist = T_ <= HIST_MAX;
+  if (!use_hist && (err = cudaMemsetAsync(s.matrix, 0, sizeof(int) * (size_t)B * T_, stream)) != cudaSuccess)
+    return (int)err;
+  const size_t hist_bytes = use_hist ? sizeof(int) * (size_t)T_ : 0;
+  static bool hist_attr = false;
+  if (!hist_attr) {
+    cudaFuncSetAttribute(bwd_count_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * HIST_MAX);
+    hist_attr = true;
+  }
+  bwd_count_kernel<C><<<B, BWD_THREADS, hist_bytes, stream>>>(xyz, g, rows, H, W, lbound, T_, use_hist,
+                                                              s.keys, s.matrix);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return launch_bins<C, T, false>(xyz, g, M, H, W, lbound, grad, s, B, T_, partials, stream);
 }
 
 // Scratch the K2 backward (and K2x's plane gradient) needs at these sizes:
@@ -1011,6 +1155,15 @@ extern "C" int sample_points_backward_workspace(int M, int H, int W, int C, long
   *int_words = scratch_int_words(3LL * M, T, count_blocks(3LL * M, C, T));
   *float_words = (long long)NSLOT * TX * TY * C;
   return 0;
+}
+
+// K2x²'s scratch with its plane gradient: the K2 backward's, and the first
+// pass's lists of reached rows.
+extern "C" int sample_points_backward_xyz_backward_workspace(int M, int H, int W, int C, long long* int_words,
+                                                             long long* float_words) {
+  const int err = sample_points_backward_workspace(M, H, W, C, int_words, float_words);
+  if (err == 0) *int_words += 3LL * M + (long long)COUNT_WARPS * count_blocks(3LL * M, C, tiles_of(H, W, C)) + 1;
+  return err;
 }
 
 // xyz (M, 3) f32, g (M, 3, C) f32 -> grad (3, H, W, C) in the plane dtype
@@ -1162,83 +1315,158 @@ extern "C" int sample_points_backward_xyz_launch(const void* planes, const float
 // K2x²
 // ---------------------------------------------------------------------------
 
-// dL/dg and dL/dxyz: a group of L lanes per point, as bwd_xyz_kernel. Every
-// lane runs the group's shuffles (lanes past M with zero coefficients).
+// K2x²'s first pass: a group of L lanes per point (as bwd_xyz_kernel; every
+// lane runs the group's shuffles), the points in contiguous runs
+// (warp_points). Per (point, plane) row, gg first: a row gg reaches (gg has
+// a component along the plane's axes) reads its g slice and, where its
+// coefficients c_u, c_v are not both zero, its four corner slices; dL/dg is
+// written for every row (zeros where nothing reaches it), dL/dxyz per
+// point. With matrix (the plane gradient asked for): a reached row with a g
+// gets its key, counted into the block's histogram as the count pass
+// counts, and each warp writes its reached rows' ids and keys, in row order,
+// to its list (from 3 lo on; the count to list_count), which the scatter
+// walks in place of every row's key.
 template <int C, typename T>
-__global__ void __launch_bounds__(256) bwd_xyz_bwd_kernel(const T* __restrict__ planes, const float* __restrict__ xyz,
-                                                          const float* __restrict__ g, const float* __restrict__ ggx,
-                                                          unsigned int M, int H, int W, float lbound,
-                                                          float* __restrict__ dg, float* __restrict__ dxyz) {
-  constexpr int L = FwdShape<C, T>::L, N = FwdShape<C, T>::N;
-  const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned int m = t / L;  // L is a power of two
-  const int sub = (int)(t % L);
-  const bool valid = m < M;
-  float pt[3] = {0.f, 0.f, 0.f}, gx[3] = {0.f, 0.f, 0.f};
-  if (valid) {
+__global__ void __launch_bounds__(BWD_THREADS, 4) bwd_xyz_bwd_kernel(
+    const T* __restrict__ planes, const float* __restrict__ xyz, const float* __restrict__ g,
+    const float* __restrict__ ggx, unsigned int M, int H, int W, float lbound, float* __restrict__ dg,
+    float* __restrict__ dxyz, int T_, int use_hist, int* __restrict__ keys, int* __restrict__ rowlist,
+    int* __restrict__ list_count, int* __restrict__ matrix) {
+  constexpr int L = FwdShape<C, T>::L, N = FwdShape<C, T>::N, TY = Tile<C>::TY, PER = 32 / L;
+  extern __shared__ int hist[];
+  const bool counting = matrix != nullptr;
+  if (counting && blockIdx.x == 0 && threadIdx.x == 0) list_count[gridDim.x * COUNT_WARPS] = 0;  // chunk counter
+  if (counting && use_hist) {
+    for (int i = threadIdx.x; i < T_; i += blockDim.x) hist[i] = 0;
+    __syncthreads();
+  }
+  const int tx_n = tiles_x(W), ty_n = (H + TY - 1) / TY;
+  const int lane = threadIdx.x & 31, sub = lane % L;
+  const unsigned int below = (1u << lane) - 1u;
+  unsigned int lo, hi;
+  warp_points(M, threadIdx.x >> 5, &lo, &hi);
+  int* h = !counting ? nullptr : use_hist ? hist : matrix + (size_t)blockIdx.x * T_;
+  int listed = 0;  // the warp's reached rows so far
+  for (unsigned int base = lo; base < hi; base += PER) {
+    const unsigned int m = base + lane / L;
+    const bool valid = m < hi;
+    float pt[3] = {0.f, 0.f, 0.f}, gx[3] = {0.f, 0.f, 0.f};
+    if (valid) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      pt[d] = xyz[3 * m + d];
-      gx[d] = ggx[3 * m + d];
+      for (int d = 0; d < 3; ++d) {
+        pt[d] = xyz[3 * m + d];
+        gx[d] = ggx[3 * m + d];
+      }
+    }
+    float du[3], dv[3];
+    int key[3];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const Cell c = cell_of(pt[0], pt[1], pt[2], p, lbound, H, W);
+      const float2 sc = texel_scales(c, H, W), k = deriv_coeffs(p, gx, lbound, sc);
+      const float cu = k.x, cv = k.y;
+      const bool reached = valid && (gx[p == 2 ? 1 : 0] != 0.f || gx[p == 1 ? 1 : 2] != 0.f);
+      float gv[N];
+      int nz = 0;
+      if (reached) {
+        load_slice<N>(g + (3u * m + p) * C + sub * N, gv);
+#pragma unroll
+        for (int e = 0; e < N; ++e) nz |= gv[e] != 0.f;
+      }
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) nz |= __shfl_xor_sync(0xffffffffu, nz, o);
+      float hs = 0.f;
+      float* out = dg == nullptr ? nullptr : dg + (3u * m + p) * C + sub * N;
+      if (valid && (cu != 0.f || cv != 0.f)) {  // the same for the whole group; then reached
+        const T* r00 = planes + ((unsigned int)(p * H + c.y0) * (unsigned int)W + (unsigned int)c.x0) * C + sub * N;
+        const T* r10 = r00 + W * C;
+        float f00[N], f01[N], f10[N], f11[N], ov[N];
+        load_slice<N>(r00, f00);
+        load_slice<N>(r00 + C, f01);
+        load_slice<N>(r10, f10);
+        load_slice<N>(r10 + C, f11);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          ov[e] = cu * ((f01[e] - f00[e]) * (1.f - c.wy) + (f11[e] - f10[e]) * c.wy) +
+                  cv * ((f10[e] - f00[e]) * (1.f - c.wx) + (f11[e] - f01[e]) * c.wx);
+          hs += gv[e] * (f00[e] - f01[e] - f10[e] + f11[e]);
+        }
+        if (out != nullptr) {
+#pragma unroll
+          for (int e = 0; e < N / 4; ++e)
+            reinterpret_cast<float4*>(out)[e] = make_float4(ov[4 * e], ov[4 * e + 1], ov[4 * e + 2], ov[4 * e + 3]);
+        }
+      } else if (valid && out != nullptr) {
+#pragma unroll
+        for (int e = 0; e < N / 4; ++e) reinterpret_cast<float4*>(out)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) hs += __shfl_xor_sync(0xffffffffu, hs, o);
+      du[p] = cv * hs * sc.x;
+      dv[p] = cu * hs * sc.y;
+      key[p] = counting && reached && nz && sub == 0 ? key_of<C>(c, p, tx_n, ty_n) : -1;
+    }
+    if (valid && sub == 0 && dxyz != nullptr) {
+      dxyz[3 * m] = (du[0] + du[1]) / lbound;
+      dxyz[3 * m + 1] = (dv[1] + du[2]) / lbound;
+      dxyz[3 * m + 2] = (dv[0] + dv[2]) / lbound;
+    }
+    if (counting) {
+      const unsigned int r0 = __ballot_sync(0xffffffffu, key[0] >= 0), r1 = __ballot_sync(0xffffffffu, key[1] >= 0),
+                         r2 = __ballot_sync(0xffffffffu, key[2] >= 0);
+      int pos = 3 * (int)lo + listed + __popc(r0 & below) + __popc(r1 & below) + __popc(r2 & below);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        count_key(key[p], tx_n, lane, h);
+        if (key[p] >= 0) {
+          keys[pos] = key[p];
+          rowlist[pos] = (int)(3u * m + p);
+          ++pos;
+        }
+      }
+      listed += __popc(r0) + __popc(r1) + __popc(r2);
     }
   }
-  float du[3], dv[3];
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const Cell c = cell_of(pt[0], pt[1], pt[2], p, lbound, H, W);
-    const float2 sc = texel_scales(c, H, W), k = deriv_coeffs(p, gx, lbound, sc);
-    const float cu = k.x, cv = k.y;
-    float h = 0.f;
-    float* out = dg == nullptr ? nullptr : dg + (3u * m + p) * C + sub * N;
-    if (valid && (cu != 0.f || cv != 0.f)) {  // the same for the whole group
-      const T* r00 = planes + ((unsigned int)(p * H + c.y0) * (unsigned int)W + (unsigned int)c.x0) * C + sub * N;
-      const T* r10 = r00 + W * C;
-      float gv[N], f00[N], f01[N], f10[N], f11[N], ov[N];
-      load_slice<N>(g + (3u * m + p) * C + sub * N, gv);
-      load_slice<N>(r00, f00);
-      load_slice<N>(r00 + C, f01);
-      load_slice<N>(r10, f10);
-      load_slice<N>(r10 + C, f11);
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        ov[e] = cu * ((f01[e] - f00[e]) * (1.f - c.wy) + (f11[e] - f10[e]) * c.wy) +
-               cv * ((f10[e] - f00[e]) * (1.f - c.wx) + (f11[e] - f01[e]) * c.wx);
-        h += gv[e] * (f00[e] - f01[e] - f10[e] + f11[e]);
-      }
-      if (out != nullptr) {
-#pragma unroll
-        for (int e = 0; e < N / 4; ++e)
-          reinterpret_cast<float4*>(out)[e] = make_float4(ov[4 * e], ov[4 * e + 1], ov[4 * e + 2], ov[4 * e + 3]);
-      }
-    } else if (valid && out != nullptr) {
-#pragma unroll
-      for (int e = 0; e < N / 4; ++e) reinterpret_cast<float4*>(out)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (counting) {
+    if (lane == 0) list_count[blockIdx.x * COUNT_WARPS + (threadIdx.x >> 5)] = listed;
+    if (use_hist) {
+      __syncthreads();
+      int* row_counts = matrix + (size_t)blockIdx.x * T_;
+      for (int i = threadIdx.x; i < T_; i += blockDim.x) row_counts[i] = hist[i];
     }
-#pragma unroll
-    for (int o = 1; o < L; o <<= 1) h += __shfl_xor_sync(0xffffffffu, h, o);
-    du[p] = cv * h * sc.x;
-    dv[p] = cu * h * sc.y;
-  }
-  if (valid && sub == 0 && dxyz != nullptr) {
-    dxyz[3 * m] = (du[0] + du[1]) / lbound;
-    dxyz[3 * m + 1] = (dv[1] + du[2]) / lbound;
-    dxyz[3 * m + 2] = (dv[0] + dv[2]) / lbound;
   }
 }
 
+// K2x²: its first pass, then (with the plane gradient) the binned passes.
 template <int C, typename T>
 static int launch_xyz_bwd(const T* planes, const float* xyz, const float* g, const float* ggx, int M, int H, int W,
                           float lbound, float* dg, float* dxyz, T* grad, int* iscratch, float* partials,
                           cudaStream_t stream) {
-  if (dg != nullptr || dxyz != nullptr) {
+  if (grad == nullptr) {  // dL/dg and dL/dxyz alone: a warp's points in one round
+    if (dg == nullptr && dxyz == nullptr) return 0;
     const unsigned long long n = (unsigned long long)M * FwdShape<C, T>::L;
-    bwd_xyz_bwd_kernel<C, T><<<(unsigned int)((n + 255) / 256), 256, 0, stream>>>(planes, xyz, g, ggx, (unsigned int)M,
-                                                                                H, W, lbound, dg, dxyz);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    bwd_xyz_bwd_kernel<C, T><<<(unsigned int)((n + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS, 0, stream>>>(
+        planes, xyz, g, ggx, (unsigned int)M, H, W, lbound, dg, dxyz, 0, 0, nullptr, nullptr, nullptr, nullptr);
+    return (int)cudaGetLastError();
   }
-  if (grad != nullptr) return launch_bwd<C, T, true>(xyz, g, M, H, W, lbound, grad, iscratch, partials, stream, ggx);
-  return 0;
+  const int T_ = tiles_of(H, W, C);
+  const unsigned int rows = 3u * (unsigned int)M;
+  const int B = count_blocks(rows, C, T_);
+  BwdScratch s = carve(iscratch, rows, T_);
+  int* rl = list_rows(s, B, T_);
+  cudaError_t err;
+  const int use_hist = T_ <= HIST_MAX;
+  if (!use_hist && (err = cudaMemsetAsync(s.matrix, 0, sizeof(int) * (size_t)B * T_, stream)) != cudaSuccess)
+    return (int)err;
+  static bool hist_attr = false;
+  if (!hist_attr) {
+    cudaFuncSetAttribute(bwd_xyz_bwd_kernel<C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * HIST_MAX);
+    hist_attr = true;
+  }
+  bwd_xyz_bwd_kernel<C, T><<<B, BWD_THREADS, use_hist ? sizeof(int) * (size_t)T_ : 0, stream>>>(
+      planes, xyz, g, ggx, (unsigned int)M, H, W, lbound, dg, dxyz, T_, use_hist, s.keys, rl, rl + rows, s.matrix);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return launch_bins<C, T, true>(xyz, g, M, H, W, lbound, grad, s, B, T_, partials, stream, ggx);
 }
 
 // K2x². planes (3, H, W, C) channel-last, bf16 (bf16 != 0) or f32; xyz (M, 3)

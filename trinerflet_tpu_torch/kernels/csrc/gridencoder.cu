@@ -101,15 +101,31 @@
 //   dL/dx_e += (sum_{d != e} c_d sum_k s_k d2w_k/df_d df_e f'_e
 //               + A_e res f''_e sum_k s_k dw_k/df_e) res clip'(u_e) 0.5 / bound,
 // s_k = g_l . T[idx_k] (the trilinear weights' d2w/df_d^2 is 0; f'' is
-// 6 - 12 t under smoothstep, 0 for linear). First design, as K7x: one thread
-// per point over the levels (no atomics for dL/dx and dL/dg, each written
-// once), the table gradient by scalar float atomics of the nonzero terms
-// into tables the caller zeroes (an unspecified order, each entry a float32
-// sum of the same terms). A point whose A is zero (a masked sample) reads
-// only its point and gg, and writes zeros. Bound: bytes (gg and the points
+// 6 - 12 t under smoothstep, 0 for linear). Bound: bytes (gg and the points
 // in; g and the corner rows of the points whose A is not zero; dL/dg and
 // dL/dx out, the touched rows of the table gradient updated); about 60
-// flops per corner.
+// flops per corner. On a training step most points are masked samples (gg
+// reaches ~18% of them, spread over every tile) and the table terms are 8 C
+// float atomics a (point, level), which held half of the first design's
+// time (a thread per point over the levels: scalar atomics, g read and
+// dL/dg written 4 L C bytes apart across a warp, dead lanes idle beside
+// live ones walking 16 levels). Design: a block per span of 128
+// consecutive points (K7XX_SPAN), their points and gg staged in shared
+// memory, the live ones (A not zero) ranked in order by ballots and taken
+// in tiles of 32, a warp a level and a lane a point, as the K7 backward
+// lays out its work; their g rows read a row a warp (coalesced) into shared
+// memory, where each lane's dL/dg replaces its g; the table terms omega_k g
+// go, before the row loads (they need no row), through the K7 backward's
+// scatter_corners (row pairs, runs of lanes on one unit summed by the
+// segmented scan, one float2 / float4 atomic a run); each warp stores its
+// level's dL/dx terms, and after a barrier they are summed in level order,
+// as the first design's loop summed them. Then the span's dL/dg and dL/dx
+// go out as slabs (zeros for the points that are not live). Every term,
+// dL/dg and dL/dx are the first design's operation by operation; the table
+// gradient is a float32 sum of the same terms in another order. Measured
+// and kept out: spans of 32, 64, 256 and 512 points (128 was fastest), a
+// register cap for more resident warps (spills), the scatter after the row
+// loads; the scatter's adds themselves cost little, its merging most.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -334,18 +350,19 @@ __device__ __forceinline__ void place(const float* a, uint32_t i, float* v) {
   }
 }
 
-// The 8 corner terms w_k g of one (point, level) into the gradient table:
-// corners j and j + 4 share a unit where they can, then each unit is
-// merged across the warp and added.
-template <int C>
-__device__ __forceinline__ void scatter_corners(float* table, const uint32_t p0[3], const float frac[3],
-                                                int l, const GridLevels& lv, const float* gv, int lane) {
+// The 8 corner terms weight(k) g of one (point, level) into the gradient
+// table (the K7 backward's weights w_k, K7x²'s omega_k): corners j and j + 4
+// share a unit where they can, then each unit is merged across the warp and
+// added. Every lane of the warp calls it; a lane with g = 0 adds nothing.
+template <int C, typename Weight>
+__device__ __forceinline__ void scatter_corners(float* table, const uint32_t p0[3], int l, const GridLevels& lv,
+                                                const float* gv, int lane, Weight weight) {
   constexpr int U = C <= 2 ? 2 * C : C;
   constexpr uint32_t KEY = U == 2 * C ? ~1u : ~0u;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const uint32_t i0 = corner_row(p0, j, l, lv), i1 = corner_row(p0, j + 4, l, lv);
-    const float w0 = corner_weight(frac, j), w1 = corner_weight(frac, j + 4);
+    const float w0 = weight(j), w1 = weight(j + 4);
     float a0[C], a1[C], va[U], vb[U];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -387,7 +404,8 @@ __global__ void __launch_bounds__(K7_TILE * K7_MAX_LEVELS) grid_encode_backward_
   uint32_t p0[3];
   if (n < N) unit_point(x + 3 * n, inv_bound, u);
   level_cell(u, l, lv, smooth, frac, p0);
-  scatter_corners<C>(lv.table[l], p0, frac, l, lv, gv, lane);
+  const auto w = [&](int k) { return corner_weight(frac, k); };
+  scatter_corners<C>(lv.table[l], p0, l, lv, gv, lane, w);
 }
 
 // K7x: one thread per point, the levels in a loop.
@@ -451,48 +469,113 @@ __global__ void grid_encode_backward_x_kernel(const float* __restrict__ x, const
   for (int d = 0; d < 3; ++d) dx[3 * n + d] = acc[d] * clip_g[d] * 0.5f * inv_bound;
 }
 
-// K7x²: one thread per point, the levels in a loop. grads.table[l] is the
-// level's gradient table (want_t), dx and dg may be null.
+// omega_k = sum_d c_d dw_k/df_d: corner k's weight's derivative along gg.
+__device__ __forceinline__ float corner_omega(const float frac[3], const float cd[3], int k) {
+  const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+  const float f0 = b0 ? frac[0] : 1.0f - frac[0], f1 = b1 ? frac[1] : 1.0f - frac[1];
+  const float f2 = b2 ? frac[2] : 1.0f - frac[2];
+  return cd[0] * ((b0 ? 1.0f : -1.0f) * (f1 * f2)) + cd[1] * ((b1 ? 1.0f : -1.0f) * (f0 * f2)) +
+         cd[2] * ((b2 ? 1.0f : -1.0f) * (f0 * f1));
+}
+
+// K7x²: a block per span of K7XX_SPAN consecutive points. Its points whose
+// A is not zero (live) are compacted in order into tiles of 32, and each live
+// tile is taken a warp a level, a lane a point. Shared memory holds the
+// span's points and gg, the live points' g rows (then, in place, their dL/dg
+// rows), their dL/dx and one tile's level terms. grads.table[l] is the
+// level's gradient table (want_t); dx and dg may be null.
+#define K7XX_SPAN 128  // points a block: four 32-point tiles
+
+static size_t k7xx_shared_bytes(int L, int C) {
+  return sizeof(float) * ((size_t)K7XX_SPAN * (9 + ((L * C) | 1)) + 3 * K7_TILE * L) +
+         sizeof(int) * (2 * K7XX_SPAN + K7XX_SPAN / 32 + 1);
+}
+
 template <int C>
-__global__ void grid_encode_backward_x_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                                       const float* __restrict__ ggx, long long N, int L,
-                                                       GridLevels lv, GridLevels grads, int want_t, float inv_bound,
-                                                       int smooth, float* __restrict__ dx, float* __restrict__ dg) {
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  float u[3], q[3], A[3];
-  bool live = false;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float v = unit_coord(x[3 * n + d], inv_bound);
-    u[d] = fminf(fmaxf(v, 0.0f), 1.0f);
-    const float cg = (v > 0.0f && v < 1.0f) ? 1.0f : ((v == 0.0f || v == 1.0f) ? 0.5f : 0.0f);
-    q[d] = cg * 0.5f * inv_bound;
-    A[d] = ggx[3 * n + d] * q[d];
-    live |= A[d] != 0.0f;
+__global__ void __launch_bounds__(K7_TILE * K7_MAX_LEVELS) grid_encode_backward_x_backward_kernel(
+    const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ ggx, long long N, int L,
+    GridLevels lv, GridLevels grads, int want_t, float inv_bound, int smooth, float* __restrict__ dx,
+    float* __restrict__ dg) {
+  constexpr int P = K7XX_SPAN, TILES = P / 32;
+  extern __shared__ float sm[];
+  const int LC = L * C, S = LC | 1;  // odd stride: a warp's rows in distinct banks
+  float* xs = sm;                     // (P, 3) the span's points
+  float* ggs = xs + 3 * P;            // (P, 3) their gg
+  float* gs = ggs + 3 * P;            // (P, S) the live points' g, then their dL/dg, by slot
+  float* dxs = gs + P * S;            // (P, 3) the live points' dL/dx, by slot
+  float* terms = dxs + 3 * P;         // (L, 32, 3) one live tile's level terms
+  int* slot_of = reinterpret_cast<int*>(terms + 3 * K7_TILE * L);  // (P,) a point's slot, or -1
+  int* ids = slot_of + P;                                          // (P,) a slot's point
+  int* tile_live = ids + P;                                        // (TILES + 1,) live points before each tile
+  const long long n0 = (long long)blockIdx.x * P;
+  const int np = (int)min((long long)P, N - n0);
+  const int l = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int j = threadIdx.x; j < 3 * np; j += blockDim.x) {
+    xs[j] = x[3 * n0 + j];
+    ggs[j] = ggx[3 * n0 + j];
   }
-  if (!live) {  // no cotangent reaches this point: zeros, and no g or table read
-    if (dg != nullptr)
-      for (int i = 0; i < L * C; ++i) dg[n * L * C + i] = 0.0f;
-    if (dx != nullptr)
+  __syncthreads();
+  // the span's live points, ranked in order by ballots
+  auto coeffs = [&](int p, float u[3], float q[3], float A[3]) {
+    bool live = false;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) dx[3 * n + d] = 0.0f;
-    return;
+    for (int d = 0; d < 3; ++d) {
+      const float v = unit_coord(xs[3 * p + d], inv_bound);
+      u[d] = fminf(fmaxf(v, 0.0f), 1.0f);
+      const float cg = (v > 0.0f && v < 1.0f) ? 1.0f : ((v == 0.0f || v == 1.0f) ? 0.5f : 0.0f);
+      q[d] = cg * 0.5f * inv_bound;
+      A[d] = ggs[3 * p + d] * q[d];
+      live |= A[d] != 0.0f;
+    }
+    return live;
+  };
+  for (int t = l; t < TILES; t += warps) {
+    const int p = t * 32 + lane;
+    float u[3], q[3], A[3];
+    const bool live = p < np && coeffs(p, u, q, A);
+    const unsigned bits = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) tile_live[t] = __popc(bits);
+    slot_of[p] = live ? -2 - __popc(bits & ((1u << lane) - 1u)) : -1;  // rank within the tile, for now
   }
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int l = 0; l < L; ++l) {
-    float gv[C], dgl[C];
-    bool any = false;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int t = 0; t < TILES; ++t) {
+      const int c = tile_live[t];
+      tile_live[t] = run;
+      run += c;
+    }
+    tile_live[TILES] = run;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const int r = slot_of[p];
+    if (r <= -2) {
+      const int s = tile_live[p >> 5] + (-2 - r);
+      slot_of[p] = s;
+      ids[s] = p;
+    }
+  }
+  const int nl = tile_live[TILES];
+  __syncthreads();
+  // the live points' g rows, a row a warp (coalesced)
+  for (int s = l; s < nl; s += warps)
+    for (int c = lane; c < LC; c += 32) gs[s * S + c] = g[(n0 + ids[s]) * LC + c];
+  __syncthreads();
+  for (int t0 = 0; t0 < nl; t0 += 32) {
+    const int slot = t0 + lane;
+    const bool active = slot < nl;
+    float gv[C], dgl[C], term[3] = {0.0f, 0.0f, 0.0f};
+    float u[3], q[3], A[3], frac[3] = {0.0f, 0.0f, 0.0f}, dfrac[3], ddfrac[3], cd[3] = {0.0f, 0.0f, 0.0f};
+    uint32_t p0[3] = {0u, 0u, 0u};
+    const float fres = (float)lv.res[l];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      gv[c] = g[(n * L + l) * C + c];
-      any |= gv[c] != 0.0f;
+      gv[c] = active ? gs[slot * S + l * C + c] : 0.0f;
       dgl[c] = 0.0f;
     }
-    if (any || dg != nullptr) {
-      const float fres = (float)lv.res[l];
-      float frac[3], dfrac[3], ddfrac[3], cd[3];
-      uint32_t p0[3];
+    if (active) {
+      coeffs(ids[slot], u, q, A);
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         const float lin = cell(u[d], fres, &p0[d]);
@@ -501,9 +584,18 @@ __global__ void grid_encode_backward_x_backward_kernel(const float* __restrict__
         ddfrac[d] = smooth ? 6.0f - 12.0f * lin : 0.0f;
         cd[d] = A[d] * dfrac[d] * fres;
       }
+    }
+    // the table terms omega_k g first: they read no table row, and the row
+    // loads below then have the registers to themselves
+    if (want_t) {
+      const auto w = [&](int k) { return corner_omega(frac, cd, k); };
+      scatter_corners<C>(grads.table[l], p0, l, lv, gv, lane, w);
+    }
+    if (active) {
       uint32_t idx[8];
       corner_rows(p0, l, lv, idx);
-      const float* __restrict__ table = lv.table[l];
+      float v[C <= 2 ? 8 * C : 1];  // C <= 2: the 8 rows loaded at once; wider rows one corner at a time
+      if constexpr (C <= 2) gather_corners<C>(lv.table[l], idx, v);
       float dw[3] = {0.0f, 0.0f, 0.0f}, hx[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -515,18 +607,19 @@ __global__ void grid_encode_backward_x_backward_kernel(const float* __restrict__
           sg[d] = b[d] ? 1.0f : -1.0f;
         }
         const float dwk[3] = {sg[0] * (fac[1] * fac[2]), sg[1] * (fac[0] * fac[2]), sg[2] * (fac[0] * fac[1])};
-        const float omega = cd[0] * dwk[0] + cd[1] * dwk[1] + cd[2] * dwk[2];
-        float v[C];
-        ldg_row<C>(table + (size_t)idx[k] * C, v);
+        const float omega = corner_omega(frac, cd, k);
+        float r[C];
+        if constexpr (C <= 2) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) r[c] = v[k * C + c];
+        } else {
+          ldg_row<C>(lv.table[l] + (size_t)idx[k] * C, r);
+        }
         float s = 0.0f;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          dgl[c] = dgl[c] + omega * v[c];
-          s = s + gv[c] * v[c];
-          if (want_t) {
-            const float t = omega * gv[c];
-            if (t != 0.0f) atomicAdd(grads.table[l] + (size_t)idx[k] * C + c, t);
-          }
+          dgl[c] = dgl[c] + omega * r[c];
+          s = s + gv[c] * r[c];
         }
 #pragma unroll
         for (int e = 0; e < 3; ++e) {
@@ -539,17 +632,44 @@ __global__ void grid_encode_backward_x_backward_kernel(const float* __restrict__
         }
       }
 #pragma unroll
-      for (int e = 0; e < 3; ++e) acc[e] = acc[e] + (hx[e] * dfrac[e] + A[e] * fres * ddfrac[e] * dw[e]) * fres * q[e];
-    }
-    if (dg != nullptr) {
+      for (int e = 0; e < 3; ++e) term[e] = (hx[e] * dfrac[e] + A[e] * fres * ddfrac[e] * dw[e]) * fres * q[e];
 #pragma unroll
-      for (int c = 0; c < C; ++c) dg[(n * L + l) * C + c] = dgl[c];
+      for (int c = 0; c < C; ++c) gs[slot * S + l * C + c] = dgl[c];
+    }
+#pragma unroll
+    for (int e = 0; e < 3; ++e) terms[(l * 32 + lane) * 3 + e] = term[e];
+    __syncthreads();
+    // dL/dx: the tile's level terms summed in level order
+    for (int j = threadIdx.x; j < 96; j += blockDim.x) {
+      const int s = t0 + j / 3;
+      if (s < nl) {
+        float acc = 0.0f;
+        for (int k = 0; k < L; ++k) acc = acc + terms[k * 96 + j];
+        dxs[3 * s + j % 3] = acc;
+      }
+    }
+    __syncthreads();
+  }
+  // the span's dL/dg and dL/dx, zeros for the points that are not live (coalesced)
+  if (dg != nullptr) {
+    int p = threadIdx.x / LC, c = threadIdx.x - p * LC;
+    const int dp = blockDim.x / LC, dc = blockDim.x - dp * LC;
+    for (int j = threadIdx.x; j < np * LC; j += blockDim.x) {
+      const int s = slot_of[p];
+      dg[n0 * LC + j] = s >= 0 ? gs[s * S + c] : 0.0f;
+      c += dc;
+      p += dp;
+      if (c >= LC) {
+        c -= LC;
+        ++p;
+      }
     }
   }
-  if (dx != nullptr) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d) dx[3 * n + d] = acc[d];
-  }
+  if (dx != nullptr)
+    for (int j = threadIdx.x; j < 3 * np; j += blockDim.x) {
+      const int s = slot_of[j / 3];
+      dx[3 * n0 + j] = s >= 0 ? dxs[3 * s + j % 3] : 0.0f;
+    }
 }
 
 static int fill_levels(GridLevels* lv, int L, void* const* tables, const uint32_t* res,
@@ -656,12 +776,18 @@ extern "C" int grid_encode_backward_x_backward_launch(const float* x, const floa
   if (grads != nullptr && (err = fill_levels(&gl, L, grads, res, wrap, hashed))) return err;
   if (N == 0) return 0;
   const int want_t = grads != nullptr;
-  const int threads = 128;
-  unsigned int blocks = (unsigned int)((N + threads - 1) / threads);
-#define K7XX(CC)                                                                                            \
-  case CC:                                                                                                  \
-    grid_encode_backward_x_backward_kernel<CC><<<blocks, threads, 0, stream>>>(x, g, ggx, N, L, lv, gl, want_t, \
-                                                                               inv_bound, smooth, dx, dg);      \
+  if (want_t)
+    for (int l = 0; l < L; ++l)
+      if ((uintptr_t)grads[l] % (C == 1 ? 8 : 16)) return (int)cudaErrorMisalignedAddress;
+  const unsigned int blocks = (unsigned int)((N + K7XX_SPAN - 1) / K7XX_SPAN), threads = K7_TILE * L;
+  const size_t sh = k7xx_shared_bytes(L, C);
+#define K7XX(CC)                                                                                         \
+  case CC:                                                                                               \
+    if (sh > 48 * 1024)                                                                                  \
+      cudaFuncSetAttribute(grid_encode_backward_x_backward_kernel<CC>,                                     \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh);                        \
+    grid_encode_backward_x_backward_kernel<CC><<<blocks, threads, sh, stream>>>(x, g, ggx, N, L, lv, gl, want_t, \
+                                                                                inv_bound, smooth, dx, dg); \
     break;
   switch (C) {
     K7XX(1)

@@ -19,8 +19,9 @@ plain versions below (the backward an ``index_add_``). Its table gradient
 alone is differentiable once: a second derivative through it raises on both
 devices (``kernels.first_order``). When the points want a gradient under
 grad mode, the backward is an autograd function (``_GridEncodeBackward``)
-whose own backward is K7x² (one thread per point over the levels, the table
-gradient by float atomics; the same file) on CUDA tensors and
+whose own backward is K7x² (a block per 128 points, their live points in
+tiles of 32 with a warp a level, the table gradient merged across the warp
+and added by vector float atomics; the same file) on CUDA tensors and
 ``grid_encode_backward_x_backward_plain`` on CPU tensors, so training
 through an analytic normal differentiates the coordinate gradient once
 more; a third derivative raises.
@@ -561,9 +562,10 @@ def _grid_encode_backward_x_backward_cuda(gg_x, gg_tables, x: torch.Tensor, g: t
                                           wants=(True, True, True)):
     """K7x²: (dL/dx (N, 3) f32, dL/dg (N, L*C) f32, the L table gradients)
     as ``grid_encode_backward_x_backward_plain`` defines them. From ``gg_x``:
-    one launch, a thread per point over the levels, the table gradient by
-    float atomics into zeroed tables. ``gg_tables`` adds the K7 forward and
-    K7x on them."""
+    one launch, the points gg reaches in tiles of 32 with a warp a level,
+    the table gradient by float2 / float4 atomics into zeroed tables padded
+    as the K7 backward's (``_k7_grad_tables``). ``gg_tables`` adds the K7
+    forward and K7x on them."""
     what = "grid_encode backward (x) backward kernel"
     want_x, want_g, want_t = wants
     c_res, c_wrap, c_hashed = _k7_levels(cfg, x, what)

@@ -29,10 +29,10 @@ gradient is differentiable once: a second derivative through it raises on
 both devices (``kernels.first_order``). Its coordinate gradient is
 differentiable twice, as training through an analytic normal needs: under
 grad mode K2x is an autograd function (``_SamplePointsBackwardXyz``) whose
-backward is K2x² on CUDA tensors (one launch of a lane group per point for
-dL/dg and dL/dxyz, and the K2 backward's six binned passes with the
-bilinear weights' derivatives in place of the weights for dL/dplanes; the
-same file) and ``sample_points_backward_xyz_backward_plain`` on CPU
+backward is K2x² on CUDA tensors (a lane-group pass per point for dL/dg
+and dL/dxyz that also bins the rows gg reaches, then the K2 backward's
+other five passes with the bilinear weights' derivatives in place of the
+weights for dL/dplanes; the same file) and ``sample_points_backward_xyz_backward_plain`` on CPU
 tensors. A third derivative raises.
 
 Rounding: ``x / lbound`` is a true division on every device, as the JAX
@@ -432,12 +432,13 @@ _K2_WORKSPACE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 K2_BWD_LAUNCHES = 6
 
 
-def _backward_scratch(M: int, H: int, W: int, C: int, device, what: str):
+def _backward_scratch(M: int, H: int, W: int, C: int, device, what: str, symbol="sample_points_backward_workspace"):
     """The K2 backward's scratch from torch's caching allocator: the rows'
     keys, tile lists and count matrix (int32), and the float32 partial tiles
-    of tiles split across blocks."""
+    of tiles split across blocks (``symbol``: the launcher that sizes them,
+    K2x²'s adding its lists of reached rows)."""
     words, floats = ctypes.c_longlong(), ctypes.c_longlong()
-    ws = _build.function("grid_sample", "sample_points_backward_workspace", _K2_WORKSPACE_ARGS)
+    ws = _build.function("grid_sample", symbol, _K2_WORKSPACE_ARGS)
     _build.check(ws(M, H, W, C, ctypes.byref(words), ctypes.byref(floats)), what)
     return (torch.empty((words.value,), device=device, dtype=torch.int32),
             torch.empty((floats.value,), device=device, dtype=torch.float32))
@@ -519,10 +520,12 @@ def _sample_points_backward_xyz_backward_cuda(gg_xyz, gg_planes, planes: torch.T
                                               wants=(True, True, True)):
     """K2x²: (dL/dplanes in the plane dtype, dL/dxyz (M, 3) f32, dL/dg (M, 3,
     C) f32) as ``sample_points_backward_xyz_backward_plain`` defines them.
-    From ``gg_xyz``: one launch of a lane group per point for dL/dg and
-    dL/dxyz, and the K2 backward's six binned passes with the bilinear
-    weights' derivatives for dL/dplanes (each sum in an order fixed by the
-    inputs). ``gg_planes`` adds the K2 forward and K2x's dL/dxyz pass on it."""
+    From ``gg_xyz``: a first pass of a lane group per point for dL/dg and
+    dL/dxyz which, with dL/dplanes, also bins the rows gg reaches as the K2
+    backward's count pass does, then that backward's five other passes with
+    the bilinear weights' derivatives (K2_BWD_LAUNCHES launches; each sum in
+    an order fixed by the inputs); without dL/dplanes the first pass alone.
+    ``gg_planes`` adds the K2 forward and K2x's dL/dxyz pass on it."""
     what = "sample_points backward (xyz) backward kernel"
     want_p, want_x, want_g = wants
     _check_planes_points(planes, xyz, what)
@@ -543,7 +546,8 @@ def _sample_points_backward_xyz_backward_cuda(gg_xyz, gg_planes, planes: torch.T
         dxyz = torch.empty((M, 3), device=xyz.device, dtype=torch.float32) if want_x else None
         iscratch = partials = None
         if want_p:
-            iscratch, partials = _backward_scratch(M, H, W, C, xyz.device, what)
+            iscratch, partials = _backward_scratch(M, H, W, C, xyz.device, what,
+                                                   "sample_points_backward_xyz_backward_workspace")
             dplanes = torch.empty(planes.shape, device=xyz.device, dtype=planes.dtype)
         if M == 0:
             dplanes = None if dplanes is None else dplanes.zero_()
@@ -553,8 +557,7 @@ def _sample_points_backward_xyz_backward_cuda(gg_xyz, gg_planes, planes: torch.T
             _build.check(fn(_build.ptr(planes), _build.ptr(xyz), _build.ptr(g), _build.ptr(gg_xyz), M, H, W, C,
                             int(planes.dtype == torch.bfloat16), float(lbound), opt(dg), opt(dxyz),
                             opt(dplanes), opt(iscratch), opt(partials), _build.stream(xyz.device)), what)
-            kernels.launches["grid_sample_bwd_xyz_bwd"] += ((1 if want_g or want_x else 0)
-                                                           + (K2_BWD_LAUNCHES if want_p else 0))
+            kernels.launches["grid_sample_bwd_xyz_bwd"] += K2_BWD_LAUNCHES if want_p else 1
     if gg_planes is not None:
         gg_planes = gg_planes.to(planes.dtype).contiguous()
         if want_g:
