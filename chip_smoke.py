@@ -2923,8 +2923,10 @@ def _k10xx_rows(calls):
                  bound_ms=b, bound_by=by, library_ms=lib_ms,
                  note=f"N={N} points, R={R_}, 1+F={CH} f32; asked for (grid, points, cotangent) {tuple(wants)}; "
                       f"{int(live.sum())} points carry a cotangent, {touched} rows touched; rel err "
-                      f"{[float(f'{e:.2e}') for e in errs]}; a lane group per point, float4 atomics into the "
-                      f"zeroed grid gradient; {note_lib}")]
+                      f"{[float(f'{e:.2e}') for e in errs]}; a block per span of 192 points, the points gg "
+                      f"reaches compacted in order, a lane group a live point, then a lane group a run of them in "
+                      f"one cell summing it before its float4 atomics, the dead points' zeros written as coalesced "
+                      f"slabs; the grid gradient zeroed by a torch.zeros_like launch; {note_lib}")]
 
 
 def _no_inner_param_pass(calls, what, kind):

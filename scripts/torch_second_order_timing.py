@@ -2,8 +2,8 @@
 training through analytic normals hands them: K2x² on the registry-sdf-
 analytic step (``sa``: the SDF on bench.py's 1024^2 x 16 bf16 triplane),
 K7x² on the registry-hash-analytic step (``ha``: JAX's default hash grid,
-16 levels x 2, 2^19 rows) and, for reference, K10² on the
-registry-grid-analytic step (``ga``: the 64^3 x 16 voxel grid).
+16 levels x 2, 2^19 rows) and K10² on the registry-grid-analytic step
+(``ga``: the 64^3 x 16 voxel grid).
 
     python scripts/torch_second_order_timing.py [--profile] [--sass] [--cut-atomics]
         [--save PATH] [--compare PATH] [--paths sa ha ga]
@@ -14,34 +14,45 @@ and records one more step. The step's second-order call runs through
 chip_smoke's own row (``_k2xx_rows``, ``_k7xx_rows``, ``_k10xx_rows``):
 every output held to its plain version and the call timed (median of 20
 calls, each behind a device sleep, warm L2) beside chip_smoke's bound and
-the plain version's time; a row prints the launches of one call.
+the plain version's time; a row prints the launches of one call. ``sa``
+also prints what the plane gradient's binned passes get, ``ga`` what K10²
+gets: the points gg reaches, the grid rows they touch, and how many
+consecutive live points share a cell.
 
 ``--profile`` prints each launch's device time over 10 calls under
 ``torch.profiler`` (K2x²: the dL/dg launch and the count, column scan,
-scan, scatter, accumulate and reduce passes). ``--sass`` prints the
-``gridencoder`` and ``grid_sample`` libraries' kernels' registers, stack
+scan, scatter, accumulate and reduce passes; K10²: the grid gradient's
+zero fill and the kernel). ``--sass`` prints the ``gridencoder``,
+``grid_sample`` and ``volume_grid`` libraries' kernels' registers, stack
 frame, the occupancy the registers allow and their instructions by opcode.
-``--cut-atomics`` builds a copy of the checkout's ``gridencoder.cu`` into
-the build directory with K7x²'s table-gradient adds cut out and times the
-``ha`` call with it beside the whole kernel (its dL/dx and dL/dg must keep
-their bits): the atomics' share of K7x²'s time.
+``--cut-atomics`` builds copies of the checkout's ``gridencoder.cu`` and
+``volume_grid.cu`` into the build directory with K7x²'s table-gradient
+adds, and K10²'s grid-gradient adds, cut out, and times the ``ha`` and
+``ga`` calls with them beside the whole kernels (their dL/dx and dL/dg
+must keep their bits): the atomics' share of each kernel's time.
 
 ``--save PATH`` writes, at the captured steps' arguments, the inputs and
 outputs of the kernels the second derivatives sit beside: the K2 backward
-and K2x with its plane gradient (``sa``), the K7 backward and K7x (``ha``);
-besides, K2x²'s outputs and K7x²'s dL/dx and dL/dg (its table gradient is
-a float-atomic sum). ``--compare PATH`` runs this checkout's kernels on a
-saved file's inputs and checks them against its outputs: bit for bit for
-the K2 backward, K2x, K7x and the second derivatives' saved outputs (their
-sums run in an order fixed by the inputs), and for the K7 backward's
-float-atomic tables each of the two within the float-summation bound of a
+and K2x with its plane gradient (``sa``), the K7 backward and K7x (``ha``),
+the K10 forward, the K10 backward and K10x (``ga``); besides, K2x²'s
+outputs, K7x²'s dL/dx and dL/dg, and K10²'s outputs, as the step asks
+for them and with all three asked for.
+``--compare PATH`` runs this checkout's kernels on a saved file's inputs
+and checks them against its outputs: bit for bit for the K2 backward, K2x,
+K7x, the K10 forward, K10x and the second derivatives' saved dL/dx and
+dL/dg (their sums run in an order fixed by the inputs), and for the
+float-atomic sums (the K7 backward's tables, the K10 backward's and K10²'s
+grid gradients) each of the two within the float-summation bound of a
 float64 sum of the same terms (``models/gridencoder.py
-grid_encode_backward_error``). Both print each call's time. Run from another
-checkout's root (``cd parent && python ../scripts/torch_second_order_timing.py``)
-the script imports that checkout's package and ``chip_smoke.py``, which is
-how parent and change are timed and compared in one call. Prints the
-card's name and power limit first and needs a CUDA device; the exit code is
-1 where a kernel differs from its plain version or from the saved outputs.
+grid_encode_backward_error``, ``models/registry.py
+sample_volume_grid_backward_error`` and
+``sample_volume_grid_backward_x_backward_error``). Both print each call's
+time. Run from another checkout's root (``cd parent && python
+../scripts/torch_second_order_timing.py``) the script imports that
+checkout's package and ``chip_smoke.py``, which is how parent and change
+are timed and compared in one call. Prints the card's name and power limit
+first and needs a CUDA device; the exit code is 1 where a kernel differs
+from its plain version or from the saved outputs.
 """
 
 from __future__ import annotations
@@ -103,15 +114,15 @@ def captured_step(name, scene):
     return calls
 
 
-class _CutBuild:
-    """``_build`` as the K7x² wrapper sees it, with its launcher taken from
-    the cut library."""
+class _SwappedBuild:
+    """``_build`` as a wrapper sees it, with the launcher ``symbol`` taken
+    from another build of its source."""
 
-    def __init__(self, fn):
-        self._fn = fn
+    def __init__(self, symbol, fn):
+        self._symbol, self._fn = symbol, fn
 
     def function(self, name, symbol, argtypes, restype=ctypes.c_int):
-        if symbol == "grid_encode_backward_x_backward_launch":
+        if symbol == self._symbol:
             return self._fn
         return _build.function(name, symbol, argtypes, restype)
 
@@ -119,45 +130,90 @@ class _CutBuild:
         return getattr(_build, attr)
 
 
-def _cut_atomics_function():
-    """The K7x² launcher of a copy of ``gridencoder.cu`` whose table-gradient
-    adds are cut out (one thread's scalar atomicAdd per term, or the merged
-    scatter of a tile's corners), built into the build directory."""
-    src = (_build._CSRC / "gridencoder.cu").read_text()
-    cut, n = re.subn(r"if \(t != 0\.0f\) atomicAdd\(grads\.table\[l\][^;]*;|"
-                     r"scatter_corners<C>\(grads\.table\[l\][^;]*;", ";", src)
-    if n != 1:
-        raise RuntimeError(f"--cut-atomics: expected one table-gradient add in K7x², found {n}")
-    out = _build.BUILD_DIR / "gridencoder_cut_atomics"
+# path -> (source, launcher, its argtypes, the kernel whose adds are cut, the adds' pattern in its body)
+CUTS = {
+    "ha": ("gridencoder", "grid_encode_backward_x_backward_launch", GE._K7XX_ARGS, None,
+           r"if \(t != 0\.0f\) atomicAdd\(grads\.table\[l\][^;]*;|scatter_corners<C>\(grads\.table\[l\][^;]*;"),
+    # every statement in K10²'s body (one a line) that calls a function on the grid gradient
+    "ga": ("volume_grid", "volume_grid_backward_x_backward_launch", REG._K10XX_ARGS,
+           r"\bvolume_grid_backward_x_backward_kernel\(\s*const",
+           r"\b(?!if\b)[\w.]+(?:<[^<>();]*>)?\(ggrid\b[^\n]*;[ \t]*$"),
+}
+
+
+def _kernel_body(src, head):
+    """(start, end) of the kernel whose definition ``head`` (a pattern)
+    starts: to the closing brace at the start of a line."""
+    start = re.search(head, src).start()
+    return start, src.index("\n}\n", start) + 3
+
+
+def _cut_atomics_build(name):
+    """The second derivative's launcher of a copy of the path's source with
+    its parameter-gradient adds cut out (K7x²: one thread's scalar atomicAdd
+    per term, or the merged scatter of a tile's corners; K10²: every call
+    that adds into the grid gradient)."""
+    lib, symbol, argtypes, head, pattern = CUTS[name]
+    src = (_build._CSRC / f"{lib}.cu").read_text()
+    lo, hi = _kernel_body(src, head) if head else (0, len(src))
+    body, n = re.subn(pattern, ";", src[lo:hi], flags=re.M)
+    if n < 1 or (head is None and n != 1):
+        raise RuntimeError(f"--cut-atomics: expected the parameter-gradient adds in {lib}.cu, found {n}")
+    print(f"{name} --cut-atomics: {n} add(s) cut from {lib}.cu", flush=True)
+    out = _build.BUILD_DIR / f"{lib}_cut_atomics"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "gridencoder.cu").write_text(cut)
-    subprocess.run([_build._nvcc()] + _build._flags("gridencoder") + ["-o", str(out / "lib.so"),
-                                                                      str(out / "gridencoder.cu")], check=True)
-    fn = ctypes.CDLL(str(out / "lib.so")).grid_encode_backward_x_backward_launch
-    fn.argtypes, fn.restype = GE._K7XX_ARGS, ctypes.c_int
-    return fn
+    (out / f"{lib}.cu").write_text(src[:lo] + body + src[hi:])
+    subprocess.run([_build._nvcc()] + _build._flags(lib) + ["-o", str(out / "lib.so"), str(out / f"{lib}.cu")],
+                   check=True)
+    fn = getattr(ctypes.CDLL(str(out / "lib.so")), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return _SwappedBuild(symbol, fn)
 
 
-def cut_atomics(args, full_ms):
-    """The ``ha`` call with the cut kernel: dL/dx and dL/dg the whole
+def _with_build(mod, build, call, args):
+    saved = mod._build
+    mod._build = build
+    try:
+        return call(*args)
+    finally:
+        mod._build = saved
+
+
+def cut_atomics(name, mod, wrapper, args, full_ms):
+    """The path's call with the cut kernel: dL/dx and dL/dg the whole
     kernel's bits, and its time beside the whole kernel's."""
-    cut = _CutBuild(_cut_atomics_function())
-    whole = GE._grid_encode_backward_x_backward_cuda(*args)
-
-    def run():
-        saved = GE._build
-        GE._build = cut
-        try:
-            return GE._grid_encode_backward_x_backward_cuda(*args)
-        finally:
-            GE._build = saved
-
+    cut, call = _cut_atomics_build(name), getattr(mod, wrapper)
+    whole = call(*args)
+    run = lambda: _with_build(mod, cut, call, args)  # noqa: E731
     got = run()
-    same = all(torch.equal(a, b) for a, b in zip(got[:2], whole[:2]) if b is not None)
+    keep = slice(0, 2) if name == "ha" else slice(1, 3)  # (dL/dx, dL/dg) in each wrapper's outputs
+    same = all(torch.equal(a, b) for a, b in zip(got[keep], whole[keep]) if b is not None)
     ms = CS.time_ms(run)
-    print(f"ha K7x² without its table-gradient adds: ms={ms:.6g} (whole kernel {full_ms:.6g}; the adds' "
-          f"share {1 - ms / full_ms:.3f}); dL/dx and dL/dg the whole kernel's bits: {same}", flush=True)
+    print(f"{name} {wrapper} without its parameter-gradient adds: ms={ms:.6g} (whole kernel {full_ms:.6g}; the "
+          f"adds' share {1 - ms / full_ms:.3f}); dL/dx and dL/dg the whole kernel's bits: {same}", flush=True)
     return same
+
+
+def k10xx_runs(args):
+    """What K10² gets from a call: the points gg reaches (A = gg q not
+    zero), the grid rows their corners touch, and of consecutive live
+    points (in point order, as a span's compact list holds them) the share
+    in one cell and the mean run of live points in one cell."""
+    gg, _, grid, x, g, R_, bound, _ = args
+    qpre = REG._voxel_cell(x, R_, bound)[0]
+    A = gg.float() * (REG._clip_grad(qpre, REG._clip_hi(R_)) * (R_ - 1) * 0.5 * REG._inv(bound))
+    live = (A != 0).any(-1)
+    n_live, n_gg = int(live.sum()), int((gg != 0).any(-1).sum())
+    rows = CS._voxel_rows(x[live], R_, bound)
+    touched = torch.unique(rows).numel()
+    same = (rows[1:] == rows[:-1]).all(-1)
+    runs = n_live - int(same.sum())
+    span = torch.nonzero(live)[:, 0] // 256
+    per_span = torch.unique(span[:, None] * R_**3 + rows).numel()
+    return (f"{n_live} of {x.shape[0]} points live ({n_gg} with gg != 0), {touched} grid rows touched; of "
+            f"consecutive live points {float(same.float().mean()) if n_live > 1 else 0.0:.4f} share a cell "
+            f"({runs} runs, {n_live / max(runs, 1):.3f} live points a run: {8 * runs} row adds, "
+            f"{8 * n_live} unmerged); {per_span} distinct rows summed over 256-point spans")
 
 
 def k2xx_tiles(args):
@@ -203,29 +259,79 @@ def _cuda_args(args):
             for a in args]
 
 
-# saved kernel -> (the captured wrapper whose first call's arguments it runs on, how it runs them)
+def _first(calls):
+    return calls[0]
+
+
+def _with_grid(calls):  # the K10 backward's call with the grid gradient (the loss's)
+    return next(c for c in calls if c[0][5])
+
+
+def _x_only(calls):  # K10x: dL/dx alone (the analytic normal's inner gradient)
+    return next(c for c in calls if not c[0][5] and c[0][6])
+
+
+def _present(ts):
+    return [t for t in ts if t is not None]
+
+
+def _k7_bwd_err(o, a):
+    return [max(GE.grid_encode_backward_error(o, *a[:4]))], []
+
+
+def _k10_bwd_err(o, a):  # (g, grid, x, R, bound, grid_grad, x_grad): the grid gradient first
+    return [REG.sample_volume_grid_backward_error(o[0], a[0], a[2], a[3], a[4])], range(1, len(o))
+
+
+def _k10xx_err(o, a):  # (gg_x, gg_grid, grid, x, g, R, bound, wants): the grid gradient first where asked
+    if not a[7][0] or a[0] is None:
+        return [], range(len(o))
+    return [REG.sample_volume_grid_backward_x_backward_error(o[0], a[0], a[3], a[4], a[5], a[6])], range(1, len(o))
+
+
+def _k10xx_all(a, kw):  # K10² at the step's arguments with all three outputs asked for
+    return _present(REG._sample_volume_grid_backward_x_backward_cuda(*a[:7], (True, True, True)))
+
+
+# saved kernel -> (path, the captured wrapper, which of its calls, how that call runs, the float-atomic
+# outputs' errors against their float-summation bound and the outputs held bit for bit; None: all bit for bit)
 SAVED = {
-    "K2 backward": ("sa", "_sample_points_backward_cuda", lambda a, kw: [GS._sample_points_backward_cuda(*a, **kw)]),
-    "K2x (plane gradient and dL/dxyz)": ("sa", "_sample_points_backward_xyz_cuda",
+    "K2 backward": ("sa", "_sample_points_backward_cuda", _first,
+                    lambda a, kw: [GS._sample_points_backward_cuda(*a, **kw)], None),
+    "K2x (plane gradient and dL/dxyz)": ("sa", "_sample_points_backward_xyz_cuda", _first,
                                          lambda a, kw: list(GS._sample_points_backward_xyz_cuda(*a[:4],
-                                                                                               planes_grad=True))),
-    "K7 backward": ("ha", "_grid_encode_backward_cuda", lambda a, kw: list(GE._grid_encode_backward_cuda(*a, **kw))),
-    "K7x": ("ha", "_grid_encode_backward_x_cuda", lambda a, kw: [GE._grid_encode_backward_x_cuda(*a, **kw)]),
-    "K2x² (all three outputs)": ("sa", "_sample_points_backward_xyz_backward_cuda",
-                                 lambda a, kw: [t for t in GS._sample_points_backward_xyz_backward_cuda(*a, **kw)
-                                                if t is not None]),
-    "K7x² (dL/dx, dL/dg)": ("ha", "_grid_encode_backward_x_backward_cuda",
-                            lambda a, kw: [t for t in GE._grid_encode_backward_x_backward_cuda(*a, **kw)[:2]
-                                           if t is not None]),
+                                                                                               planes_grad=True)),
+                                         None),
+    "K7 backward": ("ha", "_grid_encode_backward_cuda", _first,
+                    lambda a, kw: list(GE._grid_encode_backward_cuda(*a, **kw)), _k7_bwd_err),
+    "K7x": ("ha", "_grid_encode_backward_x_cuda", _first,
+            lambda a, kw: [GE._grid_encode_backward_x_cuda(*a, **kw)], None),
+    "K2x² (all three outputs)": ("sa", "_sample_points_backward_xyz_backward_cuda", _first,
+                                 lambda a, kw: _present(GS._sample_points_backward_xyz_backward_cuda(*a, **kw)),
+                                 None),
+    "K7x² (dL/dx, dL/dg)": ("ha", "_grid_encode_backward_x_backward_cuda", _first,
+                            lambda a, kw: _present(GE._grid_encode_backward_x_backward_cuda(*a, **kw)[:2]), None),
+    "K10 forward": ("ga", "_sample_volume_grid_cuda", _first,
+                    lambda a, kw: [REG._sample_volume_grid_cuda(*a, **kw)], None),
+    "K10 backward (grid gradient)": ("ga", "_sample_volume_grid_backward_cuda", _with_grid,
+                                     lambda a, kw: _present(REG._sample_volume_grid_backward_cuda(*a, **kw)),
+                                     _k10_bwd_err),
+    "K10x": ("ga", "_sample_volume_grid_backward_cuda", _x_only,
+             lambda a, kw: _present(REG._sample_volume_grid_backward_cuda(*a, **kw)), None),
+    "K10² (the step's outputs)": ("ga", "_sample_volume_grid_backward_x_backward_cuda", _first,
+                                  lambda a, kw: _present(REG._sample_volume_grid_backward_x_backward_cuda(*a, **kw)),
+                                  _k10xx_err),
+    "K10² (all three outputs)": ("ga", "_sample_volume_grid_backward_x_backward_cuda", _first, _k10xx_all,
+                                 lambda o, a: _k10xx_err(o, list(a[:7]) + [(True, True, True)])),
 }
 
 
 def save_outputs(captured, path):
     out = {}
-    for kernel, (name, wrapper, run) in SAVED.items():
+    for kernel, (name, wrapper, pick, run, _) in SAVED.items():
         if name not in captured:
             continue
-        a, kw = captured[name][wrapper][0]
+        a, kw = pick(captured[name][wrapper])
         out[kernel] = (_cpu_args(a), kw, [t.cpu() for t in run(a, kw)])
         print(f"save {kernel}: ms={CS.time_ms(lambda: run(a, kw)):.6g}", flush=True)
     torch.save(out, path)
@@ -236,20 +342,21 @@ def compare_outputs(path) -> bool:
     saved = torch.load(path, weights_only=False)
     ok = True
     for kernel, (a, kw, ref) in saved.items():
-        a = _cuda_args(a)
-        got = SAVED[kernel][2](a, kw)
-        print(f"compare {kernel}: ms={CS.time_ms(lambda: SAVED[kernel][2](a, kw)):.6g} on the saved inputs",
-              flush=True)
-        if kernel == "K7 backward":
-            g, x, cfg, bound = a[:4]
-            e_got = max(GE.grid_encode_backward_error(got, g, x, cfg, bound))
-            e_ref = max(GE.grid_encode_backward_error([t.cuda() for t in ref], g, x, cfg, bound))
-            same = e_got <= 1.0 and e_ref <= 1.0
-            print(f"compare {kernel}: this checkout {e_got:.3g}, saved {e_ref:.3g} of the float-summation "
-                  f"bound (within: {same})", flush=True)
-        else:
-            same = all(torch.equal(t.cpu(), r) for t, r in zip(got, ref))
-            print(f"compare {kernel}: bit for bit the saved outputs: {same}", flush=True)
+        a, run, err = _cuda_args(a), SAVED[kernel][3], SAVED[kernel][4]
+        got = run(a, kw)
+        print(f"compare {kernel}: ms={CS.time_ms(lambda: run(a, kw)):.6g} on the saved inputs", flush=True)
+        ref = [t.cuda() for t in ref]
+        exact = range(len(got))
+        if err is not None:
+            (e_got, exact), (e_ref, _) = err(got, a), err(ref, a)
+            within = all(e <= 1.0 for e in e_got + e_ref)
+            if e_got:
+                print(f"compare {kernel}: this checkout {max(e_got):.3g}, saved {max(e_ref):.3g} of the "
+                      f"float-summation bound (within: {within})", flush=True)
+            ok = ok and within
+        same = len(got) == len(ref) and all(torch.equal(got[i], ref[i]) for i in exact)
+        if len(exact):
+            print(f"compare {kernel}: bit for bit the saved outputs {list(exact)}: {same}", flush=True)
         ok = ok and same
     return ok
 
@@ -259,7 +366,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--cut-atomics", action="store_true",
-                    help="also time K7x² built without its table-gradient adds (ha)")
+                    help="also time K7x² (ha) and K10² (ga) built without their parameter-gradient adds")
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", default=None)
     ap.add_argument("--paths", nargs="*", default=list(PATHS), choices=list(PATHS))
@@ -296,8 +403,10 @@ def main() -> int:
                   f"{r['note']}", flush=True)
             if name == "sa":
                 print(f"sa K2x² plane gradient: {k2xx_tiles(a)}", flush=True)
-            if name == "ha" and args.cut_atomics:
-                ok = cut_atomics(a, r["ms"]) and ok
+            if name == "ga":
+                print(f"ga K10²: {k10xx_runs(a)}", flush=True)
+            if name in CUTS and args.cut_atomics:
+                ok = cut_atomics(name, mod, wrapper, a, r["ms"]) and ok
         if args.profile:
             K1FT.profile_call(f"{name} {wrapper}", fn)
         print(f"# {name} done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -308,6 +417,7 @@ def main() -> int:
     if args.sass:
         K2T.sass_summary("gridencoder", occupancy=True)
         K2T.sass_summary("grid_sample", occupancy=True)
+        K2T.sass_summary("volume_grid", occupancy=True)
     if not ok:
         print("a kernel differs from its plain version or from the saved outputs", file=sys.stderr)
         return 1

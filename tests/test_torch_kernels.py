@@ -72,7 +72,9 @@ largest entries (channel and corner sums in other orders); K2x²'s plane
 gradient as the K2 backward's (1e-5 relative in f32, one bf16 ulp, 2^-7,
 in bf16), the same bits on a second call; K7x²'s table and K10²'s grid
 gradients (float atomics) within 1e-5 of the largest entry; each with and
-without a cotangent on the first-order parameter gradient. A second
+without a cotangent on the first-order parameter gradient; K10² also on
+sparse ray-ordered points, its grid gradient within its float-summation
+bound (``sample_volume_grid_backward_x_backward_error``). A second
 derivative through each kernel function raises as on the CPU, or, for the
 samplers' coordinate gradients, matches the plain second derivative and a
 third raises (``tests/test_torch_second_order.py``'s cases).
@@ -1379,6 +1381,60 @@ def test_volume_grid_backward_x_backward_kernel_matches_plain(dev):
             assert _rel_close(dx.cpu(), rx, 1e-5) and _rel_close(dg.cpu(), rg, 1e-5)
             if gg_grid is None:
                 assert (dg[:5000] == 0).all() and (dx[:5000] == 0).all()
+
+
+# every (LP, RUN) the launcher picks: LP 1 and 2 scalar; one slice a lane at
+# LP 2, 4 and 8; LP 8 with two slices a lane (no runs)
+@pytest.mark.parametrize("CH", [3, 5, 8, 16, 32, 36])
+def test_volume_grid_backward_x_backward_kernel_on_sparse_ray_samples(dev, CH):
+    """K10² on ray-ordered points as the analytic-normal step hands them: gg
+    on one sample in six, on runs of 4 consecutive samples of every third
+    ray and on a ray's 58 samples in one cell (runs a lane group merges
+    before its atomics), on none of two whole 256-point spans, on points
+    whose g is zero and on points on the clamp border (q on hi, clamped
+    corners). dL/dg and dL/dx within 1e-5 of the plain version's largest
+    entries and the same bits on a second call and one output at a time;
+    the points gg does not reach exactly zero; the grid gradient within its
+    float-summation bound; one launch a call."""
+    R, n, bound = 64, 60000, 1.5
+    grid, x, ct = _volume_inputs(dev, R, CH, n, bound, 30, "rays")
+    gen = torch.Generator().manual_seed(31)
+    i = torch.arange(n)
+    live = (i % 6 == 0) | ((i // 20 % 3 == 0) & (i % 20 >= 8) & (i % 20 < 12))
+    live[1003:1061] = True   # one cell
+    live[2048:2560] = False  # two spans with no live point
+    gg = torch.randn((n, 3), generator=gen) * live[:, None]
+    x[7000:7040:2, 0] = bound   # q on hi along x
+    x[7001:7040:2] = bound      # in the last cell's far corner
+    gg[7000:7040] = torch.randn((40, 3), generator=gen)
+    ct[5000:5100] = 0.0         # gg but no g
+    gg[5000:5100] = torch.randn((100, 3), generator=gen)
+    gg, ct = gg.to(dev), ct.to(dev)
+    cpu = [t.cpu() for t in (gg, grid, x, ct)]
+    n0 = kernels.launches["volume_grid_bwd_x_bwd"]
+    dgrid, dx, dg = REG._sample_volume_grid_backward_x_backward_cuda(gg, None, grid, x, ct, R, bound)
+    assert kernels.launches["volume_grid_bwd_x_bwd"] == n0 + 1
+    _, dx2, dg2 = REG._sample_volume_grid_backward_x_backward_cuda(gg, None, grid, x, ct, R, bound)
+    rgrid, rx, rg = REG.sample_volume_grid_backward_x_backward_plain(cpu[0], None, *cpu[1:], R, bound)
+    torch.cuda.synchronize()
+    assert dgrid.shape == (R**3, CH) and dx.shape == (n, 3) and dg.shape == (n, CH)
+    assert _rel_close(dx.cpu(), rx, 1e-5) and _rel_close(dg.cpu(), rg, 1e-5)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2)
+    err = REG.sample_volume_grid_backward_x_backward_error(dgrid.cpu(), cpu[0], cpu[2], cpu[3], R, bound)
+    assert err <= 1.0, err
+    A = REG._k10xx_corners(cpu[0], cpu[2], R, bound)[1]
+    dead = (A == 0).all(-1)
+    assert dead[2048:2560].all() and not dead[1003:1061].any() and not dead[7000:7040].all()
+    assert (dg.cpu()[dead] == 0).all() and (dx.cpu()[dead] == 0).all() and (dg.cpu()[~dead] != 0).any()
+    for want in ((True, False, False), (False, True, False), (False, False, True)):  # one output at a time
+        one = REG._sample_volume_grid_backward_x_backward_cuda(gg, None, grid, x, ct, R, bound, want)
+        for got, ref, w in zip(one, (dgrid, dx, dg), want):
+            assert (got is None) != w
+            if w and ref is not dgrid:
+                assert torch.equal(got, ref)  # no atomics: the same bits
+            elif w:
+                assert REG.sample_volume_grid_backward_x_backward_error(got.cpu(), cpu[0], cpu[2], cpu[3], R,
+                                                                        bound) <= 1.0
 
 
 @pytest.mark.parametrize("name", sorted(second_order_cases("cpu")))

@@ -208,3 +208,49 @@ def test_trunc_exp_stays_twice_differentiable():
     (ggx,) = torch.autograd.grad(gx.sum(), [x])
     want = torch.where(x.abs() < 15, torch.exp(x.detach()), torch.zeros(()))  # clamp's gradient
     torch.testing.assert_close(ggx, want, rtol=1e-6, atol=0)
+
+
+def _k10_ray_case(R, seed, n_rays=200, per_ray=20, bound=1.5, CH=16):
+    """A voxel grid, ray-ordered points (runs of samples 0.4 cells apart,
+    so neighbours share cells), a cotangent g and a gg on about one sample
+    in six, as an analytic-normal step leaves them."""
+    gen = torch.Generator().manual_seed(seed)
+    cell = 2 * bound / (R - 1)
+    o = (2 * torch.rand((n_rays, 1, 3), generator=gen) - 1) * bound
+    d = torch.nn.functional.normalize(torch.randn((n_rays, 1, 3), generator=gen), dim=-1)
+    x = (o + d * 0.4 * cell * torch.arange(per_ray, dtype=torch.float32)[None, :, None]).reshape(-1, 3)
+    n = x.shape[0]
+    grid = torch.randn((R**3, CH), generator=gen)
+    g = torch.randn((n, CH), generator=gen)
+    gg = torch.randn((n, 3), generator=gen) * (torch.rand((n, 1), generator=gen) < 1 / 6)
+    return grid, x, g, gg, bound
+
+
+@pytest.mark.parametrize("kernel", ["x_backward", "backward"])
+@pytest.mark.parametrize("R", [16, 64])
+def test_volume_grid_gradient_within_its_float_summation_bound(R, kernel):
+    """The error bound that K10²'s (and the K10 backward's) float-atomic
+    grid gradient is held to on the card: the plain version's index_add_
+    sum lies within it; the same sum with one reached entry moved by 1e-3
+    of the largest term, or an entry no term reaches made nonzero, does
+    not."""
+    grid, x, g, gg, bound = _k10_ray_case(R, 40 + R)
+    if kernel == "x_backward":
+        ggrid = REG.sample_volume_grid_backward_x_backward_plain(gg, None, grid, x, g, R, bound,
+                                                                 (True, False, False))[0]
+        err = lambda t: REG.sample_volume_grid_backward_x_backward_error(t, gg, x, g, R, bound)  # noqa: E731
+        _, _, corners = REG._k10xx_corners(gg, x, R, bound)
+        largest = max(float((omega[:, None] * g).abs().max()) for _, _, _, omega in corners)
+    else:
+        g = g * (gg != 0).any(-1, keepdim=True)  # masked samples carry no cotangent
+        ggrid = REG.sample_volume_grid_backward_plain(g, grid, x, R, bound, x_grad=False)[0]
+        err = lambda t: REG.sample_volume_grid_backward_error(t, g, x, R, bound)  # noqa: E731
+        largest = float(g.abs().max())  # a weight is at most 1
+    assert err(ggrid) <= 1.0
+    moved = ggrid.clone().reshape(-1)
+    i = int(moved.abs().argmax())
+    moved[i] += 1e-3 * largest
+    assert err(moved.reshape(ggrid.shape)) > 1.0
+    stray = ggrid.clone()
+    stray[(ggrid == 0).all(-1).nonzero()[0, 0], 0] = 1e-30  # a row no term reaches
+    assert err(stray) == float("inf")

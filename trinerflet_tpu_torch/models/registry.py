@@ -64,7 +64,8 @@ __all__ = [
     "GEOMETRY_REGISTRY", "MATERIAL_REGISTRY", "BACKGROUND_REGISTRY", "NORMAL_TYPES",
     "VolumeGridConfig", "SDFConfig", "init_volume_grid", "sample_volume_grid",
     "sample_volume_grid_plain", "sample_volume_grid_backward_plain",
-    "sample_volume_grid_backward_x_backward_plain", "shifted_sdf",
+    "sample_volume_grid_backward_x_backward_plain", "sample_volume_grid_backward_x_backward_error",
+    "sample_volume_grid_backward_error", "shifted_sdf",
     "laplace_density", "material_no_material", "material_diffuse_point_light",
     "init_env_map_bg", "background_env_map", "init_textured_bg", "background_textured",
     "background_textured_plain", "background_textured_backward_plain", "background_solid",
@@ -196,17 +197,11 @@ def sample_volume_grid_backward_x_backward_plain(gg_x, gg_grid, grid: torch.Tens
     g = g.float()
     ggrid = dx = dg = None
     if gg_x is not None:
-        qpre, q0, f = _voxel_cell(x, R, bound)
-        q = _clip_grad(qpre, _clip_hi(R)) * (R - 1) * 0.5 * _inv(bound)
-        A = gg_x.float() * q
+        q, A, corners = _k10xx_corners(gg_x, x, R, bound)
         ggrid = torch.zeros_like(grid, dtype=torch.float32) if want_grid else None
         dg = torch.zeros((N, grid.shape[1]), dtype=torch.float32, device=x.device) if want_g else None
         hx = torch.zeros_like(x, dtype=torch.float32)
-        for corner in _CORNERS_3D:
-            rows, fac = _voxel_corner(q0, f, R, corner)
-            sgn = [1.0 if b else -1.0 for b in corner]
-            dwk = (sgn[0] * (fac[1] * fac[2]), sgn[1] * (fac[0] * fac[2]), sgn[2] * (fac[0] * fac[1]))
-            omega = A[:, 0] * dwk[0] + A[:, 1] * dwk[1] + A[:, 2] * dwk[2]
+        for rows, fac, sgn, omega in corners:
             row = grid[rows].float()
             if want_g:
                 dg += omega[:, None] * row
@@ -228,6 +223,76 @@ def sample_volume_grid_backward_x_backward_plain(gg_x, gg_grid, grid: torch.Tens
             d = sample_volume_grid_backward_plain(g, gg_grid, x, R, bound, grid_grad=False)[1]
             dx = d if dx is None else dx + d
     return ggrid, dx, dg
+
+
+def _k10xx_corners(gg_x: torch.Tensor, x: torch.Tensor, R: int, bound: float):
+    """K10²'s per-point factors: q (N, 3) = dq/dx, A = gg_x q, and for each
+    corner k in order (its rows (N,), weight factors, signs, omega_k (N,)
+    = sum_d A_d dw_k/df_d, rounded as the kernel rounds it)."""
+    qpre, q0, f = _voxel_cell(x, R, bound)
+    q = _clip_grad(qpre, _clip_hi(R)) * (R - 1) * 0.5 * _inv(bound)
+    A = gg_x.float() * q
+    corners = []
+    for corner in _CORNERS_3D:
+        rows, fac = _voxel_corner(q0, f, R, corner)
+        sgn = [1.0 if b else -1.0 for b in corner]
+        dwk = (sgn[0] * (fac[1] * fac[2]), sgn[1] * (fac[0] * fac[2]), sgn[2] * (fac[0] * fac[1]))
+        corners.append((rows, fac, sgn, A[:, 0] * dwk[0] + A[:, 1] * dwk[1] + A[:, 2] * dwk[2]))
+    return q, A, corners
+
+
+def _scatter_error(ggrid: torch.Tensor, terms) -> float:
+    """How far ``ggrid`` lies from a float64 sum of the float32 ``terms``
+    ((rows (N,), term (N, CH)) pairs, each row of a term added into its
+    grid row), as a fraction of the float-summation bound n (eps sum|term|
+    + tiny), n the nonzero terms an entry adds, eps the float32 machine
+    epsilon and tiny its smallest normal number (a float atomic flushes
+    subnormals to zero); a float32 sum of those terms in any order and any
+    grouping lies within 1, an entry no nonzero term reaches must be
+    exactly 0 (else inf)."""
+    eps, tiny = torch.finfo(torch.float32).eps, torch.finfo(torch.float32).tiny
+    exact = torch.zeros(ggrid.shape, dtype=torch.float64, device=ggrid.device)
+    mag, count = torch.zeros_like(exact), torch.zeros_like(exact)
+    for rows, term in terms:
+        rows, term = rows.to(ggrid.device), term.to(ggrid.device)
+        exact.index_add_(0, rows, term.double())
+        mag.index_add_(0, rows, term.abs().double())
+        count.index_add_(0, rows, (term != 0).double())
+    err = (ggrid.double() - exact).abs()
+    bnd = count * (eps * mag + tiny)
+    if bool((err[bnd == 0] != 0).any()):
+        return math.inf
+    return float((err / torch.where(bnd > 0, bnd, 1.0)).max()) if err.numel() else 0.0
+
+
+@torch.no_grad()
+def sample_volume_grid_backward_x_backward_error(ggrid: torch.Tensor, gg_x: torch.Tensor, x: torch.Tensor,
+                                                 g: torch.Tensor, R: int, bound: float) -> float:
+    """How far K10²'s grid gradient ``ggrid`` (R^3, CH) from ``gg_x`` (the
+    kernel's or the plain version's) lies from a float64 sum of the same
+    float32 terms omega_k g, as a fraction of the float-summation bound
+    (``_scatter_error``): within 1 for a float32 sum in any order. The
+    kernel's float atomics, and its sums of a run's terms in registers
+    before them, add in another order than ``index_add_``, so this, not a
+    comparison of two float32 sums, is what K10²'s grid gradient is held
+    to."""
+    g = g.float()
+    _, _, corners = _k10xx_corners(gg_x, x, R, bound)
+    return _scatter_error(ggrid, [(rows, omega[:, None] * g) for rows, _, _, omega in corners])
+
+
+@torch.no_grad()
+def sample_volume_grid_backward_error(ggrid: torch.Tensor, g: torch.Tensor, x: torch.Tensor, R: int,
+                                      bound: float) -> float:
+    """As ``sample_volume_grid_backward_x_backward_error`` for the K10
+    backward's grid gradient: the terms w_k g."""
+    _, q0, f = _voxel_cell(x, R, bound)
+    g = g.float()
+    terms = []
+    for corner in _CORNERS_3D:
+        rows, (wx, wy, wz) = _voxel_corner(q0, f, R, corner)
+        terms.append((rows, (wx * wy * wz)[:, None] * g))
+    return _scatter_error(ggrid, terms)
 
 
 class _SampleVolumeGridBackward(torch.autograd.Function):
@@ -863,9 +928,11 @@ def _sample_volume_grid_backward_x_backward_cuda(gg_x, gg_grid, grid: torch.Tens
                                                  wants=(True, True, True)):
     """K10²: (the grid gradient (R^3, CH) f32, dL/dx (N, 3) f32, dL/dg (N,
     CH) f32) as ``sample_volume_grid_backward_x_backward_plain`` defines
-    them. From ``gg_x``: one launch, a lane group per point, the grid
-    gradient by float4 atomics into a zeroed grid. ``gg_grid`` adds the K10
-    forward and K10's coordinate gradient on it."""
+    them. From ``gg_x``: one launch, a block per span of points, the points
+    gg reaches compacted, each run of them in one cell adding its float4
+    atomics into the grid gradient (zeroed here: the launch adds into it)
+    once. ``gg_grid`` adds the K10 forward and K10's coordinate gradient
+    on it."""
     what = "sample_volume_grid backward (x) backward kernel"
     want_grid, want_x, want_g = wants
     _check_volume(grid, x, R, what)
